@@ -1,0 +1,49 @@
+// Direct implicit-GEMM NHWC conv with a fused bias(+residual)(+ReLU) store:
+// out(N,OH,OW,OC) = x(N,H,W,C) * w(KH,KW,C,OC), any stride and padding.
+//
+// Replaces two TPU kernels with one: K2, boda_tpu/ops/kernels/conv.py:575
+// pallas_conv2d_halo (_conv_halo_kernel :410), and K3, conv.py:103
+// pallas_conv2d_nhwc (_conv_kernel :86). Their split is a Mosaic artifact:
+// the halo kernel's DMA scratch needs C % 128 == 0 and no bf16 stride, so
+// K3 takes the rest after gathering halo row blocks in HBM (conv.py:119-125).
+// Here the output pixels are the GEMM rows and the (ky, kx, c) filter taps
+// its K; each block gathers its A tile straight from the NHWC input with
+// bounds masks for the zero padding, so there is no host-side pad, no row
+// gather and no im2col in HBM, at any stride and any C (the stem's C=3
+// included).
+//
+// What bounds it on an H100: the 3x3 layers of ResNet-50 do about 290-1,100
+// FLOP per byte of compulsory HBM traffic, at or above the card's ~295 FLOP/B
+// bf16 ridge, so they should be bound by the tensor cores. This first kernel
+// stays well short of that: it issues mma.sync (not wgmma), stages tiles
+// through registers (not TMA) in a single buffer, and re-reads each input
+// pixel for every tap through L2. The stem (C=3, K=147) cannot use 16-byte
+// loads and gathers its A tile element by element.
+#include "gemm.cuh"
+
+extern "C" int boda_conv2d(const void* x, const void* w, const void* bias,
+                           const void* res, void* out, int n, int h, int wd, int c,
+                           int oh, int ow, int oc, int kh, int kw, int sy, int sx,
+                           int py, int px, int relu, int dtype, void* stream) {
+  boda::Prob p = {};
+  p.a = x;
+  p.b = w;
+  p.bias = bias;
+  p.res = res;
+  p.c = out;
+  p.M = n * oh * ow;
+  p.N = oc;
+  p.K = kh * kw * c;
+  p.relu = relu;
+  p.H = h;
+  p.W = wd;
+  p.C = c;
+  p.OH = oh;
+  p.OW = ow;
+  p.KW = kw;
+  p.sy = sy;
+  p.sx = sx;
+  p.py = py;
+  p.px = px;
+  return boda::launch_gemm<true>(p, dtype, (cudaStream_t)stream);
+}

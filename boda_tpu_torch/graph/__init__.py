@@ -1,0 +1,2 @@
+from . import pipe  # noqa: F401
+from . import executor  # noqa: F401  (registers the "conv_fwd" engines)

@@ -1,0 +1,467 @@
+"""The whole-net forward engine on PyTorch: registered conv_fwd mode ``cuda``.
+
+Counterpart of ``boda_tpu/graph/executor.py`` ``FwdEngine`` and the NHWC
+path of ``PallasFwd``: the same fusion chains, the same upload-time weight
+preps and BN/Scale prefold, and the same per-call fusion decision, run
+eagerly by PyTorch instead of as one jit program. Under
+``kernel_policy=gen`` every conv and fc runs a hand-written CUDA kernel
+(``ops/kernels``: the GEMM for 1x1 convs and fc, the direct conv for the
+rest); under ``lib`` they run cuDNN/cuBLAS through ``F.conv2d`` and
+``torch.matmul``, the analog of boda_tpu's XLA library path. Pools, softmax
+and the unfused BN/Scale are plain PyTorch either way.
+
+Activations are physically NHWC; ``run_fwd`` takes and returns logical NCHW
+host arrays in each node's logical dtype, as boda_tpu does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import ConfigError, Field, register, register_base
+from ..ops.tune import OpTune
+from ..utils.dims import NDA, torch_dtype
+from .lowering import PRECISIONS, LowerCtx
+from .lowering_nhwc import lower_op_nhwc
+from .pipe import ConvPipe, PipeError
+
+
+@register_base("conv_fwd", tid_vn="mode")
+class FwdEngine:
+    """Abstract engine: init(pipe) then run_fwd(ins, out_names)."""
+
+    precision = Field(str, default="highest", help="matmul precision: default/high/highest")
+    # compute dtype override: 'bfloat16' casts weights at upload and inputs at
+    # entry, computes the whole net in bf16, and returns outputs in each
+    # node's logical dtype. '' = keep input dtypes (f32).
+    compute_tn = Field(str, default="", help="compute dtype: '' | bfloat16 | float32")
+    device = Field(str, default="cuda",
+                   help="torch device: cuda (the card; raises without one) | "
+                        "cpu (kernels' plain versions, for tests)")
+
+    def base_setup(self) -> None:
+        if self.precision not in PRECISIONS:
+            raise ConfigError(f"precision {self.precision!r}: have {sorted(PRECISIONS)}")
+        if self.compute_tn:
+            torch_dtype(self.compute_tn)
+        self.pipe: Optional[ConvPipe] = None
+        self._fn: Optional[Callable] = None
+        self._fn_key = None
+        self._info_log: list[str] = []
+        self._weights_dev: dict[str, torch.Tensor] = {}
+
+    def dev(self) -> torch.device:
+        """The engine's device. No silent CPU fallback: device=cuda without a
+        usable card raises."""
+        d = torch.device(self.device)
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("conv_fwd: device=cuda but torch finds no CUDA "
+                               "card; pass device=cpu to run the plain versions")
+        if d.type not in ("cuda", "cpu"):
+            raise ConfigError(f"conv_fwd: unsupported device {self.device!r}")
+        return d
+
+    def get_info_log(self) -> str:
+        return "\n".join(self._info_log)
+
+    def build_raw_fn(self, out_names: list[str]) -> Callable:  # pragma: no cover
+        raise NotImplementedError
+
+    def compile_for(self, out_names: list[str]) -> None:
+        key = tuple(out_names)
+        if self._fn_key != key:
+            self._fn = self.build_raw_fn(list(out_names))
+            self._fn_key = key
+
+    def _put_inputs(self, ins: dict[str, NDA]) -> dict[str, torch.Tensor]:
+        d = self.dev()
+        return {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(d)
+                for k, v in ins.items()}
+
+    def run_fwd(self, ins: dict[str, NDA], out_names: list[str]) -> dict[str, NDA]:
+        self.compile_for(out_names)
+        with torch.inference_mode():
+            outs = self._fn(self._weights_dev, self._put_inputs(ins))
+            res = {}
+            for n, t in outs.items():
+                t = t.cpu()
+                if t.dtype == torch.bfloat16:  # numpy has no bf16: host f32
+                    t = t.float()
+                res[n] = NDA(self.pipe.must_dims(n), t.numpy())
+        return res
+
+    def time_fwd(self, ins: dict[str, NDA], out_names: list[str],
+                 n_iters: int = 20, warmup: int = 3) -> float:
+        """Seconds per whole-net forward on the card: `warmup` forwards, then
+        `n_iters` forwards between two CUDA events on the current stream."""
+        d = self.dev()
+        if d.type != "cuda":
+            raise RuntimeError("time_fwd times the card; this engine runs on "
+                               f"{d} (a CPU time is not a device metric)")
+        self.compile_for(out_names)
+        with torch.inference_mode():
+            dev_ins = self._put_inputs(ins)
+            for _ in range(max(1, warmup)):
+                self._fn(self._weights_dev, dev_ins)
+            torch.cuda.synchronize(d)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(n_iters):
+                self._fn(self._weights_dev, dev_ins)
+            t1.record()
+            t1.synchronize()
+        return t0.elapsed_time(t1) / 1e3 / n_iters
+
+
+@register("conv_fwd", "cuda", help="NHWC engine: hand CUDA kernels for conv/fc "
+                                   "(kernel_policy=gen) or cuDNN/cuBLAS (lib)")
+class CudaFwd(FwdEngine):
+    tune = Field("lexp", default="()", help="default op_tune for generated kernels")
+    per_op_tune = Field((dict, "lexp"), default="()", help="per-op-name tune overrides")
+    # conv+ReLU fusion, generalized to conv -> [BN] -> [Scale] -> [ReLU]:
+    # applied per call, only when no chain intermediate is a requested output
+    fuse_relu = Field(bool, default="1", help="fuse BN/Scale/ReLU into conv/fc stores")
+    # residual fusion: fold Eltwise(sum)+ReLU tails (ResNet blocks) into the
+    # producing conv kernel's store epilogue
+    fuse_eltwise = Field(bool, default="1", help="fuse residual add into conv stores")
+    # fold BN/Scale into the conv weights once at upload instead of in every
+    # forward (inference weights are frozen)
+    prefold = Field(bool, default="1", help="fold BN/Scale at upload, not per-forward")
+    # boda_tpu defaults to lib on the strength of a TPU v5e measurement
+    # (boda_tpu/graph/executor.py:584-592) that says nothing about an H100;
+    # the port's subject is its hand kernels, so gen is the default here
+    kernel_policy = Field(str, default="gen",
+                          help="conv/fc default: gen (hand CUDA kernels; the "
+                               "port's default, unlike boda_tpu's TPU-measured "
+                               "lib) | lib (cuDNN/cuBLAS)")
+
+    def base_setup(self) -> None:
+        super().base_setup()
+        if self.kernel_policy not in ("gen", "lib"):
+            raise ConfigError(f"kernel_policy {self.kernel_policy!r}: gen | lib")
+
+    def op_tune(self, op_name: str) -> OpTune:
+        t = self.per_op_tune.get(op_name)
+        tune = OpTune.from_lexp(t) if t is not None else OpTune.from_lexp(self.tune)
+        # the engine's precision is the default unless the tune overrides
+        # it; bf16 compute always runs bf16 inputs with an f32 accumulator
+        if (t is None or t.get_kid("precision") is None) and \
+                "precision" not in str(self.tune):
+            prec = "default" if self.compute_tn == "bfloat16" else self.precision
+            tune = dataclasses.replace(tune, precision=prec)
+        # library policy: only when no explicit per-op tune exists and the
+        # engine-level tune doesn't mention use_xla
+        explicit = t is not None and bool(t.leaf_val if t.is_leaf else t.kids)
+        if self.kernel_policy == "lib" and not explicit \
+                and "use_xla" not in str(self.tune):
+            tune = dataclasses.replace(tune, use_xla=True)
+        return tune
+
+    def init(self, pipe: ConvPipe) -> None:
+        self.pipe = pipe
+        self._fn, self._fn_key = None, None
+        self._weight_preps: dict[str, tuple] = {}
+        self._lowered: dict[str, Callable] = {}
+        self._lowered_fused: dict[str, Callable] = {}
+        ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn)
+        self._chains = self._find_chains(pipe)
+        self._prefold_plan = {}   # folded-w key -> (w_key, b_key, param_keys, fold)
+        self._prefold_keys = {}   # conv op name -> (folded w key, folded b key)
+        for op_name in pipe.topo_op_order():
+            op = pipe.ops[op_name]
+            self._lowered[op_name] = self._lower(pipe, op, ctx, fused=False)
+            if op_name in self._chains:
+                self._lowered_fused[op_name] = self._lower_chain(
+                    pipe, op, self._chains[op_name], ctx)
+        self._upload_weights()
+
+    def _find_chains(self, pipe: ConvPipe) -> dict[str, list[str]]:
+        """Fusion chains conv/fc -> [BatchNorm] -> [Scale] -> [ReLU], each
+        link single-consumer, extended by a residual tail
+        conv[->BN][->Scale] -> Eltwise(sum, this + skip) [-> ReLU]."""
+        chains: dict[str, list[str]] = {}
+        if not self.fuse_relu:
+            return chains
+        topo = pipe.topo_op_order()
+        topo_ix = {n: i for i, n in enumerate(topo)}
+
+        def single_next(cur):
+            consumers = pipe.nodes[cur.tops[0]].bot_for
+            if len(consumers) != 1:
+                return None
+            return pipe.ops[consumers[0]]
+
+        elt_claim: dict[str, str] = {}  # eltwise op -> claiming conv
+        for op_name in topo:
+            op = pipe.ops[op_name]
+            if op.type not in ("Convolution", "InnerProduct"):
+                continue
+            chain = []
+            cur = op
+            for want in ("BatchNorm", "Scale", "ReLU"):
+                nxt = single_next(cur)
+                if nxt is None:
+                    break
+                if nxt.type != want:
+                    if want == "ReLU":
+                        break
+                    continue
+                if nxt.bots[0] != cur.tops[0]:
+                    break
+                chain.append(nxt.name)
+                cur = nxt
+            # residual tail: the skip value must already be computed at this
+            # conv's topo slot; when both eltwise inputs end in fusable convs,
+            # the later conv wins and the earlier one is un-claimed
+            if self.fuse_eltwise and \
+                    (not chain or pipe.ops[chain[-1]].type != "ReLU"):
+                nxt = single_next(cur)
+                if nxt is not None and nxt.type == "Eltwise" and \
+                        nxt.p("eltwise_op", "sum") == "sum" and \
+                        not nxt.p("coeffs", None) and \
+                        len(nxt.bots) == 2 and nxt.bots[0] != nxt.bots[1] and \
+                        cur.tops[0] in nxt.bots:
+                    skip = next(b for b in nxt.bots if b != cur.tops[0])
+                    prods = pipe.nodes[skip].top_for
+                    if not prods or all(topo_ix[pr] < topo_ix[op_name]
+                                        for pr in prods):
+                        prev = elt_claim.get(nxt.name)
+                        if prev is None or topo_ix[prev] < topo_ix[op_name]:
+                            if prev is not None:  # un-claim the earlier conv
+                                pc = chains.get(prev, [])
+                                chains[prev] = pc[:pc.index(nxt.name)]
+                                if not chains[prev]:
+                                    del chains[prev]
+                            elt_claim[nxt.name] = op_name
+                            chain.append(nxt.name)
+                            cur = nxt
+                            nxt2 = single_next(cur)
+                            if nxt2 is not None and nxt2.type == "ReLU" \
+                                    and nxt2.bots[0] == cur.tops[0]:
+                                chain.append(nxt2.name)
+                                cur = nxt2
+            if chain:
+                chains[op_name] = chain
+        return chains
+
+    def _make_fold(self, pipe: ConvPipe, conv_op, chain: list[str]):
+        """BN/Scale weight folding for a conv's chain: returns
+        (fold(w, b, extras) -> (w2, b2), n_extras, param_keys), extras being
+        the BN/Scale parameters in chain order. A chain with neither BN nor
+        Scale returns (None, 0, []). The fold runs on the cast (compute_tn)
+        and prepped weights in f32 and casts back, in boda_tpu's order."""
+        ops = [pipe.ops[c] for c in chain]
+        bn = next((o for o in ops if o.type == "BatchNorm"), None)
+        sc = next((o for o in ops if o.type == "Scale"), None)
+        if bn is None and sc is None:
+            return None, 0, []
+        param_keys = (list(bn.bots[1:]) if bn is not None else []) + \
+            (list(sc.bots[1:]) if sc is not None else [])
+        eps = float(bn.p("eps", 1e-5)) if bn is not None else 0.0
+        n_bn = (len(bn.bots) - 1) if bn is not None else 0
+        n_sc = (len(sc.bots) - 1) if sc is not None else 0
+        oc_axis = self._weight_preps[conv_op.bots[1]][1]
+
+        def fold(w, b, extras):
+            i = 0
+            scale_eff = torch.ones((), dtype=torch.float32, device=w.device)
+            shift = torch.zeros((), dtype=torch.float32, device=w.device)
+            if bn is not None:
+                mean, var = extras[i], extras[i + 1]
+                sf = extras[i + 2] if n_bn == 3 else None
+                i += n_bn
+                sfv = torch.where(sf[0] != 0, 1.0 / sf[0], torch.ones_like(sf[0])) \
+                    if sf is not None else 1.0
+                # in the parameters' dtype, then f32 (jnp promotion order)
+                inv = torch.rsqrt(var * sfv + eps)
+                scale_eff = scale_eff * inv.float()
+                shift = shift - ((mean * sfv) * inv).float()
+            if sc is not None:
+                gamma = extras[i]
+                beta = extras[i + 1] if n_sc == 2 else None
+                i += n_sc
+                scale_eff = scale_eff * gamma.float()
+                shift = shift * gamma.float()
+                if beta is not None:
+                    shift = shift + beta.float()
+            sh = [1] * w.dim()
+            sh[oc_axis] = -1
+            w2 = (w.float() * scale_eff.reshape(sh)).to(w.dtype)
+            b2 = (b.float() * scale_eff + shift).to(b.dtype)
+            return w2, b2
+        return fold, n_bn + n_sc, param_keys
+
+    def _register_prefold(self, conv_op, fold, param_keys) -> bool:
+        """Queue this conv's fold for the one-shot upload-time computation.
+        Returns True when the fold is prefolded (no per-forward fold)."""
+        if not self.prefold or fold is None:
+            return False
+        w_key, b_key = conv_op.bots[1], conv_op.bots[2]
+        wf, bf = w_key + "__folded", b_key + "__folded"
+        self._prefold_plan.setdefault(wf, (w_key, b_key, param_keys, fold))
+        self._prefold_keys[conv_op.name] = (wf, bf)
+        return True
+
+    def _lower_chain(self, pipe: ConvPipe, conv_op, chain: list[str],
+                     ctx: LowerCtx) -> Callable:
+        """Fused lowering for conv(+bias) -> [BN] -> [Scale] -> [Eltwise-sum]
+        -> [ReLU]: one kernel with a bias(+residual)(+ReLU) store epilogue,
+        on weights folded at upload (prefold) or per call."""
+        ops = [pipe.ops[c] for c in chain]
+        has_relu = any(o.type == "ReLU" for o in ops)
+        elt = next((o for o in ops if o.type == "Eltwise"), None)
+        fused_conv_fn = self._lower(pipe, conv_op, ctx, fused=has_relu)
+        res_in_kernel = elt is not None and \
+            getattr(fused_conv_fn, "supports_residual", False)
+        if elt is not None and not res_in_kernel:
+            fused_conv_fn = self._lower(pipe, conv_op, ctx, fused=False)
+        fold, n_fold, fkeys = self._make_fold(pipe, conv_op, chain)
+        if self._register_prefold(conv_op, fold, fkeys):
+            fold, n_fold = None, 0  # w/b arrive already folded; no extras
+
+        def fn(x, w, b, *rest):
+            if fold is not None:
+                w, b = fold(w, b, rest[:n_fold])
+            if elt is None:
+                return fused_conv_fn(x, w, b)
+            res = rest[n_fold]
+            if res_in_kernel:
+                return fused_conv_fn(x, w, b, residual=res)
+            out = fused_conv_fn(x, w, b)[0] + res
+            return (torch.relu(out) if has_relu else out,)
+        return fn
+
+    def _lower(self, pipe: ConvPipe, op, ctx: LowerCtx, fused: bool) -> Callable:
+        if fused:
+            op = dataclasses.replace(op, params=dict(op.params, fused_relu=True))
+        r = lower_op_nhwc(pipe, op, ctx, self.op_tune(op.name), self._info_log)
+        if r is None:
+            raise PipeError(f"no NHWC lowering for op type {op.type!r} "
+                            f"(op {op.name!r})")
+        fn, preps = r
+        self._weight_preps.update(preps)
+        return fn
+
+    def _upload_weights(self) -> None:
+        d = self.dev()
+        cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
+        self._weights_dev = {}
+        for k, w in self.pipe.weights.items():
+            t = torch.from_numpy(np.ascontiguousarray(w.data)).to(d)
+            if cdt is not None:  # cast first, then prep and fold
+                t = t.to(cdt)
+            prep = self._weight_preps.get(k)
+            if prep is not None:
+                t = prep[0](t)
+            self._weights_dev[k] = t
+        wd = self._weights_dev
+        for wf, (wk, bk, fkeys, fold) in self._prefold_plan.items():
+            wd[wf], wd[bk + "__folded"] = fold(wd[wk], wd[bk], [wd[k] for k in fkeys])
+
+    def _is_4d(self, node: str) -> bool:
+        d = self.pipe.nodes[node].dims
+        return d is not None and d.names == ("img", "chan", "y", "x")
+
+    def build_raw_fn(self, out_names: list[str]) -> Callable:
+        """fn(weights, inputs) -> {name: tensor}: inputs are logical-layout
+        device tensors; outputs come back in logical NCHW and dtype."""
+        pipe = self.pipe
+        topo = pipe.topo_op_order()
+        out_set = set(out_names)
+        # per-call fusion decision: fuse a chain only when none of its
+        # intermediate values are requested outputs
+        fused_now = {}
+        for conv_name, chain in self._chains.items():
+            inter = [pipe.ops[conv_name].tops[0]] + \
+                [pipe.ops[c].tops[0] for c in chain[:-1]]
+            if not (set(inter) & out_set):
+                fused_now[conv_name] = chain
+        skip_ops = {c for chain in fused_now.values() for c in chain}
+
+        # extra inputs of a fused chain: every bot except the link value
+        # (BN/Scale params, the eltwise skip); prefolded BN/Scale params are
+        # upload-time constants and drop out
+        def _extras(conv_name, chain):
+            link, out = pipe.ops[conv_name].tops[0], []
+            prefolded = conv_name in self._prefold_keys
+            for cn in chain:
+                cop = pipe.ops[cn]
+                if not (cop.type in ("BatchNorm", "Scale") and prefolded):
+                    out += [b for b in cop.bots if b != link]
+                link = cop.tops[0]
+            return out
+        chain_args = {c: _extras(c, chain) for c, chain in fused_now.items()}
+        chain_final_top = {c: pipe.ops[chain[-1]].tops[0]
+                           for c, chain in fused_now.items()}
+        lowered = {o: (self._lowered_fused[o] if o in fused_now else self._lowered[o])
+                   for o in topo}
+        is4d = {n: self._is_4d(n) for n in pipe.nodes}
+        cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
+
+        def net_fn(weights: dict, inputs: dict):
+            vals = dict(weights)
+            for k, v in inputs.items():
+                if cdt is not None and v.is_floating_point():
+                    v = v.to(cdt)
+                if is4d.get(k):
+                    # logical NCHW in -> NHWC; an input already in NHWC (the
+                    # natural decode layout) passes; ambiguous shapes are
+                    # taken as logical
+                    ld = pipe.must_dims(k).shape
+                    nhwc = (ld[2], ld[3], ld[1])
+                    if tuple(v.shape[1:]) == ld[1:]:
+                        v = v.permute(0, 2, 3, 1).contiguous()
+                    elif tuple(v.shape[1:]) != nhwc:
+                        raise PipeError(
+                            f"input {k!r}: shape {tuple(v.shape)} is neither "
+                            f"logical NCHW (*, {ld[1]}, {ld[2]}, {ld[3]}) "
+                            f"nor native NHWC (*, {nhwc[0]}, {nhwc[1]}, {nhwc[2]})")
+                vals[k] = v
+            # prune to the subgraph reaching out_names from the given inputs
+            needed = set(out_names)
+            run_ops = set()
+            for op_name in reversed(topo):
+                if op_name in skip_ops:
+                    continue
+                op = pipe.ops[op_name]
+                tops = ([chain_final_top[op_name]] if op_name in fused_now
+                        else list(op.tops))
+                if any(t in needed and t not in vals for t in tops):
+                    run_ops.add(op_name)
+                    needed.update(op.bots)
+                    if op_name in fused_now:
+                        needed.update(chain_args[op_name])
+            for op_name in topo:
+                if op_name not in run_ops:
+                    continue
+                op = pipe.ops[op_name]
+                bots = op.bots
+                pf = self._prefold_keys.get(op_name) if op_name in fused_now else None
+                if pf is not None:  # head conv reads its upload-folded w/b
+                    bots = [op.bots[0], pf[0], pf[1]] + list(op.bots[3:])
+                if op_name in fused_now:
+                    bots = list(bots) + chain_args[op_name]
+                try:
+                    bot_vals = [vals[b] for b in bots]
+                except KeyError as e:
+                    raise PipeError(f"op {op_name!r}: missing input {e}") from None
+                outs = lowered[op_name](*bot_vals)
+                tops = [chain_final_top[op_name]] if op_name in fused_now else op.tops
+                for t, v in zip(tops, outs):
+                    vals[t] = v
+            res = {}
+            for n in out_names:
+                v = vals[n]
+                if is4d.get(n) and v.dim() == 4:
+                    v = v.permute(0, 3, 1, 2)
+                if cdt is not None:
+                    v = v.to(torch_dtype(pipe.must_dims(n).tn))
+                res[n] = v.contiguous()
+            return res
+
+        return net_fn

@@ -1,0 +1,264 @@
+"""NHWC lowering rules: graph ops -> PyTorch callables on channels-last data.
+
+Counterpart of ``boda_tpu/graph/lowering_nhwc.py`` for the ops ResNet uses.
+Activations are physically (img, y, x, chan) contiguous tensors while node
+Dims stay logically NCHW; library ops (pooling, the lib conv) see them
+through ``permute(0, 3, 1, 2)``, a channels_last view of the same memory.
+
+Each rule returns (fn, weight_preps): fn(*bot_tensors) -> tuple(top_tensors),
+and weight_preps maps weight-node name -> (prep, oc_axis): a one-time
+transform applied at weight upload, and the axis of out_chan in the prepped
+weight (where the BN/Scale fold scales it). The port has no backward pass,
+so it keeps the axis where boda_tpu keeps a gradient inverse.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.kernels.conv import conv2d_halo
+from ..ops.kernels.sgemm import matmul
+from .lowering import LowerCtx, _softmax
+from .pipe import ConvOp, ConvPipe, PipeError
+
+_NHWC_RULES: dict[str, Callable] = {}
+
+
+def nhwc_rule(op_type: str):
+    def deco(fn):
+        _NHWC_RULES[op_type] = fn
+        return fn
+    return deco
+
+
+def lower_op_nhwc(pipe: ConvPipe, op: ConvOp, ctx: LowerCtx, tune,
+                  info_log: list[str]):
+    """Returns (fn, weight_preps) or None if no NHWC rule exists."""
+    rule = _NHWC_RULES.get(op.type)
+    if rule is None:
+        return None
+    return rule(pipe, op, ctx, tune, info_log)
+
+
+def _no_preps(fn):
+    return fn, {}
+
+
+# -- conv ------------------------------------------------------------------------
+
+@nhwc_rule("Convolution")
+def _nhwc_conv(pipe, op, ctx, tune, info_log):
+    s, p = op.stride(), op.pad()
+    k = op.kern_sz()
+    dil = op.dilation()
+    groups = int(op.p("groups", 1))
+    relu = bool(op.p("fused_relu", False))
+    fd = pipe.must_dims(op.bots[1])
+    od = pipe.must_dims(op.tops[0])
+    hwio = {op.bots[1]: (lambda w: w.permute(2, 3, 1, 0).contiguous(), 3)}
+    # boda_tpu's feasibility gates for its Pallas convs (c % 128, no bf16
+    # stride, VMEM budgets: ops/kernels/conv.py:63,230,235) are Mosaic's, not
+    # Hopper's, so they are dropped: the hand kernels take every groups-1,
+    # dilation-1 conv at any stride and any channel count, the stem included.
+    gen = groups == 1 and dil == (1, 1) and not tune.use_xla
+    if gen and k == (1, 1) and p == (0, 0) and tune.use_k1conv:
+        M = od["img"] * od["y"] * od["x"]
+        info_log.append(f"{op.name}: nhwc-k1conv gemm M={M} K={fd['in_chan']} "
+                        f"N={fd['out_chan']} s={s} prec={tune.precision}")
+
+        def fn(x, w, b, residual=None):  # x NHWC, w HWIO
+            if s != (1, 1):  # a strided 1x1 is a subsample, then the GEMM
+                x = x[:, ::s[0], ::s[1], :].contiguous()
+            n, y, xx, c = x.shape
+            res2d = residual.reshape(n * y * xx, -1) \
+                if residual is not None else None
+            out = matmul(x.reshape(n * y * xx, c), w.reshape(c, -1), b,
+                         relu=relu, residual=res2d)
+            return (out.reshape(n, y, xx, -1),)
+        fn.supports_residual = True
+        return fn, hwio
+
+    if gen:
+        info_log.append(f"{op.name}: nhwc-direct_conv k={k} s={s} p={p} "
+                        f"prec={tune.precision}")
+
+        def fn(x, w, b, residual=None):
+            return (conv2d_halo(x, w, b, stride=s, pad=p, relu=relu,
+                                residual=residual),)
+        fn.supports_residual = True
+        return fn, hwio
+
+    # library conv (cuDNN on the card): the analog of boda_tpu's XLA conv.
+    # Weights are prepped OHWI, so the OIHW view cuDNN takes is channels_last.
+    info_log.append(f"{op.name}: nhwc-lib_conv")
+    ohwi = {op.bots[1]: (lambda w: w.permute(0, 2, 3, 1).contiguous(), 0)}
+
+    def fn(x, w, b, residual=None):
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b,
+                       stride=s, padding=p, dilation=dil, groups=groups)
+        out = out.permute(0, 2, 3, 1)
+        if residual is not None:
+            out = out + residual
+        if relu:
+            out = torch.relu(out)
+        return (out.contiguous(),)
+    fn.supports_residual = True
+    return fn, ohwi
+
+
+@nhwc_rule("InnerProduct")
+def _nhwc_ip(pipe, op, ctx, tune, info_log):
+    ind = pipe.must_dims(op.bots[0])
+    fd = pipe.must_dims(op.bots[1])
+    relu = bool(op.p("fused_relu", False))
+    nchw_flat = "y" in ind.names and (ind["y"] > 1 or ind["x"] > 1)
+    c, y, x = (ind["chan"], ind["y"], ind["x"]) if nchw_flat else (0, 0, 0)
+
+    def prep(w):
+        # fc weights are ordered for an NCHW flatten; permute once for NHWC,
+        # then store as the (in, out) row-major B operand of the GEMM
+        if nchw_flat:
+            w = w.reshape(w.shape[0], c, y, x).permute(0, 2, 3, 1) \
+                .reshape(w.shape[0], -1)
+        return w.t().contiguous()
+    M, K, N = ind["img"], fd["in_feats"], fd["out_chan"]
+    use_lib = tune.use_xla
+    info_log.append(f"{op.name}: nhwc-ip {'lib' if use_lib else 'gemm'} "
+                    f"M={M} K={K} N={N}")
+
+    def fn(x, w, b):
+        xf = x.reshape(x.shape[0], -1)
+        if use_lib:
+            out = torch.addmm(b, xf, w)
+            return (torch.relu(out) if relu else out,)
+        return (matmul(xf.contiguous(), w, b, relu=relu),)
+    return fn, {op.bots[1]: (prep, 1)}
+
+
+# -- spatial ops --------------------------------------------------------------------
+
+def _avg_divisor(iy, ix, k, s, p, oy, ox):
+    """(oy, ox) f32 per-window non-padding pixel counts (ref
+    test/rtc/pool.cucl avg_pool_sz semantics)."""
+    def divisor(o, in_sz, kk, ss, pp):
+        st = o * ss - pp
+        en = min(st + kk, in_sz)
+        return en - max(st, 0)
+    dy = np.array([divisor(o, iy, k[0], s[0], p[0]) for o in range(oy)],
+                  np.float32)
+    dx = np.array([divisor(o, ix, k[1], s[1], p[1]) for o in range(ox)],
+                  np.float32)
+    return dy[:, None] * dx[None, :]
+
+
+@nhwc_rule("Pooling")
+def _nhwc_pool(pipe, op, ctx, tune, info_log):
+    k, s, p = op.kern_sz(), op.stride(), op.pad()
+    avg = op.p("avg_pool", False)
+    ind = pipe.must_dims(op.bots[0])
+    od = pipe.must_dims(op.tops[0])
+    iy, ix = ind["y"], ind["x"]
+    oy, ox = od["y"], od["x"]
+    # caffe ceil-mode windows: pad the bottom/right so the last window fits
+    # (the extra rows never win a max, and are not counted in an avg)
+    pad_y = (p[0], max(0, (oy - 1) * s[0] + k[0] - iy - p[0]))
+    pad_x = (p[1], max(0, (ox - 1) * s[1] + k[1] - ix - p[1]))
+    tpad = (pad_x[0], pad_x[1], pad_y[0], pad_y[1])
+    if avg:
+        div = torch.from_numpy(_avg_divisor(iy, ix, k, s, p, oy, ox))
+
+        def fn(x):
+            xp = F.pad(x.permute(0, 3, 1, 2).float(), tpad)
+            sums = F.avg_pool2d(xp, k, s, divisor_override=1)
+            out = sums / div.to(sums.device)
+            return (out.permute(0, 2, 3, 1).to(x.dtype).contiguous(),)
+        return _no_preps(fn)
+
+    def fn(x):
+        xp = F.pad(x.permute(0, 3, 1, 2), tpad, value=float("-inf"))
+        out = F.max_pool2d(xp, k, s)
+        return (out.permute(0, 2, 3, 1).contiguous(),)
+    return _no_preps(fn)
+
+
+@nhwc_rule("BatchNorm")
+def _nhwc_bn(pipe, op, ctx, tune, info_log):
+    eps = float(op.p("eps", 1e-5))
+
+    def fn(x, mean, var, scale_factor=None):
+        sf = 1.0
+        if scale_factor is not None:
+            s0 = scale_factor[0]
+            sf = torch.where(s0 != 0, 1.0 / s0, torch.ones_like(s0))
+        m = mean * sf
+        v = var * sf
+        return (((x - m) * torch.rsqrt(v + eps)).to(x.dtype),)
+    return _no_preps(fn)
+
+
+@nhwc_rule("Scale")
+def _nhwc_scale(pipe, op, ctx, tune, info_log):
+    def fn(x, gamma, beta=None):
+        out = x * gamma
+        if beta is not None:
+            out = out + beta
+        return (out.to(x.dtype),)
+    return _no_preps(fn)
+
+
+# -- pointwise / structural ------------------------------------------------------------
+
+@nhwc_rule("ReLU")
+def _nhwc_relu(pipe, op, ctx, tune, info_log):
+    return _no_preps(lambda x: (torch.clamp_min(x, 0.0),))
+
+
+@nhwc_rule("Dropout")
+def _nhwc_dropout(pipe, op, ctx, tune, info_log):
+    return _no_preps(lambda x: (x,))  # inference: identity
+
+
+@nhwc_rule("Split")
+def _nhwc_split(pipe, op, ctx, tune, info_log):
+    n = len(op.tops)
+    return _no_preps(lambda x: (x,) * n)
+
+
+@nhwc_rule("Eltwise")
+def _nhwc_eltwise(pipe, op, ctx, tune, info_log):
+    kind = op.p("eltwise_op", "sum")
+    coeffs = op.p("coeffs", None)
+
+    def fn(*xs):
+        if kind == "sum":
+            out = sum((c * x for c, x in zip(coeffs, xs)), start=0.0) \
+                if coeffs else sum(xs[1:], start=xs[0])
+        elif kind == "prod":
+            out = functools.reduce(torch.mul, xs)
+        elif kind == "max":
+            out = functools.reduce(torch.maximum, xs)
+        else:
+            raise PipeError(f"eltwise: unknown op {kind!r}")
+        return (out,)
+    return _no_preps(fn)
+
+
+@nhwc_rule("Softmax")
+def _nhwc_softmax(pipe, op, ctx, tune, info_log):
+    ind = pipe.must_dims(op.bots[0])
+    laxis = int(op.p("axis", 1))
+    if ind.names == ("img", "chan", "y", "x"):  # physically NHWC
+        axis = {0: 0, 1: 3, 2: 1, 3: 2}[laxis]
+    else:  # non-canonical nodes keep logical layout
+        axis = laxis
+    return _no_preps(lambda x: (_softmax(x, axis=axis).to(x.dtype),))
+
+
+@nhwc_rule("Data")
+def _nhwc_data(pipe, op, ctx, tune, info_log):
+    return _no_preps(lambda x: (x,))

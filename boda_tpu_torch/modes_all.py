@@ -1,0 +1,14 @@
+"""Import every module that registers CLI modes (the mode census lives here)."""
+
+# Registration happens at import time via @register("mode", ...) decorators.
+# Keep this list sorted. The port's other modes arrive with the slices that
+# need them (ROADMAP.md).
+
+import importlib
+
+_MODE_MODULES = [
+    "boda_tpu_torch.modes.cnet",
+]
+
+for _m in _MODE_MODULES:
+    importlib.import_module(_m)

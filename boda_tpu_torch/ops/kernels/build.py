@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels (``boda_tpu_torch/csrc``).
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, and loaded with ``ctypes``.
+The library lands in ``build/kernels/`` at the repo root (git-ignored) under
+a name carrying the hash of the sources and flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here touches CUDA or
+spawns a process at import time: the CPU tests import every module.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every pointer and the stream are c_void_p (a bare Python int
+# would be passed as a 32-bit int and cut the pointer)
+_SIGS = {
+    "boda_gemm": [_P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "boda_conv2d": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+}
+
+
+class KernelBuild:
+    """The loaded library, plus how it was built (for the smoke report)."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, secs: float, log: str):
+        self.lib = lib
+        self.path = path
+        self.build_secs = secs   # 0.0 when an up-to-date library was reused
+        self.log = log           # nvcc's output (ptxas register/spill lines)
+
+
+_loaded: KernelBuild | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels are built on the machine with the card")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load() -> KernelBuild:
+    """Build (if the sources changed) and load the kernel library once per
+    process."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    so = BUILD_DIR / f"libboda_kernels_{source_hash()}.so"
+    secs, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+               *map(str, _sources())]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        log = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        (BUILD_DIR / (so.stem + ".log")).write_text(log)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _loaded = KernelBuild(lib, so, secs, log)
+    return _loaded
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        import torch
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,75 @@
+"""The port's entry points on the CPU: the CLI, the import rule and the
+device rule."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from boda_tpu_torch.config import make
+from boda_tpu_torch.models.zoo import build_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(args, timeout=120):
+    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def test_run_cnet_cli_on_cpu():
+    r = _run(["-m", "boda_tpu_torch", "run_cnet", "--model=mini_resnet",
+              "--conv-fwd=(mode=cuda,device=cpu)"])
+    assert r.returncode == 0, r.stderr
+    assert "out prob dims=(img=1,chan=16)" in r.stdout
+    assert "nhwc-k1conv" in r.stdout and "nhwc-direct_conv" in r.stdout
+
+
+def test_cli_help_and_unused_key():
+    r = _run(["-m", "boda_tpu_torch", "run_cnet", "--help"])
+    assert r.returncode == 0 and "--conv_fwd" in r.stdout
+    r = _run(["-m", "boda_tpu_torch", "run_cnet", "--model=mini_resnet",
+              "--conv-fwd=(mode=cuda,device=cpu,typo_knob=1)"])
+    assert r.returncode == 1 and "unused config key" in r.stderr
+
+
+_HYGIENE = """
+import sys
+import boda_tpu_torch.cli, boda_tpu_torch.modes_all
+from boda_tpu_torch.config import make
+from boda_tpu_torch.modes.cnet import gen_data_inputs
+from boda_tpu_torch.models.zoo import build_model
+pipe, in_dims = build_model("mini_resnet", img=1)
+eng = make("conv_fwd", "cuda", device="cpu")
+eng.init(pipe)
+out = eng.run_fwd(gen_data_inputs(in_dims), ["prob"])
+assert out["prob"].data.shape == (1, 16)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    r = _run(["-c", _HYGIENE])
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cuda_device_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pipe, _ = build_model("mini_resnet", img=1)
+    eng = make("conv_fwd", "cuda")  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        eng.init(pipe)
+
+
+def test_time_fwd_refuses_cpu():
+    pipe, in_dims = build_model("mini_resnet", img=1)
+    eng = make("conv_fwd", "cuda", device="cpu")
+    eng.init(pipe)
+    from boda_tpu_torch.modes.cnet import gen_data_inputs
+    with pytest.raises(RuntimeError, match="times the card"):
+        eng.time_fwd(gen_data_inputs(in_dims), ["prob"])

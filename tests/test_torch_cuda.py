@@ -1,0 +1,101 @@
+"""The port's hand kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU with nvcc; elsewhere they skip. Run them on
+the machine with the card from the repo root with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
+repo's conftest.py configures JAX, which that machine does not have).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
+from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dt, dev, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32)).to(dev, dt)
+
+
+# f32 runs full-precision FMA in another summation order than cuBLAS/cuDNN:
+# 1e-5 of max|ref|. bf16: both round the f32 sum to bf16 once; one bf16 ulp
+# is 2^-8 of a value, so 1e-2 of max|ref| covers it.
+_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _err(out, ref):
+    return float((out.float() - ref.float()).abs().max()) / \
+        max(float(ref.float().abs().max()), 1e-30)
+
+
+_GEMM_CASES = [
+    (77, 147, 100, True, True, True),      # ragged everywhere
+    (256, 64, 256, True, False, True),     # aligned
+    (32, 2048, 1000, True, False, False),  # fc1000 at batch 32
+    (1000, 40, 24, False, False, False),   # no epilogue
+]
+_CONV_CASES = [
+    (2, 13, 3, 20, 7, 2, 3, False, True),    # stem-like, ragged
+    (2, 9, 24, 40, 3, 1, 1, True, True),     # residual + ReLU
+    (1, 11, 16, 136, 3, 2, 1, False, False),  # strided, OC past one tile
+    (2, 14, 64, 64, 3, 1, 1, False, True),
+]
+
+
+def test_matmul_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for M, K, N, bias, res, relu in _GEMM_CASES:
+            rng = np.random.default_rng(M + K + N)
+            a = _t(rng, (M, K), dt, dev)
+            b = _t(rng, (K, N), dt, dev, K ** -0.5)
+            bb = _t(rng, (N,), dt, dev, 0.1) if bias else None
+            rr = _t(rng, (M, N), dt, dev) if res else None
+            before = matmul.launches
+            out = matmul(a, b, bb, relu=relu, residual=rr)
+            torch.cuda.synchronize()
+            assert matmul.launches == before + 1
+            ref = matmul_plain(a, b, bb, relu=relu, residual=rr)
+            assert out.dtype == dt and out.shape == (M, N)
+            assert _err(out, ref) <= _TOL[dt], (dt, M, K, N)
+
+
+def test_conv_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, c, oc, k, s, p, res, relu in _CONV_CASES:
+            rng = np.random.default_rng(n + h + c + oc)
+            x = _t(rng, (n, h, h, c), dt, dev)
+            w = _t(rng, (k, k, c, oc), dt, dev, (k * k * c) ** -0.5)
+            b = _t(rng, (oc,), dt, dev, 0.1)
+            oh = (h + 2 * p - k) // s + 1
+            rr = _t(rng, (n, oh, oh, oc), dt, dev) if res else None
+            before = conv2d.launches
+            out = conv2d(x, w, b, stride=(s, s), pad=(p, p), relu=relu, residual=rr)
+            torch.cuda.synchronize()
+            assert conv2d.launches == before + 1
+            ref = conv2d_plain(x, w, b, stride=(s, s), pad=(p, p), relu=relu,
+                               residual=rr)
+            assert out.shape == ref.shape == (n, oh, oh, oc)
+            assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, s, p)
+
+
+def test_wrapper_rejects_bad_operands(dev):
+    a = torch.zeros(8, 16, device=dev)
+    with pytest.raises(ValueError):
+        matmul(a, torch.zeros(16, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        matmul(a, torch.zeros(8, 16, device=dev).t())  # not contiguous
+    with pytest.raises(ValueError):
+        matmul(a.half(), torch.zeros(16, 8, device=dev).half())
