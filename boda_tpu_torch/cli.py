@@ -10,13 +10,14 @@ from __future__ import annotations
 import sys
 
 from . import modes_all  # noqa: F401  (imports register all modes)
-from .config import ConfigError, help_str, instantiate
+from .config import ConfigError, default_cfg_init, help_str, instantiate
 from .utils.lexp import LexpError, lexp_from_argv
 
 
 def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    default_cfg_init()
     try:
         if not argv or argv[0] in ("help", "--help", "-h"):
             sys.stdout.write(help_str("mode"))
@@ -31,6 +32,8 @@ def main(argv: list[str] | None = None) -> int:
     except (ConfigError, LexpError, ValueError, RuntimeError) as e:
         sys.stderr.write(f"error: {e}\n")
         return 1
+    except SystemExit as e:  # a mode's own failure exit (test_compute)
+        return int(e.code or 0)
 
 
 if __name__ == "__main__":

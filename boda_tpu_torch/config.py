@@ -19,10 +19,11 @@ Usage::
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from .utils.dims import Dims
-from .utils.lexp import Lexp, check_unused, parse_lexp
+from .utils.lexp import Lexp, check_unused, parse_lexp, str_format_from_nvm
 
 
 class ConfigError(ValueError):
@@ -33,7 +34,8 @@ class Field:
     """A declared config field on a registered class.
 
     ``ftype`` is one of: ``str``, ``int``, ``float``, ``bool``, ``Dims``,
-    ``"lexp"`` (the raw value, parsed later), a registered base key string (polymorphic nested object, e.g. ``"backend"``), or
+    ``"filename"`` (a string with ``%(var)`` references expanded from the
+    global env), ``"lexp"`` (the raw value, parsed later), a registered base key string (polymorphic nested object, e.g. ``"backend"``), or
     ``(list, T)`` / ``(dict, T)`` for sequences/maps of any of the above.
     Defaults are given in lexp *string* form so help text shows them verbatim.
     """
@@ -111,6 +113,33 @@ def class_fields(cls) -> list[Field]:
     return sorted(seen.values(), key=lambda f: f.order)
 
 
+# -- environment (global config vars for %() filename expansion) ---------------
+
+_ENV: dict[str, str] = {}
+
+
+def load_cfg_file(fn: str) -> None:
+    """Load root attributes of an XML config file as global env vars."""
+    import xml.etree.ElementTree as ET
+    root = ET.parse(fn).getroot()
+    _ENV.update(root.attrib)
+
+
+def default_cfg_init(repo_root: Optional[str] = None) -> None:
+    """The env every run starts from; ``boda_tpu_cfg.xml`` at the repo root,
+    where present, adds to it. (boda_tpu's ``ref_nets_dir`` belongs to the
+    prototxt frontend, which the port does not have yet.)"""
+    if repo_root is None:
+        repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _ENV.setdefault("boda_dir", repo_root)
+    _ENV.setdefault("boda_test_dir", os.path.join(repo_root, "testdata"))
+    _ENV.setdefault("boda_output_dir", ".")
+    _ENV.setdefault("models_dir", os.path.join(repo_root, "models"))
+    cfg = os.path.join(repo_root, "boda_tpu_cfg.xml")
+    if os.path.exists(cfg):
+        load_cfg_file(cfg)
+
+
 # -- value conversion -----------------------------------------------------------
 
 def _conv_scalar(ftype, l: Lexp, path: str):
@@ -139,6 +168,10 @@ def _conv_scalar(ftype, l: Lexp, path: str):
 
 def _conv_value(ftype, l: Lexp, path: str):
     l.use_cnt += 1
+    if ftype == "filename":
+        if not l.is_leaf:
+            raise ConfigError(f"{path}: expected a filename leaf, got list")
+        return str_format_from_nvm(l.leaf_val, _ENV)
     if ftype == "lexp":
         l.deep_inc_use_cnt()
         return l
@@ -177,12 +210,12 @@ def _conv_value(ftype, l: Lexp, path: str):
 
 
 def _parse_default(f: Field) -> Lexp:
-    """Scalar defaults are raw leaves; structured defaults (lists/maps/Dims/
-    nested objects) are parsed as lexps."""
+    """Scalar defaults are raw leaves (may contain %() parens); structured
+    defaults (lists/maps/Dims/nested objects) are parsed as lexps."""
     from .utils.lexp import parse_lexp_leaf_str
     t = f.ftype
     structured = isinstance(t, (tuple,)) or t is Dims or \
-        isinstance(t, str) or f.default.startswith("(")
+        (isinstance(t, str) and t != "filename") or f.default.startswith("(")
     return parse_lexp(f.default) if structured else parse_lexp_leaf_str(f.default)
 
 
@@ -291,5 +324,11 @@ def help_str(base_key: str, tid: Optional[str] = None) -> str:
 class Mode:
     """Base for all CLI subcommands (ref has_main_t, src/has_main.H:13)."""
 
+    boda_output_dir = Field(str, default=".", help="directory for output files")
+
     def main(self) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def out_path(self, fn: str) -> str:
+        os.makedirs(self.boda_output_dir, exist_ok=True)
+        return os.path.join(self.boda_output_dir, fn)

@@ -8,7 +8,15 @@ eagerly by PyTorch instead of as one jit program. Under
 (``ops/kernels``: the GEMM for 1x1 convs and fc, the direct conv for the
 rest); under ``lib`` they run cuDNN/cuBLAS through ``F.conv2d`` and
 ``torch.matmul``, the analog of boda_tpu's XLA library path. Pools, softmax
-and the unfused BN/Scale are plain PyTorch either way.
+and the unfused BN/Scale are plain PyTorch either way. The engine's
+``precision`` is applied to the library ops around every forward.
+
+Graphs with backward ops (``graph/autodiff.add_bck_ops``) run here too: a
+``Bck`` op is the autograd of its forward op's library lowering, except
+that every eligible conv (stride 1, groups 1, no dilation, unfused) under
+``gen`` runs the hand backward kernels (``ops/kernels/bconv``): dgrad on the
+conv kernel, wgrad on K5's port. Weight gradients come out in the logical
+layout, through the inverse of the weight's upload prep.
 
 Activations are physically NHWC; ``run_fwd`` takes and returns logical NCHW
 host arrays in each node's logical dtype, as boda_tpu does.
@@ -16,6 +24,7 @@ host arrays in each node's logical dtype, as boda_tpu does.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -23,10 +32,12 @@ import numpy as np
 import torch
 
 from ..config import ConfigError, Field, register, register_base
+from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
 from ..ops.tune import OpTune
 from ..utils.dims import NDA, torch_dtype
-from .lowering import PRECISIONS, LowerCtx
-from .lowering_nhwc import lower_op_nhwc
+from .autodiff import _wants_grad
+from .lowering import PRECISIONS, LowerCtx, lib_precision
+from .lowering_nhwc import HWIO, Prep, lower_op_nhwc
 from .pipe import ConvPipe, PipeError
 
 
@@ -82,9 +93,20 @@ class FwdEngine:
         return {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(d)
                 for k, v in ins.items()}
 
+    def _run_ctx(self) -> contextlib.ExitStack:
+        """The context of one forward: the engine's precision on the library
+        ops, under inference_mode, or under no_grad for a graph with
+        backward ops (its Bck ops turn autograd on for their recompute, and
+        inference tensors cannot enter autograd)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad() if self.pipe.bck_added
+                            else torch.inference_mode())
+        stack.enter_context(lib_precision(self.precision))
+        return stack
+
     def run_fwd(self, ins: dict[str, NDA], out_names: list[str]) -> dict[str, NDA]:
         self.compile_for(out_names)
-        with torch.inference_mode():
+        with self._run_ctx():
             outs = self._fn(self._weights_dev, self._put_inputs(ins))
             res = {}
             for n, t in outs.items():
@@ -103,7 +125,7 @@ class FwdEngine:
             raise RuntimeError("time_fwd times the card; this engine runs on "
                                f"{d} (a CPU time is not a device metric)")
         self.compile_for(out_names)
-        with torch.inference_mode():
+        with self._run_ctx():
             dev_ins = self._put_inputs(ins)
             for _ in range(max(1, warmup)):
                 self._fn(self._weights_dev, dev_ins)
@@ -165,11 +187,13 @@ class CudaFwd(FwdEngine):
     def init(self, pipe: ConvPipe) -> None:
         self.pipe = pipe
         self._fn, self._fn_key = None, None
-        self._weight_preps: dict[str, tuple] = {}
+        self._weight_preps: dict[str, Prep] = {}
         self._lowered: dict[str, Callable] = {}
         self._lowered_fused: dict[str, Callable] = {}
         ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn)
         self._chains = self._find_chains(pipe)
+        # bck graphs keep the per-forward fold: BN/Scale grads flow through it
+        self._prefold_on = bool(self.prefold) and not pipe.bck_added
         self._prefold_plan = {}   # folded-w key -> (w_key, b_key, param_keys, fold)
         self._prefold_keys = {}   # conv op name -> (folded w key, folded b key)
         for op_name in pipe.topo_op_order():
@@ -265,7 +289,7 @@ class CudaFwd(FwdEngine):
         eps = float(bn.p("eps", 1e-5)) if bn is not None else 0.0
         n_bn = (len(bn.bots) - 1) if bn is not None else 0
         n_sc = (len(sc.bots) - 1) if sc is not None else 0
-        oc_axis = self._weight_preps[conv_op.bots[1]][1]
+        oc_axis = self._weight_preps[conv_op.bots[1]].oc_axis
 
         def fold(w, b, extras):
             i = 0
@@ -299,7 +323,7 @@ class CudaFwd(FwdEngine):
     def _register_prefold(self, conv_op, fold, param_keys) -> bool:
         """Queue this conv's fold for the one-shot upload-time computation.
         Returns True when the fold is prefolded (no per-forward fold)."""
-        if not self.prefold or fold is None:
+        if not self._prefold_on or fold is None:
             return False
         w_key, b_key = conv_op.bots[1], conv_op.bots[2]
         wf, bf = w_key + "__folded", b_key + "__folded"
@@ -337,6 +361,8 @@ class CudaFwd(FwdEngine):
         return fn
 
     def _lower(self, pipe: ConvPipe, op, ctx: LowerCtx, fused: bool) -> Callable:
+        if op.type == "Bck":
+            return self._lower_bck(pipe, op, ctx)
         if fused:
             op = dataclasses.replace(op, params=dict(op.params, fused_relu=True))
         r = lower_op_nhwc(pipe, op, ctx, self.op_tune(op.name), self._info_log)
@@ -345,6 +371,107 @@ class CudaFwd(FwdEngine):
                             f"(op {op.name!r})")
         fn, preps = r
         self._weight_preps.update(preps)
+        return fn
+
+    def _lower_bck(self, pipe: ConvPipe, op, ctx: LowerCtx) -> Callable:
+        """A Bck op (boda_tpu: executor.py:1287-1340): the hand backward
+        kernels for an eligible conv, else the autograd of the forward op's
+        library lowering, recomputed on detached inputs, with boda_tpu's
+        cotangents: ones for the loss top, the incoming grad for the tops in
+        ``top_has_grad``, zeros (no contribution) for the rest. The recompute
+        takes the weights as uploaded for the forward and registers no prep:
+        where the library lowering wants another layout (the lib conv's
+        OHWI beside the hand conv's HWIO), it converts them inside the
+        recompute, so their gradient comes out in the uploaded layout."""
+        fwd = pipe.ops[op.p("fwd_op")]
+        bck_fn = self._lower_bck_conv(pipe, op, fwd)
+        if bck_fn is not None:
+            return bck_fn
+        lib_tune = dataclasses.replace(self.op_tune(fwd.name), use_xla=True)
+        r = lower_op_nhwc(pipe, fwd, ctx, lib_tune, self._info_log)
+        if r is None:
+            raise PipeError(f"no NHWC lowering for {fwd.type!r}")
+        fwd_fn, lib_preps = r
+        adapt = {}
+        for pos, b in enumerate(fwd.bots):
+            want, have = lib_preps.get(b), self._weight_preps.get(b)
+            if (want and want.layout) != (have and have.layout):
+                def conv_layout(w, want=want, have=have):
+                    w = have.inv(w) if have else w
+                    return want.prep(w) if want else w
+                adapt[pos] = conv_layout
+        n_fwd_bots = len(fwd.bots)
+        grad_pos = [i for i, b in enumerate(fwd.bots) if _wants_grad(pipe, op, b)]
+        top_has_grad = set(op.p("top_has_grad") or [])
+        loss_node = op.p("loss_node")
+        is_loss = fwd.type == "SoftmaxWithLoss"
+
+        def fn(*args):
+            full = list(args[:n_fwd_bots])
+            gs = iter(args[n_fwd_bots:])
+            with torch.enable_grad():
+                prim = [full[p].detach().requires_grad_() for p in grad_pos]
+                for p, t in zip(grad_pos, prim):
+                    full[p] = t
+                for p, f in adapt.items():
+                    full[p] = f(full[p])
+                ys, cts = [], []
+                for t, out in zip(fwd.tops, fwd_fn(*full)):
+                    if is_loss and t == loss_node:
+                        ct = torch.ones_like(out)
+                    elif t in top_has_grad:
+                        ct = next(gs).to(out.dtype)
+                    else:
+                        continue
+                    if out.requires_grad:
+                        ys.append(out)
+                        cts.append(ct)
+                grads = torch.autograd.grad(ys, prim, cts, allow_unused=True) \
+                    if ys else [None] * len(prim)
+            return tuple((torch.zeros_like(p) if g is None else g).to(p.dtype)
+                         for g, p in zip(grads, prim))
+        return fn
+
+    def _lower_bck_conv(self, pipe: ConvPipe, op, fwd) -> Optional[Callable]:
+        """The hand backward kernels for a Bck conv (boda_tpu:
+        ``_lower_bck_conv_pallas``, executor.py:1349-1398), same eligibility:
+        unfused, gen (not use_xla), stride 1, dilation 1, groups 1, and a
+        grad on the conv's output only. boda_tpu also needs its Mosaic block
+        plan for the dgrad (``bck_in_blocks``); the Hopper conv has no such
+        limit, so every eligible conv takes this path. dgrad = the conv
+        kernel on the flipped, io-transposed HWIO weights; wgrad = K5's
+        kernel over every tap; bias grad = a plain sum. Returns None to take
+        the autograd path."""
+        if fwd.type != "Convolution" or fwd.p("fused_relu", False):
+            return None
+        tune = self.op_tune(fwd.name)
+        if tune.use_xla or fwd.stride() != (1, 1) or \
+                fwd.dilation() != (1, 1) or int(fwd.p("groups", 1)) != 1:
+            return None
+        if op.p("top_has_grad") != [fwd.tops[0]]:
+            return None
+        if self._weight_preps[fwd.bots[1]].layout != HWIO.layout:
+            raise PipeError(f"{op.name}: bck-conv needs the HWIO weights of "
+                            f"the hand conv")
+        grad_pos = [i for i, b in enumerate(fwd.bots) if _wants_grad(pipe, op, b)]
+        pad = fwd.pad()
+        n_fwd_bots = len(fwd.bots)
+        self._info_log.append(f"{op.name}: bck-conv k={fwd.kern_sz()} p={pad} "
+                              f"grads={[fwd.bots[i] for i in grad_pos]}")
+
+        def fn(*args):
+            x, w = args[0], args[1]  # NHWC activation, HWIO weights
+            dy = args[n_fwd_bots].to(x.dtype).contiguous()
+            outs = []
+            for pos in grad_pos:
+                if pos == 0:
+                    outs.append(conv2d_bck_in(dy, w, pad=pad).to(x.dtype))
+                elif pos == 1:
+                    outs.append(conv2d_bck_filts(x.contiguous(), dy, pad=pad)
+                                .to(w.dtype))
+                else:
+                    outs.append(dy.float().sum(dim=(0, 1, 2)).to(args[pos].dtype))
+            return tuple(outs)
         return fn
 
     def _upload_weights(self) -> None:
@@ -357,7 +484,7 @@ class CudaFwd(FwdEngine):
                 t = t.to(cdt)
             prep = self._weight_preps.get(k)
             if prep is not None:
-                t = prep[0](t)
+                t = prep.prep(t)
             self._weights_dev[k] = t
         wd = self._weights_dev
         for wf, (wk, bk, fkeys, fold) in self._prefold_plan.items():
@@ -401,6 +528,10 @@ class CudaFwd(FwdEngine):
         lowered = {o: (self._lowered_fused[o] if o in fused_now else self._lowered[o])
                    for o in topo}
         is4d = {n: self._is_4d(n) for n in pipe.nodes}
+        # weight gradients come out in the prepped layout: invert
+        grad_inv = {n: prep.inv for n in out_names if not is4d.get(n)
+                    for w, prep in self._weight_preps.items()
+                    if n.startswith(w + "__grad")}
         cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
 
         def net_fn(weights: dict, inputs: dict):
@@ -459,6 +590,8 @@ class CudaFwd(FwdEngine):
                 v = vals[n]
                 if is4d.get(n) and v.dim() == 4:
                     v = v.permute(0, 3, 1, 2)
+                elif n in grad_inv:
+                    v = grad_inv[n](v)
                 if cdt is not None:
                     v = v.to(torch_dtype(pipe.must_dims(n).tn))
                 res[n] = v.contiguous()

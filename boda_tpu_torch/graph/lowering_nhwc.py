@@ -6,16 +6,17 @@ Dims stay logically NCHW; library ops (pooling, the lib conv) see them
 through ``permute(0, 3, 1, 2)``, a channels_last view of the same memory.
 
 Each rule returns (fn, weight_preps): fn(*bot_tensors) -> tuple(top_tensors),
-and weight_preps maps weight-node name -> (prep, oc_axis): a one-time
-transform applied at weight upload, and the axis of out_chan in the prepped
-weight (where the BN/Scale fold scales it). The port has no backward pass,
-so it keeps the axis where boda_tpu keeps a gradient inverse.
+and weight_preps maps weight-node name -> :class:`Prep`: the one-time
+transform applied at weight upload, its inverse (which turns a weight
+*gradient* back to the logical layout, as boda_tpu's ``(prep, inv)`` does),
+the axis of out_chan in the prepped weight (where the BN/Scale fold scales
+it), and the layout's name.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -23,10 +24,29 @@ import torch.nn.functional as F
 
 from ..ops.kernels.conv import conv2d_halo
 from ..ops.kernels.sgemm import matmul
-from .lowering import LowerCtx, _softmax
+from .lowering import LowerCtx, _softmax, jax_maximum
 from .pipe import ConvOp, ConvPipe, PipeError
 
 _NHWC_RULES: dict[str, Callable] = {}
+
+
+class Prep(NamedTuple):
+    """A weight's upload-time layout: ``prep`` (logical -> device layout),
+    ``inv`` (device layout -> logical, for its gradient), ``oc_axis``
+    (out_chan's axis after prep) and ``layout`` (two lowerings that name the
+    same layout take the same uploaded tensor)."""
+    prep: Callable
+    inv: Callable
+    oc_axis: int
+    layout: str
+
+
+# conv filters, logical OIHW: HWIO for the hand kernels, OHWI (a
+# channels_last OIHW view) for cuDNN
+HWIO = Prep(lambda w: w.permute(2, 3, 1, 0).contiguous(),
+            lambda g: g.permute(3, 2, 0, 1).contiguous(), 3, "HWIO")
+OHWI = Prep(lambda w: w.permute(0, 2, 3, 1).contiguous(),
+            lambda g: g.permute(0, 3, 1, 2).contiguous(), 0, "OHWI")
 
 
 def nhwc_rule(op_type: str):
@@ -60,7 +80,7 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
     relu = bool(op.p("fused_relu", False))
     fd = pipe.must_dims(op.bots[1])
     od = pipe.must_dims(op.tops[0])
-    hwio = {op.bots[1]: (lambda w: w.permute(2, 3, 1, 0).contiguous(), 3)}
+    hwio = {op.bots[1]: HWIO}
     # boda_tpu's feasibility gates for its Pallas convs (c % 128, no bf16
     # stride, VMEM budgets: ops/kernels/conv.py:63,230,235) are Mosaic's, not
     # Hopper's, so they are dropped: the hand kernels take every groups-1,
@@ -96,7 +116,7 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
     # library conv (cuDNN on the card): the analog of boda_tpu's XLA conv.
     # Weights are prepped OHWI, so the OIHW view cuDNN takes is channels_last.
     info_log.append(f"{op.name}: nhwc-lib_conv")
-    ohwi = {op.bots[1]: (lambda w: w.permute(0, 2, 3, 1).contiguous(), 0)}
+    ohwi = {op.bots[1]: OHWI}
 
     def fn(x, w, b, residual=None):
         out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b,
@@ -126,6 +146,13 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
             w = w.reshape(w.shape[0], c, y, x).permute(0, 2, 3, 1) \
                 .reshape(w.shape[0], -1)
         return w.t().contiguous()
+
+    def inv(g):
+        g = g.t()
+        if nchw_flat:
+            g = g.reshape(g.shape[0], y, x, c).permute(0, 3, 1, 2) \
+                .reshape(g.shape[0], -1)
+        return g.contiguous()
     M, K, N = ind["img"], fd["in_feats"], fd["out_chan"]
     use_lib = tune.use_xla
     info_log.append(f"{op.name}: nhwc-ip {'lib' if use_lib else 'gemm'} "
@@ -137,7 +164,7 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
             out = torch.addmm(b, xf, w)
             return (torch.relu(out) if relu else out,)
         return (matmul(xf.contiguous(), w, b, relu=relu),)
-    return fn, {op.bots[1]: (prep, 1)}
+    return fn, {op.bots[1]: Prep(prep, inv, 1, "IP")}
 
 
 # -- spatial ops --------------------------------------------------------------------
@@ -215,7 +242,7 @@ def _nhwc_scale(pipe, op, ctx, tune, info_log):
 
 @nhwc_rule("ReLU")
 def _nhwc_relu(pipe, op, ctx, tune, info_log):
-    return _no_preps(lambda x: (torch.clamp_min(x, 0.0),))
+    return _no_preps(lambda x: (jax_maximum(x, 0.0),))
 
 
 @nhwc_rule("Dropout")
@@ -241,7 +268,7 @@ def _nhwc_eltwise(pipe, op, ctx, tune, info_log):
         elif kind == "prod":
             out = functools.reduce(torch.mul, xs)
         elif kind == "max":
-            out = functools.reduce(torch.maximum, xs)
+            out = functools.reduce(jax_maximum, xs)
         else:
             raise PipeError(f"eltwise: unknown op {kind!r}")
         return (out,)
@@ -257,6 +284,33 @@ def _nhwc_softmax(pipe, op, ctx, tune, info_log):
     else:  # non-canonical nodes keep logical layout
         axis = laxis
     return _no_preps(lambda x: (_softmax(x, axis=axis).to(x.dtype),))
+
+
+@nhwc_rule("SoftmaxWithLoss")
+def _nhwc_sml(pipe, op, ctx, tune, info_log):
+    ind = pipe.must_dims(op.bots[0])
+    axis = 3 if "y" in ind.names else 1
+
+    def fn(x, labels):
+        prob = _softmax(x, axis=axis)
+        n_cls = x.shape[axis]
+        lab = torch.clamp(labels.reshape(labels.shape[0]).to(torch.int32),
+                          0, n_cls - 1).long()
+        rows = torch.arange(prob.shape[0], device=prob.device)
+        p = prob[rows, 0, 0, lab] if prob.dim() == 4 else prob[rows, lab]
+        loss = -torch.log(jax_maximum(p, 1e-38))
+        return (loss.to(x.dtype), prob.to(x.dtype))
+    return _no_preps(fn)
+
+
+@nhwc_rule("GradAccum")
+def _nhwc_gradaccum(pipe, op, ctx, tune, info_log):
+    def fn(*parts):
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return (out,)
+    return _no_preps(fn)
 
 
 @nhwc_rule("Data")

@@ -117,6 +117,7 @@ class ConvPipe:
         self.nodes: dict[str, ConvNode] = {}
         self.op_order: list[str] = []        # insertion order (stable topo tie-break)
         self.weights: dict[str, NDA] = {}    # weight-node name -> host data
+        self.bck_added = False               # add_bck_ops ran (graph/autodiff.py)
 
     # -- construction --------------------------------------------------------
     def get_or_make_node(self, name: str) -> ConvNode:
@@ -145,6 +146,12 @@ class ConvPipe:
         return op
 
     # -- queries ----------------------------------------------------------------
+    def bots(self) -> list[str]:
+        """Graph inputs: nodes with no producer (excluding weight nodes)."""
+        return [n.name for n in self.nodes.values()
+                if not n.top_for and n.name not in self.weights
+                and not n.name.endswith("__filts") and not n.name.endswith("__biases")]
+
     def topo_op_order(self) -> list[str]:
         """Topological op order (ref topo_visit_setup, conv_util.cc:531)."""
         done_nodes = {n for n in self.nodes
@@ -325,6 +332,13 @@ def _calc_eltwise(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
         if d != ds[0]:
             raise PipeError(f"op {op.name!r}: eltwise input dims mismatch")
     return [ds[0]]
+
+
+@_op_info("SoftmaxWithLoss", min_bots=2, max_bots=2, num_tops=2)
+def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    ind = pipe.must_dims(op.bots[0])
+    # tops: per-img loss + prob (ref conv_util.cc SoftmaxWithLoss dims)
+    return [Dims.of(img=ind["img"], tn=ind.tn), ind]
 
 
 # same-dims unary ops (Scale takes optional scales/biases weight bots;

@@ -3,7 +3,8 @@
 Counterpart of ``boda_tpu/models/zoo.py``: graph builders emitting the
 ConvPipe IR with deterministic pseudo-random weights, seeded per layer from
 ``stable_hash`` of the weight name exactly as ``boda_tpu`` seeds them, so the
-two packages build bit-identical weights. The other zoo builders (alexnet,
+two packages build bit-identical weights. Besides ResNet, the gradient
+regression net ``bconv_strides``. The other zoo builders (alexnet,
 NiN, googlenet, VGG, squeezenet, firenet, ssd300, ...) come with the op rules
 they need (LRN, Concat, the SSD head).
 """
@@ -200,7 +201,27 @@ def build_mini_resnet(img: int = 4, num_cls: int = 16, in_sz: int = 32,
     return b.done(in_dims), in_dims
 
 
+def build_bconv_strides(img: int = 2, num_cls: int = 8, in_sz: int = 24):
+    """Strided-conv backward regression net — the bconv_strides analog of
+    the reference's gradient configs (ref src/test_compute.cc:219-232,
+    test/rtc/bconv.cucl test strided BckConv variants): every conv is
+    strided (3x3 s2, 1x1 s2, 5x5 s3) so add_bck_ops exercises the strided
+    dgrad/wgrad paths (none is eligible for the hand backward kernels, so
+    every conv's backward is the autograd of its library lowering)."""
+    b = NetBuilder("bconv_strides")
+    t = b.input("data")
+    t = b.conv("conv1", t, 8, 3, stride=2, pad=1, in_chans=3, relu=True)
+    t = b.conv("conv2", t, 12, 1, stride=2, in_chans=8, relu=True)
+    t = b.conv("conv3", t, 16, 5, stride=3, pad=2, in_chans=12, relu=True)
+    t = b.pool("pool3", t, kern=2, stride=2)
+    t = b.fc("fc1", t, num_cls, in_feats=16)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
 MODELS = {
+    "bconv_strides": build_bconv_strides,
     "mini_resnet": build_mini_resnet,
     "resnet50": lambda **kw: build_resnet(50, **kw),
     "resnet101": lambda **kw: build_resnet(101, **kw),

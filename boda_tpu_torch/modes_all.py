@@ -8,6 +8,7 @@ import importlib
 
 _MODE_MODULES = [
     "boda_tpu_torch.modes.cnet",
+    "boda_tpu_torch.modes.test_compute",
 ]
 
 for _m in _MODE_MODULES:

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _SIGS = {
     "boda_gemm": [_P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "boda_conv2d": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    "boda_atb": [_P, _P, _P, _P] + [_I] * 15 + [_P],
 }
 
 

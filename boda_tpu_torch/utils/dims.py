@@ -80,6 +80,20 @@ class Dims:
     def of(tn: str = "float32", **kw: int) -> "Dims":
         return Dims.make(kw.keys(), kw.values(), tn)
 
+    @staticmethod
+    def parse(s: str) -> "Dims":
+        """Parse the lexp surface form ``(img=8,chan=64,y=56,x=56,__tn__=float32)``."""
+        from .lexp import parse_lexp
+        l = parse_lexp(s)
+        names, sizes, tn = [], [], "float32"
+        for k, v in l.kids:
+            if k == "__tn__":
+                tn = v.leaf_val
+            else:
+                names.append(k)
+                sizes.append(int(v.leaf_val))
+        return Dims.make(names, sizes, tn)
+
     # -- access ---------------------------------------------------------------
     def __len__(self) -> int:
         return len(self.names)
@@ -111,6 +125,15 @@ class Dims:
     def bytes_sz(self) -> int:
         """Bytes of the device tensor (bf16 counts 2 bytes)."""
         return self.num_elems() * torch_dtype(self.tn).itemsize
+
+    def matches(self, o: "Dims", check_names: bool = True, check_tn: bool = True) -> bool:
+        if self.sizes != o.sizes:
+            return False
+        if check_names and self.names != o.names:
+            return False
+        if check_tn and self.tn != o.tn:
+            return False
+        return True
 
     def __str__(self) -> str:
         body = ",".join(f"{n}={s}" for n, s in zip(self.names, self.sizes))

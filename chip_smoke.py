@@ -3,11 +3,21 @@
 
 Builds the hand-written CUDA kernels from boda_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes of the ResNet-50 batch-32
-forward, then runs that forward (bf16, 224x224, kernel_policy=gen) through
-the kernels and checks it against the library path (kernel_policy=lib,
-cuDNN/cuBLAS) and an f32 reference. Prints per-phase lines, one JSON line
-describing each kernel, the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
+forward and backward (the GEMM and the direct conv at the forward shapes;
+the conv again at the 46 dgrad shapes; the leading-axis GEMM at the 46
+wgrad shapes), then drives two paths through the kernels:
+
+* the forward (bf16, b32, 224x224, kernel_policy=gen), checked against the
+  library path (kernel_policy=lib, cuDNN/cuBLAS) and an f32 reference;
+* the graph-level backward (add_bck_ops): f32 at b8, every node gen vs lib
+  under test_compute's own rule; bf16 at b32, the loss, the input gradient
+  and every weight gradient gen vs lib, timed per policy; and the user's
+  ``test_compute --add-bck-ops=1`` command line, in process.
+
+Each path is run with the kernels' launch counts set to 0 just before it
+and read just after. Prints per-phase lines, one JSON line describing each
+kernel, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
 """
@@ -24,6 +34,7 @@ import numpy as np
 import torch
 
 BATCH = 32
+GRAD_F32_BATCH = 8
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # bf16 forward, gen vs lib: both round every activation to bf16 but at
 # slightly different points (cuDNN adds the residual after its own bf16
@@ -32,6 +43,12 @@ SLICE_TOL = {"fc1000": 5e-2, "prob": 5e-2}
 # f32, small input, gen vs lib per conv node: cuDNN may pick Winograd/FFT
 # algorithms whose f32 error is ~1e-5 of the output scale
 F32_NODE_TOL = 1e-4
+# f32 gradient graph, every node gen vs lib: test_compute's rule at the
+# gradient tolerance of testdata/test_all.xml:9-16, comp_vars(mrd_toler,
+# atol=mrd_toler * max|lib|)
+GRAD_F32_TOL = 1e-3
+# bf16 gradient graph, max|err|/max|lib| per gradient, gen vs lib
+GRAD_BF16_TOL = 5e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -62,6 +79,52 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def rel_err(out, ref) -> tuple[float, float]:
     d = float((out.float() - ref.float()).abs().max())
     return d, d / max(float(ref.float().abs().max()), 1e-30)
+
+
+def bck_shapes(pipe, eng):
+    """The eligible convs of a backward graph, from the engine's bck-conv
+    dispatch: {(n, h, c, oc, k, p): count}, x (n,h,h,c), stride 1."""
+    sig = {}
+    for ln in eng.get_info_log().splitlines():
+        name, _, rest = ln.partition(": ")
+        if not rest.startswith("bck-conv"):
+            continue
+        op = pipe.ops[pipe.ops[name].p("fwd_op")]
+        xd, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+        s = (xd["img"], xd["y"], fd["in_chan"], fd["out_chan"], op.kern_sz()[0],
+             op.pad()[0])
+        sig[s] = sig.get(s, 0) + 1
+    return sig
+
+
+def check_nodes(pipe):
+    """test_compute's node set: every computed node that is not a weight."""
+    return [n for n, node in pipe.nodes.items()
+            if node.dims is not None and n not in pipe.weights and node.top_for]
+
+
+def node_agreement(ref, got, nodes, toler):
+    """test_compute's rule on each node: comp_vars(mrd_toler=toler,
+    atol=toler * max|ref|). Returns (failures, (worst max|err|/max|ref|,
+    node))."""
+    from boda_tpu_torch.utils.digest import comp_vars
+    fails, worst = [], (0.0, "")
+    for n in nodes:
+        a, b = ref[n].data, got[n].data
+        check(a.shape == b.shape, f"{n}: shapes {a.shape} {b.shape}")
+        check(bool(np.isfinite(b).all()), f"{n}: non-finite")
+        scale = max(1e-30, float(np.abs(a).max()))
+        r = comp_vars(a, b, mrd_toler=toler, atol=toler * scale)
+        if r.mad / scale > worst[0]:
+            worst = (r.mad / scale, n)
+        if not r.ok():
+            fails.append(f"{n}: {r} (max|ref| {scale:.3g})")
+    return fails, worst
+
+
+def weight_grads(pipe):
+    return [n for n in pipe.nodes if pipe.nodes[n].dims is not None and
+            any(n.startswith(w + "__grad") for w in pipe.weights)]
 
 
 def layer_shapes(pipe, eng):
@@ -105,14 +168,21 @@ def main() -> int:
 
     from boda_tpu_torch import cli
     from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.autodiff import add_bck_ops
     from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
     from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.bconv import (conv2d_bck_filts,
+                                                  conv2d_bck_filts_plain,
+                                                  conv2d_bck_in, conv2d_bck_in_plain,
+                                                  matmul_atb, matmul_atb_plain)
     from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    # the plain versions in full f32 (cuDNN convs default to TF32). Only the
+    # fp32_precision settings, as the engine uses: recent torch refuses a
+    # process that mixes them with the legacy allow_tf32 flags.
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
     dev = torch.device("cuda")
     card = smi()
     kind = torch.cuda.get_device_name(0)
@@ -165,10 +235,55 @@ def main() -> int:
         return out, ref, (lambda: conv2d(x, w, bias, **kw),
                           lambda: conv2d_plain(x, w, bias, **kw), lib)
 
+    def wgrad_case(n, h, c, oc, k, p, dt):
+        oh = h + 2 * p - k + 1
+        x, dy = rnd((n, h, h, c), dt), rnd((n, oh, oh, oc), dt)
+        pad = (p, p)
+        out, ref = conv2d_bck_filts(x, dy, pad=pad), conv2d_bck_filts_plain(x, dy, pad=pad)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
+
+        def lib():
+            return torch.nn.grad.conv2d_weight(xn, (oc, c, k, k), dyn, padding=p)
+        return out, ref, (lambda: conv2d_bck_filts(x, dy, pad=pad),
+                          lambda: conv2d_bck_filts_plain(x, dy, pad=pad), lib)
+
+    def atb_case(K, M, N, dt):
+        a, b = rnd((K, M), dt), rnd((K, N), dt)
+        return matmul_atb(a, b), matmul_atb_plain(a, b), (
+            lambda: matmul_atb(a, b), lambda: matmul_atb_plain(a, b), lambda: a.t() @ b)
+
+    def dgrad_case(n, h, c, oc, k, p, dt):
+        oh = h + 2 * p - k + 1
+        dy, w = rnd((n, oh, oh, oc), dt), rnd((k, k, c, oc), dt, (k * k * oc) ** -0.5)
+        pad = (p, p)
+        out, ref = conv2d_bck_in(dy, w, pad=pad), conv2d_bck_in_plain(dy, w, pad=pad)
+        w_oihw, dyn = w.permute(3, 2, 0, 1).contiguous(), dy.permute(0, 3, 1, 2)
+
+        def lib():
+            return torch.nn.grad.conv2d_input((n, c, h, h), w_oihw, dyn, padding=p)
+        return out, ref, (lambda: conv2d_bck_in(dy, w, pad=pad),
+                          lambda: conv2d_bck_in_plain(dy, w, pad=pad), lib)
+
     pipe, in_dims = load_net("resnet50", BATCH)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm_shapes, conv_shapes = layer_shapes(pipe, eng)
+    # the backward graph at b32 bf16: the eligible convs' wgrad/dgrad shapes
+    bpipe, bdims = load_net("resnet50", BATCH)
+    add_bck_ops(bpipe)
+    bdims["label"] = bpipe.nodes["label"].dims
+    beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    beng.init(bpipe)
+    wg_shapes = bck_shapes(bpipe, beng)
+    del beng
+    n_bck_conv = sum(wg_shapes.values())
+    dense_shapes = {}  # boda_tpu's form: one (K,C)^T (K,OC) product per tap
+    for (n, h, c, oc, k, p), cnt in wg_shapes.items():
+        key = (n * h * h, c, oc)
+        dense_shapes[key] = dense_shapes.get(key, 0) + cnt * k * k
+    print(f"[bck] resnet50 b{BATCH}: {n_bck_conv} convs take bck-conv, "
+          f"{len(wg_shapes)} distinct shapes")
+    check(n_bck_conv == 46, f"{n_bck_conv} bck-conv ops, expected 46")
     summary = {}
     for kname, case, shapes, extra in (
             ("sgemm", gemm_case, gemm_shapes,
@@ -176,7 +291,13 @@ def main() -> int:
             ("conv", conv_case, conv_shapes,
              [((2, 13, 3, 20, 7, 2, 3, False, True), 1),
               ((2, 9, 24, 40, 3, 1, 1, True, True), 1),
-              ((1, 11, 16, 136, 3, 2, 1, False, False), 1)])):
+              ((1, 11, 16, 136, 3, 2, 1, False, False), 1)]),
+            ("atb", wgrad_case, wg_shapes,
+             [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)]),
+            ("atb_dense", atb_case, dense_shapes,
+             [((1000, 77, 130), 1), ((4099, 33, 65), 1), ((130, 200, 9), 1)]),
+            ("dgrad", dgrad_case, wg_shapes,
+             [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)])):
         tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
         print(f"[{kname}] shape -> max|err|/max|ref|, kernel ms, plain f32 ms, "
               f"bf16 library ms, count per forward ({card})")
@@ -198,7 +319,8 @@ def main() -> int:
                 else:
                     print(f"[{kname}] f32 {sig}: {re:.2e} (tol {TOL[dt]})")
                 del out, ref
-        print(f"[{kname}] per forward: kernel {tot['ms']:.3f} ms, plain f32 "
+        per = "forward" if kname in ("sgemm", "conv") else "backward"
+        print(f"[{kname}] per {per}: kernel {tot['ms']:.3f} ms, plain f32 "
               f"{tot['plain_ms']:.3f} ms, bf16 library {tot['lib_ms']:.3f} ms")
         summary[kname] = tot
 
@@ -255,6 +377,138 @@ def main() -> int:
           f"worst {worst:.3e} (tol {F32_NODE_TOL})")
     check(worst <= F32_NODE_TOL, "f32 per-node gen vs lib")
 
+    # -- phase 4: the gradient graph, f32, b8: every node gen vs lib --------------
+    # The random-weight net's softmax is saturated (prob one-hot), and a
+    # saturated SoftmaxWithLoss passes no gradient at all (its p is under
+    # the 1e-38 floor), so every gradient would be exactly 0 in both
+    # engines. fc1000's weights are scaled so that the logits lie in [-1, 1];
+    # the gradient then reaches every layer, and relative errors are as at
+    # any scale.
+    fc_scale = 1.0 / float(np.abs(outs["fc1000"].data).max())
+    print(f"[grad] fc1000 weights scaled by {fc_scale:.4g} (max|fc1000| "
+          f"{1 / fc_scale:.4g} in the b{BATCH} bf16 forward)")
+    gpipe, gdims = load_net("resnet50", GRAD_F32_BATCH)
+    for p_ in (gpipe, bpipe):
+        p_.weights["fc1000__filts"].data *= np.float32(fc_scale)
+    add_bck_ops(gpipe)
+    gdims["label"] = gpipe.nodes["label"].dims
+    gins = gen_data_inputs(gdims)
+    gnodes = check_nodes(gpipe)
+    fwd_nodes = [n for n in gnodes if "__grad" not in n]
+    grad_nodes = [n for n in gnodes if "__grad" in n]
+    gengs, gres = {}, {}
+    for pol in ("gen", "lib"):
+        e = gengs[pol] = make("conv_fwd", "cuda", kernel_policy=pol)
+        e.init(gpipe)
+        glog = e.get_info_log()
+        matmul.launches = conv2d.launches = matmul_atb.launches = 0
+        gres[pol] = e.run_fwd(gins, gnodes)
+        counts = (matmul.launches, conv2d.launches, matmul_atb.launches)
+        n_bck = sum(1 for ln in glog.splitlines() if ": bck-conv" in ln)
+        print(f"[grad-f32] resnet50 b{GRAD_F32_BATCH} {pol}: {len(gnodes)} nodes, "
+              f"bck-conv ops {n_bck}, launches sgemm/conv/atb {counts}")
+        if pol == "gen":
+            n_direct = sum(1 for ln in glog.splitlines() if "nhwc-direct_conv" in ln)
+            check(n_bck == 46, f"grad-f32: {n_bck} bck-conv ops, expected 46")
+            check(counts[2] >= n_bck, "grad-f32: atb launches below the bck-conv ops")
+            check(counts[1] >= n_direct + n_bck,
+                  "grad-f32: conv launches below the forward convs + dgrads")
+        else:
+            check(n_bck == 0 and counts == (0, 0, 0), "grad-f32: lib launched a kernel")
+    zero = [n for n in grad_nodes if not np.abs(gres["lib"][n].data).max() > 0]
+    print(f"[grad-f32] {len(grad_nodes)} gradient nodes, {len(zero)} all zero; "
+          f"max|data grad| {np.abs(gres['lib']['data__grad__p0'].data).max():.3e}")
+    check(not zero, f"grad-f32: gradient nodes that are all zero (a dead loss): {zero[:4]}")
+    rule = f"comp_vars(mrd_toler={GRAD_F32_TOL}, atol={GRAD_F32_TOL}*max|lib|)"
+    # (a) each engine its own forward and backward: the forward nodes must
+    # agree. The gradient nodes are reported, not gated: where the two
+    # forwards put a ReLU input on opposite sides of 0 (they differ by
+    # ~1e-6 relative), the ReLU's gradient there differs by a whole
+    # cotangent, and that difference flows on into every earlier layer.
+    fails, worst = node_agreement(gres["lib"], gres["gen"], fwd_nodes, GRAD_F32_TOL)
+    print(f"[grad-f32] free run, forward nodes gen vs lib, {rule}: "
+          f"{len(fwd_nodes) - len(fails)}/{len(fwd_nodes)} agree; worst "
+          f"max|err|/max|lib| {worst[0]:.3e} at {worst[1]}")
+    check(not fails, f"grad-f32: {len(fails)} forward nodes disagree: {fails[:3]}")
+    gfails, gworst = node_agreement(gres["lib"], gres["gen"], grad_nodes, GRAD_F32_TOL)
+    relu_in = [o.bots[0] for o in gpipe.ops.values() if o.type == "ReLU"]
+    flips = sum(int(((gres["lib"][n].data > 0) != (gres["gen"][n].data > 0)).sum())
+                for n in relu_in)
+    n_relu = sum(gres["lib"][n].data.size for n in relu_in)
+    print(f"[grad-f32] free run, gradient nodes: {len(grad_nodes) - len(gfails)}/"
+          f"{len(grad_nodes)} agree, worst max|err|/max|lib| {gworst[0]:.3e} at "
+          f"{gworst[1]}; ReLU inputs on opposite sides of 0 in gen and lib: "
+          f"{flips} of {n_relu}")
+    # (b) the backward alone: both engines run every Bck op from the same
+    # forward values (lib's, fed in as inputs), so a ReLU mask is the same in
+    # both and what differs is the backward kernels. Every gradient node must
+    # agree.
+    forced = dict(gins)
+    forced.update({n: gres["lib"][n] for n in fwd_nodes})
+    fres = {pol: gengs[pol].run_fwd(forced, grad_nodes) for pol in ("gen", "lib")}
+    del gres, gengs
+    fails, worst = node_agreement(fres["lib"], fres["gen"], grad_nodes, GRAD_F32_TOL)
+    print(f"[grad-f32] backward from lib's forward values, gradient nodes gen vs "
+          f"lib, {rule}: {len(grad_nodes) - len(fails)}/{len(grad_nodes)} agree; "
+          f"worst max|err|/max|lib| {worst[0]:.3e} at {worst[1]}")
+    for ln in fails[:20]:
+        print(f"[grad-f32] FAIL {ln}")
+    check(not fails, f"grad-f32: {len(fails)} gradient nodes disagree")
+    del fres
+
+    # -- phase 5: the gradient graph, bf16, b32: loss, input and weight grads -------
+    bins = gen_data_inputs(bdims)
+    bwant = ["prob_loss", "data__grad__p0"] + weight_grads(bpipe)
+    bfwd = [n for n in check_nodes(bpipe) if "__grad" not in n]
+    beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    beng.init(bpipe)
+    blib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
+    blib.init(bpipe)
+    matmul.launches = conv2d.launches = matmul_atb.launches = 0
+    bres = {"gen": beng.run_fwd(bins, bwant)}
+    launches_bck = {"sgemm": matmul.launches, "conv": conv2d.launches,
+                    "atb": matmul_atb.launches}
+    print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} "
+          f"(bck-conv ops {n_bck_conv})")
+    check(launches_bck["atb"] >= n_bck_conv, "grad-bf16: atb launches below the bck-conv ops")
+    check(launches_bck["conv"] >= n_bck_conv, "grad-bf16: conv launches below the dgrads")
+    check(launches_bck["sgemm"] > 0, "grad-bf16: no sgemm launch")
+    lres = blib.run_fwd(bins, bwant + bfwd)
+    bres["lib"] = {n: lres[n] for n in bwant}
+    # the gate: gen's backward from lib's forward values (as in phase 4 (b))
+    forced = dict(bins)
+    forced.update({n: lres[n] for n in bfwd})
+    del lres
+    bres["gen_forced"] = beng.run_fwd(forced, bwant)
+    del forced
+    errs = {}
+    for which in ("gen", "gen_forced"):
+        errs[which] = []
+        for n in bwant:
+            a, b = bres["lib"][n].data, bres[which][n].data
+            check(bool(np.isfinite(b).all()), f"grad-bf16 {which} {n} non-finite")
+            check(np.abs(a).max() > 0, f"grad-bf16 {n} all zero")
+            errs[which].append((rel_err(torch.from_numpy(b), torch.from_numpy(a))[1], n))
+        errs[which].sort(reverse=True)
+        e = errs[which]
+        byname = {n: v for v, n in e}
+        print(f"[grad-bf16] {which} vs lib, {len(bwant)} outputs, max|err|/max|lib|: "
+              f"worst " + ", ".join(f"{n} {v:.3e}" for v, n in e[:4])
+              + f"; median {e[len(e) // 2][0]:.3e}; loss {byname['prob_loss']:.3e}, "
+              f"data grad {byname['data__grad__p0']:.3e}")
+    worst = errs["gen_forced"][0]
+    print(f"[grad-bf16] gate: backward from lib's forward values, worst "
+          f"{worst[0]:.3e} (tol {GRAD_BF16_TOL})")
+    check(worst[0] <= GRAD_BF16_TOL, f"grad-bf16: {worst[1]} {worst[0]:.3g}")
+    del bres
+    grad_rates = {}
+    for pol, e in (("gen", beng), ("lib", blib)):
+        secs = e.time_fwd(bins, bwant, n_iters=10, warmup=5)
+        grad_rates[pol] = BATCH / secs
+        print(f"[grad-bf16] resnet50 b{BATCH} forward+backward {pol}: "
+              f"{secs * 1e3:.3f} ms, {grad_rates[pol]:.1f} img/s ({card})")
+    del beng, blib
+
     # the user's command line, in-process
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -264,6 +518,16 @@ def main() -> int:
     print(f"[run_cnet] rc={rc}: {lines[0] if lines else ''}")
     print(f"[run_cnet] {next((ln for ln in lines if ln.startswith('{')), '')}")
     check(rc == 0, "run_cnet failed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["test_compute", "--model=resnet50", "--img=2", "--n-wins=1",
+                       "--add-bck-ops=1", "--mrd-toler=1e-3",
+                       "--engines=(lib=(mode=cuda,kernel_policy=lib),"
+                       "gen=(mode=cuda,kernel_policy=gen))"])
+    lines = buf.getvalue().splitlines()
+    for ln in [ln for ln in lines if ln.startswith("FAIL")][:10] + lines[-1:]:
+        print(f"[test_compute] rc={rc}: {ln}")
+    check(rc == 0, "test_compute --add-bck-ops=1 failed")
 
     rates = {}
     for pol in ("gen", "lib"):
@@ -273,20 +537,37 @@ def main() -> int:
         print(f"[slice] resnet50 b{BATCH} bf16 {pol}: {secs * 1e3:.3f} ms/fwd, "
               f"{rates[pol]:.1f} img/s ({card})")
 
+    # per kernel: launches on its main path (the forward for sgemm and conv,
+    # the b32 bf16 gradient graph for atb), and that path's per-pass times
+    launches["atb"] = launches_bck["atb"]
     kernels = []
     for kname, src, rep in (("sgemm", "boda_tpu_torch/csrc/sgemm.cu",
                              "boda_tpu/ops/kernels/sgemm.py:80"),
                             ("conv", "boda_tpu_torch/csrc/conv.cu",
-                             "boda_tpu/ops/kernels/conv.py:575")):
+                             "boda_tpu/ops/kernels/conv.py:575"),
+                            ("atb", "boda_tpu_torch/csrc/atb.cu",
+                             "boda_tpu/ops/kernels/bconv.py:53")):
         t = summary[kname]
         entry = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
                  "launches": launches[kname], "max_abs_err": t["max_abs_err"],
                  "ms": t["ms"], "plain_ms": t["plain_ms"], "lib_ms": t["lib_ms"],
-                 "max_rel_err": t["max_rel_err"]}
+                 "max_rel_err": t["max_rel_err"],
+                 "launches_bck": launches_bck[kname]}
         if kname == "conv":
-            entry["also_replaces"] = "boda_tpu/ops/kernels/conv.py:103"
+            d = summary["dgrad"]
+            entry.update({"also_replaces": "boda_tpu/ops/kernels/conv.py:103",
+                          "dgrad_ms": d["ms"], "dgrad_plain_ms": d["plain_ms"],
+                          "dgrad_lib_ms": d["lib_ms"],
+                          "dgrad_max_abs_err": d["max_abs_err"],
+                          "dgrad_max_rel_err": d["max_rel_err"]})
+        if kname == "atb":
+            d = summary["atb_dense"]
+            entry.update({"dense_ms": d["ms"], "dense_plain_ms": d["plain_ms"],
+                          "dense_lib_ms": d["lib_ms"],
+                          "dense_max_abs_err": d["max_abs_err"]})
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels, "img_per_s": rates, "card": card}))
+    print(json.dumps({"kernels": kernels, "img_per_s": rates,
+                      "grad_img_per_s": grad_rates, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -38,7 +38,10 @@ def test_cli_help_and_unused_key():
 _HYGIENE = """
 import sys
 import boda_tpu_torch.cli, boda_tpu_torch.modes_all
+import boda_tpu_torch.modes.test_compute, boda_tpu_torch.utils.digest
+import boda_tpu_torch.ops.kernels.bconv
 from boda_tpu_torch.config import make
+from boda_tpu_torch.graph.autodiff import add_bck_ops
 from boda_tpu_torch.modes.cnet import gen_data_inputs
 from boda_tpu_torch.models.zoo import build_model
 pipe, in_dims = build_model("mini_resnet", img=1)
@@ -46,6 +49,14 @@ eng = make("conv_fwd", "cuda", device="cpu")
 eng.init(pipe)
 out = eng.run_fwd(gen_data_inputs(in_dims), ["prob"])
 assert out["prob"].data.shape == (1, 16)
+pipe, in_dims = build_model("mini_resnet", img=1, in_sz=8)
+add_bck_ops(pipe)
+in_dims["label"] = pipe.nodes["label"].dims
+eng = make("conv_fwd", "cuda", device="cpu")
+eng.init(pipe)
+out = eng.run_fwd(gen_data_inputs(in_dims), ["data__grad__p0", "prob_loss"])
+assert out["data__grad__p0"].data.shape == (1, 3, 8, 8)
+assert "bck-conv" in eng.get_info_log()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from boda_tpu_torch.ops.kernels.bconv import (conv2d_bck_filts,
+                                              conv2d_bck_filts_plain, conv2d_bck_in,
+                                              conv2d_bck_in_plain, matmul_atb,
+                                              matmul_atb_plain)
 from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
 from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
 
@@ -20,8 +24,11 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the plain versions in full f32 (cuDNN convs default to TF32); only the
+    # fp32_precision settings, which recent torch will not mix with the
+    # legacy allow_tf32 flags
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
     return torch.device("cuda")
 
 
@@ -99,3 +106,55 @@ def test_wrapper_rejects_bad_operands(dev):
         matmul(a, torch.zeros(8, 16, device=dev).t())  # not contiguous
     with pytest.raises(ValueError):
         matmul(a.half(), torch.zeros(16, 8, device=dev).half())
+
+
+# (K, M, N): a 64x64 output over a long K (many splits), ragged edges, and a
+# wide output over a short K
+_ATB_CASES = [(25088, 64, 64), (1000, 77, 130), (1568, 512, 2048)]
+# (N, H, C, OC, k, pad): stride-1 convs, 3x3 and 1x1
+_BCK_CASES = [(2, 14, 64, 64, 3, 1), (2, 9, 24, 40, 3, 1), (2, 7, 256, 128, 1, 0)]
+
+
+def test_matmul_atb_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for K, M, N in _ATB_CASES:
+            rng = np.random.default_rng(K + M + N)
+            a, b = _t(rng, (K, M), dt, dev), _t(rng, (K, N), dt, dev, K ** -0.5)
+            before = matmul_atb.launches
+            out = matmul_atb(a, b)
+            torch.cuda.synchronize()
+            assert matmul_atb.launches == before + 1
+            assert out.dtype == torch.float32 and out.shape == (M, N)
+            assert _err(out, matmul_atb_plain(a, b)) <= _TOL[dt], (dt, K, M, N)
+            assert torch.equal(out, matmul_atb(a, b))  # deterministic
+
+
+def test_conv2d_bck_filts_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, c, oc, k, p in _BCK_CASES:
+            rng = np.random.default_rng(n + h + c + oc + k)
+            x = _t(rng, (n, h, h, c), dt, dev)
+            dy = _t(rng, (n, h + 2 * p - k + 1, h + 2 * p - k + 1, oc), dt, dev)
+            before = matmul_atb.launches
+            out = conv2d_bck_filts(x, dy, pad=(p, p))
+            torch.cuda.synchronize()
+            assert matmul_atb.launches == before + 1
+            ref = conv2d_bck_filts_plain(x, dy, pad=(p, p))
+            assert out.shape == ref.shape == (k, k, c, oc)
+            assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, p)
+
+
+def test_conv2d_bck_in_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, c, oc, k, p in _BCK_CASES:
+            rng = np.random.default_rng(n + h + c + oc + k + 1)
+            oh = h + 2 * p - k + 1
+            dy = _t(rng, (n, oh, oh, oc), dt, dev)
+            w = _t(rng, (k, k, c, oc), dt, dev, (k * k * oc) ** -0.5)
+            before = conv2d.launches
+            out = conv2d_bck_in(dy, w, pad=(p, p))
+            torch.cuda.synchronize()
+            assert conv2d.launches == before + 1
+            ref = conv2d_bck_in_plain(dy, w, pad=(p, p))
+            assert out.shape == ref.shape == (n, h, h, c)
+            assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, p)
