@@ -8,8 +8,10 @@ eagerly by PyTorch instead of as one jit program. Under
 (``ops/kernels``: the GEMM for 1x1 convs and fc, the direct conv for the
 rest); under ``lib`` they run cuDNN/cuBLAS through ``F.conv2d`` and
 ``torch.matmul``, the analog of boda_tpu's XLA library path. Pools, softmax
-and the unfused BN/Scale are plain PyTorch either way. The engine's
-``precision`` is applied to the library ops around every forward.
+and the unfused BN/Scale are plain PyTorch either way, unless the tune asks
+for the pooling kernel (``pool_pallas``). With ``fuse_block=1`` each
+identity bottleneck runs as one hand kernel (``ops/kernels/block.py``). The
+engine's ``precision`` is applied to the library ops around every forward.
 
 Graphs with backward ops (``graph/autodiff.add_bck_ops``) run here too: a
 ``Bck`` op is the autograd of its forward op's library lowering, except
@@ -33,6 +35,7 @@ import torch
 
 from ..config import ConfigError, Field, register, register_base
 from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
+from ..ops.kernels.block import block_fuse_ok, bottleneck
 from ..ops.tune import OpTune
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
@@ -151,6 +154,9 @@ class CudaFwd(FwdEngine):
     # residual fusion: fold Eltwise(sum)+ReLU tails (ResNet blocks) into the
     # producing conv kernel's store epilogue
     fuse_eltwise = Field(bool, default="1", help="fuse residual add into conv stores")
+    # whole-bottleneck fusion: conv1x1+BN/Scale+ReLU -> conv3x3 -> conv1x1 +
+    # skip + ReLU as one kernel (ops/kernels/block.py), h1/h2 never in HBM
+    fuse_block = Field(bool, default="0", help="fuse residual bottleneck blocks")
     # fold BN/Scale into the conv weights once at upload instead of in every
     # forward (inference weights are frozen)
     prefold = Field(bool, default="1", help="fold BN/Scale at upload, not per-forward")
@@ -192,14 +198,30 @@ class CudaFwd(FwdEngine):
         self._lowered_fused: dict[str, Callable] = {}
         ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn)
         self._chains = self._find_chains(pipe)
+        self._blocks: dict[str, dict] = {}
+        # no block fusion in graphs with backward ops (the kernel has no
+        # backward; gradients flow through the unfused lowerings), as in
+        # boda_tpu (executor.py:900-902); the port has no train mode or tp
+        # mesh, boda_tpu's other two conditions there
+        if self.fuse_block and self.fuse_relu and self.fuse_eltwise and \
+                not pipe.bck_added:
+            self._detect_blocks(pipe)
         # bck graphs keep the per-forward fold: BN/Scale grads flow through it
         self._prefold_on = bool(self.prefold) and not pipe.bck_added
         self._prefold_plan = {}   # folded-w key -> (w_key, b_key, param_keys, fold)
         self._prefold_keys = {}   # conv op name -> (folded w key, folded b key)
-        for op_name in pipe.topo_op_order():
+        topo = pipe.topo_op_order()
+        # every op's own lowering first: it registers the weight preps the
+        # fused lowerings fold in (a block's convs B and C come after A)
+        for op_name in topo:
+            self._lowered[op_name] = self._lower(pipe, pipe.ops[op_name], ctx,
+                                                 fused=False)
+        for op_name in topo:
             op = pipe.ops[op_name]
-            self._lowered[op_name] = self._lower(pipe, op, ctx, fused=False)
-            if op_name in self._chains:
+            if op_name in self._blocks:
+                self._lowered_fused[op_name] = self._lower_block(
+                    pipe, op, self._blocks[op_name])
+            elif op_name in self._chains:
                 self._lowered_fused[op_name] = self._lower_chain(
                     pipe, op, self._chains[op_name], ctx)
         self._upload_weights()
@@ -272,6 +294,101 @@ class CudaFwd(FwdEngine):
             if chain:
                 chains[op_name] = chain
         return chains
+
+    def _detect_blocks(self, pipe: ConvPipe) -> None:
+        """Find residual bottlenecks (boda_tpu: ``_detect_blocks``,
+        executor.py:1051-1119): convA(1x1 s1)+BN/Sc+ReLU -> convB(3x3 s1
+        p1)+BN/Sc+ReLU -> convC(1x1 s1)+BN/Sc + Eltwise(skip=x) + ReLU, every
+        link single-consumer. Each block becomes one mega-chain on convA;
+        B's and C's own chains stay, so when a call asks for a value inside
+        the block, the block runs unfused and B and C still fuse alone."""
+        def pure_relu_chain(conv_name):
+            ch = self._chains.get(conv_name)
+            if not ch:
+                return None
+            ops = [pipe.ops[c] for c in ch]
+            if ops[-1].type != "ReLU" or any(o.type == "Eltwise" for o in ops):
+                return None
+            return ch
+
+        def is_conv(op, k, s, p):
+            return (op is not None and op.type == "Convolution"
+                    and len(op.bots) == 3 and op.kern_sz() == (k, k)
+                    and op.stride() == (s, s) and op.pad() == (p, p)
+                    and op.p("groups", 1) == 1 and op.dilation() == (1, 1))
+
+        def sole_consumer(node):
+            cons = pipe.nodes[node].bot_for
+            return pipe.ops.get(cons[0]) if len(cons) == 1 else None
+
+        for a_name in list(self._chains):
+            opA = pipe.ops[a_name]
+            chA = pure_relu_chain(a_name)
+            if chA is None or not is_conv(opA, 1, 1, 0):
+                continue
+            tailA = pipe.ops[chA[-1]].tops[0]
+            opB = sole_consumer(tailA)
+            chB = pure_relu_chain(opB.name) if opB is not None else None
+            if chB is None or not is_conv(opB, 3, 1, 1) or opB.bots[0] != tailA:
+                continue
+            tailB = pipe.ops[chB[-1]].tops[0]
+            opC = sole_consumer(tailB)
+            chC = self._chains.get(opC.name) if opC is not None else None
+            if chC is None or not is_conv(opC, 1, 1, 0) or opC.bots[0] != tailB:
+                continue
+            copsC = [pipe.ops[c] for c in chC]
+            elt = next((o for o in copsC if o.type == "Eltwise"), None)
+            if elt is None or copsC[-1].type != "ReLU":
+                continue
+            x_node = opA.bots[0]
+            if x_node not in elt.bots:
+                continue
+            k_mid = pipe.must_dims(opA.tops[0])["chan"]
+            if pipe.must_dims(tailB)["chan"] != k_mid or \
+                    not block_fuse_ok(pipe.must_dims(x_node), 3, k_mid, (1, 1),
+                                      (1, 1), 1):
+                continue
+            self._blocks[a_name] = {"a_chain": chA, "b": opB.name, "b_chain": chB,
+                                    "c": opC.name, "c_chain": chC}
+            self._chains[a_name] = chA + [opB.name] + chB + [opC.name] + chC
+            self._info_log.append(
+                f"{a_name}: block-fused bottleneck (+{opB.name},{opC.name})")
+
+    def _lower_block(self, pipe: ConvPipe, opA, block: dict) -> Callable:
+        """One bottleneck kernel for a block (boda_tpu: ``_lower_block``,
+        executor.py:1121-1162). BN/Scale of all three convs fold into their
+        (w, b), at upload (prefold) or per call. Extras arrive in mega-chain
+        order: A's folds, (wB, bB), B's folds, (wC, bC), C's folds, the
+        eltwise skip (x itself, unused). Weights in another layout than the
+        hand kernels' HWIO (the lib policy's OHWI) are turned to HWIO per
+        call."""
+        convs, n_folds = [], []
+        for op, chain in ((opA, block["a_chain"]),
+                          (pipe.ops[block["b"]], block["b_chain"]),
+                          (pipe.ops[block["c"]], block["c_chain"])):
+            fold, n, fkeys = self._make_fold(pipe, op, chain)
+            if self._register_prefold(op, fold, fkeys):
+                fold, n = None, 0
+            prep = self._weight_preps[op.bots[1]]
+            to_hwio = None if prep.layout == HWIO.layout else \
+                (lambda w, prep=prep: HWIO.prep(prep.inv(w)))
+            convs.append((fold, to_hwio))
+            n_folds.append(n)
+
+        def fn(x, wA, bA, *rest):
+            rest = list(rest)
+            wbs, w, b = [], wA, bA
+            for i, (fold, to_hwio) in enumerate(convs):
+                if i:
+                    w, b = rest.pop(0), rest.pop(0)
+                extras = [rest.pop(0) for _ in range(n_folds[i])]
+                if fold is not None:
+                    w, b = fold(w, b, extras)
+                wbs.append((to_hwio(w) if to_hwio else w, b))
+            (w1, b1), (w2, b2), (w3, b3) = wbs
+            c, k = x.shape[-1], w1.shape[-1]
+            return (bottleneck(x, w1.reshape(c, k), b1, w2, b2, w3.reshape(k, c), b3),)
+        return fn
 
     def _make_fold(self, pipe: ConvPipe, conv_op, chain: list[str]):
         """BN/Scale weight folding for a conv's chain: returns
@@ -515,10 +632,14 @@ class CudaFwd(FwdEngine):
         # upload-time constants and drop out
         def _extras(conv_name, chain):
             link, out = pipe.ops[conv_name].tops[0], []
-            prefolded = conv_name in self._prefold_keys
+            prefolded = conv_name in self._prefold_keys  # the fold owner's
             for cn in chain:
                 cop = pipe.ops[cn]
-                if not (cop.type in ("BatchNorm", "Scale") and prefolded):
+                if cop.type == "Convolution":  # mid-chain conv of a block
+                    prefolded = cn in self._prefold_keys
+                    out += list(self._prefold_keys[cn]) if prefolded else \
+                        [b for b in cop.bots if b != link]
+                elif not (cop.type in ("BatchNorm", "Scale") and prefolded):
                     out += [b for b in cop.bots if b != link]
                 link = cop.tops[0]
             return out

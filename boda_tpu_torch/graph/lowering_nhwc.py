@@ -18,11 +18,11 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels.conv import conv2d_halo
+from ..ops.kernels.conv import conv2d_halo, space_to_depth_conv
+from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
 from .lowering import LowerCtx, _softmax, jax_maximum
 from .pipe import ConvOp, ConvPipe, PipeError
@@ -103,6 +103,16 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         fn.supports_residual = True
         return fn, hwio
 
+    if gen and tune.use_s2d and s != (1, 1) and k != (1, 1):
+        # strided conv -> space-to-depth fold + the stride-1 direct conv
+        # (boda_tpu: lowering_nhwc.py:341-360, without its Mosaic block-plan
+        # gate); a strided 1x1 stays the GEMM's subsample above
+        info_log.append(f"{op.name}: nhwc-s2d_conv s={s}")
+
+        def fn(x, w, b):
+            return (space_to_depth_conv(x, w, b, stride=s, pad=p, relu=relu),)
+        return fn, hwio
+
     if gen:
         info_log.append(f"{op.name}: nhwc-direct_conv k={k} s={s} p={p} "
                         f"prec={tune.precision}")
@@ -169,24 +179,10 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
 
 # -- spatial ops --------------------------------------------------------------------
 
-def _avg_divisor(iy, ix, k, s, p, oy, ox):
-    """(oy, ox) f32 per-window non-padding pixel counts (ref
-    test/rtc/pool.cucl avg_pool_sz semantics)."""
-    def divisor(o, in_sz, kk, ss, pp):
-        st = o * ss - pp
-        en = min(st + kk, in_sz)
-        return en - max(st, 0)
-    dy = np.array([divisor(o, iy, k[0], s[0], p[0]) for o in range(oy)],
-                  np.float32)
-    dx = np.array([divisor(o, ix, k[1], s[1], p[1]) for o in range(ox)],
-                  np.float32)
-    return dy[:, None] * dx[None, :]
-
-
 @nhwc_rule("Pooling")
 def _nhwc_pool(pipe, op, ctx, tune, info_log):
     k, s, p = op.kern_sz(), op.stride(), op.pad()
-    avg = op.p("avg_pool", False)
+    avg = bool(op.p("avg_pool", False))
     ind = pipe.must_dims(op.bots[0])
     od = pipe.must_dims(op.tops[0])
     iy, ix = ind["y"], ind["x"]
@@ -195,22 +191,13 @@ def _nhwc_pool(pipe, op, ctx, tune, info_log):
     # (the extra rows never win a max, and are not counted in an avg)
     pad_y = (p[0], max(0, (oy - 1) * s[0] + k[0] - iy - p[0]))
     pad_x = (p[1], max(0, (ox - 1) * s[1] + k[1] - ix - p[1]))
-    tpad = (pad_x[0], pad_x[1], pad_y[0], pad_y[1])
-    if avg:
-        div = torch.from_numpy(_avg_divisor(iy, ix, k, s, p, oy, ox))
-
-        def fn(x):
-            xp = F.pad(x.permute(0, 3, 1, 2).float(), tpad)
-            sums = F.avg_pool2d(xp, k, s, divisor_override=1)
-            out = sums / div.to(sums.device)
-            return (out.permute(0, 2, 3, 1).to(x.dtype).contiguous(),)
-        return _no_preps(fn)
-
-    def fn(x):
-        xp = F.pad(x.permute(0, 3, 1, 2), tpad, value=float("-inf"))
-        out = F.max_pool2d(xp, k, s)
-        return (out.permute(0, 2, 3, 1).contiguous(),)
-    return _no_preps(fn)
+    geom = (k, s, pad_y, pad_x, oy, ox, avg)
+    if tune.pool_pallas:
+        # the pooling kernel takes every plane: boda_tpu's VMEM plan and its
+        # reduce_window fallback (lowering_nhwc.py:550-561) are Mosaic's
+        info_log.append(f"{op.name}: nhwc-pool_pallas k={k} s={s} avg={avg}")
+        return _no_preps(lambda x: (Pool2d.apply(x, *geom),))
+    return _no_preps(lambda x: (pool2d_lib(x, *geom),))
 
 
 @nhwc_rule("BatchNorm")

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``boda_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, and loaded with ``ctypes``.
-The library lands in ``build/kernels/`` at the repo root (git-ignored) under
-a name carrying the hash of the sources and flags, so an edited source is
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` at first use,
+one ``nvcc`` per source, all started together; the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/kernels/`` at the repo root (git-ignored) under a
+name carrying the hash of the sources and flags, so an edited source is
 rebuilt and a stale library is never loaded. Nothing here touches CUDA or
 spawns a process at import time: the CPU tests import every module.
 
@@ -24,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,9 @@ _SIGS = {
     "boda_gemm": [_P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "boda_conv2d": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
     "boda_atb": [_P, _P, _P, _P] + [_I] * 15 + [_P],
+    "boda_pool2d": [_P, _P] + [_I] * 14 + [_P],
+    "boda_bottleneck": [_P] * 8 + [_I] * 6 + [_P],
+    "boda_bottleneck_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -85,14 +89,32 @@ def load() -> KernelBuild:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-               *map(str, _sources())]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in _sources():
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:  # waits for every compile, failed or not
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if not failed:
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            if r.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         secs = time.perf_counter() - t0
-        log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         (BUILD_DIR / (so.stem + ".log")).write_text(log)
     lib = ctypes.CDLL(str(so))

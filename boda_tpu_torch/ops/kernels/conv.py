@@ -9,6 +9,10 @@ none of which binds on Hopper, so there are no block plans here either.
 :func:`conv2d` launches the kernel for CUDA tensors and runs
 :func:`conv2d_plain` for CPU tensors; there is no other fallback.
 
+K4 (``space_to_depth_conv``, a strided conv folded into a stride-1 one)
+is :func:`space_to_depth_conv`: the fold in PyTorch, as it is XLA in
+boda_tpu, and the conv kernel on the fold.
+
 Layouts are the JAX package's: x (N,H,W,C), w HWIO (KH,KW,C,OC), bias (OC),
 residual and output (N,OH,OW,OC).
 """
@@ -87,3 +91,46 @@ def conv2d_nhwc(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False):
     """Entry point of K3 (``pallas_conv2d_nhwc``): the direct conv without a
     residual. Unlike K3 it takes any stride."""
     return conv2d(x, w, bias, stride=stride, pad=pad, relu=relu)
+
+
+def space_to_depth_conv(x, w, bias, *, stride, pad, relu: bool = False):
+    """Entry point of K4 (``space_to_depth_conv``): a strided conv as a
+    stride-1 conv on the space-to-depth fold, on the conv kernel
+    (:func:`conv2d_nhwc`).
+
+    x (N,H,W,C), w (KH,KW,C,OC), stride (sy,sx) -> the stride-1 conv of
+    x' (N,Hp/sy,Wp/sx,C*sy*sx) with w' (ceil(KH/sy),ceil(KW/sx),C*sy*sx,OC),
+    cropped to the strided conv's (OH,OW). The input and the weights are
+    folded per call, as boda_tpu folds them (conv.py:680-696)."""
+    sy, sx = stride
+    py, px = pad
+    n, h, wd, c = x.shape
+    kh, kw, _, oc = w.shape
+    oh, ow = out_size(h, wd, kh, kw, stride, pad)
+    khp, kwp = -(-kh // sy), -(-kw // sx)
+    # conv padding + bottom/right so the folded view covers all taps, then
+    # trimmed to whole stride cells
+    need_h = (oh - 1 + (khp - 1)) * sy + sy
+    need_w = (ow - 1 + (kwp - 1)) * sx + sx
+    xp = F.pad(x, (0, 0, px, max(0, need_w - wd - px), py, max(0, need_h - h - py)))
+    hp, wp = xp.shape[1] - xp.shape[1] % sy, xp.shape[2] - xp.shape[2] % sx
+    xs = xp[:, :hp, :wp, :].reshape(n, hp // sy, sy, wp // sx, sx, c) \
+        .permute(0, 1, 3, 2, 4, 5).reshape(n, hp // sy, wp // sx, sy * sx * c)
+    # w'[ky',kx',(py,px,c),oc] = w[ky'*sy+py, kx'*sx+px, c, oc]
+    wz = w.new_zeros((khp * sy, kwp * sx, c, oc))
+    wz[:kh, :kw] = w
+    wf = wz.reshape(khp, sy, kwp, sx, c, oc).permute(0, 2, 1, 3, 4, 5) \
+        .reshape(khp, kwp, sy * sx * c, oc)
+    # zero channels up to a multiple of 8 (the stem's 12 -> 16): the conv
+    # kernel then gathers its input 16 bytes at a time; zeros add exact 0s
+    cpad = -(sy * sx * c) % 8
+    if cpad:
+        xs = F.pad(xs, (0, cpad))
+        wf = F.pad(wf, (0, 0, 0, cpad))
+    out = conv2d_nhwc(xs.contiguous(), wf.contiguous(), bias, relu=relu)
+    if out.device.type == "cuda":  # the conv kernel ran on the fold
+        space_to_depth_conv.launches += 1
+    return out[:, :oh, :ow, :].contiguous()
+
+
+space_to_depth_conv.launches = 0  # conv-kernel launches on a fold

@@ -1,11 +1,13 @@
 """The tuning knobs of the generated-kernel path.
 
 Counterpart of ``boda_tpu/ops/tune.py`` ``OpTune``, cut to the knobs the
-ResNet forward slice reads, with the same names, defaults and ``key()``
-format, so a tune string written for ``boda_tpu`` parses here when it only
-names these knobs (an unknown knob is an error, as there). The other knobs
-(s2d, halo, tap_cat, nb, int8, pooling variants, ...) arrive with the PRs
-that read them.
+ResNet forward reads, with the same names, defaults and ``key()`` format,
+so a tune string written for ``boda_tpu`` parses here when it only names
+these knobs (an unknown knob is an error, as there): the blocking knobs,
+``use_k1conv``, ``use_s2d`` (the strided conv on the space-to-depth fold),
+``pool_pallas`` (the pooling kernel), ``precision`` and ``use_xla``. The
+other knobs (stem_s2d, halo, tap_cat, nb, int8, the other pooling
+variants, ...) are not ported.
 
 ``bm``/``bn``/``bk``/``chunk`` are accepted and kept in the key, but the
 port's hand kernels have compile-time tiles (``csrc/gemm.cuh``), so nothing
@@ -29,6 +31,12 @@ class OpTune:
     chunk: int = 0
     # 1x1 pad-0 convs as a GEMM (the k1conv variant)
     use_k1conv: bool = True
+    # a strided conv with k > 1 as a space-to-depth fold + the stride-1
+    # direct conv (ops/kernels/conv.py:space_to_depth_conv)
+    use_s2d: bool = False
+    # pooling on the hand pooling kernel (ops/kernels/pool.py) instead of
+    # the library pool
+    pool_pallas: int = 0
     # 'highest' = full f32; bf16 compute always runs 'default' (bf16 inputs,
     # f32 accumulate)
     precision: str = "highest"

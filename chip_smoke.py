@@ -5,10 +5,16 @@ Builds the hand-written CUDA kernels from boda_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes of the ResNet-50 batch-32
 forward and backward (the GEMM and the direct conv at the forward shapes;
 the conv again at the 46 dgrad shapes; the leading-axis GEMM at the 46
-wgrad shapes), then drives two paths through the kernels:
+wgrad shapes; the bottleneck, the pooling kernel and the space-to-depth
+conv at the fused forward's shapes), then drives three paths through the
+kernels:
 
 * the forward (bf16, b32, 224x224, kernel_policy=gen), checked against the
   library path (kernel_policy=lib, cuDNN/cuBLAS) and an f32 reference;
+* the same forward in its fused configuration (fuse_block=1,
+  tune=(use_s2d=1,pool_pallas=1): each identity bottleneck one kernel, the
+  pools on the pooling kernel, the stem on the space-to-depth fold), checked
+  against lib and gen, and at f32 node by node against lib;
 * the graph-level backward (add_bck_ops): f32 at b8, every node gen vs lib
   under test_compute's own rule; bf16 at b32, the loss, the input gradient
   and every weight gradient gen vs lib, timed per policy; and the user's
@@ -16,7 +22,10 @@ wgrad shapes), then drives two paths through the kernels:
 
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after. Prints per-phase lines, one JSON line describing each
-kernel, the card's name and power limit, and as its last line
+kernel (its time per pass beside its bound: the larger of its bytes over
+HBM's 3.35 TB/s and its operations over the peak rate of their type, from
+NVIDIA's H100 SXM data sheet), the card's name and power limit, and as its
+last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
@@ -49,6 +58,14 @@ F32_NODE_TOL = 1e-4
 GRAD_F32_TOL = 1e-3
 # bf16 gradient graph, max|err|/max|lib| per gradient, gen vs lib
 GRAD_BF16_TOL = 5e-2
+FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
+# the fused b32 forward's launches per kernel: 12 identity bottlenecks; pool1
+# and pool5; the stem (on the fold) and the 4 downsampling blocks' 3x3s; the
+# 12 1x1s outside blocks and fc1000; the stem's fold
+FUSED_LAUNCHES = {"block": 12, "pool": 2, "conv": 5, "sgemm": 13, "s2d": 1}
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
+# and f32 FMA operations/s
+HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
 
 
 def check(cond: bool, what: str) -> None:
@@ -127,6 +144,74 @@ def weight_grads(pipe):
             any(n.startswith(w + "__grad") for w in pipe.weights)]
 
 
+def fused_shapes(pipe, eng):
+    """The bottleneck, pool and space-to-depth calls of one fused forward,
+    from the engine's dispatch: {signature: count} for each."""
+    block, pool, s2d = {}, {}, {}
+    for a_name in eng._blocks:
+        xd = pipe.must_dims(pipe.ops[a_name].bots[0])
+        sig = (xd["img"], xd["y"], xd["chan"], pipe.must_dims(a_name)["chan"])
+        block[sig] = block.get(sig, 0) + 1
+    routed = {}  # op name -> route (a chained op's lowering is logged twice)
+    for ln in eng.get_info_log().splitlines():
+        name, _, rest = ln.partition(": ")
+        routed[name] = rest
+    for name, rest in routed.items():
+        op = pipe.ops.get(name)
+        if rest.startswith("nhwc-pool_pallas"):
+            ind, od = pipe.must_dims(op.bots[0]), pipe.must_dims(op.tops[0])
+            sig = (ind["img"], ind["y"], ind["chan"], op.kern_sz()[0], op.stride()[0],
+                   od["y"], bool(op.p("avg_pool", False)))
+            pool[sig] = pool.get(sig, 0) + 1
+        elif rest.startswith("nhwc-s2d_conv"):
+            ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+            sig = (ind["img"], ind["y"], fd["in_chan"], fd["out_chan"], op.kern_sz()[0],
+                   op.stride()[0], op.pad()[0])
+            s2d[sig] = s2d.get(sig, 0) + 1
+    return block, pool, s2d
+
+
+def work(kname: str, sig) -> tuple[float, float]:
+    """(bytes, operations / peak in bf16-tensor-core units) of one bf16 call:
+    each input read once, each output written once; a pool's operations at
+    the f32 FMA rate, the rest at the bf16 tensor-core rate. Returns the two
+    times in ms."""
+    es = 2
+    if kname == "sgemm":
+        M, K, N, res, _ = sig
+        ops, byts = 2 * M * K * N, es * (M * K + K * N + N + M * N * (1 + res))
+    elif kname in ("conv", "s2d"):
+        n, h, c, oc, k, st, p = sig[:7]
+        res = sig[7] if kname == "conv" else False
+        oh = (h + 2 * p - k) // st + 1
+        ops = 2 * n * oh * oh * oc * k * k * c
+        byts = es * (n * h * h * c + k * k * c * oc + oc + n * oh * oh * oc * (1 + res))
+    elif kname == "atb":  # wgrad: x and dy in, an f32 HWIO gradient out
+        n, h, c, oc, k, p = sig
+        oh = h + 2 * p - k + 1
+        ops = 2 * n * oh * oh * oc * k * k * c
+        byts = es * (n * h * h * c + n * oh * oh * oc) + 4 * k * k * c * oc
+    elif kname == "atb_dense":
+        K, M, N = sig
+        ops, byts = 2 * K * M * N, es * (K * M + K * N) + 4 * M * N
+    elif kname == "dgrad":
+        n, h, c, oc, k, p = sig
+        oh = h + 2 * p - k + 1
+        ops = 2 * n * h * h * c * k * k * oc
+        byts = es * (n * oh * oh * oc + k * k * c * oc + n * h * h * c)
+    elif kname == "block":
+        n, h, c, k = sig
+        ops = 2 * n * h * h * (2 * c * k + 9 * k * k)
+        byts = es * (2 * n * h * h * c + 2 * c * k + 9 * k * k + 2 * k + c)
+    elif kname == "pool":
+        n, h, c, k, _, oy, _ = sig
+        return (es * n * c * (h * h + oy * oy) / HBM_BPS * 1e3,
+                n * oy * oy * c * k * k / F32_OPS * 1e3)
+    else:
+        raise KeyError(kname)
+    return byts / HBM_BPS * 1e3, ops / BF16_OPS * 1e3
+
+
 def layer_shapes(pipe, eng):
     """The GEMM and direct-conv calls one forward makes, from the engine's
     own dispatch: {signature: count} for each kernel."""
@@ -175,8 +260,13 @@ def main() -> int:
                                                   conv2d_bck_filts_plain,
                                                   conv2d_bck_in, conv2d_bck_in_plain,
                                                   matmul_atb, matmul_atb_plain)
-    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
+    from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
+    from boda_tpu_torch.ops.kernels.block import plan as block_plan
+    from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_plain,
+                                                 space_to_depth_conv)
+    from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.utils.lexp import parse_lexp
 
     # the plain versions in full f32 (cuDNN convs default to TF32). Only the
     # fp32_precision settings, as the engine uses: recent torch refuses a
@@ -264,10 +354,57 @@ def main() -> int:
         return out, ref, (lambda: conv2d_bck_in(dy, w, pad=pad),
                           lambda: conv2d_bck_in_plain(dy, w, pad=pad), lib)
 
+    def block_case(n, h, c, k, dt):
+        x = rnd((n, h, h, c), dt)
+        w1, b1 = rnd((c, k), dt, c ** -0.5), rnd((k,), dt, 0.1)
+        w2, b2 = rnd((3, 3, k, k), dt, (9 * k) ** -0.5), rnd((k,), dt, 0.1)
+        w3, b3 = rnd((k, c), dt, k ** -0.5), rnd((c,), dt, 0.1)
+        ops = (x, w1, b1, w2, b2, w3, b3)
+        w2_lib = w2.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
+
+        def lib():  # the unfused library sequence: cuBLAS, cuDNN, cuBLAS
+            x2 = x.reshape(-1, c)
+            h1 = torch.relu(torch.addmm(b1, x2, w1)).reshape(n, h, h, k)
+            h2 = torch.relu(F.conv2d(h1.permute(0, 3, 1, 2), w2_lib.permute(0, 3, 1, 2),
+                                     b2, padding=1)).permute(0, 2, 3, 1).reshape(-1, k)
+            return torch.relu(torch.addmm(b3, h2, w3) + x2)
+        return bottleneck(*ops), bottleneck_plain(*ops), (
+            lambda: bottleneck(*ops), lambda: bottleneck_plain(*ops), lib)
+
+    def pool_case(n, h, c, k, s, oy, avg, dt):
+        x = rnd((n, h, h, c), dt)
+        pad = (0, max(0, (oy - 1) * s + k - h))
+        args = ((k, k), (s, s), pad, pad, oy, oy, avg)
+        lib_pool = F.avg_pool2d if avg else F.max_pool2d
+        return pool2d(x, *args), pool2d_plain(x, *args), (
+            lambda: pool2d(x, *args), lambda: pool2d_plain(x, *args),
+            lambda: lib_pool(x.permute(0, 3, 1, 2), k, s, ceil_mode=True))
+
+    def s2d_case(n, h, c, oc, k, s, p, dt):
+        x, w = rnd((n, h, h, c), dt), rnd((k, k, c, oc), dt, (k * k * c) ** -0.5)
+        bias = rnd((oc,), dt, 0.1)
+        kw = dict(stride=(s, s), pad=(p, p), relu=True)
+        w_lib = w.permute(3, 0, 1, 2).contiguous()
+
+        def lib():  # cuDNN's strided conv, unfolded
+            return torch.relu(F.conv2d(x.permute(0, 3, 1, 2), w_lib.permute(0, 3, 1, 2),
+                                       bias, stride=s, padding=p))
+        return space_to_depth_conv(x, w, bias, **kw), conv2d_plain(x, w, bias, **kw), (
+            lambda: space_to_depth_conv(x, w, bias, **kw),
+            lambda: conv2d_plain(x, w, bias, **kw), lib)
+
     pipe, in_dims = load_net("resnet50", BATCH)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm_shapes, conv_shapes = layer_shapes(pipe, eng)
+    fused = make("conv_fwd", "cuda", compute_tn="bfloat16", fuse_block=True,
+                 tune=parse_lexp(FUSED_TUNE))
+    fused.init(pipe)
+    block_shapes, pool_shapes, s2d_shapes = fused_shapes(pipe, fused)
+    for (n, h, c, k), cnt in block_shapes.items():
+        t, cl = block_plan(n, h, h, c, k, torch.bfloat16)
+        print(f"[block] {h}x{h} C={c} K={k} x{cnt}: tile {t}x{t}, clusters of {cl}, "
+              f"{n * (-(-h // t)) ** 2 * cl} thread blocks")
     # the backward graph at b32 bf16: the eligible convs' wgrad/dgrad shapes
     bpipe, bdims = load_net("resnet50", BATCH)
     add_bck_ops(bpipe)
@@ -297,10 +434,16 @@ def main() -> int:
             ("atb_dense", atb_case, dense_shapes,
              [((1000, 77, 130), 1), ((4099, 33, 65), 1), ((130, 200, 9), 1)]),
             ("dgrad", dgrad_case, wg_shapes,
-             [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)])):
-        tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, max_abs_err=0.0, max_rel_err=0.0)
+             [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)]),
+            ("block", block_case, block_shapes,
+             [((2, 9, 24, 16), 1), ((1, 7, 256, 64), 1)]),
+            ("pool", pool_case, pool_shapes,
+             [((2, 13, 12, 3, 2, 6, False), 1), ((2, 7, 24, 7, 1, 1, True), 1)]),
+            ("s2d", s2d_case, s2d_shapes, [((2, 31, 3, 16, 7, 2, 3), 1)])):
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_rel_err=0.0,
+                   bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0)
         print(f"[{kname}] shape -> max|err|/max|ref|, kernel ms, plain f32 ms, "
-              f"bf16 library ms, count per forward ({card})")
+              f"bf16 library ms, bound ms, count per pass ({card})")
         for dt, cases in ((torch.float32, extra), (torch.bfloat16, list(shapes.items()))):
             for sig, count in cases:
                 out, ref, (fk, fp, fl) = case(*sig, dt)
@@ -308,20 +451,29 @@ def main() -> int:
                 ae, re = rel_err(out, ref)
                 check(bool(torch.isfinite(out.float()).all()), f"{kname} {sig} non-finite")
                 check(re <= TOL[dt], f"{kname} {sig} {dt}: rel err {re:.3g} > {TOL[dt]}")
+                if kname == "pool" and not sig[-1]:
+                    check(torch.equal(out, ref), f"max pool {sig} {dt} not exact")
                 if dt == torch.bfloat16:
                     ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
+                    b_ms, o_ms = work(kname, sig)
                     tot["ms"] += ms * count
                     tot["plain_ms"] += pms * count
-                    tot["lib_ms"] += lms * count
+                    tot["library_ms"] += lms * count
+                    tot["bound_ms"] += max(b_ms, o_ms) * count
+                    tot["bytes_bound_ms" if b_ms >= o_ms else "ops_bound_ms"] += \
+                        max(b_ms, o_ms) * count
                     tot["max_abs_err"] = max(tot["max_abs_err"], ae)
                     tot["max_rel_err"] = max(tot["max_rel_err"], re)
-                    print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} x{count}")
+                    print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} "
+                          f"bound {max(b_ms, o_ms):.4f} x{count}")
                 else:
                     print(f"[{kname}] f32 {sig}: {re:.2e} (tol {TOL[dt]})")
                 del out, ref
-        per = "forward" if kname in ("sgemm", "conv") else "backward"
+        per = {"sgemm": "forward", "conv": "forward", "block": "fused forward",
+               "pool": "fused forward", "s2d": "fused forward"}.get(kname, "backward")
         print(f"[{kname}] per {per}: kernel {tot['ms']:.3f} ms, plain f32 "
-              f"{tot['plain_ms']:.3f} ms, bf16 library {tot['lib_ms']:.3f} ms")
+              f"{tot['plain_ms']:.3f} ms, bf16 library {tot['library_ms']:.3f} ms, "
+              f"bound {tot['bound_ms']:.4f} ms")
         summary[kname] = tot
 
     # -- phase 3: the slice: ResNet-50 b32 bf16 through the kernels -----------------
@@ -362,20 +514,58 @@ def main() -> int:
     print(f"[slice] top-1 agreement gen vs lib: {float(np.mean(top_gen == top_lib)):.3f}")
     del f32
 
-    # f32 at a small input, every conv node: gen kernels vs cuDNN (TF32 off)
+    # -- phase 3b: the fused configuration of the same forward -----------------------
+    flog = fused.get_info_log()
+    check("conv1: nhwc-s2d_conv" in flog, "conv1 did not take the space-to-depth fold")
+    counters = {"block": bottleneck, "pool": pool2d, "conv": conv2d, "sgemm": matmul,
+                "s2d": space_to_depth_conv}
+    for fn in counters.values():
+        fn.launches = 0
+    fused_outs = fused.run_fwd(ins, ["prob", "fc1000"])
+    launches_fused = {k: fn.launches for k, fn in counters.items()}
+    print(f"[fused] resnet50 b{BATCH} bf16 fuse_block=1 tune={FUSED_TUNE}: launches "
+          f"{launches_fused} (expected {FUSED_LAUNCHES}); "
+          f"{flog.count('block-fused bottleneck')} blocks fused")
+    check(launches_fused == FUSED_LAUNCHES, "fused forward launch counts")
+    a = torch.from_numpy(fused_outs["fc1000"].data)
+    for ref_name, ref in (("lib", louts), ("gen", outs)):
+        _, e_ = rel_err(a, torch.from_numpy(ref["fc1000"].data))
+        print(f"[fused] fc1000 fused vs {ref_name}: {e_:.3e} (tol {SLICE_TOL['fc1000']})")
+        check(e_ <= SLICE_TOL["fc1000"], f"fused fc1000 vs {ref_name} {e_:.3g}")
+    fprob = fused_outs["prob"].data
+    check(fprob.shape == (BATCH, 1000) and bool(np.isfinite(fprob).all()),
+          "fused prob shape/finite")
+
+    # f32 at a small input, every conv node: gen kernels vs cuDNN (TF32 off);
+    # and the fused configuration's block outputs, pools and stem vs cuDNN
     spipe, sdims = load_net("resnet50", 2, 64)
     sins = gen_data_inputs(sdims)
     nodes = ["prob"] + [o.tops[0] for o in spipe.ops.values() if o.type == "Convolution"]
+    sfused = make("conv_fwd", "cuda", fuse_block=True, tune=parse_lexp(FUSED_TUNE))
+    sfused.init(spipe)
+    fnodes = ["conv1_relu", "pool1", "pool5"] + [
+        spipe.ops[sfused._chains[a][-1]].tops[0] for a in sfused._blocks]
     res = {}
     for pol in ("gen", "lib"):
         e = make("conv_fwd", "cuda", kernel_policy=pol)
         e.init(spipe)
-        res[pol] = e.run_fwd(sins, nodes)
+        res[pol] = e.run_fwd(sins, nodes + (fnodes if pol == "lib" else []))
     worst = max(rel_err(torch.from_numpy(res["gen"][n].data),
                         torch.from_numpy(res["lib"][n].data))[1] for n in nodes)
     print(f"[slice] f32 resnet50 b2 64x64, {len(nodes)} nodes gen vs lib: "
           f"worst {worst:.3e} (tol {F32_NODE_TOL})")
     check(worst <= F32_NODE_TOL, "f32 per-node gen vs lib")
+    bottleneck.launches = pool2d.launches = 0
+    res["fused"] = sfused.run_fwd(sins, fnodes)
+    check((bottleneck.launches, pool2d.launches) == (12, 2),
+          f"f32 fused: launches block {bottleneck.launches}, pool {pool2d.launches}")
+    errs = sorted((rel_err(torch.from_numpy(res["fused"][n].data),
+                           torch.from_numpy(res["lib"][n].data))[1], n) for n in fnodes)
+    print(f"[fused] f32 resnet50 b2 64x64, {len(fnodes)} nodes (12 blocks, pool1, pool5, "
+          f"conv1_relu) fused vs lib: worst {errs[-1][0]:.3e} at {errs[-1][1]} "
+          f"(tol {F32_NODE_TOL})")
+    check(errs[-1][0] <= F32_NODE_TOL, "f32 fused per-node vs lib")
+    del sfused, res
 
     # -- phase 4: the gradient graph, f32, b8: every node gen vs lib --------------
     # The random-weight net's softmax is saturated (prob one-hot), and a
@@ -530,41 +720,58 @@ def main() -> int:
     check(rc == 0, "test_compute --add-bck-ops=1 failed")
 
     rates = {}
-    for pol in ("gen", "lib"):
-        e = eng if pol == "gen" else lib
+    for pol, e in (("gen", eng), ("lib", lib), ("fused", fused)):
         secs = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
         rates[pol] = BATCH / secs
         print(f"[slice] resnet50 b{BATCH} bf16 {pol}: {secs * 1e3:.3f} ms/fwd, "
               f"{rates[pol]:.1f} img/s ({card})")
 
     # per kernel: launches on its main path (the forward for sgemm and conv,
-    # the b32 bf16 gradient graph for atb), and that path's per-pass times
+    # the b32 bf16 gradient graph for atb, the fused forward for block, pool
+    # and s2d), and that path's per-pass times and bound
     launches["atb"] = launches_bck["atb"]
+    for k in ("block", "pool", "s2d"):
+        launches[k] = launches_fused[k]
     kernels = []
     for kname, src, rep in (("sgemm", "boda_tpu_torch/csrc/sgemm.cu",
                              "boda_tpu/ops/kernels/sgemm.py:80"),
                             ("conv", "boda_tpu_torch/csrc/conv.cu",
                              "boda_tpu/ops/kernels/conv.py:575"),
                             ("atb", "boda_tpu_torch/csrc/atb.cu",
-                             "boda_tpu/ops/kernels/bconv.py:53")):
+                             "boda_tpu/ops/kernels/bconv.py:53"),
+                            ("block", "boda_tpu_torch/csrc/block.cu",
+                             "boda_tpu/ops/kernels/block.py:111"),
+                            ("pool", "boda_tpu_torch/csrc/pool.cu",
+                             "boda_tpu/ops/kernels/pool.py:253"),
+                            ("s2d", "boda_tpu_torch/csrc/conv.cu",
+                             "boda_tpu/ops/kernels/conv.py:664")):
         t = summary[kname]
         entry = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
                  "launches": launches[kname], "max_abs_err": t["max_abs_err"],
-                 "ms": t["ms"], "plain_ms": t["plain_ms"], "lib_ms": t["lib_ms"],
-                 "max_rel_err": t["max_rel_err"],
-                 "launches_bck": launches_bck[kname]}
+                 "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": ("bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"]
+                              else "operations"),
+                 "library_ms": t["library_ms"], "max_rel_err": t["max_rel_err"]}
+        if kname in ("sgemm", "conv", "atb"):
+            entry["launches_bck"] = launches_bck[kname]
+        if kname in ("sgemm", "conv"):
+            entry["launches_fused"] = launches_fused[kname]
         if kname == "conv":
             d = summary["dgrad"]
             entry.update({"also_replaces": "boda_tpu/ops/kernels/conv.py:103",
                           "dgrad_ms": d["ms"], "dgrad_plain_ms": d["plain_ms"],
-                          "dgrad_lib_ms": d["lib_ms"],
+                          "dgrad_library_ms": d["library_ms"],
+                          "dgrad_bound_ms": d["bound_ms"],
                           "dgrad_max_abs_err": d["max_abs_err"],
                           "dgrad_max_rel_err": d["max_rel_err"]})
         if kname == "atb":
             d = summary["atb_dense"]
             entry.update({"dense_ms": d["ms"], "dense_plain_ms": d["plain_ms"],
-                          "dense_lib_ms": d["lib_ms"],
+                          "dense_library_ms": d["library_ms"],
+                          "dense_bound_ms": d["bound_ms"],
                           "dense_max_abs_err": d["max_abs_err"]})
+        if kname == "s2d":  # the fold runs in PyTorch, the conv on conv.cu
+            entry["fold"] = "boda_tpu_torch/ops/kernels/conv.py:space_to_depth_conv"
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "img_per_s": rates,
                       "grad_img_per_s": grad_rates, "card": card}))

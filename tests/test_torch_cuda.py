@@ -14,7 +14,11 @@ from boda_tpu_torch.ops.kernels.bconv import (conv2d_bck_filts,
                                               conv2d_bck_filts_plain, conv2d_bck_in,
                                               conv2d_bck_in_plain, matmul_atb,
                                               matmul_atb_plain)
-from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
+from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
+from boda_tpu_torch.ops.kernels.block import plan as block_plan
+from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_plain,
+                                             space_to_depth_conv)
+from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
 from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +162,71 @@ def test_conv2d_bck_in_vs_plain(dev):
             ref = conv2d_bck_in_plain(dy, w, pad=(p, p))
             assert out.shape == ref.shape == (n, h, h, c)
             assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, p)
+
+
+# (n, h, w, c, k): ragged planes (tiles of 8 and 7 cut at the edge), C and K
+# off the 16-byte vectors, a res5-like plane in one tile, and planes whose
+# few tiles are shared by clusters of blocks
+_BLOCK_CASES = [(2, 9, 11, 24, 16), (1, 5, 7, 20, 12), (2, 7, 7, 256, 64),
+                (1, 14, 14, 64, 32), (1, 7, 7, 1024, 256), (1, 5, 5, 256, 128)]
+
+
+def test_bottleneck_vs_plain(dev):
+    clusters = {block_plan(n, h, w, c, k, torch.bfloat16)[1] for n, h, w, c, k in _BLOCK_CASES}
+    assert {1, 2, 4} <= clusters, clusters
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, w, c, k in _BLOCK_CASES:
+            rng = np.random.default_rng(n + h + w + c + k)
+            ops = [_t(rng, (n, h, w, c), dt, dev), _t(rng, (c, k), dt, dev, c ** -0.5),
+                   _t(rng, (k,), dt, dev, 0.1), _t(rng, (3, 3, k, k), dt, dev, (9 * k) ** -0.5),
+                   _t(rng, (k,), dt, dev, 0.1), _t(rng, (k, c), dt, dev, k ** -0.5),
+                   _t(rng, (c,), dt, dev, 0.1)]
+            before = bottleneck.launches
+            out = bottleneck(*ops)
+            torch.cuda.synchronize()
+            assert bottleneck.launches == before + 1
+            assert out.shape == (n, h, w, c) and out.dtype == dt
+            assert _err(out, bottleneck_plain(*ops)) <= _TOL[dt], (dt, n, h, w, c, k)
+
+
+# (n, h, w, c, k, s, p, avg): pool1's ceil-mode clip at a ragged C, an avg
+# with padding (the divisor counts only image pixels), a global avg
+_POOL_CASES = [(2, 13, 13, 12, 3, 2, 0, False), (2, 13, 13, 16, 3, 2, 0, False),
+               (1, 9, 9, 8, 3, 1, 1, True), (2, 7, 7, 24, 7, 1, 0, True)]
+
+
+def test_pool2d_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, w, c, k, s, p, avg in _POOL_CASES:
+            oy = -(-(h + 2 * p - k) // s) + 1
+            ox = -(-(w + 2 * p - k) // s) + 1
+            pad_y = (p, max(0, (oy - 1) * s + k - h - p))
+            pad_x = (p, max(0, (ox - 1) * s + k - w - p))
+            x = _t(np.random.default_rng(h + c), (n, h, w, c), dt, dev)
+            args = ((k, k), (s, s), pad_y, pad_x, oy, ox, avg)
+            before = pool2d.launches
+            out = pool2d(x, *args)
+            torch.cuda.synchronize()
+            assert pool2d.launches == before + 1
+            ref = pool2d_plain(x, *args)
+            assert out.shape == ref.shape == (n, oy, ox, c)
+            if avg:
+                assert _err(out, ref) <= _TOL[dt], (dt, h, c, k, s, p)
+            else:  # a max is exact in any dtype
+                assert torch.equal(out, ref), (dt, h, c, k, s, p)
+
+
+def test_space_to_depth_conv_vs_plain(dev):
+    for dt in (torch.float32, torch.bfloat16):
+        for n, h, c, oc, k, s, p in [(2, 31, 3, 16, 7, 2, 3), (1, 17, 5, 6, 3, 2, 1)]:
+            rng = np.random.default_rng(h + k)
+            x = _t(rng, (n, h, h, c), dt, dev)
+            w = _t(rng, (k, k, c, oc), dt, dev, (k * k * c) ** -0.5)
+            b = _t(rng, (oc,), dt, dev, 0.1)
+            before = conv2d.launches
+            out = space_to_depth_conv(x, w, b, stride=(s, s), pad=(p, p), relu=True)
+            torch.cuda.synchronize()
+            assert conv2d.launches == before + 1
+            ref = conv2d_plain(x, w, b, stride=(s, s), pad=(p, p), relu=True)
+            assert out.shape == ref.shape
+            assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, s, p)
