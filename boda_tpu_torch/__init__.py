@@ -7,13 +7,18 @@ found by path. What ``boda_tpu`` wrote as Pallas kernels is written here by
 hand for Hopper (``csrc/*.cu``, built at first use by ``ops/kernels/build``);
 what it left to XLA is plain PyTorch.
 
-Layer map (the slice ported so far):
-  utils/        - lexp config values, named-dim arrays, weight carry-over
+Layer map (the slices ported so far):
+  utils/        - lexp config values, named-dim arrays, digests, timers
   config        - declarative config schema + registry + CLI
-  ops/          - the tuning knobs and the kernel wrappers (GEMM, direct conv)
-  graph/        - ConvPipe IR, NHWC lowering, the whole-net forward engine
+  rtc/          - compute backends (cuda, interp): named device vars, calls
+  ops/          - op signatures, tuning knobs, the generator registry and
+                  the kernel wrappers (GEMM, conv, wgrad, block, pool,
+                  eltwise, stem)
+  prof/         - per-op profiling (ops_prof), paired A/B timing, wisdom
+  graph/        - ConvPipe IR, autodiff, NHWC lowering, the engine
   models/       - programmatic ResNet builders
-  modes/        - run_cnet, cnet_ana
+  modes/        - run_cnet, cnet_ana, test_compute, comp_ndas, rtc_test,
+                  sgemm_run, ops_prof, gen_prof_ops, wis_merge, wis_ana
 """
 
 __version__ = "0.1.0"

@@ -168,14 +168,94 @@ class CudaFwd(FwdEngine):
                                "port's default, unlike boda_tpu's TPU-measured "
                                "lib) | lib (cuDNN/cuBLAS)")
 
+    # autotuning wisdom: best recorded tune per op signature + platform
+    # (ref: per-op tune selection from wisdom files, op-tuner.cc)
+    wisdom_fn = Field("filename", default="", help="wisdom file for per-op tunes")
+
     def base_setup(self) -> None:
         super().base_setup()
         if self.kernel_policy not in ("gen", "lib"):
             raise ConfigError(f"kernel_policy {self.kernel_policy!r}: gen | lib")
+        self._wisdom = None
+
+    def fusion_fingerprint(self) -> str:
+        """Stable tag of the engine configuration that shapes what a 'good'
+        per-op tune is (boda_tpu: executor.py:611; fusion structure, dtype,
+        precision and policy, over this engine's own Fields). Wisdom
+        recorded under one fingerprint is not applied under another."""
+        from ..utils.dims import stable_hash
+        cfg = ("nhwc", bool(self.fuse_relu), bool(self.fuse_eltwise),
+               self.compute_tn, self.precision, self.kernel_policy) + \
+            (("block",) if self.fuse_block else ()) + \
+            (("prefold",) if self.prefold else ())
+        return f"{stable_hash(repr(cfg)) & 0xFFFFFFFF:08x}"
+
+    def wisdom_plats(self) -> tuple[str, str]:
+        """(net-context plat tag, standalone plat tag) for wisdom records:
+        ``net:cuda:<card>:<fingerprint>`` and ``cuda:<card>``, the latter
+        the cuda backend's own tag, so the engine finds what ``ops_prof``
+        wrote on the same card."""
+        from ..rtc.backends import plat_tag
+        plat = plat_tag(self.dev())
+        return f"net:{plat}:{self.fusion_fingerprint()}", plat
+
+    def wisdom_sig(self, op_name: str):
+        """The signature this engine uses for wisdom lookup of op_name: the
+        rtc sig with dims re-typed to the engine's compute dtype (as
+        boda_tpu's, executor.py:636), so writers and readers key alike."""
+        from ..ops.sig_of import rtc_sig_of
+        sig = rtc_sig_of(self.pipe, self.pipe.ops[op_name]) \
+            if self.pipe is not None and op_name in self.pipe.ops else None
+        if sig is None:
+            return None
+        if self.compute_tn:  # wisdom keys carry the compute dtype
+            sig.dims_vals = {k: d.with_tn(self.compute_tn)
+                             for k, d in sig.dims_vals.items()}
+        return sig
+
+    def _wisdom_tune(self, op_name: str):
+        """Best recorded tune for this op's signature on this platform
+        (boda_tpu: executor.py:651). Preference order: net-level runs with
+        our fusion fingerprint, then standalone runs for this device, then
+        standalone runs from other platforms (a TPU's, from a committed
+        wisdom file: they transfer imperfectly but harmlessly, and their
+        TPU-only knobs have no effect here). Net runs from another
+        fingerprint are ignored (they tuned a different program)."""
+        if not self.wisdom_fn:
+            return None
+        if self._wisdom is None:
+            from ..prof.wisdom import read_wisdom
+            self._wisdom = {w.op.key(): w for w in read_wisdom(self.wisdom_fn)}
+        sig = self.wisdom_sig(op_name)
+        if sig is None:
+            return None
+        w = self._wisdom.get(sig.key())
+        if w is None:
+            return None
+        net_plat, plat = self.wisdom_plats()
+        best = w.best(net_plat) or w.best(plat)
+        if best is None:
+            standalone = [r for r in w.runs if not r.plat.startswith("net:")]
+            ab = [r for r in standalone if r.method == "ab"]  # trust tiers
+            standalone = ab or standalone
+            best = min(standalone, key=lambda r: r.secs) if standalone else None
+        if best is None:
+            return None
+        self._info_log.append(f"{op_name}: wisdom tune {best.tune} "
+                              f"({best.secs * 1e6:.1f}us on {best.plat})")
+        from ..utils.lexp import parse_lexp
+        return parse_lexp(best.tune)
 
     def op_tune(self, op_name: str) -> OpTune:
+        """The op's tune: a per-op tune wins, then wisdom, then the engine
+        tune."""
         t = self.per_op_tune.get(op_name)
+        if t is None:
+            t = self._wisdom_tune(op_name)
         tune = OpTune.from_lexp(t) if t is not None else OpTune.from_lexp(self.tune)
+        if tune.no_effect():
+            self._info_log.append(f"{op_name}: tune knobs with no effect on the "
+                                  f"card: {','.join(tune.no_effect())}")
         # the engine's precision is the default unless the tune overrides
         # it; bf16 compute always runs bf16 inputs with an f32 accumulator
         if (t is None or t.get_kid("precision") is None) and \

@@ -69,6 +69,40 @@ def _no_preps(fn):
     return fn, {}
 
 
+def stem_s2d_geom(ind, od, s, p, k, dil, groups):
+    """Geometry of the stem space-to-depth fold, or None when the conv does
+    not qualify (boda_tpu: lowering_nhwc.py:58; the host folds of K7's input
+    use it). Conditions: square stride>1/kernel>1, no dilation or groups,
+    starved in_chan (C*s*s <= 64), and non-negative right-pad (a negative
+    right-pad means floor division discards input tail rows)."""
+    sb, kk = s[0], k[0]
+    m = -(-kk // sb)                        # taps per axis after the fold
+    pad_r_y = sb * (od["y"] + m - 1) - ind["y"] - p[0]
+    pad_r_x = sb * (od["x"] + m - 1) - ind["x"] - p[1]
+    if not (groups == 1 and dil == (1, 1) and s[0] == s[1] > 1
+            and k[0] == k[1] > 1 and ind["chan"] * s[0] * s[1] <= 64
+            and pad_r_y >= 0 and pad_r_x >= 0):
+        return None
+    return {"sb": sb, "kk": kk, "m": m, "pad": (p[0], p[1]),
+            "pad_r": (pad_r_y, pad_r_x), "xs_h": od["y"] + m - 1,
+            "xs_w": od["x"] + m - 1, "cin": ind["chan"]}
+
+
+def host_stem_s2d(x_nhwc, geom):
+    """Numpy host-side fold of an NHWC batch into the stem's space-to-depth
+    layout (N, xs_h, xs_w, sb*sb*C) (boda_tpu: lowering_nhwc.py:77), run
+    once at load time by a data loader."""
+    import numpy as np
+    sb, cin = geom["sb"], geom["cin"]
+    (p0, p1), (pry, prx) = geom["pad"], geom["pad_r"]
+    xs_h, xs_w = geom["xs_h"], geom["xs_w"]
+    xp = np.pad(x_nhwc, ((0, 0), (p0, pry), (p1, prx), (0, 0)))
+    xsd = xp.reshape(x_nhwc.shape[0], xs_h, sb, xs_w, sb, cin)
+    return np.ascontiguousarray(
+        xsd.transpose(0, 1, 3, 2, 4, 5).reshape(
+            x_nhwc.shape[0], xs_h, xs_w, sb * sb * cin))
+
+
 # -- conv ------------------------------------------------------------------------
 
 @nhwc_rule("Convolution")

@@ -14,7 +14,8 @@ is :func:`space_to_depth_conv`: the fold in PyTorch, as it is XLA in
 boda_tpu, and the conv kernel on the fold.
 
 Layouts are the JAX package's: x (N,H,W,C), w HWIO (KH,KW,C,OC), bias (OC),
-residual and output (N,OH,OW,OC).
+residual and output (N,OH,OW,OC). :func:`gen_conv` is the rtc ``conv`` op,
+NCHW at its signature.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...rtc.compute import FuncInfo
+from ...utils.dims import Dims
+from ..op_base import Op
+from ..registry import GenCtx, kernel_gen, tune_note
+from ..tune import OpTune
 from . import build
 from .common import check_operand, epilogue, kernel_dtype, ptr
 
@@ -90,7 +96,13 @@ def conv2d_halo(x, wt, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
 def conv2d_nhwc(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False):
     """Entry point of K3 (``pallas_conv2d_nhwc``): the direct conv without a
     residual. Unlike K3 it takes any stride."""
-    return conv2d(x, w, bias, stride=stride, pad=pad, relu=relu)
+    out = conv2d(x, w, bias, stride=stride, pad=pad, relu=relu)
+    if out.device.type == "cuda":  # the conv kernel ran through K3's entry
+        conv2d_nhwc.launches += 1
+    return out
+
+
+conv2d_nhwc.launches = 0  # conv-kernel launches through K3's entry (dgrads, folds)
 
 
 def space_to_depth_conv(x, w, bias, *, stride, pad, relu: bool = False):
@@ -134,3 +146,67 @@ def space_to_depth_conv(x, w, bias, *, stride, pad, relu: bool = False):
 
 
 space_to_depth_conv.launches = 0  # conv-kernel launches on a fold
+
+
+# -- standalone rtc-layer conv op -----------------------------------------------------
+# signature: (type=conv,stride=S,pad=P,in=(img,chan,y,x),filts=(out_chan,in_chan,y,x),
+#             biases=(out_chan),out=(img,chan,y,x))  [NCHW names; ref conv.cucl]
+
+@kernel_gen("conv")
+def gen_conv(op: Op, tune: OpTune, ctx: GenCtx) -> FuncInfo:
+    """boda_tpu's ``gen_conv`` (conv.py:725). The signature stays NCHW/OIHW;
+    the hand kernels' routes transpose to NHWC/HWIO inside ``fn``:
+
+    * ``use_ref`` -> the plain f32 version;
+    * ``use_xla`` -> ``F.conv2d`` (cuDNN, the library path). For 16-bit
+      inputs it convolves their f32 values in TF32, which holds a bf16 or
+      fp16 value exactly, so the products are exact and summed in f32, and
+      bias and ReLU are applied before the one rounding to the output
+      dtype: boda_tpu's XLA conv with ``preferred_element_type=float32``.
+      cuDNN's own bf16 conv rounds before ATen adds the bias, and that
+      second rounding breaks ops_prof's cross-tune check near cancellations;
+    * stride 1 -> ``conv2d_nhwc`` (K3's entry; one kernel with K2's);
+    * strided with ``use_s2d`` -> ``space_to_depth_conv`` (K4);
+    * other strided convs -> ``conv2d``, which takes any stride."""
+    ind, fd, od = op.dims("in"), op.dims("filts"), op.dims("out")
+    s = (op.ival("stride", 1), op.ival("stride", 1))
+    p = (op.ival("pad", 0), op.ival("pad", 0))
+    relu = bool(op.ival("relu", 0))
+    kh, kw = fd["y"], fd["x"]
+    flops = 2.0 * od.num_elems() * fd["in_chan"] * kh * kw
+    byts = float(ind.bytes_sz() + fd.bytes_sz() + od.bytes_sz())
+
+    def nhwc(kernel, **kw_):
+        def fn(x, w, b):
+            out = kernel(x.permute(0, 2, 3, 1).contiguous(),
+                         w.permute(2, 3, 1, 0).contiguous(), b, pad=p, relu=relu, **kw_)
+            return out.permute(0, 3, 1, 2).contiguous()
+        return fn
+
+    if ctx.use_ref:
+        fn = nhwc(conv2d_plain, stride=s)
+        info = "ref:plain conv"
+    elif tune.use_xla:
+        def fn(x, w, b):
+            from ...graph.lowering import lib_precision
+            narrow = x.dtype != torch.float32  # TF32 holds its values exactly
+            with lib_precision("default" if narrow else tune.precision):
+                out = F.conv2d(x.float(), w.float(), b.float(), stride=s, padding=p)
+            if relu:
+                out = torch.relu(out)
+            return out.to(x.dtype)
+        info = "lib:F.conv2d (library path)"
+    elif s == (1, 1):
+        fn = nhwc(conv2d_nhwc)
+        info = "cuda:conv2d_nhwc s=1"
+    elif tune.use_s2d:
+        fn = nhwc(space_to_depth_conv, stride=s)
+        info = f"cuda:s2d_conv s={s}"
+    else:
+        fn = nhwc(conv2d, stride=s)
+        info = f"cuda:conv2d s={s}"
+
+    return FuncInfo(name="", args=[("in", "in"), ("filts", "in"),
+                                   ("biases", "in"), ("out", "out")],
+                    fn=fn, flops=flops, bytes_accessed=byts, info=info + tune_note(tune),
+                    in_dims=[ind, fd, Dims.of(out_chan=fd["out_chan"], tn=ind.tn)])

@@ -1,48 +1,86 @@
 """The tuning knobs of the generated-kernel path.
 
-Counterpart of ``boda_tpu/ops/tune.py`` ``OpTune``, cut to the knobs the
-ResNet forward reads, with the same names, defaults and ``key()`` format,
-so a tune string written for ``boda_tpu`` parses here when it only names
-these knobs (an unknown knob is an error, as there): the blocking knobs,
-``use_k1conv``, ``use_s2d`` (the strided conv on the space-to-depth fold),
-``pool_pallas`` (the pooling kernel), ``precision`` and ``use_xla``. The
-other knobs (stem_s2d, halo, tap_cat, nb, int8, the other pooling
-variants, ...) are not ported.
+Counterpart of ``boda_tpu/ops/tune.py`` ``OpTune``, with every knob of it,
+the same names, defaults and declaration order, so ``key()`` is the same
+string for the same tune and a tune written by ``boda_tpu`` (a wisdom file,
+``ops_prof``'s ``op_tunes``, an engine's ``tune``) parses here. An unknown
+knob is an error, as there. The knobs fall in three groups:
 
-``bm``/``bn``/``bk``/``chunk`` are accepted and kept in the key, but the
-port's hand kernels have compile-time tiles (``csrc/gemm.cuh``), so nothing
-reads them yet; ``precision`` only decides the f32 path (both kernels run
-full f32 there) and is logged.
+* read by the port: ``use_k1conv``, ``use_s2d`` (a strided conv on the
+  space-to-depth fold), ``pool_pallas`` (the pooling kernel), ``precision``
+  (the library's f32 path; bf16 always runs bf16 inputs with an f32
+  accumulator) and ``use_xla`` (the library op: cuDNN/cuBLAS);
+* no effect on the card (:data:`NO_EFFECT`): they choose between variants
+  of boda_tpu's Pallas kernels with the same result (tile sizes, halo DMA
+  or row gather, tap concatenation, image batching, the stem's im2col, the
+  pooling emitter dodges, Mosaic's grid semantics). The port's kernels
+  have one form each with compile-time tiles, so these are parsed and kept
+  in the key, and :meth:`OpTune.no_effect` names them for the logs;
+* not ported (:data:`NOT_PORTED`): a tune that sets one raises, naming the
+  ROADMAP item that will bring it, rather than being silently ignored.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
 
-from ..utils.lexp import Lexp
+from ..utils.lexp import Lexp, parse_lexp
 
 
 @dataclass(frozen=True)
 class OpTune:
-    # blocking knobs of boda_tpu's Pallas kernels (see the module doc)
+    # blocking: output tile sizes of boda_tpu's matmul-like kernels
     bm: int = 256
     bn: int = 256
     bk: int = 512
+    # conv-specific spatial chunking (0=auto)
     chunk: int = 0
     # 1x1 pad-0 convs as a GEMM (the k1conv variant)
     use_k1conv: bool = True
+    use_iconv: bool = True
     # a strided conv with k > 1 as a space-to-depth fold + the stride-1
     # direct conv (ops/kernels/conv.py:space_to_depth_conv)
     use_s2d: bool = False
+    # boda_tpu's XLA stem fold and its options (not ported)
+    stem_s2d: int = 0
+    stem_im2col: int = 0
+    pad_c: int = 0
+    # halo-conv variants of boda_tpu's Pallas conv
+    tap_cat: bool = False
+    nb: int = 0
+    use_halo: int = -1
+    # int8 inference (not ported)
+    int8: bool = False
+    # pooling emitter variants of boda_tpu's XLA pool
+    pool_shift: int = 0
+    pool_bview: int = 0
     # pooling on the hand pooling kernel (ops/kernels/pool.py) instead of
     # the library pool
     pool_pallas: int = 0
+    # DetectionOutput NMS candidate count (not ported)
+    det_top_k: int = 0
+    # accumulate and compute dtype overrides (not ported; boda_tpu declares
+    # them and no kernel of it reads them)
+    acc_tn: str = "float32"
+    in_tn: str = ""
     # 'highest' = full f32; bf16 compute always runs 'default' (bf16 inputs,
     # f32 accumulate)
     precision: str = "highest"
     # escape hatch: the library op (cuDNN/cuBLAS via F.conv2d/torch.matmul)
     # instead of a hand kernel, the analog of boda_tpu's XLA path
     use_xla: bool = False
+    # Mosaic's last-grid-dim semantics
+    dimension_semantics: str = "arbitrary"
+
+    def __post_init__(self):
+        for name, item in NOT_PORTED.items():
+            if getattr(self, name) != _DEFAULTS[name]:
+                raise ValueError(f"op_tune knob {name}={getattr(self, name)} is not "
+                                 f"ported to boda_tpu_torch yet ({item})")
+
+    def no_effect(self) -> list[str]:
+        """The knobs set away from their defaults that do nothing on the card."""
+        return [n for n in NO_EFFECT if getattr(self, n) != _DEFAULTS[n]]
 
     def key(self) -> str:
         parts = []
@@ -51,6 +89,13 @@ class OpTune:
             if v != f.default:
                 parts.append(f"{f.name}={Lexp(leaf_val=str(int(v) if isinstance(v, bool) else v))}")
         return "(" + ",".join(parts) + ")"
+
+    def __str__(self) -> str:
+        return self.key()
+
+    @staticmethod
+    def parse(s: str) -> "OpTune":
+        return OpTune.from_lexp(parse_lexp(s))
 
     @staticmethod
     def from_lexp(l: Lexp) -> "OpTune":
@@ -70,3 +115,20 @@ class OpTune:
             else:
                 kw[k] = v.leaf_val
         return OpTune(**kw)
+
+
+_DEFAULTS = {f.name: f.default for f in fields(OpTune)}
+
+# variants of boda_tpu's Pallas/XLA lowerings with the same result
+NO_EFFECT = ("bm", "bn", "bk", "chunk", "use_iconv", "stem_im2col", "tap_cat", "nb",
+             "use_halo", "pool_shift", "pool_bview", "dimension_semantics")
+
+# knob -> the ROADMAP item that will port it
+NOT_PORTED = {
+    "stem_s2d": "ROADMAP §1 item 3, the stem fold with input_s2d",
+    "pad_c": "ROADMAP §1 item 3, the stem fold with input_s2d",
+    "int8": "ROADMAP §1 item 5, int8",
+    "det_top_k": "ROADMAP §1 item 6, the SSD head",
+    "acc_tn": "ROADMAP §1 item 3, per-op dtype overrides",
+    "in_tn": "ROADMAP §1 item 3, per-op dtype overrides",
+}

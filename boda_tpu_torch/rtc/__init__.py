@@ -1,0 +1,2 @@
+from . import compute  # noqa: F401  (registers the "be" base)
+from . import backends  # noqa: F401  (registers the cuda/interp backends)

@@ -43,10 +43,18 @@ class NdaDigest:
     sha256: str
 
     @staticmethod
-    def make(arr: np.ndarray, dims: Dims | None = None) -> "NdaDigest":
+    def make(arr: np.ndarray, dims: Dims | None = None,
+             tn: str | None = None) -> "NdaDigest":
+        """``tn="bfloat16"`` digests a bf16 tensor held on the host as f32
+        (numpy has no bf16) as boda_tpu digests the bf16 array itself: its
+        dims name bfloat16 and the sha256 is of the 2-byte values."""
+        a = np.ascontiguousarray(arr)
+        raw = (a.view(np.uint32) >> 16).astype("<u2") \
+            if tn == "bfloat16" and a.dtype == np.float32 else a  # exact: bf16 values
         if dims is None:
-            dims = Dims.make([f"d{i}" for i in range(arr.ndim)], arr.shape, arr.dtype.name)
-        flat = np.ascontiguousarray(arr).reshape(-1)
+            dims = Dims.make([f"d{i}" for i in range(arr.ndim)], arr.shape,
+                             tn or arr.dtype.name)
+        flat = a.reshape(-1)
         f64 = flat.astype(np.float64)
         n = flat.size
         if n == 0:
@@ -61,7 +69,7 @@ class NdaDigest:
             vmin=float(f64.min()) if n else 0.0,
             vmax=float(f64.max()) if n else 0.0,
             samples=samples,
-            sha256=hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest(),
+            sha256=hashlib.sha256(raw.tobytes()).hexdigest(),
         )
 
     # -- comparison ----------------------------------------------------------

@@ -126,6 +126,9 @@ class Dims:
         """Bytes of the device tensor (bf16 counts 2 bytes)."""
         return self.num_elems() * torch_dtype(self.tn).itemsize
 
+    def with_tn(self, tn: str) -> "Dims":
+        return Dims(self.names, self.sizes, tn)
+
     def matches(self, o: "Dims", check_names: bool = True, check_tn: bool = True) -> bool:
         if self.sizes != o.sizes:
             return False

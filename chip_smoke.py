@@ -18,7 +18,18 @@ kernels:
 * the graph-level backward (add_bck_ops): f32 at b8, every node gen vs lib
   under test_compute's own rule; bf16 at b32, the loss, the input gradient
   and every weight gradient gen vs lib, timed per policy; and the user's
-  ``test_compute --add-bck-ops=1`` command line, in process.
+  ``test_compute --add-bck-ops=1`` command line, in process;
+* the rtc layer and its autotuning loop, in process through the CLI:
+  ``rtc_test`` and ``sgemm_run`` on ``be=cuda``, the ResNet-50 b32 bf16
+  op corpus (``gen_prof_ops``, plus the largest residual add as an
+  ``eltwise`` op) profiled by ``ops_prof`` into a wisdom file, ``wis_ana``
+  on it, and ``run_cnet`` reading it back through the engine's
+  ``wisdom_fn``, checked against the library path.
+
+The elementwise kernel (K9) is held bit for bit against its plain version
+for every func and dtype, and the fused stem kernel (K7, on no path: no
+engine routes to it, as in boda_tpu) against its plain version at the b32
+stem.
 
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after. Prints per-phase lines, one JSON line describing each
@@ -63,6 +74,12 @@ FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
 # and pool5; the stem (on the fold) and the 4 downsampling blocks' 3x3s; the
 # 12 1x1s outside blocks and fc1000; the stem's fold
 FUSED_LAUNCHES = {"block": 12, "pool": 2, "conv": 5, "sgemm": 13, "s2d": 1}
+# ops_prof's cross-tune check on the bf16 corpus: the kernel gates' 1e-2 (one
+# bf16 rounding is 2^-8 of a value), per element, with its own atol of 1e-4
+# of max|kg|
+RTC_MRD_TOLER = 1e-2
+RTC_TUNES = "(kg=(use_xla=1),gen=(),s2d=(use_s2d=1))"
+ELT_FUNCS = ("relu", "copy", "neg", "mul", "add", "sub", "max")
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 FMA operations/s
 HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
@@ -112,6 +129,46 @@ def bck_shapes(pipe, eng):
              op.pad()[0])
         sig[s] = sig.get(s, 0) + 1
     return sig
+
+
+def bits(t):
+    """The raw bits of a float tensor: NaN and -0 compare bit for bit."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def run_cli(argv) -> tuple[int, list[str]]:
+    """One CLI command in process: (exit code, its stdout lines)."""
+    from boda_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def stem_inputs(n, hw, oc, dt, rng):
+    """The fused stem's inputs for an n x hw x hw x 3 batch, 7x7 s2 p3 to oc
+    channels: the host's s2d and dx folds of the input and of the weights
+    (as boda_tpu's loader would make them). Returns ((x6, w2, bias), the
+    s2d fold xsd, its HWIO weights wf, kh, pooled size)."""
+    from boda_tpu_torch.graph.lowering_nhwc import host_stem_s2d, stem_s2d_geom
+    from boda_tpu_torch.ops.kernels.stem import fold_stem_weights_dx, host_stem_dxfold
+    c, kk, s, p = 3, 7, 2, 3
+    o = (hw + 2 * p - kk) // s + 1
+    geom = stem_s2d_geom({"chan": c, "y": hw, "x": hw}, {"y": o, "x": o}, (s, s),
+                         (p, p), (kk, kk), (1, 1), 1)
+    m = geom["m"]
+    x = rng.standard_normal((n, hw, hw, c), dtype=np.float32)
+    w = (rng.standard_normal((oc, c, kk, kk)) * (kk * kk * c) ** -0.5).astype(np.float32)
+    wh = np.pad(w.transpose(2, 3, 1, 0), ((0, m * s - kk), (0, m * s - kk), (0, 0), (0, 0)))
+    wf = wh.reshape(m, s, m, s, c, oc).transpose(0, 2, 1, 3, 4, 5).reshape(m, m, s * s * c, oc)
+    xsd = host_stem_s2d(x, geom)
+    x6 = host_stem_dxfold(xsd, m, o)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    bias = (rng.standard_normal(oc) * 0.1).astype(np.float32)
+    return ((dev(x6), dev(fold_stem_weights_dx(wf)), dev(bias)), dev(xsd), dev(wf), m,
+            -(-(o - 3) // 2) + 1)
 
 
 def check_nodes(pipe):
@@ -251,7 +308,6 @@ def main() -> int:
         return 1
     import torch.nn.functional as F
 
-    from boda_tpu_torch import cli
     from boda_tpu_torch.config import make
     from boda_tpu_torch.graph.autodiff import add_bck_ops
     from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
@@ -262,10 +318,12 @@ def main() -> int:
                                                   matmul_atb, matmul_atb_plain)
     from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
     from boda_tpu_torch.ops.kernels.block import plan as block_plan
-    from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_plain,
+    from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_nhwc, conv2d_plain,
                                                  space_to_depth_conv)
+    from boda_tpu_torch.ops.kernels.elementwise import eltwise, eltwise_plain
     from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.ops.kernels.stem import stem_fused, stem_fused_plain
     from boda_tpu_torch.utils.lexp import parse_lexp
 
     # the plain versions in full f32 (cuDNN convs default to TF32). Only the
@@ -285,9 +343,12 @@ def main() -> int:
     print(f"[build] nvcc sm_90a -> {kb.path.relative_to(build.BUILD_DIR.parents[1])}: "
           + (f"built in {kb.build_secs:.1f}s" if kb.build_secs else
              "reused (same source hash)"))
-    for ln in kb.log.splitlines():
-        if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln):
-            print(f"[build]   {ln.strip()}")
+    log = kb.log.splitlines()
+    spills = [ln.strip() for ln in log if "spill" in ln and " 0 bytes spill stores" not in ln]
+    print(f"[build] {sum('registers' in ln for ln in log)} kernels, "
+          f"{len(spills)} with spill stores")
+    for ln in spills:
+        print(f"[build]   {ln}")
 
     # -- phase 2: each kernel vs its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -476,6 +537,77 @@ def main() -> int:
               f"bound {tot['bound_ms']:.4f} ms")
         summary[kname] = tot
 
+    # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
+    # at ResNet-50 b32's largest residual add (32x256x56x56), at n = 777 and at
+    # a view one element off 16-byte alignment (the scalar path and tail);
+    # NaN, +-0 and +-inf among the inputs
+    elt_n = BATCH * 256 * 56 * 56
+    special = torch.tensor([float("nan"), -0.0, 0.0, float("inf"), -float("inf"), -1.5],
+                           device=dev)
+    elt_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        a0 = rnd((elt_n + 1,), dt)
+        b0 = rnd((elt_n + 1,), dt)
+        a0[:6], b0[:6] = special.to(dt), special.flip(0).to(dt)
+        for x, y, what in ((a0[:elt_n], b0[:elt_n], f"n={elt_n}"),
+                           (a0[:777], b0[:777], "n=777"),
+                           (a0[1:], b0[1:], f"n={elt_n} misaligned")):
+            for func in ELT_FUNCS:
+                ins = (x, y) if func in ("mul", "add", "sub", "max") else (x,)
+                out, ref = eltwise(func, *ins), eltwise_plain(func, *ins)
+                torch.cuda.synchronize()
+                check(torch.equal(bits(out), bits(ref)),
+                      f"eltwise {func} {dt} {what}: not bit-equal to its plain version")
+                fin = torch.isfinite(ref.float())
+                elt_err = max(elt_err, float((out.float() - ref.float())[fin].abs().max()))
+        print(f"[eltwise] {dt}: 7 funcs x (n={elt_n}, n=777, misaligned view) bit-equal "
+              f"to the plain version (NaN, +-0, +-inf included)")
+    x, y = a0[:elt_n], b0[:elt_n]  # bf16, the corpus's eltwise signature
+    elt_t = {"ms": cuda_ms(lambda: eltwise("add", x, y)),
+             "plain_ms": cuda_ms(lambda: eltwise_plain("add", x, y)),
+             "library_ms": cuda_ms(lambda: torch.add(x, y)),
+             "bound_ms": 3 * elt_n * 2 / HBM_BPS * 1e3, "max_abs_err": elt_err}
+    for func, lib_fn in (("mul", torch.mul), ("relu", torch.relu)):
+        ins = (x, y) if func == "mul" else (x,)
+        print(f"[eltwise] bf16 {func} n={elt_n}: kernel {cuda_ms(lambda: eltwise(func, *ins)) * 1e3:.1f} "
+              f"us, torch.{lib_fn.__name__} {cuda_ms(lambda: lib_fn(*ins)) * 1e3:.1f} us, bound "
+              f"{(len(ins) + 1) * elt_n * 2 / HBM_BPS * 1e6:.1f} us")
+    print(f"[eltwise] bf16 add n={elt_n}: kernel {elt_t['ms'] * 1e3:.1f} us, plain "
+          f"{elt_t['plain_ms'] * 1e3:.1f} us, torch.add {elt_t['library_ms'] * 1e3:.1f} us, "
+          f"bound {elt_t['bound_ms'] * 1e3:.1f} us ({card})")
+    del a0, b0, x, y
+
+    # -- phase 2c: K7, the fused stem, at the b32 stem --------------------------------
+    srng = np.random.default_rng(7)
+    for dt in (torch.float32, torch.bfloat16):
+        (x6, w2, sb), xsd, wf, kh, pooled = stem_inputs(BATCH, 224, 64, dt, srng)
+        kw = dict(kh=kh, poh=pooled, pow_=pooled, relu=True)
+        out, ref = stem_fused(x6, w2, sb, **kw), stem_fused_plain(x6, w2, sb, **kw)
+        torch.cuda.synchronize()
+        ae, re = rel_err(out, ref)
+        check(out.shape == (BATCH, 56, 56, 64) and bool(torch.isfinite(out.float()).all()),
+              f"stem {dt}: shape {tuple(out.shape)} / non-finite")
+        check(re <= TOL[dt], f"stem {dt}: rel err {re:.3g} > {TOL[dt]}")
+        print(f"[stem] {dt} x6 {tuple(x6.shape)} w2 {tuple(w2.shape)} -> {tuple(out.shape)}: "
+              f"max|err|/max|ref| {re:.2e} (tol {TOL[dt]})")
+    w_lib = wf.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
+    xs_lib = xsd.permute(0, 3, 1, 2)
+
+    def stem_lib():  # cuDNN's conv on the same s2d fold, bias/ReLU, the library pool
+        return F.max_pool2d(torch.relu(F.conv2d(xs_lib, w_lib, sb)), 3, 2, ceil_mode=True)
+    stem_bytes = 2 * (x6.numel() + w2.numel() + BATCH * pooled * pooled * 64) + 4 * 64
+    stem_ops = 2 * BATCH * (x6.shape[1] - kh + 1) * x6.shape[2] * 64 * w2.shape[0]
+    stem_t = {"ms": cuda_ms(lambda: stem_fused(x6, w2, sb, **kw)),
+              "plain_ms": cuda_ms(lambda: stem_fused_plain(x6, w2, sb, **kw)),
+              "library_ms": cuda_ms(stem_lib), "max_abs_err": ae,
+              "bytes_ms": stem_bytes / HBM_BPS * 1e3, "ops_ms": stem_ops / BF16_OPS * 1e3}
+    stem_t["bound_ms"] = max(stem_t["bytes_ms"], stem_t["ops_ms"])
+    print(f"[stem] bf16 b{BATCH}: kernel {stem_t['ms'] * 1e3:.1f} us, plain "
+          f"{stem_t['plain_ms'] * 1e3:.1f} us, cuDNN conv+bias/ReLU+max_pool2d "
+          f"{stem_t['library_ms'] * 1e3:.1f} us, bound {stem_t['bound_ms'] * 1e3:.1f} us "
+          f"({'bytes' if stem_t['bytes_ms'] >= stem_t['ops_ms'] else 'operations'}; {card})")
+    del x6, w2, sb, xsd, wf, out, ref, xs_lib, w_lib
+
     # -- phase 3: the slice: ResNet-50 b32 bf16 through the kernels -----------------
     ins = gen_data_inputs(in_dims)
     log = eng.get_info_log().splitlines()
@@ -654,14 +786,16 @@ def main() -> int:
     beng.init(bpipe)
     blib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
     blib.init(bpipe)
-    matmul.launches = conv2d.launches = matmul_atb.launches = 0
+    matmul.launches = conv2d.launches = matmul_atb.launches = conv2d_nhwc.launches = 0
     bres = {"gen": beng.run_fwd(bins, bwant)}
     launches_bck = {"sgemm": matmul.launches, "conv": conv2d.launches,
-                    "atb": matmul_atb.launches}
+                    "atb": matmul_atb.launches, "conv_nhwc": conv2d_nhwc.launches}
     print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} "
           f"(bck-conv ops {n_bck_conv})")
     check(launches_bck["atb"] >= n_bck_conv, "grad-bf16: atb launches below the bck-conv ops")
     check(launches_bck["conv"] >= n_bck_conv, "grad-bf16: conv launches below the dgrads")
+    check(launches_bck["conv_nhwc"] == n_bck_conv, "grad-bf16: a dgrad per bck-conv op "
+          "through K3's entry")
     check(launches_bck["sgemm"] > 0, "grad-bf16: no sgemm launch")
     lres = blib.run_fwd(bins, bwant + bfwd)
     bres["lib"] = {n: lres[n] for n in bwant}
@@ -700,21 +834,15 @@ def main() -> int:
     del beng, blib
 
     # the user's command line, in-process
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["run_cnet", "--model=resnet50", f"--img={BATCH}",
-                       "--conv-fwd=(mode=cuda,compute_tn=bfloat16)", "--n-iters=10"])
-    lines = buf.getvalue().splitlines()
+    rc, lines = run_cli(["run_cnet", "--model=resnet50", f"--img={BATCH}",
+                         "--conv-fwd=(mode=cuda,compute_tn=bfloat16)", "--n-iters=10"])
     print(f"[run_cnet] rc={rc}: {lines[0] if lines else ''}")
     print(f"[run_cnet] {next((ln for ln in lines if ln.startswith('{')), '')}")
     check(rc == 0, "run_cnet failed")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["test_compute", "--model=resnet50", "--img=2", "--n-wins=1",
-                       "--add-bck-ops=1", "--mrd-toler=1e-3",
-                       "--engines=(lib=(mode=cuda,kernel_policy=lib),"
-                       "gen=(mode=cuda,kernel_policy=gen))"])
-    lines = buf.getvalue().splitlines()
+    rc, lines = run_cli(["test_compute", "--model=resnet50", "--img=2", "--n-wins=1",
+                         "--add-bck-ops=1", "--mrd-toler=1e-3",
+                         "--engines=(lib=(mode=cuda,kernel_policy=lib),"
+                         "gen=(mode=cuda,kernel_policy=gen))"])
     for ln in [ln for ln in lines if ln.startswith("FAIL")][:10] + lines[-1:]:
         print(f"[test_compute] rc={rc}: {ln}")
     check(rc == 0, "test_compute --add-bck-ops=1 failed")
@@ -726,10 +854,93 @@ def main() -> int:
         print(f"[slice] resnet50 b{BATCH} bf16 {pol}: {secs * 1e3:.3f} ms/fwd, "
               f"{rates[pol]:.1f} img/s ({card})")
 
+    # -- phase 6: the rtc layer and per-op autotuning, through the CLI ---------------
+    for fn in (eltwise, matmul, conv2d, space_to_depth_conv, stem_fused):
+        fn.launches = 0
+    rc, lines = run_cli(["rtc_test", "--be=(be=cuda)", "--n=1000000"])
+    print(f"[rtc] rtc_test rc={rc}: {lines[-1] if lines else ''}")
+    check(rc == 0 and "PASS" in lines[-1], "rtc_test on be=cuda")
+    sg = {}
+    for tn, extra in (("float32", []), ("bfloat16", ["--check=0"])):
+        rc, lines = run_cli(["sgemm_run", "--be=(be=cuda)", "--M=4096", "--K=4096",
+                             "--N=4096", f"--tn={tn}", *extra])
+        for ln in lines:
+            print(f"[rtc] sgemm_run {tn} rc={rc}: {ln}")
+        check(rc == 0, f"sgemm_run {tn} 4096^3")
+        if tn == "float32":
+            check(any(ln.startswith("check: PASS") for ln in lines), "sgemm_run f32 check")
+        sg[tn] = json.loads(lines[-1])
+    out_dir = build.BUILD_DIR.parent / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    corpus, wis_fn = out_dir / "prof-ops.txt", out_dir / "resnet50-bf16.wis"
+    rc, lines = run_cli(["gen_prof_ops", "--model=resnet50", f"--img={BATCH}",
+                         "--tn=bfloat16", f"--boda-output-dir={out_dir}",
+                         f"--out-fn={corpus.name}"])
+    print(f"[rtc] gen_prof_ops rc={rc}: {lines[-1] if lines else ''}")
+    check(rc == 0, "gen_prof_ops")
+    ed = f"(img={BATCH},chan=256,y=56,x=56,__tn__=bfloat16)"
+    with open(corpus, "a") as f:  # the largest residual add, so K9 is profiled too
+        f.write(f"(type=eltwise,func=add,a={ed},b={ed},out={ed})\n")
+    n_sigs = len(corpus.read_text().splitlines())
+    rc, lines = run_cli(["ops_prof", "--be=(be=cuda)", f"--ops-fn={corpus}",
+                         f"--op-tunes={RTC_TUNES}", f"--mrd-toler={RTC_MRD_TOLER}",
+                         f"--wisdom-out-fn={wis_fn}"])
+    fails = [ln for ln in lines if ln.startswith("FAIL")]
+    for ln in fails[:10] + lines[-1:]:
+        print(f"[rtc] ops_prof rc={rc}: {ln}")
+    from boda_tpu_torch.prof.wisdom import read_wisdom
+    wis = read_wisdom(str(wis_fn))
+    runs = sum(len(w.runs) for w in wis)
+    print(f"[rtc] ops_prof {RTC_TUNES} --mrd-toler={RTC_MRD_TOLER}: {len(wis)} ops of "
+          f"{n_sigs}, {runs} runs recorded, {len(fails)} FAIL lines")
+    check(rc == 0 and not fails and len(wis) == n_sigs and runs == 3 * n_sigs,
+          "ops_prof: every tune of every signature must pass the cross-tune check")
+    for w in wis:  # us per tune (paired A/B), per signature
+        d = w.op.dims("out" if w.op.type != "sgemm" else "c")
+        what = (f"{w.op.type} s{w.op.sval('stride', '1')} k{w.op.dims('filts')['y']} "
+                f"{w.op.dims('in')['chan']}->{d['chan']} @{d['y']}" if w.op.type == "conv"
+                else f"{w.op.type} {'x'.join(map(str, d.shape))}")
+        print(f"[rtc] ops_prof {what}: " + ", ".join(
+            f"{r.tune} {r.secs * 1e6:.1f}" for r in w.runs) + " us")
+    rc, lines = run_cli(["wis_ana", f"--wisdom-fn={wis_fn}"])
+    print(f"[rtc] wis_ana rc={rc}: {lines[-1] if lines else ''}")
+    check(rc == 0, "wis_ana")
+    wins = {}
+    for ln in lines:
+        if "best" in ln and "tune=" in ln:
+            t = ln.split("tune=")[1]
+            wins[t] = wins.get(t, 0) + 1
+    print(f"[rtc] wis_ana best tunes: {wins}")
+    wcfg = f"(mode=cuda,compute_tn=bfloat16,wisdom_fn={wis_fn})"
+    rc, lines = run_cli(["run_cnet", "--model=resnet50", f"--img={BATCH}",
+                         f"--conv-fwd={wcfg}", "--n-iters=10"])
+    print(f"[rtc] run_cnet --conv-fwd={wcfg} rc={rc}: "
+          f"{next((ln for ln in lines if ln.startswith('{')), '')}")
+    check(rc == 0, "run_cnet with wisdom_fn")
+    tuned = {ln.split(":")[0] for ln in lines if ": wisdom tune " in ln}
+    want = {n for n, o in pipe.ops.items() if o.type in ("Convolution", "InnerProduct")}
+    print(f"[rtc] run_cnet: a wisdom tune for {len(tuned & want)} of {len(want)} convs+fc")
+    check(want <= tuned, f"no wisdom tune for {sorted(want - tuned)[:5]}")
+    launches_rtc = {"eltwise": eltwise.launches, "sgemm": matmul.launches,
+                    "conv": conv2d.launches, "s2d": space_to_depth_conv.launches}
+    print(f"[rtc] launches on the rtc path: {launches_rtc}")
+    check(min(launches_rtc.values()) > 0 and stem_fused.launches == 0,
+          "the rtc path must launch eltwise, sgemm, conv and s2d (and no stem)")
+    weng = make("conv_fwd", "cuda", compute_tn="bfloat16", wisdom_fn=str(wis_fn))
+    weng.init(pipe)
+    wouts = weng.run_fwd(ins, ["fc1000"])
+    _, e_w = rel_err(torch.from_numpy(wouts["fc1000"].data),
+                     torch.from_numpy(louts["fc1000"].data))
+    print(f"[rtc] fc1000 wisdom-tuned vs lib: {e_w:.3e} (tol {SLICE_TOL['fc1000']})")
+    check(e_w <= SLICE_TOL["fc1000"], f"wisdom-tuned fc1000 vs lib {e_w:.3g}")
+    del weng
+
     # per kernel: launches on its main path (the forward for sgemm and conv,
-    # the b32 bf16 gradient graph for atb, the fused forward for block, pool
-    # and s2d), and that path's per-pass times and bound
+    # the b32 bf16 gradient graph for atb and for K3's entry, the dgrads,
+    # the fused forward for block, pool and s2d), and that path's per-pass
+    # times and bound
     launches["atb"] = launches_bck["atb"]
+    launches["dgrad"] = launches_bck["conv_nhwc"]
     for k in ("block", "pool", "s2d"):
         launches[k] = launches_fused[k]
     kernels = []
@@ -737,6 +948,8 @@ def main() -> int:
                              "boda_tpu/ops/kernels/sgemm.py:80"),
                             ("conv", "boda_tpu_torch/csrc/conv.cu",
                              "boda_tpu/ops/kernels/conv.py:575"),
+                            ("dgrad", "boda_tpu_torch/csrc/conv.cu",
+                             "boda_tpu/ops/kernels/conv.py:103"),
                             ("atb", "boda_tpu_torch/csrc/atb.cu",
                              "boda_tpu/ops/kernels/bconv.py:53"),
                             ("block", "boda_tpu_torch/csrc/block.cu",
@@ -756,14 +969,8 @@ def main() -> int:
             entry["launches_bck"] = launches_bck[kname]
         if kname in ("sgemm", "conv"):
             entry["launches_fused"] = launches_fused[kname]
-        if kname == "conv":
-            d = summary["dgrad"]
-            entry.update({"also_replaces": "boda_tpu/ops/kernels/conv.py:103",
-                          "dgrad_ms": d["ms"], "dgrad_plain_ms": d["plain_ms"],
-                          "dgrad_library_ms": d["library_ms"],
-                          "dgrad_bound_ms": d["bound_ms"],
-                          "dgrad_max_abs_err": d["max_abs_err"],
-                          "dgrad_max_rel_err": d["max_rel_err"]})
+        if kname == "dgrad":  # K3's entry, conv2d_nhwc, on the conv kernel
+            entry["entry"] = "boda_tpu_torch/ops/kernels/conv.py:conv2d_nhwc"
         if kname == "atb":
             d = summary["atb_dense"]
             entry.update({"dense_ms": d["ms"], "dense_plain_ms": d["plain_ms"],
@@ -772,9 +979,30 @@ def main() -> int:
                           "dense_max_abs_err": d["max_abs_err"]})
         if kname == "s2d":  # the fold runs in PyTorch, the conv on conv.cu
             entry["fold"] = "boda_tpu_torch/ops/kernels/conv.py:space_to_depth_conv"
+        if kname in launches_rtc:
+            entry["launches_rtc"] = launches_rtc[kname]
         kernels.append(entry)
+    # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
+    # tests only); times of one call at the b32 shapes
+    kernels.append({"name": "eltwise", "route": "cuda", "source": "boda_tpu_torch/csrc/eltwise.cu",
+                    "replaces": "boda_tpu/ops/kernels/elementwise.py:47",
+                    "launches": launches_rtc["eltwise"], "max_abs_err": elt_t["max_abs_err"],
+                    "ms": elt_t["ms"], "plain_ms": elt_t["plain_ms"],
+                    "bound_ms": elt_t["bound_ms"], "bound_by": "bytes",
+                    "library_ms": elt_t["library_ms"], "path": "rtc"})
+    kernels.append({"name": "stem", "route": "cuda", "source": "boda_tpu_torch/csrc/stem.cu",
+                    "replaces": "boda_tpu/ops/kernels/stem.py:121",
+                    "launches": 0, "max_abs_err": stem_t["max_abs_err"],
+                    "ms": stem_t["ms"], "plain_ms": stem_t["plain_ms"],
+                    "bound_ms": stem_t["bound_ms"],
+                    "bound_by": "bytes" if stem_t["bytes_ms"] >= stem_t["ops_ms"] else "operations",
+                    "library_ms": stem_t["library_ms"],
+                    "path": "none: no engine routes to it, as in boda_tpu"})
     print(json.dumps({"kernels": kernels, "img_per_s": rates,
-                      "grad_img_per_s": grad_rates, "card": card}))
+                      "grad_img_per_s": grad_rates,
+                      "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
+                                         for tn, r in sg.items()},
+                      "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -39,7 +39,9 @@ _HYGIENE = """
 import sys
 import boda_tpu_torch.cli, boda_tpu_torch.modes_all
 import boda_tpu_torch.modes.test_compute, boda_tpu_torch.utils.digest
-import boda_tpu_torch.ops.kernels.bconv
+import boda_tpu_torch.ops.kernels.bconv, boda_tpu_torch.ops.kernels.stem
+import boda_tpu_torch.modes.rtc, boda_tpu_torch.modes.prof, boda_tpu_torch.prof.abtime
+from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
 from boda_tpu_torch.graph.autodiff import add_bck_ops
 from boda_tpu_torch.modes.cnet import gen_data_inputs
@@ -57,6 +59,7 @@ eng.init(pipe)
 out = eng.run_fwd(gen_data_inputs(in_dims), ["data__grad__p0", "prob_loss"])
 assert out["data__grad__p0"].data.shape == (1, 3, 8, 8)
 assert "bck-conv" in eng.get_info_log()
+assert cli.main(["rtc_test", "--be=(be=cuda,device=cpu)", "--n=1000"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)
@@ -75,6 +78,14 @@ def test_cuda_device_without_card_raises(monkeypatch):
     eng = make("conv_fwd", "cuda")  # device defaults to cuda
     with pytest.raises(RuntimeError, match="no CUDA card"):
         eng.init(pipe)
+
+
+def test_cuda_backend_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    be = make("be", "cuda")  # device defaults to cuda, resolved at first use
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        be.get_plat_tag()
+    assert make("be", "cuda", device="cpu").get_plat_tag() == "cuda:cpu"
 
 
 def test_time_fwd_refuses_cpu():

@@ -230,3 +230,80 @@ def test_space_to_depth_conv_vs_plain(dev):
             ref = conv2d_plain(x, w, b, stride=(s, s), pad=(p, p), relu=True)
             assert out.shape == ref.shape
             assert _err(out, ref) <= _TOL[dt], (dt, n, h, c, oc, k, s, p)
+
+
+def _bits(t):
+    """The raw bits of a float tensor, for bit-for-bit comparison (NaN, -0)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def test_eltwise_vs_plain(dev):
+    from boda_tpu_torch.ops.kernels.elementwise import FUNC_CODES, eltwise, eltwise_plain
+    rng = np.random.default_rng(9)
+    special = np.array([np.nan, -0.0, 0.0, -1.5, np.inf, -np.inf, 1e-40], np.float32)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for n in (777, 100_003):
+            base = rng.standard_normal(n + 1).astype(np.float32)
+            base[:len(special)] = special
+            a = torch.from_numpy(base).to(dev, dt)
+            b = torch.from_numpy(np.roll(base, 3)).to(dev, dt)
+            b[5] = 0.0  # max(-0, +0) at index 1 and max(-inf, +0) at 5
+            # aligned operands, then a sliced view one element off alignment
+            for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):
+                for func in FUNC_CODES:
+                    ins = (x, y) if func in ("mul", "add", "sub", "max") else (x,)
+                    before = eltwise.launches
+                    out = eltwise(func, *ins)
+                    torch.cuda.synchronize()
+                    assert eltwise.launches == before + 1
+                    ref = eltwise_plain(func, *ins)
+                    assert out.dtype == dt and out.shape == ref.shape
+                    assert torch.equal(_bits(out), _bits(ref)), (dt, n, func)
+
+
+def _stem_case(rng, n, hw, oc, dt, dev):
+    from boda_tpu_torch.graph.lowering_nhwc import host_stem_s2d, stem_s2d_geom
+    from boda_tpu_torch.ops.kernels.stem import fold_stem_weights_dx, host_stem_dxfold
+    c, kk, s, p = 3, 7, 2, 3
+    o = (hw + 2 * p - kk) // s + 1
+    geom = stem_s2d_geom({"chan": c, "y": hw, "x": hw}, {"y": o, "x": o},
+                         (s, s), (p, p), (kk, kk), (1, 1), 1)
+    m = geom["m"]
+    x = rng.standard_normal((n, hw, hw, c)).astype(np.float32)
+    w = (rng.standard_normal((oc, c, kk, kk)) * 0.1).astype(np.float32)
+    wh = np.pad(w.transpose(2, 3, 1, 0), ((0, m * s - kk), (0, m * s - kk), (0, 0), (0, 0)))
+    wh = wh.reshape(m, s, m, s, c, oc).transpose(0, 2, 1, 3, 4, 5).reshape(m, m, s * s * c, oc)
+    x6 = host_stem_dxfold(host_stem_s2d(x, geom), m, o)
+    pooled = -(-(o - 3) // 2) + 1
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)  # noqa: E731
+    return (to(x6), to(fold_stem_weights_dx(wh)),
+            to((rng.standard_normal(oc) * 0.1).astype(np.float32))), m, pooled
+
+
+def test_stem_fused_vs_plain(dev):
+    from boda_tpu_torch.ops.kernels.stem import stem_fused, stem_fused_plain
+    rng = np.random.default_rng(4)
+    # the tensor-core path (OW, CP, OC multiples of 16) and the FMA path
+    # (a 13-wide conv row, OC 24)
+    for n, hw, oc in ((2, 64, 64), (1, 26, 24), (1, 32, 16)):
+        for dt in (torch.float32, torch.bfloat16):
+            ops, m, pooled = _stem_case(rng, n, hw, oc, dt, dev)
+            for relu in (True, False):
+                kw = dict(kh=m, poh=pooled, pow_=pooled, relu=relu)
+                before = stem_fused.launches
+                out = stem_fused(*ops, **kw)
+                torch.cuda.synchronize()
+                assert stem_fused.launches == before + 1
+                ref = stem_fused_plain(*ops, **kw)
+                assert out.shape == ref.shape == (n, pooled, pooled, oc)
+                assert _err(out, ref) <= _TOL[dt], (n, hw, oc, dt, relu)
+
+
+def test_rtc_test_on_cuda(dev, capsys):
+    from boda_tpu_torch import cli
+    from boda_tpu_torch.ops.kernels.elementwise import eltwise
+    before = eltwise.launches
+    assert cli.main(["rtc_test", "--n=1000003"]) == 0
+    out = capsys.readouterr().out
+    assert "PASS" in out and f"be=cuda:{torch.cuda.get_device_name()}".replace(" ", "_") in out
+    assert eltwise.launches == before + 1
