@@ -14,17 +14,22 @@
 //
 // What bounds it on an H100: the 3x3 layers of ResNet-50 do about 290-1,100
 // FLOP per byte of compulsory HBM traffic, at or above the card's ~295 FLOP/B
-// bf16 ridge, so they should be bound by the tensor cores. This first kernel
-// stays well short of that: it issues mma.sync (not wgmma), stages tiles
-// through registers (not TMA) in a single buffer, and re-reads each input
-// pixel for every tap through L2. The stem (C=3, K=147) cannot use 16-byte
-// loads and gathers its A tile element by element.
+// bf16 ridge, so they are bound by the tensor cores; at res4/res5 (M = 6,272
+// and 1,568 at batch 32) too few output tiles fill 132 SMs. The bf16 design
+// (gemm.cuh's wgmma path) runs wgmma on a ring of 3-8 stages: the weights stream in
+// by TMA, the input by 16-byte cp.async gathers at the swizzled addresses
+// wgmma reads, with (ky, kx, c) carried from chunk to chunk instead of divided
+// out per vector; a per-shape plan splits K at res4/res5. Each input pixel is
+// still read once per tap through L2. The C = 3 stem cannot take 16-byte
+// loads and stays on the mma.sync loop, element by element.
 #include "gemm.cuh"
 
-extern "C" int boda_conv2d(const void* x, const void* w, const void* bias,
-                           const void* res, void* out, int n, int h, int wd, int c,
-                           int oh, int ow, int oc, int kh, int kw, int sy, int sx,
-                           int py, int px, int relu, int dtype, void* stream) {
+// path, bm, bn, splits: the plan (gemm.cuh launch_gemm); ws: splits x M x OC
+// f32 when splits > 1, with M = n * oh * ow.
+extern "C" int boda_conv2d(const void* x, const void* w, const void* bias, const void* res,
+                           void* out, void* ws, int n, int h, int wd, int c, int oh, int ow,
+                           int oc, int kh, int kw, int sy, int sx, int py, int px, int relu,
+                           int dtype, int path, int bm, int bn, int splits, void* stream) {
   boda::Prob p = {};
   p.a = x;
   p.b = w;
@@ -45,5 +50,5 @@ extern "C" int boda_conv2d(const void* x, const void* w, const void* bias,
   p.sx = sx;
   p.py = py;
   p.px = px;
-  return boda::launch_gemm<true>(p, dtype, (cudaStream_t)stream);
+  return boda::launch_gemm<true>(p, dtype, path, bm, bn, splits, ws, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
-// Shared tiled GEMM core for sgemm.cu (plain GEMM) and conv.cu (implicit-GEMM
-// NHWC conv). Both compute C[M,N] = A[M,K] . B[K,N] (+bias[N]) (+res[M,N])
-// (+ReLU) with an f32 accumulator and the output in A's dtype; they differ
+// Shared GEMM core for sgemm.cu (plain GEMM) and conv.cu (implicit-GEMM NHWC
+// conv). Both compute C[M,N] = A[M,K] . B[K,N] (+bias[N]) (+res[M,N]) (+ReLU)
+// with an f32 accumulator and one rounding to the output dtype; they differ
 // only in how a tile of A is fetched:
 //   * GEMM: A is a dense row-major [M,K] matrix.
 //   * CONV: A[m,k] is gathered on the fly from the NHWC input, with
@@ -8,12 +8,16 @@
 //     zero padding done by bounds masks (no im2col, no host-side pad).
 // B is always the row-major [K,N] weight (HWIO flattened for the conv).
 //
-// bf16 runs on the tensor cores through WMMA (mma.sync) 16x16x16 fragments:
-// a 256-thread block owns a 128x128 output tile, each of its 8 warps a 64x32
-// sub-tile, and the K loop stages 128x32 A and 32x128 B tiles in shared
-// memory. f32 runs on the FMA pipes (full f32, no TF32): 64x64 tiles, 4x4
-// outputs per thread. Ragged M/N/K edges are masked in the kernel: loads
-// outside the problem read 0, stores outside it are skipped.
+// Three paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
+// from the shape before the launch, never after a failure:
+//   * wgmma (bf16; K % 8 == 0 for the GEMM or C % 8 == 0 for the conv,
+//     N % 8 == 0, 16-byte aligned operands): Hopper's warpgroup MMA fed by a
+//     ring of 3-8 stages of 64-deep K chunks in shared memory (gemm_wgmma below).
+//   * mma (bf16, every other shape: the C = 3 stem, ragged N): WMMA
+//     (mma.sync) 16x16x16 fragments on a 128x128 tile, one buffer.
+//   * fma (f32): FMA pipes, full f32 (no TF32), 64x64 tiles.
+// Ragged M/N/K edges are masked in the kernels: loads outside the problem
+// read 0, stores outside it are skipped.
 //
 // The output-tile index with the most tiles (M) is on gridDim.x, whose limit
 // is 2^31-1; gridDim.y (N tiles) stays far below its 65,535 limit.
@@ -22,6 +26,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -129,7 +134,7 @@ union Pack8 {
 
 constexpr int kThreads = 256;
 
-// -- bf16: tensor cores through WMMA ------------------------------------------
+// -- bf16, the mma path: tensor cores through WMMA ------------------------------------------
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kALd = kBK + 8, kBLd = kBN + 8;  // +8: skew smem banks
 
@@ -282,19 +287,640 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
     }
 }
 
+// -- bf16, the wgmma path -------------------------------------------------------
+//
+// A persistent grid (one block per SM at most) walks the work items: output
+// tiles of BM x BN (BM = 64 x NWG), times the K splits. A block runs NWG + 1
+// warpgroups. The last is the producer: it only fills a ring of stages in
+// shared memory, each one K chunk of 64 (128 bytes of bf16, one 128-byte
+// swizzle row): B (and the GEMM's A) by TMA with the 128-byte swizzle, the
+// conv's A by 16-byte cp.async copies with zero-fill for the padding and for
+// rows past M, written at the swizzled address TMA would have used. Each
+// stage has a full and an empty mbarrier, and the ring runs on across work
+// items, so the next tile's chunks load while this one's epilogue runs. The
+// other NWG warpgroups only issue wgmma.mma_async m64nBNk16 on the 64 rows
+// each owns, with A K-major and B N-major (the transpose bit), and keep one
+// chunk's MMAs in flight while they wait for the next chunk. setmaxnreg
+// moves registers from the producer to them.
+//
+// Epilogue, from the accumulator registers: + bias (read once per column
+// pair), + residual (read once), ReLU, one rounding to bf16, written into a
+// swizzled tile in shared memory and stored by TMA (out-of-bounds rows and
+// columns clipped), so the output is written once in whole lines while the
+// warpgroup goes on to its next tile.
+//
+// Split-K: a work item covers kb_per_split chunks of one split (the plan
+// makes every split equal) and writes its f32 partial tile to ws[z][M][N];
+// gemm_splitk_reduce then sums the splits in order and applies the
+// epilogue: deterministic, no atomics.
+constexpr int kChunk = 64;  // K per stage
+constexpr int kSmemMax = 232448;  // shared memory one block may use (227 KB)
+
+template <int BM, int BN>
+struct RingLayout {
+  static constexpr int kA = BM * kChunk * 2;  // bytes of A per stage
+  static constexpr int kB = kChunk * BN * 2;  // bytes of B per stage (BN/64 TMA boxes)
+  static constexpr int kStage = kA + kB;
+  static constexpr int kOut = BM * BN * 2;    // the bf16 output tile (BN/64 boxes per 64 rows)
+  // as many stages (16 bytes of barriers each) as fit beside it, at most 8;
+  // 1,024 bytes align the base and 1,536 stay spare (common.py:wgmma_stages
+  // mirrors this)
+  static constexpr int kFree = kSmemMax - 1024 - 1536 - kOut;
+  static constexpr int kStages = kFree / (kStage + 16) < 8 ? kFree / (kStage + 16) : 8;
+  static_assert(kStages >= 3, "at least three stages");
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kBars = kRing + kOut;  // full[kStages], empty[kStages]
+  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;  // +1024: align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// 2-D TMA load of one box at (c0 innermost, c1) into shared memory; its bytes
+// complete the transaction count of the barrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 2-D TMA store of one box from shared memory at (c0 innermost, c1);
+// out-of-bounds elements are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk stores have read their shared memory (READ)
+// or have completed.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 16-byte cp.async; src-size 0 writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Arrive on the barrier when this thread's earlier cp.asyncs have landed
+// (.noinc: the arrival is counted in the barrier's init count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. Byte offsets:
+// lbo = the leading-dimension byte offset, sbo = the stride byte offset.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across the asynchronous
+// MMAs that write them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x BN] += A[64 x 16] . B[16 x BN]; A K-major, B N-major (trans-b = 1).
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+union Bf16x8 {
+  uint4 u;
+  __nv_bfloat162 h[4];
+};
+
+// v + bias[n..n+8] (+res) (+ReLU) -> 8 bf16 at c[m, n..n+8], one rounding:
+// 16-byte accesses (N % 8 == 0 and 16-byte aligned operands on this path).
+__device__ __forceinline__ void store8(const Prob& p, long m, int n, float (&v)[8]) {
+  const long off = m * p.N + n;
+  Bf16x8 t;
+#pragma unroll
+  for (int term = 0; term < 2; ++term) {
+    const void* src = term == 0 ? p.bias : p.res;
+    if (src == nullptr) continue;
+    t.u = *(const uint4*)((const bf16*)src + (term == 0 ? n : off));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(t.h[q]);
+      v[2 * q] += f.x;
+      v[2 * q + 1] += f.y;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float x = v[2 * q], y = v[2 * q + 1];
+    if (p.relu) {
+      x = fmaxf(x, 0.f);
+      y = fmaxf(y, 0.f);
+    }
+    t.h[q] = __floats2bfloat162_rn(x, y);
+  }
+  *(uint4*)((bf16*)p.c + off) = t.u;
+}
+
+template <bool CONV, int NWG, int BN>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+    gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
+               const __grid_constant__ CUtensorMap tma_b,
+               const __grid_constant__ CUtensorMap tma_c, Prob p, float* ws, int splits,
+               int kb_per_split) {
+  constexpr int BM = NWG * 64;
+  using L = RingLayout<BM, BN>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) uint8_t dsmem[];
+  // the swizzle pattern repeats every 1024 bytes: align every tile to it
+  uint8_t* smem = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full0 = sbase + L::kBars, empty0 = full0 + kStages * 8;
+  const int tiles_m = (p.M + BM - 1) / BM, tiles_n = (p.N + BN - 1) / BN;
+  const int work = tiles_m * tiles_n * splits;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      // full: the TMA thread's expect_tx, plus one cp.async arrival per
+      // producer thread for the conv's gathered A; empty: each consumer warp
+      mbar_init(full0 + 8 * s, CONV ? 1 + 128 : 1);
+      mbar_init(empty0 + 8 * s, NWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * 128) {
+    // -- producer warpgroup: copies only --------------------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int pt = threadIdx.x - NWG * 128;
+    if (!CONV && pt != 0) return;
+    // the conv: this thread copies 16-byte vector j of rows rr + 16 q of
+    // every A chunk. Lane j of each group of 8 holds the RowInfo of row
+    // rr + 16 j, shared by shuffles; (ky, kx, c) of the thread's k is carried
+    // from chunk to chunk (64 on), so the chunk loop divides nothing.
+    const int j = pt & 7, rr = pt >> 3, lane8 = threadIdx.x & 24;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int w = blockIdx.x; w < work; w += gridDim.x) {
+      const int mt = w % tiles_m, rest = w / tiles_m;
+      const long m0 = (long)mt * BM;
+      const int n0 = (rest % tiles_n) * BN, kb0 = (rest / tiles_n) * kb_per_split;
+      long k = (long)kb0 * kChunk + j * 8;
+      int c = 0, kx = 0, ky = 0;
+      RowInfo mine = {0, 0, 0};
+      if (CONV) {
+        const long tap = k / p.C;
+        c = (int)(k - tap * p.C);
+        ky = (int)(tap / p.KW);
+        kx = (int)(tap - (long)ky * p.KW);
+        const long m = m0 + rr + 16 * j;
+        if (j < BM / 16 && m < p.M) {
+          const int ox = (int)(m % p.OW);
+          const long t = m / p.OW;
+          const int oy = (int)(t % p.OH);
+          mine.nh = (int)(t / p.OH) * p.H;
+          mine.iy = oy * p.sy - p.py;
+          mine.ix = ox * p.sx - p.px;
+        } else {  // rows past M: an input row that is never in bounds
+          mine.iy = INT_MIN / 2;
+        }
+      }
+      for (int i = 0; i < kb_per_split; ++i) {
+        const int kb = kb0 + i;
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t sa = sbase + stage * L::kStage, sb = sa + L::kA;
+        const uint32_t fb = full0 + 8 * stage;
+        if (pt == 0) {
+          mbar_expect_tx(fb, CONV ? L::kB : L::kA + L::kB);
+          if (!CONV) tma_load_2d(sa, &tma_a, fb, kb * kChunk, (int)m0);
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load_2d(sb + q * 8192, &tma_b, fb, n0 + q * 64, kb * kChunk);
+        }
+        if (CONV) {
+          const bf16* X = (const bf16*)p.a;
+          const bool kin = k < p.K;
+#pragma unroll
+          for (int q = 0; q < BM / 16; ++q) {
+            const int r = rr + 16 * q;
+            const int nh = __shfl_sync(0xffffffffu, mine.nh, lane8 + q);
+            const int iy = __shfl_sync(0xffffffffu, mine.iy, lane8 + q) + ky;
+            const int ix = __shfl_sync(0xffffffffu, mine.ix, lane8 + q) + kx;
+            const bool ok = kin && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
+            const bf16* src = ok ? X + ((long)(nh + iy) * p.W + ix) * p.C + c : X;
+            cp_async16(sa + r * 128 + ((j ^ (r & 7)) << 4), src, ok);
+          }
+          cp_async_arrive(fb);
+          k += kChunk;
+          c += kChunk;
+          while (c >= p.C) {  // once for C >= 64; C / 8 times at most below
+            c -= p.C;
+            if (++kx == p.KW) {
+              kx = 0;
+              ++ky;
+            }
+          }
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // -- consumer warpgroups: MMAs, then the epilogue ---------------------------
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int warp = tw >> 5, lane = tw & 31;
+    const int r0 = warp * 16 + (lane >> 2), cq = (lane & 3) * 2;
+    // this warpgroup's 64 output rows in shared memory: BN/64 swizzled boxes
+    const uint32_t out_s = sbase + L::kRing + wg * 64 * BN * 2;
+    uint8_t* out_p = smem + L::kRing + wg * 64 * BN * 2;
+    const bf16* bias = (const bf16*)p.bias;
+    const bf16* res = (const bf16*)p.res;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int w = blockIdx.x; w < work; w += gridDim.x) {
+      const int mt = w % tiles_m, rest = w / tiles_m;
+      const long mw = (long)mt * BM + wg * 64;  // this warpgroup's first row
+      const int n0 = (rest % tiles_n) * BN, split = rest / tiles_n;
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kb_per_split; ++i) {
+        mbar_wait(full0 + 8 * stage, phase);
+        if (CONV) fence_proxy_async();  // cp.async wrote A through the generic proxy
+        const uint32_t sa = sbase + stage * L::kStage + wg * 64 * 128;
+        const uint32_t sb = sbase + stage * L::kStage + L::kA;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          // A: 64 rows of 128 bytes, 8-row groups 1024 apart, k16 = 32 bytes
+          // on; B: 64-column boxes 8192 apart, 8-row (k) groups 1024 apart,
+          // k16 = 16 rows = 2048 bytes on
+          wgmma_bf16<BN>(acc, sw128_desc(sa + kk * 32, 16, 1024),
+                         sw128_desc(sb + kk * 2048, 8192, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's MMAs are done: release its stage
+        fence_regs(acc);
+        if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((stage + kStages - 1) % kStages));
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((stage + kStages - 1) % kStages));
+
+      // accumulator layout of m64nNk16: d[4g..4g+1] at (r0, 8g+cq..+1),
+      // d[4g+2..4g+3] at (r0+8, the same columns)
+      if (splits > 1) {  // the f32 partial tile, 32 bytes per 4 lanes
+        float* dst = ws + (long)split * p.M * p.N;
+#pragma unroll
+        for (int g = 0; g < BN / 8; ++g) {
+          const int n = n0 + g * 8 + cq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long m = mw + r0 + 8 * h;
+            if (m < p.M && n < p.N)
+              *(float2*)(dst + m * p.N + n) = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+          }
+        }
+        continue;
+      }
+      if (tw == 0) bulk_wait<true>();  // the last tile's store has read the staging
+      named_bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int g = 0; g < BN / 8; ++g) {
+        const int col = g * 8 + cq, n = n0 + col;
+        float2 b = make_float2(0.f, 0.f);
+        if (bias != nullptr && n < p.N) b = __bfloat1622float2(*(const __nv_bfloat162*)(bias + n));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const long m = mw + r;
+          float x = acc[4 * g + 2 * h] + b.x, y = acc[4 * g + 2 * h + 1] + b.y;
+          if (res != nullptr && m < p.M && n < p.N) {
+            union {
+              unsigned u;
+              __nv_bfloat162 h;
+            } rv;
+            rv.u = __ldg((const unsigned*)(res + m * p.N + n));
+            const float2 f = __bfloat1622float2(rv.h);
+            x += f.x;
+            y += f.y;
+          }
+          if (p.relu) {
+            x = fmaxf(x, 0.f);
+            y = fmaxf(y, 0.f);
+          }
+          // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
+          *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +
+                             ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2) =
+              __floats2bfloat162_rn(x, y);
+        }
+      }
+      fence_proxy_async();  // the TMA store reads through the async proxy
+      named_bar_sync(2 + wg, 128);
+      if (tw == 0 && mw < p.M) {
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          if (n0 + q * 64 < p.N) tma_store_2d(&tma_c, out_s + q * 8192, n0 + q * 64, (int)mw);
+        bulk_commit();
+      }
+    }
+    if (tw == 0) bulk_wait<false>();
+  }
+}
+
+// out = epilogue(sum over s of ws[s], s in order): deterministic. (static:
+// sgemm.cu and conv.cu each get their own copy.)
+static __global__ void __launch_bounds__(256)
+    gemm_splitk_reduce(Prob p, const float* __restrict__ ws, int splits) {
+  const long mn = (long)p.M * p.N, chunks = mn / 8;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < chunks;
+       i += (long)gridDim.x * blockDim.x) {
+    const long e = i * 8;
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float4* src = (const float4*)(ws + s * mn + e);
+      const float4 a = src[0], b = src[1];
+      v[0] += a.x;
+      v[1] += a.y;
+      v[2] += a.z;
+      v[3] += a.w;
+      v[4] += b.x;
+      v[5] += b.y;
+      v[6] += b.z;
+      v[7] += b.w;
+    }
+    const long m = e / p.N;
+    store8(p, m, (int)(e - m * p.N), v);
+  }
+}
+
 static inline bool aligned16(const void* ptr) {
   return ((uintptr_t)ptr & 15) == 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (a refused launch never runs, and a later synchronize would not say so).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; reached through the
+// runtime's entry-point query, so the library needs no libcuda at link time.
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// A row-major bf16 [rows, cols] matrix as a TMA map of box_cols x box_rows
+// boxes, 128-byte swizzle; out-of-bounds elements read as zero.
+static int encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+                      int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                   strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool CONV, int NWG, int BN>
+static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtensorMap& tb,
+                             const CUtensorMap& tc, float* ws, int splits, int kb_per_split,
+                             cudaStream_t s) {
+  constexpr int BM = NWG * 64;
+  constexpr int bytes = RingLayout<BM, BN>::kBytes;
+  static unsigned attr_set = 0;  // one bit per device
+  static int sms[32] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(attr_set & (1u << dev))) {
+    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<CONV, NWG, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    attr_set |= 1u << dev;
+  }
+  const long work = (long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN) * splits;
+  if (work > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = work < sms[dev] ? (int)work : sms[dev];  // persistent: one block per SM
+  gemm_wgmma<CONV, NWG, BN><<<grid, (NWG + 1) * 128, bytes, s>>>(ta, tb, tc, p, ws, splits,
+                                                                 kb_per_split);
+  return (int)cudaGetLastError();
+}
+
 template <bool CONV>
-static int launch_gemm(const Prob& p, int dtype, cudaStream_t s) {
+static int launch_wgmma(const Prob& p, int bm, int bn, int splits, void* ws, cudaStream_t s) {
+  const bool shape_ok = (CONV ? p.C % 8 == 0 : p.K % 8 == 0) && p.N % 8 == 0;
+  const bool aligned = aligned16(p.a) && aligned16(p.b) && aligned16(p.c) &&
+                       (p.bias == nullptr || aligned16(p.bias)) &&
+                       (p.res == nullptr || aligned16(p.res));
+  const int nkb = (p.K + kChunk - 1) / kChunk;
+  if (!shape_ok || !aligned || splits < 1 || nkb % splits != 0 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta = {}, tb = {}, tc = {};
+  int rc = encode_map(&tb, p.b, p.K, p.N, 64, kChunk);
+  if (rc == 0 && !CONV) rc = encode_map(&ta, p.a, p.M, p.K, kChunk, bm);
+  if (rc == 0 && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
+  if (rc != 0) return rc;
+  float* part = splits > 1 ? (float*)ws : nullptr;
+  const int per = nkb / splits;
+  if (bm == 128 && bn == 64)
+    rc = launch_wgmma_tile<CONV, 2, 64>(p, ta, tb, tc, part, splits, per, s);
+  else if (bm == 128 && bn == 128)
+    rc = launch_wgmma_tile<CONV, 2, 128>(p, ta, tb, tc, part, splits, per, s);
+  else if (bm == 128 && bn == 256)
+    rc = launch_wgmma_tile<CONV, 2, 256>(p, ta, tb, tc, part, splits, per, s);
+  else if (bm == 64 && bn == 64)
+    rc = launch_wgmma_tile<CONV, 1, 64>(p, ta, tb, tc, part, splits, per, s);
+  else if (bm == 64 && bn == 128)
+    rc = launch_wgmma_tile<CONV, 1, 128>(p, ta, tb, tc, part, splits, per, s);
+  else if (bm == 64 && bn == 256)
+    rc = launch_wgmma_tile<CONV, 1, 256>(p, ta, tb, tc, part, splits, per, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (rc != 0 || splits == 1) return rc;
+  const long chunks = (long)p.M * p.N / 8;
+  long blocks = (chunks + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  gemm_splitk_reduce<<<(unsigned)blocks, 256, 0, s>>>(p, part, splits);
+  return (int)cudaGetLastError();
+}
+
+enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
+
+// dtype: 0 = float32, 1 = bfloat16. path, bm, bn, splits: the caller's plan
+// (ops/kernels/common.py:plan_gemm); ws: splits x M x N f32 of workspace when
+// splits > 1. A plan this entry point cannot run is refused
+// (cudaErrorInvalidValue), never rerouted. Returns cudaGetLastError() after
+// the launches (a refused launch never runs, and a later synchronize would
+// not say so).
+template <bool CONV>
+static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int splits,
+                       void* ws, cudaStream_t s) {
   if (p.M <= 0 || p.N <= 0 || p.K <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
+  if (path == kPathFma && dtype == 0) {
     dim3 grid((p.M + kFM - 1) / kFM, (p.N + kFN - 1) / kFN);
     gemm_f32<CONV><<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 1) {
+  } else if (path == kPathMma && dtype == 1) {
     dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
     bool va = (CONV ? p.C % 8 == 0 : p.K % 8 == 0) && aligned16(p.a);
     bool vb = p.N % 8 == 0 && aligned16(p.b);
@@ -306,6 +932,8 @@ static int launch_gemm(const Prob& p, int dtype, cudaStream_t s) {
       gemm_bf16<CONV, false, true><<<grid, kThreads, 0, s>>>(p);
     else
       gemm_bf16<CONV, false, false><<<grid, kThreads, 0, s>>>(p);
+  } else if (path == kPathWgmma && dtype == 1) {
+    return launch_wgmma<CONV>(p, bm, bn, splits, ws, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

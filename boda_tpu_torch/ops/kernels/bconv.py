@@ -21,13 +21,11 @@ K5 kernel, from either wrapper, adds one to ``matmul_atb.launches``.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import check_operand, kernel_dtype
+from .common import cdiv, check_operand, kernel_dtype, sm_count
 from .conv import conv2d_nhwc
 
 # split-K plan: about this many blocks per SM across the grid, and no split
@@ -39,35 +37,25 @@ _MIN_K_TILES = 8
 _TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def atb_plan(M: int, N: int, K: int, taps: int, dtype, sms: int) -> tuple[int, int]:
     """(splits, chunk): the K range is cut into ``splits`` pieces of ``chunk``
     rows (a multiple of the K tile, none empty), enough that the grid of
     output tiles x taps x splits gives every one of ``sms`` SMs several
     blocks."""
     bm, bn, bk = _TILES[dtype]
-    tiles = _cdiv(M, bm) * _cdiv(N, bn) * taps
-    k_tiles = _cdiv(K, bk)
-    want = _cdiv(_BLOCKS_PER_SM * sms, tiles)
+    tiles = cdiv(M, bm) * cdiv(N, bn) * taps
+    k_tiles = cdiv(K, bk)
+    want = cdiv(_BLOCKS_PER_SM * sms, tiles)
     splits = max(1, min(want, k_tiles // _MIN_K_TILES, 65535 // taps))
-    per = _cdiv(k_tiles, splits)
-    return _cdiv(k_tiles, per), per * bk
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    per = cdiv(k_tiles, splits)
+    return cdiv(k_tiles, per), per * bk
 
 
 def _launch_atb(a, b, M: int, N: int, K: int, geom=None) -> torch.Tensor:
     """One launch of csrc/atb.cu: dense (geom None) -> (M,N), or the wgrad
     gather (geom = (H, W, OH, OW, KH, KW, py, px)) -> (KH,KW,M,N); f32."""
     taps = 1 if geom is None else geom[4] * geom[5]
-    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    splits, chunk = atb_plan(M, N, K, taps, a.dtype, _sm_count(index))
+    splits, chunk = atb_plan(M, N, K, taps, a.dtype, sm_count(a.device))
     out_shape = (M, N) if geom is None else (geom[4], geom[5], M, N)
     out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
     ws = torch.empty((taps * splits * M * N,), dtype=torch.float32,

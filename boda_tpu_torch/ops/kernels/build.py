@@ -33,8 +33,8 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer)
 _SIGS = {
-    "boda_gemm": [_P, _P, _P, _P, _P] + [_I] * 5 + [_P],
-    "boda_conv2d": [_P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    "boda_gemm": [_P] * 6 + [_I] * 9 + [_P],
+    "boda_conv2d": [_P] * 6 + [_I] * 19 + [_P],
     "boda_atb": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "boda_pool2d": [_P, _P] + [_I] * 14 + [_P],
     "boda_bottleneck": [_P] * 8 + [_I] * 6 + [_P],

@@ -1,6 +1,10 @@
-"""Shared helpers for the kernel wrappers."""
+"""Shared helpers for the kernel wrappers, and the tile plan of the GEMM core
+(``csrc/gemm.cuh``) that K1 (``sgemm.py``) and K2/K3 (``conv.py``) share."""
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,3 +45,127 @@ def kernel_dtype(t: torch.Tensor) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def aligned16(*ts) -> bool:
+    """Every given tensor starts on a 16-byte boundary (None counts as
+    aligned)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SM count (132 on an H100 SXM)."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+# -- the GEMM core's tile plan ------------------------------------------------------
+
+# the C side's path codes (gemm.cuh enum Path)
+PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+WGMMA_CHUNK = 64     # K per ring stage (128 bytes of bf16)
+SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
+
+
+class GemmPlan(NamedTuple):
+    path: str   # "wgmma" | "mma" | "fma"
+    bm: int     # output tile rows
+    bn: int     # output tile columns
+    split: int  # K splits (1: none); divides the K chunks on the wgmma path
+    ctas: int   # thread blocks of the main kernel (wgmma: persistent, at most one per SM)
+
+
+def wgmma_stages(bm: int, bn: int) -> int:
+    """Ring stages of a wgmma block (gemm.cuh RingLayout): as many as fit
+    beside the bf16 output tile, at most 8."""
+    free = SMEM_LIMIT - 1024 - 1536 - bm * bn * 2
+    return min(8, free // (WGMMA_CHUNK * 2 * (bm + bn) + 16))
+
+
+def wgmma_smem(bm: int, bn: int) -> int:
+    """Bytes of dynamic shared memory of one wgmma block (gemm.cuh
+    RingLayout): the ring, the output tile, the barriers, alignment."""
+    stages = wgmma_stages(bm, bn)
+    return stages * WGMMA_CHUNK * 2 * (bm + bn) + bm * bn * 2 + 16 * stages + 1024
+
+
+# The plan's cost model, fitted to every plan's device time at the ResNet-50
+# b32 forward's signatures (scripts/torch_gemm_plans.py on an H100 SXM;
+# PERF.md §6): µs per 64-deep K chunk of one work item, by tile; the
+# conv's cp.async gather per chunk, by tile rows; a work item's fixed cost
+# (its epilogue writes the tile at ~25 GB/s, an SM's share of HBM); and a
+# split's cost (the reduction's launch and its f32 partials, which stay in
+# L2). Work items run in rounds of one per SM on the persistent grid.
+_CHUNK_US = {(128, 256): 0.77, (128, 128): 0.41, (128, 64): 0.47,
+             (64, 256): 0.60, (64, 128): 0.30, (64, 64): 0.28}
+_GATHER_US = {128: 0.41, 64: 0.25}
+_MAX_SPLIT = 16
+
+
+def plan_cost(M: int, N: int, K: int, sms: int, bm: int, bn: int, split: int,
+              conv: bool) -> float:
+    """Predicted µs of one wgmma launch under the fitted model."""
+    items = cdiv(M, bm) * cdiv(N, bn) * split
+    chunk = _CHUNK_US[bm, bn] + (_GATHER_US[bm] if conv else 0.0)
+    per_item = cdiv(K, WGMMA_CHUNK) // split * chunk + 1.5 + bm * bn * 2 / 25e3
+    t = cdiv(items, sms) * per_item
+    if split > 1:
+        t += 2.5 + 0.15 * split + (split + 1) * M * N * 4 / 8e6
+    return t
+
+
+@functools.lru_cache(maxsize=4096)  # a pure function, called once per launch
+def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None,
+              aligned: bool = True) -> GemmPlan:
+    """The plan of one C[M,N] = A[M,K] . B[K,N] launch; ``conv_c`` is the
+    conv's input channel count (A gathered from NHWC), None for the GEMM.
+    ``aligned``: every operand starts on a 16-byte boundary. A pure function
+    of its arguments.
+
+    * f32 -> the FMA path, 64x64 tiles.
+    * bf16 whose 16-byte rows TMA and cp.async cannot take (K % 8 for the
+      GEMM, C % 8 for the conv, N % 8, or a misaligned operand) -> the mma.sync
+      loop, 128x128 tiles.
+    * other bf16 -> wgmma: the tile (64 or 128 rows; 64, 128 or 256 columns,
+      no wider than N needs) and the K split (a divisor of the 64-deep
+      chunks, at most 16) that :func:`plan_cost` ranks first among the plans
+      whose work items give at least 2/3 of the SMs one each (or, where none
+      does, among those with the most items). The grid is persistent:
+      min(items, sms) blocks walk the work items."""
+    if dtype == torch.float32:
+        return GemmPlan("fma", 64, 64, 1, cdiv(M, 64) * cdiv(N, 64))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
+    vec = (K if conv_c is None else conv_c) % 8 == 0 and N % 8 == 0
+    if not (vec and aligned):
+        return GemmPlan("mma", 128, 128, 1, cdiv(M, 128) * cdiv(N, 128))
+    chunks = cdiv(K, WGMMA_CHUNK)
+    cands = []
+    for bm in (128, 64):
+        for bn in (256, 128, 64):
+            if bn > max(64, cdiv(N, 64) * 64):
+                continue
+            for split in range(1, min(_MAX_SPLIT, chunks) + 1):
+                if chunks % split == 0:
+                    items = cdiv(M, bm) * cdiv(N, bn) * split
+                    cost = plan_cost(M, N, K, sms, bm, bn, split, conv_c is not None)
+                    cands.append((min(items, -(-2 * sms // 3)), -cost, bm, bn, split, items))
+    busy = max(c[0] for c in cands)
+    _, _, bm, bn, split, items = max(c for c in cands if c[0] == busy)
+    return GemmPlan("wgmma", bm, bn, split, min(items, sms))
+
+
+def splitk_workspace(plan: GemmPlan, M: int, N: int, dev) -> torch.Tensor | None:
+    """The f32 partial sums of a split-K launch (the kernel allocates
+    nothing)."""
+    if plan.split == 1:
+        return None
+    return torch.empty((plan.split * M * N,), dtype=torch.float32, device=dev)

@@ -3,10 +3,12 @@ the port of K2 and K3.
 
 Counterparts of ``boda_tpu/ops/kernels/conv.py:pallas_conv2d_halo`` (K2) and
 ``pallas_conv2d_nhwc`` (K3). Both entry points keep their JAX signatures and
-call one CUDA kernel, ``csrc/conv.cu``: the K2/K3 split exists only because
-of Mosaic's DMA and layout limits (c % 128, no bf16 stride, VMEM budgets),
-none of which binds on Hopper, so there are no block plans here either.
-:func:`conv2d` launches the kernel for CUDA tensors and runs
+call one CUDA kernel, ``csrc/conv.cu`` on the GEMM core ``csrc/gemm.cuh``
+that K1 shares: the K2/K3 split exists only because of Mosaic's DMA and
+layout limits (c % 128, no bf16 stride, VMEM budgets), none of which binds
+on Hopper. Each launch takes the core's tile plan for its implicit GEMM
+(:func:`~.common.plan_gemm`: wgmma for C % 8 == 0, the mma.sync loop for the
+C = 3 stem). :func:`conv2d` launches the kernel for CUDA tensors and runs
 :func:`conv2d_plain` for CPU tensors; there is no other fallback.
 
 K4 (``space_to_depth_conv``, a strided conv folded into a stride-1 one)
@@ -29,7 +31,8 @@ from ..op_base import Op
 from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
-from .common import check_operand, epilogue, kernel_dtype, ptr
+from .common import (PATH_CODES, aligned16, check_operand, epilogue, kernel_dtype,
+                     plan_gemm, ptr, sm_count, splitk_workspace)
 
 
 def out_size(h: int, w: int, kh: int, kw: int, stride, pad) -> tuple[int, int]:
@@ -70,19 +73,31 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
     check_operand("bias", bias, x.device, x.dtype, (oc,))
     if residual is not None:
         check_operand("residual", residual, x.device, x.dtype, (n, oh, ow, oc))
+    M = n * oh * ow
+    plan = plan_gemm(M, oc, kh * kw * c, sm_count(x.device), x.dtype, conv_c=c,
+                     aligned=aligned16(x, w, bias, residual))
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=x.device)
+    ws = splitk_workspace(plan, M, oc, x.device)
     kb = build.load()
     with torch.cuda.device(x.device):
         rc = kb.lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                                ptr(residual), out.data_ptr(), n, h, wd, c, oh,
-                                ow, oc, kh, kw, stride[0], stride[1], pad[0],
-                                pad[1], int(relu), dt, build.stream_ptr(x))
-    build.check(rc, "boda_conv2d")
+                                ptr(residual), out.data_ptr(), ptr(ws), n, h, wd, c,
+                                oh, ow, oc, kh, kw, stride[0], stride[1], pad[0],
+                                pad[1], int(relu), dt, PATH_CODES[plan.path], plan.bm,
+                                plan.bn, plan.split, build.stream_ptr(x))
+    if rc:
+        build.check(rc, f"boda_conv2d {plan}")
     conv2d.launches += 1
+    conv2d.paths[plan.path] += 1
+    conv2d.last_plan = plan
     return out
 
 
-conv2d.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per path of the plan (CPU plain-version calls
+# do not count); a split-K launch (two kernels) counts once
+conv2d.launches = 0
+conv2d.paths = dict.fromkeys(PATH_CODES, 0)
+conv2d.last_plan = None  # the plan of the latest launch
 
 
 def conv2d_halo(x, wt, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
@@ -134,7 +149,8 @@ def space_to_depth_conv(x, w, bias, *, stride, pad, relu: bool = False):
     wf = wz.reshape(khp, sy, kwp, sx, c, oc).permute(0, 2, 1, 3, 4, 5) \
         .reshape(khp, kwp, sy * sx * c, oc)
     # zero channels up to a multiple of 8 (the stem's 12 -> 16): the conv
-    # kernel then gathers its input 16 bytes at a time; zeros add exact 0s
+    # kernel then takes its wgmma path, gathering 16 bytes at a time; zeros
+    # add exact 0s
     cpad = -(sy * sx * c) % 8
     if cpad:
         xs = F.pad(xs, (0, cpad))

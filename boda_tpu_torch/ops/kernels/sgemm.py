@@ -1,10 +1,14 @@
 """GEMM with a fused bias(+residual)(+ReLU) store: the port of K1.
 
 Counterpart of ``boda_tpu/ops/kernels/sgemm.py:pallas_matmul``. The CUDA
-kernel is ``csrc/sgemm.cu`` (tiled mma.sync for bf16, FMA for f32, ragged
-edges masked in the kernel, so nothing is padded in HBM). :func:`matmul`
-launches it for CUDA tensors and runs :func:`matmul_plain` for CPU tensors;
-there is no other fallback. :func:`gen_sgemm` is the rtc ``sgemm`` op.
+kernel is ``csrc/sgemm.cu`` on the shared core ``csrc/gemm.cuh``: bf16 on
+wgmma with a TMA ring, a tile plan per shape and split-K
+(:func:`~.common.plan_gemm`), or on the mma.sync loop for the shapes TMA
+cannot take; f32 on FMA. Ragged edges are masked in the kernel, so nothing
+is padded in HBM. :func:`matmul` launches it for CUDA tensors and runs
+:func:`matmul_plain` for CPU tensors; there is no other fallback.
+:func:`matmul_splitk_plain` sums K splits as the split kernel does.
+:func:`gen_sgemm` is the rtc ``sgemm`` op.
 """
 
 from __future__ import annotations
@@ -12,11 +16,13 @@ from __future__ import annotations
 import torch
 
 from ...rtc.compute import FuncInfo
+from ...utils.dims import torch_dtype
 from ..op_base import Op
 from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
-from .common import check_operand, epilogue, kernel_dtype, ptr
+from .common import (PATH_CODES, WGMMA_CHUNK, aligned16, cdiv, check_operand, epilogue,
+                     kernel_dtype, plan_gemm, ptr, sm_count, splitk_workspace)
 
 
 def matmul_plain(a, b, bias=None, *, relu: bool = False, residual=None):
@@ -24,6 +30,19 @@ def matmul_plain(a, b, bias=None, *, relu: bool = False, residual=None):
     output in a's dtype."""
     return epilogue(torch.matmul(a.float(), b.float()), bias, residual, relu,
                     a.dtype)
+
+
+def matmul_splitk_plain(a, b, bias=None, *, relu: bool = False, residual=None,
+                        split: int = 1):
+    """The split kernel's arithmetic in plain PyTorch: K cut into ``split``
+    equal runs of 64-deep chunks (the last may be short), each run's f32
+    partial product summed in order from 0, then the epilogue."""
+    K = a.shape[1]
+    per = cdiv(cdiv(K, WGMMA_CHUNK), split) * WGMMA_CHUNK
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, K, per):
+        acc = acc + torch.matmul(a[:, k0:k0 + per].float(), b[k0:k0 + per].float())
+    return epilogue(acc, bias, residual, relu, a.dtype)
 
 
 def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
@@ -44,18 +63,29 @@ def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
         check_operand("bias", bias, a.device, a.dtype, (N,))
     if residual is not None:
         check_operand("residual", residual, a.device, a.dtype, (M, N))
+    plan = plan_gemm(M, N, K, sm_count(a.device), a.dtype,
+                     aligned=aligned16(a, b, bias, residual))
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ws = splitk_workspace(plan, M, N, a.device)
     kb = build.load()
     with torch.cuda.device(a.device):
-        rc = kb.lib.boda_gemm(a.data_ptr(), b.data_ptr(), ptr(bias),
-                              ptr(residual), out.data_ptr(), M, N, K, int(relu),
-                              dt, build.stream_ptr(a))
-    build.check(rc, "boda_gemm")
+        rc = kb.lib.boda_gemm(a.data_ptr(), b.data_ptr(), ptr(bias), ptr(residual),
+                              out.data_ptr(), ptr(ws), M, N, K, int(relu), dt,
+                              PATH_CODES[plan.path], plan.bm, plan.bn, plan.split,
+                              build.stream_ptr(a))
+    if rc:
+        build.check(rc, f"boda_gemm {plan}")
     matmul.launches += 1
+    matmul.paths[plan.path] += 1
+    matmul.last_plan = plan
     return out
 
 
-matmul.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per path of the plan (CPU plain-version calls
+# do not count); a split-K launch (two kernels) counts once
+matmul.launches = 0
+matmul.paths = dict.fromkeys(PATH_CODES, 0)
+matmul.last_plan = None  # the plan of the latest launch
 
 
 # -- standalone rtc-layer sgemm op ----------------------------------------------------
@@ -87,8 +117,14 @@ def gen_sgemm(op: Op, tune: OpTune, ctx: GenCtx) -> FuncInfo:
     else:
         def fn(a, b):
             return matmul(a, b)
-        info = (f"cuda:matmul tune bm={tune.bm} bn={tune.bn} bk={tune.bk}, unused: the "
-                f"kernel's tiles are fixed at compile time (csrc/gemm.cuh)")
+        if ctx.plain:
+            info = "cuda:matmul (its plain version on the CPU)"
+        else:
+            sms = sm_count(torch.device(ctx.device))
+            plan = plan_gemm(M, N, K, sms, torch_dtype(ad.tn))
+            info = (f"cuda:matmul plan {plan.path} {plan.bm}x{plan.bn} split {plan.split}, "
+                    f"{plan.ctas} blocks on {sms} SMs (per shape, "
+                    f"ops/kernels/common.py:plan_gemm; tune bm/bn/bk unused)")
 
     return FuncInfo(name="", args=[("a", "in"), ("b", "in"), ("c", "out")],
                     fn=fn, flops=flops, bytes_accessed=byts, info=info + tune_note(tune),

@@ -32,11 +32,17 @@ engine routes to it, as in boda_tpu) against its plain version at the b32
 stem.
 
 Each path is run with the kernels' launch counts set to 0 just before it
-and read just after. Prints per-phase lines, one JSON line describing each
-kernel (its time per pass beside its bound: the larger of its bytes over
-HBM's 3.35 TB/s and its operations over the peak rate of their type, from
-NVIDIA's H100 SXM data sheet), the card's name and power limit, and as its
-last line
+and read just after. The GEMM core (K1, K2/K3) also counts its launches per
+path of its tile plan: every b32 bf16 GEMM and conv of the gen and fused
+forwards and all 46 dgrads must take the wgmma path, the gen forward's C = 3
+stem alone the mma.sync loop.
+
+Prints per-phase lines, one JSON line describing each kernel (its time per
+pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
+operations over the peak rate of their type, from NVIDIA's H100 SXM data
+sheet; for the GEMM core's kernels and their library calls the time is the
+device time of 20 calls in one CUDA graph, since back-to-back launches of
+them time the host), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
@@ -110,6 +116,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and
+    replayed between two CUDA events, so that the host's cost per call (which
+    back-to-back launches of a short kernel measure instead) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    t1.synchronize()
+    del g
+    return t0.elapsed_time(t1) / reps
+
+
 def rel_err(out, ref) -> tuple[float, float]:
     d = float((out.float() - ref.float()).abs().max())
     return d, d / max(float(ref.float().abs().max()), 1e-30)
@@ -134,6 +165,45 @@ def bck_shapes(pipe, eng):
 def bits(t):
     """The raw bits of a float tensor: NaN and -0 compare bit for bit."""
     return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def plan_str(plan) -> str:
+    return (f"{plan.path} {plan.bm}x{plan.bn} split {plan.split} {plan.ctas} blocks"
+            if plan is not None else "-")
+
+
+def check_paths(what: str, paths: dict, launches: int, mma: int) -> None:
+    """The GEMM core's launches per path: ``mma`` on the mma.sync loop (the
+    C = 3 stem), every other one on wgmma, none on the f32 path."""
+    want = {"wgmma": launches - mma, "mma": mma, "fma": 0}
+    print(f"[paths] {what}: {paths} (expected {want})")
+    check(paths == want, f"{what}: GEMM-core paths {paths}, expected {want}")
+
+
+def host_us_per_launch(eng, ins) -> dict:
+    """Host µs per K1 / K2 launch (the wrapper's checks, plan, allocations and
+    the ctypes launch) over 5 timed gen forwards: the lowering's calls are
+    wrapped in a host clock for the run."""
+    import time
+
+    from boda_tpu_torch.graph import lowering_nhwc as low
+    spent = {"sgemm": [0.0, 0], "conv": [0.0, 0]}
+    orig = {"matmul": low.matmul, "conv2d_halo": low.conv2d_halo}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key][0] += time.perf_counter() - t0
+            spent[key][1] += 1
+            return out
+        return wrapped
+    low.matmul, low.conv2d_halo = timed("sgemm", orig["matmul"]), timed("conv", orig["conv2d_halo"])
+    try:
+        eng.time_fwd(ins, ["prob"], n_iters=5, warmup=1)
+    finally:
+        low.matmul, low.conv2d_halo = orig["matmul"], orig["conv2d_halo"]
+    return {k: t / max(n, 1) * 1e6 for k, (t, n) in spent.items()}
 
 
 def run_cli(argv) -> tuple[int, list[str]]:
@@ -344,7 +414,12 @@ def main() -> int:
           + (f"built in {kb.build_secs:.1f}s" if kb.build_secs else
              "reused (same source hash)"))
     log = kb.log.splitlines()
-    spills = [ln.strip() for ln in log if "spill" in ln and " 0 bytes spill stores" not in ln]
+    spills, name = [], "?"
+    for ln in log:  # ptxas: "Function properties for <name>", then its spill line
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+        elif "spill" in ln and " 0 bytes spill stores" not in ln:
+            spills.append(f"{name}: {ln.strip()}")
     print(f"[build] {sum('registers' in ln for ln in log)} kernels, "
           f"{len(spills)} with spill stores")
     for ln in spills:
@@ -501,10 +576,13 @@ def main() -> int:
             ("pool", pool_case, pool_shapes,
              [((2, 13, 12, 3, 2, 6, False), 1), ((2, 7, 24, 7, 1, 1, True), 1)]),
             ("s2d", s2d_case, s2d_shapes, [((2, 31, 3, 16, 7, 2, 3), 1)])):
+        core = kname in ("sgemm", "conv", "dgrad", "s2d")  # the GEMM core's kinds
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_rel_err=0.0,
-                   bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0)
+                   bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0, device_ms=0.0,
+                   library_device_ms=0.0)
         print(f"[{kname}] shape -> max|err|/max|ref|, kernel ms, plain f32 ms, "
-              f"bf16 library ms, bound ms, count per pass ({card})")
+              f"bf16 library ms, bound ms, count per pass (GEMM core: kernel and library "
+              f"device ms in a CUDA graph, the plan) ({card})")
         for dt, cases in ((torch.float32, extra), (torch.bfloat16, list(shapes.items()))):
             for sig, count in cases:
                 out, ref, (fk, fp, fl) = case(*sig, dt)
@@ -515,7 +593,12 @@ def main() -> int:
                 if kname == "pool" and not sig[-1]:
                     check(torch.equal(out, ref), f"max pool {sig} {dt} not exact")
                 if dt == torch.bfloat16:
+                    plan = plan_str((matmul if kname == "sgemm" else conv2d).last_plan
+                                    if core else None)
                     ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
+                    dms, dlms = (graph_ms(fk), graph_ms(fl)) if core else (0.0, 0.0)
+                    tot["device_ms"] += dms * count
+                    tot["library_device_ms"] += dlms * count
                     b_ms, o_ms = work(kname, sig)
                     tot["ms"] += ms * count
                     tot["plain_ms"] += pms * count
@@ -526,7 +609,9 @@ def main() -> int:
                     tot["max_abs_err"] = max(tot["max_abs_err"], ae)
                     tot["max_rel_err"] = max(tot["max_rel_err"], re)
                     print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} "
-                          f"bound {max(b_ms, o_ms):.4f} x{count}")
+                          f"bound {max(b_ms, o_ms):.4f} x{count}"
+                          + (f" device {dms:.4f} library device {dlms:.4f} plan {plan}"
+                             if core else ""))
                 else:
                     print(f"[{kname}] f32 {sig}: {re:.2e} (tol {TOL[dt]})")
                 del out, ref
@@ -534,7 +619,9 @@ def main() -> int:
                "pool": "fused forward", "s2d": "fused forward"}.get(kname, "backward")
         print(f"[{kname}] per {per}: kernel {tot['ms']:.3f} ms, plain f32 "
               f"{tot['plain_ms']:.3f} ms, bf16 library {tot['library_ms']:.3f} ms, "
-              f"bound {tot['bound_ms']:.4f} ms")
+              f"bound {tot['bound_ms']:.4f} ms"
+              + (f"; device: kernel {tot['device_ms']:.3f} ms, library "
+                 f"{tot['library_device_ms']:.3f} ms" if core else ""))
         summary[kname] = tot
 
     # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
@@ -616,8 +703,11 @@ def main() -> int:
     n_conv = len({ln.split(":")[0] for ln in log if "nhwc-direct_conv" in ln})
     check(not any("nhwc-lib_conv" in ln for ln in log), "a conv went to the library")
     matmul.launches = conv2d.launches = 0
+    matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     outs = eng.run_fwd(ins, ["prob", "fc1000"])
     launches = {"sgemm": matmul.launches, "conv": conv2d.launches}
+    check_paths("gen forward sgemm", matmul.paths, launches["sgemm"], 0)
+    check_paths("gen forward conv", conv2d.paths, launches["conv"], 1)  # the C = 3 stem
     print(f"[slice] resnet50 b{BATCH} bf16 gen: launches sgemm {launches['sgemm']} "
           f"(layers {n_gemm}), conv {launches['conv']} (layers {n_conv})")
     check(launches["sgemm"] >= n_gemm > 0, "sgemm launch count below its layers")
@@ -653,8 +743,11 @@ def main() -> int:
                 "s2d": space_to_depth_conv}
     for fn in counters.values():
         fn.launches = 0
+    matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     fused_outs = fused.run_fwd(ins, ["prob", "fc1000"])
     launches_fused = {k: fn.launches for k, fn in counters.items()}
+    check_paths("fused forward sgemm", matmul.paths, launches_fused["sgemm"], 0)
+    check_paths("fused forward conv", conv2d.paths, launches_fused["conv"], 0)
     print(f"[fused] resnet50 b{BATCH} bf16 fuse_block=1 tune={FUSED_TUNE}: launches "
           f"{launches_fused} (expected {FUSED_LAUNCHES}); "
           f"{flog.count('block-fused bottleneck')} blocks fused")
@@ -787,9 +880,13 @@ def main() -> int:
     blib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
     blib.init(bpipe)
     matmul.launches = conv2d.launches = matmul_atb.launches = conv2d_nhwc.launches = 0
+    matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     bres = {"gen": beng.run_fwd(bins, bwant)}
     launches_bck = {"sgemm": matmul.launches, "conv": conv2d.launches,
                     "atb": matmul_atb.launches, "conv_nhwc": conv2d_nhwc.launches}
+    # the forward's convs and the 46 dgrads: all wgmma but the C = 3 stem
+    check_paths("grad-bf16 sgemm", matmul.paths, launches_bck["sgemm"], 0)
+    check_paths("grad-bf16 conv (forward + 46 dgrads)", conv2d.paths, launches_bck["conv"], 1)
     print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} "
           f"(bck-conv ops {n_bck_conv})")
     check(launches_bck["atb"] >= n_bck_conv, "grad-bf16: atb launches below the bck-conv ops")
@@ -847,6 +944,9 @@ def main() -> int:
         print(f"[test_compute] rc={rc}: {ln}")
     check(rc == 0, "test_compute --add-bck-ops=1 failed")
 
+    host_us = host_us_per_launch(eng, ins)
+    print(f"[slice] host us per launch over the gen forward: sgemm {host_us['sgemm']:.1f}, "
+          f"conv {host_us['conv']:.1f} (wrapper checks, plan, allocations, ctypes launch)")
     rates = {}
     for pol, e in (("gen", eng), ("lib", lib), ("fused", fused)):
         secs = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
@@ -965,6 +1065,12 @@ def main() -> int:
                  "bound_by": ("bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"]
                               else "operations"),
                  "library_ms": t["library_ms"], "max_rel_err": t["max_rel_err"]}
+        if kname in ("sgemm", "conv", "dgrad", "s2d"):
+            # the GEMM core's kernels take less time than the host's ~40 us
+            # per launch: their times, and the library's, are the CUDA-graph
+            # device times; back-to-back launches (host included) beside them
+            entry.update(ms=t["device_ms"], library_ms=t["library_device_ms"],
+                         launch_ms=t["ms"], library_launch_ms=t["library_ms"])
         if kname in ("sgemm", "conv", "atb"):
             entry["launches_bck"] = launches_bck[kname]
         if kname in ("sgemm", "conv"):
@@ -998,7 +1104,7 @@ def main() -> int:
                     "bound_by": "bytes" if stem_t["bytes_ms"] >= stem_t["ops_ms"] else "operations",
                     "library_ms": stem_t["library_ms"],
                     "path": "none: no engine routes to it, as in boda_tpu"})
-    print(json.dumps({"kernels": kernels, "img_per_s": rates,
+    print(json.dumps({"kernels": kernels, "img_per_s": rates, "host_us_per_launch": host_us,
                       "grad_img_per_s": grad_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
