@@ -5,53 +5,59 @@
 // pallas_matmul_atb (_atb_kernel :38), and the per-tap loop around it in
 // pallas_conv2d_bck_filts (:115-142), the weight gradient of a stride-1 conv:
 //   dW[ky,kx,c,oc] = sum_{n,oy,ox} xpad[n,oy+ky,ox+kx,c] . dY[n,oy,ox,oc].
-// Two forms of A share one kernel:
+// Two forms of A:
 //   * dense: A is a row-major [K,M] matrix (matmul_atb);
 //   * gather: A's row k is the input pixel that output pixel k = (n,oy,ox)
 //     reads through filter tap (ky,kx), fetched straight from the NHWC input
-//     with bounds masks for the zero padding, and every tap of the filter is
-//     one slice of gridDim.z. One launch writes the whole (KH,KW,C,OC)
-//     gradient: no per-tap copies of x, no padded x in HBM.
+//     with bounds masks for the zero padding. One launch writes the whole
+//     (KH,KW,C,OC) gradient: no per-tap copies of x, no padded x in HBM.
 //
 // On the TPU the k grid axis runs in order and carries a VMEM accumulator.
 // Here the difficulty is the shape: the output is tiny next to the
 // contraction (ResNet-50 at batch 32: a 64x64 output over K = 100,352), so a
 // grid over output tiles alone would leave almost every SM idle. The K range
-// is therefore split across blocks (gridDim.z = taps x splits); each split
-// writes its f32 partial tile to a workspace, and a second kernel sums the
-// splits in a fixed order. No float atomics: the result has the same bits on
-// every run. The wrapper (ops/kernels/bconv.py) picks the split count and
+// is therefore split: each split writes its f32 partial tile to a workspace
+// (ws[split][tap][M][N]), and a second kernel sums the splits in a fixed
+// order. No float atomics: the result has the same bits on every run. The
+// wrapper (ops/kernels/bconv.py) picks the path, the tile and the splits and
 // allocates the workspace.
-//
-// A is stored [k][m], the transpose of what gemm.cuh's tile loop reads; the
-// bf16 path stages it in shared memory as it lies and loads it as a
-// col_major WMMA matrix_a fragment, so nothing is transposed. bf16 runs on
-// the tensor cores (mma.sync through WMMA, 128x128 tiles, 8 warps of 64x32);
-// f32 runs full-precision FMA (64x64 tiles, no TF32). Ragged M/N/K edges are
-// masked in the loads and stores.
 //
 // What bounds it on an H100: in bf16 the product does M*N/(M+N) FLOP per
 // byte of A and B it must read, from 32 (64x64, res2) to 410 (512x2048,
 // res5) at the ResNet-50 wgrad shapes, against the card's ~295 FLOP/B ridge:
-// res2-res4 are bound by bytes, res5 by the tensor cores. The split-K grid
-// is what lets the byte-bound shapes use every SM's load path; past that,
-// this first kernel (no TMA, no wgmma, one shared-memory buffer, re-reading
-// x and dY for every tap through L2) is limited by its own issue rate.
+// res2-res4 are bound by bytes, res5 by the tensor cores.
+//
+// Three paths, chosen by shape before the launch (bconv.py:plan_atb):
+//   * wgmma (bf16, M % 8 == 0, N % 8 == 0, 16-byte aligned operands): the
+//     GEMM core's wgmma path (gemm.cuh, modes kModeAtb and kModeWgrad). A's
+//     stage is stored MN-major (64 K rows by 64 M columns per 128-byte
+//     swizzled box, as B's) and read through wgmma's transpose-A bit; the
+//     dense A comes by TMA, the gathered A by 16-byte zero-fill cp.async
+//     with the output pixel carried from chunk to chunk; dY comes by TMA. A
+//     persistent grid walks output tile x tap x split with the ring running
+//     on across items, so loads overlap the MMAs and every SM streams x and
+//     dY at its share of HBM; tiles of 64 or 128 rows and 64-256 columns,
+//     so res2's 64-wide outputs do not pay for 128x128.
+//   * mma (bf16, every other shape): WMMA (mma.sync) on one shared-memory
+//     buffer, 128x128 tiles, A staged [k][m] as it lies and loaded as a
+//     col_major matrix_a fragment; splits over gridDim.z.
+//   * fma (f32): full-precision FMA, 64x64 tiles (no TF32).
+// Ragged M/N/K edges are masked in the loads and stores.
 #include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "gemm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using boda::bf16;
+using boda::kThreads;
+using boda::Pack8;
 
 struct AtbProb {
   const void* a;  // dense: [K,M] row-major; gather: x (N,H,W,C=M) NHWC
   const void* b;  // [K,N] row-major (dY as (N*OH*OW, OC) for the wgrad)
   float* out;     // [taps, M, N]
-  float* ws;      // [taps, splits, M, N] partial sums; used when splits > 1
+  float* ws;      // [splits, taps, M, N] partial sums; used when splits > 1
   int M, N, K;
   int splits, chunk;  // split s covers k in [s*chunk, min(K, (s+1)*chunk))
   // gather geometry: k = (n, oy, ox) an output pixel; tap = (ky, kx)
@@ -88,16 +94,10 @@ __device__ __forceinline__ Range block_range(const AtbProb& p) {
   r.k_begin = s * p.chunk;
   r.k_end = min(p.K, r.k_begin + p.chunk);
   long mn = (long)p.M * p.N;
-  r.dst = p.splits == 1 ? p.out + tap * mn : p.ws + ((long)tap * p.splits + s) * mn;
+  int taps = gridDim.z / p.splits;
+  r.dst = p.splits == 1 ? p.out + tap * mn : p.ws + ((long)s * taps + tap) * mn;
   return r;
 }
-
-union Pack8 {
-  uint4 u;
-  unsigned short h[8];
-};
-
-constexpr int kThreads = 256;
 
 // -- bf16: tensor cores through WMMA ------------------------------------------
 constexpr int kBM = 128, kBN = 128, kBK = 32;
@@ -262,22 +262,6 @@ __global__ void __launch_bounds__(kThreads) atb_f32(AtbProb p) {
     }
 }
 
-// out[t, i] = sum over s of ws[t, s, i], s in order: deterministic.
-__global__ void __launch_bounds__(kThreads)
-    atb_reduce(const float* __restrict__ ws, float* __restrict__ out, long mn,
-               int splits, long total) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    long t = i / mn, j = i - t * mn;
-    const float* src = ws + t * splits * mn + j;
-    float s = 0.f;
-    for (int q = 0; q < splits; ++q) s += src[q * mn];
-    out[i] = s;
-  }
-}
-
-inline bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
-
 template <bool GATHER>
 int launch(const AtbProb& p, int taps, int dtype, cudaStream_t s) {
   if (dtype == 0) {
@@ -285,8 +269,8 @@ int launch(const AtbProb& p, int taps, int dtype, cudaStream_t s) {
     atb_f32<GATHER><<<grid, kThreads, 0, s>>>(p);
   } else {
     dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN, taps * p.splits);
-    bool va = p.M % 8 == 0 && aligned16(p.a);
-    bool vb = p.N % 8 == 0 && aligned16(p.b);
+    bool va = p.M % 8 == 0 && boda::aligned16(p.a);
+    bool vb = p.N % 8 == 0 && boda::aligned16(p.b);
     if (va && vb)
       atb_bf16<GATHER, true, true><<<grid, kThreads, 0, s>>>(p);
     else if (va)
@@ -304,19 +288,49 @@ int launch(const AtbProb& p, int taps, int dtype, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16 (a and b alike; out is always float32).
 // gather = 0: a is [K,M] and there is one tap (KH = KW = 1). gather = 1: a is
 // the NHWC input (N,H,W,C=M), b is dY as (N*OH*OW, OC=N) with K = N*OH*OW,
-// stride 1, and out is (KH,KW,M,N). chunk must be a multiple of the K tile
-// (32 for bf16, 16 for f32) and the splits must cover K with none empty.
-// Returns cudaGetLastError() after the launches.
+// stride 1, and out is (KH,KW,M,N). path (gemm.cuh enum Path), bm, bn,
+// splits, chunk: the plan (ops/kernels/bconv.py:plan_atb); split s covers k
+// in [s*chunk, min(K, (s+1)*chunk)), chunk a multiple of the path's K step
+// (64 wgmma, 32 mma, 16 fma), no split empty; ws: splits x taps x M x N f32
+// when splits > 1. A plan this entry point cannot run is refused
+// (cudaErrorInvalidValue), never rerouted. Returns cudaGetLastError() after
+// the launches.
 extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M, int N,
                         int K, int splits, int chunk, int gather, int H, int W, int OH,
-                        int OW, int KH, int KW, int py, int px, int dtype, void* stream) {
-  const int bk = dtype == 0 ? kFK : kBK;
+                        int OW, int KH, int KW, int py, int px, int dtype, int path, int bm,
+                        int bn, void* stream) {
+  const int bk = path == boda::kPathWgmma ? boda::kChunk : dtype == 0 ? kFK : kBK;
   if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || chunk <= 0 || chunk % bk != 0 ||
       (long)(splits - 1) * chunk >= K || (long)splits * chunk < K ||
       (splits > 1 && ws == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (gather && (KH <= 0 || KW <= 0 || OH <= 0 || OW <= 0 || K % (OH * OW) != 0))
     return (int)cudaErrorInvalidValue;
+  const int taps = gather ? KH * KW : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (path == boda::kPathWgmma) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    boda::Prob p = {};
+    p.a = a;
+    p.b = b;
+    p.c = out;
+    p.M = M;
+    p.N = N;
+    p.K = K;
+    p.H = H;
+    p.W = W;
+    p.OH = OH;
+    p.OW = OW;
+    p.KW = gather ? KW : 1;
+    p.py = py;
+    p.px = px;
+    p.taps = taps;
+    p.nimg = gather ? K / (OH * OW) : 0;
+    const int per = chunk / boda::kChunk;
+    return gather ? boda::launch_wgmma<boda::kModeWgrad>(p, bm, bn, splits, per, ws, s)
+                  : boda::launch_wgmma<boda::kModeAtb>(p, bm, bn, splits, per, ws, s);
+  }
+  if (path != (dtype == 0 ? boda::kPathFma : boda::kPathMma)) return (int)cudaErrorInvalidValue;
   AtbProb p = {};
   p.a = a;
   p.b = b;
@@ -334,14 +348,8 @@ extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M
   p.KW = gather ? KW : 1;
   p.py = py;
   p.px = px;
-  const int taps = gather ? KH * KW : 1;
   if (taps * splits > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
-  cudaStream_t s = (cudaStream_t)stream;
   int rc = gather ? launch<true>(p, taps, dtype, s) : launch<false>(p, taps, dtype, s);
   if (rc != 0 || splits == 1) return rc;
-  const long mn = (long)M * N, total = mn * taps;
-  long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 4096) blocks = 4096;
-  atb_reduce<<<(unsigned)blocks, kThreads, 0, s>>>(p.ws, p.out, mn, splits, total);
-  return (int)cudaGetLastError();
+  return boda::reduce_f32(p.ws, p.out, (long)M * N * taps, splits, s);
 }

@@ -1,12 +1,15 @@
-// Shared GEMM core for sgemm.cu (plain GEMM) and conv.cu (implicit-GEMM NHWC
-// conv). Both compute C[M,N] = A[M,K] . B[K,N] (+bias[N]) (+res[M,N]) (+ReLU)
-// with an f32 accumulator and one rounding to the output dtype; they differ
-// only in how a tile of A is fetched:
+// Shared GEMM core for sgemm.cu (plain GEMM), conv.cu (implicit-GEMM NHWC
+// conv) and, on its wgmma path, atb.cu (the leading-axis GEMM and the conv's
+// weight gradient). The first two compute C[M,N] = A[M,K] . B[K,N] (+bias[N])
+// (+res[M,N]) (+ReLU) with an f32 accumulator and one rounding to the output
+// dtype; they differ only in how a tile of A is fetched:
 //   * GEMM: A is a dense row-major [M,K] matrix.
 //   * CONV: A[m,k] is gathered on the fly from the NHWC input, with
 //     m = (n, oy, ox) an output pixel and k = (ky, kx, c) a filter tap, and
 //     zero padding done by bounds masks (no im2col, no host-side pad).
-// B is always the row-major [K,N] weight (HWIO flattened for the conv).
+// B is always a row-major [K,N] matrix (HWIO flattened for the conv).
+// atb.cu's two modes store A MN-major (its rows are K) and write f32 with no
+// epilogue: see "Operand modes" at the wgmma path.
 //
 // Three paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
 // from the shape before the launch, never after a failure:
@@ -44,6 +47,9 @@ struct Prob {
   int M, N, K, relu;
   // conv geometry; unused by the plain GEMM. KH is implied by K = KH*KW*C.
   int H, W, C, OH, OW, KW, sy, sx, py, px;
+  // the f32 modes: filter taps (KH*KW for kModeWgrad, 1 for kModeAtb) and
+  // kModeWgrad's images, with K = nimg*OH*OW
+  int taps, nimg;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -309,22 +315,40 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
 // columns clipped), so the output is written once in whole lines while the
 // warpgroup goes on to its next tile.
 //
-// Split-K: a work item covers kb_per_split chunks of one split (the plan
-// makes every split equal) and writes its f32 partial tile to ws[z][M][N];
-// gemm_splitk_reduce then sums the splits in order and applies the
-// epilogue: deterministic, no atomics.
+// Split-K: a work item covers kb_per_split chunks of one split (the last
+// split may be shorter; the GEMM's and the conv's plans make every split
+// equal) and writes its f32 partial tile to ws[split][tap][M][N];
+// gemm_splitk_reduce (or splitk_reduce_f32 for the f32 modes) then sums the
+// splits in order: deterministic, no atomics.
+//
+// Operand modes (MODE):
+//   * kModeGemm, kModeConv: A K-major (each of the tile's M rows holds a
+//     chunk's 64 K values), as above; the bf16 epilogue.
+//   * kModeAtb, kModeWgrad (atb.cu): out[tap][M][N] = sum_k A[k,m] B[k,n],
+//     f32, with A stored [K][M]. Its stage is laid out as B's is: BM/64
+//     boxes of 64 K rows by 64 M columns, 128-byte swizzle, and wgmma reads
+//     it through its transpose-A bit. kModeAtb loads A [K,M] by TMA;
+//     kModeWgrad gathers row k (output pixel (n,oy,ox)) from the NHWC input
+//     at (oy+ky-py, ox+kx-px) for the item's filter tap (ky,kx), channels
+//     m0.., by 16-byte zero-fill cp.async, (n,oy,ox) carried from chunk to
+//     chunk. Work items are output tile x tap x split. The epilogue stores
+//     the f32 accumulators as they are (no bias, residual, ReLU or rounding).
+enum Mode { kModeGemm = 0, kModeConv = 1, kModeAtb = 2, kModeWgrad = 3 };
+
 constexpr int kChunk = 64;  // K per stage
 constexpr int kSmemMax = 232448;  // shared memory one block may use (227 KB)
 
-template <int BM, int BN>
+template <int BM, int BN, bool F32OUT>
 struct RingLayout {
   static constexpr int kA = BM * kChunk * 2;  // bytes of A per stage
   static constexpr int kB = kChunk * BN * 2;  // bytes of B per stage (BN/64 TMA boxes)
   static constexpr int kStage = kA + kB;
-  static constexpr int kOut = BM * BN * 2;    // the bf16 output tile (BN/64 boxes per 64 rows)
+  // the bf16 output tile (BN/64 boxes per 64 rows); the f32 modes store
+  // from registers
+  static constexpr int kOut = F32OUT ? 0 : BM * BN * 2;
   // as many stages (16 bytes of barriers each) as fit beside it, at most 8;
   // 1,024 bytes align the base and 1,536 stay spare (common.py:wgmma_stages
-  // mirrors this)
+  // mirrors the bf16 layout)
   static constexpr int kFree = kSmemMax - 1024 - 1536 - kOut;
   static constexpr int kStages = kFree / (kStage + 16) < 8 ? kFree / (kStage + 16) : 8;
   static_assert(kStages >= 3, "at least three stages");
@@ -446,27 +470,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x BN] += A[64 x 16] . B[16 x BN]; A K-major, B N-major (trans-b = 1).
-template <int BN>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da, uint64_t db);
+// D[64 x BN] += A[64 x 16] . B[16 x BN]; B N-major (trans-b = 1), A K-major
+// (TA = 0) or M-major (TA = 1, trans-a).
+template <int BN, int TA>
+struct Wgmma;
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db) {
+template <int TA>
+struct Wgmma<64, TA> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
+template <int TA>
+struct Wgmma<128, TA> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -474,7 +502,7 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uin
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -483,11 +511,13 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db) {
+template <int TA>
+struct Wgmma<256, TA> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -499,7 +529,7 @@ __device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, ui
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -516,8 +546,9 @@ __device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, ui
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+  }
+};
 
 
 union Bf16x8 {
@@ -554,14 +585,39 @@ __device__ __forceinline__ void store8(const Prob& p, long m, int n, float (&v)[
   *(uint4*)((bf16*)p.c + off) = t.u;
 }
 
-template <bool CONV, int NWG, int BN>
+// One work item of the persistent grid: output tile (m0, n0), filter tap
+// (kModeWgrad's; 0 in the other modes) and K split: chunks kb0 .. kb0+nk-1.
+struct Item {
+  long m0;
+  int n0, tap, split, kb0, nk;
+};
+
+template <int BM, int BN>
+__device__ __forceinline__ Item work_item(int w, int tiles_m, int tiles_n, int taps,
+                                          int kb_per_split, int nkb) {
+  Item it;
+  const int mt = w % tiles_m;
+  int rest = w / tiles_m;
+  it.m0 = (long)mt * BM;
+  it.n0 = (rest % tiles_n) * BN;
+  rest /= tiles_n;
+  it.tap = rest % taps;
+  it.split = rest / taps;
+  it.kb0 = it.split * kb_per_split;
+  it.nk = min(kb_per_split, nkb - it.kb0);
+  return it;
+}
+
+template <int MODE, int NWG, int BN>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
                const __grid_constant__ CUtensorMap tma_b,
                const __grid_constant__ CUtensorMap tma_c, Prob p, float* ws, int splits,
                int kb_per_split) {
+  constexpr bool GATHER = MODE == kModeConv || MODE == kModeWgrad;  // A by cp.async
+  constexpr bool TRANS_A = MODE == kModeAtb || MODE == kModeWgrad;  // A [K][M], f32 out
   constexpr int BM = NWG * 64;
-  using L = RingLayout<BM, BN>;
+  using L = RingLayout<BM, BN, TRANS_A>;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t dsmem[];
   // the swizzle pattern repeats every 1024 bytes: align every tile to it
@@ -569,14 +625,16 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
   const uint32_t sbase = smem_u32(smem);
   const uint32_t full0 = sbase + L::kBars, empty0 = full0 + kStages * 8;
   const int tiles_m = (p.M + BM - 1) / BM, tiles_n = (p.N + BN - 1) / BN;
-  const int work = tiles_m * tiles_n * splits;
+  const int taps = TRANS_A ? p.taps : 1;
+  const int nkb = (p.K + kChunk - 1) / kChunk;
+  const int work = tiles_m * tiles_n * taps * splits;
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       // full: the TMA thread's expect_tx, plus one cp.async arrival per
-      // producer thread for the conv's gathered A; empty: each consumer warp
-      mbar_init(full0 + 8 * s, CONV ? 1 + 128 : 1);
+      // producer thread for a gathered A; empty: each consumer warp
+      mbar_init(full0 + 8 * s, GATHER ? 1 + 128 : 1);
       mbar_init(empty0 + 8 * s, NWG * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -587,22 +645,28 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     // -- producer warpgroup: copies only --------------------------------------
     if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
     const int pt = threadIdx.x - NWG * 128;
-    if (!CONV && pt != 0) return;
-    // the conv: this thread copies 16-byte vector j of rows rr + 16 q of
-    // every A chunk. Lane j of each group of 8 holds the RowInfo of row
-    // rr + 16 j, shared by shuffles; (ky, kx, c) of the thread's k is carried
-    // from chunk to chunk (64 on), so the chunk loop divides nothing.
+    if (!GATHER && pt != 0) return;
+    // the gathers: this thread copies 16-byte vector j of rows rr + 16 q of
+    // every A chunk (every 64-column box of it for kModeWgrad). Lane j of each
+    // group of 8 holds what row rr + 16 j needs, shared by shuffles:
+    //   * kModeConv: the row's RowInfo (rows are output pixels, fixed per
+    //     tile); (ky, kx, c) of the thread's k is carried from chunk to chunk
+    //     (64 on), so the chunk loop divides nothing;
+    //   * kModeWgrad: rows are K, output pixels (n, oy, ox); lanes j < 4 carry
+    //     their row's pixel from chunk to chunk (64 pixels on: step_y rows and
+    //     step_x columns) and compute its input pixel's offset for the tap.
     const int j = pt & 7, rr = pt >> 3, lane8 = threadIdx.x & 24;
+    const int step_y = MODE == kModeWgrad ? kChunk / p.OW : 0;
+    const int step_x = MODE == kModeWgrad ? kChunk - step_y * p.OW : 0;
     int stage = 0;
     uint32_t phase = 0;
     for (int w = blockIdx.x; w < work; w += gridDim.x) {
-      const int mt = w % tiles_m, rest = w / tiles_m;
-      const long m0 = (long)mt * BM;
-      const int n0 = (rest % tiles_n) * BN, kb0 = (rest / tiles_n) * kb_per_split;
-      long k = (long)kb0 * kChunk + j * 8;
+      const Item it = work_item<BM, BN>(w, tiles_m, tiles_n, taps, kb_per_split, nkb);
+      const long m0 = it.m0;
+      long k = (long)it.kb0 * kChunk + j * 8;
       int c = 0, kx = 0, ky = 0;
       RowInfo mine = {0, 0, 0};
-      if (CONV) {
+      if (MODE == kModeConv) {
         const long tap = k / p.C;
         c = (int)(k - tap * p.C);
         ky = (int)(tap / p.KW);
@@ -619,19 +683,34 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
           mine.iy = INT_MIN / 2;
         }
       }
-      for (int i = 0; i < kb_per_split; ++i) {
-        const int kb = kb0 + i;
+      int n = 0, oy = 0, ox = 0;  // kModeWgrad: output pixel of row rr + 16 j
+      if (MODE == kModeWgrad) {
+        ky = it.tap / p.KW;
+        kx = it.tap - ky * p.KW;
+        const long kr = (long)it.kb0 * kChunk + rr + 16 * j;
+        ox = (int)(kr % p.OW);
+        const long t = kr / p.OW;
+        oy = (int)(t % p.OH);
+        n = (int)(t / p.OH);
+      }
+      for (int i = 0; i < it.nk; ++i) {
+        const int kb = it.kb0 + i;
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t sa = sbase + stage * L::kStage, sb = sa + L::kA;
         const uint32_t fb = full0 + 8 * stage;
         if (pt == 0) {
-          mbar_expect_tx(fb, CONV ? L::kB : L::kA + L::kB);
-          if (!CONV) tma_load_2d(sa, &tma_a, fb, kb * kChunk, (int)m0);
+          mbar_expect_tx(fb, GATHER ? L::kB : L::kA + L::kB);
+          if (MODE == kModeGemm) tma_load_2d(sa, &tma_a, fb, kb * kChunk, (int)m0);
+          if (MODE == kModeAtb) {
+#pragma unroll
+            for (int q = 0; q < BM / 64; ++q)
+              tma_load_2d(sa + q * 8192, &tma_a, fb, (int)m0 + q * 64, kb * kChunk);
+          }
 #pragma unroll
           for (int q = 0; q < BN / 64; ++q)
-            tma_load_2d(sb + q * 8192, &tma_b, fb, n0 + q * 64, kb * kChunk);
+            tma_load_2d(sb + q * 8192, &tma_b, fb, it.n0 + q * 64, kb * kChunk);
         }
-        if (CONV) {
+        if (MODE == kModeConv) {
           const bf16* X = (const bf16*)p.a;
           const bool kin = k < p.K;
 #pragma unroll
@@ -655,6 +734,37 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
             }
           }
         }
+        if (MODE == kModeWgrad) {
+          // this lane's row: the element offset of its input pixel, or -1
+          // in the zero padding and past K (n == nimg)
+          const bf16* X = (const bf16*)p.a;
+          const int iy = oy + ky - p.py, ix = ox + kx - p.px;
+          const long off = n < p.nimg && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W
+                               ? (((long)n * p.H + iy) * p.W + ix) * p.M
+                               : -1;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // the chunk's 64 rows, 16 apart
+            const int r = rr + 16 * q;
+            const long o = __shfl_sync(0xffffffffu, off, lane8 + q);
+#pragma unroll
+            for (int b = 0; b < BM / 64; ++b) {  // box b: columns m0 + 64 b ..
+              const long mc = m0 + b * 64 + j * 8;
+              const bool ok = o >= 0 && mc < p.M;
+              cp_async16(sa + b * 8192 + r * 128 + ((j ^ (r & 7)) << 4), ok ? X + o + mc : X, ok);
+            }
+          }
+          cp_async_arrive(fb);
+          ox += step_x;
+          oy += step_y;
+          if (ox >= p.OW) {
+            ox -= p.OW;
+            ++oy;
+          }
+          while (oy >= p.OH) {  // once per image passed: at most 2 at 7x7
+            oy -= p.OH;
+            ++n;
+          }
+        }
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -675,26 +785,33 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     int stage = 0;
     uint32_t phase = 0;
     for (int w = blockIdx.x; w < work; w += gridDim.x) {
-      const int mt = w % tiles_m, rest = w / tiles_m;
-      const long mw = (long)mt * BM + wg * 64;  // this warpgroup's first row
-      const int n0 = (rest % tiles_n) * BN, split = rest / tiles_n;
+      const Item it = work_item<BM, BN>(w, tiles_m, tiles_n, taps, kb_per_split, nkb);
+      const long mw = it.m0 + wg * 64;  // this warpgroup's first row
+      const int n0 = it.n0;
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      for (int i = 0; i < kb_per_split; ++i) {
+      for (int i = 0; i < it.nk; ++i) {
         mbar_wait(full0 + 8 * stage, phase);
-        if (CONV) fence_proxy_async();  // cp.async wrote A through the generic proxy
-        const uint32_t sa = sbase + stage * L::kStage + wg * 64 * 128;
+        if (GATHER) fence_proxy_async();  // cp.async wrote A through the generic proxy
+        // this warpgroup's 64 rows of A: the K-major rows wg*64.., or the
+        // M-major box wg; both 8,192 bytes on
+        const uint32_t sa = sbase + stage * L::kStage + wg * 8192;
         const uint32_t sb = sbase + stage * L::kStage + L::kA;
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kChunk / 16; ++kk)
-          // A: 64 rows of 128 bytes, 8-row groups 1024 apart, k16 = 32 bytes
-          // on; B: 64-column boxes 8192 apart, 8-row (k) groups 1024 apart,
-          // k16 = 16 rows = 2048 bytes on
-          wgmma_bf16<BN>(acc, sw128_desc(sa + kk * 32, 16, 1024),
-                         sw128_desc(sb + kk * 2048, 8192, 1024));
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          // B: 64-column boxes 8192 apart, 8-row (k) groups 1024 apart, k16 =
+          // 16 rows = 2048 bytes on. A K-major: 64 rows of 128 bytes, 8-row
+          // groups 1024 apart, k16 = 32 bytes on; A M-major: one box laid out
+          // as B's
+          const uint64_t db = sw128_desc(sb + kk * 2048, 8192, 1024);
+          if (TRANS_A)
+            Wgmma<BN, 1>::mma(acc, sw128_desc(sa + kk * 2048, 8192, 1024), db);
+          else
+            Wgmma<BN, 0>::mma(acc, sw128_desc(sa + kk * 32, 16, 1024), db);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous chunk's MMAs are done: release its stage
         fence_regs(acc);
@@ -710,8 +827,11 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 
       // accumulator layout of m64nNk16: d[4g..4g+1] at (r0, 8g+cq..+1),
       // d[4g+2..4g+3] at (r0+8, the same columns)
-      if (splits > 1) {  // the f32 partial tile, 32 bytes per 4 lanes
-        float* dst = ws + (long)split * p.M * p.N;
+      if (TRANS_A || splits > 1) {  // f32 as it is, 32 bytes per 4 lanes: the
+        // split's partial tile, or the f32 modes' output
+        const long mn = (long)p.M * p.N;
+        float* dst = splits > 1 ? ws + ((long)it.split * taps + it.tap) * mn
+                                : (float*)p.c + (long)it.tap * mn;
 #pragma unroll
         for (int g = 0; g < BN / 8; ++g) {
           const int n = n0 + g * 8 + cq;
@@ -724,45 +844,47 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
         }
         continue;
       }
-      if (tw == 0) bulk_wait<true>();  // the last tile's store has read the staging
-      named_bar_sync(2 + wg, 128);
+      if constexpr (!TRANS_A) {
+        if (tw == 0) bulk_wait<true>();  // the last tile's store has read the staging
+        named_bar_sync(2 + wg, 128);
 #pragma unroll
-      for (int g = 0; g < BN / 8; ++g) {
-        const int col = g * 8 + cq, n = n0 + col;
-        float2 b = make_float2(0.f, 0.f);
-        if (bias != nullptr && n < p.N) b = __bfloat1622float2(*(const __nv_bfloat162*)(bias + n));
+        for (int g = 0; g < BN / 8; ++g) {
+          const int col = g * 8 + cq, n = n0 + col;
+          float2 b = make_float2(0.f, 0.f);
+          if (bias != nullptr && n < p.N) b = __bfloat1622float2(*(const __nv_bfloat162*)(bias + n));
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r0 + 8 * h;
-          const long m = mw + r;
-          float x = acc[4 * g + 2 * h] + b.x, y = acc[4 * g + 2 * h + 1] + b.y;
-          if (res != nullptr && m < p.M && n < p.N) {
-            union {
-              unsigned u;
-              __nv_bfloat162 h;
-            } rv;
-            rv.u = __ldg((const unsigned*)(res + m * p.N + n));
-            const float2 f = __bfloat1622float2(rv.h);
-            x += f.x;
-            y += f.y;
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            const long m = mw + r;
+            float x = acc[4 * g + 2 * h] + b.x, y = acc[4 * g + 2 * h + 1] + b.y;
+            if (res != nullptr && m < p.M && n < p.N) {
+              union {
+                unsigned u;
+                __nv_bfloat162 h;
+              } rv;
+              rv.u = __ldg((const unsigned*)(res + m * p.N + n));
+              const float2 f = __bfloat1622float2(rv.h);
+              x += f.x;
+              y += f.y;
+            }
+            if (p.relu) {
+              x = fmaxf(x, 0.f);
+              y = fmaxf(y, 0.f);
+            }
+            // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
+            *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +
+                               ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2) =
+                __floats2bfloat162_rn(x, y);
           }
-          if (p.relu) {
-            x = fmaxf(x, 0.f);
-            y = fmaxf(y, 0.f);
-          }
-          // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
-          *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +
-                             ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2) =
-              __floats2bfloat162_rn(x, y);
         }
-      }
-      fence_proxy_async();  // the TMA store reads through the async proxy
-      named_bar_sync(2 + wg, 128);
-      if (tw == 0 && mw < p.M) {
+        fence_proxy_async();  // the TMA store reads through the async proxy
+        named_bar_sync(2 + wg, 128);
+        if (tw == 0 && mw < p.M) {
 #pragma unroll
-        for (int q = 0; q < BN / 64; ++q)
-          if (n0 + q * 64 < p.N) tma_store_2d(&tma_c, out_s + q * 8192, n0 + q * 64, (int)mw);
-        bulk_commit();
+          for (int q = 0; q < BN / 64; ++q)
+            if (n0 + q * 64 < p.N) tma_store_2d(&tma_c, out_s + q * 8192, n0 + q * 64, (int)mw);
+          bulk_commit();
+        }
       }
     }
     if (tw == 0) bulk_wait<false>();
@@ -840,64 +962,114 @@ static int encode_map(CUtensorMap* map, const void* base, int rows, int cols, in
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <bool CONV, int NWG, int BN>
+// out[i] = sum over s of ws[s * total + i], s in order, f32 as it is:
+// deterministic. VEC: 4 elements per step (total % 4 == 0).
+template <bool VEC>
+static __global__ void __launch_bounds__(256)
+    splitk_reduce_f32(const float* __restrict__ ws, float* __restrict__ out, long total,
+                      int splits) {
+  const long steps = VEC ? total / 4 : total;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < steps;
+       i += (long)gridDim.x * blockDim.x) {
+    if (VEC) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < splits; ++s) {
+        const float4 a = ((const float4*)(ws + s * total))[i];
+        v.x += a.x;
+        v.y += a.y;
+        v.z += a.z;
+        v.w += a.w;
+      }
+      ((float4*)out)[i] = v;
+    } else {
+      float v = 0.f;
+      for (int s = 0; s < splits; ++s) v += ws[s * total + i];
+      out[i] = v;
+    }
+  }
+}
+
+// The f32 split-K reduction's launch: out (total f32) from splits x total.
+static int reduce_f32(const float* ws, float* out, long total, int splits, cudaStream_t s) {
+  const bool vec = total % 4 == 0 && aligned16(ws) && aligned16(out);
+  long blocks = ((vec ? total / 4 : total) + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  if (vec)
+    splitk_reduce_f32<true><<<(unsigned)blocks, 256, 0, s>>>(ws, out, total, splits);
+  else
+    splitk_reduce_f32<false><<<(unsigned)blocks, 256, 0, s>>>(ws, out, total, splits);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, int NWG, int BN>
 static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtensorMap& tb,
                              const CUtensorMap& tc, float* ws, int splits, int kb_per_split,
                              cudaStream_t s) {
+  constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
   constexpr int BM = NWG * 64;
-  constexpr int bytes = RingLayout<BM, BN>::kBytes;
+  constexpr int bytes = RingLayout<BM, BN, F32OUT>::kBytes;
   static unsigned attr_set = 0;  // one bit per device
   static int sms[32] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 32) return (int)cudaErrorInvalidDevice;
   if (!(attr_set & (1u << dev))) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<CONV, NWG, BN>,
+    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<MODE, NWG, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     attr_set |= 1u << dev;
   }
-  const long work = (long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN) * splits;
+  const long work = (long)((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN) *
+                    (F32OUT ? p.taps : 1) * splits;
   if (work > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = work < sms[dev] ? (int)work : sms[dev];  // persistent: one block per SM
-  gemm_wgmma<CONV, NWG, BN><<<grid, (NWG + 1) * 128, bytes, s>>>(ta, tb, tc, p, ws, splits,
+  gemm_wgmma<MODE, NWG, BN><<<grid, (NWG + 1) * 128, bytes, s>>>(ta, tb, tc, p, ws, splits,
                                                                  kb_per_split);
   return (int)cudaGetLastError();
 }
 
-template <bool CONV>
-static int launch_wgmma(const Prob& p, int bm, int bn, int splits, void* ws, cudaStream_t s) {
-  const bool shape_ok = (CONV ? p.C % 8 == 0 : p.K % 8 == 0) && p.N % 8 == 0;
+// The wgmma path of every mode: per = K chunks per split (the last split may
+// hold fewer, none is empty); ws: splits x taps x M x N f32 when splits > 1.
+template <int MODE>
+static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void* ws,
+                        cudaStream_t s) {
+  constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
+  // 16-byte rows for TMA and cp.async: A's (the GEMM's K, the conv's C, the
+  // f32 modes' M: A [K][M] and x's channels) and B's N
+  const int arow = MODE == kModeConv ? p.C : MODE == kModeGemm ? p.K : p.M;
+  const bool shape_ok = arow % 8 == 0 && p.N % 8 == 0 && (!F32OUT || p.taps >= 1);
   const bool aligned = aligned16(p.a) && aligned16(p.b) && aligned16(p.c) &&
                        (p.bias == nullptr || aligned16(p.bias)) &&
                        (p.res == nullptr || aligned16(p.res));
   const int nkb = (p.K + kChunk - 1) / kChunk;
-  if (!shape_ok || !aligned || splits < 1 || nkb % splits != 0 || (splits > 1 && ws == nullptr))
+  if (!shape_ok || !aligned || splits < 1 || per < 1 || (long)(splits - 1) * per >= nkb ||
+      (long)splits * per < nkb || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta = {}, tb = {}, tc = {};
   int rc = encode_map(&tb, p.b, p.K, p.N, 64, kChunk);
-  if (rc == 0 && !CONV) rc = encode_map(&ta, p.a, p.M, p.K, kChunk, bm);
-  if (rc == 0 && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
+  if (rc == 0 && MODE == kModeGemm) rc = encode_map(&ta, p.a, p.M, p.K, kChunk, bm);
+  if (rc == 0 && MODE == kModeAtb) rc = encode_map(&ta, p.a, p.K, p.M, 64, kChunk);
+  if (rc == 0 && !F32OUT && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
   if (rc != 0) return rc;
   float* part = splits > 1 ? (float*)ws : nullptr;
-  const int per = nkb / splits;
   if (bm == 128 && bn == 64)
-    rc = launch_wgmma_tile<CONV, 2, 64>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 2, 64>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 128 && bn == 128)
-    rc = launch_wgmma_tile<CONV, 2, 128>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 2, 128>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 128 && bn == 256)
-    rc = launch_wgmma_tile<CONV, 2, 256>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 2, 256>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 64 && bn == 64)
-    rc = launch_wgmma_tile<CONV, 1, 64>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 1, 64>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 64 && bn == 128)
-    rc = launch_wgmma_tile<CONV, 1, 128>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 1, 128>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 64 && bn == 256)
-    rc = launch_wgmma_tile<CONV, 1, 256>(p, ta, tb, tc, part, splits, per, s);
+    rc = launch_wgmma_tile<MODE, 1, 256>(p, ta, tb, tc, part, splits, per, s);
   else
     return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits == 1) return rc;
+  if (F32OUT) return reduce_f32(part, (float*)p.c, (long)p.taps * p.M * p.N, splits, s);
   const long chunks = (long)p.M * p.N / 8;
   long blocks = (chunks + 255) / 256;
   if (blocks > 4096) blocks = 4096;
@@ -933,7 +1105,9 @@ static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int s
     else
       gemm_bf16<CONV, false, false><<<grid, kThreads, 0, s>>>(p);
   } else if (path == kPathWgmma && dtype == 1) {
-    return launch_wgmma<CONV>(p, bm, bn, splits, ws, s);
+    const int nkb = (p.K + kChunk - 1) / kChunk;  // the plan makes every split equal
+    if (splits < 1 || nkb % splits != 0) return (int)cudaErrorInvalidValue;
+    return launch_wgmma<CONV ? kModeConv : kModeGemm>(p, bm, bn, splits, nkb / splits, ws, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

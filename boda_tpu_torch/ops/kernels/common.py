@@ -1,5 +1,6 @@
 """Shared helpers for the kernel wrappers, and the tile plan of the GEMM core
-(``csrc/gemm.cuh``) that K1 (``sgemm.py``) and K2/K3 (``conv.py``) share."""
+(``csrc/gemm.cuh``) that K1 (``sgemm.py``) and K2/K3 (``conv.py``) share; K5's
+plan (``bconv.py:plan_atb``) ranks its tiles by the same cost model."""
 
 from __future__ import annotations
 
@@ -111,14 +112,17 @@ _MAX_SPLIT = 16
 
 
 def plan_cost(M: int, N: int, K: int, sms: int, bm: int, bn: int, split: int,
-              conv: bool) -> float:
-    """Predicted µs of one wgmma launch under the fitted model."""
-    items = cdiv(M, bm) * cdiv(N, bn) * split
+              conv: bool, taps: int = 1, out_bytes: int = 2) -> float:
+    """Predicted µs of one wgmma launch under the fitted model. ``conv``: A
+    is gathered by cp.async; ``taps``: output tiles per (M, N) tile (the
+    weight gradient's filter taps); ``out_bytes``: 2 for the bf16 epilogue,
+    4 for the f32 modes. A split's chunks are those of the longest split."""
+    items = cdiv(M, bm) * cdiv(N, bn) * taps * split
     chunk = _CHUNK_US[bm, bn] + (_GATHER_US[bm] if conv else 0.0)
-    per_item = cdiv(K, WGMMA_CHUNK) // split * chunk + 1.5 + bm * bn * 2 / 25e3
+    per_item = cdiv(cdiv(K, WGMMA_CHUNK), split) * chunk + 1.5 + bm * bn * out_bytes / 25e3
     t = cdiv(items, sms) * per_item
     if split > 1:
-        t += 2.5 + 0.15 * split + (split + 1) * M * N * 4 / 8e6
+        t += 2.5 + 0.15 * split + (split + 1) * M * N * taps * 4 / 8e6
     return t
 
 

@@ -33,6 +33,7 @@ from ..tune import OpTune
 from . import build
 from .common import (PATH_CODES, aligned16, check_operand, epilogue, kernel_dtype,
                      plan_gemm, ptr, sm_count, splitk_workspace)
+from .sgemm import matmul
 
 
 def out_size(h: int, w: int, kh: int, kw: int, stride, pad) -> tuple[int, int]:
@@ -181,9 +182,18 @@ def gen_conv(op: Op, tune: OpTune, ctx: GenCtx) -> FuncInfo:
       dtype: boda_tpu's XLA conv with ``preferred_element_type=float32``.
       cuDNN's own bf16 conv rounds before ATen adds the bias, and that
       second rounding breaks ops_prof's cross-tune check near cancellations;
+
+    then the engine's own route (graph/lowering_nhwc.py:_nhwc_conv), so
+    that the tunes are timed on the kernels the engine runs:
+
+    * a 1x1 pad-0 conv under ``use_k1conv`` -> K1's ``matmul`` on the
+      (N*OH*OW, C) rows, on the ``[:, ::s, ::s]`` subsample when strided;
+    * a strided k > 1 conv with ``use_s2d`` -> ``space_to_depth_conv`` (K4);
     * stride 1 -> ``conv2d_nhwc`` (K3's entry; one kernel with K2's);
-    * strided with ``use_s2d`` -> ``space_to_depth_conv`` (K4);
-    * other strided convs -> ``conv2d``, which takes any stride."""
+    * other strided convs -> ``conv2d``, which takes any stride.
+
+    (boda_tpu's gen_conv sends a 1x1 to its direct conv, conv.py:735-741,
+    where its engine runs the GEMM: the port does not copy that split.)"""
     ind, fd, od = op.dims("in"), op.dims("filts"), op.dims("out")
     s = (op.ival("stride", 1), op.ival("stride", 1))
     p = (op.ival("pad", 0), op.ival("pad", 0))
@@ -212,10 +222,18 @@ def gen_conv(op: Op, tune: OpTune, ctx: GenCtx) -> FuncInfo:
                 out = torch.relu(out)
             return out.to(x.dtype)
         info = "lib:F.conv2d (library path)"
+    elif (kh, kw) == (1, 1) and p == (0, 0) and tune.use_k1conv:
+        def fn(x, w, b):
+            xs = x[:, :, ::s[0], ::s[1]]
+            n, c, oy, ox = xs.shape
+            a = xs.permute(0, 2, 3, 1).reshape(n * oy * ox, c).contiguous()
+            out = matmul(a, w.reshape(w.shape[0], c).t().contiguous(), b, relu=relu)
+            return out.reshape(n, oy, ox, -1).permute(0, 3, 1, 2).contiguous()
+        info = f"cuda:matmul k1conv s={s}"
     elif s == (1, 1):
         fn = nhwc(conv2d_nhwc)
         info = "cuda:conv2d_nhwc s=1"
-    elif tune.use_s2d:
+    elif tune.use_s2d and (kh, kw) != (1, 1):
         fn = nhwc(space_to_depth_conv, stride=s)
         info = f"cuda:s2d_conv s={s}"
     else:

@@ -32,17 +32,19 @@ engine routes to it, as in boda_tpu) against its plain version at the b32
 stem.
 
 Each path is run with the kernels' launch counts set to 0 just before it
-and read just after. The GEMM core (K1, K2/K3) also counts its launches per
-path of its tile plan: every b32 bf16 GEMM and conv of the gen and fused
-forwards and all 46 dgrads must take the wgmma path, the gen forward's C = 3
-stem alone the mma.sync loop.
+and read just after. The GEMM core (K1, K2/K3) and K5 also count their
+launches per path of their plans: every b32 bf16 GEMM and conv of the gen
+and fused forwards, all 46 dgrads and all 46 wgrads must take the wgmma
+path, the gen forward's C = 3 stem alone the mma.sync loop. fc1000's
+weights are scaled in every ResNet-50 pipe (scale_fc1000), so that prob is
+not one-hot and the forward's prob gates compare something.
 
 Prints per-phase lines, one JSON line describing each kernel (its time per
 pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
 operations over the peak rate of their type, from NVIDIA's H100 SXM data
-sheet; for the GEMM core's kernels and their library calls the time is the
-device time of 20 calls in one CUDA graph, since back-to-back launches of
-them time the host), the card's name and power limit, and as its last line
+sheet; for the GEMM core's kernels, K5 and their library calls the time is
+the device time of 20 calls in one CUDA graph, since back-to-back launches
+of them time the host), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
@@ -173,11 +175,23 @@ def plan_str(plan) -> str:
 
 
 def check_paths(what: str, paths: dict, launches: int, mma: int) -> None:
-    """The GEMM core's launches per path: ``mma`` on the mma.sync loop (the
-    C = 3 stem), every other one on wgmma, none on the f32 path."""
+    """The launches per path of the GEMM core (K1, K2/K3/K4) or of K5: ``mma``
+    on the mma.sync loop (the C = 3 stem), every other one on wgmma, none on
+    the f32 path."""
     want = {"wgmma": launches - mma, "mma": mma, "fma": 0}
     print(f"[paths] {what}: {paths} (expected {want})")
     check(paths == want, f"{what}: GEMM-core paths {paths}, expected {want}")
+
+
+def scale_fc1000(pipes, scale: float) -> None:
+    """Multiply fc1000's weights by ``scale`` in each pipe (before an engine
+    uploads them). The random-weight net's softmax is saturated: prob is
+    one-hot, so a forward check on it passes trivially, and a saturated
+    SoftmaxWithLoss passes no gradient at all. With ``scale`` = 1 /
+    max|fc1000| of a forward (fc1000's biases are 0), its logits lie in
+    [-1, 1]."""
+    for p in pipes:
+        p.weights["fc1000__filts"].data *= np.float32(scale)
 
 
 def host_us_per_launch(eng, ins) -> dict:
@@ -533,6 +547,17 @@ def main() -> int:
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm_shapes, conv_shapes = layer_shapes(pipe, eng)
+    # fc1000 scaled so that prob is not one-hot (scale_fc1000), from this
+    # forward's max|fc1000|, for every ResNet-50 b32 and b8 pipe below; the
+    # engines are made after it
+    fc_max = float(np.abs(eng.run_fwd(gen_data_inputs(in_dims), ["fc1000"])["fc1000"]
+                          .data).max())
+    fc_scale = 1.0 / fc_max
+    scale_fc1000([pipe], fc_scale)
+    eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    eng.init(pipe)
+    print(f"[slice] fc1000 weights scaled by {fc_scale:.4g} (max|fc1000| {fc_max:.4g} in "
+          f"the b{BATCH} bf16 gen forward): logits in [-1, 1], prob not one-hot")
     fused = make("conv_fwd", "cuda", compute_tn="bfloat16", fuse_block=True,
                  tune=parse_lexp(FUSED_TUNE))
     fused.init(pipe)
@@ -558,6 +583,7 @@ def main() -> int:
           f"{len(wg_shapes)} distinct shapes")
     check(n_bck_conv == 46, f"{n_bck_conv} bck-conv ops, expected 46")
     summary = {}
+    last_plan = {"sgemm": matmul, "atb": matmul_atb, "atb_dense": matmul_atb}
     for kname, case, shapes, extra in (
             ("sgemm", gemm_case, gemm_shapes,
              [((77, 147, 100, True, True), 1), ((32, 2048, 1000, False, False), 1)]),
@@ -568,7 +594,8 @@ def main() -> int:
             ("atb", wgrad_case, wg_shapes,
              [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)]),
             ("atb_dense", atb_case, dense_shapes,
-             [((1000, 77, 130), 1), ((4099, 33, 65), 1), ((130, 200, 9), 1)]),
+             [((1000, 77, 130), 1), ((4099, 33, 65), 1), ((130, 200, 9), 1),
+              ((1000, 72, 136), 1)]),
             ("dgrad", dgrad_case, wg_shapes,
              [((2, 9, 24, 40, 3, 1), 1), ((3, 7, 19, 77, 1, 0), 1)]),
             ("block", block_case, block_shapes,
@@ -576,45 +603,65 @@ def main() -> int:
             ("pool", pool_case, pool_shapes,
              [((2, 13, 12, 3, 2, 6, False), 1), ((2, 7, 24, 7, 1, 1, True), 1)]),
             ("s2d", s2d_case, s2d_shapes, [((2, 31, 3, 16, 7, 2, 3), 1)])):
-        core = kname in ("sgemm", "conv", "dgrad", "s2d")  # the GEMM core's kinds
+        # the GEMM core's kinds, and K5, whose wgmma path is the core's
+        core = kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "atb_dense")
+        k5 = kname in ("atb", "atb_dense")
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_rel_err=0.0,
                    bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0, device_ms=0.0,
                    library_device_ms=0.0)
         print(f"[{kname}] shape -> max|err|/max|ref|, kernel ms, plain f32 ms, "
               f"bf16 library ms, bound ms, count per pass (GEMM core: kernel and library "
               f"device ms in a CUDA graph, the plan) ({card})")
-        for dt, cases in ((torch.float32, extra), (torch.bfloat16, list(shapes.items()))):
-            for sig, count in cases:
-                out, ref, (fk, fp, fl) = case(*sig, dt)
-                torch.cuda.synchronize()
-                ae, re = rel_err(out, ref)
-                check(bool(torch.isfinite(out.float()).all()), f"{kname} {sig} non-finite")
-                check(re <= TOL[dt], f"{kname} {sig} {dt}: rel err {re:.3g} > {TOL[dt]}")
-                if kname == "pool" and not sig[-1]:
-                    check(torch.equal(out, ref), f"max pool {sig} {dt} not exact")
-                if dt == torch.bfloat16:
-                    plan = plan_str((matmul if kname == "sgemm" else conv2d).last_plan
-                                    if core else None)
-                    ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
-                    dms, dlms = (graph_ms(fk), graph_ms(fl)) if core else (0.0, 0.0)
-                    tot["device_ms"] += dms * count
-                    tot["library_device_ms"] += dlms * count
-                    b_ms, o_ms = work(kname, sig)
-                    tot["ms"] += ms * count
-                    tot["plain_ms"] += pms * count
-                    tot["library_ms"] += lms * count
-                    tot["bound_ms"] += max(b_ms, o_ms) * count
-                    tot["bytes_bound_ms" if b_ms >= o_ms else "ops_bound_ms"] += \
-                        max(b_ms, o_ms) * count
-                    tot["max_abs_err"] = max(tot["max_abs_err"], ae)
-                    tot["max_rel_err"] = max(tot["max_rel_err"], re)
-                    print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} "
-                          f"bound {max(b_ms, o_ms):.4f} x{count}"
-                          + (f" device {dms:.4f} library device {dlms:.4f} plan {plan}"
-                             if core else ""))
-                else:
-                    print(f"[{kname}] f32 {sig}: {re:.2e} (tol {TOL[dt]})")
-                del out, ref
+        # (dtype, signature, count per pass, timed): the ragged extras in f32
+        # (and, for K5, in bf16 too: its path by shape), then the pass's own
+        # shapes in bf16, timed
+        cases = [(torch.float32, sig, count, False) for sig, count in extra]
+        if k5:
+            cases += [(torch.bfloat16, sig, count, False) for sig, count in extra]
+        cases += [(torch.bfloat16, sig, count, True) for sig, count in shapes.items()]
+        for dt, sig, count, timed in cases:
+            paths = dict(matmul_atb.paths)
+            out, ref, (fk, fp, fl) = case(*sig, dt)
+            torch.cuda.synchronize()
+            ae, re = rel_err(out, ref)
+            check(bool(torch.isfinite(out.float()).all()), f"{kname} {sig} non-finite")
+            check(re <= TOL[dt], f"{kname} {sig} {dt}: rel err {re:.3g} > {TOL[dt]}")
+            if kname == "pool" and not sig[-1]:
+                check(torch.equal(out, ref), f"max pool {sig} {dt} not exact")
+            if k5:  # the path K5 took, by shape: wgmma for bf16 with 16-byte rows
+                ran = [q for q in paths if matmul_atb.paths[q] == paths[q] + 1]
+                m, n = (sig[2], sig[3]) if kname == "atb" else (sig[1], sig[2])
+                want = ("fma" if dt == torch.float32 else
+                        "wgmma" if m % 8 == 0 and n % 8 == 0 else "mma")
+                check(ran == [want], f"{kname} {sig} {dt}: path {ran}, expected {want}")
+                check(not timed or want == "wgmma", f"{kname} {sig}: a b{BATCH} shape "
+                      "off the wgmma path")
+                if matmul_atb.last_plan.split > 1:
+                    check(torch.equal(out, fk()), f"{kname} {sig} {dt}: split-K not "
+                          "bit-equal across two calls")
+            if timed:
+                plan = plan_str(last_plan.get(kname, conv2d).last_plan if core else None)
+                ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
+                dms, dlms = (graph_ms(fk), graph_ms(fl)) if core else (0.0, 0.0)
+                tot["device_ms"] += dms * count
+                tot["library_device_ms"] += dlms * count
+                b_ms, o_ms = work(kname, sig)
+                tot["ms"] += ms * count
+                tot["plain_ms"] += pms * count
+                tot["library_ms"] += lms * count
+                tot["bound_ms"] += max(b_ms, o_ms) * count
+                tot["bytes_bound_ms" if b_ms >= o_ms else "ops_bound_ms"] += \
+                    max(b_ms, o_ms) * count
+                tot["max_abs_err"] = max(tot["max_abs_err"], ae)
+                tot["max_rel_err"] = max(tot["max_rel_err"], re)
+                print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} "
+                      f"bound {max(b_ms, o_ms):.4f} x{count}"
+                      + (f" device {dms:.4f} library device {dlms:.4f} plan {plan}"
+                         if core else ""))
+            else:
+                print(f"[{kname}] {str(dt)[6:]} {sig}: {re:.2e} (tol {TOL[dt]})"
+                      + (f" plan {plan_str(matmul_atb.last_plan)}" if k5 else ""))
+            del out, ref
         per = {"sgemm": "forward", "conv": "forward", "block": "fused forward",
                "pool": "fused forward", "s2d": "fused forward"}.get(kname, "backward")
         print(f"[{kname}] per {per}: kernel {tot['ms']:.3f} ms, plain f32 "
@@ -716,6 +763,8 @@ def main() -> int:
     check(prob.shape == (BATCH, 1000) and bool(np.isfinite(prob).all()), "prob shape/finite")
     sums = prob.sum(axis=1)
     check(bool(((sums > 0.99) & (sums < 1.01)).all()), f"prob row sums {sums.min()}..{sums.max()}")
+    print(f"[slice] max|prob| {prob.max():.4g}, min {prob.min():.4g} (one-hot would be 1)")
+    check(prob.max() < 0.5, "prob is saturated: the prob gates would check nothing")
 
     lib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
     lib.init(pipe)
@@ -752,14 +801,16 @@ def main() -> int:
           f"{launches_fused} (expected {FUSED_LAUNCHES}); "
           f"{flog.count('block-fused bottleneck')} blocks fused")
     check(launches_fused == FUSED_LAUNCHES, "fused forward launch counts")
-    a = torch.from_numpy(fused_outs["fc1000"].data)
-    for ref_name, ref in (("lib", louts), ("gen", outs)):
-        _, e_ = rel_err(a, torch.from_numpy(ref["fc1000"].data))
-        print(f"[fused] fc1000 fused vs {ref_name}: {e_:.3e} (tol {SLICE_TOL['fc1000']})")
-        check(e_ <= SLICE_TOL["fc1000"], f"fused fc1000 vs {ref_name} {e_:.3g}")
     fprob = fused_outs["prob"].data
     check(fprob.shape == (BATCH, 1000) and bool(np.isfinite(fprob).all()),
           "fused prob shape/finite")
+    print(f"[fused] max|prob| {fprob.max():.4g}")
+    for n in ("fc1000", "prob"):
+        a = torch.from_numpy(fused_outs[n].data)
+        for ref_name, ref in (("lib", louts), ("gen", outs)):
+            _, e_ = rel_err(a, torch.from_numpy(ref[n].data))
+            print(f"[fused] {n} fused vs {ref_name}: {e_:.3e} (tol {SLICE_TOL[n]})")
+            check(e_ <= SLICE_TOL[n], f"fused {n} vs {ref_name} {e_:.3g}")
 
     # f32 at a small input, every conv node: gen kernels vs cuDNN (TF32 off);
     # and the fused configuration's block outputs, pools and stem vs cuDNN
@@ -796,15 +847,12 @@ def main() -> int:
     # The random-weight net's softmax is saturated (prob one-hot), and a
     # saturated SoftmaxWithLoss passes no gradient at all (its p is under
     # the 1e-38 floor), so every gradient would be exactly 0 in both
-    # engines. fc1000's weights are scaled so that the logits lie in [-1, 1];
-    # the gradient then reaches every layer, and relative errors are as at
-    # any scale.
-    fc_scale = 1.0 / float(np.abs(outs["fc1000"].data).max())
-    print(f"[grad] fc1000 weights scaled by {fc_scale:.4g} (max|fc1000| "
-          f"{1 / fc_scale:.4g} in the b{BATCH} bf16 forward)")
+    # engines. fc1000's weights are scaled as in the forward phases
+    # (scale_fc1000); the gradient then reaches every layer, and relative
+    # errors are as at any scale.
+    print(f"[grad] fc1000 weights scaled by {fc_scale:.4g}, as in the forward phases")
     gpipe, gdims = load_net("resnet50", GRAD_F32_BATCH)
-    for p_ in (gpipe, bpipe):
-        p_.weights["fc1000__filts"].data *= np.float32(fc_scale)
+    scale_fc1000([gpipe, bpipe], fc_scale)
     add_bck_ops(gpipe)
     gdims["label"] = gpipe.nodes["label"].dims
     gins = gen_data_inputs(gdims)
@@ -881,12 +929,14 @@ def main() -> int:
     blib.init(bpipe)
     matmul.launches = conv2d.launches = matmul_atb.launches = conv2d_nhwc.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
+    matmul_atb.paths = dict.fromkeys(matmul_atb.paths, 0)
     bres = {"gen": beng.run_fwd(bins, bwant)}
     launches_bck = {"sgemm": matmul.launches, "conv": conv2d.launches,
                     "atb": matmul_atb.launches, "conv_nhwc": conv2d_nhwc.launches}
     # the forward's convs and the 46 dgrads: all wgmma but the C = 3 stem
     check_paths("grad-bf16 sgemm", matmul.paths, launches_bck["sgemm"], 0)
     check_paths("grad-bf16 conv (forward + 46 dgrads)", conv2d.paths, launches_bck["conv"], 1)
+    check_paths("grad-bf16 atb (46 wgrads)", matmul_atb.paths, launches_bck["atb"], 0)
     print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} "
           f"(bck-conv ops {n_bck_conv})")
     check(launches_bck["atb"] >= n_bck_conv, "grad-bf16: atb launches below the bck-conv ops")
@@ -1065,10 +1115,11 @@ def main() -> int:
                  "bound_by": ("bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"]
                               else "operations"),
                  "library_ms": t["library_ms"], "max_rel_err": t["max_rel_err"]}
-        if kname in ("sgemm", "conv", "dgrad", "s2d"):
-            # the GEMM core's kernels take less time than the host's ~40 us
-            # per launch: their times, and the library's, are the CUDA-graph
-            # device times; back-to-back launches (host included) beside them
+        if kname in ("sgemm", "conv", "dgrad", "s2d", "atb"):
+            # the GEMM core's kernels and K5 take less time than the host's
+            # ~40 us per launch: their times, and the library's, are the
+            # CUDA-graph device times; back-to-back launches (host included)
+            # beside them
             entry.update(ms=t["device_ms"], library_ms=t["library_device_ms"],
                          launch_ms=t["ms"], library_launch_ms=t["library_ms"])
         if kname in ("sgemm", "conv", "atb"):
@@ -1079,8 +1130,9 @@ def main() -> int:
             entry["entry"] = "boda_tpu_torch/ops/kernels/conv.py:conv2d_nhwc"
         if kname == "atb":
             d = summary["atb_dense"]
-            entry.update({"dense_ms": d["ms"], "dense_plain_ms": d["plain_ms"],
-                          "dense_library_ms": d["library_ms"],
+            entry.update({"dense_ms": d["device_ms"], "dense_plain_ms": d["plain_ms"],
+                          "dense_library_ms": d["library_device_ms"],
+                          "dense_launch_ms": d["ms"],
                           "dense_bound_ms": d["bound_ms"],
                           "dense_max_abs_err": d["max_abs_err"]})
         if kname == "s2d":  # the fold runs in PyTorch, the conv on conv.cu

@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
 """Every wgmma tile plan of the GEMM core (csrc/gemm.cuh) at the ResNet-50
-b32 bf16 forward's GEMM and conv signatures, timed on one card: the data
-behind ops/kernels/common.py:plan_gemm.
+b32 bf16 forward's GEMM and conv signatures, and at its gradient graph's
+weight-gradient signatures (K5, csrc/atb.cu on the same core), timed on one
+card: the data behind ops/kernels/common.py:plan_gemm and
+ops/kernels/bconv.py:plan_atb.
 
 For each signature (from the engine's own dispatch, as chip_smoke.py takes
 them) it launches the C entry points directly with each plan: 64 or 128
 rows, 64, 128 or 256 columns, and every split of the 64-deep K chunks up to
 16 that divides them (and the planner's). Each plan's device time is that of 20 calls in one
 CUDA graph (chip_smoke.py's graph_ms), and its output is checked against the
-planner's own plan (within 1e-2 of max|ref|: one bf16 rounding).
+planner's own plan (within 1e-2 of max|ref|: one bf16 rounding). K5's
+plans: the same tiles, and K splits from 1 to 256 (plan_atb's range, on a
+geometric grid, and the planner's), each split's chunk the longest split's.
 Prints the card's name and power limit, then per signature the planner's
-plan and time, the fastest plan and time, and the five fastest; last, one
-JSON object with the per-forward sums of both.
+plan and time, the fastest plan and time, and the five fastest (K5: and
+whether the planner is more than 10% off the fastest); last, one JSON object
+with the per-forward (per-gradient-pass for K5) sums of both.
 
-    python3 scripts/torch_gemm_plans.py
+    python3 scripts/torch_gemm_plans.py [--only fwd|atb]
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import sys
@@ -28,6 +34,10 @@ sys.path.insert(0, str(HERE))
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("fwd", "atb"), default=None,
+                    help="sweep only the forward's GEMM/conv plans or only K5's")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_gemm_plans: needs a CUDA card", file=sys.stderr)
@@ -36,8 +46,10 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.autodiff import add_bck_ops
     from boda_tpu_torch.modes.cnet import load_net
     from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.bconv import atb_workspace, plan_atb
     from boda_tpu_torch.ops.kernels.common import (PATH_CODES, WGMMA_CHUNK, GemmPlan, cdiv,
                                                    plan_gemm, sm_count)
 
@@ -96,7 +108,7 @@ def main() -> int:
 
     tot = {"planner": 0.0, "best": 0.0}
     print(f"[plans] kind sig x count: planner plan us | best plan us | 5 fastest ({card})")
-    for kind, shapes in (("sgemm", gemm), ("conv", conv)):
+    for kind, shapes in (() if args.only == "atb" else (("sgemm", gemm), ("conv", conv))):
         for sig, count in shapes.items():
             fn, (M, N, K), conv_c = launcher(kind, sig)
             mine = plan_gemm(M, N, K, sms, bf, conv_c=conv_c)
@@ -123,7 +135,72 @@ def main() -> int:
             print(f"[plans] {kind} {sig} x{count}: {mine.bm}x{mine.bn}/{mine.split} "
                   f"{t_mine:.1f} | {times[0][1]}x{times[0][2]}/{times[0][3]} {times[0][0]:.1f} | "
                   + ", ".join(f"{bm}x{bn}/{sp} {t:.1f}" for t, bm, bn, sp in times[:5]))
-    print(json.dumps({"card": card, "sms": sms, "per_forward_us": tot}))
+    # -- K5: the weight gradients of the b32 gradient graph ------------------------
+    atb_tot = {"planner": 0.0, "best": 0.0}
+    off = []
+    if args.only != "fwd":
+        bpipe, _ = load_net("resnet50", cs.BATCH)
+        add_bck_ops(bpipe)
+        beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+        beng.init(bpipe)
+        wgrads = cs.bck_shapes(bpipe, beng)
+        del beng
+        grid = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 20, 24, 28, 32, 40, 48, 56, 64, 80,
+                96, 112, 128, 160, 192, 224, 256)
+        print(f"[plans-atb] sig (n, h, c, oc, k, p) x count: planner tile/split us | best "
+              f"tile/split us | 5 fastest ({card})")
+        for sig, count in wgrads.items():
+            n, h, c, oc, k, p = sig
+            oh = h + 2 * p - k + 1
+            x, dy = rnd((n, h, h, c)), rnd((n, oh, oh, oc))
+            M, N, K, taps = c, oc, n * oh * oh, k * k
+            # a 1x1 takes the dense form (x as it lies), as conv2d_bck_filts does
+            gather = k > 1
+            geom = (h, h, oh, oh, k, k, p, p) if gather else (0, 0, 0, 0, 1, 1, 0, 0)
+            mine = plan_atb(M, N, K, taps, sms, bf, True, gather)
+            chunks = cdiv(K, WGMMA_CHUNK)
+
+            def fn(bm, bn, split, per):
+                plan = mine._replace(bm=bm, bn=bn, split=split, chunk=per * WGMMA_CHUNK)
+                out = torch.empty((k, k, M, N), dtype=torch.float32, device=dev)
+                ws = atb_workspace(plan, taps, M, N, dev)
+                build.check(lib.boda_atb(x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                                         None if ws is None else ws.data_ptr(), M, N, K,
+                                         split, per * WGMMA_CHUNK, int(gather), *geom, 1,
+                                         PATH_CODES["wgmma"], bm, bn,
+                                         torch.cuda.current_stream().cuda_stream),
+                            f"atb {sig} {plan}")
+                return out
+            ref = fn(mine.bm, mine.bn, mine.split, mine.chunk // WGMMA_CHUNK)
+            splits = {cdiv(chunks, cdiv(chunks, s)) for s in grid if s <= chunks} | {mine.split}
+            times = []
+            for bm in (64, 128):
+                for bn in (64, 128, 256):
+                    if bn > max(64, cdiv(N, 64) * 64):
+                        continue
+                    for split in sorted(splits):
+                        per = cdiv(chunks, split)
+                        out = fn(bm, bn, split, per)
+                        err = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                        if err > 1e-2:
+                            raise RuntimeError(f"atb {sig} {bm}x{bn}/{split}: {err:.3g} from "
+                                               "the planner's")
+                        times.append((cs.graph_ms(lambda: fn(bm, bn, split, per)) * 1e3, bm, bn,
+                                      split))
+            times.sort()
+            t_mine = next(t for t, bm, bn, sp in times
+                          if (bm, bn, sp) == (mine.bm, mine.bn, mine.split))
+            atb_tot["planner"] += t_mine * count
+            atb_tot["best"] += times[0][0] * count
+            if t_mine > 1.1 * times[0][0]:
+                off.append(sig)
+            print(f"[plans-atb] {sig} x{count}: {mine.bm}x{mine.bn}/{mine.split} {t_mine:.1f} | "
+                  f"{times[0][1]}x{times[0][2]}/{times[0][3]} {times[0][0]:.1f}"
+                  f"{' (planner >10% off)' if t_mine > 1.1 * times[0][0] else ''} | "
+                  + ", ".join(f"{bm}x{bn}/{sp} {t:.1f}" for t, bm, bn, sp in times[:5]))
+            del x, dy, ref
+    print(json.dumps({"card": card, "sms": sms, "per_forward_us": tot,
+                      "atb_per_grad_pass_us": atb_tot, "atb_planner_off_10pct": off}))
     return 0
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """K1 (matmul) and K2 (conv2d) per shape at the ResNet-50 b32 bf16 forward's
-GEMM and conv signatures, beside one library call for the same function and
-the bound, on one card.
+GEMM and conv signatures, and K5 (conv2d_bck_filts) at its gradient graph's
+46 weight gradients, beside one library call for the same function (cuDNN's
+``conv2d_weight`` for K5) and the bound, on one card.
 
 The shapes come from the engine's own dispatch (gen, bf16, batch 32), as in
 chip_smoke.py. Each call is timed as chip_smoke.py times it: 3 warm-ups, then
@@ -47,7 +48,9 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.autodiff import add_bck_ops
     from boda_tpu_torch.modes.cnet import load_net
+    from boda_tpu_torch.ops.kernels.bconv import conv2d_bck_filts, matmul_atb
     from boda_tpu_torch.ops.kernels.conv import conv2d
     from boda_tpu_torch.ops.kernels.sgemm import matmul
 
@@ -58,6 +61,12 @@ def main() -> int:
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm, conv = cs.layer_shapes(pipe, eng)
+    bpipe, _ = load_net("resnet50", cs.BATCH)
+    add_bck_ops(bpipe)
+    beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    beng.init(bpipe)
+    wgrads = cs.bck_shapes(bpipe, beng)
+    del beng
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(shape, scale=1.0):
@@ -91,6 +100,13 @@ def main() -> int:
         return lambda: conv2d(x, w, bias, stride=(s, s), pad=(p, p), relu=relu,
                               residual=r), lib
 
+    def atb_case(n, h, c, oc, k, p):
+        oh = h + 2 * p - k + 1
+        x, dy = rnd((n, h, h, c)), rnd((n, oh, oh, oc))
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels_last views
+        return (lambda: conv2d_bck_filts(x, dy, pad=(p, p)),
+                lambda: torch.nn.grad.conv2d_weight(xn, (oc, c, k, k), dyn, padding=p))
+
     def host_us(fn, reps: int = 20) -> float:
         fn()
         torch.cuda.synchronize()
@@ -102,11 +118,12 @@ def main() -> int:
         return t / reps * 1e6
 
     keys = ("kernel", "kernel_device", "host", "library", "library_device", "bound")
-    tot = {k: dict.fromkeys(keys, 0.0) for k in ("sgemm", "conv")}
+    tot = {k: dict.fromkeys(keys, 0.0) for k in ("sgemm", "conv", "atb")}
     print(f"[shapes {args.tag}] kernel sig: us of kernel launch / device / host per call, "
           f"library launch / device, bound; count; plan ({card})")
     for kname, shapes, case, fn in (("sgemm", gemm, gemm_case, matmul),
-                                    ("conv", conv, conv_case, conv2d)):
+                                    ("conv", conv, conv_case, conv2d),
+                                    ("atb", wgrads, atb_case, matmul_atb)):
         for sig, count in shapes.items():
             fk, fl = case(*sig)
             fk()
@@ -119,6 +136,7 @@ def main() -> int:
             print(f"[shapes {args.tag}] {kname} {sig}: " + " ".join(f"{v[k]:.1f}" for k in keys)
                   + f" x{count} {plan}")
             del fk, fl
+    # sgemm and conv per forward, atb per gradient pass
     print(json.dumps({"tag": args.tag, "card": card, "per_forward_ms": {
         kn: {k: v / 1e3 for k, v in t.items()} for kn, t in tot.items()}}))
     return 0
