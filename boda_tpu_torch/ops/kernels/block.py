@@ -11,7 +11,11 @@ with f32 accumulation, NHWC. The CUDA kernel is ``csrc/block.cu``: one block
 per image and spatial tile, h1 (with its one-pixel halo) and h2 held in
 shared memory, so only x is read and y written. :func:`bottleneck` launches
 it for CUDA tensors and runs :func:`bottleneck_plain` for CPU tensors;
-there is no other fallback.
+there is no other fallback. Its product loop is chosen by shape before the
+launch (:func:`route`): wgmma with the weights by TMA, the mma.sync loop, or
+the f32 FMA loop. Each launch adds one to ``bottleneck.launches`` and to
+``bottleneck.paths`` under its route, and keeps its :class:`BlockPlan` in
+``bottleneck.last_plan``.
 
 :func:`block_fuse_ok` keeps boda_tpu's structural conditions only (stride 1,
 3x3, pad 1, groups 1, dilation 1). Its VMEM budget and its ``c % 128`` /
@@ -26,12 +30,34 @@ b3 (C); output (N,H,W,C).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import KERNEL_DTYPES, check_operand, kernel_dtype
+from .common import KERNEL_DTYPES, PATH_CODES, aligned16, check_operand, kernel_dtype
+
+
+class BlockPlan(NamedTuple):
+    path: str     # "wgmma" | "mma" | "fma"
+    tile: int     # the spatial tile's side T
+    cluster: int  # thread blocks per tile (res5: 4)
+    blocks: int   # thread blocks of the launch
+
+
+def route(c: int, k: int, dtype, aligned: bool = True) -> str:
+    """The product loop of one launch, by shape (``aligned``: every operand
+    starts on a 16-byte boundary): bf16 with C and K multiples of 64 ->
+    ``wgmma`` (64-deep weight chunks by TMA, a 3x3 chunk inside one tap);
+    other bf16 -> ``mma`` (mma.sync, channels padded in shared memory); f32
+    -> ``fma``."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
+    return "wgmma" if c % 64 == 0 and k % 64 == 0 and aligned else "mma"
 
 
 def block_fuse_ok(xd, k: int, cc: int, s, p, groups: int, dil=(1, 1)) -> bool:
@@ -72,25 +98,39 @@ def bottleneck(x, w1, b1, w2, b2, w3, b3):
                            ("w3", w3, (k, c)), ("b3", b3, (c,))):
         check_operand(name, t, x.device, x.dtype, shape)
     out = torch.empty_like(x)
+    aligned = aligned16(x, w1, b1, w2, b2, w3, b3, out)
+    path = route(c, k, x.dtype, aligned)
     kb = build.load()
     with torch.cuda.device(x.device):
         rc = kb.lib.boda_bottleneck(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                     w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
                                     b3.data_ptr(), out.data_ptr(), n, h, w, c, k,
-                                    dt, build.stream_ptr(x))
-    build.check(rc, "boda_bottleneck")
+                                    dt, PATH_CODES[path], build.stream_ptr(x))
+    build.check(rc, f"boda_bottleneck ({path})")
     bottleneck.launches += 1
+    bottleneck.paths[path] += 1
+    bottleneck.last_plan = plan(n, h, w, c, k, x.dtype, path, aligned)
     return out
 
 
-bottleneck.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per route (CPU plain-version calls do not count)
+bottleneck.launches = 0
+bottleneck.paths = dict.fromkeys(PATH_CODES, 0)
+bottleneck.last_plan = None  # the plan of the latest launch
 
 
-def plan(n: int, h: int, w: int, c: int, k: int, dtype: torch.dtype) -> tuple[int, int]:
-    """(tile side, cluster size) of the kernel's launch for n images of
-    h x w, c channels and k mid channels, operands 16-byte aligned: one
-    cluster of thread blocks per image and tile. (0, 1) if none fits."""
+@functools.lru_cache(maxsize=256)  # the C side's plan: a pure function of its arguments
+def plan(n: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
+         path: str | None = None, aligned: bool = True) -> BlockPlan:
+    """The kernel's plan for n images of h x w, c channels and k mid
+    channels on ``path`` (default: :func:`route`'s; ``aligned``: every
+    operand starts on a 16-byte boundary): the tile side, the cluster of
+    thread blocks per image and tile, the blocks. Tile 0 if none fits."""
+    path = path or route(c, k, dtype, aligned)
+    vec = dtype == torch.bfloat16 and c % 8 == 0 and k % 8 == 0 and aligned
     cl = ctypes.c_int(1)
-    t = build.load().lib.boda_bottleneck_plan(n, h, w, c, k, KERNEL_DTYPES[dtype], 4,
+    t = build.load().lib.boda_bottleneck_plan(n, h, w, c, k, KERNEL_DTYPES[dtype],
+                                              PATH_CODES[path], 4 if vec else 1,
                                               ctypes.byref(cl))
-    return t, cl.value
+    blocks = n * -(-h // t) * -(-w // t) * cl.value if t else 0
+    return BlockPlan(path, t, cl.value, blocks)

@@ -35,14 +35,16 @@ Each path is run with the kernels' launch counts set to 0 just before it
 and read just after. The GEMM core (K1, K2/K3) and K5 also count their
 launches per path of their plans: every b32 bf16 GEMM and conv of the gen
 and fused forwards, all 46 dgrads and all 46 wgrads must take the wgmma
-path, the gen forward's C = 3 stem alone the mma.sync loop. fc1000's
+path, the gen forward's C = 3 stem alone the mma.sync loop; K6 counts its
+routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
+must take its wgmma route. fc1000's
 weights are scaled in every ResNet-50 pipe (scale_fc1000), so that prob is
 not one-hot and the forward's prob gates compare something.
 
 Prints per-phase lines, one JSON line describing each kernel (its time per
 pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
 operations over the peak rate of their type, from NVIDIA's H100 SXM data
-sheet; for the GEMM core's kernels, K5 and their library calls the time is
+sheet; for the GEMM core's kernels, K5, K6 and their library calls the time is
 the device time of 20 calls in one CUDA graph, since back-to-back launches
 of them time the host), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
@@ -172,6 +174,28 @@ def bits(t):
 def plan_str(plan) -> str:
     return (f"{plan.path} {plan.bm}x{plan.bn} split {plan.split} {plan.ctas} blocks"
             if plan is not None else "-")
+
+
+def block_library(x, w1, b1, w2, b2, w3, b3):
+    """K6's yardstick: the unfused library sequence for the same block
+    (cuBLAS, cuDNN, cuBLAS), as a function of no arguments."""
+    import torch.nn.functional as F
+    n, h, w, c = x.shape
+    k = w1.shape[1]
+    w2_lib = w2.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
+
+    def lib():
+        x2 = x.reshape(-1, c)
+        h1 = torch.relu(torch.addmm(b1, x2, w1)).reshape(n, h, w, k)
+        h2 = torch.relu(F.conv2d(h1.permute(0, 3, 1, 2), w2_lib.permute(0, 3, 1, 2),
+                                 b2, padding=1)).permute(0, 2, 3, 1).reshape(-1, k)
+        return torch.relu(torch.addmm(b3, h2, w3) + x2)
+    return lib
+
+
+def block_plan_str(plan) -> str:
+    return (f"{plan.path} tile {plan.tile} cluster {plan.cluster} {plan.blocks} blocks"
+            if plan else "-")
 
 
 def check_paths(what: str, paths: dict, launches: int, mma: int) -> None:
@@ -402,6 +426,7 @@ def main() -> int:
                                                   matmul_atb, matmul_atb_plain)
     from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
     from boda_tpu_torch.ops.kernels.block import plan as block_plan
+    from boda_tpu_torch.ops.kernels.block import route as block_route
     from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_nhwc, conv2d_plain,
                                                  space_to_depth_conv)
     from boda_tpu_torch.ops.kernels.elementwise import eltwise, eltwise_plain
@@ -510,16 +535,8 @@ def main() -> int:
         w2, b2 = rnd((3, 3, k, k), dt, (9 * k) ** -0.5), rnd((k,), dt, 0.1)
         w3, b3 = rnd((k, c), dt, k ** -0.5), rnd((c,), dt, 0.1)
         ops = (x, w1, b1, w2, b2, w3, b3)
-        w2_lib = w2.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
-
-        def lib():  # the unfused library sequence: cuBLAS, cuDNN, cuBLAS
-            x2 = x.reshape(-1, c)
-            h1 = torch.relu(torch.addmm(b1, x2, w1)).reshape(n, h, h, k)
-            h2 = torch.relu(F.conv2d(h1.permute(0, 3, 1, 2), w2_lib.permute(0, 3, 1, 2),
-                                     b2, padding=1)).permute(0, 2, 3, 1).reshape(-1, k)
-            return torch.relu(torch.addmm(b3, h2, w3) + x2)
         return bottleneck(*ops), bottleneck_plain(*ops), (
-            lambda: bottleneck(*ops), lambda: bottleneck_plain(*ops), lib)
+            lambda: bottleneck(*ops), lambda: bottleneck_plain(*ops), block_library(*ops))
 
     def pool_case(n, h, c, k, s, oy, avg, dt):
         x = rnd((n, h, h, c), dt)
@@ -563,9 +580,9 @@ def main() -> int:
     fused.init(pipe)
     block_shapes, pool_shapes, s2d_shapes = fused_shapes(pipe, fused)
     for (n, h, c, k), cnt in block_shapes.items():
-        t, cl = block_plan(n, h, h, c, k, torch.bfloat16)
-        print(f"[block] {h}x{h} C={c} K={k} x{cnt}: tile {t}x{t}, clusters of {cl}, "
-              f"{n * (-(-h // t)) ** 2 * cl} thread blocks")
+        bp = block_plan(n, h, h, c, k, torch.bfloat16)
+        print(f"[block] {h}x{h} C={c} K={k} x{cnt}: {bp.path}, tile {bp.tile}x{bp.tile}, "
+              f"clusters of {bp.cluster}, {bp.blocks} thread blocks")
     # the backward graph at b32 bf16: the eligible convs' wgrad/dgrad shapes
     bpipe, bdims = load_net("resnet50", BATCH)
     add_bck_ops(bpipe)
@@ -606,6 +623,8 @@ def main() -> int:
         # the GEMM core's kinds, and K5, whose wgmma path is the core's
         core = kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "atb_dense")
         k5 = kname in ("atb", "atb_dense")
+        # kernels timed in a CUDA graph as well (device time): the core's, K5, K6
+        graphed = core or kname == "block"
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_rel_err=0.0,
                    bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0, device_ms=0.0,
                    library_device_ms=0.0)
@@ -616,11 +635,12 @@ def main() -> int:
         # (and, for K5, in bf16 too: its path by shape), then the pass's own
         # shapes in bf16, timed
         cases = [(torch.float32, sig, count, False) for sig, count in extra]
-        if k5:
+        if k5 or kname == "block":
             cases += [(torch.bfloat16, sig, count, False) for sig, count in extra]
         cases += [(torch.bfloat16, sig, count, True) for sig, count in shapes.items()]
         for dt, sig, count, timed in cases:
             paths = dict(matmul_atb.paths)
+            bpaths = dict(bottleneck.paths)
             out, ref, (fk, fp, fl) = case(*sig, dt)
             torch.cuda.synchronize()
             ae, re = rel_err(out, ref)
@@ -639,10 +659,18 @@ def main() -> int:
                 if matmul_atb.last_plan.split > 1:
                     check(torch.equal(out, fk()), f"{kname} {sig} {dt}: split-K not "
                           "bit-equal across two calls")
+            if kname == "block":  # K6's route by shape: wgmma for bf16 with C, K % 64 == 0
+                ran = [q for q in bpaths if bottleneck.paths[q] == bpaths[q] + 1]
+                want = block_route(sig[2], sig[3], dt)
+                check(ran == [want], f"block {sig} {dt}: path {ran}, expected {want}")
+                check(not timed or want == "wgmma", f"block {sig}: a b{BATCH} shape off "
+                      "the wgmma path")
+                check(not timed or torch.equal(out, fk()), f"block {sig}: two calls differ")
             if timed:
-                plan = plan_str(last_plan.get(kname, conv2d).last_plan if core else None)
+                plan = (plan_str(last_plan.get(kname, conv2d).last_plan) if core else
+                        block_plan_str(bottleneck.last_plan) if kname == "block" else None)
                 ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
-                dms, dlms = (graph_ms(fk), graph_ms(fl)) if core else (0.0, 0.0)
+                dms, dlms = (graph_ms(fk), graph_ms(fl)) if graphed else (0.0, 0.0)
                 tot["device_ms"] += dms * count
                 tot["library_device_ms"] += dlms * count
                 b_ms, o_ms = work(kname, sig)
@@ -657,7 +685,13 @@ def main() -> int:
                 print(f"[{kname}] bf16 {sig}: {re:.2e} {ms:.4f} {pms:.4f} {lms:.4f} "
                       f"bound {max(b_ms, o_ms):.4f} x{count}"
                       + (f" device {dms:.4f} library device {dlms:.4f} plan {plan}"
-                         if core else ""))
+                         if graphed else ""))
+                if kname == "block":  # the per-stage line: device µs in a CUDA graph
+                    stage = {56: "res2", 28: "res3", 14: "res4", 7: "res5"}.get(sig[1], "?")
+                    print(f"[block] stage {stage} {sig} x{count}: {dms * 1e3:.1f} us, plan "
+                          f"{plan}, bound {max(b_ms, o_ms) * 1e3:.1f} us "
+                          f"({'bytes' if b_ms >= o_ms else 'operations'}), library "
+                          f"{dlms * 1e3:.1f} us ({card})")
             else:
                 print(f"[{kname}] {str(dt)[6:]} {sig}: {re:.2e} (tol {TOL[dt]})"
                       + (f" plan {plan_str(matmul_atb.last_plan)}" if k5 else ""))
@@ -668,7 +702,7 @@ def main() -> int:
               f"{tot['plain_ms']:.3f} ms, bf16 library {tot['library_ms']:.3f} ms, "
               f"bound {tot['bound_ms']:.4f} ms"
               + (f"; device: kernel {tot['device_ms']:.3f} ms, library "
-                 f"{tot['library_device_ms']:.3f} ms" if core else ""))
+                 f"{tot['library_device_ms']:.3f} ms" if graphed else ""))
         summary[kname] = tot
 
     # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
@@ -793,10 +827,15 @@ def main() -> int:
     for fn in counters.values():
         fn.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
+    bottleneck.paths = dict.fromkeys(bottleneck.paths, 0)
     fused_outs = fused.run_fwd(ins, ["prob", "fc1000"])
     launches_fused = {k: fn.launches for k, fn in counters.items()}
     check_paths("fused forward sgemm", matmul.paths, launches_fused["sgemm"], 0)
     check_paths("fused forward conv", conv2d.paths, launches_fused["conv"], 0)
+    # every bf16 b32 bottleneck on K6's wgmma route
+    print(f"[fused] block paths {bottleneck.paths}")
+    check(bottleneck.paths["wgmma"] == launches_fused["block"] == FUSED_LAUNCHES["block"],
+          f"fused forward block paths {bottleneck.paths}")
     print(f"[fused] resnet50 b{BATCH} bf16 fuse_block=1 tune={FUSED_TUNE}: launches "
           f"{launches_fused} (expected {FUSED_LAUNCHES}); "
           f"{flog.count('block-fused bottleneck')} blocks fused")
@@ -1115,11 +1154,11 @@ def main() -> int:
                  "bound_by": ("bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"]
                               else "operations"),
                  "library_ms": t["library_ms"], "max_rel_err": t["max_rel_err"]}
-        if kname in ("sgemm", "conv", "dgrad", "s2d", "atb"):
-            # the GEMM core's kernels and K5 take less time than the host's
-            # ~40 us per launch: their times, and the library's, are the
-            # CUDA-graph device times; back-to-back launches (host included)
-            # beside them
+        if kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "block"):
+            # the GEMM core's kernels, K5 and K6 take about as long as the
+            # host's ~40 us per launch or less: their times, and the
+            # library's, are the CUDA-graph device times; back-to-back
+            # launches (host included) beside them
             entry.update(ms=t["device_ms"], library_ms=t["library_device_ms"],
                          launch_ms=t["ms"], library_launch_ms=t["library_ms"])
         if kname in ("sgemm", "conv", "atb"):

@@ -172,7 +172,8 @@ _BLOCK_CASES = [(2, 9, 11, 24, 16), (1, 5, 7, 20, 12), (2, 7, 7, 256, 64),
 
 
 def test_bottleneck_vs_plain(dev):
-    clusters = {block_plan(n, h, w, c, k, torch.bfloat16)[1] for n, h, w, c, k in _BLOCK_CASES}
+    clusters = {block_plan(n, h, w, c, k, torch.bfloat16).cluster
+                for n, h, w, c, k in _BLOCK_CASES}
     assert {1, 2, 4} <= clusters, clusters
     for dt in (torch.float32, torch.bfloat16):
         for n, h, w, c, k in _BLOCK_CASES:
