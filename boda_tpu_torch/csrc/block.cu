@@ -45,12 +45,12 @@
 // Both accumulate in f32. f32 inputs run on the FMA pipes (full f32) with
 // element-wise staging.
 //
-// Where a plane has too few tiles to fill the card (res5: one 7x7 tile per
-// image, 32 blocks at b32), a thread-block cluster of CL = 2 or 4 blocks
-// shares each tile: each block computes a CL-th of h1's, h2's and y's
-// columns, reading a CL-th of each weight, and copies its peers' slices of
-// h1 and h2 from their shared memory (distributed shared memory) after
-// phases A and B.
+// On the wgmma route, where a plane has too few tiles to fill the card
+// (res5: one 7x7 tile per image, 32 blocks at b32), a thread-block cluster
+// of CL = 2 or 4 blocks shares each tile: each block computes a CL-th of
+// h1's, h2's and y's columns, reading a CL-th of each weight, and copies its
+// peers' slices of h1 and h2 from their shared memory (distributed shared
+// memory) after phases A and B. The other routes run one block per tile.
 //
 // The host picks T from 1..8 and CL by a cost model: the tile's per-warp
 // work in each phase (16-row fragments, or m64 blocks on the wgmma route;
@@ -63,11 +63,12 @@
 //
 // What bounds it on an H100: at b32 one block is ~14 GFLOP; res2's moves
 // 103 MB (x read, y written), so res2 is bound by bytes (~31 us) and res3-5
-// by the tensor cores (~14 us each at 989 TFLOP/s). This kernel is far from
-// either: the halo recompute and the tiles' m64 padding, one block per SM
-// whose every 64-deep chunk waits at a block barrier, a TMA round trip at
-// the start of every output-column chunk, and each block's re-reading of all
-// the weights it needs through L2 for only 49-64 pixels.
+// by the tensor cores (~14 us each at 989 TFLOP/s). The wgmma route is far
+// from either (PERF.md, K6): the epilogues, y's most; each block streaming
+// all of its weights from L2 for only 49-64 pixels (~285 MB per res3-res5
+// launch); one block per SM whose every 64-deep item waits for its wgmmas
+// and then at a block barrier, so no MMAs overlap the next item's loads; and
+// the halo recompute and the tiles' m64 padding.
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -87,6 +88,7 @@ using boda::fence_regs_u;
 using boda::from_f32;
 using boda::mbar_expect_tx;
 using boda::mbar_init;
+using boda::mbar_wait;
 using boda::smem_u32;
 using boda::sw128_desc;
 using boda::tma_load_2d;
@@ -112,14 +114,6 @@ constexpr int kBlocksPerSMRegs = 2;   // __launch_bounds__(256, 2): 128 register
 // SM (__launch_bounds__(256, 1))
 constexpr int kWgStagesMax = 8;
 constexpr int kASlots = 3;
-// A measurement build (scripts/torch_block_parts.py) leaves parts of the
-// wgmma route out, to see what each costs: 1 the epilogues, 2 the weight
-// loads and their waits, 4 the wgmmas, 8 << p product p's epilogue. 0 in
-// every other build.
-#ifndef BOTTLENECK_DROP
-#define BOTTLENECK_DROP 0
-#endif
-constexpr int kDrop = BOTTLENECK_DROP;
 constexpr int kBoxBytes = 64 * 64 * 2;
 constexpr int kWgStage = 2 * kBoxBytes;  // 64 rows x 128 columns; wide: twice that
 // the tile picker's model of the card: a warp's mma.sync rate (an SM's ~1,024
@@ -150,20 +144,6 @@ __device__ __forceinline__ void mma16816(float* c, const unsigned* a, const unsi
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait() {  // all but the newest kStages - 2 groups
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-// gemm.cuh's mbar_wait, bounded: a weight chunk that never lands (a refused
-// TMA) ends the launch with an error after ~2^26 polls instead of hanging
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t i = 0; !done; ++i) {
-    asm volatile(
-        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (i == (1u << 26)) __trap();
-  }
 }
 struct Args {
   const void *x, *w1, *b1, *w2, *b2, *w3, *b3;
@@ -639,12 +619,12 @@ __device__ void wg_phase(const WgStream& st, int p, int rows, const ASrcArgs& as
       const int g = st.start[p] + ci * f.nk + kc, s = g % S;
       if (SRC == kStaged)  // this thread's x rows of item g (item g + 1's may be pending)
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-      if (!(kDrop & 2)) mbar_wait_or_trap(st.bars + 8 * s, (uint32_t)(g / S) & 1);
+      mbar_wait(st.bars + 8 * s, (uint32_t)(g / S) & 1);
       // every thread's x rows (and the previous phase's h1 / h2) are
       // visible, and every warpgroup is done with item g - 1: its stage and
       // its x slot take items g + S - 1 and g + 2
       __syncthreads();
-      if (!(kDrop & 2)) st.issue_w(g + S - 1);
+      st.issue_w(g + S - 1);
       if (SRC == kStaged) st.issue_a(g + 2);
       const bf16* abase;
       if (SRC == kStaged) {
@@ -662,12 +642,8 @@ __device__ void wg_phase(const WgStream& st, int p, int rows, const ASrcArgs& as
       fence_regs(acc);
       wgmma_fence();  // a[] and acc were written by ordinary instructions
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (!(kDrop & 4))
-          boda::WgmmaRA<WN>::mma(acc, a[kk], sw128_desc(sb + kk * 2048, kBoxBytes, 1024));
-        else  // keep the fragments' loads
-          acc[kk] += __uint_as_float(a[kk][0] ^ a[kk][3]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        boda::WgmmaRA<WN>::mma(acc, a[kk], sw128_desc(sb + kk * 2048, kBoxBytes, 1024));
       wgmma_commit();
       wgmma_wait<0>();  // wgmma read a[] and the stage asynchronously
       fence_regs(acc);
@@ -675,9 +651,7 @@ __device__ void wg_phase(const WgStream& st, int p, int rows, const ASrcArgs& as
       for (int kk = 0; kk < 4; ++kk) fence_regs_u(a[kk]);
     }
     // every warp, stores or not: the shuffles and stmatrix run converged
-    if ((kDrop & 1) || (kDrop & (8 << p)))
-      ;
-    else if constexpr (EM::kSmem)
+    if constexpr (EM::kSmem)
       wg_emit_sm<WN>(acc, row0, col0, stores ? f.col_hi : 0, emit, pb);
     else
       wg_emit<WN>(acc, row0, col0, stores ? f.col_hi : 0, emit, pre);
@@ -989,7 +963,7 @@ struct TileOf {
   }
 };
 
-template <typename T, bool VEC, int CL>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSMRegs) bottleneck_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(a.tile, a.k, (int)sizeof(T));
@@ -1000,8 +974,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSMRegs) bottleneck_kernel(
   T* Bs = (T*)(smem + L.off_b);
   float* Cs = (float*)(smem + L.off_c);
   const int t = a.tile;
-  const TileOf<CL> tl(a);
-  const int rank = tl.rank, img = tl.img, ty0 = tl.ty0, tx0 = tl.tx0;
+  const TileOf<1> tl(a);
+  const int img = tl.img, ty0 = tl.ty0, tx0 = tl.tx0;
   const T* x = (const T*)a.x;
   tl.fill_rowoff(rowoff, L, a);
   // the channel padding of h1 and h2 is read as A and must be 0 (h2's
@@ -1017,29 +991,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSMRegs) bottleneck_kernel(
   const EmitY<T> ey{x, (const T*)a.b3, (T*)a.out, L.pp, t, ty0, tx0, img, a.h, a.w, a.c,
                     VEC};
   if constexpr (sizeof(T) == 2) {
-    const int ks = a.k / CL, cs = a.c / CL;  // this block's column slices
-    gemm_bf16_nb<kStaged, VEC>(L.hr, round_up(a.c, kBK), a.k, rank * ks, rank * ks + ks,
-                               (const bf16*)a.w1, RowsUpTo{a.c},
-                               ASrcArgs{x, rowoff, a.c, 0, 0, 0}, e1, As, Bs, Cs);
-    if constexpr (CL > 1) {
-      cg::this_cluster().sync();
-      gather_slices<CL>(h1, L.hp, L.ldk, ks, rank);
-    }
+    gemm_bf16_nb<kStaged, VEC>(L.hr, round_up(a.c, kBK), a.k, 0, a.k, (const bf16*)a.w1,
+                               RowsUpTo{a.c}, ASrcArgs{x, rowoff, a.c, 0, 0, 0}, e1, As, Bs,
+                               Cs);
     __syncthreads();
     zero_pad(h2, L.pr);
-    gemm_bf16_nb<kH1Taps, VEC>(L.rb, 9 * L.kp, a.k, rank * ks, rank * ks + ks,
-                               (const bf16*)a.w2, TapRows{a.k, L.kp},
-                               ASrcArgs{h1, nullptr, 0, L.ldk, L.kp, t},
+    gemm_bf16_nb<kH1Taps, VEC>(L.rb, 9 * L.kp, a.k, 0, a.k, (const bf16*)a.w2,
+                               TapRows{a.k, L.kp}, ASrcArgs{h1, nullptr, 0, L.ldk, L.kp, t},
                                EmitH2<T>{h2, (const T*)a.b2, L.ldk, t, t + 2, VEC}, As, Bs, Cs);
-    if constexpr (CL > 1) {
-      cg::this_cluster().sync();
-      gather_slices<CL>(h2, L.pp, L.ldk, ks, rank);
-    }
     __syncthreads();
-    gemm_bf16_nb<kInPlace, VEC>(L.pr, L.kp, a.c, rank * cs, rank * cs + cs, (const bf16*)a.w3,
-                                RowsUpTo{a.k}, ASrcArgs{h2, nullptr, 0, L.ldk, L.kp, t}, ey,
-                                As, Bs, Cs);
-    if constexpr (CL > 1) cg::this_cluster().sync();  // peers' copies from here are done
+    gemm_bf16_nb<kInPlace, VEC>(L.pr, L.kp, a.c, 0, a.c, (const bf16*)a.w3, RowsUpTo{a.k},
+                                ASrcArgs{h2, nullptr, 0, L.ldk, L.kp, t}, ey, As, Bs, Cs);
   } else {
     gemm_f32(L.hr, a.c, a.k, (const float*)a.w1, FetchX<T>{x, rowoff, a.c}, e1, As, Bs);
     __syncthreads();
@@ -1093,8 +1055,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   tl.fill_rowoff(rowoff, L, a);
   __syncthreads();  // K % 64 == 0: no channel padding to zero
-  if (!(kDrop & 2))
-    for (int g = 0; g < L.stages - 1; ++g) st.issue_w(g);
+  for (int g = 0; g < L.stages - 1; ++g) st.issue_w(g);
   st.issue_a(0);
   st.issue_a(1);
   const EmitH1<bf16> e1{h1, (const bf16*)a.b1, L.ldk, L.hp, t, ty0, tx0, a.h, a.w, true, L.h1rows};
@@ -1143,10 +1104,10 @@ int launch_kernel(void (*k)(P...), const Args& a, size_t smem, size_t& granted, 
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool VEC, int CL>
+template <typename T, bool VEC>
 int launch(Args a, size_t smem, cudaStream_t s) {
   static size_t granted = 0;
-  return launch_kernel<CL>(bottleneck_kernel<T, VEC, CL>, a, smem, granted, s, a);
+  return launch_kernel<1>(bottleneck_kernel<T, VEC>, a, smem, granted, s, a);
 }
 
 // The wgmma route: the three weights' tensor maps, 64 x 64 boxes.
@@ -1203,14 +1164,15 @@ bool path_ok(int path, int dtype, int c, int k, bool aligned) {
 
 // The plan for n images of h x w, c channels, k mid channels (dtype 0 =
 // float32, 1 = bfloat16) on the given path: the tile side T in 1..8 and the
-// cluster size CL in {1, 2, 4} (at most max_cluster; CL > 1 needs c and k
-// to split into slices of 64, and all blocks in one wave) whose block fits
+// cluster size CL in {1, 2, 4} (CL > 1 only on the wgmma route, with c and k
+// split into slices of 64 and all blocks in one wave) whose block fits
 // shared memory and whose modeled time is least, the larger T and then the
 // smaller CL on a tie. Returns T (0 if none fits) and writes CL.
 extern "C" int boda_bottleneck_plan(int n, int h, int w, int c, int k, int dtype, int path,
-                                    int max_cluster, int* cluster) {
+                                    int* cluster) {
   const int es = dtype == 0 ? 4 : 2;
   const bool wg = path == kPathWgmma;
+  const int max_cluster = wg ? 4 : 1;
   int best = 0, best_cl = 1;
   double best_cost = 0;
   for (int t = kMaxTile; t >= 1; --t) {
@@ -1223,7 +1185,7 @@ extern "C" int boda_bottleneck_plan(int n, int h, int w, int c, int k, int dtype
     for (int cl = 1; cl <= max_cluster; cl *= 2) {
       // clusters only to fill the card: a second wave of blocks costs more
       // than the split saves (measured at res3 and res4)
-      if (cl > 1 && (dtype == 0 || k % (cl * 64) || c % (cl * 64) ||
+      if (cl > 1 && (k % (cl * 64) || c % (cl * 64) ||
                      tiles * cl > sm_count() * per_sm))
         break;
       const long blocks = tiles * cl;
@@ -1246,12 +1208,13 @@ extern "C" int boda_bottleneck_plan(int n, int h, int w, int c, int k, int dtype
 
 // dtype: 0 = float32, 1 = bfloat16; path: the caller's route by shape
 // (ops/kernels/block.py:route), refused (cudaErrorInvalidValue) where it
-// cannot take the shape, never rerouted. Returns cudaGetLastError() after
-// the launch.
+// cannot take the shape, never rerouted. plan (if not null) gets the tile
+// side and the cluster size launched. Returns cudaGetLastError() after the
+// launch.
 extern "C" int boda_bottleneck(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, const void* w3,
                                const void* b3, void* out, int n, int h, int w, int c,
-                               int k, int dtype, int path, void* stream) {
+                               int k, int dtype, int path, int* plan, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || k <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
@@ -1261,8 +1224,12 @@ extern "C" int boda_bottleneck(const void* x, const void* w1, const void* b1,
   const bool vec = dtype == 1 && c % 8 == 0 && k % 8 == 0 && aligned;
   const bool wg = path == kPathWgmma;
   int cl = 1;
-  const int t = boda_bottleneck_plan(n, h, w, c, k, dtype, path, vec ? 4 : 1, &cl);
+  const int t = boda_bottleneck_plan(n, h, w, c, k, dtype, path, &cl);
   if (t == 0) return (int)cudaErrorInvalidValue;
+  if (plan) {
+    plan[0] = t;
+    plan[1] = cl;
+  }
   Args a = {x, w1, b1, w2, b2, w3, b3, out, n, h, w, c, k};
   a.tile = t;
   a.tiles_x = (w + t - 1) / t;
@@ -1274,9 +1241,7 @@ extern "C" int boda_bottleneck(const void* x, const void* w1, const void* b1,
     if (cl == 2) return launch_wg<2>(a, smem, s);
     return launch_wg<1>(a, smem, s);
   }
-  if (dtype == 0) return launch<float, false, 1>(a, smem, s);
-  if (!vec) return launch<bf16, false, 1>(a, smem, s);
-  if (cl == 4) return launch<bf16, true, 4>(a, smem, s);
-  if (cl == 2) return launch<bf16, true, 2>(a, smem, s);
-  return launch<bf16, true, 1>(a, smem, s);
+  if (dtype == 0) return launch<float, false>(a, smem, s);
+  if (!vec) return launch<bf16, false>(a, smem, s);
+  return launch<bf16, true>(a, smem, s);
 }

@@ -366,19 +366,20 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// Wait until the phase of the given parity has completed.
+// Wait until the phase of the given parity has completed. Bounded: a phase
+// that never completes (a TMA the card refused) ends the launch with an
+// error after ~2^26 polls instead of hanging it.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
+  uint32_t done = 0;
+  for (uint32_t i = 0; !done; ++i) {
+    asm volatile(
+        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (i == (1u << 26)) __trap();
+  }
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {

@@ -14,8 +14,8 @@ it for CUDA tensors and runs :func:`bottleneck_plain` for CPU tensors;
 there is no other fallback. Its product loop is chosen by shape before the
 launch (:func:`route`): wgmma with the weights by TMA, the mma.sync loop, or
 the f32 FMA loop. Each launch adds one to ``bottleneck.launches`` and to
-``bottleneck.paths`` under its route, and keeps its :class:`BlockPlan` in
-``bottleneck.last_plan``.
+``bottleneck.paths`` under its route, and keeps the :class:`BlockPlan` the
+C side launched in ``bottleneck.last_plan``.
 
 :func:`block_fuse_ok` keeps boda_tpu's structural conditions only (stride 1,
 3x3, pad 1, groups 1, dilation 1). Its VMEM budget and its ``c % 128`` /
@@ -101,15 +101,16 @@ def bottleneck(x, w1, b1, w2, b2, w3, b3):
     aligned = aligned16(x, w1, b1, w2, b2, w3, b3, out)
     path = route(c, k, x.dtype, aligned)
     kb = build.load()
+    launched = (ctypes.c_int * 2)()  # the tile side and cluster the C side launched
     with torch.cuda.device(x.device):
         rc = kb.lib.boda_bottleneck(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                                     w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
                                     b3.data_ptr(), out.data_ptr(), n, h, w, c, k,
-                                    dt, PATH_CODES[path], build.stream_ptr(x))
+                                    dt, PATH_CODES[path], launched, build.stream_ptr(x))
     build.check(rc, f"boda_bottleneck ({path})")
     bottleneck.launches += 1
     bottleneck.paths[path] += 1
-    bottleneck.last_plan = plan(n, h, w, c, k, x.dtype, path, aligned)
+    bottleneck.last_plan = _block_plan(path, n, h, w, launched[0], launched[1])
     return out
 
 
@@ -119,18 +120,21 @@ bottleneck.paths = dict.fromkeys(PATH_CODES, 0)
 bottleneck.last_plan = None  # the plan of the latest launch
 
 
+def _block_plan(path: str, n: int, h: int, w: int, t: int, cl: int) -> BlockPlan:
+    blocks = n * -(-h // t) * -(-w // t) * cl if t else 0
+    return BlockPlan(path, t, cl, blocks)
+
+
 @functools.lru_cache(maxsize=256)  # the C side's plan: a pure function of its arguments
 def plan(n: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
          path: str | None = None, aligned: bool = True) -> BlockPlan:
-    """The kernel's plan for n images of h x w, c channels and k mid
+    """The C side's plan for n images of h x w, c channels and k mid
     channels on ``path`` (default: :func:`route`'s; ``aligned``: every
-    operand starts on a 16-byte boundary): the tile side, the cluster of
-    thread blocks per image and tile, the blocks. Tile 0 if none fits."""
+    operand starts on a 16-byte boundary), as a launch there would make it:
+    the tile side, the cluster of thread blocks per image and tile (more
+    than one only on the wgmma route), the blocks. Tile 0 if none fits."""
     path = path or route(c, k, dtype, aligned)
-    vec = dtype == torch.bfloat16 and c % 8 == 0 and k % 8 == 0 and aligned
     cl = ctypes.c_int(1)
     t = build.load().lib.boda_bottleneck_plan(n, h, w, c, k, KERNEL_DTYPES[dtype],
-                                              PATH_CODES[path], 4 if vec else 1,
-                                              ctypes.byref(cl))
-    blocks = n * -(-h // t) * -(-w // t) * cl.value if t else 0
-    return BlockPlan(path, t, cl.value, blocks)
+                                              PATH_CODES[path], ctypes.byref(cl))
+    return _block_plan(path, n, h, w, t, cl.value)

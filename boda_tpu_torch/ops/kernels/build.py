@@ -37,8 +37,8 @@ _SIGS = {
     "boda_conv2d": [_P] * 6 + [_I] * 19 + [_P],
     "boda_atb": [_P, _P, _P, _P] + [_I] * 18 + [_P],
     "boda_pool2d": [_P, _P] + [_I] * 14 + [_P],
-    "boda_bottleneck": [_P] * 8 + [_I] * 7 + [_P],
-    "boda_bottleneck_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    "boda_bottleneck": [_P] * 8 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int), _P],
+    "boda_bottleneck_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)],
     "boda_eltwise": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
     "boda_stem": [_P] * 4 + [_I] * 10 + [_P],
 }

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where K6's time goes on its wgmma route (csrc/block.cu): the kernel at the
 ResNet-50 b32 fused forward's four stage shapes, built whole and with parts
-left out (``-DBOTTLENECK_DROP``: 1 the epilogues, 2 the weight loads and
-their waits, 4 the wgmmas, 8/16/32 the epilogue of h1/h2/y; sums combine
-them), each build's device µs per
-call in a CUDA graph on one card. A build with a part left out computes
-garbage; only its time is read. Each build is block.cu alone, compiled by
-nvcc for sm_90a into the git-ignored build/block_parts/ (all builds started
-together). Prints the card's name and power limit, a line per stage and,
-last, one JSON object.
+left out, each build's device µs per call in a CUDA graph on one card.
+
+The parts are left out of a copy of block.cu, never of the shipped source:
+PATCHES below put a switch ``kDrop`` into the copy (``-DBOTTLENECK_DROP``:
+1 the epilogues, 2 the weight loads and their waits, 4 the wgmmas, 8/16/32
+the epilogue of h1/h2/y; sums combine them), and each patch must match
+block.cu exactly once, or the script stops. A build with a part left out
+computes garbage; only its time is read. Each build is the copy alone,
+compiled by nvcc for sm_90a into the git-ignored build/block_parts/ (all
+builds started together). Prints the card's name and power limit, a line
+per stage and, last, one JSON object.
 
     python3 scripts/torch_block_parts.py
 """
@@ -25,6 +28,33 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 DROPS = {0: "whole", 1: "no epilogues", 8: "no h1 epilogue", 16: "no h2 epilogue",
          32: "no y epilogue", 2: "no weight loads", 4: "no wgmma", 7: "none of the three"}
+# (text of block.cu, what the measurement copy has in its place)
+PATCHES = [
+    ("constexpr int kASlots = 3;\n",
+     "constexpr int kASlots = 3;\nconstexpr int kDrop = BOTTLENECK_DROP;\n"),
+    ("      mbar_wait(st.bars + 8 * s, (uint32_t)(g / S) & 1);\n",
+     "      if (!(kDrop & 2)) mbar_wait(st.bars + 8 * s, (uint32_t)(g / S) & 1);\n"),
+    ("      st.issue_w(g + S - 1);\n", "      if (!(kDrop & 2)) st.issue_w(g + S - 1);\n"),
+    ("  for (int g = 0; g < L.stages - 1; ++g) st.issue_w(g);\n",
+     "  if (!(kDrop & 2))\n    for (int g = 0; g < L.stages - 1; ++g) st.issue_w(g);\n"),
+    ("        boda::WgmmaRA<WN>::mma(acc, a[kk], sw128_desc(sb + kk * 2048, kBoxBytes, 1024));\n",
+     "        if (!(kDrop & 4))\n"
+     "          boda::WgmmaRA<WN>::mma(acc, a[kk], sw128_desc(sb + kk * 2048, kBoxBytes, 1024));\n"
+     "        else  // keep the fragments' loads\n"
+     "          acc[kk] += __uint_as_float(a[kk][0] ^ a[kk][3]);\n"),
+    ("    if constexpr (EM::kSmem)\n      wg_emit_sm",
+     "    if ((kDrop & 1) || (kDrop & (8 << p)))\n      ;\n"
+     "    else if constexpr (EM::kSmem)\n      wg_emit_sm"),
+]
+
+
+def patched_source(src: str) -> str:
+    """block.cu with the switch ``kDrop`` put in by PATCHES."""
+    for old, new in PATCHES:
+        if src.count(old) != 1:
+            raise SystemExit(f"torch_block_parts: block.cu no longer matches the patch {old!r}")
+        src = src.replace(old, new)
+    return src
 
 
 def main() -> int:
@@ -44,10 +74,12 @@ def main() -> int:
 
     out_dir = HERE / "build" / "block_parts"
     out_dir.mkdir(parents=True, exist_ok=True)
+    copy = out_dir / "block_parts.cu"
+    copy.write_text(patched_source((build.CSRC / "block.cu").read_text()))
     procs = {}
     for drop in DROPS:
         cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-DBOTTLENECK_DROP={drop}", f"-I{build.CSRC}",
-               "-shared", "-o", str(out_dir / f"block_{drop}.so"), str(build.CSRC / "block.cu")]
+               "-shared", "-o", str(out_dir / f"block_{drop}.so"), str(copy)]
         procs[drop] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
@@ -77,7 +109,7 @@ def main() -> int:
         for drop, lib in libs.items():
             def call(lib=lib):
                 rc = lib.boda_bottleneck(*(t.data_ptr() for t in ops), out.data_ptr(), n, h, h,
-                                         c, k, 1, PATH_CODES["wgmma"],
+                                         c, k, 1, PATH_CODES["wgmma"], None,
                                          torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"boda_bottleneck: error {rc}")

@@ -166,7 +166,8 @@ def test_conv2d_bck_in_vs_plain(dev):
 
 # (n, h, w, c, k): ragged planes (tiles of 8 and 7 cut at the edge), C and K
 # off the 16-byte vectors, a res5-like plane in one tile, and planes whose
-# few tiles are shared by clusters of blocks
+# few tiles are shared by clusters of blocks (the wgmma route: the others
+# run one block per tile)
 _BLOCK_CASES = [(2, 9, 11, 24, 16), (1, 5, 7, 20, 12), (2, 7, 7, 256, 64),
                 (1, 14, 14, 64, 32), (1, 7, 7, 1024, 256), (1, 5, 5, 256, 128)]
 

@@ -19,6 +19,7 @@ import torch
 
 from boda_tpu_torch.ops.kernels import build
 from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
+from boda_tpu_torch.ops.kernels.block import plan as block_plan
 from boda_tpu_torch.ops.kernels.common import PATH_CODES
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +108,7 @@ def test_res5_cluster_of_4(dev):
     ops = _ops(32, 7, 2048, 512, dev, ints=True, seed=5)
     out, ran, plan = _run(ops)
     assert ran == ["wgmma"] and plan.cluster == 4 and plan.blocks == 128, plan
+    assert plan == block_plan(32, 7, 7, 2048, 512, torch.bfloat16)  # the launch's own plan
     assert torch.equal(out, bottleneck_plain(*ops))
 
 
@@ -119,7 +121,7 @@ def test_ragged_k_on_mma_and_f32_on_fma(dev):
     with torch.cuda.device(dev):
         rc = build.load().lib.boda_bottleneck(*(t.data_ptr() for t in ops), out.data_ptr(),
                                               2, 14, 14, 256, 72, 1, PATH_CODES["wgmma"],
-                                              build.stream_ptr(out))
+                                              None, build.stream_ptr(out))
     assert rc != 0
     ops = _ops(2, 14, 256, 64, dev, dt=torch.float32, seed=32)
     out, ran, plan = _run(ops)
