@@ -412,6 +412,27 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
       "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+// An L2 policy that marks the lines a load brings in as the first to evict:
+// for a stream read once, so that it does not push out what the next kernel
+// reads (eltwise.cu, pool.cu).
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 1-D bulk copy (TMA without a tensor map) of `bytes` contiguous bytes from
+// global to shared memory under an L2 policy; both addresses 16-byte aligned,
+// bytes a multiple of 16. Its bytes complete the barrier's transaction count.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -36,10 +36,10 @@ _SIGS = {
     "boda_gemm": [_P] * 6 + [_I] * 9 + [_P],
     "boda_conv2d": [_P] * 6 + [_I] * 19 + [_P],
     "boda_atb": [_P, _P, _P, _P] + [_I] * 18 + [_P],
-    "boda_pool2d": [_P, _P] + [_I] * 14 + [_P],
+    "boda_pool2d": [_P, _P] + [_I] * 17 + [_P],
     "boda_bottleneck": [_P] * 8 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int), _P],
     "boda_bottleneck_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)],
-    "boda_eltwise": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+    "boda_eltwise": [_P, _P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],
     "boda_stem": [_P] * 4 + [_I] * 10 + [_P],
 }
 

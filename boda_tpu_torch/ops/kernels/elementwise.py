@@ -1,10 +1,17 @@
 """Flat elementwise relu/copy/neg and mul/add/sub/max: the port of K9.
 
 Counterpart of ``boda_tpu/ops/kernels/elementwise.py:pallas_elementwise``.
-The CUDA kernel is ``csrc/eltwise.cu``: a grid-stride loop over the flat
-array with 16-byte accesses, no padding to the TPU's (rows, 128) blocks.
-:func:`eltwise` launches it for CUDA tensors and runs :func:`eltwise_plain`
-for CPU tensors; there is no other fallback. Both compute in f32 and round
+The CUDA kernel is ``csrc/eltwise.cu``, with no padding to the TPU's (rows,
+128) blocks. Its path is chosen before the launch by :func:`plan`: ``ring``
+where every operand starts on a 16-byte boundary (a persistent grid, the
+array's chunks dealt to the blocks in turn, each streamed through shared
+memory by bulk copies), ``scalar`` for a view off alignment (a grid-stride
+loop). The plan is worked out here and passed to the kernel, which only
+checks that it can run it. :func:`eltwise` launches it for CUDA tensors
+and runs :func:`eltwise_plain` for CPU tensors; there is no other
+fallback. Each launch adds one to
+``eltwise.launches`` and to ``eltwise.paths`` under its path, and keeps its
+:class:`EltPlan` in ``eltwise.last_plan``. Both compute in f32 and round
 once to the output dtype, and max/relu follow ``jnp.maximum`` (NaN wins, +0
 for max(-0, +0)), so the kernel and the plain version agree bit for bit.
 
@@ -18,6 +25,7 @@ Op signature: (type=eltwise,func=mul,a=(<dims>)[,b=(<dims>)],out=(<dims>)).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +35,7 @@ from ..op_base import Op
 from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
+from .common import aligned16, cdiv, sm_count
 
 
 def _jnp_max(a, b):
@@ -51,6 +60,43 @@ _BINARY = {
 # the C side's func and dtype codes
 FUNC_CODES = {"relu": 0, "copy": 1, "neg": 2, "mul": 3, "add": 4, "sub": 5, "max": 6}
 ELT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+PATHS = ("ring", "scalar")  # the C side's path codes, in order
+SMS = 132           # an H100 SXM's SMs: the plan's default, the card's own at a launch
+RING_PER_SM = 2     # ring blocks per SM
+RING_STAGE_BYTES = 16384  # one stage of one operand
+RING_STAGES = 3
+_BAR_BYTES = 128    # the ring's mbarriers, ahead of its stages
+_SCALAR_BLOCKS_PER_SM = 32
+
+
+class EltPlan(NamedTuple):
+    path: str         # "ring" | "scalar"
+    blocks: int       # the grid
+    stage_bytes: int  # ring: bytes of one operand's stage (a multiple of 16)
+    stages: int       # ring: stages in the ring
+    smem: int         # ring: dynamic shared memory of a block, bytes
+
+
+def ring_smem(nin: int) -> int:
+    return _BAR_BYTES + RING_STAGES * RING_STAGE_BYTES * nin
+
+
+@functools.lru_cache(maxsize=256)  # a pure function of its arguments
+def plan(n: int, dtype: torch.dtype, aligned: bool, nin: int = 2, sms: int = SMS) -> EltPlan:
+    """The launch for n elements of ``dtype`` with ``nin`` inputs
+    (``aligned``: every operand starts on a 16-byte boundary) on a card of
+    ``sms`` SMs. ``ring``: RING_PER_SM blocks per SM, no more than there
+    are stages of work (csrc/eltwise.cu deals the array's chunks of one
+    stage to them in turn); ``scalar`` for misaligned operands or fewer
+    than 16 bytes."""
+    units = n * dtype.itemsize // 16
+    if not aligned or units == 0:
+        return EltPlan("scalar", max(1, min(cdiv(n, 256), sms * _SCALAR_BLOCKS_PER_SM)),
+                       0, 0, 0)
+    blocks = max(1, min(sms * RING_PER_SM, cdiv(units, RING_STAGE_BYTES // 16)))
+    return EltPlan("ring", blocks, RING_STAGE_BYTES, RING_STAGES, ring_smem(nin))
 
 
 def _nargs(func: str) -> int:
@@ -99,17 +145,25 @@ def eltwise(func: str, *xs, out_dtype=None):
     n = x0.numel()
     if n == 0:
         return out
+    nin = len(xs)
+    p = plan(n, dt, aligned16(*xs, out), nin, sm_count(x0.device))
     kb = build.load()
     with torch.cuda.device(x0.device):
-        rc = kb.lib.boda_eltwise(x0.data_ptr(), xs[1].data_ptr() if len(xs) == 2 else None,
+        rc = kb.lib.boda_eltwise(x0.data_ptr(), xs[1].data_ptr() if nin == 2 else None,
                                  out.data_ptr(), n, FUNC_CODES[func], code,
+                                 PATHS.index(p.path), p.blocks, p.stage_bytes, p.stages,
                                  build.stream_ptr(x0))
-    build.check(rc, "boda_eltwise")
+    build.check(rc, f"boda_eltwise ({p.path})")
     eltwise.launches += 1
+    eltwise.paths[p.path] += 1
+    eltwise.last_plan = p
     return out
 
 
-eltwise.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per path (CPU plain-version calls do not count)
+eltwise.launches = 0
+eltwise.paths = dict.fromkeys(PATHS, 0)
+eltwise.last_plan = None  # the plan of the latest launch
 
 
 @kernel_gen("eltwise")

@@ -1,12 +1,20 @@
 """NHWC max/avg pooling with caffe ceil-mode windows: the port of K8.
 
 Counterpart of ``boda_tpu/ops/kernels/pool.py:pallas_pool``. The CUDA
-kernel is ``csrc/pool.cu``: one thread per output pixel and group of 8
-channels, the window clipped to the image instead of padded. boda_tpu's
-``pool_plan`` (its VMEM budget, the y-blocked plan and the ``None`` that
-sends a plane to ``reduce_window``) is Mosaic's limit, not the card's: the
-kernel takes every shape and there is no fallback. :func:`pool2d` launches
-the kernel for CUDA tensors and runs :func:`pool2d_plain` for CPU tensors.
+kernel is ``csrc/pool.cu``, every window clipped to the image instead of
+padded. Its route is chosen by shape before the launch (:func:`route`) and
+its plan worked out here (:func:`plan`): ``rows`` for a small window at
+stride > 1 (pool1: output rows from a ring of input rows staged by bulk
+copies, the window reduced separably), ``window`` for a large window over
+a few outputs (pool5: the window's pixels split across threads),
+``thread`` for the rest (one thread per output pixel and 8 channels).
+boda_tpu's ``pool_plan`` (its VMEM budget, the y-blocked plan and the
+``None`` that sends a plane to ``reduce_window``) is Mosaic's limit, not
+the card's: the kernel takes every shape and there is no fallback.
+:func:`pool2d` launches the kernel for CUDA tensors and runs
+:func:`pool2d_plain` for CPU tensors. Each launch adds one to
+``pool2d.launches`` and to ``pool2d.paths`` under its route, and keeps its
+:class:`PoolPlan` in ``pool2d.last_plan``.
 
 Geometry arguments are boda_tpu's: ``k``, ``s``, ``pad_y``/``pad_x`` as
 (top, bottom) and (left, right) pads of the ceil-mode windows, and the
@@ -17,13 +25,98 @@ of the window's count of non-padding pixels (caffe's ``avg_pool_sz``).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import check_operand, kernel_dtype
+from .common import aligned16, cdiv, check_operand, kernel_dtype, sm_count
+
+ROUTES = ("thread", "rows", "window")  # the C side's route codes, in order
+SMS = 132             # an H100 SXM's SMs: the plan's default, the card's own at a launch
+SM_SMEM = 233472      # shared memory of one SM, bytes; each block reserves 1 KB of it
+BLOCK_SMEM = 232448   # the most one block may use
+_BAR_BYTES = 128      # the rows route's mbarriers, ahead of its stages
+_THREADS = 256
+_MAX_SLOTS = 16       # rows: the C side's limit (its mbarriers)
+_ROWS_SLOTS = 8       # rows: input rows in the ring, at most, by choice
+_LANES = 32           # window: lanes of 8 channels per block, at most
+
+
+class PoolPlan(NamedTuple):
+    route: str   # "thread" | "rows" | "window"
+    blocks: int  # the grid
+    slots: int   # rows: input rows in the ring
+    lanes: int   # window: lanes of 8 channels per block
+    slices: int  # window: slices of the window's pixels
+    smem: int    # rows: dynamic shared memory of a block, bytes
+
+
+def route(w: int, c: int, k, s, oy: int, ox: int, avg: bool, dtype,
+          aligned: bool = True) -> str:
+    """The kernel of one launch, by shape (``aligned``: x and out start on a
+    16-byte boundary): bf16 with C % 8 == 0 and aligned operands takes
+    ``window`` for a window of 16 pixels or more over at most 4 outputs per
+    image, ``rows`` for a smaller window at stride > 1 (C <= 2048: a thread
+    per 8 channels) whose ring of two input rows fits a block's shared
+    memory beside the horizontal results of this ``avg``; everything else
+    ``thread``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
+    if dtype != torch.bfloat16 or c % 8 or not aligned:
+        return "thread"
+    if k[0] * k[1] >= 16 and oy * ox <= 4:
+        return "window"
+    if k[0] * k[1] < 16 and max(s) > 1 and c <= 8 * _THREADS and \
+            rows_smem(w, c, k, ox, avg, 2) <= BLOCK_SMEM:
+        return "rows"
+    return "thread"
+
+
+def rows_smem(w: int, c: int, k, ox: int, avg: bool, slots: int) -> int:
+    """The rows route's shared memory: a ring of ``slots`` input rows in
+    bf16, and kh + 1 rows of horizontal results (8 bf16 or, for avg, 8 f32
+    per 8 channels and output column)."""
+    return _BAR_BYTES + slots * w * c * 2 + (k[0] + 1) * ox * (c // 8) * (32 if avg else 16)
+
+
+def rows_plan(n: int, w: int, c: int, k, oy: int, ox: int, avg: bool, slots: int,
+              sms: int = SMS) -> PoolPlan:
+    """The rows route with a ring of ``slots`` input rows: a persistent grid
+    of as many blocks as fit the card's SMs (at most one per output row),
+    each an equal share of the output rows. Raises if a block does not
+    fit."""
+    smem = rows_smem(w, c, k, ox, avg, slots)
+    if smem > BLOCK_SMEM or not 1 <= slots <= _MAX_SLOTS:
+        raise ValueError(f"pool rows: {slots} slots, {smem} bytes")
+    per_sm = min(SM_SMEM // (smem + 1024), 2048 // _THREADS)
+    return PoolPlan("rows", min(n * oy, sms * per_sm), slots, 0, 0, smem)
+
+
+@functools.lru_cache(maxsize=256)  # a pure function of its arguments
+def plan(n: int, h: int, w: int, c: int, k, s, oy: int, ox: int, avg: bool, dtype,
+         aligned: bool = True, sms: int = SMS) -> PoolPlan:
+    """The launch of one pool on a card of ``sms`` SMs. ``rows``: the most
+    blocks per SM (3, else 2, else 1) at which a ring of at least two input
+    rows fits, with the most rows (up to 8) that fit beside them: blocks per
+    SM moved pool1's time more than rows in flight did
+    (scripts/torch_pool_eltwise.py --sweep); ``window``: 32 lanes of 8
+    channels (fewer when C < 256) and the rest of 256 threads as slices of
+    the window; ``thread``: one thread per output pixel and 8 channels (1
+    for f32 or C % 8 != 0)."""
+    r = route(w, c, k, s, oy, ox, avg, dtype, aligned)
+    if r == "rows":  # route() saw a ring of two rows fit at one block per SM
+        slots = next(sl for per_sm in (3, 2, 1) for sl in range(_ROWS_SLOTS, 1, -1)
+                     if rows_smem(w, c, k, ox, avg, sl) + 1024 <= SM_SMEM // per_sm)
+        return rows_plan(n, w, c, k, oy, ox, avg, slots, sms)
+    if r == "window":
+        lanes = min(_LANES, c // 8)
+        slices = min(_THREADS // lanes, k[0] * k[1])
+        return PoolPlan("window", n * oy * ox * cdiv(c // 8, lanes), 0, lanes, slices, 0)
+    cpt = 8 if dtype == torch.bfloat16 and c % 8 == 0 and aligned else 1
+    return PoolPlan("thread", cdiv(n * oy * ox * (c // cpt), _THREADS), 0, 0, 0, 0)
 
 
 def avg_divisor(iy, ix, k, s, p, oy, ox) -> np.ndarray:
@@ -97,17 +190,27 @@ def pool2d(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
     dt = kernel_dtype(x)
     check_operand("x", x, x.device, x.dtype, (n, h, w, c))
     out = torch.empty((n, oy, ox, c), dtype=x.dtype, device=x.device)
+    p = plan(n, h, w, c, tuple(k), tuple(s), oy, ox, bool(avg), x.dtype, aligned16(x, out),
+             sm_count(x.device))
+    params = {"thread": (0, 0), "rows": (p.blocks, p.slots),
+              "window": (p.lanes, p.slices)}[p.route]
     kb = build.load()
     with torch.cuda.device(x.device):
         rc = kb.lib.boda_pool2d(x.data_ptr(), out.data_ptr(), n, h, w, c, oy, ox,
                                 k[0], k[1], s[0], s[1], pad_y[0], pad_x[0],
-                                int(bool(avg)), dt, build.stream_ptr(x))
-    build.check(rc, "boda_pool2d")
+                                int(bool(avg)), dt, ROUTES.index(p.route), *params,
+                                build.stream_ptr(x))
+    build.check(rc, f"boda_pool2d ({p.route})")
     pool2d.launches += 1
+    pool2d.paths[p.route] += 1
+    pool2d.last_plan = p
     return out
 
 
-pool2d.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per route (CPU plain-version calls do not count)
+pool2d.launches = 0
+pool2d.paths = dict.fromkeys(ROUTES, 0)
+pool2d.last_plan = None  # the plan of the latest launch
 
 
 class Pool2d(torch.autograd.Function):

@@ -27,9 +27,9 @@ kernels:
   ``wisdom_fn``, checked against the library path.
 
 The elementwise kernel (K9) is held bit for bit against its plain version
-for every func and dtype, and the fused stem kernel (K7, on no path: no
-engine routes to it, as in boda_tpu) against its plain version at the b32
-stem.
+for every func and dtype on both its paths (the b32 add must take the
+ring), and the fused stem kernel (K7, on no path: no engine routes to it,
+as in boda_tpu) against its plain version at the b32 stem.
 
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after. The GEMM core (K1, K2/K3) and K5 also count their
@@ -37,16 +37,18 @@ launches per path of their plans: every b32 bf16 GEMM and conv of the gen
 and fused forwards, all 46 dgrads and all 46 wgrads must take the wgmma
 path, the gen forward's C = 3 stem alone the mma.sync loop; K6 counts its
 routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
-must take its wgmma route. fc1000's
+must take its wgmma route; K8 counts its routes (pool2d.paths): the fused
+b32 forward's pool1 must take rows, its pool5 window. fc1000's
 weights are scaled in every ResNet-50 pipe (scale_fc1000), so that prob is
 not one-hot and the forward's prob gates compare something.
 
 Prints per-phase lines, one JSON line describing each kernel (its time per
 pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
 operations over the peak rate of their type, from NVIDIA's H100 SXM data
-sheet; for the GEMM core's kernels, K5, K6 and their library calls the time is
-the device time of 20 calls in one CUDA graph, since back-to-back launches
-of them time the host), the card's name and power limit, and as its last line
+sheet; for every kernel and its library call the time is the device time
+of 20 calls in one CUDA graph, since back-to-back launches of them time the
+host; those launches are kept beside it as launch_ms), the card's name and
+power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
@@ -84,6 +86,11 @@ FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
 # and pool5; the stem (on the fold) and the 4 downsampling blocks' 3x3s; the
 # 12 1x1s outside blocks and fc1000; the stem's fold
 FUSED_LAUNCHES = {"block": 12, "pool": 2, "conv": 5, "sgemm": 13, "s2d": 1}
+# K8's routes in the fused b32 forward: pool1 (3x3 s2 max) on rows, pool5 (7x7
+# avg) on window
+FUSED_POOL_PATHS = {"thread": 0, "rows": 1, "window": 1}
+POOL_B32_ROUTES = {(BATCH, 112, 64, 3, 2, 56, False): "rows",
+                   (BATCH, 7, 2048, 7, 1, 1, True): "window"}
 # ops_prof's cross-tune check on the bf16 corpus: the kernel gates' 1e-2 (one
 # bf16 rounding is 2^-8 of a value), per element, with its own atol of 1e-4
 # of max|kg|
@@ -196,6 +203,11 @@ def block_library(x, w1, b1, w2, b2, w3, b3):
 def block_plan_str(plan) -> str:
     return (f"{plan.path} tile {plan.tile} cluster {plan.cluster} {plan.blocks} blocks"
             if plan else "-")
+
+
+def pool_plan_str(plan) -> str:
+    return (" ".join(f"{k} {v}" for k, v in plan._asdict().items()) if plan is not None
+            else "-")
 
 
 def check_paths(what: str, paths: dict, launches: int, mma: int) -> None:
@@ -431,6 +443,7 @@ def main() -> int:
                                                  space_to_depth_conv)
     from boda_tpu_torch.ops.kernels.elementwise import eltwise, eltwise_plain
     from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
+    from boda_tpu_torch.ops.kernels.pool import route as pool_route
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.ops.kernels.stem import stem_fused, stem_fused_plain
     from boda_tpu_torch.utils.lexp import parse_lexp
@@ -618,13 +631,14 @@ def main() -> int:
             ("block", block_case, block_shapes,
              [((2, 9, 24, 16), 1), ((1, 7, 256, 64), 1)]),
             ("pool", pool_case, pool_shapes,
-             [((2, 13, 12, 3, 2, 6, False), 1), ((2, 7, 24, 7, 1, 1, True), 1)]),
+             [((2, 13, 12, 3, 2, 6, False), 1), ((2, 7, 24, 7, 1, 1, True), 1),
+              ((2, 14, 16, 3, 2, 7, False), 1), ((2, 14, 16, 3, 2, 7, True), 1)]),
             ("s2d", s2d_case, s2d_shapes, [((2, 31, 3, 16, 7, 2, 3), 1)])):
         # the GEMM core's kinds, and K5, whose wgmma path is the core's
         core = kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "atb_dense")
         k5 = kname in ("atb", "atb_dense")
-        # kernels timed in a CUDA graph as well (device time): the core's, K5, K6
-        graphed = core or kname == "block"
+        # kernels timed in a CUDA graph as well (device time): the core's, K5, K6, K8
+        graphed = core or kname in ("block", "pool")
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0, max_rel_err=0.0,
                    bound_ms=0.0, bytes_bound_ms=0.0, ops_bound_ms=0.0, device_ms=0.0,
                    library_device_ms=0.0)
@@ -635,12 +649,13 @@ def main() -> int:
         # (and, for K5, in bf16 too: its path by shape), then the pass's own
         # shapes in bf16, timed
         cases = [(torch.float32, sig, count, False) for sig, count in extra]
-        if k5 or kname == "block":
+        if k5 or kname in ("block", "pool"):
             cases += [(torch.bfloat16, sig, count, False) for sig, count in extra]
         cases += [(torch.bfloat16, sig, count, True) for sig, count in shapes.items()]
         for dt, sig, count, timed in cases:
             paths = dict(matmul_atb.paths)
             bpaths = dict(bottleneck.paths)
+            ppaths = dict(pool2d.paths)
             out, ref, (fk, fp, fl) = case(*sig, dt)
             torch.cuda.synchronize()
             ae, re = rel_err(out, ref)
@@ -666,9 +681,17 @@ def main() -> int:
                 check(not timed or want == "wgmma", f"block {sig}: a b{BATCH} shape off "
                       "the wgmma path")
                 check(not timed or torch.equal(out, fk()), f"block {sig}: two calls differ")
+            if kname == "pool":  # K8's route by shape: rows / window / thread
+                ran = [q for q in ppaths if pool2d.paths[q] == ppaths[q] + 1]
+                _, h_, c_, k_, s_, oy_, avg_ = sig
+                want = pool_route(h_, c_, (k_, k_), (s_, s_), oy_, oy_, avg_, dt)
+                check(ran == [want], f"pool {sig} {dt}: route {ran}, expected {want}")
+                check(not timed or want == POOL_B32_ROUTES.get(sig),
+                      f"pool {sig}: route {want}, expected {POOL_B32_ROUTES.get(sig)}")
             if timed:
                 plan = (plan_str(last_plan.get(kname, conv2d).last_plan) if core else
-                        block_plan_str(bottleneck.last_plan) if kname == "block" else None)
+                        block_plan_str(bottleneck.last_plan) if kname == "block" else
+                        pool_plan_str(pool2d.last_plan))
                 ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
                 dms, dlms = (graph_ms(fk), graph_ms(fl)) if graphed else (0.0, 0.0)
                 tot["device_ms"] += dms * count
@@ -692,6 +715,12 @@ def main() -> int:
                           f"{plan}, bound {max(b_ms, o_ms) * 1e3:.1f} us "
                           f"({'bytes' if b_ms >= o_ms else 'operations'}), library "
                           f"{dlms * 1e3:.1f} us ({card})")
+                if kname == "pool":  # the per-stage line: device µs in a CUDA graph
+                    stage = {112: "pool1", 7: "pool5"}.get(sig[1], "?")
+                    print(f"[pool] stage {stage} {sig} x{count}: {dms * 1e3:.2f} us, plan "
+                          f"{plan}, bound {max(b_ms, o_ms) * 1e3:.2f} us "
+                          f"({'bytes' if b_ms >= o_ms else 'operations'}), library "
+                          f"{dlms * 1e3:.2f} us ({card})")
             else:
                 print(f"[{kname}] {str(dt)[6:]} {sig}: {re:.2e} (tol {TOL[dt]})"
                       + (f" plan {plan_str(matmul_atb.last_plan)}" if k5 else ""))
@@ -717,32 +746,45 @@ def main() -> int:
         a0 = rnd((elt_n + 1,), dt)
         b0 = rnd((elt_n + 1,), dt)
         a0[:6], b0[:6] = special.to(dt), special.flip(0).to(dt)
-        for x, y, what in ((a0[:elt_n], b0[:elt_n], f"n={elt_n}"),
-                           (a0[:777], b0[:777], "n=777"),
-                           (a0[1:], b0[1:], f"n={elt_n} misaligned")):
+        # (x, y, what, the path it must take)
+        for x, y, what, want in ((a0[:elt_n], b0[:elt_n], f"n={elt_n}", "ring"),
+                                 (a0[:777], b0[:777], "n=777", "ring"),
+                                 (a0[1:], b0[1:], f"n={elt_n} misaligned", "scalar")):
             for func in ELT_FUNCS:
                 ins = (x, y) if func in ("mul", "add", "sub", "max") else (x,)
+                before = dict(eltwise.paths)
                 out, ref = eltwise(func, *ins), eltwise_plain(func, *ins)
                 torch.cuda.synchronize()
+                ran = [q for q in before if eltwise.paths[q] == before[q] + 1]
+                check(ran == [want], f"eltwise {func} {dt} {what}: path {ran}, expected {want}")
                 check(torch.equal(bits(out), bits(ref)),
                       f"eltwise {func} {dt} {what}: not bit-equal to its plain version")
                 fin = torch.isfinite(ref.float())
                 elt_err = max(elt_err, float((out.float() - ref.float())[fin].abs().max()))
-        print(f"[eltwise] {dt}: 7 funcs x (n={elt_n}, n=777, misaligned view) bit-equal "
-              f"to the plain version (NaN, +-0, +-inf included)")
+        print(f"[eltwise] {dt}: 7 funcs x (n={elt_n}, n=777 on the ring; a misaligned "
+              f"view of n={elt_n} on the scalar path) bit-equal to the plain version (NaN, "
+              f"+-0, +-inf included)")
     x, y = a0[:elt_n], b0[:elt_n]  # bf16, the corpus's eltwise signature
-    elt_t = {"ms": cuda_ms(lambda: eltwise("add", x, y)),
+    # device time in a CUDA graph; back-to-back launches (host included) beside it
+    elt_t = {"ms": graph_ms(lambda: eltwise("add", x, y)),
+             "launch_ms": cuda_ms(lambda: eltwise("add", x, y)),
              "plain_ms": cuda_ms(lambda: eltwise_plain("add", x, y)),
-             "library_ms": cuda_ms(lambda: torch.add(x, y)),
+             "library_ms": graph_ms(lambda: torch.add(x, y)),
+             "library_launch_ms": cuda_ms(lambda: torch.add(x, y)),
              "bound_ms": 3 * elt_n * 2 / HBM_BPS * 1e3, "max_abs_err": elt_err}
+    elt_plan = eltwise.last_plan
+    check(elt_plan.path == "ring", f"eltwise b{BATCH} add: plan {elt_plan}")
     for func, lib_fn in (("mul", torch.mul), ("relu", torch.relu)):
         ins = (x, y) if func == "mul" else (x,)
-        print(f"[eltwise] bf16 {func} n={elt_n}: kernel {cuda_ms(lambda: eltwise(func, *ins)) * 1e3:.1f} "
-              f"us, torch.{lib_fn.__name__} {cuda_ms(lambda: lib_fn(*ins)) * 1e3:.1f} us, bound "
-              f"{(len(ins) + 1) * elt_n * 2 / HBM_BPS * 1e6:.1f} us")
-    print(f"[eltwise] bf16 add n={elt_n}: kernel {elt_t['ms'] * 1e3:.1f} us, plain "
-          f"{elt_t['plain_ms'] * 1e3:.1f} us, torch.add {elt_t['library_ms'] * 1e3:.1f} us, "
-          f"bound {elt_t['bound_ms'] * 1e3:.1f} us ({card})")
+        print(f"[eltwise] bf16 {func} n={elt_n}: kernel device "
+              f"{graph_ms(lambda: eltwise(func, *ins)) * 1e3:.2f} us, torch.{lib_fn.__name__} "
+              f"device {graph_ms(lambda: lib_fn(*ins)) * 1e3:.2f} us, bound "
+              f"{(len(ins) + 1) * elt_n * 2 / HBM_BPS * 1e6:.2f} us")
+    print(f"[eltwise] bf16 add n={elt_n}: kernel device {elt_t['ms'] * 1e3:.2f} us "
+          f"(launched {elt_t['launch_ms'] * 1e3:.2f}), plain {elt_t['plain_ms'] * 1e3:.1f} us, "
+          f"torch.add device {elt_t['library_ms'] * 1e3:.2f} us (launched "
+          f"{elt_t['library_launch_ms'] * 1e3:.2f}), bound {elt_t['bound_ms'] * 1e3:.2f} us, "
+          f"plan {elt_plan} ({card})")
     del a0, b0, x, y
 
     # -- phase 2c: K7, the fused stem, at the b32 stem --------------------------------
@@ -765,14 +807,17 @@ def main() -> int:
         return F.max_pool2d(torch.relu(F.conv2d(xs_lib, w_lib, sb)), 3, 2, ceil_mode=True)
     stem_bytes = 2 * (x6.numel() + w2.numel() + BATCH * pooled * pooled * 64) + 4 * 64
     stem_ops = 2 * BATCH * (x6.shape[1] - kh + 1) * x6.shape[2] * 64 * w2.shape[0]
-    stem_t = {"ms": cuda_ms(lambda: stem_fused(x6, w2, sb, **kw)),
+    stem_t = {"ms": graph_ms(lambda: stem_fused(x6, w2, sb, **kw)),
+              "launch_ms": cuda_ms(lambda: stem_fused(x6, w2, sb, **kw)),
               "plain_ms": cuda_ms(lambda: stem_fused_plain(x6, w2, sb, **kw)),
-              "library_ms": cuda_ms(stem_lib), "max_abs_err": ae,
+              "library_ms": graph_ms(stem_lib), "library_launch_ms": cuda_ms(stem_lib),
+              "max_abs_err": ae,
               "bytes_ms": stem_bytes / HBM_BPS * 1e3, "ops_ms": stem_ops / BF16_OPS * 1e3}
     stem_t["bound_ms"] = max(stem_t["bytes_ms"], stem_t["ops_ms"])
-    print(f"[stem] bf16 b{BATCH}: kernel {stem_t['ms'] * 1e3:.1f} us, plain "
-          f"{stem_t['plain_ms'] * 1e3:.1f} us, cuDNN conv+bias/ReLU+max_pool2d "
-          f"{stem_t['library_ms'] * 1e3:.1f} us, bound {stem_t['bound_ms'] * 1e3:.1f} us "
+    print(f"[stem] bf16 b{BATCH}: kernel device {stem_t['ms'] * 1e3:.1f} us (launched "
+          f"{stem_t['launch_ms'] * 1e3:.1f}), plain {stem_t['plain_ms'] * 1e3:.1f} us, cuDNN "
+          f"conv+bias/ReLU+max_pool2d device {stem_t['library_ms'] * 1e3:.1f} us (launched "
+          f"{stem_t['library_launch_ms'] * 1e3:.1f}), bound {stem_t['bound_ms'] * 1e3:.1f} us "
           f"({'bytes' if stem_t['bytes_ms'] >= stem_t['ops_ms'] else 'operations'}; {card})")
     del x6, w2, sb, xsd, wf, out, ref, xs_lib, w_lib
 
@@ -828,6 +873,7 @@ def main() -> int:
         fn.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     bottleneck.paths = dict.fromkeys(bottleneck.paths, 0)
+    pool2d.paths = dict.fromkeys(pool2d.paths, 0)
     fused_outs = fused.run_fwd(ins, ["prob", "fc1000"])
     launches_fused = {k: fn.launches for k, fn in counters.items()}
     check_paths("fused forward sgemm", matmul.paths, launches_fused["sgemm"], 0)
@@ -836,6 +882,10 @@ def main() -> int:
     print(f"[fused] block paths {bottleneck.paths}")
     check(bottleneck.paths["wgmma"] == launches_fused["block"] == FUSED_LAUNCHES["block"],
           f"fused forward block paths {bottleneck.paths}")
+    # pool1 on K8's rows route, pool5 on its window route
+    print(f"[fused] pool paths {pool2d.paths}")
+    check(pool2d.paths == FUSED_POOL_PATHS, f"fused forward pool paths {pool2d.paths}, "
+          f"expected {FUSED_POOL_PATHS}")
     print(f"[fused] resnet50 b{BATCH} bf16 fuse_block=1 tune={FUSED_TUNE}: launches "
           f"{launches_fused} (expected {FUSED_LAUNCHES}); "
           f"{flog.count('block-fused bottleneck')} blocks fused")
@@ -1046,6 +1096,7 @@ def main() -> int:
     # -- phase 6: the rtc layer and per-op autotuning, through the CLI ---------------
     for fn in (eltwise, matmul, conv2d, space_to_depth_conv, stem_fused):
         fn.launches = 0
+    eltwise.paths = dict.fromkeys(eltwise.paths, 0)
     rc, lines = run_cli(["rtc_test", "--be=(be=cuda)", "--n=1000000"])
     print(f"[rtc] rtc_test rc={rc}: {lines[-1] if lines else ''}")
     check(rc == 0 and "PASS" in lines[-1], "rtc_test on be=cuda")
@@ -1112,7 +1163,7 @@ def main() -> int:
     check(want <= tuned, f"no wisdom tune for {sorted(want - tuned)[:5]}")
     launches_rtc = {"eltwise": eltwise.launches, "sgemm": matmul.launches,
                     "conv": conv2d.launches, "s2d": space_to_depth_conv.launches}
-    print(f"[rtc] launches on the rtc path: {launches_rtc}")
+    print(f"[rtc] launches on the rtc path: {launches_rtc}; eltwise paths {eltwise.paths}")
     check(min(launches_rtc.values()) > 0 and stem_fused.launches == 0,
           "the rtc path must launch eltwise, sgemm, conv and s2d (and no stem)")
     weng = make("conv_fwd", "cuda", compute_tn="bfloat16", wisdom_fn=str(wis_fn))
@@ -1154,9 +1205,9 @@ def main() -> int:
                  "bound_by": ("bytes" if t["bytes_bound_ms"] >= t["ops_bound_ms"]
                               else "operations"),
                  "library_ms": t["library_ms"], "max_rel_err": t["max_rel_err"]}
-        if kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "block"):
-            # the GEMM core's kernels, K5 and K6 take about as long as the
-            # host's ~40 us per launch or less: their times, and the
+        if kname in ("sgemm", "conv", "dgrad", "s2d", "atb", "block", "pool"):
+            # the GEMM core's kernels, K5, K6 and K8 take about as long as
+            # the host's ~40 us per launch or less: their times, and the
             # library's, are the CUDA-graph device times; back-to-back
             # launches (host included) beside them
             entry.update(ms=t["device_ms"], library_ms=t["library_device_ms"],
@@ -1186,14 +1237,16 @@ def main() -> int:
                     "launches": launches_rtc["eltwise"], "max_abs_err": elt_t["max_abs_err"],
                     "ms": elt_t["ms"], "plain_ms": elt_t["plain_ms"],
                     "bound_ms": elt_t["bound_ms"], "bound_by": "bytes",
-                    "library_ms": elt_t["library_ms"], "path": "rtc"})
+                    "library_ms": elt_t["library_ms"], "launch_ms": elt_t["launch_ms"],
+                    "library_launch_ms": elt_t["library_launch_ms"], "path": "rtc"})
     kernels.append({"name": "stem", "route": "cuda", "source": "boda_tpu_torch/csrc/stem.cu",
                     "replaces": "boda_tpu/ops/kernels/stem.py:121",
                     "launches": 0, "max_abs_err": stem_t["max_abs_err"],
                     "ms": stem_t["ms"], "plain_ms": stem_t["plain_ms"],
                     "bound_ms": stem_t["bound_ms"],
                     "bound_by": "bytes" if stem_t["bytes_ms"] >= stem_t["ops_ms"] else "operations",
-                    "library_ms": stem_t["library_ms"],
+                    "library_ms": stem_t["library_ms"], "launch_ms": stem_t["launch_ms"],
+                    "library_launch_ms": stem_t["library_launch_ms"],
                     "path": "none: no engine routes to it, as in boda_tpu"})
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "host_us_per_launch": host_us,
                       "grad_img_per_s": grad_rates,

@@ -18,11 +18,13 @@ from boda_tpu.ops.kernels.pool import pallas_pool
 from boda_tpu_torch.ops.kernels.pool import Pool2d, pool2d, pool2d_lib
 
 # (iy, ix, c, k, s, p): tests/test_pool_pallas.py:35-37, then ResNet-50's
-# pool1 (112 -> 56, 3x3 s2, the ceil-mode last window clipped) at C=16
+# pool1 (112 -> 56, 3x3 s2, the ceil-mode last window clipped) at C=16 and
+# its pool5 (a 7x7 global window) at C=256
 _GEOMS = [(14, 14, 8, (3, 3), (2, 2), (0, 0)),
           (12, 12, 16, (2, 2), (2, 2), (0, 0)),
           (9, 9, 8, (3, 3), (1, 1), (1, 1)),
-          (112, 112, 16, (3, 3), (2, 2), (0, 0))]
+          (112, 112, 16, (3, 3), (2, 2), (0, 0)),
+          (7, 7, 256, (7, 7), (1, 1), (0, 0))]
 
 
 def _geom(iy, ix, k, s, p):
