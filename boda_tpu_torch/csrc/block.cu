@@ -89,6 +89,7 @@ using boda::from_f32;
 using boda::mbar_expect_tx;
 using boda::mbar_init;
 using boda::mbar_wait;
+using boda::relu_j;
 using boda::smem_u32;
 using boda::sw128_desc;
 using boda::tma_load_2d;
@@ -530,7 +531,7 @@ __device__ __forceinline__ uint32_t pack_relu(float x, float y, float2 b, bool k
     __nv_bfloat162 h;
     uint32_t u;
   } v;
-  v.h = __floats2bfloat162_rn(keep ? fmaxf(x + b.x, 0.f) : 0.f, keep ? fmaxf(y + b.y, 0.f) : 0.f);
+  v.h = __floats2bfloat162_rn(keep ? relu_j(x + b.x) : 0.f, keep ? relu_j(y + b.y) : 0.f);
   return v.u;
 }
 
@@ -829,7 +830,7 @@ struct EmitH1 {  // relu(v + b1), rounded; 0 at halo pixels outside the image
   }
   __device__ void operator()(int r, int col, float v) const {
     if (r < hp)
-      h1[r * ldk + col] = from_f32<T>(inside(r) ? fmaxf(v + to_f32(b1[col]), 0.f) : 0.f);
+      h1[r * ldk + col] = from_f32<T>(inside(r) ? relu_j(v + to_f32(b1[col])) : 0.f);
   }
   __device__ void row8(int r, int col, int ncols, const float* v) const {
     if (r >= hp) return;
@@ -837,7 +838,7 @@ struct EmitH1 {  // relu(v + b1), rounded; 0 at halo pixels outside the image
     load8(b1 + col, vec, ncols - col, b);
     const bool in = inside(r);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = in ? fmaxf(v[e] + b[e], 0.f) : 0.f;
+    for (int e = 0; e < 8; ++e) o[e] = in ? relu_j(v[e] + b[e]) : 0.f;
     store8(h1 + r * ldk + col, vec, ncols - col, o);
   }
   // the wgmma route (wg_emit_sm): row r's shared address, or the dump row's
@@ -858,7 +859,7 @@ struct EmitH2 {  // relu(v + b2), rounded; rows on a pitch of T (f32) or T+2 (bf
   __device__ void operator()(int r, int col, float v) const {
     int py = r / pitch, px = r - py * pitch;
     if (py < t && px < t)
-      h2[(py * t + px) * ldk + col] = from_f32<T>(fmaxf(v + to_f32(b2[col]), 0.f));
+      h2[(py * t + px) * ldk + col] = from_f32<T>(relu_j(v + to_f32(b2[col])));
   }
   __device__ void row8(int r, int col, int ncols, const float* v) const {
     int py = r / pitch, px = r - py * pitch;
@@ -866,7 +867,7 @@ struct EmitH2 {  // relu(v + b2), rounded; rows on a pitch of T (f32) or T+2 (bf
     float b[8], o[8];
     load8(b2 + col, vec, ncols - col, b);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = fmaxf(v[e] + b[e], 0.f);
+    for (int e = 0; e < 8; ++e) o[e] = relu_j(v[e] + b[e]);
     store8(h2 + (py * t + px) * ldk + col, vec, ncols - col, o);
   }
   // the wgmma route (wg_emit_sm): the shared address of row r's pixel, or
@@ -900,7 +901,7 @@ struct EmitY {  // relu((v + b3) + x), to global memory
     if (o < 0) return;
     v = v + to_f32(b3[col]);
     v = v + to_f32(x[o + col]);
-    v = fmaxf(v, 0.f);
+    v = relu_j(v);
     out[o + col] = from_f32<T>(v);
   }
   __device__ void row8(int r, int col, int ncols, const float* v) const {
@@ -912,7 +913,7 @@ struct EmitY {  // relu((v + b3) + x), to global memory
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       y[e] = (v[e] + b[e]) + xr[e];
-      y[e] = fmaxf(y[e], 0.f);
+      y[e] = relu_j(y[e]);
     }
     store8(out + o + col, vec, ncols - col, y);
   }
@@ -933,7 +934,7 @@ struct EmitY {  // relu((v + b3) + x), to global memory
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       y[e] = (v[e] + b[e]) + xr[e];
-      y[e] = fmaxf(y[e], 0.f);
+      y[e] = relu_j(y[e]);
     }
     store8(out + o + col, true, 8, y);
   }

@@ -72,14 +72,7 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// jnp.maximum: NaN propagates (as the quiet NaN torch.maximum returns), and a
-// tie of -0 and +0 gives +0 (the AND of the two bit patterns; for any other tie
-// both are the same value)
-__device__ __forceinline__ float jmax(float a, float b) {
-  if (a != a || b != b) return __uint_as_float(0x7fc00000u);
-  if (a == b) return __uint_as_float(__float_as_uint(a) & __float_as_uint(b));
-  return a > b ? a : b;
-}
+using boda::jmax;  // jnp.maximum, shared with the ReLU and max of K1-K8
 
 template <int F>
 __device__ __forceinline__ float apply(float a, float b) {

@@ -126,11 +126,25 @@ __device__ __forceinline__ uint4 a_vec8(const Prob& p, const RowInfo* ri, int r,
   return off < 0 ? z : *(const uint4*)(A + off);
 }
 
+// jnp.maximum: NaN propagates (as the quiet NaN torch.maximum returns), and a
+// tie of -0 and +0 gives +0 (the AND of the two bit patterns; for any other tie
+// both are the same value). Every max and ReLU on a value path of the port's
+// kernels goes through jmax, relu_j or, for packed bf16 pairs, __hmax2_nan:
+// fmaxf and __hmax2 return the side that is not NaN.
+__device__ __forceinline__ float jmax(float a, float b) {
+  if (a != a || b != b) return __uint_as_float(0x7fc00000u);
+  if (a == b) return __uint_as_float(__float_as_uint(a) & __float_as_uint(b));
+  return a > b ? a : b;
+}
+
+// jmax(v, 0) without the branches: NaN stays NaN, -0 and +0 give +0
+__device__ __forceinline__ float relu_j(float v) { return (v > 0.f || v != v) ? v : 0.f; }
+
 template <typename T>
 __device__ __forceinline__ void store_out(const Prob& p, long m, int n, float v) {
   if (p.bias) v += to_f32(((const T*)p.bias)[n]);
   if (p.res) v += to_f32(((const T*)p.res)[m * p.N + n]);
-  if (p.relu) v = fmaxf(v, 0.f);
+  if (p.relu) v = relu_j(v);
   ((T*)p.c)[m * p.N + n] = from_f32<T>(v);
 }
 
@@ -657,8 +671,8 @@ __device__ __forceinline__ void store8(const Prob& p, long m, int n, float (&v)[
   for (int q = 0; q < 4; ++q) {
     float x = v[2 * q], y = v[2 * q + 1];
     if (p.relu) {
-      x = fmaxf(x, 0.f);
-      y = fmaxf(y, 0.f);
+      x = relu_j(x);
+      y = relu_j(y);
     }
     t.h[q] = __floats2bfloat162_rn(x, y);
   }
@@ -948,8 +962,8 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
               y += f.y;
             }
             if (p.relu) {
-              x = fmaxf(x, 0.f);
-              y = fmaxf(y, 0.f);
+              x = relu_j(x);
+              y = relu_j(y);
             }
             // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
             *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +

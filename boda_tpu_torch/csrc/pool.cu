@@ -83,7 +83,7 @@ __device__ __forceinline__ void fold8(float (&acc)[8], const uint4& u, bool avg)
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const float v = __bfloat162float(pk.e[e]);
-    acc[e] = avg ? acc[e] + v : fmaxf(acc[e], v);
+    acc[e] = avg ? acc[e] + v : boda::jmax(acc[e], v);
   }
 }
 
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(256) pool_kernel(PoolArgs a) {
         for (int e = 0; e < CPT; ++e) v[e] = ld(p + e);
       }
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[e] = a.avg ? acc[e] + v[e] : fmaxf(acc[e], v[e]);
+      for (int e = 0; e < CPT; ++e) acc[e] = a.avg ? acc[e] + v[e] : boda::jmax(acc[e], v[e]);
     }
   }
   if (a.avg) {
@@ -177,12 +177,12 @@ __device__ __forceinline__ void row_next(const PoolArgs& a, int t0, int t1, RowC
 }
 
 // 8 channels' running max in bf16 pairs (exact: a max is one of its inputs;
-// NaN is dropped as fmaxf drops it)
+// NaN propagates, as jnp.maximum's does)
 __device__ __forceinline__ void hmax8(uint4& acc, const uint4& v) {
   __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(&acc);
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) a[k] = __hmax2(a[k], b[k]);
+  for (int k = 0; k < 4; ++k) a[k] = __hmax2_nan(a[k], b[k]);
 }
 
 __device__ __forceinline__ void sum8(float (&acc)[8], const float4& u, const float4& v) {
@@ -347,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) pool_window(PoolArgs a, int lanes, i
     const float4 u = part[2 * (sl * lanes + lane)], v = part[2 * (sl * lanes + lane) + 1];
     const float w[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = AVG ? acc[k] + w[k] : fmaxf(acc[k], w[k]);
+    for (int k = 0; k < 8; ++k) acc[k] = AVG ? acc[k] + w[k] : boda::jmax(acc[k], w[k]);
   }
   if (AVG) {
     const float inv = 1.f / (float)cnt;

@@ -24,7 +24,9 @@
 // conv rows) and w2 once per block into shared memory; WMMA (mma.sync)
 // 16x16x16, f32 accumulators stored to shared memory. Pooling the raw sums and
 // adding bias and ReLU after the max gives the same values as the other order:
-// both are monotone, and so is the final rounding. float32, and bf16 shapes off
+// both are monotone, and so is the final rounding. The max and the ReLU are
+// jnp.maximum's (gemm.cuh's jmax and relu_j): a NaN among a window's sums
+// gives NaN, as in boda_tpu. float32, and bf16 shapes off
 // that path (OW, CP or OC not multiples of 16, OC > 128, misaligned pointers),
 // run the same plan on the FMA pipes.
 //
@@ -39,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "gemm.cuh"  // jmax, relu_j
 
 namespace {
 
@@ -84,11 +88,11 @@ __device__ void pool_store(const Args& a, const float* S, int n, int p0, int row
       for (int dx = 0; dx < 3; ++dx) {
         const int ox = 2 * px + dx;
         if (ox >= a.ow) break;
-        m = fmaxf(m, S[((long)r * a.ow + ox) * a.lds + oc]);
+        m = boda::jmax(m, S[((long)r * a.ow + ox) * a.lds + oc]);
       }
     }
     float v = m + a.bias[oc];
-    if (a.relu) v = fmaxf(v, 0.f);
+    if (a.relu) v = boda::relu_j(v);
     out[(((long)n * a.poh + p0 + pr) * a.pow_ + px) * a.oc + oc] = from_f32<T>(v);
   }
 }

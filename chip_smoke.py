@@ -97,6 +97,13 @@ POOL_B32_ROUTES = {(BATCH, 112, 64, 3, 2, 56, False): "rows",
 RTC_MRD_TOLER = 1e-2
 RTC_TUNES = "(kg=(use_xla=1),gen=(),s2d=(use_s2d=1))"
 ELT_FUNCS = ("relu", "copy", "neg", "mul", "add", "sub", "max")
+# the nan phase: a NaN planted in small inputs of every kernel with a ReLU or
+# a max (K1 with ReLU and a residual, K2/K3 with ReLU, K6, K7, K8's max), on
+# each path of each; "<kernel> <path>" (nan_case)
+NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm mma", "sgemm fma",
+             "conv wgmma", "conv_nhwc wgmma split-K", "conv mma", "conv fma",
+             "block wgmma", "block mma", "block fma", "stem bf16", "stem f32",
+             "pool rows", "pool window", "pool thread")
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 FMA operations/s
 HBM_BPS, BF16_OPS, F32_OPS = 3.35e12, 989e12, 67e12
@@ -265,7 +272,7 @@ def run_cli(argv) -> tuple[int, list[str]]:
     return rc, buf.getvalue().splitlines()
 
 
-def stem_inputs(n, hw, oc, dt, rng):
+def stem_inputs(n, hw, oc, dt, rng, dev="cuda"):
     """The fused stem's inputs for an n x hw x hw x 3 batch, 7x7 s2 p3 to oc
     channels: the host's s2d and dx folds of the input and of the weights
     (as boda_tpu's loader would make them). Returns ((x6, w2, bias), the
@@ -284,11 +291,96 @@ def stem_inputs(n, hw, oc, dt, rng):
     xsd = host_stem_s2d(x, geom)
     x6 = host_stem_dxfold(xsd, m, o)
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dt)
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
     bias = (rng.standard_normal(oc) * 0.1).astype(np.float32)
-    return ((dev(x6), dev(fold_stem_weights_dx(wf)), dev(bias)), dev(xsd), dev(wf), m,
+    return ((put(x6), put(fold_stem_weights_dx(wf)), put(bias)), put(xsd), put(wf), m,
             -(-(o - 3) // 2) + 1)
+
+
+def nan_case(name: str, dev):
+    """One case of the nan phase (NAN_CASES), its inputs from a seed with NaN
+    planted: (kernel, plain version, operands, keywords, whether the gate is
+    exact, the kernel's per-path launch counts or None, the path it must
+    take)."""
+    from boda_tpu_torch.ops.kernels import block, conv, pool, sgemm, stem
+    kind, path = name.split()[:2]
+    dt = torch.float32 if path in ("fma", "f32", "thread") else torch.bfloat16
+    rng = np.random.default_rng(11)
+
+    def t(shape, scale=1.0, nan=()):
+        v = (rng.standard_normal(shape) * scale).astype(np.float32)
+        for idx in nan:
+            v[idx] = np.nan
+        return torch.from_numpy(v).to(dev, dt)
+    if kind == "sgemm":
+        M, K, N = {"wgmma": (4096, 128, 128), "split-K": (32, 2048, 1000)}.get(
+            name.split()[-1], (77, 147, 100))
+        ops = (t((M, K), nan=[(1, 3), (M - 1, K - 1)]), t((K, N), K ** -0.5), t((N,), 0.1))
+        kw = dict(relu=True, residual=t((M, N), nan=[(5, 2), (M - 2, N - 1)]))
+        return sgemm.matmul, sgemm.matmul_plain, ops, kw, False, sgemm.matmul.paths, path
+    if kind in ("conv", "conv_nhwc"):
+        n, h, c, oc, k, s, p = {"wgmma": (8, 28, 64, 64, 3, 1, 1),
+                                "split-K": (2, 14, 64, 64, 3, 1, 1)}.get(
+            name.split()[-1], (2, 13, 3, 20, 7, 2, 3))
+        oh = (h + 2 * p - k) // s + 1
+        ops = (t((n, h, h, c), nan=[(0, 0, 0, c - 1), (n - 1, h // 2, h // 3, 1)]),
+               t((k, k, c, oc), (k * k * c) ** -0.5), t((oc,), 0.1))
+        kw = dict(stride=(s, s), pad=(p, p), relu=True)
+        if kind == "conv":
+            kw["residual"] = t((n, oh, oh, oc), nan=[(n - 1, oh - 1, 1, oc - 1)])
+        fk = conv.conv2d if kind == "conv" else conv.conv2d_nhwc
+        return fk, conv.conv2d_plain, ops, kw, False, conv.conv2d.paths, path
+    if kind == "block":
+        n, h, c, k = (2, 14, 64, 64) if path == "wgmma" else (2, 9, 24, 16)
+        ops = (t((n, h, h, c), nan=[(0, 0, 0, 2), (n - 1, h // 2, h // 3, c - 1)]),
+               t((c, k), c ** -0.5), t((k,), 0.1), t((3, 3, k, k), (9 * k) ** -0.5),
+               t((k,), 0.1), t((k, c), k ** -0.5), t((c,), 0.1))
+        return (block.bottleneck, block.bottleneck_plain, ops, {}, False,
+                block.bottleneck.paths, path)
+    if kind == "stem":
+        (x6, w2, sb), _, _, kh, pooled = stem_inputs(2, 64, 64, dt, rng, dev)
+        for i in ((0, 10, 5, 7), (1, x6.shape[1] - 1, x6.shape[2] - 1, 0)):
+            x6[i] = float("nan")
+        kw = dict(kh=kh, poh=pooled, pow_=pooled, relu=True)
+        return stem.stem_fused, stem.stem_fused_plain, (x6, w2, sb), kw, False, None, path
+    n, h, c, k, s, oy = {"rows": (2, 14, 16, 3, 2, 7), "window": (2, 7, 64, 7, 1, 1)}.get(
+        path, (2, 13, 12, 3, 2, 6))
+    pad = (0, max(0, (oy - 1) * s + k - h))
+    ops = (t((n, h, h, c), nan=[(0, 0, 0, 1), (n - 1, h - 1, h - 1, c - 1), (1, 4, 6, 3)]),
+           (k, k), (s, s), pad, pad, oy, oy, False)
+    return pool.pool2d, pool.pool2d_plain, ops, {}, True, pool.pool2d.paths, path
+
+
+def nan_check(name: str, dev) -> tuple[bool, str]:
+    """Run one nan-phase case: the kernel on the card against its plain
+    version on CPU copies of the same inputs (so that no library algorithm, a
+    Winograd or FFT conv, spreads a NaN past its receptive field), NaN
+    compared equal: the same isnan mask, which holds a NaN and is not all NaN,
+    and the rest equal (max) or within TOL of max|ref|. Returns (ok, the
+    [nan] line)."""
+    fk, fp, ops, kw, exact, paths, want = nan_case(name, dev)
+    before = dict(paths) if paths is not None else None
+    out = fk(*ops, **kw)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    ran = ([q for q in paths if paths[q] == before[q] + 1] if paths is not None else [want])
+
+    def cpu(v):
+        return v.cpu() if torch.is_tensor(v) else v
+    ref = fp(*map(cpu, ops), **{k: cpu(v) for k, v in kw.items()})
+    out, dt = out.cpu(), ops[0].dtype
+    mask, want_mask = torch.isnan(out.float()), torch.isnan(ref.float())
+    fin = ~want_mask
+    d = float((out.float() - ref.float())[fin].abs().max())
+    err = d / max(float(ref.float()[fin].abs().max()), 1e-30)
+    ok = (ran == [want] and bool(want_mask.any()) and bool(fin.any())
+          and torch.equal(mask, want_mask)
+          and (torch.equal(out[fin], ref[fin]) if exact else err <= TOL[dt]))
+    return ok, (f"[nan] {name} {str(dt)[6:]} {tuple(out.shape)}: path {ran}, NaN "
+                f"{int(mask.sum())} of {out.numel()} (plain {int(want_mask.sum())}), "
+                f"the rest {'equal' if exact else f'max|err|/max|ref| {err:.2e}'}: "
+                f"{'ok' if ok else 'MISS'}")
 
 
 def check_nodes(pipe):
@@ -820,6 +912,15 @@ def main() -> int:
           f"{stem_t['library_launch_ms'] * 1e3:.1f}), bound {stem_t['bound_ms'] * 1e3:.1f} us "
           f"({'bytes' if stem_t['bytes_ms'] >= stem_t['ops_ms'] else 'operations'}; {card})")
     del x6, w2, sb, xsd, wf, out, ref, xs_lib, w_lib
+
+    # -- phase 2d: NaN at ReLU and max, as jnp.maximum gives it --------------------
+    misses = []
+    for name in NAN_CASES:
+        ok, line = nan_check(name, dev)
+        print(line)
+        if not ok:
+            misses.append(name)
+    check(not misses, f"nan phase: {misses} differ from their plain versions")
 
     # -- phase 3: the slice: ResNet-50 b32 bf16 through the kernels -----------------
     ins = gen_data_inputs(in_dims)
