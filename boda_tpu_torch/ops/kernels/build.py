@@ -40,7 +40,7 @@ _SIGS = {
     "boda_bottleneck": [_P] * 8 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int), _P],
     "boda_bottleneck_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)],
     "boda_eltwise": [_P, _P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],
-    "boda_stem": [_P] * 4 + [_I] * 10 + [_P],
+    "boda_stem": [_P] * 4 + [_I] * 14 + [_P],
 }
 
 

@@ -6,7 +6,13 @@ Counterpart of ``boda_tpu/ops/kernels/stem.py``: the two host folds
 loader at decode time as boda_tpu's are) and the kernel,
 ``pallas_stem_fused`` -> :func:`stem_fused`, whose CUDA source is
 ``csrc/stem.cu``. :func:`stem_fused` launches it for CUDA tensors and runs
-:func:`stem_fused_plain` for CPU tensors; there is no other fallback.
+:func:`stem_fused_plain` for CPU tensors; there is no other fallback. Its
+route and band split are worked out here (:func:`plan`) and nowhere else:
+``mma`` for bf16 on the tensor cores (input rows staged by bulk copy, each
+conv row computed once per band), ``fma`` for f32 and the shapes off that
+path. Each launch adds one to ``stem_fused.launches`` and to
+``stem_fused.paths`` under its route, and keeps its :class:`StemPlan` in
+``stem_fused.last_plan``.
 
 The input is the ResNet/GoogLeNet stem (7x7 s2 on C=3) after the host's
 space-to-depth fold (``graph/lowering_nhwc.host_stem_s2d``) and the dx
@@ -18,12 +24,32 @@ where it is a measured null result on the TPU (tests/test_stem_fused.py).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import check_operand, kernel_dtype
+from .common import aligned16, cdiv, check_operand, kernel_dtype, sm_count
+
+ROUTES = ("fma", "mma")  # the C side's route codes, in order
+SMS = 132                # an H100 SXM's SMs: the plan's default, the card's own at a launch
+SM_SMEM = 233472         # shared memory of one SM, bytes; each block reserves 1 KB of it
+BLOCK_SMEM = 232448      # the most one block may use
+_BAR_BYTES = 128         # mma: the ring's mbarriers, ahead of its slots
+_MAX_SLOTS = 16          # mma: the C side's limit (its mbarriers)
+_MAX_STRIPS = 8          # mma: one warp per 16 conv pixels, at most 8 warps
+_PAIR_OC = 64            # mma: up to this OC two blocks share an SM (csrc/stem.cu)
+_FMA_MAX_BAND = 2        # fma: pooled rows per block, at most
+
+
+class StemPlan(NamedTuple):
+    route: str  # "mma" | "fma"
+    band: int   # pooled rows per block
+    bands: int  # blocks per image: the grid is bands x N
+    slots: int  # mma: input rows in the ring (0 on fma)
+    smem: int   # dynamic shared memory of a block, bytes
 
 
 def stem_dxfold_cp(kw: int, cin: int) -> int:
@@ -67,6 +93,54 @@ def _check_geom(x6, w2, kh: int, poh: int, pow_: int) -> int:
     return ncv
 
 
+def mma_smem(ow: int, cp: int, kh: int, oc: int, pow_: int, slots: int) -> int:
+    """The mma route's shared memory (csrc/stem.cu:mma_smem): the ring's
+    mbarriers, ``slots`` input rows of OW*CP bf16, w2 at a pitch of OC+8
+    bf16, the horizontal maxes of one conv row (OW/2, OC) f32, and the
+    strips' first pixels for 2 steps x 2 conv rows (OW/16, OC) f32."""
+    return (_BAR_BYTES + slots * ow * cp * 2 + kh * cp * (oc + 8) * 2 + (ow // 2) * oc * 4
+            + 4 * (ow // 16) * oc * 4)
+
+
+def fma_smem(ow: int, cp: int, kh: int, oc: int, band: int) -> int:
+    """The fma route's shared memory (csrc/stem.cu:fma_smem): w2 in f32 and
+    the band's 2*band+1 conv rows in f32."""
+    return cdiv(kh * cp * oc, 32) * 32 * 4 + (2 * band + 1) * ow * oc * 4
+
+
+def plan(n: int, xs_h: int, ow: int, cp: int, kh: int, oc: int, poh: int, pow_: int,
+         dtype, aligned: bool = True, sms: int = SMS) -> StemPlan:
+    """The plan of one launch (``aligned``: x6 and w2 start on a 16-byte
+    boundary). A pure function of its arguments.
+
+    * bf16 with OW, CP and OC multiples of 16, OW <= 128, OC <= 128 and
+      aligned operands -> mma: two blocks per SM up to OC = 64 where their
+      shared memory fits, else one; the pooled rows of each image cut into
+      equal bands so that the N x bands blocks come to about one wave (8
+      bands of 7 at the ResNet-50 b32 stem: 256 blocks on 132 SMs x 2); a
+      ring of KH + 1 input rows, the rows one step reads (the next step's
+      go in flight at the step's barrier; deeper rings measured no faster
+      at the stem, and past KH + 2 two blocks no longer share an SM).
+    * every other shape and float32 -> fma: bands of at most 2 pooled rows,
+      the most whose conv rows fit shared memory.
+    Raises if neither fits."""
+    if (dtype == torch.bfloat16 and aligned and ow % 16 == 0 and ow // 16 <= _MAX_STRIPS
+            and cp % 16 == 0 and oc % 16 == 0 and oc <= 128):
+        for per_sm in ((2, 1) if oc <= _PAIR_OC else (1,)):
+            limit = min(BLOCK_SMEM, SM_SMEM // per_sm - 1024)
+            slots = kh + 1
+            smem = mma_smem(ow, cp, kh, oc, pow_, slots)
+            if slots <= _MAX_SLOTS and smem <= limit:
+                band = cdiv(poh, max(1, min(poh, per_sm * sms // n)))
+                return StemPlan("mma", band, cdiv(poh, band), slots, smem)
+    for band in range(_FMA_MAX_BAND, 0, -1):
+        smem = fma_smem(ow, cp, kh, oc, band)
+        if smem <= BLOCK_SMEM:
+            return StemPlan("fma", band, cdiv(poh, band), 0, smem)
+    raise ValueError(f"stem: no plan fits a block's shared memory (OW {ow}, CP {cp}, "
+                     f"KH {kh}, OC {oc})")
+
+
 def stem_fused_plain(x6, w2, bias, *, kh: int, poh: int, pow_: int,
                      relu: bool = True):
     """The plain PyTorch version: the f32 deep-K product of the KH row taps,
@@ -106,15 +180,23 @@ def stem_fused(x6, w2, bias, *, kh: int, poh: int, pow_: int, relu: bool = True)
         raise ValueError(f"stem_fused: bias {tuple(bias.shape)} on {bias.device}, "
                          f"expected ({oc},) on {x6.device}")
     b32 = bias.float().contiguous()  # the epilogue adds bias in f32
+    p = plan(n, xs_h, ow, cp, kh, oc, poh, pow_, x6.dtype, aligned16(x6, w2),
+             sm_count(x6.device))
     out = torch.empty((n, poh, pow_, oc), dtype=x6.dtype, device=x6.device)
     kb = build.load()
     with torch.cuda.device(x6.device):
         rc = kb.lib.boda_stem(x6.data_ptr(), w2.data_ptr(), b32.data_ptr(), out.data_ptr(),
                               n, xs_h, ow, cp, kh, oc, poh, pow_, int(relu), dt,
+                              ROUTES.index(p.route), p.band, p.bands, p.slots,
                               build.stream_ptr(x6))
-    build.check(rc, "boda_stem")
+    build.check(rc, f"boda_stem {p}")
     stem_fused.launches += 1
+    stem_fused.paths[p.route] += 1
+    stem_fused.last_plan = p
     return out
 
 
-stem_fused.launches = 0  # kernel launches (CPU plain-version calls do not count)
+# kernel launches, in all and per route (CPU plain-version calls do not count)
+stem_fused.launches = 0
+stem_fused.paths = dict.fromkeys(ROUTES, 0)
+stem_fused.last_plan = None  # the plan of the latest launch

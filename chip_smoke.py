@@ -102,7 +102,7 @@ ELT_FUNCS = ("relu", "copy", "neg", "mul", "add", "sub", "max")
 # each path of each; "<kernel> <path>" (nan_case)
 NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm mma", "sgemm fma",
              "conv wgmma", "conv_nhwc wgmma split-K", "conv mma", "conv fma",
-             "block wgmma", "block mma", "block fma", "stem bf16", "stem f32",
+             "block wgmma", "block mma", "block fma", "stem mma", "stem fma",
              "pool rows", "pool window", "pool thread")
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 FMA operations/s
@@ -301,8 +301,7 @@ def stem_inputs(n, hw, oc, dt, rng, dev="cuda"):
 def nan_case(name: str, dev):
     """One case of the nan phase (NAN_CASES), its inputs from a seed with NaN
     planted: (kernel, plain version, operands, keywords, whether the gate is
-    exact, the kernel's per-path launch counts or None, the path it must
-    take)."""
+    exact, the kernel's per-path launch counts, the path it must take)."""
     from boda_tpu_torch.ops.kernels import block, conv, pool, sgemm, stem
     kind, path = name.split()[:2]
     dt = torch.float32 if path in ("fma", "f32", "thread") else torch.bfloat16
@@ -343,7 +342,8 @@ def nan_case(name: str, dev):
         for i in ((0, 10, 5, 7), (1, x6.shape[1] - 1, x6.shape[2] - 1, 0)):
             x6[i] = float("nan")
         kw = dict(kh=kh, poh=pooled, pow_=pooled, relu=True)
-        return stem.stem_fused, stem.stem_fused_plain, (x6, w2, sb), kw, False, None, path
+        return (stem.stem_fused, stem.stem_fused_plain, (x6, w2, sb), kw, False,
+                stem.stem_fused.paths, path)
     n, h, c, k, s, oy = {"rows": (2, 14, 16, 3, 2, 7), "window": (2, 7, 64, 7, 1, 1)}.get(
         path, (2, 13, 12, 3, 2, 6))
     pad = (0, max(0, (oy - 1) * s + k - h))
@@ -360,11 +360,11 @@ def nan_check(name: str, dev) -> tuple[bool, str]:
     and the rest equal (max) or within TOL of max|ref|. Returns (ok, the
     [nan] line)."""
     fk, fp, ops, kw, exact, paths, want = nan_case(name, dev)
-    before = dict(paths) if paths is not None else None
+    before = dict(paths)
     out = fk(*ops, **kw)
     if out.is_cuda:
         torch.cuda.synchronize()
-    ran = ([q for q in paths if paths[q] == before[q] + 1] if paths is not None else [want])
+    ran = [q for q in paths if paths[q] == before[q] + 1]
 
     def cpu(v):
         return v.cpu() if torch.is_tensor(v) else v
@@ -890,8 +890,11 @@ def main() -> int:
         check(out.shape == (BATCH, 56, 56, 64) and bool(torch.isfinite(out.float()).all()),
               f"stem {dt}: shape {tuple(out.shape)} / non-finite")
         check(re <= TOL[dt], f"stem {dt}: rel err {re:.3g} > {TOL[dt]}")
+        want = "mma" if dt == torch.bfloat16 else "fma"
+        check(stem_fused.last_plan.route == want,
+              f"stem {dt}: plan {stem_fused.last_plan}, expected route {want}")
         print(f"[stem] {dt} x6 {tuple(x6.shape)} w2 {tuple(w2.shape)} -> {tuple(out.shape)}: "
-              f"max|err|/max|ref| {re:.2e} (tol {TOL[dt]})")
+              f"max|err|/max|ref| {re:.2e} (tol {TOL[dt]}), plan {stem_fused.last_plan}")
     w_lib = wf.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
     xs_lib = xsd.permute(0, 3, 1, 2)
 
@@ -906,11 +909,13 @@ def main() -> int:
               "max_abs_err": ae,
               "bytes_ms": stem_bytes / HBM_BPS * 1e3, "ops_ms": stem_ops / BF16_OPS * 1e3}
     stem_t["bound_ms"] = max(stem_t["bytes_ms"], stem_t["ops_ms"])
+    stem_plan = stem_fused.last_plan
     print(f"[stem] bf16 b{BATCH}: kernel device {stem_t['ms'] * 1e3:.1f} us (launched "
           f"{stem_t['launch_ms'] * 1e3:.1f}), plain {stem_t['plain_ms'] * 1e3:.1f} us, cuDNN "
           f"conv+bias/ReLU+max_pool2d device {stem_t['library_ms'] * 1e3:.1f} us (launched "
           f"{stem_t['library_launch_ms'] * 1e3:.1f}), bound {stem_t['bound_ms'] * 1e3:.1f} us "
-          f"({'bytes' if stem_t['bytes_ms'] >= stem_t['ops_ms'] else 'operations'}; {card})")
+          f"({'bytes' if stem_t['bytes_ms'] >= stem_t['ops_ms'] else 'operations'}; plan "
+          f"{stem_plan}; {card})")
     del x6, w2, sb, xsd, wf, out, ref, xs_lib, w_lib
 
     # -- phase 2d: NaN at ReLU and max, as jnp.maximum gives it --------------------
@@ -1348,6 +1353,7 @@ def main() -> int:
                     "bound_by": "bytes" if stem_t["bytes_ms"] >= stem_t["ops_ms"] else "operations",
                     "library_ms": stem_t["library_ms"], "launch_ms": stem_t["launch_ms"],
                     "library_launch_ms": stem_t["library_launch_ms"],
+                    "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "host_us_per_launch": host_us,
                       "grad_img_per_s": grad_rates,

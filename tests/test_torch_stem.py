@@ -6,6 +6,8 @@ run it (tests/test_stem_fused.py); the port's ``stem_fused_plain`` on the
 same folds of the same seeded input, at a 32x32 image (a 16x16 conv, pooled
 to 8x8), with and without ReLU. Tolerance: 1e-5 of max|ref| (f32, summation
 order only). The folds are numpy in both packages and must agree exactly.
+K7's plan (route, bands, ring) is held by shape: the CUDA kernel itself runs
+on the card only (tests/test_torch_cuda_stem.py).
 """
 
 import jax.numpy as jnp
@@ -16,8 +18,9 @@ import torch
 from boda_tpu.graph import lowering_nhwc as jlow
 from boda_tpu.ops.kernels import stem as jstem
 from boda_tpu_torch.graph.lowering_nhwc import host_stem_s2d, stem_s2d_geom
-from boda_tpu_torch.ops.kernels.stem import (fold_stem_weights_dx, host_stem_dxfold,
-                                             stem_dxfold_cp, stem_fused, stem_fused_plain)
+from boda_tpu_torch.ops.kernels.stem import (BLOCK_SMEM, SM_SMEM, fold_stem_weights_dx,
+                                             host_stem_dxfold, plan, stem_dxfold_cp,
+                                             stem_fused, stem_fused_plain)
 
 C, KK, S, P = 3, 7, 2, 3
 
@@ -87,3 +90,44 @@ def test_stem_fused_on_cpu_runs_the_plain_version():
                        .amax(dim=(0, 1)))
     with pytest.raises(ValueError, match="cannot pool"):
         stem_fused(*ops, kh=m, poh=pooled + 2, pow_=pooled)
+
+
+def test_stem_plan_bands_cover_every_pooled_row_once_and_fit():
+    """The mma route at the ResNet-50 b32 stem (x6 32x115x112x48, OC 64: two
+    blocks per SM, 8 bands of 7 pooled rows, 256 blocks on 132 SMs, a ring of
+    KH + 1 = 5 rows) and at the card tests' other shapes; each plan's bands cover the
+    pooled rows once, its blocks come to about one wave, and it fits shared
+    memory (two blocks an SM up to OC = 64, one past it)."""
+    for n, oc, xs_h, ow, poh in ((32, 64, 115, 112, 56), (1, 64, 115, 112, 56),
+                                 (3, 64, 115, 112, 56), (2, 16, 115, 112, 56),
+                                 (2, 128, 115, 112, 56), (2, 32, 35, 32, 16),
+                                 (200, 64, 115, 112, 56)):
+        p = plan(n, xs_h, ow, 48, 4, oc, poh, poh, torch.bfloat16)
+        assert p.route == "mma", (n, oc, p)
+        assert p.bands * p.band >= poh > (p.bands - 1) * p.band, p
+        per_sm = 2 if oc <= 64 else 1
+        wave = 132 * per_sm
+        # the narrowest band whose blocks fit one wave (one band per image past it)
+        assert p.band == 1 or n * -(-poh // (p.band - 1)) > wave, p
+        assert n * p.bands <= wave or p.bands == 1, p
+        assert p.slots == 5 and p.smem <= min(BLOCK_SMEM, SM_SMEM // per_sm - 1024), p
+    assert plan(32, 115, 112, 48, 4, 64, 56, 56, torch.bfloat16)[:4] == ("mma", 7, 8, 5)
+
+
+def test_stem_plan_route_by_shape():
+    """fma for f32, for OW, CP or OC off the multiples of 16, OW > 128,
+    OC > 128 and misaligned operands; its bands of at most 2 pooled rows,
+    fewer where the conv rows do not fit."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for args, dt, aligned in (((32, 115, 112, 48, 4, 64, 56, 56), f32, True),
+                              ((2, 35, 31, 48, 4, 64, 16, 16), bf, True),
+                              ((2, 35, 32, 40, 4, 64, 16, 16), bf, True),
+                              ((2, 35, 32, 48, 4, 72, 16, 16), bf, True),
+                              ((2, 35, 144, 48, 4, 64, 16, 16), bf, True),
+                              ((2, 35, 32, 48, 4, 144, 16, 16), bf, True),
+                              ((32, 115, 112, 48, 4, 64, 56, 56), bf, False)):
+        p = plan(*args, dt, aligned)
+        assert p.route == "fma" and p.slots == 0 and p.smem <= BLOCK_SMEM, (args, p)
+        assert p.bands * p.band >= args[6] > (p.bands - 1) * p.band, p
+    assert plan(32, 115, 112, 48, 4, 64, 56, 56, f32)[:3] == ("fma", 2, 28)
+    assert plan(2, 67, 64, 48, 4, 128, 32, 32, f32).band == 1  # 2 pooled rows do not fit
