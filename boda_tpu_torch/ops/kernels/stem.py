@@ -93,7 +93,7 @@ def _check_geom(x6, w2, kh: int, poh: int, pow_: int) -> int:
     return ncv
 
 
-def mma_smem(ow: int, cp: int, kh: int, oc: int, pow_: int, slots: int) -> int:
+def mma_smem(ow: int, cp: int, kh: int, oc: int, slots: int) -> int:
     """The mma route's shared memory (csrc/stem.cu:mma_smem): the ring's
     mbarriers, ``slots`` input rows of OW*CP bf16, w2 at a pitch of OC+8
     bf16, the horizontal maxes of one conv row (OW/2, OC) f32, and the
@@ -129,7 +129,7 @@ def plan(n: int, xs_h: int, ow: int, cp: int, kh: int, oc: int, poh: int, pow_: 
         for per_sm in ((2, 1) if oc <= _PAIR_OC else (1,)):
             limit = min(BLOCK_SMEM, SM_SMEM // per_sm - 1024)
             slots = kh + 1
-            smem = mma_smem(ow, cp, kh, oc, pow_, slots)
+            smem = mma_smem(ow, cp, kh, oc, slots)
             if slots <= _MAX_SLOTS and smem <= limit:
                 band = cdiv(poh, max(1, min(poh, per_sm * sms // n)))
                 return StemPlan("mma", band, cdiv(poh, band), slots, smem)

@@ -29,7 +29,11 @@ kernels:
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
-as in boda_tpu) against its plain version at the b32 stem.
+as in boda_tpu) against its plain version at the b32 stem, bf16 on its
+mma route and f32 on fma. The nan phase plants NaN in small inputs of
+every kernel with a ReLU or a max, on each of its paths (NAN_CASES), and
+holds each against its plain version with NaN compared equal, as
+boda_tpu's jnp.maximum propagates it.
 
 Each path is run with the kernels' launch counts set to 0 just before it
 and read just after. The GEMM core (K1, K2/K3) and K5 also count their
@@ -362,8 +366,7 @@ def nan_check(name: str, dev) -> tuple[bool, str]:
     fk, fp, ops, kw, exact, paths, want = nan_case(name, dev)
     before = dict(paths)
     out = fk(*ops, **kw)
-    if out.is_cuda:
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     ran = [q for q in paths if paths[q] == before[q] + 1]
 
     def cpu(v):
