@@ -22,12 +22,20 @@ layout, through the inverse of the weight's upload prep.
 
 Activations are physically NHWC; ``run_fwd`` takes and returns logical NCHW
 host arrays in each node's logical dtype, as boda_tpu does.
+
+On the card (``cuda_graph=1``, the default) each forward, and each graph
+with backward ops, is captured once per key (input names, shapes and dtypes,
+the requested outputs) as a CUDA graph after one eager warm-up forward, and
+``run_fwd`` and ``time_fwd`` replay it: the counterpart of boda_tpu's one jit
+program per net, with the host out of the loop. ``cuda_graph=0`` runs every
+forward eagerly, launch by launch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -40,8 +48,33 @@ from ..ops.tune import OpTune
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
 from .lowering import PRECISIONS, LowerCtx, lib_precision
-from .lowering_nhwc import HWIO, Prep, lower_op_nhwc
+from .lowering_nhwc import HWIO, Prep, host_stem_s2d, lower_op_nhwc, stem_s2d_geom
 from .pipe import ConvPipe, PipeError
+
+
+def _quantize(x: torch.Tensor, max_val: float, keep_bits: int) -> torch.Tensor:
+    """Clamp to [0, max_val] and keep ``keep_bits`` bits of fixed point
+    (boda_tpu: executor.py:182-186, ref quantize.cucl)."""
+    levels = float(2 ** keep_bits)
+    q = torch.clamp(x, 0.0, max_val)
+    return torch.floor(q * (levels / max_val)) * (max_val / levels)
+
+
+@dataclasses.dataclass
+class CapturedFwd:
+    """One forward captured as a CUDA graph: its key, the graph, the static
+    input tensors a replay reads, the static outputs it writes, and the
+    capture's own wall time."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    ins: dict
+    outs: dict
+    capture_secs: float
+
+    def load(self, ins: dict[str, NDA]) -> None:
+        """Copy host inputs into the static input tensors."""
+        for k, v in ins.items():
+            self.ins[k].copy_(torch.from_numpy(np.ascontiguousarray(v.data)))
 
 
 @register_base("conv_fwd", tid_vn="mode")
@@ -56,6 +89,17 @@ class FwdEngine:
     device = Field(str, default="cuda",
                    help="torch device: cuda (the card; raises without one) | "
                         "cpu (kernels' plain versions, for tests)")
+    cuda_graph = Field(bool, default="1",
+                       help="on the card, capture each forward once per key as a CUDA "
+                            "graph and replay it; 0 = eager launches (per-launch host "
+                            "timing, per-op debugging)")
+    # per-node activation statistics computed on the card (ref var_stats.cucl /
+    # gen_op_stats, rtc_fwd.cc:163); surfaced via get_info_log()
+    per_layer_stats = Field(bool, default="0", help="collect per-node var stats")
+    # fixed-point quantization injection (ref gen_op_quantize, rtc_fwd.cc:212):
+    # node name -> (max_val=...,keep_bits=...) clamps + drops mantissa bits
+    quantize = Field((dict, "lexp"), default="()",
+                     help="per-node quantization: (node=(max_val=8,keep_bits=6),...)")
 
     def base_setup(self) -> None:
         if self.precision not in PRECISIONS:
@@ -67,6 +111,14 @@ class FwdEngine:
         self._fn_key = None
         self._info_log: list[str] = []
         self._weights_dev: dict[str, torch.Tensor] = {}
+        self._graph: Optional[CapturedFwd] = None
+        self._warm_key = None
+        self._cur_op: Optional[str] = None  # the op net_fn is in (capture errors)
+        self._last_stats: dict[str, np.ndarray] = {}
+        self._quant: dict[str, tuple[float, int]] = {}
+        for node, q in (self.quantize or {}).items():
+            qv = {k: float(v.leaf_val) for k, v in q.kids}
+            self._quant[node] = (qv.get("max_val", 8.0), int(qv.get("keep_bits", 8)))
 
     def dev(self) -> torch.device:
         """The engine's device. No silent CPU fallback: device=cuda without a
@@ -91,6 +143,72 @@ class FwdEngine:
             self._fn = self.build_raw_fn(list(out_names))
             self._fn_key = key
 
+    def _graphed(self) -> bool:
+        return bool(self.cuda_graph) and self.dev().type == "cuda"
+
+    def drop_graph(self) -> None:
+        """Free the captured forward (its graph, memory pool and static
+        tensors). Done on init, on every weight upload (a graph holds the
+        weights' addresses and host-encoded tensor maps by value) and before
+        a new key is captured: an engine holds one graph at a time."""
+        self._graph = None
+        self._warm_key = None
+
+    @staticmethod
+    def _graph_key(ins: dict[str, NDA], out_names: list[str]) -> tuple:
+        return (tuple(sorted((k, tuple(v.data.shape), str(v.data.dtype))
+                             for k, v in ins.items())), tuple(out_names))
+
+    def prepare(self, ins: dict[str, NDA], out_names: list[str]) -> None:
+        """Build the forward for (ins, out_names) and, under ``cuda_graph``
+        on the card, run the eager warm-up forward its capture needs, on a
+        side stream: it builds the kernels, sets their shared-memory
+        attributes, fills the plan caches, lets cuDNN and cuBLAS choose
+        their algorithms and makes the pool divisors. The launch counters
+        tick for it. run_fwd and time_fwd call it for a new key; a caller
+        that wants the counts of the captured forward alone calls it first
+        and zeroes them after."""
+        self.compile_for(out_names)
+        if not self._graphed():
+            return
+        key = self._graph_key(ins, out_names)
+        if key in (self._warm_key, self._graph and self._graph.key):
+            return
+        d = self.dev()
+        dev_ins = self._put_inputs(ins)
+        side = torch.cuda.Stream(d)
+        side.wait_stream(torch.cuda.current_stream(d))
+        with torch.cuda.stream(side), self._run_ctx():
+            self._fn(self._weights_dev, dev_ins)
+        torch.cuda.current_stream(d).wait_stream(side)
+        torch.cuda.synchronize(d)
+        self._warm_key = key
+
+    def _captured(self, ins: dict[str, NDA], out_names: list[str]) -> CapturedFwd:
+        """The captured forward for (ins, out_names): the engine's graph if it
+        has this key, else a new capture after the warm-up. A capture that
+        fails raises, naming the op it was in; nothing runs eagerly in its
+        place."""
+        key = self._graph_key(ins, out_names)
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        self.prepare(ins, out_names)
+        self._graph = None  # free the old key's graph before capturing
+        static_ins = self._put_inputs(ins)
+        graph = torch.cuda.CUDAGraph()
+        self._cur_op = None
+        t0 = time.perf_counter()
+        try:
+            with self._run_ctx(), torch.cuda.graph(graph):
+                outs = self._fn(self._weights_dev, static_ins)
+        except Exception as e:
+            where = f"op {self._cur_op!r}" if self._cur_op else "the end of the capture"
+            raise RuntimeError(f"conv_fwd: the CUDA-graph capture failed at {where}: "
+                               f"{type(e).__name__}: {e}") from e
+        self._graph = CapturedFwd(key, graph, static_ins, outs, time.perf_counter() - t0)
+        self._warm_key = None
+        return self._graph
+
     def _put_inputs(self, ins: dict[str, NDA]) -> dict[str, torch.Tensor]:
         d = self.dev()
         return {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(d)
@@ -109,35 +227,62 @@ class FwdEngine:
 
     def run_fwd(self, ins: dict[str, NDA], out_names: list[str]) -> dict[str, NDA]:
         self.compile_for(out_names)
-        with self._run_ctx():
-            outs = self._fn(self._weights_dev, self._put_inputs(ins))
-            res = {}
-            for n, t in outs.items():
-                t = t.cpu()
-                if t.dtype == torch.bfloat16:  # numpy has no bf16: host f32
-                    t = t.float()
-                res[n] = NDA(self.pipe.must_dims(n), t.numpy())
+        if self._graphed():
+            g = self._captured(ins, out_names)
+            g.load(ins)
+            g.graph.replay()
+            outs = dict(g.outs)
+        else:
+            with self._run_ctx():
+                outs = self._fn(self._weights_dev, self._put_inputs(ins))
+        stats = outs.pop("__stats__", None)
+        if stats is not None:
+            self._last_stats = {n: stats[n].cpu().numpy() for n in sorted(stats)}
+            for n, s in self._last_stats.items():
+                cnt = self.pipe.must_dims(n).num_elems()
+                self._info_log.append(
+                    f"var_stats {n}: min={s[0]:.6g} max={s[1]:.6g} "
+                    f"avg={s[2] / cnt:.6g} sum_sq={s[3]:.6g} cnt={cnt}")
+        res = {}
+        for n, t in outs.items():
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:  # numpy has no bf16: host f32
+                t = t.float()
+            res[n] = NDA(self.pipe.must_dims(n), t.numpy())
         return res
 
     def time_fwd(self, ins: dict[str, NDA], out_names: list[str],
                  n_iters: int = 20, warmup: int = 3) -> float:
         """Seconds per whole-net forward on the card: `warmup` forwards, then
-        `n_iters` forwards between two CUDA events on the current stream."""
+        `n_iters` forwards between two CUDA events on the current stream.
+        Under ``cuda_graph`` each forward is one replay of the captured graph,
+        so the host is out of the loop (boda_tpu's on-device chain, executor.py
+        :400-493); with ``cuda_graph=0`` each is an eager forward, and the
+        reading includes the host's dispatch."""
         d = self.dev()
         if d.type != "cuda":
             raise RuntimeError("time_fwd times the card; this engine runs on "
                                f"{d} (a CPU time is not a device metric)")
         self.compile_for(out_names)
-        with self._run_ctx():
-            dev_ins = self._put_inputs(ins)
+        with contextlib.ExitStack() as stack:
+            if self._graphed():
+                g = self._captured(ins, out_names)
+                g.load(ins)
+                run = g.graph.replay
+            else:
+                stack.enter_context(self._run_ctx())
+                dev_ins = self._put_inputs(ins)
+
+                def run():
+                    self._fn(self._weights_dev, dev_ins)
             for _ in range(max(1, warmup)):
-                self._fn(self._weights_dev, dev_ins)
+                run()
             torch.cuda.synchronize(d)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
             for _ in range(n_iters):
-                self._fn(self._weights_dev, dev_ins)
+                run()
             t1.record()
             t1.synchronize()
         return t0.elapsed_time(t1) / 1e3 / n_iters
@@ -171,12 +316,27 @@ class CudaFwd(FwdEngine):
     # autotuning wisdom: best recorded tune per op signature + platform
     # (ref: per-op tune selection from wisdom files, op-tuner.cc)
     wisdom_fn = Field("filename", default="", help="wisdom file for per-op tunes")
+    # host-side stem space-to-depth (boda_tpu: executor.py:550-562): the data
+    # loader feeds the net input already folded to the stem_s2d layout
+    # (N, oy+m-1, ox+m-1, s*s*C) (host_input_s2d), so the starved-C stem conv
+    # runs as a stride-1 conv on s*s*C channels with no fold per forward.
+    # Forces tune.stem_s2d=1 on the qualifying input conv; logical-layout and
+    # plain-NHWC inputs remain accepted (the fold then runs on the card).
+    input_s2d = Field(bool, default="0",
+                      help="accept net input pre-folded to the stem_s2d layout")
+    # entry channel pad on top of input_s2d: the loader emits the folded input
+    # with channels zero-padded to this count, and the stem weights pad to
+    # match at upload. 0 = exact folded channels. Requires input_s2d.
+    input_pad_c = Field(int, default="0",
+                        help="pad the pre-folded entry channels to this count")
 
     def base_setup(self) -> None:
         super().base_setup()
         if self.kernel_policy not in ("gen", "lib"):
             raise ConfigError(f"kernel_policy {self.kernel_policy!r}: gen | lib")
         self._wisdom = None
+        self._input_s2d: dict[str, dict] = {}
+        self._input_s2d_ops: set[str] = set()
 
     def fusion_fingerprint(self) -> str:
         """Stable tag of the engine configuration that shapes what a 'good'
@@ -187,7 +347,9 @@ class CudaFwd(FwdEngine):
         cfg = ("nhwc", bool(self.fuse_relu), bool(self.fuse_eltwise),
                self.compute_tn, self.precision, self.kernel_policy) + \
             (("block",) if self.fuse_block else ()) + \
-            (("prefold",) if self.prefold else ())
+            (("prefold",) if self.prefold else ()) + \
+            (("input_s2d",) if self.input_s2d else ()) + \
+            ((f"pad_c{self.input_pad_c}",) if self.input_pad_c else ())
         return f"{stable_hash(repr(cfg)) & 0xFFFFFFFF:08x}"
 
     def wisdom_plats(self) -> tuple[str, str]:
@@ -268,11 +430,16 @@ class CudaFwd(FwdEngine):
         if self.kernel_policy == "lib" and not explicit \
                 and "use_xla" not in str(self.tune):
             tune = dataclasses.replace(tune, use_xla=True)
+        # an input_s2d stem must lower by the stem_s2d rule (the pre-folded
+        # input shape only matches that rule's conv): over wisdom and policy
+        if op_name in self._input_s2d_ops:
+            tune = dataclasses.replace(tune, stem_s2d=1, pad_c=self.input_pad_c)
         return tune
 
     def init(self, pipe: ConvPipe) -> None:
         self.pipe = pipe
         self._fn, self._fn_key = None, None
+        self.drop_graph()
         self._weight_preps: dict[str, Prep] = {}
         self._lowered: dict[str, Callable] = {}
         self._lowered_fused: dict[str, Callable] = {}
@@ -290,6 +457,17 @@ class CudaFwd(FwdEngine):
         self._prefold_on = bool(self.prefold) and not pipe.bck_added
         self._prefold_plan = {}   # folded-w key -> (w_key, b_key, param_keys, fold)
         self._prefold_keys = {}   # conv op name -> (folded w key, folded b key)
+        # input_s2d: net input node -> stem fold geometry (forward graphs only,
+        # as boda_tpu's guard has it)
+        self._input_s2d, self._input_s2d_ops = {}, set()
+        if self.input_pad_c and not self.input_s2d:
+            raise ConfigError("input_pad_c requires input_s2d=1 (the pad is "
+                              "part of the host-folded entry layout)")
+        if self.input_s2d and not pipe.bck_added:
+            self._detect_input_s2d(pipe)
+        unknown = sorted(set(self._quant) - set(pipe.nodes))
+        if unknown:
+            raise ConfigError(f"quantize: no node {unknown} in {pipe.name!r}")
         topo = pipe.topo_op_order()
         # every op's own lowering first: it registers the weight preps the
         # fused lowerings fold in (a block's convs B and C come after A)
@@ -305,6 +483,44 @@ class CudaFwd(FwdEngine):
                 self._lowered_fused[op_name] = self._lower_chain(
                     pipe, op, self._chains[op_name], ctx)
         self._upload_weights()
+
+    def _detect_input_s2d(self, pipe: ConvPipe) -> None:
+        """Find net inputs whose single consumer is a stem conv qualifying
+        for the space-to-depth fold (stem_s2d_geom); those inputs may then
+        arrive pre-folded from the host loader (boda_tpu: executor.py:939)."""
+        for n in pipe.bots():
+            consumers = list(pipe.nodes[n].bot_for)
+            if len(consumers) != 1:
+                continue
+            op = pipe.ops[consumers[0]]
+            if op.type != "Convolution" or op.bots[0] != n:
+                continue
+            geom = stem_s2d_geom(pipe.must_dims(n), pipe.must_dims(op.tops[0]),
+                                 op.stride(), op.pad(), op.kern_sz(), op.dilation(),
+                                 int(op.p("groups", 1)))
+            if geom is None:
+                continue
+            c_fold = geom["sb"] ** 2 * geom["cin"]
+            if self.input_pad_c and self.input_pad_c < c_fold:
+                raise ConfigError(f"input_pad_c={self.input_pad_c} < folded channels "
+                                  f"{c_fold} for input {n!r}")
+            geom["c_eff"] = max(self.input_pad_c, c_fold)
+            self._input_s2d[n] = geom
+            self._input_s2d_ops.add(op.name)
+            self._info_log.append(f"{op.name}: input_s2d on {n!r} -> "
+                                  f"(*, {geom['xs_h']}, {geom['xs_w']}, {geom['c_eff']})")
+
+    def host_input_s2d(self, node: str, x_nhwc: np.ndarray) -> np.ndarray:
+        """Numpy fold of an NHWC batch into the pre-folded stem_s2d layout
+        that the engine accepts for ``node`` under input_s2d=1, channels
+        zero-padded to input_pad_c: what a data loader runs at decode time
+        (boda_tpu: executor.py:970)."""
+        geom = self._input_s2d.get(node)
+        if geom is None:
+            raise PipeError(f"input {node!r} has no input_s2d fold "
+                            f"(have {sorted(self._input_s2d)})")
+        xs = host_stem_s2d(x_nhwc, geom)
+        return np.pad(xs, ((0, 0), (0, 0), (0, 0), (0, geom["c_eff"] - xs.shape[-1])))
 
     def _find_chains(self, pipe: ConvPipe) -> dict[str, list[str]]:
         """Fusion chains conv/fc -> [BatchNorm] -> [Scale] -> [ReLU], each
@@ -672,6 +888,7 @@ class CudaFwd(FwdEngine):
         return fn
 
     def _upload_weights(self) -> None:
+        self.drop_graph()
         d = self.dev()
         cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
         self._weights_dev = {}
@@ -696,14 +913,14 @@ class CudaFwd(FwdEngine):
         device tensors; outputs come back in logical NCHW and dtype."""
         pipe = self.pipe
         topo = pipe.topo_op_order()
-        out_set = set(out_names)
         # per-call fusion decision: fuse a chain only when none of its
-        # intermediate values are requested outputs
+        # intermediate values are requested outputs or quantized nodes
+        kept = set(out_names) | set(self._quant)
         fused_now = {}
         for conv_name, chain in self._chains.items():
             inter = [pipe.ops[conv_name].tops[0]] + \
                 [pipe.ops[c].tops[0] for c in chain[:-1]]
-            if not (set(inter) & out_set):
+            if not (set(inter) & kept):
                 fused_now[conv_name] = chain
         skip_ops = {c for chain in fused_now.values() for c in chain}
 
@@ -734,26 +951,12 @@ class CudaFwd(FwdEngine):
                     for w, prep in self._weight_preps.items()
                     if n.startswith(w + "__grad")}
         cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
+        quant, stats = self._quant, bool(self.per_layer_stats)
 
         def net_fn(weights: dict, inputs: dict):
             vals = dict(weights)
-            for k, v in inputs.items():
-                if cdt is not None and v.is_floating_point():
-                    v = v.to(cdt)
-                if is4d.get(k):
-                    # logical NCHW in -> NHWC; an input already in NHWC (the
-                    # natural decode layout) passes; ambiguous shapes are
-                    # taken as logical
-                    ld = pipe.must_dims(k).shape
-                    nhwc = (ld[2], ld[3], ld[1])
-                    if tuple(v.shape[1:]) == ld[1:]:
-                        v = v.permute(0, 2, 3, 1).contiguous()
-                    elif tuple(v.shape[1:]) != nhwc:
-                        raise PipeError(
-                            f"input {k!r}: shape {tuple(v.shape)} is neither "
-                            f"logical NCHW (*, {ld[1]}, {ld[2]}, {ld[3]}) "
-                            f"nor native NHWC (*, {nhwc[0]}, {nhwc[1]}, {nhwc[2]})")
-                vals[k] = v
+            vals.update((k, self._ingest(k, v)) for k, v in inputs.items())
+            stat_out = {}
             # prune to the subgraph reaching out_names from the given inputs
             needed = set(out_names)
             run_ops = set()
@@ -782,10 +985,18 @@ class CudaFwd(FwdEngine):
                     bot_vals = [vals[b] for b in bots]
                 except KeyError as e:
                     raise PipeError(f"op {op_name!r}: missing input {e}") from None
+                self._cur_op = op_name
                 outs = lowered[op_name](*bot_vals)
                 tops = [chain_final_top[op_name]] if op_name in fused_now else op.tops
                 for t, v in zip(tops, outs):
+                    if t in quant:
+                        v = _quantize(v, *quant[t])
                     vals[t] = v
+                    if stats and v.is_floating_point():
+                        v32 = v.float()
+                        stat_out[t] = torch.stack([v32.min(), v32.max(), v32.sum(),
+                                                   (v32 * v32).sum()])
+            self._cur_op = None
             res = {}
             for n in out_names:
                 v = vals[n]
@@ -796,6 +1007,70 @@ class CudaFwd(FwdEngine):
                 if cdt is not None:
                     v = v.to(torch_dtype(pipe.must_dims(n).tn))
                 res[n] = v.contiguous()
+            if stats:
+                res["__stats__"] = stat_out
             return res
 
         return net_fn
+
+    def _ingest(self, k: str, v: torch.Tensor) -> torch.Tensor:
+        """An input as net_fn holds it: cast to the compute dtype; a 4-D
+        node's logical NCHW turned NHWC, where an input already in NHWC (the
+        natural decode layout) or, under input_s2d, in the stem's host-folded
+        layout passes as it is (ambiguous shapes are taken as logical)."""
+        if self.compute_tn and v.is_floating_point():
+            v = v.to(torch_dtype(self.compute_tn))
+        if not self._is_4d(k):
+            return v
+        ld = self.pipe.must_dims(k).shape
+        nhwc = (ld[2], ld[3], ld[1])
+        g = self._input_s2d.get(k)
+        if g is not None and v.dim() == 4 and tuple(v.shape[1:3]) == (g["xs_h"], g["xs_w"]) \
+                and v.shape[3] in (g["sb"] ** 2 * g["cin"], g["c_eff"]):
+            return v  # the stem's lowering takes the host-folded input
+        if tuple(v.shape[1:]) == ld[1:]:
+            return v.permute(0, 2, 3, 1).contiguous()
+        if tuple(v.shape[1:]) != nhwc:
+            raise PipeError(
+                f"input {k!r}: shape {tuple(v.shape)} is neither logical NCHW "
+                f"(*, {ld[1]}, {ld[2]}, {ld[3]}) nor native NHWC "
+                f"(*, {nhwc[0]}, {nhwc[1]}, {nhwc[2]})"
+                + (f" nor the input_s2d fold (*, {g['xs_h']}, {g['xs_w']}, "
+                   f"{g['c_eff']})" if g is not None else ""))
+        return v
+
+    def per_layer_times(self, ins: dict[str, NDA], n_iters: int = 10) -> dict[str, float]:
+        """Device seconds per call of each op's own (unfused) lowering, timed
+        alone on the activations of one full forward (boda_tpu:
+        executor.py:357-395): ``n_iters`` calls captured in one CUDA graph
+        and replayed between two CUDA events (rtc/backends.py:graph_time),
+        so the host's cost per launch stays out. An op whose inputs the
+        forward does not give, or whose timing raises, is skipped with an
+        info-log line. Raises off the card, as time_fwd does."""
+        from ..rtc.backends import graph_time
+        d = self.dev()
+        if d.type != "cuda":
+            raise RuntimeError("per_layer_times times the card; this engine runs on "
+                               f"{d} (a CPU time is not a device metric)")
+        pipe = self.pipe
+        acts = self.run_fwd(ins, [n for n, node in pipe.nodes.items()
+                                  if node.dims is not None and node.top_for
+                                  and n not in pipe.weights and n not in ins])
+        acts.update(ins)
+        vals = dict(self._weights_dev)
+        vals.update((k, self._ingest(k, torch.from_numpy(np.ascontiguousarray(v.data)).to(d)))
+                    for k, v in acts.items())
+        out: dict[str, float] = {}
+        with self._run_ctx():
+            for op_name in pipe.topo_op_order():
+                op = pipe.ops[op_name]
+                try:
+                    bots = [vals[b] for b in op.bots]
+                except KeyError:
+                    continue
+                fn = self._lowered[op_name]
+                try:
+                    out[op_name] = graph_time(lambda fn=fn, bots=bots: fn(*bots), n_iters)
+                except Exception as e:
+                    self._info_log.append(f"per_layer_times: {op_name} skipped ({e})")
+        return out

@@ -66,9 +66,12 @@ class _JaxMaximum(torch.autograd.Function):
 
 def jax_maximum(a: torch.Tensor, b) -> torch.Tensor:
     """``jnp.maximum(a, b)``: torch.maximum's value, JAX's gradient when
-    autograd records (a plain max otherwise). ``b`` may be a Python float."""
+    autograd records (a plain max otherwise). ``b`` may be a Python float:
+    it becomes a 0-dim tensor on the host, which a CUDA kernel takes as a
+    scalar argument, so no host value is copied to the card (a copy that a
+    CUDA-graph capture refuses)."""
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = torch.tensor(b, dtype=a.dtype)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _JaxMaximum.apply(a, b)
     return torch.maximum(a, b)

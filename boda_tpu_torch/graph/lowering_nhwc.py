@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels.conv import conv2d_halo, space_to_depth_conv
+from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
 from .lowering import LowerCtx, _softmax, jax_maximum
@@ -71,8 +71,9 @@ def _no_preps(fn):
 
 def stem_s2d_geom(ind, od, s, p, k, dil, groups):
     """Geometry of the stem space-to-depth fold, or None when the conv does
-    not qualify (boda_tpu: lowering_nhwc.py:58; the host folds of K7's input
-    use it). Conditions: square stride>1/kernel>1, no dilation or groups,
+    not qualify (boda_tpu: lowering_nhwc.py:58; shared by the Convolution
+    rule's ``stem_s2d``, the engine's ``input_s2d`` and the host folds of
+    K7's input). Conditions: square stride>1/kernel>1, no dilation or groups,
     starved in_chan (C*s*s <= 64), and non-negative right-pad (a negative
     right-pad means floor division discards input tail rows)."""
     sb, kk = s[0], k[0]
@@ -137,6 +138,10 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         fn.supports_residual = True
         return fn, hwio
 
+    geom = stem_s2d_geom(pipe.must_dims(op.bots[0]), od, s, p, k, dil, groups)
+    if tune.stem_s2d == 1 and geom is not None:
+        return _stem_s2d_conv(op, geom, tune, not gen, relu, info_log)
+
     if gen and tune.use_s2d and s != (1, 1) and k != (1, 1):
         # strided conv -> space-to-depth fold + the stride-1 direct conv
         # (boda_tpu: lowering_nhwc.py:341-360, without its Mosaic block-plan
@@ -173,6 +178,57 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         return (out.contiguous(),)
     fn.supports_residual = True
     return fn, ohwi
+
+
+def _stem_s2d_conv(op, geom, tune, lib: bool, relu: bool, info_log):
+    """The stem conv on its space-to-depth fold (boda_tpu:
+    lowering_nhwc.py:211-300, under any kernel policy): a stride-s k x k
+    conv on C channels as the stride-1 m x m conv on s*s*C channels, the
+    filters zero-padded to m*s taps and folded once at upload. The input
+    arrives host-folded (input_s2d, channels maybe padded to ``pad_c``) or is
+    folded here. Under gen the hand conv runs through K3's stride-1 entry,
+    ``conv2d_nhwc``, on channels zero-padded to a multiple of 8 (as K4's
+    fold pads them), so it takes wgmma and not the mma.sync loop of
+    C % 8 != 0; under lib, cuDNN on the same fold."""
+    sb, kk, m, cin = geom["sb"], geom["kk"], geom["m"], geom["cin"]
+    (p0, p1), (pry, prx) = geom["pad"], geom["pad_r"]
+    xs_h, xs_w = geom["xs_h"], geom["xs_w"]
+    c_fold = sb * sb * cin
+    c_eff = max(tune.pad_c, c_fold)
+    c_k = c_eff if lib else -(-c_eff // 8) * 8  # the conv's channels
+    info_log.append(f"{op.name}: nhwc-stem_s2d s={sb} k={kk} m={m} c={c_k} "
+                    f"{'lib' if lib else 'conv2d_nhwc'}")
+
+    def fold_w(w):  # OIHW -> (m, m, c_k, O), the fold's HWIO
+        wh = F.pad(w.permute(2, 3, 1, 0), (0, 0, 0, 0, 0, m * sb - kk, 0, m * sb - kk))
+        wh = wh.reshape(m, sb, m, sb, cin, -1).permute(0, 2, 1, 3, 4, 5) \
+            .reshape(m, m, c_fold, -1)
+        return F.pad(wh, (0, 0, 0, c_k - c_fold)).contiguous()
+
+    def unfold_w(g):  # the fold's HWIO gradient -> OIHW
+        g = g[:, :, :c_fold].reshape(m, m, sb, sb, cin, -1).permute(0, 2, 1, 3, 4, 5) \
+            .reshape(m * sb, m * sb, cin, -1)
+        return g[:kk, :kk].permute(3, 2, 0, 1).contiguous()
+    if lib:  # OHWI: the channels_last view of the OIHW cuDNN takes
+        prep = Prep(lambda w: fold_w(w).permute(3, 0, 1, 2).contiguous(),
+                    lambda g: unfold_w(g.permute(1, 2, 3, 0)), 0, f"stem_s2d-OHWI{c_k}")
+    else:
+        prep = Prep(fold_w, unfold_w, 3, f"stem_s2d-HWIO{c_k}")
+
+    def fn(x, w, b):
+        if x.shape[1] == xs_h and x.shape[-1] in (c_fold, c_eff):
+            xs = x  # host-folded by the loader (input_s2d)
+        else:
+            xs = F.pad(x, (0, 0, p1, prx, p0, pry)) \
+                .reshape(x.shape[0], xs_h, sb, xs_w, sb, cin).permute(0, 1, 3, 2, 4, 5) \
+                .reshape(x.shape[0], xs_h, xs_w, c_fold)
+        if xs.shape[-1] < c_k:
+            xs = F.pad(xs, (0, c_k - xs.shape[-1]))
+        if not lib:
+            return (conv2d_nhwc(xs.contiguous(), w, b, relu=relu),)
+        out = F.conv2d(xs.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), b).permute(0, 2, 3, 1)
+        return ((torch.relu(out) if relu else out).contiguous(),)
+    return fn, {op.bots[1]: prep}
 
 
 @nhwc_rule("InnerProduct")

@@ -2,8 +2,9 @@
 
 Counterpart of ``boda_tpu/modes/cnet.py``: ``cnet_ana`` (per-layer
 shape/FLOPs dump) and ``run_cnet`` (build a net, run one forward, optionally
-time it). Models come from the programmatic zoo (--model=); the prototxt
-frontend (--ptt-fn=) is not ported yet.
+time it, write per-layer times and the net's op signatures). Models come
+from the programmatic zoo (--model=); the prototxt frontend (--ptt-fn=) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ class RunCnet(_NetMode):
     out_node_name = Field(str, default="prob", help="output node to fetch")
     n_iters = Field(int, default="0", help="if >0, also time n_iters forwards (card only)")
     dump_top_n = Field(int, default="5", help="print top-N of output")
+    per_layer_fn = Field(str, default="", help="write per-layer times to this file (card only)")
+    write_sigs_fn = Field(str, default="", help="append this net's op sigs to a corpus")
 
     def main(self) -> None:
         import numpy as np
@@ -95,6 +98,28 @@ class RunCnet(_NetMode):
                 "GF/s": round(fl / secs / 1e9, 1),
                 "device": torch.cuda.get_device_name(),
             }))
+        if self.write_sigs_fn:
+            # append the op-signature corpus (ref write_sigs, rtc_fwd.cc:246)
+            import os
+
+            from ..ops.op_base import load_op_sigs, save_op_sigs
+            from ..ops.sig_of import collect_net_sigs
+            fn = self.out_path(self.write_sigs_fn)
+            have = load_op_sigs(fn) if os.path.exists(fn) else []
+            keys = {o.key() for o in have}
+            new = [o for o in collect_net_sigs(pipe) if o.key() not in keys]
+            save_op_sigs(fn, have + new)
+            print(f"write_sigs: +{len(new)} sigs -> {self.write_sigs_fn} "
+                  f"({len(have) + len(new)} total)")
+        if self.per_layer_fn:
+            times = self.conv_fwd.per_layer_times(ins)
+            with open(self.out_path(self.per_layer_fn), "w") as f:
+                for tag, secs in times.items():
+                    # python-parseable format (ref rtc_fwd.cc:560-572)
+                    f.write(f"per_layer_time['{tag}']={secs!r}\n")
+            print(f"per-layer times: {len(times)} ops, sum {sum(times.values()) * 1e3:.3f}ms "
+                  f"-> {self.per_layer_fn} (each op's unfused lowering alone, device "
+                  "time in a CUDA graph)")
         il = self.conv_fwd.get_info_log()
         if il:
             print(il)

@@ -133,12 +133,26 @@ def avg_divisor(iy, ix, k, s, p, oy, ox) -> np.ndarray:
     return dy[:, None] * dx[None, :]
 
 
-@functools.lru_cache(maxsize=None)
-def _divisor(iy, ix, k, s, p, oy, ox, inverse: bool) -> np.ndarray:
-    # numpy, not a tensor: one made under inference_mode could not enter a
-    # later autograd graph (the pool's backward)
-    d = avg_divisor(iy, ix, k, s, p, oy, ox)
-    return 1.0 / d if inverse else d
+_DIVISORS: dict = {}  # (geometry, inverse, device) -> f32 (oy, ox) tensor
+
+
+def _divisor(device, iy, ix, k, s, p, oy, ox, inverse: bool) -> torch.Tensor:
+    """The avg divisor (or its inverse) on ``device``, made once per geometry
+    and device. It is made outside inference_mode, so that it can enter a
+    later autograd graph (the pool's backward), and never inside a CUDA-graph
+    capture, which cannot copy a host value to the card: an engine's eager
+    warm-up makes it, and the capture finds it here."""
+    key = (device, iy, ix, k, s, p, oy, ox, inverse)
+    t = _DIVISORS.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"pool: avg divisor {key} is not on the card yet; run "
+                               "one eager call before capturing a CUDA graph")
+        d = avg_divisor(iy, ix, k, s, p, oy, ox)
+        with torch.inference_mode(False):
+            t = torch.from_numpy(1.0 / d if inverse else d).to(device)
+        _DIVISORS[key] = t
+    return t
 
 
 def _nchw_pad(pad_y, pad_x):
@@ -153,8 +167,7 @@ def pool2d_lib(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
     if avg:
         xp = F.pad(x.permute(0, 3, 1, 2).float(), _nchw_pad(pad_y, pad_x))
         sums = F.avg_pool2d(xp, k, s, divisor_override=1)
-        div = _divisor(x.shape[1], x.shape[2], k, s, p, oy, ox, False)
-        out = sums / torch.from_numpy(div).to(sums.device)
+        out = sums / _divisor(x.device, x.shape[1], x.shape[2], k, s, p, oy, ox, False)
         return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
     xp = F.pad(x.permute(0, 3, 1, 2), _nchw_pad(pad_y, pad_x), value=float("-inf"))
     return F.max_pool2d(xp, k, s).permute(0, 2, 3, 1).contiguous()
@@ -168,8 +181,8 @@ def pool2d_plain(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
     xp = F.pad(x.permute(0, 3, 1, 2).float(), _nchw_pad(pad_y, pad_x),
                value=0.0 if avg else float("-inf"))
     if avg:
-        inv = _divisor(x.shape[1], x.shape[2], k, s, p, oy, ox, True)
-        out = F.avg_pool2d(xp, k, s, divisor_override=1) * torch.from_numpy(inv).to(xp.device)
+        inv = _divisor(x.device, x.shape[1], x.shape[2], k, s, p, oy, ox, True)
+        out = F.avg_pool2d(xp, k, s, divisor_override=1) * inv
     else:
         out = F.max_pool2d(xp, k, s)
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()

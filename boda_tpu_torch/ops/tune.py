@@ -7,15 +7,18 @@ string for the same tune and a tune written by ``boda_tpu`` (a wisdom file,
 knob is an error, as there. The knobs fall in three groups:
 
 * read by the port: ``use_k1conv``, ``use_s2d`` (a strided conv on the
-  space-to-depth fold), ``pool_pallas`` (the pooling kernel), ``precision``
-  (the library's f32 path; bf16 always runs bf16 inputs with an f32
-  accumulator) and ``use_xla`` (the library op: cuDNN/cuBLAS);
+  space-to-depth fold), ``stem_s2d`` and ``pad_c`` (the stem on its fold,
+  its channels padded), ``pool_pallas`` (the pooling kernel),
+  ``precision`` (the library's f32 path; bf16 always runs bf16 inputs with
+  an f32 accumulator) and ``use_xla`` (the library op: cuDNN/cuBLAS);
 * no effect on the card (:data:`NO_EFFECT`): they choose between variants
   of boda_tpu's Pallas kernels with the same result (tile sizes, halo DMA
   or row gather, tap concatenation, image batching, the stem's im2col, the
-  pooling emitter dodges, Mosaic's grid semantics). The port's kernels
-  have one form each with compile-time tiles, so these are parsed and kept
-  in the key, and :meth:`OpTune.no_effect` names them for the logs;
+  pooling emitter dodges, Mosaic's grid semantics), or are declared by
+  boda_tpu and read by none of its kernels (``acc_tn``, ``in_tn``). The
+  port's kernels have one form each with compile-time tiles, so these are
+  parsed and kept in the key, and :meth:`OpTune.no_effect` names them for
+  the logs;
 * not ported (:data:`NOT_PORTED`): a tune that sets one raises, naming the
   ROADMAP item that will bring it, rather than being silently ignored.
 """
@@ -41,7 +44,9 @@ class OpTune:
     # a strided conv with k > 1 as a space-to-depth fold + the stride-1
     # direct conv (ops/kernels/conv.py:space_to_depth_conv)
     use_s2d: bool = False
-    # boda_tpu's XLA stem fold and its options (not ported)
+    # the stem (stride > 1, kernel > 1, C*s*s <= 64) as a stride-1 conv on its
+    # space-to-depth fold (graph/lowering_nhwc.py:_stem_s2d_conv); pad_c pads
+    # the folded channels; stem_im2col picks boda_tpu's emitter for it
     stem_s2d: int = 0
     stem_im2col: int = 0
     pad_c: int = 0
@@ -59,8 +64,8 @@ class OpTune:
     pool_pallas: int = 0
     # DetectionOutput NMS candidate count (not ported)
     det_top_k: int = 0
-    # accumulate and compute dtype overrides (not ported; boda_tpu declares
-    # them and no kernel of it reads them)
+    # accumulate and compute dtype overrides (boda_tpu declares them and no
+    # kernel of it reads them)
     acc_tn: str = "float32"
     in_tn: str = ""
     # 'highest' = full f32; bf16 compute always runs 'default' (bf16 inputs,
@@ -121,14 +126,11 @@ _DEFAULTS = {f.name: f.default for f in fields(OpTune)}
 
 # variants of boda_tpu's Pallas/XLA lowerings with the same result
 NO_EFFECT = ("bm", "bn", "bk", "chunk", "use_iconv", "stem_im2col", "tap_cat", "nb",
-             "use_halo", "pool_shift", "pool_bview", "dimension_semantics")
+             "use_halo", "pool_shift", "pool_bview", "acc_tn", "in_tn",
+             "dimension_semantics")
 
 # knob -> the ROADMAP item that will port it
 NOT_PORTED = {
-    "stem_s2d": "ROADMAP §1 item 3, the stem fold with input_s2d",
-    "pad_c": "ROADMAP §1 item 3, the stem fold with input_s2d",
     "int8": "ROADMAP §1 item 5, int8",
     "det_top_k": "ROADMAP §1 item 6, the SSD head",
-    "acc_tn": "ROADMAP §1 item 3, per-op dtype overrides",
-    "in_tn": "ROADMAP §1 item 3, per-op dtype overrides",
 }

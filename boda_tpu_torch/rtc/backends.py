@@ -95,6 +95,27 @@ def cuda_time(run_once, n_iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(cuda_secs(run_once, n) for _ in range(3)) / n
 
 
+def graph_time(run_once, n_iters: int = 20, warmup: int = 2) -> float:
+    """Device seconds per call: ``warmup`` eager calls on a side stream, then
+    ``n_iters`` calls captured in one CUDA graph, and the median of 3 replays
+    between two CUDA events. Back-to-back eager launches of a short op time
+    the host's cost per launch; a replay leaves the host out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(max(1, warmup)):
+            run_once()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(max(1, n_iters)):
+            run_once()
+    g.replay()
+    secs = statistics.median(cuda_secs(g.replay, 1) for _ in range(3))
+    del g
+    return secs / max(1, n_iters)
+
+
 class _TorchBackend(Backend):
     """Shared torch-tensor var store; "compile" binds a generated function to
     the backend's device."""

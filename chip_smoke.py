@@ -26,6 +26,20 @@ kernels:
   on it, and ``run_cnet`` reading it back through the engine's
   ``wisdom_fn``, checked against the library path.
 
+Every engine runs as a user's does, under ``cuda_graph=1``: each forward
+(and gradient graph) is captured once per key after one eager warm-up
+forward, and replayed. The graph phases hold that capture to the eager
+forward of the same engine (``cuda_graph=0``): [graph] the gen, lib and
+fused b32 forwards (gen and fused bit-equal, lib within the bf16 gate, the
+same launches, eager against graph ms and img/s, the capture's time and
+peak memory); [graph-grad] the b32 bf16 gradient graph, gen and lib. Then
+[input_s2d] bench.py's configuration (the batch folded on the host to the
+stem's space-to-depth layout, ``input_s2d=1``, ``input_pad_c`` 0 and 16,
+gen and lib) against the unfolded forward; [stats] ``per_layer_stats`` and
+``quantize`` on the card against the same engine on the CPU; [run_cnet]
+``run_cnet --per-layer-fn`` (each op's lowering alone, timed in a CUDA
+graph).
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -36,8 +50,10 @@ holds each against its plain version with NaN compared equal, as
 boda_tpu's jnp.maximum propagates it.
 
 Each path is run with the kernels' launch counts set to 0 just before it
-and read just after. The GEMM core (K1, K2/K3) and K5 also count their
-launches per path of their plans: every b32 bf16 GEMM and conv of the gen
+and read just after: after the engine's warm-up (``prepare``), so that the
+counts are those of the captured forward, which every replay launches. The
+GEMM core (K1, K2/K3) and K5 also count their launches per path of their
+plans: every b32 bf16 GEMM and conv of the gen
 and fused forwards, all 46 dgrads and all 46 wgrads must take the wgmma
 path, the gen forward's C = 3 stem alone the mma.sync loop; K6 counts its
 routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
@@ -86,6 +102,12 @@ GRAD_F32_TOL = 1e-3
 # bf16 gradient graph, max|err|/max|lib| per gradient, gen vs lib
 GRAD_BF16_TOL = 5e-2
 FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
+# [stats]: the card's var_stats against the CPU's, f32 (min, max and sum_sq
+# relative to themselves, the sum to sqrt(cnt * sum_sq), which bounds
+# sum|x|); conv1 quantized to 4 bits of [0, 2]: equal or one quantum apart
+STATS_TOL = 1e-3
+STATS_QUANT = "(conv1=(max_val=2,keep_bits=4))"
+STATS_QUANT_STEP = 2 / 16
 # the fused b32 forward's launches per kernel: 12 identity bottlenecks; pool1
 # and pool5; the stem (on the fold) and the 4 downsampling blocks' 3x3s; the
 # 12 1x1s outside blocks and fc1000; the stem's fold
@@ -260,10 +282,12 @@ def host_us_per_launch(eng, ins) -> dict:
             return out
         return wrapped
     low.matmul, low.conv2d_halo = timed("sgemm", orig["matmul"]), timed("conv", orig["conv2d_halo"])
+    eng.cuda_graph = False  # eager: under a graph the wrappers run only at capture
     try:
         eng.time_fwd(ins, ["prob"], n_iters=5, warmup=1)
     finally:
         low.matmul, low.conv2d_halo = orig["matmul"], orig["conv2d_halo"]
+        eng.cuda_graph = True
     return {k: t / max(n, 1) * 1e6 for k, (t, n) in spent.items()}
 
 
@@ -541,6 +565,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels.pool import route as pool_route
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.ops.kernels.stem import stem_fused, stem_fused_plain
+    from boda_tpu_torch.utils.dims import NDA, Dims
     from boda_tpu_torch.utils.lexp import parse_lexp
 
     # the plain versions in full f32 (cuDNN convs default to TF32). Only the
@@ -549,6 +574,19 @@ def main() -> int:
     torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.conv.fp32_precision = "ieee"
     dev = torch.device("cuda")
+    counted = {"sgemm": matmul, "conv": conv2d, "conv_nhwc": conv2d_nhwc,
+               "s2d": space_to_depth_conv, "atb": matmul_atb, "block": bottleneck,
+               "pool": pool2d}
+
+    def zero_counts():
+        for f in counted.values():
+            f.launches = 0
+            if hasattr(f, "paths"):
+                f.paths = dict.fromkeys(f.paths, 0)
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in counted.items()}
     card = smi()
     kind = torch.cuda.get_device_name(0)
     print(card)
@@ -937,6 +975,7 @@ def main() -> int:
                   if "nhwc-k1conv" in ln or "nhwc-ip gemm" in ln})
     n_conv = len({ln.split(":")[0] for ln in log if "nhwc-direct_conv" in ln})
     check(not any("nhwc-lib_conv" in ln for ln in log), "a conv went to the library")
+    eng.prepare(ins, ["prob", "fc1000"])  # the warm-up: the counts below are the capture's
     matmul.launches = conv2d.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     outs = eng.run_fwd(ins, ["prob", "fc1000"])
@@ -978,6 +1017,7 @@ def main() -> int:
     check("conv1: nhwc-s2d_conv" in flog, "conv1 did not take the space-to-depth fold")
     counters = {"block": bottleneck, "pool": pool2d, "conv": conv2d, "sgemm": matmul,
                 "s2d": space_to_depth_conv}
+    fused.prepare(ins, ["prob", "fc1000"])
     for fn in counters.values():
         fn.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
@@ -1029,6 +1069,7 @@ def main() -> int:
     print(f"[slice] f32 resnet50 b2 64x64, {len(nodes)} nodes gen vs lib: "
           f"worst {worst:.3e} (tol {F32_NODE_TOL})")
     check(worst <= F32_NODE_TOL, "f32 per-node gen vs lib")
+    sfused.prepare(sins, fnodes)
     bottleneck.launches = pool2d.launches = 0
     res["fused"] = sfused.run_fwd(sins, fnodes)
     check((bottleneck.launches, pool2d.launches) == (12, 2),
@@ -1062,6 +1103,7 @@ def main() -> int:
         e = gengs[pol] = make("conv_fwd", "cuda", kernel_policy=pol)
         e.init(gpipe)
         glog = e.get_info_log()
+        e.prepare(gins, gnodes)
         matmul.launches = conv2d.launches = matmul_atb.launches = 0
         gres[pol] = e.run_fwd(gins, gnodes)
         counts = (matmul.launches, conv2d.launches, matmul_atb.launches)
@@ -1125,6 +1167,7 @@ def main() -> int:
     beng.init(bpipe)
     blib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
     blib.init(bpipe)
+    beng.prepare(bins, bwant)
     matmul.launches = conv2d.launches = matmul_atb.launches = conv2d_nhwc.launches = 0
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     matmul_atb.paths = dict.fromkeys(matmul_atb.paths, 0)
@@ -1170,12 +1213,30 @@ def main() -> int:
           f"{worst[0]:.3e} (tol {GRAD_BF16_TOL})")
     check(worst[0] <= GRAD_BF16_TOL, f"grad-bf16: {worst[1]} {worst[0]:.3g}")
     del bres
-    grad_rates = {}
+    # [graph-grad]: the replay of each gradient graph against an eager pass of
+    # the same engine; then eager and graph ms per pass
+    grad_rates, grad_eager_rates = {}, {}
     for pol, e in (("gen", beng), ("lib", blib)):
+        e.cuda_graph = False
+        eager = e.run_fwd(bins, bwant)
+        e.cuda_graph = True
+        replay = e.run_fwd(bins, bwant)
+        gerrs = sorted((rel_err(torch.from_numpy(replay[n].data),
+                                torch.from_numpy(eager[n].data))[1], n) for n in bwant)
+        n_bit = sum(np.array_equal(replay[n].data, eager[n].data) for n in bwant)
+        print(f"[graph-grad] resnet50 b{BATCH} bf16 {pol}: replay vs eager, {n_bit} of "
+              f"{len(bwant)} outputs bit-equal, worst max|err|/max|eager| {gerrs[-1][0]:.3e} "
+              f"at {gerrs[-1][1]} (tol {GRAD_BF16_TOL})")
+        check(gerrs[-1][0] <= GRAD_BF16_TOL, f"graph-grad {pol}: {gerrs[-1]}")
+        del eager, replay
+        e.cuda_graph = False
+        eager_s = e.time_fwd(bins, bwant, n_iters=10, warmup=3)
+        e.cuda_graph = True
         secs = e.time_fwd(bins, bwant, n_iters=10, warmup=5)
-        grad_rates[pol] = BATCH / secs
-        print(f"[grad-bf16] resnet50 b{BATCH} forward+backward {pol}: "
-              f"{secs * 1e3:.3f} ms, {grad_rates[pol]:.1f} img/s ({card})")
+        grad_rates[pol], grad_eager_rates[pol] = BATCH / secs, BATCH / eager_s
+        print(f"[graph-grad] resnet50 b{BATCH} forward+backward {pol}: eager "
+              f"{eager_s * 1e3:.3f} ms, graph {secs * 1e3:.3f} ms per pass; "
+              f"{grad_eager_rates[pol]:.1f} -> {grad_rates[pol]:.1f} img/s ({card})")
     del beng, blib
 
     # the user's command line, in-process
@@ -1195,12 +1256,145 @@ def main() -> int:
     host_us = host_us_per_launch(eng, ins)
     print(f"[slice] host us per launch over the gen forward: sgemm {host_us['sgemm']:.1f}, "
           f"conv {host_us['conv']:.1f} (wrapper checks, plan, allocations, ctypes launch)")
-    rates = {}
+
+    # -- phase 5b: [graph] each b32 forward captured once and replayed ----------------
+    fwd_outs = ["prob", "fc1000"]
+    rates, eager_rates, graph_rows = {}, {}, {}
     for pol, e in (("gen", eng), ("lib", lib), ("fused", fused)):
+        e.cuda_graph = False
+        zero_counts()
+        eager = e.run_fwd(ins, fwd_outs)
+        n_eager = read_counts()
+        e.cuda_graph = True
+        e.drop_graph()  # a fresh capture, to time it and read its memory
+        e.prepare(ins, fwd_outs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        replay = e.run_fwd(ins, fwd_outs)
+        n_graph = read_counts()
+        cap_s, peak = e._graph.capture_secs, torch.cuda.max_memory_allocated()
+        check(n_graph == n_eager, f"graph {pol}: launches {n_graph}, eager {n_eager}")
+        errs_ = {n: rel_err(torch.from_numpy(replay[n].data),
+                            torch.from_numpy(eager[n].data))[1] for n in fwd_outs}
+        bit = {n: np.array_equal(replay[n].data, eager[n].data) for n in fwd_outs}
+        if pol == "lib":
+            check(all(errs_[n] <= SLICE_TOL[n] for n in fwd_outs), f"graph lib: {errs_}")
+        else:
+            check(all(bit.values()), f"graph {pol}: replay not bit-equal to eager {errs_}")
+        e.cuda_graph = False
+        eager_s = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
+        e.cuda_graph = True
         secs = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
-        rates[pol] = BATCH / secs
-        print(f"[slice] resnet50 b{BATCH} bf16 {pol}: {secs * 1e3:.3f} ms/fwd, "
-              f"{rates[pol]:.1f} img/s ({card})")
+        rates[pol], eager_rates[pol] = BATCH / secs, BATCH / eager_s
+        graph_rows[pol] = {"eager_ms": eager_s * 1e3, "graph_ms": secs * 1e3,
+                           "capture_s": cap_s, "max_memory_allocated": peak}
+        print(f"[graph] resnet50 b{BATCH} bf16 {pol}: replay vs eager "
+              + ", ".join(f"{n} {'bit-equal' if bit[n] else f'{errs_[n]:.3e}'}"
+                          for n in fwd_outs)
+              + f"; launches {n_graph} (eager the same); capture {cap_s:.3f} s, "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        print(f"[graph] resnet50 b{BATCH} bf16 {pol}: eager {eager_s * 1e3:.3f} ms/fwd "
+              f"({eager_rates[pol]:.1f} img/s), graph {secs * 1e3:.3f} ms/fwd "
+              f"({rates[pol]:.1f} img/s) ({card})")
+        del eager, replay
+
+    # -- phase 5c: [input_s2d] bench.py's host-folded stem ---------------------------
+    xh = np.ascontiguousarray(ins["data"].data.transpose(0, 2, 3, 1))
+    unfolded = {"gen": outs, "lib": louts}
+    s2d_rates = {}
+    for pol in ("gen", "lib"):
+        for pad in (0, 16):
+            e = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy=pol,
+                     input_s2d=True, input_pad_c=pad)
+            e.init(pipe)
+            elog = e.get_info_log()
+            check("conv1: input_s2d on 'data'" in elog and "conv1: nhwc-stem_s2d" in elog,
+                  f"input_s2d {pol} pad_c={pad}: the stem took no fold")
+            xf = e.host_input_s2d("data", xh)
+            fin = {"data": NDA(Dims.of(img=xf.shape[0], y=xf.shape[1], x=xf.shape[2],
+                                       chan=xf.shape[3]), xf)}
+            e.prepare(fin, fwd_outs)
+            zero_counts()
+            o = e.run_fwd(fin, fwd_outs)
+            stem_paths = dict(conv2d.paths)
+            if pol == "gen":  # the stem through K3's entry, on wgmma like every conv
+                check(conv2d_nhwc.launches == 1 and stem_paths["mma"] == 0
+                      and stem_paths["wgmma"] == conv2d.launches,
+                      f"input_s2d gen pad_c={pad}: conv paths {stem_paths}, "
+                      f"conv2d_nhwc {conv2d_nhwc.launches}")
+            errs_ = {n: rel_err(torch.from_numpy(o[n].data),
+                                torch.from_numpy(unfolded[pol][n].data))[1] for n in fwd_outs}
+            check(all(errs_[n] <= SLICE_TOL[n] for n in fwd_outs),
+                  f"input_s2d {pol} pad_c={pad} vs unfolded: {errs_}")
+            secs = e.time_fwd(fin, ["prob"], n_iters=20, warmup=5)
+            s2d_rates[f"{pol}_pad{pad}"] = BATCH / secs
+            print(f"[input_s2d] resnet50 b{BATCH} bf16 {pol} input_pad_c={pad}: input "
+                  f"{tuple(xf.shape)}; vs the unfolded forward "
+                  + ", ".join(f"{n} {errs_[n]:.3e}" for n in fwd_outs)
+                  + f" (tol 5e-2); conv paths {stem_paths}; graph {secs * 1e3:.3f} ms/fwd, "
+                  f"{BATCH / secs:.1f} img/s ({card})")
+            del e, o
+    # f32 b2 64x64: conv1 on the fold against the unfolded engine's
+    xh2 = np.ascontiguousarray(sins["data"].data.transpose(0, 2, 3, 1))
+    for pol in ("gen", "lib"):
+        e0 = make("conv_fwd", "cuda", kernel_policy=pol)
+        e0.init(spipe)
+        ref = torch.from_numpy(e0.run_fwd(sins, ["conv1"])["conv1"].data)
+        for pad in (0, 16):
+            e = make("conv_fwd", "cuda", kernel_policy=pol, input_s2d=True, input_pad_c=pad)
+            e.init(spipe)
+            xf = e.host_input_s2d("data", xh2)
+            fin = {"data": NDA(Dims.of(img=2, y=xf.shape[1], x=xf.shape[2],
+                                       chan=xf.shape[3]), xf)}
+            _, err = rel_err(torch.from_numpy(e.run_fwd(fin, ["conv1"])["conv1"].data), ref)
+            print(f"[input_s2d] f32 resnet50 b2 64x64 {pol} input_pad_c={pad}: conv1 vs the "
+                  f"unfolded engine {err:.3e} (tol {F32_NODE_TOL})")
+            check(err <= F32_NODE_TOL, f"input_s2d f32 {pol} pad_c={pad}: conv1 {err:.3g}")
+        del e0, e
+
+    # -- phase 5d: [stats] per_layer_stats and quantize, card against CPU -------------
+    q = parse_lexp(STATS_QUANT)
+    st = {}
+    for d in ("cuda", "cpu"):
+        e = make("conv_fwd", "cuda", device=d, per_layer_stats=True, quantize=dict(q.kids))
+        e.init(spipe)
+        o = e.run_fwd(sins, ["conv1", "prob"])
+        st[d] = (o, e._last_stats, e.get_info_log().count("var_stats "))
+    (co, cs, cl), (po, ps, pl) = st["cuda"], st["cpu"]
+    check(cl == pl > 0 and sorted(cs) == sorted(ps), f"stats: nodes {sorted(cs)[:3]}..")
+    worst = 0.0
+    for n, (mn, mx, sm, sq) in ps.items():
+        g_ = cs[n]
+        scale = max(abs(mn), abs(mx), 1e-30)
+        cnt = spipe.must_dims(n).num_elems()
+        worst = max(worst, abs(g_[0] - mn) / scale, abs(g_[1] - mx) / scale,
+                    abs(g_[2] - sm) / max(np.sqrt(cnt * sq), 1e-30),
+                    abs(g_[3] - sq) / max(sq, 1e-30))
+    quantum = STATS_QUANT_STEP
+    dq = np.abs(co["conv1"].data - po["conv1"].data)
+    off = int((dq > 0).sum())
+    print(f"[stats] f32 resnet50 b2 64x64 gen: {len(cs)} nodes' var_stats on the card vs the "
+          f"CPU, worst relative {worst:.3e} (tol {STATS_TOL}); quantized conv1: {off} of "
+          f"{dq.size} elements one quantum ({quantum}) apart, max diff {dq.max():.3g}")
+    check(worst <= STATS_TOL, f"stats: worst {worst:.3g}")
+    check(bool(np.all(dq <= quantum * (1 + 1e-6))), "quantize: more than one quantum apart")
+    del st, co, po
+
+    # -- phase 5e: [run_cnet] per-layer times ----------------------------------------
+    out_dir = build.BUILD_DIR.parent / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rc, lines = run_cli(["run_cnet", "--model=resnet50", f"--img={BATCH}", "--n-iters=20",
+                         "--conv-fwd=(mode=cuda,compute_tn=bfloat16)",
+                         f"--boda-output-dir={out_dir}", "--per-layer-fn=per_layer.txt"])
+    pl_lines = (out_dir / "per_layer.txt").read_text().splitlines() if rc == 0 else []
+    times = sorted(((float(ln.split("=", 1)[1]), ln.split("'")[1]) for ln in pl_lines),
+                   reverse=True)
+    print(f"[run_cnet] --per-layer-fn rc={rc}: {len(pl_lines)} lines for {len(pipe.ops)} ops, "
+          f"sum {sum(t for t, _ in times) * 1e3:.3f} ms; slowest "
+          + ", ".join(f"{n} {t * 1e6:.1f} us" for t, n in times[:4]) + f" ({card})")
+    print(f"[run_cnet] {next((ln for ln in lines if ln.startswith('{')), '')}")
+    check(rc == 0 and len(pl_lines) == len(pipe.ops), "run_cnet --per-layer-fn")
 
     # -- phase 6: the rtc layer and per-op autotuning, through the CLI ---------------
     for fn in (eltwise, matmul, conv2d, space_to_depth_conv, stem_fused):
@@ -1219,8 +1413,6 @@ def main() -> int:
         if tn == "float32":
             check(any(ln.startswith("check: PASS") for ln in lines), "sgemm_run f32 check")
         sg[tn] = json.loads(lines[-1])
-    out_dir = build.BUILD_DIR.parent / "chip_smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
     corpus, wis_fn = out_dir / "prof-ops.txt", out_dir / "resnet50-bf16.wis"
     rc, lines = run_cli(["gen_prof_ops", "--model=resnet50", f"--img={BATCH}",
                          "--tn=bfloat16", f"--boda-output-dir={out_dir}",
@@ -1358,8 +1550,10 @@ def main() -> int:
                     "library_launch_ms": stem_t["library_launch_ms"],
                     "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
-    print(json.dumps({"kernels": kernels, "img_per_s": rates, "host_us_per_launch": host_us,
-                      "grad_img_per_s": grad_rates,
+    print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
+                      "graph": graph_rows, "input_s2d_img_per_s": s2d_rates,
+                      "host_us_per_launch": host_us, "grad_img_per_s": grad_rates,
+                      "grad_img_per_s_eager": grad_eager_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
                       "card": card}))

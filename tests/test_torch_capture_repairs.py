@@ -1,0 +1,74 @@
+"""What a CUDA-graph capture of the forward needs, held on the CPU.
+
+A capture records kernels and cannot copy a host value to the card, so
+nothing in a forward may make a device tensor from a Python or numpy value
+per call. Two places did: ``jax_maximum`` with a Python float (the ReLU
+rule, every Bck recompute of a ReLU, SoftmaxWithLoss) and the avg pool's
+divisor. Here their values, NaN and gradients are held against
+``jnp.maximum`` and the divisor's cache against inference_mode; and a CPU
+engine under ``cuda_graph=1`` runs eagerly, since there is no card to
+capture on (the capture itself is held on the card, in
+tests/test_torch_cuda_graph.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from boda_tpu_torch.config import make as tmake
+from boda_tpu_torch.graph.lowering import jax_maximum
+from boda_tpu_torch.models.zoo import build_model as tbuild
+from boda_tpu_torch.ops.kernels import pool
+from boda_tpu_torch.utils.dims import NDA as TNDA
+
+
+def test_jax_maximum_with_a_float_keeps_value_nan_and_gradient():
+    """jnp.maximum(x, 0.0): the same values (NaN propagates) and JAX's
+    gradient, half the cotangent at a tie; the float stays a host scalar."""
+    x = np.array([-2.0, -0.0, 0.0, 0.5, np.nan, 3.0, 0.0], np.float32)
+    ct = np.arange(1, 8, dtype=np.float32)
+    want = np.asarray(jnp.maximum(jnp.asarray(x), 0.0))
+    want_g = np.asarray(jax.grad(lambda v: jnp.sum(jnp.maximum(v, 0.0) * ct))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = jax_maximum(xt, 0.0)
+    np.testing.assert_array_equal(out.detach().numpy(), want)  # NaN == NaN here
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_array_equal(np.nan_to_num(xt.grad.numpy(), nan=-1.0),
+                                  np.nan_to_num(want_g, nan=-1.0))
+    with torch.no_grad():
+        np.testing.assert_array_equal(jax_maximum(torch.from_numpy(x), 0.0).numpy(), want)
+
+
+def test_avg_divisor_is_made_once_and_enters_autograd():
+    """The divisor is one tensor per geometry and device, made outside
+    inference_mode even when first asked for inside it, so a later autograd
+    graph (the pool's backward) takes it."""
+    geom = (9, 7, (3, 3), (2, 2), (1, 1), 5, 4)
+    with torch.inference_mode():
+        d1 = pool._divisor(torch.device("cpu"), *geom, True)
+    assert not d1.is_inference() and d1.shape == (5, 4)
+    assert pool._divisor(torch.device("cpu"), *geom, True) is d1
+    np.testing.assert_array_equal(d1.numpy(), 1.0 / pool.avg_divisor(*geom))
+    x = torch.randn(1, 9, 7, 4, requires_grad=True)
+    pad_y, pad_x = (1, 1), (1, 1)
+    y = pool.pool2d_lib(x, (3, 3), (2, 2), pad_y, pad_x, 5, 4, True)
+    y.sum().backward()
+    assert bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().sum()) > 0
+
+
+def test_cpu_engine_runs_eagerly_under_cuda_graph():
+    """cuda_graph=1 (the default) on a CPU engine captures nothing and gives
+    what cuda_graph=0 gives; init drops any graph."""
+    pipe, dims = tbuild("mini_resnet", img=1, num_cls=8, in_sz=16)
+    x = {"data": TNDA(dims["data"], np.random.RandomState(3).randn(
+        *dims["data"].shape).astype(np.float32))}
+    outs = []
+    for cg in (True, False):
+        eng = tmake("conv_fwd", "cuda", device="cpu", cuda_graph=cg)
+        eng.init(pipe)
+        outs.append(eng.run_fwd(x, ["prob"])["prob"].data)
+        assert eng._graph is None
+    np.testing.assert_array_equal(outs[0], outs[1])
+    eng.prepare(x, ["prob"])  # compiles only: no warm-up off the card
+    assert eng._warm_key is None
