@@ -172,7 +172,7 @@ class FwdEngine:
         if not self._graphed():
             return
         key = self._graph_key(ins, out_names)
-        if key in (self._warm_key, self._graph and self._graph.key):
+        if key == self._warm_key or (self._graph is not None and self._graph.key == key):
             return
         d = self.dev()
         dev_ins = self._put_inputs(ins)

@@ -53,14 +53,14 @@ Each path is run with the kernels' launch counts set to 0 just before it
 and read just after: after the engine's warm-up (``prepare``), so that the
 counts are those of the captured forward, which every replay launches. The
 GEMM core (K1, K2/K3) and K5 also count their launches per path of their
-plans: every b32 bf16 GEMM and conv of the gen
-and fused forwards, all 46 dgrads and all 46 wgrads must take the wgmma
-path, the gen forward's C = 3 stem alone the mma.sync loop; K6 counts its
-routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
-must take its wgmma route; K8 counts its routes (pool2d.paths): the fused
-b32 forward's pool1 must take rows, its pool5 window. fc1000's
-weights are scaled in every ResNet-50 pipe (scale_fc1000), so that prob is
-not one-hot and the forward's prob gates compare something.
+plans: every b32 bf16 GEMM and conv of the gen and fused forwards, all 46
+dgrads and all 46 wgrads must take the wgmma path, the gen forward's C = 3
+stem alone the mma.sync loop; K6 counts its routes (bottleneck.paths), and
+all 12 bottlenecks of the fused b32 forward must take its wgmma route; K8
+counts its routes (pool2d.paths): the fused b32 forward's pool1 must take
+rows, its pool5 window. fc1000's weights are scaled in every ResNet-50
+pipe (scale_fc1000), so that prob is not one-hot and the forward's prob
+gates compare something.
 
 Prints per-phase lines, one JSON line describing each kernel (its time per
 pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
@@ -1302,6 +1302,10 @@ def main() -> int:
     # -- phase 5c: [input_s2d] bench.py's host-folded stem ---------------------------
     xh = np.ascontiguousarray(ins["data"].data.transpose(0, 2, 3, 1))
     unfolded = {"gen": outs, "lib": louts}
+    fc = outs["fc1000"].data
+    print(f"[input_s2d] fc1000 across the batch's {BATCH} images (gen): max|row - row 0| / "
+          f"max|fc1000| {float(np.abs(fc - fc[:1]).max() / np.abs(fc).max()):.3e}, how far "
+          f"the random-weight net's output moves with its input")
     s2d_rates = {}
     for pol in ("gen", "lib"):
         for pad in (0, 16):

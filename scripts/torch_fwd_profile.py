@@ -4,7 +4,8 @@ forward under torch.profiler, per engine configuration.
 
 For each configuration (gen: the hand kernels; lib: cuDNN/cuBLAS; fused:
 fuse_block=1, tune=(use_s2d=1,pool_pallas=1)) it warms up, then profiles
-`--iters` forwards and prints, per forward: wall ms (host clock around the
+`--iters` eager forwards (the engine's net function launch by launch, as
+under cuda_graph=0) and prints, per forward: wall ms (host clock around the
 window, ended by a synchronize), device busy ms (the union of kernel
 intervals), the busy share, the kernel count, and the device ms by kernel
 group. One JSON line per configuration; the card's name and power limit

@@ -102,18 +102,30 @@ def test_replay_bit_equal_to_eager(dev, fused):
     _replay_vs_eager(eng, _ins(pipe), ["prob", "fc"])
 
 
-def test_gradient_graph_replay_bit_equal_to_eager(dev):
+@pytest.mark.parametrize("tune", ["()", "(pool_pallas=1)"])
+def test_gradient_graph_replay_bit_equal_to_eager(dev, tune):
     """gen's gradient graph: every Bck op's recompute and autograd.grad and
-    the hand dgrads and wgrads inside one capture."""
+    the hand dgrads and wgrads inside one capture; with pool_pallas, the
+    avg pool's recompute on K8 and its backward (the autograd of the
+    library pool, on autograd's thread, with the cached divisor). The
+    strided convs' backward is cuDNN's, whose default f32 algorithms are
+    not deterministic (two eager passes differ in the last bits); the test
+    asks for its deterministic algorithms, so that what differs is the
+    capture alone."""
     pipe, _ = build_model("mini_resnet", img=2, num_cls=8, in_sz=16)
     add_bck_ops(pipe)
-    eng = make("conv_fwd", "cuda")
+    eng = make("conv_fwd", "cuda", tune=parse_lexp(tune))
     eng.init(pipe)
     assert "bck-conv" in eng.get_info_log()
     want = ["prob_loss", "data__grad__p0"] + [
         n for n in pipe.nodes if pipe.nodes[n].dims is not None and
         any(n.startswith(w + "__grad") for w in pipe.weights)]
-    _replay_vs_eager(eng, _ins(pipe, ("data",)), want)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _replay_vs_eager(eng, _ins(pipe, ("data",)), want)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def test_graph_dropped_on_init_and_on_a_new_key(dev):
