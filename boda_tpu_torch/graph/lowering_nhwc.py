@@ -138,8 +138,9 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         fn.supports_residual = True
         return fn, hwio
 
-    geom = stem_s2d_geom(pipe.must_dims(op.bots[0]), od, s, p, k, dil, groups)
-    if tune.stem_s2d == 1 and geom is not None:
+    geom = stem_s2d_geom(pipe.must_dims(op.bots[0]), od, s, p, k, dil, groups) \
+        if tune.stem_s2d == 1 else None
+    if geom is not None:
         return _stem_s2d_conv(op, geom, tune, not gen, relu, info_log)
 
     if gen and tune.use_s2d and s != (1, 1) and k != (1, 1):

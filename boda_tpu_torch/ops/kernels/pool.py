@@ -133,7 +133,7 @@ def avg_divisor(iy, ix, k, s, p, oy, ox) -> np.ndarray:
     return dy[:, None] * dx[None, :]
 
 
-_DIVISORS: dict = {}  # (geometry, inverse, device) -> f32 (oy, ox) tensor
+_DIVISORS: dict = {}  # (device, geometry, inverse) -> f32 (oy, ox) tensor
 
 
 def _divisor(device, iy, ix, k, s, p, oy, ox, inverse: bool) -> torch.Tensor:
