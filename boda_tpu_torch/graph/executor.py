@@ -45,6 +45,7 @@ from ..config import ConfigError, Field, register, register_base
 from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
 from ..ops.kernels.block import block_fuse_ok, bottleneck
 from ..ops.tune import OpTune
+from ..rtc.backends import graph_time, side_stream_warmup
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
 from .lowering import PRECISIONS, LowerCtx, lib_precision
@@ -176,11 +177,11 @@ class FwdEngine:
             return
         d = self.dev()
         dev_ins = self._put_inputs(ins)
-        side = torch.cuda.Stream(d)
-        side.wait_stream(torch.cuda.current_stream(d))
-        with torch.cuda.stream(side), self._run_ctx():
-            self._fn(self._weights_dev, dev_ins)
-        torch.cuda.current_stream(d).wait_stream(side)
+
+        def forward():
+            with self._run_ctx():
+                self._fn(self._weights_dev, dev_ins)
+        side_stream_warmup(forward, 1, d)
         torch.cuda.synchronize(d)
         self._warm_key = key
 
@@ -1047,7 +1048,6 @@ class CudaFwd(FwdEngine):
         so the host's cost per launch stays out. An op whose inputs the
         forward does not give, or whose timing raises, is skipped with an
         info-log line. Raises off the card, as time_fwd does."""
-        from ..rtc.backends import graph_time
         d = self.dev()
         if d.type != "cuda":
             raise RuntimeError("per_layer_times times the card; this engine runs on "

@@ -95,17 +95,26 @@ def cuda_time(run_once, n_iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(cuda_secs(run_once, n) for _ in range(3)) / n
 
 
+def side_stream_warmup(run_once, n: int = 1, device=None) -> None:
+    """Run ``run_once`` ``n`` times on a side stream and make the current
+    stream wait for it: the eager warm-up a CUDA-graph capture needs (kernel
+    builds, shared-memory attributes, library handles and algorithm choices
+    happen here, off the stream that is captured next)."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(max(1, n)):
+            run_once()
+    cur.wait_stream(side)
+
+
 def graph_time(run_once, n_iters: int = 20, warmup: int = 2) -> float:
     """Device seconds per call: ``warmup`` eager calls on a side stream, then
     ``n_iters`` calls captured in one CUDA graph, and the median of 3 replays
     between two CUDA events. Back-to-back eager launches of a short op time
     the host's cost per launch; a replay leaves the host out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(max(1, warmup)):
-            run_once()
-    torch.cuda.current_stream().wait_stream(side)
+    side_stream_warmup(run_once, warmup)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(max(1, n_iters)):

@@ -32,10 +32,15 @@ forward, and replayed. The graph phases hold that capture to the eager
 forward of the same engine (``cuda_graph=0``): [graph] the gen, lib and
 fused b32 forwards (gen and fused bit-equal, lib within the bf16 gate, the
 same launches, eager against graph ms and img/s, the capture's time and
-peak memory); [graph-grad] the b32 bf16 gradient graph, gen and lib. Then
-[input_s2d] bench.py's configuration (the batch folded on the host to the
-stem's space-to-depth layout, ``input_s2d=1``, ``input_pad_c`` 0 and 16,
-gen and lib) against the unfolded forward; [stats] ``per_layer_stats`` and
+peak memory); [graph-grad] the b32 bf16 gradient graph, gen and lib, every
+output bit-equal under cuDNN's deterministic algorithms. In both, a second
+batch of the same key goes through the same graph and must follow its
+input as the eager forward does. Then [input_s2d] bench.py's configuration
+(the batch folded on the host to the stem's space-to-depth layout,
+``input_s2d=1``, ``input_pad_c`` 0 and 16, gen and lib) against the
+unfolded forward: fc1000 and prob, and conv1 itself within 1e-2; under gen
+the stem's K3 call on wgmma at the fold's shape against its plain version
+on the engine's own operands; [stats] ``per_layer_stats`` and
 ``quantize`` on the card against the same engine on the CPU; [run_cnet]
 ``run_cnet --per-layer-fn`` (each op's lowering alone, timed in a CUDA
 graph).
@@ -66,7 +71,8 @@ Prints per-phase lines, one JSON line describing each kernel (its time per
 pass beside its bound: the larger of its bytes over HBM's 3.35 TB/s and its
 operations over the peak rate of their type, from NVIDIA's H100 SXM data
 sheet; for every kernel and its library call the time is the device time
-of 20 calls in one CUDA graph, since back-to-back launches of them time the
+of 20 calls captured in one CUDA graph, the median of 3 replays
+(rtc/backends.py graph_time), since back-to-back launches of them time the
 host; those launches are kept beside it as launch_ms), the card's name and
 power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0).
@@ -102,6 +108,11 @@ GRAD_F32_TOL = 1e-3
 # bf16 gradient graph, max|err|/max|lib| per gradient, gen vs lib
 GRAD_BF16_TOL = 5e-2
 FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
+# [input_s2d], bf16 b32: the stem on its fold (K3's entry on wgmma) against
+# its plain version on the same operands, and the folded forward's conv1
+# against the unfolded one's, max|err|/max|ref|: the two differ by the bf16
+# rounding of the stores (one ulp is 2^-8 of a value), not by 50 layers
+STEM_FOLD_TOL = 1e-2
 # [stats]: the card's var_stats against the CPU's, f32 (min, max and sum_sq
 # relative to themselves, the sum to sqrt(cnt * sum_sq), which bounds
 # sum|x|); conv1 quantized to 4 bits of [0, 2]: equal or one quantum apart
@@ -160,34 +171,36 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device ms per call: ``reps`` calls captured in one CUDA graph and
-    replayed between two CUDA events, so that the host's cost per call (which
-    back-to-back launches of a short kernel measure instead) is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0.record()
-    g.replay()
-    t1.record()
-    t1.synchronize()
-    del g
-    return t0.elapsed_time(t1) / reps
-
-
 def rel_err(out, ref) -> tuple[float, float]:
     d = float((out.float() - ref.float()).abs().max())
     return d, d / max(float(ref.float().abs().max()), 1e-30)
+
+
+def other_batch(ins: dict, seed: int) -> dict:
+    """A second batch of the same shapes and dtypes: the data drawn from a
+    seeded normal at the first batch's mean and spread, the labels rolled by
+    one image. A replay fed it must follow it, as an eager forward does."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in ins.items():
+        a = v.data
+        b = np.roll(a, 1, axis=0) if k == "label" else \
+            (rng.standard_normal(a.shape) * a.std() + a.mean()).astype(a.dtype)
+        out[k] = type(v)(v.dims, b)
+    return out
+
+
+def replay_follows(e, ins: dict, outs: list[str]) -> tuple[dict, dict]:
+    """Feed the engine's captured forward a second batch of its key: eager
+    (cuda_graph=0) and replay outputs of that batch, after checking that no
+    new graph was captured for it."""
+    g = e._graph
+    e.cuda_graph = False
+    eager = e.run_fwd(ins, outs)
+    e.cuda_graph = True
+    replay = e.run_fwd(ins, outs)
+    check(g is not None and e._graph is g, "a second batch of the same key was recaptured")
+    return eager, replay
 
 
 def bck_shapes(pipe, eng):
@@ -565,6 +578,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels.pool import route as pool_route
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.ops.kernels.stem import stem_fused, stem_fused_plain
+    from boda_tpu_torch.rtc.backends import graph_time
     from boda_tpu_torch.utils.dims import NDA, Dims
     from boda_tpu_torch.utils.lexp import parse_lexp
 
@@ -826,7 +840,7 @@ def main() -> int:
                         block_plan_str(bottleneck.last_plan) if kname == "block" else
                         pool_plan_str(pool2d.last_plan))
                 ms, pms, lms = cuda_ms(fk), cuda_ms(fp), cuda_ms(fl)
-                dms, dlms = (graph_ms(fk), graph_ms(fl)) if graphed else (0.0, 0.0)
+                dms, dlms = (graph_time(fk) * 1e3, graph_time(fl) * 1e3) if graphed else (0.0, 0.0)
                 tot["device_ms"] += dms * count
                 tot["library_device_ms"] += dlms * count
                 b_ms, o_ms = work(kname, sig)
@@ -899,10 +913,10 @@ def main() -> int:
               f"+-0, +-inf included)")
     x, y = a0[:elt_n], b0[:elt_n]  # bf16, the corpus's eltwise signature
     # device time in a CUDA graph; back-to-back launches (host included) beside it
-    elt_t = {"ms": graph_ms(lambda: eltwise("add", x, y)),
+    elt_t = {"ms": graph_time(lambda: eltwise("add", x, y)) * 1e3,
              "launch_ms": cuda_ms(lambda: eltwise("add", x, y)),
              "plain_ms": cuda_ms(lambda: eltwise_plain("add", x, y)),
-             "library_ms": graph_ms(lambda: torch.add(x, y)),
+             "library_ms": graph_time(lambda: torch.add(x, y)) * 1e3,
              "library_launch_ms": cuda_ms(lambda: torch.add(x, y)),
              "bound_ms": 3 * elt_n * 2 / HBM_BPS * 1e3, "max_abs_err": elt_err}
     elt_plan = eltwise.last_plan
@@ -910,8 +924,8 @@ def main() -> int:
     for func, lib_fn in (("mul", torch.mul), ("relu", torch.relu)):
         ins = (x, y) if func == "mul" else (x,)
         print(f"[eltwise] bf16 {func} n={elt_n}: kernel device "
-              f"{graph_ms(lambda: eltwise(func, *ins)) * 1e3:.2f} us, torch.{lib_fn.__name__} "
-              f"device {graph_ms(lambda: lib_fn(*ins)) * 1e3:.2f} us, bound "
+              f"{graph_time(lambda: eltwise(func, *ins)) * 1e6:.2f} us, torch.{lib_fn.__name__} "
+              f"device {graph_time(lambda: lib_fn(*ins)) * 1e6:.2f} us, bound "
               f"{(len(ins) + 1) * elt_n * 2 / HBM_BPS * 1e6:.2f} us")
     print(f"[eltwise] bf16 add n={elt_n}: kernel device {elt_t['ms'] * 1e3:.2f} us "
           f"(launched {elt_t['launch_ms'] * 1e3:.2f}), plain {elt_t['plain_ms'] * 1e3:.1f} us, "
@@ -943,10 +957,10 @@ def main() -> int:
         return F.max_pool2d(torch.relu(F.conv2d(xs_lib, w_lib, sb)), 3, 2, ceil_mode=True)
     stem_bytes = 2 * (x6.numel() + w2.numel() + BATCH * pooled * pooled * 64) + 4 * 64
     stem_ops = 2 * BATCH * (x6.shape[1] - kh + 1) * x6.shape[2] * 64 * w2.shape[0]
-    stem_t = {"ms": graph_ms(lambda: stem_fused(x6, w2, sb, **kw)),
+    stem_t = {"ms": graph_time(lambda: stem_fused(x6, w2, sb, **kw)) * 1e3,
               "launch_ms": cuda_ms(lambda: stem_fused(x6, w2, sb, **kw)),
               "plain_ms": cuda_ms(lambda: stem_fused_plain(x6, w2, sb, **kw)),
-              "library_ms": graph_ms(stem_lib), "library_launch_ms": cuda_ms(stem_lib),
+              "library_ms": graph_time(stem_lib) * 1e3, "library_launch_ms": cuda_ms(stem_lib),
               "max_abs_err": ae,
               "bytes_ms": stem_bytes / HBM_BPS * 1e3, "ops_ms": stem_ops / BF16_OPS * 1e3}
     stem_t["bound_ms"] = max(stem_t["bytes_ms"], stem_t["ops_ms"])
@@ -1214,21 +1228,37 @@ def main() -> int:
     check(worst[0] <= GRAD_BF16_TOL, f"grad-bf16: {worst[1]} {worst[0]:.3g}")
     del bres
     # [graph-grad]: the replay of each gradient graph against an eager pass of
-    # the same engine; then eager and graph ms per pass
+    # the same engine, on two batches: every output bit-equal. cuDNN is held to
+    # its deterministic algorithms for the comparison (its default backward
+    # ones may differ between two eager passes: scripts/torch_graph_determinism.py);
+    # then eager and graph ms per pass, recaptured with the default ones
     grad_rates, grad_eager_rates = {}, {}
+    bins2 = other_batch(bins, 17)
+    deterministic = torch.backends.cudnn.deterministic
     for pol, e in (("gen", beng), ("lib", blib)):
-        e.cuda_graph = False
-        eager = e.run_fwd(bins, bwant)
-        e.cuda_graph = True
-        replay = e.run_fwd(bins, bwant)
-        gerrs = sorted((rel_err(torch.from_numpy(replay[n].data),
-                                torch.from_numpy(eager[n].data))[1], n) for n in bwant)
-        n_bit = sum(np.array_equal(replay[n].data, eager[n].data) for n in bwant)
-        print(f"[graph-grad] resnet50 b{BATCH} bf16 {pol}: replay vs eager, {n_bit} of "
-              f"{len(bwant)} outputs bit-equal, worst max|err|/max|eager| {gerrs[-1][0]:.3e} "
-              f"at {gerrs[-1][1]} (tol {GRAD_BF16_TOL})")
-        check(gerrs[-1][0] <= GRAD_BF16_TOL, f"graph-grad {pol}: {gerrs[-1]}")
-        del eager, replay
+        torch.backends.cudnn.deterministic = True
+        try:
+            e.drop_graph()
+            e.cuda_graph = False
+            eager = e.run_fwd(bins, bwant)
+            e.cuda_graph = True
+            replay = e.run_fwd(bins, bwant)
+            eager2, replay2 = replay_follows(e, bins2, bwant)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        e.drop_graph()
+        check(not np.array_equal(eager2["data__grad__p0"].data, eager["data__grad__p0"].data),
+              f"graph-grad {pol}: the second batch left the input gradient as it was")
+        for batch, (ea, re_) in (("", (eager, replay)), (", a second batch", (eager2, replay2))):
+            gerrs = sorted((rel_err(torch.from_numpy(re_[n].data),
+                                    torch.from_numpy(ea[n].data))[1], n) for n in bwant)
+            n_bit = sum(np.array_equal(re_[n].data, ea[n].data) for n in bwant)
+            print(f"[graph-grad] resnet50 b{BATCH} bf16 {pol}{batch}: replay vs eager, {n_bit} "
+                  f"of {len(bwant)} outputs bit-equal (all must be), worst max|err|/max|eager| "
+                  f"{gerrs[-1][0]:.3e} at {gerrs[-1][1]}")
+            check(n_bit == len(bwant), f"graph-grad {pol}{batch}: {len(bwant) - n_bit} outputs "
+                                       f"not bit-equal, worst {gerrs[-1]}")
+        del eager, replay, eager2, replay2
         e.cuda_graph = False
         eager_s = e.time_fwd(bins, bwant, n_iters=10, warmup=3)
         e.cuda_graph = True
@@ -1259,6 +1289,7 @@ def main() -> int:
 
     # -- phase 5b: [graph] each b32 forward captured once and replayed ----------------
     fwd_outs = ["prob", "fc1000"]
+    ins2 = other_batch(ins, 13)
     rates, eager_rates, graph_rows = {}, {}, {}
     for pol, e in (("gen", eng), ("lib", lib), ("fused", fused)):
         e.cuda_graph = False
@@ -1282,6 +1313,24 @@ def main() -> int:
             check(all(errs_[n] <= SLICE_TOL[n] for n in fwd_outs), f"graph lib: {errs_}")
         else:
             check(all(bit.values()), f"graph {pol}: replay not bit-equal to eager {errs_}")
+        # a second batch through the same graph: the replay follows its input
+        eager2, replay2 = replay_follows(e, ins2, fwd_outs)
+        moved = not np.array_equal(eager2["fc1000"].data, eager["fc1000"].data)
+        errs2 = {n: rel_err(torch.from_numpy(replay2[n].data),
+                            torch.from_numpy(eager2[n].data))[1] for n in fwd_outs}
+        bit2 = {n: np.array_equal(replay2[n].data, eager2[n].data) for n in fwd_outs}
+        check(moved, f"graph {pol}: the second batch left fc1000 as it was")
+        if pol == "lib":
+            check(all(errs2[n] <= SLICE_TOL[n] for n in fwd_outs),
+                  f"graph lib, second batch: {errs2}")
+        else:
+            check(all(bit2.values()), f"graph {pol}, second batch: replay not bit-equal to "
+                                      f"eager {errs2}")
+        print(f"[graph] resnet50 b{BATCH} bf16 {pol}: a second batch through the same "
+              "graph, replay vs eager "
+              + ", ".join(f"{n} {'bit-equal' if bit2[n] else f'{errs2[n]:.3e}'}"
+                          for n in fwd_outs))
+        del eager2, replay2
         e.cuda_graph = False
         eager_s = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
         e.cuda_graph = True
@@ -1306,6 +1355,9 @@ def main() -> int:
     print(f"[input_s2d] fc1000 across the batch's {BATCH} images (gen): max|row - row 0| / "
           f"max|fc1000| {float(np.abs(fc - fc[:1]).max() / np.abs(fc).max()):.3e}, how far "
           f"the random-weight net's output moves with its input")
+    # conv1 of the unfolded forwards: the stem itself, which fc1000 cannot see
+    c1_ref = {pol: E.run_fwd(ins, ["conv1"])["conv1"].data
+              for pol, E in (("gen", eng), ("lib", lib))}
     s2d_rates = {}
     for pol in ("gen", "lib"):
         for pad in (0, 16):
@@ -1327,17 +1379,46 @@ def main() -> int:
                       and stem_paths["wgmma"] == conv2d.launches,
                       f"input_s2d gen pad_c={pad}: conv paths {stem_paths}, "
                       f"conv2d_nhwc {conv2d_nhwc.launches}")
+            if pol == "gen":
+                # K3 at the fold's shape against its plain version, on the engine's
+                # operands: the folded batch padded as the lowering pads it, the
+                # stem's weights as folded at upload (BN prefolded), ReLU fused
+                xd = e._ingest("data", torch.from_numpy(xf).to(dev))
+                w, b = (e._weights_dev.get(f"{n}__folded", e._weights_dev[n])
+                        for n in pipe.ops["conv1"].bots[1:])
+                xs = F.pad(xd, (0, w.shape[2] - xd.shape[-1])).contiguous()
+                conv2d.paths = dict.fromkeys(conv2d.paths, 0)
+                got = conv2d_nhwc(xs, w, b, relu=True)
+                kpaths = dict(conv2d.paths)
+                _, kerr = rel_err(got, conv2d_plain(xs, w, b, relu=True))
+                k_us = graph_time(lambda: conv2d_nhwc(xs, w, b, relu=True)) * 1e6
+                x_nchw, w_oihw = xs.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+                l_us = graph_time(lambda: F.conv2d(x_nchw, w_oihw, b)) * 1e6
+                s_bytes = sum(t.numel() * t.element_size() for t in (xs, w, b, got))
+                s_ops = 2 * got.numel() * w.shape[0] * w.shape[1] * w.shape[2]
+                print(f"[input_s2d] the stem on its fold, K3 {tuple(xs.shape)} * "
+                      f"{tuple(w.shape)} bf16: vs conv2d_plain {kerr:.3e} (tol "
+                      f"{STEM_FOLD_TOL}), paths {kpaths}; device {k_us:.1f} us, cuDNN on "
+                      f"the same fold {l_us:.1f} us, bound {s_bytes / HBM_BPS * 1e6:.1f} us "
+                      f"(bytes) / {s_ops / BF16_OPS * 1e6:.1f} us (operations) ({card})")
+                check(kpaths["wgmma"] == 1 and kerr <= STEM_FOLD_TOL,
+                      f"input_s2d gen pad_c={pad}: the stem kernel {kerr:.3g}, {kpaths}")
+                del xd, w, b, xs, got, x_nchw, w_oihw
             errs_ = {n: rel_err(torch.from_numpy(o[n].data),
                                 torch.from_numpy(unfolded[pol][n].data))[1] for n in fwd_outs}
             check(all(errs_[n] <= SLICE_TOL[n] for n in fwd_outs),
                   f"input_s2d {pol} pad_c={pad} vs unfolded: {errs_}")
             secs = e.time_fwd(fin, ["prob"], n_iters=20, warmup=5)
             s2d_rates[f"{pol}_pad{pad}"] = BATCH / secs
+            _, c1err = rel_err(torch.from_numpy(e.run_fwd(fin, ["conv1"])["conv1"].data),
+                               torch.from_numpy(c1_ref[pol]))
             print(f"[input_s2d] resnet50 b{BATCH} bf16 {pol} input_pad_c={pad}: input "
                   f"{tuple(xf.shape)}; vs the unfolded forward "
                   + ", ".join(f"{n} {errs_[n]:.3e}" for n in fwd_outs)
-                  + f" (tol 5e-2); conv paths {stem_paths}; graph {secs * 1e3:.3f} ms/fwd, "
-                  f"{BATCH / secs:.1f} img/s ({card})")
+                  + f" (tol 5e-2), conv1 {c1err:.3e} (tol {STEM_FOLD_TOL}); conv paths "
+                  f"{stem_paths}; graph {secs * 1e3:.3f} ms/fwd, {BATCH / secs:.1f} img/s "
+                  f"({card})")
+            check(c1err <= STEM_FOLD_TOL, f"input_s2d {pol} pad_c={pad}: conv1 {c1err:.3g}")
             del e, o
     # f32 b2 64x64: conv1 on the fold against the unfolded engine's
     xh2 = np.ascontiguousarray(sins["data"].data.transpose(0, 2, 3, 1))

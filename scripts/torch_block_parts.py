@@ -69,6 +69,7 @@ def main() -> int:
     spec.loader.exec_module(cs)
     from boda_tpu_torch.ops.kernels import build
     from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    from boda_tpu_torch.rtc.backends import graph_time
     sys.path.insert(0, str(HERE / "scripts"))
     from torch_block_stages import NAMES, STAGES
 
@@ -113,7 +114,7 @@ def main() -> int:
                                          torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"boda_bottleneck: error {rc}")
-            row[DROPS[drop]] = cs.graph_ms(call) * 1e3
+            row[DROPS[drop]] = graph_time(call) * 1e6
         result[NAMES[h]] = {"count": count, "us": row}
         print(f"{NAMES[h]} {(n, h, c, k)} x{count}: " +
               ", ".join(f"{name} {us:.1f} us" for name, us in row.items()))

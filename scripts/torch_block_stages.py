@@ -51,6 +51,7 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
+    from boda_tpu_torch.rtc.backends import graph_time
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = cs.smi()
@@ -76,8 +77,8 @@ def main() -> int:
         plan = getattr(bottleneck, "last_plan", None)
         lib = cs.block_library(*ops)
         fk = lambda: bottleneck(*ops)  # noqa: E731
-        r = {"device_ms": cs.graph_ms(fk), "launch_ms": cs.cuda_ms(fk),
-             "library_device_ms": cs.graph_ms(lib), "library_launch_ms": cs.cuda_ms(lib),
+        r = {"device_ms": graph_time(fk) * 1e3, "launch_ms": cs.cuda_ms(fk),
+             "library_device_ms": graph_time(lib) * 1e3, "library_launch_ms": cs.cuda_ms(lib),
              "bound_ms": max(cs.work("block", (n, h, c, k))), "count": count,
              "plan": cs.block_plan_str(plan) if plan is not None else "-", "rel_err": err}
         stages[NAMES[h]] = r

@@ -9,7 +9,7 @@ For each signature (from the engine's own dispatch, as chip_smoke.py takes
 them) it launches the C entry points directly with each plan: 64 or 128
 rows, 64, 128 or 256 columns, and every split of the 64-deep K chunks up to
 16 that divides them (and the planner's). Each plan's device time is that of 20 calls in one
-CUDA graph (chip_smoke.py's graph_ms), and its output is checked against the
+CUDA graph (rtc/backends.py's graph_time), and its output is checked against the
 planner's own plan (within 1e-2 of max|ref|: one bf16 rounding). K5's
 plans: the same tiles, and K splits from 1 to 256 (plan_atb's range, on a
 geometric grid, and the planner's), each split's chunk the longest split's.
@@ -52,6 +52,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels.bconv import atb_workspace, plan_atb
     from boda_tpu_torch.ops.kernels.common import (PATH_CODES, WGMMA_CHUNK, GemmPlan, cdiv,
                                                    plan_gemm, sm_count)
+    from boda_tpu_torch.rtc.backends import graph_time
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = cs.smi()
@@ -126,7 +127,7 @@ def main() -> int:
                         err = float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
                         if err > 1e-2:
                             raise RuntimeError(f"{kind} {sig} {plan}: {err:.3g} from the planner's")
-                        times.append((cs.graph_ms(lambda: fn(plan)) * 1e3, bm, bn, split))
+                        times.append((graph_time(lambda: fn(plan)) * 1e6, bm, bn, split))
             times.sort()
             t_mine = next(t for t, bm, bn, sp in times
                           if (bm, bn, sp) == (mine.bm, mine.bn, mine.split))
@@ -185,7 +186,7 @@ def main() -> int:
                         if err > 1e-2:
                             raise RuntimeError(f"atb {sig} {bm}x{bn}/{split}: {err:.3g} from "
                                                "the planner's")
-                        times.append((cs.graph_ms(lambda: fn(bm, bn, split, per)) * 1e3, bm, bn,
+                        times.append((graph_time(lambda: fn(bm, bn, split, per)) * 1e6, bm, bn,
                                       split))
             times.sort()
             t_mine = next(t for t, bm, bn, sp in times

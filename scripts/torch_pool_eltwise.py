@@ -60,6 +60,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels import build
     from boda_tpu_torch.ops.kernels import elementwise as elt
     from boda_tpu_torch.ops.kernels import pool as pl
+    from boda_tpu_torch.rtc.backends import graph_time
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = cs.smi()
@@ -72,8 +73,8 @@ def main() -> int:
     res = {}
 
     def timed(name, fk, lib, bound_ms, note=""):
-        r = {"device_ms": cs.graph_ms(fk), "launch_ms": cs.cuda_ms(fk),
-             "library_device_ms": cs.graph_ms(lib), "library_launch_ms": cs.cuda_ms(lib),
+        r = {"device_ms": graph_time(fk) * 1e3, "launch_ms": cs.cuda_ms(fk),
+             "library_device_ms": graph_time(lib) * 1e3, "library_launch_ms": cs.cuda_ms(lib),
              "bound_ms": bound_ms, "note": note}
         res[name] = r
         print(f"[{args.tag}] {name}: device {r['device_ms'] * 1e3:.2f} us (launched "

@@ -206,6 +206,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels import build
     from boda_tpu_torch.ops.kernels import elementwise as elt
     from boda_tpu_torch.ops.kernels import pool as pl
+    from boda_tpu_torch.rtc.backends import graph_time
 
     out_dir = HERE / "build" / "stream_parts"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -263,11 +264,11 @@ def main() -> int:
             if not torch.equal(cs.bits(out), cs.bits(ref)):
                 print(f"torch_stream_parts: eltwise variant {v} not bit-equal", file=sys.stderr)
                 return 1
-            ms = cs.graph_ms(call)
+            ms = graph_time(call) * 1e3
             res[f"eltwise {blocks} blocks {what}"] = ms
             print(f"[eltwise add b32] {blocks} blocks, {what}: {ms * 1e3:.2f} us device "
                   f"({bound / ms * 100:.1f}% of the {bound * 1e3:.2f} us bound)")
-    ms = cs.graph_ms(lambda: torch.add(a, b))
+    ms = graph_time(lambda: torch.add(a, b)) * 1e3
     res["torch.add"] = ms
     print(f"[eltwise add b32] torch.add: {ms * 1e3:.2f} us device")
     del a, b, ref
@@ -298,7 +299,7 @@ def main() -> int:
             if not torch.equal(out, ref):
                 print(f"torch_stream_parts: pool variant {v} {p} not exact", file=sys.stderr)
                 return 1
-            ms = cs.graph_ms(call)
+            ms = graph_time(call) * 1e3
             key = f"pool1 {cs.pool_plan_str(p)}, {what}"
             res[key] = ms
             print(f"[pool1] {key}: {ms * 1e3:.2f} us device ({bound / ms * 100:.1f}% of the "

@@ -1,7 +1,8 @@
 """The engine's CUDA-graph capture (``cuda_graph=1``) on the card: each replay
 is bit-equal to an eager forward of the same engine (``cuda_graph=0``) and
 launches the same kernels, for a gen and a fused net in bf16 and for a gen
-gradient graph; the graph is dropped on init() and on a new key; a lowering
+gradient graph, and a second batch of the same key replays the same graph
+and follows its input; the graph is dropped on init() and on a new key; a lowering
 that a capture cannot record raises, naming its op, and runs no forward.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. On the
@@ -59,13 +60,14 @@ def _fused_net():
     return b.done({"data": Dims.of(img=4, chan=3, y=64, x=64)})
 
 
-def _ins(pipe, names=("data",)):
-    rng = np.random.RandomState(5)
+def _ins(pipe, names=("data",), seed=5):
+    rng = np.random.RandomState(seed)
     out = {n: NDA(pipe.nodes[n].dims, rng.randn(*pipe.nodes[n].dims.shape)
                   .astype(np.float32)) for n in names}
     if "label" in pipe.nodes:
         n = pipe.nodes["data"].dims["img"]
-        out["label"] = NDA(pipe.nodes["label"].dims, (np.arange(n) % 7).astype(np.float32))
+        out["label"] = NDA(pipe.nodes["label"].dims,
+                           ((np.arange(n) + seed) % 7).astype(np.float32))
     return out
 
 
@@ -77,18 +79,28 @@ def _counted(run):
     return out, [f.launches for f in _COUNTERS]
 
 
-def _replay_vs_eager(eng, ins, outs):
+def _replay_vs_eager(eng, ins, ins2, outs):
+    """The capture against eager on ``ins``, then a second batch ``ins2`` of
+    the same key through the same graph: the replay must follow its input."""
     eng.cuda_graph = False
     eager, n_eager = _counted(lambda: eng.run_fwd(ins, outs))
     eng.cuda_graph = True
     eng.prepare(ins, outs)
     graph, n_graph = _counted(lambda: eng.run_fwd(ins, outs))
-    assert eng._graph is not None and n_graph == n_eager and sum(n_graph) > 0
+    g = eng._graph
+    assert g is not None and n_graph == n_eager and sum(n_graph) > 0
     again, n_again = _counted(lambda: eng.run_fwd(ins, outs))  # replay only
     assert sum(n_again) == 0
+    eng.cuda_graph = False
+    eager2 = eng.run_fwd(ins2, outs)
+    eng.cuda_graph = True
+    replay2, n_replay2 = _counted(lambda: eng.run_fwd(ins2, outs))
+    assert eng._graph is g and sum(n_replay2) == 0  # the same graph, replayed
     for n in outs:
         assert np.array_equal(graph[n].data, eager[n].data), n
         assert np.array_equal(again[n].data, eager[n].data), n
+        assert np.array_equal(replay2[n].data, eager2[n].data), n
+    assert not np.array_equal(eager2[outs[0]].data, eager[outs[0]].data)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -99,7 +111,7 @@ def test_replay_bit_equal_to_eager(dev, fused):
     eng.init(pipe)
     if fused:
         assert "block-fused bottleneck" in eng.get_info_log()
-    _replay_vs_eager(eng, _ins(pipe), ["prob", "fc"])
+    _replay_vs_eager(eng, _ins(pipe), _ins(pipe, seed=6), ["prob", "fc"])
 
 
 @pytest.mark.parametrize("tune", ["()", "(pool_pallas=1)"])
@@ -123,7 +135,7 @@ def test_gradient_graph_replay_bit_equal_to_eager(dev, tune):
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        _replay_vs_eager(eng, _ins(pipe, ("data",)), want)
+        _replay_vs_eager(eng, _ins(pipe), _ins(pipe, seed=6), want)
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
