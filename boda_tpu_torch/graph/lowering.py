@@ -1,7 +1,7 @@
 """Shared lowering context and helpers for the NHWC op rules.
 
 Counterpart of the parts of ``boda_tpu/graph/lowering.py`` that the NHWC
-engine uses: ``LowerCtx``, the precision names and ``_softmax``, plus
+engine uses: ``LowerCtx``, the precision names, ``_softmax`` and ``lrn_inv_pow``, plus
 :func:`lib_precision`, which applies a precision to the library ops, and
 :func:`jax_maximum`, ``jnp.maximum`` with JAX's gradient. The NCHW per-op
 rules of that module are not ported (the port runs channels-last only).
@@ -93,3 +93,16 @@ def _softmax(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
     m = torch.amax(x32, dim=axis, keepdim=True)
     e = torch.exp(x32 - m)
     return e / torch.sum(e, dim=axis, keepdim=True)
+
+
+def lrn_inv_pow(scale: torch.Tensor, beta: float) -> torch.Tensor:
+    """scale**(-beta) in boda_tpu's forms (lowering.py:271-285): beta = 0.75
+    as rsqrt(s) * sqrt(rsqrt(s)) and beta = 0.5 as rsqrt(s), two root ops in
+    place of the exp/log pow chain. Same math as pow; the forms are kept
+    because they are the reference's rounding."""
+    if beta == 0.75:
+        t = torch.rsqrt(scale)
+        return t * torch.sqrt(t)
+    if beta == 0.5:
+        return torch.rsqrt(scale)
+    return torch.pow(scale, -beta)

@@ -1,6 +1,8 @@
 """NHWC lowering rules: graph ops -> PyTorch callables on channels-last data.
 
-Counterpart of ``boda_tpu/graph/lowering_nhwc.py`` for the ops ResNet uses.
+Counterpart of ``boda_tpu/graph/lowering_nhwc.py`` for the ops of the zoo's
+ResNet, GoogLeNet, VGG, AlexNet, NiN, SqueezeNet and firenet builders and of
+the Caffe nets the frontend reads.
 Activations are physically (img, y, x, chan) contiguous tensors while node
 Dims stay logically NCHW; library ops (pooling, the lib conv) see them
 through ``permute(0, 3, 1, 2)``, a channels_last view of the same memory.
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
-from .lowering import LowerCtx, _softmax, jax_maximum
+from .lowering import LowerCtx, _softmax, jax_maximum, lrn_inv_pow
 from .pipe import ConvOp, ConvPipe, PipeError
 
 _NHWC_RULES: dict[str, Callable] = {}
@@ -291,6 +293,28 @@ def _nhwc_pool(pipe, op, ctx, tune, info_log):
     return _no_preps(lambda x: (pool2d_lib(x, *geom),))
 
 
+@nhwc_rule("LRN")
+def _nhwc_lrn(pipe, op, ctx, tune, info_log):
+    """Caffe's across-channel LRN (boda_tpu: lowering_nhwc.py:625-644): the
+    squares summed over a window of local_size channels in f32, scaled, then
+    x * (k + alpha / size * sum)^-beta cast back to x's dtype."""
+    size = int(op.p("local_size", 5))
+    alpha = float(op.p("alpha", 1e-4))
+    beta = float(op.p("beta", 0.75))
+    kk = float(op.p("k", 1.0))
+    half = (size - 1) // 2
+
+    def fn(x):
+        x32 = x.float()
+        c = x.shape[3]
+        sqp = F.pad(x32 * x32, (half, size - 1 - half))
+        ssum = sqp[..., 0:c]
+        for i in range(1, size):
+            ssum = ssum + sqp[..., i:i + c]
+        return ((x32 * lrn_inv_pow(kk + (alpha / size) * ssum, beta)).to(x.dtype),)
+    return _no_preps(fn)
+
+
 @nhwc_rule("BatchNorm")
 def _nhwc_bn(pipe, op, ctx, tune, info_log):
     eps = float(op.p("eps", 1e-5))
@@ -332,6 +356,21 @@ def _nhwc_dropout(pipe, op, ctx, tune, info_log):
 def _nhwc_split(pipe, op, ctx, tune, info_log):
     n = len(op.tops)
     return _no_preps(lambda x: (x,) * n)
+
+
+@nhwc_rule("Concat")
+def _nhwc_concat(pipe, op, ctx, tune, info_log):
+    """Concat (boda_tpu: lowering_nhwc.py:708-720): on NHWC axis 3 for the
+    channel axis of a canonical (img, chan, y, x) node, on the logical axis
+    for other nodes."""
+    from .pipe import _concat_axis_name
+    d0 = pipe.must_dims(op.bots[0])
+    axis_name = _concat_axis_name(op, d0)
+    if d0.names == ("img", "chan", "y", "x"):  # physically NHWC
+        axis = {"img": 0, "y": 1, "x": 2, "chan": 3}[axis_name]
+    else:  # non-canonical nodes keep logical layout
+        axis = d0.index(axis_name)
+    return _no_preps(lambda *xs: (torch.cat(xs, dim=axis),))
 
 
 @nhwc_rule("Eltwise")

@@ -325,6 +325,27 @@ def _calc_split(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     return [pipe.must_dims(op.bots[0])] * len(op.tops)
 
 
+def _concat_axis_name(op: ConvOp, d0: "Dims") -> str:
+    # prefer explicit index (needed for non-canonical dims, e.g. SSD
+    # priorbox concat along axis 2 of (img,pv,pbox)); fall back to name
+    axis = op.p("axis", None)
+    if axis is not None:
+        return d0.names[int(axis) % len(d0)]
+    return op.p("axis_name", "chan")
+
+
+@_op_info("Concat", min_bots=1, max_bots=-1)
+def _calc_concat(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    ds = [pipe.must_dims(b) for b in op.bots]
+    d0 = ds[0]
+    axis_name = _concat_axis_name(op, d0)
+    tot = sum(d[axis_name] for d in ds)
+    for d in ds[1:]:
+        if not d.drop(axis_name).matches(d0.drop(axis_name)):
+            raise PipeError(f"op {op.name!r}: concat input dims mismatch {d} vs {d0}")
+    return [d0.with_size(axis_name, tot)]
+
+
 @_op_info("Eltwise", min_bots=2, max_bots=-1)
 def _calc_eltwise(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     ds = [pipe.must_dims(b) for b in op.bots]
@@ -343,6 +364,6 @@ def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
 
 # same-dims unary ops (Scale takes optional scales/biases weight bots;
 # BatchNorm takes means/vars/scale-factor weight bots)
-for _t, _mb in (("ReLU", 1), ("Dropout", 1), ("Softmax", 1), ("Scale", 3),
+for _t, _mb in (("ReLU", 1), ("Dropout", 1), ("LRN", 1), ("Softmax", 1), ("Scale", 3),
                 ("BatchNorm", 4), ("Data", 1)):
     OP_INFOS[_t] = OpInfo(_t, 1, _mb, 1, same_dims=True)

@@ -1,12 +1,13 @@
-"""Programmatic net zoo: the ResNet builders of the slice.
+"""Programmatic net zoo: the models the reference ships as prototxt.
 
 Counterpart of ``boda_tpu/models/zoo.py``: graph builders emitting the
 ConvPipe IR with deterministic pseudo-random weights, seeded per layer from
 ``stable_hash`` of the weight name exactly as ``boda_tpu`` seeds them, so the
-two packages build bit-identical weights. Besides ResNet, the gradient
-regression net ``bconv_strides``. The other zoo builders (alexnet,
-NiN, googlenet, VGG, squeezenet, firenet, ssd300, ...) come with the op rules
-they need (LRN, Concat, the SSD head).
+two packages build bit-identical weights: alexnet_ng_conv, nin_imagenet,
+googlenet_conv, VGG-16/19, ResNet-50/101/152, squeezenet, firenet, and the
+gradient regression net ``bconv_strides``. ``ssd300`` comes with the SSD
+head's op rules (Permute, Flatten, Reshape, Normalize, PriorBox,
+DetectionOutput).
 """
 
 from __future__ import annotations
@@ -88,8 +89,26 @@ class NetBuilder:
         self.pipe.add_op(ConvOp(name, "Pooling", params, bots=[bot], tops=[name]))
         return name
 
+    def lrn(self, name: str, bot: str, local_size=5, alpha=1e-4, beta=0.75) -> str:
+        self.pipe.add_op(ConvOp(name, "LRN",
+                                {"local_size": local_size, "alpha": alpha,
+                                 "beta": beta},
+                                bots=[bot], tops=[name]))
+        return name
+
+    def dropout(self, name: str, bot: str, ratio=0.5) -> str:
+        self.pipe.add_op(ConvOp(name, "Dropout", {"dropout_ratio": ratio},
+                                bots=[bot], tops=[name]))
+        return name
+
     def softmax(self, name: str, bot: str) -> str:
         self.pipe.add_op(ConvOp(name, "Softmax", {}, bots=[bot], tops=[name]))
+        return name
+
+    def concat(self, name: str, bots: list[str], axis: int | None = None) -> str:
+        params = {} if axis is None else {"axis": axis}
+        self.pipe.add_op(ConvOp(name, "Concat", params, bots=list(bots),
+                                tops=[name]))
         return name
 
     def eltwise(self, name: str, bots: list[str], op="sum", relu=False) -> str:
@@ -128,6 +147,121 @@ class NetBuilder:
 
 # -- model builders ------------------------------------------------------------------
 # each returns (pipe, in_dims) for a given batch size
+
+def build_alexnet_ng_conv(img: int = 1, num_cls: int = 1000, in_sz: int = 227):
+    """AlexNet, no-groups variant (ref nets/alexnet_ng_conv)."""
+    b = NetBuilder("alexnet_ng_conv")
+    d = b.input("data")
+    t = b.conv("conv1", d, 96, 11, stride=4, in_chans=3, relu=True)
+    t = b.lrn("norm1", t)
+    t = b.pool("pool1", t, kern=3, stride=2)
+    t = b.conv("conv2", t, 256, 5, pad=2, in_chans=96, relu=True)
+    t = b.lrn("norm2", t)
+    t = b.pool("pool2", t, kern=3, stride=2)
+    t = b.conv("conv3", t, 384, 3, pad=1, in_chans=256, relu=True)
+    t = b.conv("conv4", t, 384, 3, pad=1, in_chans=384, relu=True)
+    t = b.conv("conv5", t, 256, 3, pad=1, in_chans=384, relu=True)
+    t = b.pool("pool5", t, kern=3, stride=2)
+    t = b.fc("fc6", t, 4096, in_feats=256 * 6 * 6, relu=True)
+    t = b.dropout("drop6", t)
+    t = b.fc("fc7", t, 4096, in_feats=4096, relu=True)
+    t = b.dropout("drop7", t)
+    t = b.fc("fc8", t, num_cls, in_feats=4096)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
+def build_nin_imagenet(img: int = 1, num_cls: int = 1000, in_sz: int = 227):
+    """Network-in-Network (ref nets/nin_imagenet): convs + 1x1 "cccp" convs."""
+    b = NetBuilder("nin_imagenet")
+    d = b.input("data")
+    t = b.conv("conv1", d, 96, 11, stride=4, in_chans=3, relu=True)
+    t = b.conv("cccp1", t, 96, 1, in_chans=96, relu=True)
+    t = b.conv("cccp2", t, 96, 1, in_chans=96, relu=True)
+    t = b.pool("pool1", t, kern=3, stride=2)
+    t = b.conv("conv2", t, 256, 5, pad=2, in_chans=96, relu=True)
+    t = b.conv("cccp3", t, 256, 1, in_chans=256, relu=True)
+    t = b.conv("cccp4", t, 256, 1, in_chans=256, relu=True)
+    t = b.pool("pool2", t, kern=3, stride=2)
+    t = b.conv("conv3", t, 384, 3, pad=1, in_chans=256, relu=True)
+    t = b.conv("cccp5", t, 384, 1, in_chans=384, relu=True)
+    t = b.conv("cccp6", t, 384, 1, in_chans=384, relu=True)
+    t = b.pool("pool3", t, kern=3, stride=2)
+    t = b.dropout("drop", t)
+    t = b.conv("conv4-1024", t, 1024, 3, pad=1, in_chans=384, relu=True)
+    t = b.conv("cccp7-1024", t, 1024, 1, in_chans=1024, relu=True)
+    t = b.conv("cccp8-1024", t, num_cls, 1, in_chans=1024, relu=True)
+    t = b.pool("pool4", t, kern=6, stride=1, avg=True, global_pool=True)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
+def build_googlenet_conv(img: int = 1, num_cls: int = 1000, in_sz: int = 224):
+    """GoogLeNet v1, conv trunk + single classifier head (ref nets/googlenet_conv)."""
+    b = NetBuilder("googlenet_conv")
+    d = b.input("data")
+    t = b.conv("conv1/7x7_s2", d, 64, 7, stride=2, pad=3, in_chans=3, relu=True)
+    t = b.pool("pool1/3x3_s2", t, kern=3, stride=2)
+    t = b.lrn("pool1/norm1", t)
+    t = b.conv("conv2/3x3_reduce", t, 64, 1, in_chans=64, relu=True)
+    t = b.conv("conv2/3x3", t, 192, 3, pad=1, in_chans=64, relu=True)
+    t = b.lrn("conv2/norm2", t)
+    t = b.pool("pool2/3x3_s2", t, kern=3, stride=2)
+
+    def inception(tag, bot, in_c, c1, c3r, c3, c5r, c5, cp):
+        p1 = b.conv(f"{tag}/1x1", bot, c1, 1, in_chans=in_c, relu=True)
+        p2 = b.conv(f"{tag}/3x3_reduce", bot, c3r, 1, in_chans=in_c, relu=True)
+        p2 = b.conv(f"{tag}/3x3", p2, c3, 3, pad=1, in_chans=c3r, relu=True)
+        p3 = b.conv(f"{tag}/5x5_reduce", bot, c5r, 1, in_chans=in_c, relu=True)
+        p3 = b.conv(f"{tag}/5x5", p3, c5, 5, pad=2, in_chans=c5r, relu=True)
+        p4 = b.pool(f"{tag}/pool", bot, kern=3, stride=1, pad=1)
+        p4 = b.conv(f"{tag}/pool_proj", p4, cp, 1, in_chans=in_c, relu=True)
+        return b.concat(f"{tag}/output", [p1, p2, p3, p4]), c1 + c3 + c5 + cp
+
+    t, c = inception("inception_3a", t, 192, 64, 96, 128, 16, 32, 32)
+    t, c = inception("inception_3b", t, c, 128, 128, 192, 32, 96, 64)
+    t = b.pool("pool3/3x3_s2", t, kern=3, stride=2)
+    t, c = inception("inception_4a", t, c, 192, 96, 208, 16, 48, 64)
+    t, c = inception("inception_4b", t, c, 160, 112, 224, 24, 64, 64)
+    t, c = inception("inception_4c", t, c, 128, 128, 256, 24, 64, 64)
+    t, c = inception("inception_4d", t, c, 112, 144, 288, 32, 64, 64)
+    t, c = inception("inception_4e", t, c, 256, 160, 320, 32, 128, 128)
+    t = b.pool("pool4/3x3_s2", t, kern=3, stride=2)
+    t, c = inception("inception_5a", t, c, 256, 160, 320, 32, 128, 128)
+    t, c = inception("inception_5b", t, c, 384, 192, 384, 48, 128, 128)
+    t = b.pool("pool5/7x7_s1", t, kern=7, stride=1, avg=True, global_pool=True)
+    t = b.dropout("pool5/drop_7x7_s1", t, ratio=0.4)
+    t = b.fc("loss3/classifier", t, num_cls, in_feats=c)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
+def build_vgg(depth: int = 16, img: int = 1, num_cls: int = 1000, in_sz: int = 224):
+    """VGG-16/19 (ref nets/VGG_ILSVRC_16/19)."""
+    cfg = {
+        16: [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)],
+        19: [(64, 2), (128, 2), (256, 4), (512, 4), (512, 4)],
+    }[depth]
+    b = NetBuilder(f"vgg{depth}")
+    t = b.input("data")
+    in_c = 3
+    for bi, (c, reps) in enumerate(cfg, start=1):
+        for ri in range(1, reps + 1):
+            t = b.conv(f"conv{bi}_{ri}", t, c, 3, pad=1, in_chans=in_c, relu=True)
+            in_c = c
+        t = b.pool(f"pool{bi}", t, kern=2, stride=2)
+    t = b.fc("fc6", t, 4096, in_feats=512 * (in_sz // 32) ** 2, relu=True)
+    t = b.dropout("drop6", t)
+    t = b.fc("fc7", t, 4096, in_feats=4096, relu=True)
+    t = b.dropout("drop7", t)
+    t = b.fc("fc8", t, num_cls, in_feats=4096)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
 
 def build_resnet(depth: int = 50, img: int = 1, num_cls: int = 1000,
                  in_sz: int = 224):
@@ -170,6 +304,37 @@ def build_resnet(depth: int = 50, img: int = 1, num_cls: int = 1000,
     return b.done(in_dims), in_dims
 
 
+def build_squeezenet(img: int = 1, num_cls: int = 1000, in_sz: int = 227):
+    """SqueezeNet 1.0 (ref nets/squeezenet_v1.0)."""
+    b = NetBuilder("squeezenet")
+    t = b.input("data")
+    t = b.conv("conv1", t, 96, 7, stride=2, in_chans=3, relu=True)
+    t = b.pool("pool1", t, kern=3, stride=2)
+
+    def fire(tag, bot, in_c, sq, e1, e3):
+        s = b.conv(f"{tag}/squeeze1x1", bot, sq, 1, in_chans=in_c, relu=True)
+        a = b.conv(f"{tag}/expand1x1", s, e1, 1, in_chans=sq, relu=True)
+        c = b.conv(f"{tag}/expand3x3", s, e3, 3, pad=1, in_chans=sq, relu=True)
+        return b.concat(f"{tag}/concat", [a, c]), e1 + e3
+
+    t, c = fire("fire2", t, 96, 16, 64, 64)
+    t, c = fire("fire3", t, c, 16, 64, 64)
+    t, c = fire("fire4", t, c, 32, 128, 128)
+    t = b.pool("pool4", t, kern=3, stride=2)
+    t, c = fire("fire5", t, c, 32, 128, 128)
+    t, c = fire("fire6", t, c, 48, 192, 192)
+    t, c = fire("fire7", t, c, 48, 192, 192)
+    t, c = fire("fire8", t, c, 64, 256, 256)
+    t = b.pool("pool8", t, kern=3, stride=2)
+    t, c = fire("fire9", t, c, 64, 256, 256)
+    t = b.dropout("drop9", t)
+    t = b.conv("conv10", t, num_cls, 1, in_chans=c, relu=True)
+    t = b.pool("pool10", t, avg=True, global_pool=True)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
 def build_mini_resnet(img: int = 4, num_cls: int = 16, in_sz: int = 32,
                       widths=(16, 32, 64), reps: int = 2):
     """Small BN+eltwise residual net for fast tests and multi-chip dryruns
@@ -201,6 +366,30 @@ def build_mini_resnet(img: int = 4, num_cls: int = 16, in_sz: int = 32,
     return b.done(in_dims), in_dims
 
 
+def build_firenet(img: int = 1, num_cls: int = 1000, in_sz: int = 227,
+                  n_fire: int = 8):
+    """FireNet-N (ref nets/firenet*): squeezenet-style fire stack with
+    periodic pooling; the reference's small detection-oriented conv net."""
+    b = NetBuilder("firenet")
+    t = b.input("data")
+    t = b.conv("conv1", t, 64, 3, stride=2, in_chans=3, relu=True)
+    c = 64
+    for i in range(2, 2 + n_fire):
+        sq, e1, e3 = 16 * ((i // 2) + 1), 64 * ((i // 2) + 1), 64 * ((i // 2) + 1)
+        s_ = b.conv(f"fire{i}/squeeze1x1", t, sq, 1, in_chans=c, relu=True)
+        a = b.conv(f"fire{i}/expand1x1", s_, e1, 1, in_chans=sq, relu=True)
+        d = b.conv(f"fire{i}/expand3x3", s_, e3, 3, pad=1, in_chans=sq, relu=True)
+        t = b.concat(f"fire{i}/concat", [a, d])
+        c = e1 + e3
+        if i % 3 == 0:
+            t = b.pool(f"pool{i}", t, kern=3, stride=2)
+    t = b.conv("conv_final", t, num_cls, 1, in_chans=c, relu=True)
+    t = b.pool("pool_final", t, avg=True, global_pool=True)
+    b.softmax("prob", t)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
 def build_bconv_strides(img: int = 2, num_cls: int = 8, in_sz: int = 24):
     """Strided-conv backward regression net — the bconv_strides analog of
     the reference's gradient configs (ref src/test_compute.cc:219-232,
@@ -221,11 +410,18 @@ def build_bconv_strides(img: int = 2, num_cls: int = 8, in_sz: int = 24):
 
 
 MODELS = {
-    "bconv_strides": build_bconv_strides,
     "mini_resnet": build_mini_resnet,
+    "bconv_strides": build_bconv_strides,
+    "firenet": build_firenet,
+    "alexnet_ng_conv": build_alexnet_ng_conv,
+    "nin_imagenet": build_nin_imagenet,
+    "googlenet_conv": build_googlenet_conv,
+    "vgg16": lambda **kw: build_vgg(16, **kw),
+    "vgg19": lambda **kw: build_vgg(19, **kw),
     "resnet50": lambda **kw: build_resnet(50, **kw),
     "resnet101": lambda **kw: build_resnet(101, **kw),
     "resnet152": lambda **kw: build_resnet(152, **kw),
+    "squeezenet": build_squeezenet,
 }
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``boda_tpu/modes/cnet.py``: ``cnet_ana`` (per-layer
 shape/FLOPs dump) and ``run_cnet`` (build a net, run one forward, optionally
 time it, write per-layer times and the net's op signatures). Models come
-from the programmatic zoo (--model=); the prototxt frontend (--ptt-fn=) is
-not ported yet.
+from the programmatic zoo (--model=) or a Caffe prototxt (--ptt-fn=, with
+its caffemodel in --weights-fn=, else boda_tpu's seeded weights).
 """
 
 from __future__ import annotations
@@ -16,14 +16,34 @@ from ..config import ConfigError, Field, Mode, register
 from ..utils.dims import NDA
 
 
-def load_net(model: str, img: int, in_sz: int = 0):
-    if not model:
-        raise ConfigError("--model= (a zoo model name) is required")
-    from ..models.zoo import build_model
-    kw = {"img": img}
-    if in_sz:
-        kw["in_sz"] = in_sz
-    return build_model(model, **kw)
+def load_net(model: str = "", ptt_fn: str = "", weights_fn: str = "", img: int = 1,
+             in_sz: int = 0, init_seed: int = 1234):
+    """(pipe, in_dims) of a zoo model or a prototxt (boda_tpu: cnet.py:17-40).
+    ``weights_fn`` is a ':'-separated list of candidates: the first that
+    exists is read."""
+    if model and ptt_fn:
+        raise ConfigError("give either --model= (zoo) or --ptt-fn= (prototxt), not both")
+    if model:
+        from ..models.zoo import build_model
+        kw = {"img": img}
+        if in_sz:
+            kw["in_sz"] = in_sz
+        return build_model(model, **kw)
+    if ptt_fn:
+        import os
+
+        from ..frontend.pipe_builder import pipe_from_prototxt
+        if weights_fn:
+            # alternate-location fallback (ref ensure_one_is_regular_file,
+            # caffeif.H:41-42): first existing of a ':'-separated list wins
+            cands = weights_fn.split(":")
+            existing = [c for c in cands if os.path.isfile(c)]
+            if not existing:
+                raise ConfigError(f"no weights file found among {cands}")
+            weights_fn = existing[0]
+        return pipe_from_prototxt(ptt_fn, weights_fn=weights_fn, img=img,
+                                  in_sz=in_sz, seed=init_seed)
+    raise ConfigError("one of --model= or --ptt-fn= is required")
 
 
 def gen_data_inputs(in_dims) -> dict:
@@ -35,6 +55,8 @@ def gen_data_inputs(in_dims) -> dict:
 
 class _NetMode(Mode):
     model = Field(str, default="", help="zoo model name (e.g. resnet50)")
+    ptt_fn = Field("filename", default="", help="caffe prototxt path")
+    weights_fn = Field("filename", default="", help="caffemodel weights path")
     img = Field(int, default="1", help="batch size (img dim)")
     in_sz = Field(int, default="0", help="input spatial size override (0=model default)")
 
@@ -44,7 +66,8 @@ class CnetAna(_NetMode):
     print_ops = Field(bool, default="1", help="print per-op lines")
 
     def main(self) -> None:
-        pipe, in_dims = load_net(self.model, self.img, self.in_sz)
+        pipe, in_dims = load_net(self.model, self.ptt_fn, self.weights_fn,
+                                 self.img, self.in_sz)
         tot_flops = 0.0
         tot_bytes = 0.0
         rows = []
@@ -78,7 +101,8 @@ class RunCnet(_NetMode):
 
     def main(self) -> None:
         import numpy as np
-        pipe, in_dims = load_net(self.model, self.img, self.in_sz)
+        pipe, in_dims = load_net(self.model, self.ptt_fn, self.weights_fn,
+                                 self.img, self.in_sz)
         self.conv_fwd.init(pipe)
         ins = gen_data_inputs(in_dims)
         outs = self.conv_fwd.run_fwd(ins, [self.out_node_name])

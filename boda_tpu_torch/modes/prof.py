@@ -2,8 +2,8 @@
 
 Counterpart of ``boda_tpu/modes/prof.py``. Parity targets: ``ops-prof`` (ref
 src/rtc_prof.cc:194), ``wis-merge`` (ref src/op-tuner.cc:161), ``wis-ana``
-(ref src/op-tuner.cc:204). ``gen_prof_ops`` takes zoo models (``--model``);
-the prototxt frontend (boda_tpu's ``--ptt-fn``) is not ported yet.
+(ref src/op-tuner.cc:204). ``gen_prof_ops`` takes a zoo model (``--model``)
+or a Caffe prototxt (``--ptt-fn``).
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ class GenProfOps(Mode):
     """Corpus generator (ref pysrc/to-prof-ops-gen.py + write_sigs flow,
     rtc_fwd.cc:246): every unique matmul-shaped op signature in a net."""
     model = Field(str, default="", help="zoo model name")
+    ptt_fn = Field("filename", default="", help="caffe prototxt")
     img = Field(int, default="1", help="batch size")
     tn = Field(str, default="", help="override signature dtype (e.g. bfloat16)")
     out_fn = Field(str, default="prof-ops.txt", help="output corpus file")
@@ -88,7 +89,7 @@ class GenProfOps(Mode):
         from ..ops.op_base import save_op_sigs
         from ..ops.sig_of import collect_net_sigs
         from .cnet import load_net
-        pipe, _ = load_net(self.model, self.img)
+        pipe, _ = load_net(self.model, self.ptt_fn, "", self.img, 0)
         sigs = collect_net_sigs(pipe)
         if self.tn:
             for s in sigs:

@@ -6,7 +6,7 @@ Counterpart of ``boda_tpu/modes/test_compute.py`` (``test_compute`` and
 (``gen``) are held against it, node by node, forward and (with
 ``--add-bck-ops=1``) gradient. Digest streams are boda_tpu's format, so a
 stream written by either package checks the other. Models come from the
-zoo; the prototxt frontend is not ported yet.
+zoo (--model=) or a Caffe prototxt (--ptt-fn=, --weights-fn=).
 
 Parity target: ``test_compute_multi_t`` (ref src/test_compute.cc:24): run
 inputs through the same net on several engines; (a) full-tensor compare every
@@ -31,6 +31,8 @@ from .cnet import load_net
 @register("mode", "test_compute", help="cross-engine per-layer numeric regression")
 class TestCompute(Mode):
     model = Field(str, default="", help="zoo model name")
+    ptt_fn = Field("filename", default="", help="caffe prototxt path")
+    weights_fn = Field("filename", default="", help="caffemodel path")
     img = Field(int, default="2", help="batch size")
     in_sz = Field(int, default="0", help="input size override")
     engines = Field((dict, "conv_fwd"),
@@ -47,7 +49,8 @@ class TestCompute(Mode):
     add_bck_ops = Field(bool, default="0", help="also test gradient ops (graph autodiff)")
 
     def main(self) -> None:
-        pipe, in_dims = load_net(self.model, self.img, self.in_sz)
+        pipe, in_dims = load_net(self.model, self.ptt_fn, self.weights_fn,
+                                 self.img, self.in_sz)
         if self.add_bck_ops:
             from ..graph.autodiff import add_bck_ops
             add_bck_ops(pipe)

@@ -12,6 +12,7 @@ _MODE_MODULES = [
     "boda_tpu_torch.modes.cnet",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",
+    "boda_tpu_torch.modes.surgery_modes",
     "boda_tpu_torch.modes.test_compute",
 ]
 

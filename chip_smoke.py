@@ -720,7 +720,7 @@ def main() -> int:
             lambda: space_to_depth_conv(x, w, bias, **kw),
             lambda: conv2d_plain(x, w, bias, **kw), lib)
 
-    pipe, in_dims = load_net("resnet50", BATCH)
+    pipe, in_dims = load_net("resnet50", img=BATCH)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm_shapes, conv_shapes = layer_shapes(pipe, eng)
@@ -744,7 +744,7 @@ def main() -> int:
         print(f"[block] {h}x{h} C={c} K={k} x{cnt}: {bp.path}, tile {bp.tile}x{bp.tile}, "
               f"clusters of {bp.cluster}, {bp.blocks} thread blocks")
     # the backward graph at b32 bf16: the eligible convs' wgrad/dgrad shapes
-    bpipe, bdims = load_net("resnet50", BATCH)
+    bpipe, bdims = load_net("resnet50", img=BATCH)
     add_bck_ops(bpipe)
     bdims["label"] = bpipe.nodes["label"].dims
     beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
@@ -1066,7 +1066,7 @@ def main() -> int:
 
     # f32 at a small input, every conv node: gen kernels vs cuDNN (TF32 off);
     # and the fused configuration's block outputs, pools and stem vs cuDNN
-    spipe, sdims = load_net("resnet50", 2, 64)
+    spipe, sdims = load_net("resnet50", img=2, in_sz=64)
     sins = gen_data_inputs(sdims)
     nodes = ["prob"] + [o.tops[0] for o in spipe.ops.values() if o.type == "Convolution"]
     sfused = make("conv_fwd", "cuda", fuse_block=True, tune=parse_lexp(FUSED_TUNE))
@@ -1104,7 +1104,7 @@ def main() -> int:
     # (scale_fc1000); the gradient then reaches every layer, and relative
     # errors are as at any scale.
     print(f"[grad] fc1000 weights scaled by {fc_scale:.4g}, as in the forward phases")
-    gpipe, gdims = load_net("resnet50", GRAD_F32_BATCH)
+    gpipe, gdims = load_net("resnet50", img=GRAD_F32_BATCH)
     scale_fc1000([gpipe, bpipe], fc_scale)
     add_bck_ops(gpipe)
     gdims["label"] = gpipe.nodes["label"].dims

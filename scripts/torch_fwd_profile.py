@@ -105,7 +105,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
-    pipe, in_dims = load_net("resnet50", a.batch)
+    pipe, in_dims = load_net("resnet50", img=a.batch)
     ins = gen_data_inputs(in_dims)
     for name in a.configs.split(","):
         kw = dict(CONFIGS[name])

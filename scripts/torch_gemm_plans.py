@@ -58,7 +58,7 @@ def main() -> int:
     card = cs.smi()
     print(card)
     sms = sm_count(dev)
-    pipe, _ = load_net("resnet50", cs.BATCH)
+    pipe, _ = load_net("resnet50", img=cs.BATCH)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm, conv = cs.layer_shapes(pipe, eng)
@@ -140,7 +140,7 @@ def main() -> int:
     atb_tot = {"planner": 0.0, "best": 0.0}
     off = []
     if args.only != "fwd":
-        bpipe, _ = load_net("resnet50", cs.BATCH)
+        bpipe, _ = load_net("resnet50", img=cs.BATCH)
         add_bck_ops(bpipe)
         beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
         beng.init(bpipe)

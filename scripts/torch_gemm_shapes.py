@@ -57,11 +57,11 @@ def main() -> int:
     dev, bf = torch.device("cuda"), torch.bfloat16
     card = cs.smi()
     print(card)
-    pipe, _ = load_net("resnet50", cs.BATCH)
+    pipe, _ = load_net("resnet50", img=cs.BATCH)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     eng.init(pipe)
     gemm, conv = cs.layer_shapes(pipe, eng)
-    bpipe, _ = load_net("resnet50", cs.BATCH)
+    bpipe, _ = load_net("resnet50", img=cs.BATCH)
     add_bck_ops(bpipe)
     beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     beng.init(bpipe)

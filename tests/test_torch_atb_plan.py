@@ -22,7 +22,7 @@ BF16 = torch.bfloat16
 def wgrads():
     """(M = C, N = OC, K = n*oh*ow, taps, gathered) of each weight-gradient
     launch of one b32 gradient pass (a 1x1 is the dense form, x as it lies)."""
-    pipe, _ = load_net("resnet50", 32)
+    pipe, _ = load_net("resnet50", img=32)
     add_bck_ops(pipe)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16", device="cpu")
     eng.init(pipe)

@@ -18,7 +18,7 @@ BF16 = torch.bfloat16
 
 
 def test_b32_fused_forward_takes_wgmma():
-    pipe, _ = load_net("resnet50", 32)
+    pipe, _ = load_net("resnet50", img=32)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16", fuse_block=True, device="cpu",
                tune=parse_lexp(chip_smoke.FUSED_TUNE))
     eng.init(pipe)

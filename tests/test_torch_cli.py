@@ -41,6 +41,8 @@ import boda_tpu_torch.cli, boda_tpu_torch.modes_all
 import boda_tpu_torch.modes.test_compute, boda_tpu_torch.utils.digest
 import boda_tpu_torch.ops.kernels.bconv, boda_tpu_torch.ops.kernels.stem
 import boda_tpu_torch.modes.rtc, boda_tpu_torch.modes.prof, boda_tpu_torch.prof.abtime
+import boda_tpu_torch.frontend.pipe_builder, boda_tpu_torch.frontend.surgery
+import boda_tpu_torch.modes.surgery_modes
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
 from boda_tpu_torch.graph.autodiff import add_bck_ops
@@ -60,6 +62,9 @@ out = eng.run_fwd(gen_data_inputs(in_dims), ["data__grad__p0", "prob_loss"])
 assert out["data__grad__p0"].data.shape == (1, 3, 8, 8)
 assert "bck-conv" in eng.get_info_log()
 assert cli.main(["rtc_test", "--be=(be=cuda,device=cpu)", "--n=1000"]) == 0
+assert cli.main(["run_cnet", "--ptt-fn=testdata/nets/shapesnet.prototxt",
+                 "--weights-fn=testdata/nets/shapesnet.caffemodel",
+                 "--conv-fwd=(mode=cuda,device=cpu)"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)

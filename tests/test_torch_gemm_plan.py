@@ -24,7 +24,7 @@ BF16 = torch.bfloat16
 @pytest.fixture(scope="module")
 def calls():
     """(M, N, K, conv C or None) of each GEMM and conv launch of one forward."""
-    pipe, _ = load_net("resnet50", 32)
+    pipe, _ = load_net("resnet50", img=32)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16", device="cpu")
     eng.init(pipe)
     gemm, conv = chip_smoke.layer_shapes(pipe, eng)

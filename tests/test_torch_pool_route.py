@@ -26,7 +26,7 @@ def _pads(h, k, s, oy):
 
 
 def test_b32_fused_pools_take_rows_and_window():
-    pipe, _ = load_net("resnet50", 32)
+    pipe, _ = load_net("resnet50", img=32)
     eng = make("conv_fwd", "cuda", compute_tn="bfloat16", fuse_block=True, device="cpu",
                tune=parse_lexp(chip_smoke.FUSED_TUNE))
     eng.init(pipe)

@@ -60,7 +60,7 @@ def _picked(fn, *args) -> str:
 @pytest.fixture(scope="module")
 def r50_convs():
     """(graph op, rtc signature) of each distinct conv signature of ResNet-50."""
-    pipe, _ = load_net("resnet50", 1)
+    pipe, _ = load_net("resnet50", img=1)
     seen = {}
     for name in pipe.topo_op_order():
         op = pipe.ops[name]
@@ -119,7 +119,7 @@ def test_rtc_k1conv_route_computes_the_conv():
 
 
 def test_fc1000_scale_unsaturates_prob():
-    pipe, dims = load_net("resnet50", 2, 64)
+    pipe, dims = load_net("resnet50", img=2, in_sz=64)
     ins = gen_data_inputs(dims)
     eng = make("conv_fwd", "cuda", kernel_policy="lib", device="cpu")
     eng.init(pipe)
