@@ -272,19 +272,23 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
 
 # -- spatial ops --------------------------------------------------------------------
 
+def pool_geom(pipe, op) -> tuple:
+    """A Pooling op's arguments to the pooling kernel and its library
+    version: (kern, stride, pad_y, pad_x, oy, ox, avg), Caffe's ceil-mode
+    windows as a bottom/right pad so the last window fits (the extra rows
+    never win a max, and are not counted in an avg)."""
+    k, s, p = op.kern_sz(), op.stride(), op.pad()
+    ind, od = pipe.must_dims(op.bots[0]), pipe.must_dims(op.tops[0])
+    oy, ox = od["y"], od["x"]
+    pad_y = (p[0], max(0, (oy - 1) * s[0] + k[0] - ind["y"] - p[0]))
+    pad_x = (p[1], max(0, (ox - 1) * s[1] + k[1] - ind["x"] - p[1]))
+    return k, s, pad_y, pad_x, oy, ox, bool(op.p("avg_pool", False))
+
+
 @nhwc_rule("Pooling")
 def _nhwc_pool(pipe, op, ctx, tune, info_log):
-    k, s, p = op.kern_sz(), op.stride(), op.pad()
-    avg = bool(op.p("avg_pool", False))
-    ind = pipe.must_dims(op.bots[0])
-    od = pipe.must_dims(op.tops[0])
-    iy, ix = ind["y"], ind["x"]
-    oy, ox = od["y"], od["x"]
-    # caffe ceil-mode windows: pad the bottom/right so the last window fits
-    # (the extra rows never win a max, and are not counted in an avg)
-    pad_y = (p[0], max(0, (oy - 1) * s[0] + k[0] - iy - p[0]))
-    pad_x = (p[1], max(0, (ox - 1) * s[1] + k[1] - ix - p[1]))
-    geom = (k, s, pad_y, pad_x, oy, ox, avg)
+    geom = pool_geom(pipe, op)
+    k, s, avg = geom[0], geom[1], geom[6]
     if tune.pool_pallas:
         # the pooling kernel takes every plane: boda_tpu's VMEM plan and its
         # reduce_window fallback (lowering_nhwc.py:550-561) are Mosaic's

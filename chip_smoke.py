@@ -553,6 +553,344 @@ def layer_shapes(pipe, eng):
     return gemm, conv
 
 
+# -- the [caffe] phase: Caffe nets in, GoogLeNet b32 bf16 read back -------------------
+
+# the testdata nets through run_cnet --ptt-fn on the card: shapesnet{,2,3}
+# with their trained caffemodels; tinynet (it holds the LRN) with the seeded
+# weights (its caffemodel is a wire-format fixture of another net)
+CAFFE_NETS = {"tinynet": "", "shapesnet": "shapesnet.caffemodel",
+              "shapesnet2": "shapesnet2.caffemodel", "shapesnet3": "shapesnet3.caffemodel"}
+# bf16 prob of a trained net against its f32 forward, max|err|/max|ref|
+CAFFE_BF16_TOL = 5e-2
+GOOGLENET_LOGITS = "loss3/classifier"
+# GoogLeNet's kernel calls: every 1x1 conv and the classifier on K1, every
+# k x k conv on K2 (conv1 through K4's fold under fused), every pool on K8
+# under fused; its 14 pools
+GOOGLENET_POOLS = 14
+# the other builders, f32 b2 gen vs lib on every node, at the smallest input
+# each takes at its published widths (alexnet's fc6 is sized for a 6x6 pool5)
+CAFFE_SMALL = {"alexnet_ng_conv": 199, "nin_imagenet": 55, "vgg16": 32,
+               "squeezenet": 29, "firenet": 25}
+
+
+def worst_node(ref: dict, got: dict, nodes) -> tuple[float, str]:
+    """The worst max|err|/max|ref| over nodes, and its node; every node of
+    ``got`` finite and of ref's shape."""
+    worst = (0.0, "")
+    for n in nodes:
+        a, b = ref[n].data, got[n].data
+        check(a.shape == b.shape and bool(np.isfinite(b).all()), f"{n}: shape/finite")
+        worst = max(worst, (rel_err(torch.from_numpy(b), torch.from_numpy(a))[1], n))
+    return worst
+
+
+def kernel_shape_checks(pipe, gen, fused, dev) -> list[str]:
+    """Each distinct K1 and K2 call of the gen forward, and each K8 and K4 call
+    of the fused forward, at the net's own shapes on random bf16 operands,
+    against its plain version (max exact, the rest within TOL of max|ref|).
+    Returns the miss lines."""
+    from boda_tpu_torch.graph.lowering_nhwc import pool_geom
+    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain, space_to_depth_conv
+    from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
+    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+    gemm, conv = layer_shapes(pipe, gen)
+    misses, worst = [], {}
+
+    def held(kname, out, ref, exact=False):
+        err = rel_err(out, ref)[1]
+        ok = torch.equal(out, ref) if exact else err <= TOL[bf]
+        worst[kname] = max(worst.get(kname, 0.0), err)
+        return ok, err
+    for (M, K, N, res, relu), cnt in gemm.items():
+        a, b, bias = rnd((M, K)), rnd((K, N), K ** -0.5), rnd((N,), 0.1)
+        r = rnd((M, N)) if res else None
+        before = dict(matmul.paths)
+        out = matmul(a, b, bias, relu=relu, residual=r)
+        path = [p for p in matmul.paths if matmul.paths[p] != before[p]]
+        ok, err = held("sgemm", out, matmul_plain(a, b, bias, relu=relu, residual=r))
+        if not ok or path != ["wgmma"]:
+            misses.append(f"sgemm M={M} K={K} N={N} x{cnt}: {err:.3e} on {path}")
+    for (n, h, c, oc, k, s, p, res, relu), cnt in conv.items():
+        x, w = rnd((n, h, h, c)), rnd((k, k, c, oc), (k * k * c) ** -0.5)
+        bias = rnd((oc,), 0.1)
+        oh = (h + 2 * p - k) // s + 1
+        kw = dict(stride=(s, s), pad=(p, p), relu=relu,
+                  residual=rnd((n, oh, oh, oc)) if res else None)
+        before = dict(conv2d.paths)
+        out = conv2d(x, w, bias, **kw)
+        path = [q for q in conv2d.paths if conv2d.paths[q] != before[q]]
+        ok, err = held("conv", out, conv2d_plain(x, w, bias, **kw))
+        if not ok or path != (["mma"] if c % 8 else ["wgmma"]):
+            misses.append(f"conv {h}x{h} C={c} OC={oc} k{k} s{s} x{cnt}: {err:.3e} on {path}")
+    log = fused.get_info_log()
+    for op in pipe.ops.values():
+        if op.type == "Pooling":
+            ind = pipe.must_dims(op.bots[0])
+            x = rnd((ind["img"], ind["y"], ind["x"], ind["chan"]))
+            geom = pool_geom(pipe, op)
+            ok, err = held("pool", pool2d(x, *geom), pool2d_plain(x, *geom), exact=not geom[6])
+            if not ok:
+                misses.append(f"pool {op.name} {tuple(x.shape)}: {err:.3e}")
+        elif op.type == "Convolution" and f"{op.name}: nhwc-s2d_conv" in log:
+            ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+            x = rnd((ind["img"], ind["y"], ind["x"], ind["chan"]))
+            k, c, oc = fd["y"], fd["in_chan"], fd["out_chan"]
+            w, bias = rnd((k, k, c, oc), (k * k * c) ** -0.5), rnd((oc,), 0.1)
+            kw = dict(stride=op.stride(), pad=op.pad(), relu=True)
+            ok, err = held("s2d", space_to_depth_conv(x, w, bias, **kw),
+                           conv2d_plain(x, w, bias, **kw))
+            if not ok:
+                misses.append(f"s2d {op.name}: {err:.3e}")
+    print(f"[caffe] googlenet b{BATCH} bf16, each distinct call at the net's shapes vs its "
+          f"plain version: sgemm {len(gemm)}, conv {len(conv)}, and the fused forward's "
+          f"pools and s2d; worst max|err|/max|ref| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {TOL[bf]}; max pools exact)")
+    return misses
+
+
+def caffe_phase(card: str, out_dir) -> dict:
+    """[caffe]: the Caffe frontend on the card. The testdata nets through
+    run_cnet --ptt-fn (f32 every node gen vs lib and vs the port on the CPU;
+    bf16 prob vs f32 and top-1); GoogLeNet b32 224x224 bf16 written by the
+    port's own prototxt and caffemodel writers and read back, under gen, lib
+    and fused, each captured and replayed; the other builders small in f32,
+    and vgg16 at b32 bf16. Returns the phase's numbers."""
+    import os
+    import tempfile
+    import time
+
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.frontend.surgery import pipe_to_prototxt, write_caffemodel
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.ops.kernels.block import bottleneck
+    from boda_tpu_torch.ops.kernels.conv import conv2d, space_to_depth_conv
+    from boda_tpu_torch.ops.kernels.pool import pool2d
+    from boda_tpu_torch.ops.kernels.sgemm import matmul
+    from boda_tpu_torch.utils.lexp import parse_lexp
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = {"sgemm": matmul, "conv": conv2d, "s2d": space_to_depth_conv,
+                "pool": pool2d, "block": bottleneck}
+
+    def zero_counts():
+        for f in counters.values():
+            f.launches = 0
+            if hasattr(f, "paths"):
+                f.paths = dict.fromkeys(f.paths, 0)
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in counters.items()}
+    out = {"card": card}
+    nets_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "testdata", "nets")
+
+    # -- the testdata nets, through run_cnet --ptt-fn and node by node ------------
+    for name, cm in CAFFE_NETS.items():
+        ptt = os.path.join(nets_dir, f"{name}.prototxt")
+        cm = os.path.join(nets_dir, cm) if cm else ""
+        rc, lines = run_cli(["run_cnet", f"--ptt-fn={ptt}", "--img=0", "--conv-fwd=(mode=cuda)"]
+                            + ([f"--weights-fn={cm}"] if cm else []))
+        top = next((ln for ln in lines if ln.startswith("out prob")), "")
+        check(rc == 0 and bool(top), f"run_cnet --ptt-fn {name} on the card: rc {rc}")
+        pipe, dims = load_net(ptt_fn=ptt, weights_fn=cm, img=0)
+        ins, nodes = gen_data_inputs(dims), check_nodes(pipe)
+        r = {}
+        for tag, kw in (("gen", {}), ("lib", {"kernel_policy": "lib"}),
+                        ("cpu", {"device": "cpu"}), ("bf16", {"compute_tn": "bfloat16"})):
+            e = make("conv_fwd", "cuda", **kw)
+            e.init(pipe)
+            r[tag] = e.run_fwd(ins, ["prob"] if tag == "bf16" else nodes)
+        e_lib, n_lib = worst_node(r["lib"], r["gen"], nodes)
+        e_cpu, n_cpu = worst_node(r["cpu"], r["gen"], nodes)
+        e_bf, _ = worst_node(r["gen"], r["bf16"], ["prob"])
+        t32, t16 = (np.argmax(r[t]["prob"].data.reshape(len(ins["data"].data), -1), 1)
+                    for t in ("gen", "bf16"))
+        print(f"[caffe] {name} ({'trained ' + os.path.basename(cm) if cm else 'seeded'}), "
+              f"b{len(t32)}: run_cnet --ptt-fn rc 0, {top}; f32 {len(nodes)} nodes gen vs lib "
+              f"worst {e_lib:.3e} ({n_lib}), gen vs the port on the CPU {e_cpu:.3e} ({n_cpu}) "
+              f"(tol {F32_NODE_TOL}); bf16 prob vs f32 {e_bf:.3e} (tol {CAFFE_BF16_TOL}), "
+              f"top-1 equal {int((t32 == t16).sum())} of {len(t32)}")
+        check(e_lib <= F32_NODE_TOL and e_cpu <= F32_NODE_TOL, f"{name}: f32 per node")
+        check(e_bf <= CAFFE_BF16_TOL and bool((t32 == t16).all()), f"{name}: bf16 prob/top-1")
+        del r
+
+    # -- GoogLeNet b32 bf16, written by the port and read back -------------------
+    zoo, _ = load_net("googlenet_conv", img=BATCH)
+    with tempfile.TemporaryDirectory(dir=out_dir) as td:
+        ptt, cm = os.path.join(td, "googlenet.prototxt"), os.path.join(td, "googlenet.caffemodel")
+        with open(ptt, "w") as f:
+            f.write(pipe_to_prototxt(zoo))
+        write_caffemodel(cm, zoo)
+        t0 = time.perf_counter()
+        pipe, dims = load_net(ptt_fn=ptt, weights_fn=cm, img=BATCH)
+        read_s = time.perf_counter() - t0
+        same = sorted(pipe.weights) == sorted(zoo.weights) and all(
+            np.array_equal(pipe.weights[k].data, w.data) for k, w in zoo.weights.items())
+        print(f"[caffe] googlenet_conv b{BATCH} written by pipe_to_prototxt + write_caffemodel "
+              f"({os.path.getsize(cm) / 2 ** 20:.1f} MiB) and read back by load_net(ptt_fn, "
+              f"weights_fn) in {read_s:.2f} s: {len(pipe.ops)} ops, {len(pipe.weights)} weights "
+              f"bit-equal to the zoo's: {same}")
+        check(same and list(pipe.ops) == list(zoo.ops), "googlenet read back != the zoo's")
+        # the user's line on the card: run_cnet on the written pair, per-layer times
+        rc, lines = run_cli(["run_cnet", f"--ptt-fn={ptt}", f"--weights-fn={cm}",
+                             f"--img={BATCH}", "--n-iters=20",
+                             "--conv-fwd=(mode=cuda,compute_tn=bfloat16)",
+                             f"--boda-output-dir={out_dir}",
+                             "--per-layer-fn=googlenet_per_layer.txt"])
+    pl = (out_dir / "googlenet_per_layer.txt").read_text().splitlines() if rc == 0 else []
+    times = sorted(((float(ln.split("=", 1)[1]), ln.split("'")[1]) for ln in pl), reverse=True)
+    print(f"[caffe] run_cnet --ptt-fn --weights-fn googlenet b{BATCH} bf16 gen rc={rc}: "
+          f"{next((ln for ln in lines if ln.startswith('{')), '')}")
+    print(f"[caffe] googlenet --per-layer-fn: {len(pl)} lines for {len(pipe.ops)} ops, sum "
+          f"{sum(t for t, _ in times) * 1e3:.3f} ms; slowest "
+          + ", ".join(f"{n} {t * 1e6:.1f} us" for t, n in times[:5]) + f" ({card})")
+    check(rc == 0 and len(pl) == len(pipe.ops), "googlenet run_cnet --per-layer-fn")
+    out["per_layer_top5_us"] = {n: t * 1e6 for t, n in times[:5]}
+    out["per_layer_sum_ms"] = sum(t for t, _ in times) * 1e3
+
+    # the classifier scaled so that prob is not one-hot (as scale_fc1000)
+    ins = gen_data_inputs(dims)
+    e = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    e.init(pipe)
+    lmax = float(np.abs(e.run_fwd(ins, [GOOGLENET_LOGITS])[GOOGLENET_LOGITS].data).max())
+    pipe.weights[f"{GOOGLENET_LOGITS}__filts"].data *= np.float32(1.0 / lmax)
+    del e
+    print(f"[caffe] {GOOGLENET_LOGITS} weights scaled by {1 / lmax:.4g} (max|logits| "
+          f"{lmax:.4g} in the gen forward): logits in [-1, 1]")
+    n_1x1 = sum(o.type == "Convolution" and o.kern_sz() == (1, 1) for o in pipe.ops.values())
+    n_kxk = sum(o.type == "Convolution" and o.kern_sz() != (1, 1) for o in pipe.ops.values())
+    want = {"gen": {"sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 0, "pool": 0, "block": 0},
+            "lib": dict.fromkeys(counters, 0),
+            "fused": {"sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 1, "pool": GOOGLENET_POOLS,
+                      "block": 0}}
+    fwd_outs = [GOOGLENET_LOGITS, "prob"]
+    ins2 = other_batch(ins, 17)
+    engines, res, rows = {}, {}, {}
+    for pol, kw in (("gen", {}), ("lib", {"kernel_policy": "lib"}),
+                    ("fused", {"fuse_block": True, "tune": parse_lexp(FUSED_TUNE)})):
+        e = engines[pol] = make("conv_fwd", "cuda", compute_tn="bfloat16", **kw)
+        e.init(pipe)
+        elog = e.get_info_log()
+        e.cuda_graph = False
+        eager = e.run_fwd(ins, fwd_outs)
+        e.cuda_graph = True
+        e.prepare(ins, fwd_outs)
+        zero_counts()
+        replay = res[pol] = e.run_fwd(ins, fwd_outs)
+        n = read_counts()
+        paths = {k: dict(counters[k].paths) for k in ("sgemm", "conv", "pool")}
+        cap_s = e._graph.capture_secs
+        print(f"[caffe] googlenet b{BATCH} bf16 {pol}: launches {n} (expected {want[pol]}); "
+              f"paths sgemm {paths['sgemm']}, conv {paths['conv']}, pool {paths['pool']}")
+        check(n == want[pol], f"googlenet {pol}: launches {n}, expected {want[pol]}")
+        if pol != "lib":
+            check_paths(f"googlenet {pol} sgemm", paths["sgemm"], n["sgemm"], 0)
+            check_paths(f"googlenet {pol} conv", paths["conv"], n["conv"],
+                        1 if pol == "gen" else 0)  # gen: the C = 3 stem on mma.sync
+            check(pol == "gen" or "conv1/7x7_s2: nhwc-s2d_conv" in elog,
+                  "googlenet fused: conv1 did not take the space-to-depth fold")
+        bit = {k: np.array_equal(replay[k].data, eager[k].data) for k in fwd_outs}
+        errs = {k: rel_err(torch.from_numpy(replay[k].data),
+                           torch.from_numpy(eager[k].data))[1] for k in fwd_outs}
+        eager2, replay2 = replay_follows(e, ins2, fwd_outs)
+        bit2 = {k: np.array_equal(replay2[k].data, eager2[k].data) for k in fwd_outs}
+        moved = not np.array_equal(eager2[GOOGLENET_LOGITS].data, eager[GOOGLENET_LOGITS].data)
+        check(moved, f"googlenet {pol}: the second batch left the logits as they were")
+        if pol == "lib":
+            check(max(errs.values()) <= SLICE_TOL["prob"], f"googlenet graph lib: {errs}")
+        else:
+            check(all(bit.values()) and all(bit2.values()),
+                  f"googlenet {pol}: replay not bit-equal to eager {errs}")
+        e.cuda_graph = False
+        eager_s = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
+        e.cuda_graph = True
+        secs = e.time_fwd(ins, ["prob"], n_iters=20, warmup=5)
+        rows[pol] = {"eager_ms": eager_s * 1e3, "graph_ms": secs * 1e3,
+                     "img_per_s": BATCH / secs, "eager_img_per_s": BATCH / eager_s,
+                     "capture_s": cap_s, "launches": n}
+        print(f"[caffe] googlenet b{BATCH} bf16 {pol}: replay vs eager "
+              + ", ".join(f"{k} {'bit-equal' if bit[k] else f'{errs[k]:.3e}'}" for k in fwd_outs)
+              + ", second batch " + ("bit-equal" if all(bit2.values()) else "within the gate")
+              + f"; eager {eager_s * 1e3:.3f} ms/fwd ({BATCH / eager_s:.1f} img/s), graph "
+              f"{secs * 1e3:.3f} ms/fwd ({BATCH / secs:.1f} img/s), capture {cap_s:.3f} s "
+              f"({card})")
+        del eager, eager2, replay2
+    prob = res["gen"]["prob"].data
+    check(prob.shape == (BATCH, 1000) and bool(np.isfinite(prob).all()), "googlenet prob")
+    print(f"[caffe] googlenet max|prob| {prob.max():.4g} (one-hot would be 1)")
+    check(prob.max() < 0.5, "googlenet prob is saturated: the gates would check nothing")
+    for a, b in (("gen", "lib"), ("fused", "gen"), ("fused", "lib")):
+        errs = {k: rel_err(torch.from_numpy(res[a][k].data),
+                           torch.from_numpy(res[b][k].data))[1] for k in fwd_outs}
+        print(f"[caffe] googlenet {a} vs {b}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {SLICE_TOL['prob']})")
+        check(max(errs.values()) <= SLICE_TOL["prob"], f"googlenet {a} vs {b}: {errs}")
+    top = {p: np.argmax(res[p]["prob"].data, 1) for p in res}
+    print(f"[caffe] googlenet top-1 agreement gen vs lib {float(np.mean(top['gen'] == top['lib'])):.3f}, "
+          f"fused vs gen {float(np.mean(top['fused'] == top['gen'])):.3f}")
+    misses = kernel_shape_checks(pipe, engines["gen"], engines["fused"], dev)
+    for ln in misses:
+        print(f"[caffe]   MISS {ln}")
+    check(not misses, f"googlenet: {len(misses)} kernel calls differ from their plain versions")
+    out["googlenet"] = rows
+    del engines, res
+
+    # -- the other builders: f32 b2 at their smallest input, every node ------------
+    for name, sz in CAFFE_SMALL.items():
+        spipe, sdims = load_net(name, img=2, in_sz=sz)
+        sins, nodes = gen_data_inputs(sdims), check_nodes(spipe)
+        r = {}
+        for pol in ("gen", "lib"):
+            e = make("conv_fwd", "cuda", kernel_policy=pol)
+            e.init(spipe)
+            r[pol] = e.run_fwd(sins, nodes)
+        err, node = worst_node(r["lib"], r["gen"], nodes)
+        print(f"[caffe] {name} f32 b2 {sz}x{sz}: {len(nodes)} nodes gen vs lib worst {err:.3e} "
+              f"({node}) (tol {F32_NODE_TOL})")
+        check(err <= F32_NODE_TOL, f"{name}: f32 per node gen vs lib")
+        del r
+
+    # -- vgg16 b32 224 bf16: conv1_1 is K2's C = 3 route at stride 1 --------------
+    vpipe, vdims = load_net("vgg16", img=BATCH)
+    vins = gen_data_inputs(vdims)
+    e = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    e.init(vpipe)
+    vmax = float(np.abs(e.run_fwd(vins, ["fc8"])["fc8"].data).max())
+    vpipe.weights["fc8__filts"].data *= np.float32(1.0 / vmax)
+    v = {}
+    for pol in ("gen", "lib"):
+        e = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy=pol)
+        e.init(vpipe)
+        e.prepare(vins, ["fc8", "prob"])
+        zero_counts()
+        v[pol] = e.run_fwd(vins, ["fc8", "prob"])
+        n = read_counts()
+        cpaths = dict(conv2d.paths)
+        secs = e.time_fwd(vins, ["prob"], n_iters=10, warmup=3)
+        out[f"vgg16_{pol}"] = {"graph_ms": secs * 1e3, "img_per_s": BATCH / secs, "launches": n}
+        print(f"[caffe] vgg16 b{BATCH} 224 bf16 {pol}: launches {n}, conv paths {cpaths}; graph "
+              f"{secs * 1e3:.3f} ms/fwd ({BATCH / secs:.1f} img/s) ({card})")
+        if pol == "gen":  # 13 3x3 convs, conv1_1 (C = 3) on mma.sync; fc6-fc8
+            check(n["conv"] == 13 and n["sgemm"] == 3, f"vgg16 gen launches {n}")
+            check_paths("vgg16 gen conv", cpaths, n["conv"], 1)
+        del e
+    errs = {k: rel_err(torch.from_numpy(v["gen"][k].data), torch.from_numpy(v["lib"][k].data))[1]
+            for k in ("fc8", "prob")}
+    print(f"[caffe] vgg16 fc8 scaled by {1 / vmax:.4g}; gen vs lib "
+          + ", ".join(f"{k} {x:.3e}" for k, x in errs.items()) + f" (tol {SLICE_TOL['prob']}); "
+          f"max|prob| {v['gen']['prob'].data.max():.4g}")
+    check(max(errs.values()) <= SLICE_TOL["prob"], f"vgg16 gen vs lib {errs}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[caffe] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -1561,6 +1899,10 @@ def main() -> int:
     check(e_w <= SLICE_TOL["fc1000"], f"wisdom-tuned fc1000 vs lib {e_w:.3g}")
     del weng
 
+    # -- phase 7: [caffe] the Caffe frontend; GoogLeNet b32 bf16 read back ------------
+    caffe = caffe_phase(card, out_dir)
+    g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
+
     # per kernel: launches on its main path (the forward for sgemm and conv,
     # the b32 bf16 gradient graph for atb and for K3's entry, the dgrads,
     # the fused forward for block, pool and s2d), and that path's per-pass
@@ -1615,6 +1957,10 @@ def main() -> int:
             entry["fold"] = "boda_tpu_torch/ops/kernels/conv.py:space_to_depth_conv"
         if kname in launches_rtc:
             entry["launches_rtc"] = launches_rtc[kname]
+        if kname in ("sgemm", "conv", "pool", "s2d"):  # the [caffe] phase's GoogLeNet
+            entry["launches_googlenet"] = (g_gen if kname in ("sgemm", "conv")
+                                           else g_fused)[kname]
+            entry["launches_googlenet_fused"] = g_fused[kname]
         kernels.append(entry)
     # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
     # tests only); times of one call at the b32 shapes
@@ -1641,7 +1987,7 @@ def main() -> int:
                       "grad_img_per_s_eager": grad_eager_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
-                      "card": card}))
+                      "caffe": caffe, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
