@@ -177,12 +177,8 @@ def pipe_from_netparam(npm: dict, weights: dict | None = None, img: int = 0,
                 blob = lw[wi]
                 data = np.asarray(blob.data, dtype=np.float32)
                 nda = wshaper(data)
-            else:
-                # deterministic init, lazily materialized: analysis-only
-                # flows (cnet_ana etc.) never pay the randn fill
-                seed = (rng_seed + wi + stable_hash(lname)) % 2 ** 31
-                nda = NDA.lazy(wshaper.dims,
-                               lambda ws=wshaper, sd=seed: ws(None, seed=sd).data)
+            else:  # boda_tpu's deterministic init
+                nda = wshaper(None, seed=(rng_seed + wi + stable_hash(lname)) % 2 ** 31)
             pipe.weights[wname] = nda
             pipe.get_or_make_node(wname).dims = nda.dims
             op.bots.append(wname)

@@ -1,7 +1,8 @@
 """Shared lowering context and helpers for the NHWC op rules.
 
 Counterpart of the parts of ``boda_tpu/graph/lowering.py`` that the NHWC
-engine uses: ``LowerCtx``, the precision names, ``_softmax`` and ``lrn_inv_pow``, plus
+engine uses: ``LowerCtx``, the precision names, ``_softmax`` and
+``lrn_inv_pow``, plus
 :func:`lib_precision`, which applies a precision to the library ops, and
 :func:`jax_maximum`, ``jnp.maximum`` with JAX's gradient. The NCHW per-op
 rules of that module are not ported (the port runs channels-last only).

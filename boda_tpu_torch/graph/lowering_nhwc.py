@@ -27,7 +27,7 @@ from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
 from .lowering import LowerCtx, _softmax, jax_maximum, lrn_inv_pow
-from .pipe import ConvOp, ConvPipe, PipeError
+from .pipe import ConvOp, ConvPipe, PipeError, _concat_axis_name
 
 _NHWC_RULES: dict[str, Callable] = {}
 
@@ -367,7 +367,6 @@ def _nhwc_concat(pipe, op, ctx, tune, info_log):
     """Concat (boda_tpu: lowering_nhwc.py:708-720): on NHWC axis 3 for the
     channel axis of a canonical (img, chan, y, x) node, on the logical axis
     for other nodes."""
-    from .pipe import _concat_axis_name
     d0 = pipe.must_dims(op.bots[0])
     axis_name = _concat_axis_name(op, d0)
     if d0.names == ("img", "chan", "y", "x"):  # physically NHWC

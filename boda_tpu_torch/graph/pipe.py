@@ -364,6 +364,6 @@ def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
 
 # same-dims unary ops (Scale takes optional scales/biases weight bots;
 # BatchNorm takes means/vars/scale-factor weight bots)
-for _t, _mb in (("ReLU", 1), ("Dropout", 1), ("LRN", 1), ("Softmax", 1), ("Scale", 3),
-                ("BatchNorm", 4), ("Data", 1)):
+for _t, _mb in (("ReLU", 1), ("Dropout", 1), ("LRN", 1), ("Softmax", 1),
+                ("Scale", 3), ("BatchNorm", 4), ("Data", 1)):
     OP_INFOS[_t] = OpInfo(_t, 1, _mb, 1, same_dims=True)

@@ -173,34 +173,5 @@ class NDA:
                     raise ValueError(f"NDA: data shape {data.shape} != dims {dims}")
         self.data = data
 
-    @staticmethod
-    def lazy(dims: "Dims", thunk) -> "NDA":
-        return _LazyNDA(dims, thunk)
-
     def __repr__(self) -> str:
         return f"NDA({self.dims}, mean={float(np.mean(self.data.astype(np.float64))):.6g})"
-
-
-class _LazyNDA(NDA):
-    """NDA whose data materializes on first access (boda_tpu: dims.py
-    ``_LazyNDA``). Used for the frontend's seeded weights, so analysis-only
-    flows (cnet_ana, gen_prof_ops) never pay for the randn fill; the
-    materialized values are bit-identical to the eager path."""
-
-    __slots__ = ("_thunk", "_mat")
-
-    def __init__(self, dims: "Dims", thunk):
-        self.dims = dims
-        self._thunk = thunk
-        self._mat = None
-
-    @property
-    def data(self) -> np.ndarray:  # shadows the parent slot descriptor
-        if self._mat is None:
-            self._mat = np.asarray(self._thunk(), dtype=np_dtype(self.dims.tn))
-            assert tuple(self._mat.shape) == self.dims.shape, (self._mat.shape, self.dims)
-        return self._mat
-
-    @data.setter
-    def data(self, value) -> None:
-        self._mat = value

@@ -584,15 +584,15 @@ def worst_node(ref: dict, got: dict, nodes) -> tuple[float, str]:
     return worst
 
 
-def kernel_shape_checks(pipe, gen, fused, dev) -> list[str]:
-    """Each distinct K1 and K2 call of the gen forward, and each K8 and K4 call
-    of the fused forward, at the net's own shapes on random bf16 operands,
-    against its plain version (max exact, the rest within TOL of max|ref|).
-    Returns the miss lines."""
+def kernel_shape_checks(pipe, gen, fused, dev, gemm_case, conv_case) -> list[str]:
+    """Each distinct K1 and K2 call of the gen forward (main's ``gemm_case``
+    and ``conv_case``), and each K8 and K4 call of the fused forward, at the
+    net's own shapes on random bf16 operands, against its plain version (max
+    exact, the rest within TOL of max|ref|). Returns the miss lines."""
     from boda_tpu_torch.graph.lowering_nhwc import pool_geom
     from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain, space_to_depth_conv
     from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
-    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.ops.kernels.sgemm import matmul
     g = torch.Generator(device=dev).manual_seed(7)
     bf = torch.bfloat16
 
@@ -607,24 +607,17 @@ def kernel_shape_checks(pipe, gen, fused, dev) -> list[str]:
         worst[kname] = max(worst.get(kname, 0.0), err)
         return ok, err
     for (M, K, N, res, relu), cnt in gemm.items():
-        a, b, bias = rnd((M, K)), rnd((K, N), K ** -0.5), rnd((N,), 0.1)
-        r = rnd((M, N)) if res else None
         before = dict(matmul.paths)
-        out = matmul(a, b, bias, relu=relu, residual=r)
+        out, ref, _ = gemm_case(M, K, N, res, relu, bf)
         path = [p for p in matmul.paths if matmul.paths[p] != before[p]]
-        ok, err = held("sgemm", out, matmul_plain(a, b, bias, relu=relu, residual=r))
+        ok, err = held("sgemm", out, ref)
         if not ok or path != ["wgmma"]:
             misses.append(f"sgemm M={M} K={K} N={N} x{cnt}: {err:.3e} on {path}")
     for (n, h, c, oc, k, s, p, res, relu), cnt in conv.items():
-        x, w = rnd((n, h, h, c)), rnd((k, k, c, oc), (k * k * c) ** -0.5)
-        bias = rnd((oc,), 0.1)
-        oh = (h + 2 * p - k) // s + 1
-        kw = dict(stride=(s, s), pad=(p, p), relu=relu,
-                  residual=rnd((n, oh, oh, oc)) if res else None)
         before = dict(conv2d.paths)
-        out = conv2d(x, w, bias, **kw)
+        out, ref, _ = conv_case(n, h, c, oc, k, s, p, res, relu, bf)
         path = [q for q in conv2d.paths if conv2d.paths[q] != before[q]]
-        ok, err = held("conv", out, conv2d_plain(x, w, bias, **kw))
+        ok, err = held("conv", out, ref)
         if not ok or path != (["mma"] if c % 8 else ["wgmma"]):
             misses.append(f"conv {h}x{h} C={c} OC={oc} k{k} s{s} x{cnt}: {err:.3e} on {path}")
     log = fused.get_info_log()
@@ -654,7 +647,7 @@ def kernel_shape_checks(pipe, gen, fused, dev) -> list[str]:
     return misses
 
 
-def caffe_phase(card: str, out_dir) -> dict:
+def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
     """[caffe]: the Caffe frontend on the card. The testdata nets through
     run_cnet --ptt-fn (f32 every node gen vs lib and vs the port on the CPU;
     bf16 prob vs f32 and top-1); GoogLeNet b32 224x224 bf16 written by the
@@ -834,7 +827,8 @@ def caffe_phase(card: str, out_dir) -> dict:
     top = {p: np.argmax(res[p]["prob"].data, 1) for p in res}
     print(f"[caffe] googlenet top-1 agreement gen vs lib {float(np.mean(top['gen'] == top['lib'])):.3f}, "
           f"fused vs gen {float(np.mean(top['fused'] == top['gen'])):.3f}")
-    misses = kernel_shape_checks(pipe, engines["gen"], engines["fused"], dev)
+    misses = kernel_shape_checks(pipe, engines["gen"], engines["fused"], dev, gemm_case,
+                                 conv_case)
     for ln in misses:
         print(f"[caffe]   MISS {ln}")
     check(not misses, f"googlenet: {len(misses)} kernel calls differ from their plain versions")
@@ -1900,7 +1894,7 @@ def main() -> int:
     del weng
 
     # -- phase 7: [caffe] the Caffe frontend; GoogLeNet b32 bf16 read back ------------
-    caffe = caffe_phase(card, out_dir)
+    caffe = caffe_phase(card, out_dir, gemm_case, conv_case)
     g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
 
     # per kernel: launches on its main path (the forward for sgemm and conv,
