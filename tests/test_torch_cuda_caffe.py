@@ -46,9 +46,13 @@ def _nodes(pipe):
             if nd.dims is not None and n not in pipe.weights and nd.top_for]
 
 
-@pytest.mark.parametrize("policy", ["gen", "fused"])
 @pytest.mark.parametrize("name", sorted(_NETS))
-def test_caffe_net_on_card(dev, name, policy):
+def test_caffe_net_on_card(dev, name):
+    for policy in ("gen", "fused"):
+        _on_card(name, policy)
+
+
+def _on_card(name, policy):
     cm = _NETS[name]
     if cm is None:
         pipe, dims = load_net(name, img=2)

@@ -79,19 +79,19 @@ def caffe_nets():
     return out
 
 
-@pytest.mark.parametrize("policy", sorted(_POLICIES))
 @pytest.mark.parametrize("name", _TRAINED + ("tinynet",))
-def test_caffe_net_matches_boda_tpu(caffe_nets, name, policy):
+def test_caffe_net_matches_boda_tpu(caffe_nets, name):
     net = caffe_nets[name]
-    te = tmake("conv_fwd", "cuda", device="cpu", **_POLICIES[policy])
-    te.init(net["tp"])
-    tr = te.run_fwd({"data": TNDA(net["td"]["data"], net["x"])}, net["nodes"])
-    _gate(net["jr"], tr, net["nodes"])
-    prob = [o.tops[-1] for o in net["tp"].ops.values() if o.type == "Softmax"][-1]
-    assert np.array_equal(np.argmax(net["jr"][prob].data.reshape(len(net["x"]), -1), 1),
-                          np.argmax(tr[prob].data.reshape(len(net["x"]), -1), 1))
-    if policy == "fused" and name == "shapesnet":  # the pools on the pooling kernel
-        assert "nhwc-pool_pallas" in te.get_info_log()
+    for policy, kw in sorted(_POLICIES.items()):
+        te = tmake("conv_fwd", "cuda", device="cpu", **kw)
+        te.init(net["tp"])
+        tr = te.run_fwd({"data": TNDA(net["td"]["data"], net["x"])}, net["nodes"])
+        _gate(net["jr"], tr, net["nodes"])
+        prob = [o.tops[-1] for o in net["tp"].ops.values() if o.type == "Softmax"][-1]
+        assert np.array_equal(np.argmax(net["jr"][prob].data.reshape(len(net["x"]), -1), 1),
+                              np.argmax(tr[prob].data.reshape(len(net["x"]), -1), 1)), policy
+        if policy == "fused":  # the pools on the pooling kernel
+            assert "nhwc-pool_pallas" in te.get_info_log()
 
 
 def _lrn_concat_net(NetBuilder, Dims, beta):
@@ -120,10 +120,14 @@ def _lrn_concat_net(NetBuilder, Dims, beta):
 
 
 @pytest.mark.parametrize("compute_tn", ["", "bfloat16"])
-@pytest.mark.parametrize("beta", [0.75, 0.5, 1.0])
-def test_lrn_concat_match_boda_tpu(beta, compute_tn):
+def test_lrn_concat_match_boda_tpu(compute_tn):
     """LRN in each of boda_tpu's forms (beta 0.75 and 0.5 by roots, else
     pow) and Concat of four and of two branches, every node."""
+    for beta in (0.75, 0.5, 1.0):
+        _lrn_concat_case(beta, compute_tn)
+
+
+def _lrn_concat_case(beta, compute_tn):
     (jp, jd), (tp, td) = (_lrn_concat_net(JNetBuilder, JDims, beta),
                           _lrn_concat_net(TNetBuilder, TDims, beta))
     d = jd["data"]
@@ -142,7 +146,7 @@ def test_lrn_concat_match_boda_tpu(beta, compute_tn):
     for n in nodes:
         a, b = jr[n].data, tr[n].data
         err = float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
-        assert err <= BF16_TOL, f"node {n}: {err:.3g}"
+        assert err <= BF16_TOL, f"beta {beta} node {n}: {err:.3g}"
 
 
 def test_googlenet_grad_matches_boda_tpu():

@@ -1,16 +1,15 @@
 """The port's Caffe frontend against boda_tpu's, on the CPU: every prototxt
 in testdata/nets gives the same pipe in both packages (op names, types,
 params, bots, tops, every node's dims) and bit-equal weights, read from the
-net's caffemodel or seeded; the V1 upgrade; the layer types the port has no
-rule for yet raise, naming the ROADMAP item; the same error texts; and the
-caffemodel reader and ``dump_textproto`` give the same blobs and text."""
+net's caffemodel or seeded, also with the input overridden; the V1
+upgrade; the layer types the port has no rule for yet raise, naming the
+ROADMAP item; and the same error texts."""
 
 import os
 
 import numpy as np
 import pytest
 
-from boda_tpu.frontend import caffemodel as jcm
 from boda_tpu.frontend.pipe_builder import pipe_from_prototxt as jfrom
 from boda_tpu_torch.frontend import caffemodel as tcm
 from boda_tpu_torch.frontend.pipe_builder import pipe_from_prototxt as tfrom
@@ -43,30 +42,25 @@ def _same_pipe(jp, tp):
         assert tp.weights[k].data.dtype == np.float32, k
 
 
-# (prototxt, caffemodel or '' for boda_tpu's seeded weights, img, in_sz).
+# prototxt -> its caffemodel, or '' for boda_tpu's seeded weights.
 # tinynet.caffemodel is a wire-format fixture of another net (conv1 with 4
 # outputs, a V1 fc1): neither package can load it into tinynet (see below).
-_CASES = {
-    "shapesnet": ("shapesnet.prototxt", "shapesnet.caffemodel", 0, 0),
-    "shapesnet2": ("shapesnet2.prototxt", "shapesnet2.caffemodel", 0, 0),
-    "shapesnet3": ("shapesnet3.prototxt", "shapesnet3.caffemodel", 0, 0),
-    "shapesnet3_b2_in40": ("shapesnet3.prototxt", "shapesnet3.caffemodel", 2, 40),
-    "tinynet": ("tinynet.prototxt", "", 0, 0),
-    "tinynet_b3_in20": ("tinynet.prototxt", "", 3, 20),
-    "tinynet_v1": ("tinynet_v1.prototxt", "", 0, 0),
-}
+_NETS_CM = {"shapesnet": "shapesnet.caffemodel", "shapesnet2": "shapesnet2.caffemodel",
+            "shapesnet3": "shapesnet3.caffemodel", "tinynet": "", "tinynet_v1": ""}
 
 
-@pytest.mark.parametrize("case", sorted(_CASES))
-def test_prototxt_pipes_identical(case):
-    ptt, cm, img, in_sz = _CASES[case]
-    kw = dict(weights_fn=_net(cm) if cm else "", img=img, in_sz=in_sz)
-    (jp, jd), (tp, td) = jfrom(_net(ptt), **kw), tfrom(_net(ptt), **kw)
-    _same_pipe(jp, tp)
-    assert {k: d.sizes for k, d in jd.items()} == {k: d.sizes for k, d in td.items()}
-    if img or in_sz:  # --img and --in-sz override the prototxt's input dims
+@pytest.mark.parametrize("name", sorted(_NETS_CM))
+def test_prototxt_pipes_identical(name):
+    """The net as written, and with its input overridden: --img=3, and with
+    seeded weights also --in-sz=40 (a caffemodel's fc fixes the size)."""
+    ptt, cm = _net(f"{name}.prototxt"), _NETS_CM[name]
+    for img, in_sz in ((0, 0), (3, 0 if cm else 40)):
+        kw = dict(weights_fn=_net(cm) if cm else "", img=img, in_sz=in_sz)
+        (jp, jd), (tp, td) = jfrom(ptt, **kw), tfrom(ptt, **kw)
+        _same_pipe(jp, tp)
+        assert {k: d.sizes for k, d in jd.items()} == {k: d.sizes for k, d in td.items()}
         d = td["data"]
-        assert (d["img"], d["y"], d["x"]) == (img, in_sz, in_sz)
+        assert d["img"] == (img or d["img"]) and d["y"] == d["x"] == (in_sz or d["y"])
     if cm:  # every weight the caffemodel holds is the one read
         blobs = tcm.read_caffemodel(_net(cm))
         for lname, bl in blobs.items():
@@ -74,16 +68,9 @@ def test_prototxt_pipes_identical(case):
                 if lname + suffix in tp.weights:
                     assert np.array_equal(tp.weights[lname + suffix].data.ravel(),
                                           blob.data.ravel()), lname
-
-
-def test_v1_upgrade():
-    """tinynet_v1 (V1 ``layers`` with enum types) comes out with the
-    canonical type names, as boda_tpu upgrades it."""
-    tp, _ = tfrom(_net("tinynet_v1.prototxt"))
-    assert [o.type for o in tp.ops.values()] == [
-        "Convolution", "ReLU", "Pooling", "InnerProduct", "Softmax"]
-    assert tp.must_dims("prob").shape == jfrom(_net("tinynet_v1.prototxt"))[0] \
-        .must_dims("prob").shape
+    if name == "tinynet_v1":  # V1 enum types come out canonical, as upgraded
+        assert [o.type for o in tp.ops.values()] == [
+            "Convolution", "ReLU", "Pooling", "InnerProduct", "Softmax"]
 
 
 _UNPORTED = {
@@ -94,22 +81,22 @@ _UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("ltype", ["tinyssd"] + sorted(_UNPORTED))
-def test_unported_layer_types_raise(ltype, tmp_path):
+def test_unported_layer_types_raise(tmp_path):
     """Layer types without an op rule in the port raise PipeError naming the
-    ROADMAP item that brings them; boda_tpu reads the same file."""
-    if ltype == "tinyssd":
-        fn, item = _net("tinyssd.prototxt"), "item 6"
-    else:
-        param, item = _UNPORTED[ltype]
-        fn = str(tmp_path / "net.prototxt")
+    ROADMAP item that brings them (tinyssd's SSD head: item 6); boda_tpu
+    reads the same files."""
+    cases = [(_net("tinyssd.prototxt"), "item 6")]
+    for ltype, (param, item) in sorted(_UNPORTED.items()):
+        fn = str(tmp_path / f"{ltype}.prototxt")
         with open(fn, "w") as f:
             f.write('name: "u"\ninput: "data"\ninput_shape { dim: 1 dim: 3 dim: 8 dim: 8 }\n'
                     f'layer {{ name: "l" type: "{ltype}" bottom: "data" top: "l" {param} }}\n')
-    jfrom(fn)
-    with pytest.raises(PipeError, match=f"has no op rule in boda_tpu_torch yet "
-                                        f"\\(ROADMAP §1 {item}"):
-        tfrom(fn)
+        cases.append((fn, item))
+    for fn, item in cases:
+        jfrom(fn)
+        with pytest.raises(PipeError, match=f"has no op rule in boda_tpu_torch yet "
+                                            f"\\(ROADMAP §1 {item}"):
+            tfrom(fn)
 
 
 _ERRORS = {
@@ -120,27 +107,13 @@ _ERRORS = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(_ERRORS))
-def test_errors_identical(case):
-    ptt, cm = _ERRORS[case]
-    msgs = []
-    for fn in (jfrom, tfrom):
-        with pytest.raises(ValueError) as e:
-            fn(_net(ptt), weights_fn=_net(cm) if cm else "")
-        msgs.append(str(e.value))
-    assert msgs[0] == msgs[1]
-    if case == "bad_syntax":
-        assert msgs[1] == "bad_syntax.prototxt:1: expected ':' or '{' after field 'type'"
-
-
-@pytest.mark.parametrize("cm", ["tinynet", "shapesnet", "shapesnet2", "shapesnet3"])
-def test_caffemodel_reader_and_dump_identical(cm):
-    fn = _net(f"{cm}.caffemodel")
-    jb, tb = jcm.read_caffemodel(fn), tcm.read_caffemodel(fn)
-    assert list(jb) == list(tb)
-    for k in jb:
-        assert [(b.shape, b.data.tobytes()) for b in jb[k]] == \
-            [(b.shape, b.data.tobytes()) for b in tb[k]], k
-    buf = open(fn, "rb").read()
-    for remove in (True, False):
-        assert jcm.dump_textproto(buf, remove) == tcm.dump_textproto(buf, remove)
+def test_errors_identical():
+    for case, (ptt, cm) in sorted(_ERRORS.items()):
+        msgs = []
+        for fn in (jfrom, tfrom):
+            with pytest.raises(ValueError) as e:
+                fn(_net(ptt), weights_fn=_net(cm) if cm else "")
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1], case
+        if case == "bad_syntax":
+            assert msgs[1] == "bad_syntax.prototxt:1: expected ':' or '{' after field 'type'"

@@ -1,7 +1,8 @@
 """The port's net surgery against boda_tpu's, on the CPU: fc_to_conv,
 resize_conv and upsample_2x_net give the same pipe and weights in both
 packages, pipe_to_prototxt the same text and write_caffemodel the same
-bytes; the surgery modes' goldens (testdata/good_tr, the commands of
+bytes; the caffemodel reader the same blobs and ``dump_textproto`` the same
+text; the surgery modes' goldens (testdata/good_tr, the commands of
 testdata/test_cmds.xml:24-26,61) and the frontend's three error goldens
 (test_cmds.xml:20-22), run in process as tests/test_torch_rtc_golden.py
 runs its own."""
@@ -15,10 +16,12 @@ import numpy as np
 import pytest
 
 import boda_tpu_torch.modes_all  # noqa: F401
+from boda_tpu.frontend import caffemodel as jcm
 from boda_tpu.frontend import surgery as jsur
 from boda_tpu.frontend.pipe_builder import pipe_from_prototxt as jfrom
 from boda_tpu.models.zoo import build_model as jbuild
 from boda_tpu_torch import cli
+from boda_tpu_torch.frontend import caffemodel as tcm
 from boda_tpu_torch.frontend import surgery as tsur
 from boda_tpu_torch.frontend.caffemodel import read_caffemodel
 from boda_tpu_torch.frontend.pipe_builder import pipe_from_prototxt as tfrom
@@ -62,12 +65,12 @@ _SURGERY = {
 }
 
 
-@pytest.mark.parametrize("net", ["tinynet.prototxt", "shapesnet2.prototxt", "googlenet_conv"])
 @pytest.mark.parametrize("op", sorted(_SURGERY))
-def test_surgery_identical(net, op):
-    jp, tp = _pipes(net)
-    assert _SURGERY[op](jsur, jp) == _SURGERY[op](tsur, tp)
-    _same(jp, tp)
+def test_surgery_identical(op):
+    for net in ("tinynet.prototxt", "shapesnet2.prototxt", "googlenet_conv"):
+        jp, tp = _pipes(net)
+        assert _SURGERY[op](jsur, jp) == _SURGERY[op](tsur, tp), net
+        _same(jp, tp)
 
 
 # net -> whether the written pair reads back to the same pipe: both writers
@@ -77,8 +80,12 @@ _WRITERS = {"tinynet.prototxt": True, "shapesnet3.prototxt": False,
             "googlenet_conv": True, "squeezenet": True}
 
 
-@pytest.mark.parametrize("net", sorted(_WRITERS))
-def test_writers_identical(net, tmp_path):
+def test_writers_identical(tmp_path):
+    for net in sorted(_WRITERS):
+        _writers_identical(net, tmp_path)
+
+
+def _writers_identical(net, tmp_path):
     """pipe_to_prototxt's text and write_caffemodel's bytes are boda_tpu's;
     the written pair reads back to the same pipe and weights."""
     jp, tp = _pipes(net)
@@ -103,24 +110,38 @@ def _argv(name):
     return _CMDS[name].get("cli_str").replace("%(boda_test_dir)", TD).split()
 
 
-@pytest.mark.parametrize("name", ["cnet_bpt_dump_tiny", "cnet_copy_tinynet",
-                                  "cnet_util_tinynet", "fc_to_conv_tinynet"])
-def test_golden_output(name, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        rc = cli.main(_argv(name))
-    assert rc == 0
-    gdir = os.path.join(GOOD, name)
-    for fn in sorted(os.listdir(gdir)):
-        got = buf.getvalue() if fn == "test_out.txt" else (tmp_path / fn).read_text()
-        with open(os.path.join(gdir, fn)) as f:
-            assert got == f.read(), fn
+def test_golden_output(tmp_path, monkeypatch):
+    for name in ("cnet_bpt_dump_tiny", "cnet_copy_tinynet", "cnet_util_tinynet",
+                 "fc_to_conv_tinynet"):
+        os.mkdir(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            rc = cli.main(_argv(name))
+        assert rc == 0, name
+        gdir = os.path.join(GOOD, name)
+        for fn in sorted(os.listdir(gdir)):
+            got = buf.getvalue() if fn == "test_out.txt" else (tmp_path / name / fn).read_text()
+            with open(os.path.join(gdir, fn)) as f:
+                assert got == f.read(), (name, fn)
 
 
-@pytest.mark.parametrize("name", ["err_ptt_bad_syntax", "err_ptt_no_file",
-                                  "err_weights_no_file"])
-def test_error_golden(name, capsys):
-    with redirect_stdout(io.StringIO()):
-        assert cli.main(_argv(name)) == 1
-    assert capsys.readouterr().err == f"error: {_CMDS[name].get('err')}\n"
+def test_error_golden(capsys):
+    for name in ("err_ptt_bad_syntax", "err_ptt_no_file", "err_weights_no_file"):
+        with redirect_stdout(io.StringIO()):
+            assert cli.main(_argv(name)) == 1, name
+        assert capsys.readouterr().err == f"error: {_CMDS[name].get('err')}\n"
+
+
+def test_caffemodel_reader_and_dump_identical():
+    for cm in ("tinynet", "shapesnet", "shapesnet2", "shapesnet3"):
+        fn = os.path.join(TD, "nets", f"{cm}.caffemodel")
+        jb, tb = jcm.read_caffemodel(fn), tcm.read_caffemodel(fn)
+        assert list(jb) == list(tb), cm
+        for k in jb:
+            assert [(b.shape, b.data.tobytes()) for b in jb[k]] == \
+                [(b.shape, b.data.tobytes()) for b in tb[k]], (cm, k)
+        with open(fn, "rb") as f:
+            buf = f.read()
+        for remove in (True, False):
+            assert jcm.dump_textproto(buf, remove) == tcm.dump_textproto(buf, remove), cm

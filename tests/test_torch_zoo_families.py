@@ -1,9 +1,8 @@
 """The zoo's GoogLeNet, VGG, AlexNet, NiN, SqueezeNet and firenet builders
 against boda_tpu's, on the CPU: bit-identical seeded weights, the same
 cnet_ana text, and the cnet_ana goldens (testdata/good_tr, the commands of
-testdata/test_cmds.xml:5,7)."""
+testdata/test_cmds.xml:5,7). Their forwards: tests/test_torch_zoo_forward.py."""
 
-import functools
 import io
 import os
 from contextlib import redirect_stdout
@@ -12,20 +11,13 @@ import numpy as np
 import pytest
 
 import boda_tpu_torch.modes_all  # noqa: F401
-from boda_tpu.config import make as jmake
 from boda_tpu.models.zoo import MODELS as JMODELS
 from boda_tpu.models.zoo import build_model as jbuild
 from boda_tpu.modes.cnet import CnetAna as JCnetAna
-from boda_tpu.utils.digest import comp_vars
-from boda_tpu.utils.dims import NDA as JNDA
 from boda_tpu_torch import cli
-from boda_tpu_torch.config import make as tmake
 from boda_tpu_torch.models.zoo import MODELS as TMODELS
 from boda_tpu_torch.models.zoo import build_model as tbuild
 from boda_tpu_torch.modes.cnet import CnetAna as TCnetAna
-from boda_tpu_torch.utils.carry import weights_from_numpy
-from boda_tpu_torch.utils.dims import NDA as TNDA
-from boda_tpu_torch.utils.lexp import parse_lexp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOOD = os.path.join(REPO, "testdata", "good_tr")
@@ -43,8 +35,12 @@ def test_models_registered_as_in_boda_tpu():
     assert sorted(TMODELS) == sorted(set(JMODELS) - {"ssd300"})
 
 
-@pytest.mark.parametrize("name", sorted(_NETS))
-def test_zoo_weights_identical(name):
+def test_zoo_weights_identical():
+    for name in sorted(_NETS):
+        _weights_identical(name)
+
+
+def _weights_identical(name):
     jp, _ = jbuild(name, img=2, **_NETS[name])
     tp, _ = tbuild(name, img=2, **_NETS[name])
     assert list(jp.ops) == list(tp.ops) and sorted(jp.weights) == sorted(tp.weights)
@@ -59,8 +55,12 @@ def test_zoo_weights_identical(name):
         assert node.dims.sizes == tp.nodes[n].dims.sizes, n
 
 
-@pytest.mark.parametrize("name", sorted(_NETS))
-def test_cnet_ana_matches(name):
+def test_cnet_ana_matches():
+    for name in sorted(_NETS):
+        _cnet_ana_matches(name)
+
+
+def _cnet_ana_matches(name):
     texts = []
     for cls in (JCnetAna, TCnetAna):
         mode = cls.__new__(cls)
@@ -75,51 +75,12 @@ def test_cnet_ana_matches(name):
     assert "total: ops=" in texts[1]
 
 
-@pytest.mark.parametrize("name,model", [("cnet_ana_alexnet", "alexnet_ng_conv"),
-                                        ("cnet_ana_googlenet", "googlenet_conv")])
-def test_cnet_ana_golden(name, model, tmp_path, monkeypatch):
+def test_cnet_ana_golden(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        assert cli.main(["cnet_ana", f"--model={model}", "--img=1"]) == 0
-    with open(os.path.join(GOOD, name, "test_out.txt")) as f:
-        assert buf.getvalue() == f.read()
-
-
-# forward parity at a small size: (builder kwargs); alexnet's fc6 needs 227
-_FWD = {"googlenet_conv": {"in_sz": 64}, "squeezenet": {"in_sz": 64},
-        "firenet": {"in_sz": 48}, "nin_imagenet": {"in_sz": 64}, "vgg16": {"in_sz": 32}}
-
-
-@functools.cache
-def _boda_tpu_forward(name):
-    """The port's pipe (weights carried), the seeded input, the node set and
-    boda_tpu's run of every node, once per net."""
-    (jp, jd), (tp, td) = jbuild(name, img=2, **_FWD[name]), tbuild(name, img=2, **_FWD[name])
-    weights_from_numpy(tp, {k: w.data for k, w in jp.weights.items()})
-    x = np.random.RandomState(3).randn(*jd["data"].shape).astype(np.float32)
-    nodes = [n for n, nd in jp.nodes.items()
-             if nd.dims is not None and n not in jp.weights and nd.top_for]
-    je = jmake("conv_fwd", "pallas", kernel_policy="gen")
-    je.init(jp)
-    return tp, td, x, nodes, je.run_fwd({"data": JNDA(jd["data"], x)}, nodes)
-
-
-@pytest.mark.parametrize("policy", ["gen", "fused"])
-@pytest.mark.parametrize("name", sorted(_FWD))
-def test_forward_matches_boda_tpu(name, policy):
-    """The builder's f32 b2 forward, every node, on the port's engine
-    (device=cpu: the kernels' plain versions; fused: fuse_block=1 and
-    tune=(use_s2d=1,pool_pallas=1)) against boda_tpu's pallas engine under
-    gen: comp_vars(mrd_toler=1e-5, atol=1e-5 * max|ref|), no element over."""
-    tp, td, x, nodes, jr = _boda_tpu_forward(name)
-    kw = {"fuse_block": True, "tune": parse_lexp("(use_s2d=1,pool_pallas=1)")} \
-        if policy == "fused" else {}
-    te = tmake("conv_fwd", "cuda", device="cpu", **kw)
-    te.init(tp)
-    tr = te.run_fwd({"data": TNDA(td["data"], x)}, nodes)
-    for n in nodes:
-        a, b = jr[n].data, tr[n].data
-        assert a.shape == b.shape, n
-        r = comp_vars(a, b, mrd_toler=1e-5, atol=1e-5 * float(np.abs(a).max()))
-        assert r.ok() and r.num_diff == 0, f"node {n}: {r}"
+    for name, model in (("cnet_ana_alexnet", "alexnet_ng_conv"),
+                        ("cnet_ana_googlenet", "googlenet_conv")):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert cli.main(["cnet_ana", f"--model={model}", "--img=1"]) == 0
+        with open(os.path.join(GOOD, name, "test_out.txt")) as f:
+            assert buf.getvalue() == f.read(), name
