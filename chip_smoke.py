@@ -573,87 +573,105 @@ CAFFE_SMALL = {"alexnet_ng_conv": 199, "nin_imagenet": 55, "vgg16": 32,
                "squeezenet": 29, "firenet": 25}
 
 
-def worst_node(ref: dict, got: dict, nodes) -> tuple[float, str]:
-    """The worst max|err|/max|ref| over nodes, and its node; every node of
-    ``got`` finite and of ref's shape."""
-    worst = (0.0, "")
-    for n in nodes:
-        a, b = ref[n].data, got[n].data
-        check(a.shape == b.shape and bool(np.isfinite(b).all()), f"{n}: shape/finite")
-        worst = max(worst, (rel_err(torch.from_numpy(b), torch.from_numpy(a))[1], n))
-    return worst
-
-
-def kernel_shape_checks(pipe, gen, fused, dev, gemm_case, conv_case) -> list[str]:
-    """Each distinct K1 and K2 call of the gen forward (main's ``gemm_case``
-    and ``conv_case``), and each K8 and K4 call of the fused forward, at the
-    net's own shapes on random bf16 operands, against its plain version (max
-    exact, the rest within TOL of max|ref|). Returns the miss lines."""
-    from boda_tpu_torch.graph.lowering_nhwc import pool_geom
-    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain, space_to_depth_conv
-    from boda_tpu_torch.ops.kernels.pool import pool2d, pool2d_plain
+def counted_wrappers() -> dict:
+    """The kernel wrappers whose launches a path's run is held to, by the
+    name the kernels line gives them."""
+    from boda_tpu_torch.ops.kernels.bconv import matmul_atb
+    from boda_tpu_torch.ops.kernels.block import bottleneck
+    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_nhwc, space_to_depth_conv
+    from boda_tpu_torch.ops.kernels.pool import pool2d
     from boda_tpu_torch.ops.kernels.sgemm import matmul
-    g = torch.Generator(device=dev).manual_seed(7)
-    bf = torch.bfloat16
+    return {"sgemm": matmul, "conv": conv2d, "conv_nhwc": conv2d_nhwc,
+            "s2d": space_to_depth_conv, "atb": matmul_atb, "block": bottleneck,
+            "pool": pool2d}
 
-    def rnd(shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+def zero_counts(counted: dict) -> None:
+    for f in counted.values():
+        f.launches = 0
+        if hasattr(f, "paths"):
+            f.paths = dict.fromkeys(f.paths, 0)
+
+
+def read_counts(counted: dict) -> dict:
+    torch.cuda.synchronize()
+    return {k: f.launches for k, f in counted.items()}
+
+
+def kernel_shape_checks(net, pipe, gen, fused, cases) -> list[str]:
+    """Each distinct K1 and K2 call of the gen forward, and, given the fused
+    engine, each K8 and K4 call of the fused forward, at the net's own
+    shapes on random bf16 operands (main's case builders ``cases``), against
+    its plain version: max pools exact, the rest within TOL of max|ref|; K1
+    on wgmma, K2 on wgmma but at C % 8 != 0 on mma.sync. Prints one line per
+    call, with the kernel's and the library's device time and the bound;
+    returns the miss lines."""
+    from boda_tpu_torch.graph.lowering_nhwc import pool_geom
+    from boda_tpu_torch.ops.kernels.conv import conv2d
+    from boda_tpu_torch.ops.kernels.sgemm import matmul
+    from boda_tpu_torch.rtc.backends import graph_time
+    bf = torch.bfloat16
     gemm, conv = layer_shapes(pipe, gen)
     misses, worst = [], {}
 
-    def held(kname, out, ref, exact=False):
+    def held(kname, sig, what, case, path=None, want=None, exact=False):
+        out, ref, (kernel, _, lib) = case
         err = rel_err(out, ref)[1]
-        ok = torch.equal(out, ref) if exact else err <= TOL[bf]
+        ok = (torch.equal(out, ref) if exact else err <= TOL[bf]) and path == want
         worst[kname] = max(worst.get(kname, 0.0), err)
-        return ok, err
-    for (M, K, N, res, relu), cnt in gemm.items():
+        line = f"{kname} {what}: {err:.3e}" + (f" on {path}" if path else "")
+        print(f"[caffe] {net} {line}: {'ok' if ok else 'MISS'}; kernel "
+              f"{graph_time(kernel) * 1e6:.2f} us, library {graph_time(lib) * 1e6:.2f} us, "
+              f"bound {max(work(kname, sig)) * 1e3:.2f} us")
+        if not ok:
+            misses.append(line)
+
+    def ran(f, before):
+        return [p for p in f.paths if f.paths[p] != before[p]]
+    for sig, cnt in gemm.items():
+        M, K, N, _, relu = sig
         before = dict(matmul.paths)
-        out, ref, _ = gemm_case(M, K, N, res, relu, bf)
-        path = [p for p in matmul.paths if matmul.paths[p] != before[p]]
-        ok, err = held("sgemm", out, ref)
-        if not ok or path != ["wgmma"]:
-            misses.append(f"sgemm M={M} K={K} N={N} x{cnt}: {err:.3e} on {path}")
-    for (n, h, c, oc, k, s, p, res, relu), cnt in conv.items():
+        case = cases["gemm"](*sig, bf)
+        held("sgemm", sig, f"M={M} K={K} N={N} relu={int(relu)} x{cnt}", case,
+             ran(matmul, before), ["wgmma"])
+    for sig, cnt in conv.items():
+        n, h, c, oc, k, s, p = sig[:7]
         before = dict(conv2d.paths)
-        out, ref, _ = conv_case(n, h, c, oc, k, s, p, res, relu, bf)
-        path = [q for q in conv2d.paths if conv2d.paths[q] != before[q]]
-        ok, err = held("conv", out, ref)
-        if not ok or path != (["mma"] if c % 8 else ["wgmma"]):
-            misses.append(f"conv {h}x{h} C={c} OC={oc} k{k} s{s} x{cnt}: {err:.3e} on {path}")
-    log = fused.get_info_log()
-    for op in pipe.ops.values():
-        if op.type == "Pooling":
+        case = cases["conv"](*sig, bf)
+        held("conv", sig, f"{h}x{h} C={c} OC={oc} k{k} s{s} p{p} x{cnt}", case,
+             ran(conv2d, before), ["mma"] if c % 8 else ["wgmma"])
+    log = fused.get_info_log() if fused is not None else ""
+    for op in pipe.ops.values() if fused is not None else ():
+        if op.type in ("Pooling", "Convolution"):
             ind = pipe.must_dims(op.bots[0])
-            x = rnd((ind["img"], ind["y"], ind["x"], ind["chan"]))
-            geom = pool_geom(pipe, op)
-            ok, err = held("pool", pool2d(x, *geom), pool2d_plain(x, *geom), exact=not geom[6])
-            if not ok:
-                misses.append(f"pool {op.name} {tuple(x.shape)}: {err:.3e}")
+            n, h, c = ind["img"], ind["y"], ind["chan"]
+        if op.type == "Pooling":
+            k, s, pad_y, pad_x, oy, _, avg = pool_geom(pipe, op)
+            sig = (n, h, c, k[0], s[0], oy, avg)
+            held("pool", sig, f"{op.name} {h}x{h} C={c} k{k[0]} s{s[0]} -> {oy}",
+                 cases["pool"](*sig, bf, pads=(pad_y, pad_x)), exact=not avg)
         elif op.type == "Convolution" and f"{op.name}: nhwc-s2d_conv" in log:
-            ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
-            x = rnd((ind["img"], ind["y"], ind["x"], ind["chan"]))
-            k, c, oc = fd["y"], fd["in_chan"], fd["out_chan"]
-            w, bias = rnd((k, k, c, oc), (k * k * c) ** -0.5), rnd((oc,), 0.1)
-            kw = dict(stride=op.stride(), pad=op.pad(), relu=True)
-            ok, err = held("s2d", space_to_depth_conv(x, w, bias, **kw),
-                           conv2d_plain(x, w, bias, **kw))
-            if not ok:
-                misses.append(f"s2d {op.name}: {err:.3e}")
-    print(f"[caffe] googlenet b{BATCH} bf16, each distinct call at the net's shapes vs its "
-          f"plain version: sgemm {len(gemm)}, conv {len(conv)}, and the fused forward's "
-          f"pools and s2d; worst max|err|/max|ref| "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            fd = pipe.must_dims(op.bots[1])
+            sig = (n, h, c, fd["out_chan"], fd["y"], op.stride()[0], op.pad()[0])
+            held("s2d", sig, f"{op.name} {h}x{h} C={c} OC={fd['out_chan']}",
+                 cases["s2d"](*sig, bf))
+    print(f"[caffe] {net} b{BATCH} bf16, each distinct call at the net's shapes vs its plain "
+          f"version: sgemm {len(gemm)}, conv {len(conv)}"
+          + (", and the fused forward's pools and s2d" if fused is not None else "")
+          + "; worst max|err|/max|ref| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
           + f" (tol {TOL[bf]}; max pools exact)")
     return misses
 
 
-def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
+def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     """[caffe]: the Caffe frontend on the card. The testdata nets through
     run_cnet --ptt-fn (f32 every node gen vs lib and vs the port on the CPU;
     bf16 prob vs f32 and top-1); GoogLeNet b32 224x224 bf16 written by the
     port's own prototxt and caffemodel writers and read back, under gen, lib
     and fused, each captured and replayed; the other builders small in f32,
-    and vgg16 at b32 bf16. Returns the phase's numbers."""
+    and vgg16 at b32 bf16; every distinct K1 and K2 call of GoogLeNet's and
+    VGG-16's b32 forwards (and K8 and K4 of GoogLeNet's fused one) against
+    its plain version. Returns the phase's numbers."""
     import os
     import tempfile
     import time
@@ -661,25 +679,8 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
     from boda_tpu_torch.config import make
     from boda_tpu_torch.frontend.surgery import pipe_to_prototxt, write_caffemodel
     from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
-    from boda_tpu_torch.ops.kernels.block import bottleneck
-    from boda_tpu_torch.ops.kernels.conv import conv2d, space_to_depth_conv
-    from boda_tpu_torch.ops.kernels.pool import pool2d
-    from boda_tpu_torch.ops.kernels.sgemm import matmul
     from boda_tpu_torch.utils.lexp import parse_lexp
     t_phase = time.perf_counter()
-    dev = torch.device("cuda")
-    counters = {"sgemm": matmul, "conv": conv2d, "s2d": space_to_depth_conv,
-                "pool": pool2d, "block": bottleneck}
-
-    def zero_counts():
-        for f in counters.values():
-            f.launches = 0
-            if hasattr(f, "paths"):
-                f.paths = dict.fromkeys(f.paths, 0)
-
-    def read_counts() -> dict:
-        torch.cuda.synchronize()
-        return {k: f.launches for k, f in counters.items()}
     out = {"card": card}
     nets_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "testdata", "nets")
 
@@ -699,9 +700,9 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
             e = make("conv_fwd", "cuda", **kw)
             e.init(pipe)
             r[tag] = e.run_fwd(ins, ["prob"] if tag == "bf16" else nodes)
-        e_lib, n_lib = worst_node(r["lib"], r["gen"], nodes)
-        e_cpu, n_cpu = worst_node(r["cpu"], r["gen"], nodes)
-        e_bf, _ = worst_node(r["gen"], r["bf16"], ["prob"])
+        _, (e_lib, n_lib) = node_agreement(r["lib"], r["gen"], nodes, F32_NODE_TOL)
+        _, (e_cpu, n_cpu) = node_agreement(r["cpu"], r["gen"], nodes, F32_NODE_TOL)
+        _, (e_bf, _) = node_agreement(r["gen"], r["bf16"], ["prob"], CAFFE_BF16_TOL)
         t32, t16 = (np.argmax(r[t]["prob"].data.reshape(len(ins["data"].data), -1), 1)
                     for t in ("gen", "bf16"))
         print(f"[caffe] {name} ({'trained ' + os.path.basename(cm) if cm else 'seeded'}), "
@@ -758,10 +759,10 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
           f"{lmax:.4g} in the gen forward): logits in [-1, 1]")
     n_1x1 = sum(o.type == "Convolution" and o.kern_sz() == (1, 1) for o in pipe.ops.values())
     n_kxk = sum(o.type == "Convolution" and o.kern_sz() != (1, 1) for o in pipe.ops.values())
-    want = {"gen": {"sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 0, "pool": 0, "block": 0},
-            "lib": dict.fromkeys(counters, 0),
-            "fused": {"sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 1, "pool": GOOGLENET_POOLS,
-                      "block": 0}}
+    none = dict.fromkeys(counted, 0)
+    want = {"gen": {**none, "sgemm": n_1x1 + 1, "conv": n_kxk}, "lib": none,
+            "fused": {**none, "sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 1,
+                      "pool": GOOGLENET_POOLS}}
     fwd_outs = [GOOGLENET_LOGITS, "prob"]
     ins2 = other_batch(ins, 17)
     engines, res, rows = {}, {}, {}
@@ -774,10 +775,10 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
         eager = e.run_fwd(ins, fwd_outs)
         e.cuda_graph = True
         e.prepare(ins, fwd_outs)
-        zero_counts()
+        zero_counts(counted)
         replay = res[pol] = e.run_fwd(ins, fwd_outs)
-        n = read_counts()
-        paths = {k: dict(counters[k].paths) for k in ("sgemm", "conv", "pool")}
+        n = read_counts(counted)
+        paths = {k: dict(counted[k].paths) for k in ("sgemm", "conv", "pool")}
         cap_s = e._graph.capture_secs
         print(f"[caffe] googlenet b{BATCH} bf16 {pol}: launches {n} (expected {want[pol]}); "
               f"paths sgemm {paths['sgemm']}, conv {paths['conv']}, pool {paths['pool']}")
@@ -827,11 +828,9 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
     top = {p: np.argmax(res[p]["prob"].data, 1) for p in res}
     print(f"[caffe] googlenet top-1 agreement gen vs lib {float(np.mean(top['gen'] == top['lib'])):.3f}, "
           f"fused vs gen {float(np.mean(top['fused'] == top['gen'])):.3f}")
-    misses = kernel_shape_checks(pipe, engines["gen"], engines["fused"], dev, gemm_case,
-                                 conv_case)
-    for ln in misses:
-        print(f"[caffe]   MISS {ln}")
-    check(not misses, f"googlenet: {len(misses)} kernel calls differ from their plain versions")
+    misses = kernel_shape_checks("googlenet", pipe, engines["gen"], engines["fused"], cases)
+    check(not misses, f"googlenet: {len(misses)} kernel calls differ from their plain "
+          f"versions: {misses}")
     out["googlenet"] = rows
     del engines, res
 
@@ -844,7 +843,7 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
             e = make("conv_fwd", "cuda", kernel_policy=pol)
             e.init(spipe)
             r[pol] = e.run_fwd(sins, nodes)
-        err, node = worst_node(r["lib"], r["gen"], nodes)
+        _, (err, node) = node_agreement(r["lib"], r["gen"], nodes, F32_NODE_TOL)
         print(f"[caffe] {name} f32 b2 {sz}x{sz}: {len(nodes)} nodes gen vs lib worst {err:.3e} "
               f"({node}) (tol {F32_NODE_TOL})")
         check(err <= F32_NODE_TOL, f"{name}: f32 per node gen vs lib")
@@ -862,10 +861,10 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
         e = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy=pol)
         e.init(vpipe)
         e.prepare(vins, ["fc8", "prob"])
-        zero_counts()
+        zero_counts(counted)
         v[pol] = e.run_fwd(vins, ["fc8", "prob"])
-        n = read_counts()
-        cpaths = dict(conv2d.paths)
+        n = read_counts(counted)
+        cpaths = dict(counted["conv"].paths)
         secs = e.time_fwd(vins, ["prob"], n_iters=10, warmup=3)
         out[f"vgg16_{pol}"] = {"graph_ms": secs * 1e3, "img_per_s": BATCH / secs, "launches": n}
         print(f"[caffe] vgg16 b{BATCH} 224 bf16 {pol}: launches {n}, conv paths {cpaths}; graph "
@@ -873,6 +872,7 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
         if pol == "gen":  # 13 3x3 convs, conv1_1 (C = 3) on mma.sync; fc6-fc8
             check(n["conv"] == 13 and n["sgemm"] == 3, f"vgg16 gen launches {n}")
             check_paths("vgg16 gen conv", cpaths, n["conv"], 1)
+            vgen = e
         del e
     errs = {k: rel_err(torch.from_numpy(v["gen"][k].data), torch.from_numpy(v["lib"][k].data))[1]
             for k in ("fc8", "prob")}
@@ -880,6 +880,12 @@ def caffe_phase(card: str, out_dir, gemm_case, conv_case) -> dict:
           + ", ".join(f"{k} {x:.3e}" for k, x in errs.items()) + f" (tol {SLICE_TOL['prob']}); "
           f"max|prob| {v['gen']['prob'].data.max():.4g}")
     check(max(errs.values()) <= SLICE_TOL["prob"], f"vgg16 gen vs lib {errs}")
+    # conv1_1 (K2's C = 3 route at stride 1) and fc6 (split-K at K = 25088)
+    # among them
+    misses = kernel_shape_checks("vgg16", vpipe, vgen, None, cases)
+    check(not misses, f"vgg16: {len(misses)} kernel calls differ from their plain "
+          f"versions: {misses}")
+    del vgen
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[caffe] phase took {out['seconds']:.1f} s")
     return out
@@ -920,19 +926,7 @@ def main() -> int:
     torch.backends.cuda.matmul.fp32_precision = "ieee"
     torch.backends.cudnn.conv.fp32_precision = "ieee"
     dev = torch.device("cuda")
-    counted = {"sgemm": matmul, "conv": conv2d, "conv_nhwc": conv2d_nhwc,
-               "s2d": space_to_depth_conv, "atb": matmul_atb, "block": bottleneck,
-               "pool": pool2d}
-
-    def zero_counts():
-        for f in counted.values():
-            f.launches = 0
-            if hasattr(f, "paths"):
-                f.paths = dict.fromkeys(f.paths, 0)
-
-    def read_counts() -> dict:
-        torch.cuda.synchronize()
-        return {k: f.launches for k, f in counted.items()}
+    counted = counted_wrappers()
     card = smi()
     kind = torch.cuda.get_device_name(0)
     print(card)
@@ -1030,14 +1024,16 @@ def main() -> int:
         return bottleneck(*ops), bottleneck_plain(*ops), (
             lambda: bottleneck(*ops), lambda: bottleneck_plain(*ops), block_library(*ops))
 
-    def pool_case(n, h, c, k, s, oy, avg, dt):
+    def pool_case(n, h, c, k, s, oy, avg, dt, pads=None):
+        # pads: pool_geom's (pad_y, pad_x), else the ceil-mode pad alone
         x = rnd((n, h, h, c), dt)
         pad = (0, max(0, (oy - 1) * s + k - h))
-        args = ((k, k), (s, s), pad, pad, oy, oy, avg)
+        pads = pads or (pad, pad)
+        args = ((k, k), (s, s), *pads, oy, oy, avg)
         lib_pool = F.avg_pool2d if avg else F.max_pool2d
         return pool2d(x, *args), pool2d_plain(x, *args), (
             lambda: pool2d(x, *args), lambda: pool2d_plain(x, *args),
-            lambda: lib_pool(x.permute(0, 3, 1, 2), k, s, ceil_mode=True))
+            lambda: lib_pool(x.permute(0, 3, 1, 2), k, s, pads[0][0], ceil_mode=True))
 
     def s2d_case(n, h, c, oc, k, s, p, dt):
         x, w = rnd((n, h, h, c), dt), rnd((k, k, c, oc), dt, (k * k * c) ** -0.5)
@@ -1625,17 +1621,17 @@ def main() -> int:
     rates, eager_rates, graph_rows = {}, {}, {}
     for pol, e in (("gen", eng), ("lib", lib), ("fused", fused)):
         e.cuda_graph = False
-        zero_counts()
+        zero_counts(counted)
         eager = e.run_fwd(ins, fwd_outs)
-        n_eager = read_counts()
+        n_eager = read_counts(counted)
         e.cuda_graph = True
         e.drop_graph()  # a fresh capture, to time it and read its memory
         e.prepare(ins, fwd_outs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
+        zero_counts(counted)
         replay = e.run_fwd(ins, fwd_outs)
-        n_graph = read_counts()
+        n_graph = read_counts(counted)
         cap_s, peak = e._graph.capture_secs, torch.cuda.max_memory_allocated()
         check(n_graph == n_eager, f"graph {pol}: launches {n_graph}, eager {n_eager}")
         errs_ = {n: rel_err(torch.from_numpy(replay[n].data),
@@ -1703,7 +1699,7 @@ def main() -> int:
             fin = {"data": NDA(Dims.of(img=xf.shape[0], y=xf.shape[1], x=xf.shape[2],
                                        chan=xf.shape[3]), xf)}
             e.prepare(fin, fwd_outs)
-            zero_counts()
+            zero_counts(counted)
             o = e.run_fwd(fin, fwd_outs)
             stem_paths = dict(conv2d.paths)
             if pol == "gen":  # the stem through K3's entry, on wgmma like every conv
@@ -1894,7 +1890,8 @@ def main() -> int:
     del weng
 
     # -- phase 7: [caffe] the Caffe frontend; GoogLeNet b32 bf16 read back ------------
-    caffe = caffe_phase(card, out_dir, gemm_case, conv_case)
+    caffe = caffe_phase(card, out_dir, counted, {"gemm": gemm_case, "conv": conv_case,
+                                                 "pool": pool_case, "s2d": s2d_case})
     g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
 
     # per kernel: launches on its main path (the forward for sgemm and conv,
@@ -1951,10 +1948,10 @@ def main() -> int:
             entry["fold"] = "boda_tpu_torch/ops/kernels/conv.py:space_to_depth_conv"
         if kname in launches_rtc:
             entry["launches_rtc"] = launches_rtc[kname]
-        if kname in ("sgemm", "conv", "pool", "s2d"):  # the [caffe] phase's GoogLeNet
+        if kname in ("sgemm", "conv", "pool", "s2d"):  # the [caffe] phase's GoogLeNet,
+            # from the run whose path the kernel is on
             entry["launches_googlenet"] = (g_gen if kname in ("sgemm", "conv")
                                            else g_fused)[kname]
-            entry["launches_googlenet_fused"] = g_fused[kname]
         kernels.append(entry)
     # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
     # tests only); times of one call at the b32 shapes
