@@ -762,7 +762,7 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     none = dict.fromkeys(counted, 0)
     want = {"gen": {**none, "sgemm": n_1x1 + 1, "conv": n_kxk}, "lib": none,
             "fused": {**none, "sgemm": n_1x1 + 1, "conv": n_kxk, "s2d": 1,
-                      "pool": GOOGLENET_POOLS}}
+                      "conv_nhwc": 1, "pool": GOOGLENET_POOLS}}  # K4's conv on K3's entry
     fwd_outs = [GOOGLENET_LOGITS, "prob"]
     ins2 = other_batch(ins, 17)
     engines, res, rows = {}, {}, {}
