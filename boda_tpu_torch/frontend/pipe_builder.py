@@ -29,11 +29,9 @@ class FrontendError(PipeError):
 
 # Caffe layer types without an op rule in the port yet -> the ROADMAP item
 # that brings them
-NOT_PORTED = dict.fromkeys(("Deconvolution", "Sigmoid", "TanH", "Reduce"),
-                           "ROADMAP §1 item 4, the remaining NHWC rules")
-NOT_PORTED.update(dict.fromkeys(("Permute", "Flatten", "Reshape", "Normalize",
-                                 "PriorBox", "DetectionOutput"),
-                                "ROADMAP §1 item 6, the SSD head"))
+NOT_PORTED = dict.fromkeys(("Permute", "Flatten", "Reshape", "Normalize",
+                            "PriorBox", "DetectionOutput"),
+                           "ROADMAP §1 item 6, the SSD head")
 
 
 def _pair_param(msg: dict, base: str, default: int) -> tuple[int, int]:
@@ -228,6 +226,33 @@ def _winit_shaper(dims: Dims, fan_in: int):
     return shaper
 
 
+def _deconv_winit_shaper(dims: Dims, in_c: int, groups: int, fan_in: int):
+    """Deconv filters: our layout is (out_chan, in_chan, kh, kw) but Caffe
+    deconv blobs are stored (in_c, oc/g, kh, kw) — transpose on load instead
+    of a silent flat reshape (which scrambles data whenever in_c != oc)."""
+    base = _winit_shaper(dims, fan_in)
+
+    def shaper(data, seed: int = 0):
+        if data is None:
+            return base(None, seed)
+        arr = np.asarray(data, np.float32)
+        oc = dims["out_chan"]
+        if groups != 1 and arr.size != dims.num_elems():
+            raise FrontendError(
+                "grouped Deconvolution caffemodel blob load unsupported "
+                f"(groups={groups})")
+        if arr.size != in_c * (oc // max(groups, 1)) * dims["y"] * dims["x"] \
+                and groups == 1:
+            raise FrontendError(
+                f"deconv blob size {arr.size} != expected "
+                f"{in_c}x{oc}x{dims['y']}x{dims['x']}")
+        if groups == 1:
+            arr = arr.reshape(in_c, oc, dims["y"], dims["x"]).transpose(1, 0, 2, 3)
+        return NDA(dims, np.ascontiguousarray(arr.reshape(dims.shape)))
+    shaper.dims = dims
+    return shaper
+
+
 def _zero_shaper(dims: Dims):
     def shaper(data, seed: int = 0):
         if data is None:
@@ -254,7 +279,7 @@ def _make_op(pipe: ConvPipe, lname: str, ltype: str, lmsg: dict,
                         f"boda_tpu_torch yet ({NOT_PORTED[ltype]})")
     wblobs: list[tuple[str, object]] = []
     params: dict = {}
-    if ltype == "Convolution":
+    if ltype in ("Convolution", "Deconvolution"):
         cp = get1(lmsg, "convolution_param", {})
         oc = int(get1(cp, "num_output", 0))
         k = _pair_param(cp, "kernel_size", 1)
@@ -274,7 +299,9 @@ def _make_op(pipe: ConvPipe, lname: str, ltype: str, lmsg: dict,
         in_c = _chan_of(pipe, bots[0])
         fd = Dims.of(out_chan=oc, in_chan=in_c // g, y=k[0], x=k[1])
         fan_in = (in_c // g) * k[0] * k[1]
-        wblobs = [(f"{lname}__filts", _winit_shaper(fd, fan_in)),
+        shaper = (_deconv_winit_shaper(fd, in_c, g, fan_in)
+                  if ltype == "Deconvolution" else _winit_shaper(fd, fan_in))
+        wblobs = [(f"{lname}__filts", shaper),
                   (f"{lname}__biases", _zero_shaper(Dims.of(out_chan=oc)))]
     elif ltype == "InnerProduct":
         ipp = get1(lmsg, "inner_product_param", {})
@@ -325,7 +352,7 @@ def _make_op(pipe: ConvPipe, lname: str, ltype: str, lmsg: dict,
     elif ltype == "Softmax":
         sp = get1(lmsg, "softmax_param", {})
         params = {"axis": int(get1(sp, "axis", 1))}
-    elif ltype in ("ReLU", "Split", "SoftmaxWithLoss"):
+    elif ltype in ("ReLU", "Sigmoid", "TanH", "Split", "SoftmaxWithLoss"):
         params = {}
     else:
         raise FrontendError(f"layer {lname!r}: unsupported type {ltype!r} "

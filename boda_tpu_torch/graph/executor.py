@@ -23,6 +23,12 @@ layout, through the inverse of the weight's upload prep.
 Activations are physically NHWC; ``run_fwd`` takes and returns logical NCHW
 host arrays in each node's logical dtype, as boda_tpu does.
 
+With ``int8=1`` every conv and fc but the s2d-folded stem, grouped and
+dilated convs computes on int8 operands with an int32 accumulator (the
+library's int8 GEMM, ops/int8.py), with static act scales from a
+``calib_fn`` sidecar or per-forward ones without; ``act_int8`` stores the
+listed activations as int8 or uint8 and dequantizes them on every read.
+
 On the card (``cuda_graph=1``, the default) each forward, and each graph
 with backward ops, is captured once per key (input names, shapes and dtypes,
 the requested outputs) as a CUDA graph after one eager warm-up forward, and
@@ -35,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
 import time
 from typing import Callable, Optional
 
@@ -45,7 +52,7 @@ from ..config import ConfigError, Field, register, register_base
 from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
 from ..ops.kernels.block import block_fuse_ok, bottleneck
 from ..ops.tune import OpTune
-from ..rtc.backends import graph_time, side_stream_warmup
+from ..rtc.backends import capture, graph_time, side_stream_warmup
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
 from .lowering import PRECISIONS, LowerCtx, lib_precision
@@ -200,7 +207,7 @@ class FwdEngine:
         self._cur_op = None
         t0 = time.perf_counter()
         try:
-            with self._run_ctx(), torch.cuda.graph(graph):
+            with self._run_ctx(), capture(graph):
                 outs = self._fn(self._weights_dev, static_ins)
         except Exception as e:
             where = f"op {self._cur_op!r}" if self._cur_op else "the end of the capture"
@@ -330,6 +337,19 @@ class CudaFwd(FwdEngine):
     # match at upload. 0 = exact folded channels. Requires input_s2d.
     input_pad_c = Field(int, default="0",
                         help="pad the pre-folded entry channels to this count")
+    # int8 conv/fc compute (boda_tpu: executor.py:559-583): per-tensor act
+    # scales, per-out-channel weight scales, an int32 accumulator; the
+    # engine-wide default, which a per-op tune's int8=0 turns off
+    int8 = Field(bool, default="0", help="int8 conv/fc compute")
+    # static calibration sidecar (net_calib): per-node act amax, so int8
+    # conv/fc quantize with a static scale instead of a per-forward amax
+    calib_fn = Field("filename", default="", help="activation-amax calibration file")
+    # int8 activation storage, apart from int8 compute: the listed nodes
+    # (names or glob patterns) are stored as int8, or uint8 where their
+    # producer is provably non-negative, with static per-tensor scales from
+    # calib_fn, and dequantized on every read; inference only
+    act_int8 = Field((list, str), default="()",
+                     help="store these activation nodes as int8 (glob ok)")
 
     def base_setup(self) -> None:
         super().base_setup()
@@ -338,11 +358,17 @@ class CudaFwd(FwdEngine):
         self._wisdom = None
         self._input_s2d: dict[str, dict] = {}
         self._input_s2d_ops: set[str] = set()
+        self._act_q: dict[str, tuple[bool, float]] = {}
+        self._q8_direct: set[str] = set()
+
+    def _graph_key(self, ins: dict[str, NDA], out_names: list[str]) -> tuple:
+        return super()._graph_key(ins, out_names) + \
+            (bool(self.int8), tuple(sorted(map(str, self.act_int8))))
 
     def fusion_fingerprint(self) -> str:
         """Stable tag of the engine configuration that shapes what a 'good'
         per-op tune is (boda_tpu: executor.py:611; fusion structure, dtype,
-        precision and policy, over this engine's own Fields). Wisdom
+        precision, policy and int8, over this engine's own Fields). Wisdom
         recorded under one fingerprint is not applied under another."""
         from ..utils.dims import stable_hash
         cfg = ("nhwc", bool(self.fuse_relu), bool(self.fuse_eltwise),
@@ -350,7 +376,10 @@ class CudaFwd(FwdEngine):
             (("block",) if self.fuse_block else ()) + \
             (("prefold",) if self.prefold else ()) + \
             (("input_s2d",) if self.input_s2d else ()) + \
-            ((f"pad_c{self.input_pad_c}",) if self.input_pad_c else ())
+            ((f"pad_c{self.input_pad_c}",) if self.input_pad_c else ()) + \
+            (("int8",) if self.int8 else ()) + \
+            (("act_int8",) + tuple(sorted(map(str, self.act_int8)))
+             if self.act_int8 else ())
         return f"{stable_hash(repr(cfg)) & 0xFFFFFFFF:08x}"
 
     def wisdom_plats(self) -> tuple[str, str]:
@@ -411,7 +440,7 @@ class CudaFwd(FwdEngine):
 
     def op_tune(self, op_name: str) -> OpTune:
         """The op's tune: a per-op tune wins, then wisdom, then the engine
-        tune."""
+        tune; the engine's int8 unless the op's own tune names int8."""
         t = self.per_op_tune.get(op_name)
         if t is None:
             t = self._wisdom_tune(op_name)
@@ -425,6 +454,8 @@ class CudaFwd(FwdEngine):
                 "precision" not in str(self.tune):
             prec = "default" if self.compute_tn == "bfloat16" else self.precision
             tune = dataclasses.replace(tune, precision=prec)
+        if self.int8 and (t is None or t.get_kid("int8") is None):
+            tune = dataclasses.replace(tune, int8=True)
         # library policy: only when no explicit per-op tune exists and the
         # engine-level tune doesn't mention use_xla
         explicit = t is not None and bool(t.leaf_val if t.is_leaf else t.kids)
@@ -444,7 +475,21 @@ class CudaFwd(FwdEngine):
         self._weight_preps: dict[str, Prep] = {}
         self._lowered: dict[str, Callable] = {}
         self._lowered_fused: dict[str, Callable] = {}
-        ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn)
+        amax = None
+        if self.calib_fn:
+            from ..prof.calib import read_calib
+            amax = read_calib(self.calib_fn)
+        ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn,
+                       act_amax=amax, device=str(self.dev()))
+        if self.int8 and not self.calib_fn:
+            # engine-wide int8 without a sidecar quantizes with an amax reduce
+            # of every conv and fc input in every forward: say so at init
+            print("conv_fwd: int8=1 without calib_fn uses DYNAMIC per-forward act "
+                  "scales (a max|x| reduce of every conv and fc input per forward); "
+                  "run net_calib and pass --calib-fn for the static-scale serving "
+                  "config", file=sys.stderr)
+            self._info_log.append("int8 dynamic (no calib_fn): expect a "
+                                  "throughput REGRESSION vs bf16")
         self._chains = self._find_chains(pipe)
         self._blocks: dict[str, dict] = {}
         # no block fusion in graphs with backward ops (the kernel has no
@@ -469,6 +514,14 @@ class CudaFwd(FwdEngine):
         unknown = sorted(set(self._quant) - set(pipe.nodes))
         if unknown:
             raise ConfigError(f"quantize: no node {unknown} in {pipe.name!r}")
+        # act_int8: patterns -> per-node static scales now, so that a typo or a
+        # missing calib entry fails at init; int8 convs fed a signed stored
+        # value dequantize with its storage scale
+        self._act_q = {}
+        if self.act_int8:
+            self._resolve_act_int8(pipe, amax)
+            ctx = dataclasses.replace(ctx, act_store_scale={
+                n: sc for n, (uns, sc) in self._act_q.items() if not uns})
         topo = pipe.topo_op_order()
         # every op's own lowering first: it registers the weight preps the
         # fused lowerings fold in (a block's convs B and C come after A)
@@ -522,6 +575,54 @@ class CudaFwd(FwdEngine):
                             f"(have {sorted(self._input_s2d)})")
         xs = host_stem_s2d(x_nhwc, geom)
         return np.pad(xs, ((0, 0), (0, 0), (0, 0), (0, geom["c_eff"] - xs.shape[-1])))
+
+    def _resolve_act_int8(self, pipe: ConvPipe, amax: Optional[dict]) -> None:
+        """act_int8's patterns -> ``self._act_q``: node -> (unsigned, scale)
+        (boda_tpu: executor.py:987-1048). Scales are static, from calib_fn's
+        amax: uint8 (amax / 255) where the producer provably emits >= 0 (a
+        ReLU, or a Pooling, Dropout or Concat of such), else int8 (amax /
+        127); under engine-wide int8 always int8, so that an int8 conv can
+        take the stored value as its operand."""
+        import fnmatch
+        if pipe.bck_added:
+            raise ConfigError("act_int8 is inference-only (the storage "
+                              "rounding has zero gradient)")
+        if amax is None:
+            raise ConfigError("act_int8 needs calib_fn (net_calib amax "
+                              "sidecar) for the static scales")
+        nodes = [n for n, node in pipe.nodes.items()
+                 if node.dims is not None and n not in pipe.weights and node.top_for]
+        nonneg: set[str] = set()
+        changed = True
+        while changed:  # the fixpoint over producers
+            changed = False
+            for n in nodes:
+                if n in nonneg:
+                    continue
+                prod = pipe.ops[pipe.nodes[n].top_for[0]]
+                if prod.type == "ReLU" or (
+                        prod.type in ("Pooling", "Dropout", "Concat")
+                        and all(b in nonneg for b in prod.bots)):
+                    nonneg.add(n)
+                    changed = True
+        matched: set[str] = set()
+        for pat in map(str, self.act_int8):
+            hits = fnmatch.filter(nodes, pat)
+            if not hits:
+                raise ConfigError(f"act_int8 pattern {pat!r} matches no activation node")
+            matched.update(hits)
+        missing = sorted(n for n in matched if n not in amax)
+        if missing:
+            raise ConfigError(f"act_int8: calib file {self.calib_fn!r} has no amax for "
+                              f"{missing} (re-run net_calib on this net)")
+        for n in sorted(matched):
+            a = max(float(amax[n]), 1e-12)
+            uns = n in nonneg and not self.int8
+            self._act_q[n] = (uns, a / (255.0 if uns else 127.0))
+            self._info_log.append(
+                f"act_int8 {n}: {'uint8' if uns else 'int8'} "
+                f"scale={self._act_q[n][1]:.4g}"
+                + (" (signed for direct int8-conv feed)" if n in nonneg and not uns else ""))
 
     def _find_chains(self, pipe: ConvPipe) -> dict[str, list[str]]:
         """Fusion chains conv/fc -> [BatchNorm] -> [Scale] -> [ReLU], each
@@ -772,6 +873,8 @@ class CudaFwd(FwdEngine):
                 return fused_conv_fn(x, w, b, residual=res)
             out = fused_conv_fn(x, w, b)[0] + res
             return (torch.relu(out) if has_relu else out,)
+        # the head conv takes x: an int8-stored x may feed it as it is
+        fn.q8_input_ok = getattr(fused_conv_fn, "q8_input_ok", False)
         return fn
 
     def _lower(self, pipe: ConvPipe, op, ctx: LowerCtx, fused: bool) -> Callable:
@@ -801,7 +904,9 @@ class CudaFwd(FwdEngine):
         bck_fn = self._lower_bck_conv(pipe, op, fwd)
         if bck_fn is not None:
             return bck_fn
-        lib_tune = dataclasses.replace(self.op_tune(fwd.name), use_xla=True)
+        # int8=False: the rounding has no gradient; a backward differentiates
+        # the float math, as in boda_tpu
+        lib_tune = dataclasses.replace(self.op_tune(fwd.name), use_xla=True, int8=False)
         r = lower_op_nhwc(pipe, fwd, ctx, lib_tune, self._info_log)
         if r is None:
             raise PipeError(f"no NHWC lowering for {fwd.type!r}")
@@ -953,8 +1058,31 @@ class CudaFwd(FwdEngine):
                     if n.startswith(w + "__grad")}
         cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
         quant, stats = self._quant, bool(self.per_layer_stats)
+        actq = self._act_q
+        load_dt = cdt if cdt is not None else torch.float32
+
+        # act_int8 storage (boda_tpu: executor.py:1580-1600): qstore
+        # quantizes a node's value as it enters the store, qload dequantizes
+        # it on every read; float values pass both, so a run fed a stored
+        # node as a float input stays exact
+        def qstore(n, v):
+            q = actq.get(n)
+            if q is None or not v.is_floating_point():
+                return v
+            uns, scale = q
+            vq = torch.round(v.float() * (1.0 / scale))
+            if uns:
+                return torch.clamp(vq, 0.0, 255.0).to(torch.uint8)
+            return torch.clamp(vq, -127.0, 127.0).to(torch.int8)
+
+        def qload(n, v):
+            q = actq.get(n)
+            if q is None or v.is_floating_point():
+                return v
+            return (v.float() * q[1]).to(load_dt)
 
         def net_fn(weights: dict, inputs: dict):
+            self._q8_direct = set()
             vals = dict(weights)
             vals.update((k, self._ingest(k, v)) for k, v in inputs.items())
             stat_out = {}
@@ -982,8 +1110,18 @@ class CudaFwd(FwdEngine):
                     bots = [op.bots[0], pf[0], pf[1]] + list(op.bots[3:])
                 if op_name in fused_now:
                     bots = list(bots) + chain_args[op_name]
+                # an int8 conv with static scales takes a signed stored x as
+                # its operand: neither a dequantize nor its own quantize runs
+                q8ok = getattr(lowered[op_name], "q8_input_ok", False)
                 try:
-                    bot_vals = [vals[b] for b in bots]
+                    bot_vals = []
+                    for i, b in enumerate(bots):
+                        v = vals[b]
+                        if i == 0 and q8ok and v.dtype == torch.int8:
+                            self._q8_direct.add(op_name)
+                        else:
+                            v = qload(b, v)
+                        bot_vals.append(v)
                 except KeyError as e:
                     raise PipeError(f"op {op_name!r}: missing input {e}") from None
                 self._cur_op = op_name
@@ -992,15 +1130,15 @@ class CudaFwd(FwdEngine):
                 for t, v in zip(tops, outs):
                     if t in quant:
                         v = _quantize(v, *quant[t])
-                    vals[t] = v
                     if stats and v.is_floating_point():
                         v32 = v.float()
                         stat_out[t] = torch.stack([v32.min(), v32.max(), v32.sum(),
                                                    (v32 * v32).sum()])
+                    vals[t] = qstore(t, v)
             self._cur_op = None
             res = {}
             for n in out_names:
-                v = vals[n]
+                v = qload(n, vals[n])
                 if is4d.get(n) and v.dim() == 4:
                     v = v.permute(0, 3, 1, 2)
                 elif n in grad_inv:

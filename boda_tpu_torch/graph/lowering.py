@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -82,6 +83,13 @@ def jax_maximum(a: torch.Tensor, b) -> torch.Tensor:
 class LowerCtx:
     precision: str = "highest"     # matmul/conv pass precision
     compute_tn: str = ""           # '' = keep input dtype; else cast for compute
+    # static int8 calibration: node name -> activation amax (prof/calib.py);
+    # None = dynamic quantization (a per-tensor amax per forward)
+    act_amax: Optional[dict] = None
+    # act_int8's signed storage scales (node -> float): an int8 conv fed a
+    # stored int8 input dequantizes with the engine's own storage scale
+    act_store_scale: Optional[dict] = None
+    device: str = "cpu"            # where the lowerings' constants live
 
     def __post_init__(self):
         if self.precision not in PRECISIONS:

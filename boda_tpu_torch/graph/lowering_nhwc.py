@@ -2,7 +2,9 @@
 
 Counterpart of ``boda_tpu/graph/lowering_nhwc.py`` for the ops of the zoo's
 ResNet, GoogLeNet, VGG, AlexNet, NiN, SqueezeNet and firenet builders and of
-the Caffe nets the frontend reads.
+the Caffe nets the frontend reads, with the int8 conv and fc (``OpTune.int8``:
+the library's int8 GEMM, ops/int8.py) ahead of the kernel policy, as
+boda_tpu has them.
 Activations are physically (img, y, x, chan) contiguous tensors while node
 Dims stay logically NCHW; library ops (pooling, the lib conv) see them
 through ``permute(0, 3, 1, 2)``, a channels_last view of the same memory.
@@ -23,6 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops import int8 as q8
 from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
@@ -123,6 +126,12 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
     # Hopper's, so they are dropped: the hand kernels take every groups-1,
     # dilation-1 conv at any stride and any channel count, the stem included.
     gen = groups == 1 and dil == (1, 1) and not tune.use_xla
+    geom = stem_s2d_geom(pipe.must_dims(op.bots[0]), od, s, p, k, dil, groups) \
+        if tune.stem_s2d == 1 else None
+    # int8 ahead of the kernel policy, as in boda_tpu; never the s2d-folded
+    # stem (its input arrives in the fold's layout), grouped or dilated convs
+    if tune.int8 and groups == 1 and dil == (1, 1) and geom is None:
+        return _int8_conv(op, ctx, s, p, k, relu, info_log), hwio
     if gen and k == (1, 1) and p == (0, 0) and tune.use_k1conv:
         M = od["img"] * od["y"] * od["x"]
         info_log.append(f"{op.name}: nhwc-k1conv gemm M={M} K={fd['in_chan']} "
@@ -140,8 +149,6 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         fn.supports_residual = True
         return fn, hwio
 
-    geom = stem_s2d_geom(pipe.must_dims(op.bots[0]), od, s, p, k, dil, groups) \
-        if tune.stem_s2d == 1 else None
     if geom is not None:
         return _stem_s2d_conv(op, geom, tune, not gen, relu, info_log)
 
@@ -181,6 +188,55 @@ def _nhwc_conv(pipe, op, ctx, tune, info_log):
         return (out.contiguous(),)
     fn.supports_residual = True
     return fn, ohwi
+
+
+def _int8_conv(op, ctx, s, p, k, relu: bool, info_log):
+    """The int8 conv (boda_tpu: lowering_nhwc.py:123-189): per-out-channel
+    weight scales, a per-tensor act scale (static from the calibration's
+    amax of the input node, else the input's own max|x| per forward), int8
+    operands on the library's int8 GEMM with an int32 accumulator (a 1x1,
+    subsampled when strided, directly; a k x k on its gathered patches),
+    then acc * (ws * xs) + b, + residual, ReLU, all in f32, cast to x's float
+    dtype (an int8-stored x: the weights'). An input stored as int8 by
+    ``act_int8`` under static scales feeds the GEMM as it is, with its
+    storage scale (``q8_input_ok``)."""
+    amax = (ctx.act_amax or {}).get(op.bots[0])
+    info_log.append(f"{op.name}: nhwc-int8_conv s={s}"
+                    + (f" static_amax={amax:.4g}" if amax is not None else ""))
+    dev = ctx.device
+    c127 = q8.const(127.0, dev)
+    xs_static = q8.const(max(amax, 1e-12) / 127.0, dev) if amax is not None else None
+    stored = (ctx.act_store_scale or {}).get(op.bots[0])
+    xs_stored = q8.const(stored, dev) if stored is not None else None
+    wcache = q8.weight_cache()
+
+    def fn(x, w, b, residual=None):
+        wq, ws = q8.quant_weight(w, (0, 1, 2), wcache)
+        if x.dtype == torch.int8:  # act_int8 storage, signed under int8 compute
+            if xs_stored is None:
+                raise PipeError(f"{op.name}: an int8-stored input needs its storage "
+                                f"scale (act_store_scale)")
+            xq, xs = x, xs_stored
+        else:
+            xq, xs = q8.quant_act(x, xs_static, c127)
+        if k == (1, 1) and p == (0, 0):
+            if s != (1, 1):
+                xq = xq[:, ::s[0], ::s[1], :]
+            n, oh, ow, c = xq.shape
+            a = xq.reshape(n * oh * ow, c)
+        else:
+            a, (n, oh, ow) = q8.patches(xq, k, s, p)
+        acc = q8.int8_mm(a, wq, ws.shape[0])
+        out = acc.float() * (ws * xs) + b.float()
+        if residual is not None:
+            out = out + residual.reshape(out.shape).float()
+        if relu:
+            out = jax_maximum(out, 0.0)
+        odt = x.dtype if x.is_floating_point() else w.dtype
+        return (out.to(odt).reshape(n, oh, ow, -1),)
+    fn.supports_residual = True
+    fn.q8_input_ok = amax is not None
+    return fn
 
 
 def _stem_s2d_conv(op, geom, tune, lib: bool, relu: bool, info_log):
@@ -234,6 +290,35 @@ def _stem_s2d_conv(op, geom, tune, lib: bool, relu: bool, info_log):
     return fn, {op.bots[1]: prep}
 
 
+@nhwc_rule("Deconvolution")
+def _nhwc_deconv(pipe, op, ctx, tune, info_log):
+    """Caffe's Deconvolution (boda_tpu: lowering_nhwc.py:380-399, an
+    input-dilated conv on the flipped kernel) as the library's transposed
+    conv, which is that conv: f32 products and sums, the bias added in f32,
+    the result cast to x's dtype. The logical (out_chan, in_chan/g, kh, kw)
+    filters are stored in conv_transpose2d's (in_chan, out_chan/g, kh, kw)
+    at upload, group by group."""
+    s, p = op.stride(), op.pad()
+    g = int(op.p("groups", 1))
+
+    def prep(w):  # (O, I/g, kh, kw) -> (I, O/g, kh, kw)
+        o, ig, kh, kw = w.shape
+        return w.reshape(g, o // g, ig, kh, kw).transpose(1, 2) \
+            .reshape(g * ig, o // g, kh, kw).contiguous()
+
+    def inv(gr):  # (I, O/g, kh, kw) -> (O, I/g, kh, kw)
+        i, og, kh, kw = gr.shape
+        return gr.reshape(g, i // g, og, kh, kw).transpose(1, 2) \
+            .reshape(g * og, i // g, kh, kw).contiguous()
+
+    def fn(x, w, b):
+        out = F.conv_transpose2d(x.permute(0, 3, 1, 2).float(), w.float(), stride=s,
+                                 padding=p, groups=g)
+        out = out.permute(0, 2, 3, 1) + b.float()
+        return (out.to(x.dtype).contiguous(),)
+    return fn, {op.bots[1]: Prep(prep, inv, 1, f"deconv-g{g}")}
+
+
 @nhwc_rule("InnerProduct")
 def _nhwc_ip(pipe, op, ctx, tune, info_log):
     ind = pipe.must_dims(op.bots[0])
@@ -257,6 +342,10 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
                 .reshape(g.shape[0], -1)
         return g.contiguous()
     M, K, N = ind["img"], fd["in_feats"], fd["out_chan"]
+    ip_prep = {op.bots[1]: Prep(prep, inv, 1, "IP")}
+    if tune.int8:
+        return _int8_ip(op, ctx, _pallas_blocks(M, K, N, tune, ind.tn), relu,
+                        info_log), ip_prep
     use_lib = tune.use_xla
     info_log.append(f"{op.name}: nhwc-ip {'lib' if use_lib else 'gemm'} "
                     f"M={M} K={K} N={N}")
@@ -267,7 +356,46 @@ def _nhwc_ip(pipe, op, ctx, tune, info_log):
             out = torch.addmm(b, xf, w)
             return (torch.relu(out) if relu else out,)
         return (matmul(xf.contiguous(), w, b, relu=relu),)
-    return fn, {op.bots[1]: Prep(prep, inv, 1, "IP")}
+    return fn, ip_prep
+
+
+def _pallas_blocks(M: int, K: int, N: int, tune, tn: str) -> tuple[int, int, int]:
+    """boda_tpu's Pallas GEMM tiles for (M, K, N) (ops/kernels/sgemm.py:135,
+    ``pick_matmul_blocks``): named in the int8 fc's log line only, as
+    boda_tpu's log and its golden carry them; the card's int8 GEMM has no
+    tiles to choose."""
+    def pick(want, total, align):
+        return min(max(align, (want // align) * align), -(-total // align) * align)
+    tm, tn_, tk = tune.bm, tune.bn, tune.bk
+    if (tm, tn_, tk) == (256, 256, 512) and tn != "float32" and min(M, N) >= 1024 \
+            and K >= 1024:
+        tm, tn_, tk = 512, 512, 1024
+    sub = {"float32": 8, "bfloat16": 16, "int8": 32, "float16": 16}.get(tn, 8)
+    return pick(tm, M, sub), pick(tn_, N, 128), pick(tk, K, 128)
+
+
+def _int8_ip(op, ctx, blocks, relu: bool, info_log):
+    """The int8 fc (boda_tpu: lowering_nhwc.py:420-454): per-out-column
+    scales of the (in, out) weights (the NHWC-permuted fc weights'
+    per-row scales), a per-tensor act scale (static or per forward, as the
+    conv's), the library's int8 GEMM, acc * (ws * xs) + b, ReLU, in f32.
+    ``blocks``: boda_tpu's tiles, for the log line."""
+    amax = (ctx.act_amax or {}).get(op.bots[0])
+    bm, bn, bk = blocks
+    info_log.append(f"{op.name}: nhwc-ip int8 bm={bm} bn={bn} bk={bk}"
+                    + (f" static_amax={amax:.4g}" if amax is not None else ""))
+    c127 = q8.const(127.0, ctx.device)
+    xs_static = q8.const(max(amax, 1e-12) / 127.0, ctx.device) if amax is not None else None
+    wcache = q8.weight_cache()
+
+    def fn(x, w, b):
+        wq, ws = q8.quant_weight(w, (0,), wcache)
+        xq, xs = q8.quant_act(x.reshape(x.shape[0], -1), xs_static, c127)
+        out = q8.int8_mm(xq, wq, ws.shape[0]).float() * (ws * xs) + b.float()
+        if relu:
+            out = jax_maximum(out, 0.0)
+        return (out.to(x.dtype),)
+    return fn
 
 
 # -- spatial ops --------------------------------------------------------------------
@@ -351,6 +479,16 @@ def _nhwc_relu(pipe, op, ctx, tune, info_log):
     return _no_preps(lambda x: (jax_maximum(x, 0.0),))
 
 
+@nhwc_rule("Sigmoid")
+def _nhwc_sigmoid(pipe, op, ctx, tune, info_log):
+    return _no_preps(lambda x: (torch.sigmoid(x),))
+
+
+@nhwc_rule("TanH")
+def _nhwc_tanh(pipe, op, ctx, tune, info_log):
+    return _no_preps(lambda x: (torch.tanh(x),))
+
+
 @nhwc_rule("Dropout")
 def _nhwc_dropout(pipe, op, ctx, tune, info_log):
     return _no_preps(lambda x: (x,))  # inference: identity
@@ -393,6 +531,12 @@ def _nhwc_eltwise(pipe, op, ctx, tune, info_log):
             raise PipeError(f"eltwise: unknown op {kind!r}")
         return (out,)
     return _no_preps(fn)
+
+
+@nhwc_rule("Reduce")
+def _nhwc_reduce(pipe, op, ctx, tune, info_log):
+    """N-ary elementwise sum in input order (boda_tpu: lowering_nhwc.py:743)."""
+    return _no_preps(lambda *xs: (sum(xs[1:], start=xs[0]),))
 
 
 @nhwc_rule("Softmax")

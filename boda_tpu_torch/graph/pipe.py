@@ -233,7 +233,7 @@ class ConvPipe:
                                       + p[i] * in_csi.support_stride[i]
                                       for i in range(2)),
                 )
-            elif op.type == "InnerProduct":
+            elif op.type in ("InnerProduct", "Deconvolution"):
                 # global support (ref: treats FC as infinite/global support)
                 csi = SupportInfo((0, 0), (0, 0), in_csi.eff_tot_pad)
             else:
@@ -292,6 +292,16 @@ def _calc_conv(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     ek = op.eff_kern_sz()  # dilation-aware (atrous conv, e.g. SSD fc6)
     oy = _conv_out_sz(ind["y"], ek[0], s[0], p[0], False)
     ox = _conv_out_sz(ind["x"], ek[1], s[1], p[1], False)
+    return [Dims.of(img=ind["img"], chan=fd["out_chan"], y=oy, x=ox, tn=ind.tn)]
+
+
+@_op_info("Deconvolution", min_bots=3, max_bots=3)
+def _calc_deconv(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    ind = pipe.must_dims(op.bots[0])
+    fd = pipe.must_dims(op.bots[1])
+    k, s, p = op.kern_sz(), op.stride(), op.pad()
+    oy = (ind["y"] - 1) * s[0] + k[0] - 2 * p[0]
+    ox = (ind["x"] - 1) * s[1] + k[1] - 2 * p[1]
     return [Dims.of(img=ind["img"], chan=fd["out_chan"], y=oy, x=ox, tn=ind.tn)]
 
 
@@ -355,6 +365,11 @@ def _calc_eltwise(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     return [ds[0]]
 
 
+@_op_info("Reduce", min_bots=1, max_bots=-1)
+def _calc_reduce(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    return [pipe.must_dims(op.bots[0])]
+
+
 @_op_info("SoftmaxWithLoss", min_bots=2, max_bots=2, num_tops=2)
 def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     ind = pipe.must_dims(op.bots[0])
@@ -364,6 +379,7 @@ def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
 
 # same-dims unary ops (Scale takes optional scales/biases weight bots;
 # BatchNorm takes means/vars/scale-factor weight bots)
-for _t, _mb in (("ReLU", 1), ("Dropout", 1), ("LRN", 1), ("Softmax", 1),
+for _t, _mb in (("ReLU", 1), ("Sigmoid", 1), ("TanH", 1), ("Dropout", 1),
+                ("LRN", 1), ("Softmax", 1),
                 ("Scale", 3), ("BatchNorm", 4), ("Data", 1)):
     OP_INFOS[_t] = OpInfo(_t, 1, _mb, 1, same_dims=True)

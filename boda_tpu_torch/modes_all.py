@@ -9,7 +9,9 @@ import importlib
 from . import rtc  # noqa: F401  (registers the "be" backends: cuda, interp)
 
 _MODE_MODULES = [
+    "boda_tpu_torch.modes.calib",
     "boda_tpu_torch.modes.cnet",
+    "boda_tpu_torch.modes.lmdb_modes",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",
     "boda_tpu_torch.modes.surgery_modes",

@@ -10,7 +10,9 @@ knob is an error, as there. The knobs fall in three groups:
   space-to-depth fold), ``stem_s2d`` and ``pad_c`` (the stem on its fold,
   its channels padded), ``pool_pallas`` (the pooling kernel),
   ``precision`` (the library's f32 path; bf16 always runs bf16 inputs with
-  an f32 accumulator) and ``use_xla`` (the library op: cuDNN/cuBLAS);
+  an f32 accumulator), ``use_xla`` (the library op: cuDNN/cuBLAS) and
+  ``int8`` (a conv or fc on int8 operands with an int32 accumulator, ahead
+  of the kernel policy: graph/lowering_nhwc.py);
 * no effect on the card (:data:`NO_EFFECT`): they choose between variants
   of boda_tpu's Pallas kernels with the same result (tile sizes, halo DMA
   or row gather, tap concatenation, image batching, the stem's im2col, the
@@ -54,7 +56,8 @@ class OpTune:
     tap_cat: bool = False
     nb: int = 0
     use_halo: int = -1
-    # int8 inference (not ported)
+    # int8 conv/fc compute: per-tensor act and per-out-channel weight scales,
+    # an int32 accumulator (cuBLASLt's int8 GEMM), a float epilogue
     int8: bool = False
     # pooling emitter variants of boda_tpu's XLA pool
     pool_shift: int = 0
@@ -131,6 +134,5 @@ NO_EFFECT = ("bm", "bn", "bk", "chunk", "use_iconv", "stem_im2col", "tap_cat", "
 
 # knob -> the ROADMAP item that will port it
 NOT_PORTED = {
-    "int8": "ROADMAP §1 item 5, int8",
     "det_top_k": "ROADMAP §1 item 6, the SSD head",
 }

@@ -18,6 +18,7 @@ not ported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import statistics
 import time
 
@@ -109,6 +110,24 @@ def side_stream_warmup(run_once, n: int = 1, device=None) -> None:
     cur.wait_stream(side)
 
 
+@contextlib.contextmanager
+def capture(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector held
+    off while the stream captures. A CUDA graph that an unreachable reference
+    cycle still holds (an engine and its net closure refer to each other) is
+    freed whenever the collector next runs, and an allocation inside a
+    capture can start it; freeing a graph during a capture invalidates the
+    capture (cudaErrorStreamCaptureInvalidated at its next launch)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def graph_time(run_once, n_iters: int = 20, warmup: int = 2) -> float:
     """Device seconds per call: ``warmup`` eager calls on a side stream, then
     ``n_iters`` calls captured in one CUDA graph, and the median of 3 replays
@@ -116,7 +135,7 @@ def graph_time(run_once, n_iters: int = 20, warmup: int = 2) -> float:
     the host's cost per launch; a replay leaves the host out."""
     side_stream_warmup(run_once, warmup)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with capture(g):
         for _ in range(max(1, n_iters)):
             run_once()
     g.replay()

@@ -45,6 +45,22 @@ on the engine's own operands; [stats] ``per_layer_stats`` and
 ``run_cnet --per-layer-fn`` (each op's lowering alone, timed in a CUDA
 graph).
 
+Then [int8]: ResNet-50 b32 int8-static in bench.py's configuration
+(``input_s2d=1`` with the host fold, ``calib_fn`` the committed
+testdata/calib/resnet50-bf16.calib.json, bf16), captured and replayed:
+every conv but the stem and fc1000 on cuBLASLt's int8 GEMM
+(``torch._int_mm``, ops/int8.py; no hand kernel) with a static scale, the
+stem on K3's entry; top-1 agreement with the bf16 forward >= 0.97 on the
+gen-data batch and >= 0.95 on testdata/images tiled to the batch
+(bench.py's gates; skipped, with a line saying why, without PIL); replay
+bit-equal to eager on two batches; every int8 GEMM call of the forward
+bit-equal to the exact product of its operands; int8-static, int8-dynamic,
+act_int8 (the ReLU outputs stored as int8) and bf16 ms per replay, and per
+op int8 against bf16. [lmdb]: net_calib on each trained shapesnet's train
+records, test_lmdb on its test records in f32, bf16 and int8 (the goldens
+in f32, int8's line equal to f32's), and Deconvolution, Sigmoid, TanH and
+Reduce each in a small net, f32 on the card against the CPU.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -87,6 +103,7 @@ import io
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -280,7 +297,6 @@ def host_us_per_launch(eng, ins) -> dict:
     """Host µs per K1 / K2 launch (the wrapper's checks, plan, allocations and
     the ctypes launch) over 5 timed gen forwards: the lowering's calls are
     wrapped in a host clock for the run."""
-    import time
 
     from boda_tpu_torch.graph import lowering_nhwc as low
     spent = {"sgemm": [0.0, 0], "conv": [0.0, 0]}
@@ -674,7 +690,6 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     its plain version. Returns the phase's numbers."""
     import os
     import tempfile
-    import time
 
     from boda_tpu_torch.config import make
     from boda_tpu_torch.frontend.surgery import pipe_to_prototxt, write_caffemodel
@@ -891,7 +906,301 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     return out
 
 
+# -- the [int8] and [lmdb] phases: static int8 and real data in ------------------------
+
+# bench.py's int8-static row: the committed sidecar, its two top-1 gates
+# against the bf16 forward (bench.py:299-360, the gate at :347)
+INT8_CALIB = "testdata/calib/resnet50-bf16.calib.json"
+INT8_AGREE, INT8_AGREE_IMAGES = 0.97, 0.95
+INT8_IMAGES = ("test1.png", "test2.jpg")
+# act_int8 over the ReLU outputs: stored as int8, fed straight to the int8 convs
+INT8_ACT = "res*_relu"
+# the trained testdata nets, their record files (net -> records' prefix), and
+# test_lmdb's goldens (testdata/test_cmds.xml:88-89)
+LMDB_NETS = {"shapesnet": "shapes", "shapesnet2": "shapes10", "shapesnet3": "shapes16"}
+LMDB_GOLDEN = {"shapesnet": "test_lmdb: n=64 top1=0.9844 top5=1.0000 net=shapesnet",
+               "shapesnet2": "test_lmdb: n=200 top1=1.0000 top5=1.0000 net=shapesnet2"}
+# the last four Caffe rules, each in a small net, f32 card vs CPU per node
+RULE_TOL = 1e-5
+_RULE_HEAD = 'name: "{name}"\ninput: "data"\ninput_shape {{ dim: 2 dim: 4 dim: 15 dim: 15 }}\n'
+_RULE_CONV = ('layer {{ name: "{n}" type: "{t}" bottom: "{b}" top: "{n}" convolution_param '
+              '{{ num_output: {o} kernel_size: {k} stride: {s} pad: {p} group: {g} }} }}\n')
+RULE_NETS = {
+    "deconv": _RULE_CONV.format(n="up", t="Deconvolution", b="data", o=6, k=4, s=2, p=1, g=1)
+    + _RULE_CONV.format(n="up2", t="Deconvolution", b="up", o=4, k=3, s=1, p=1, g=2),
+    "sigmoid_tanh": _RULE_CONV.format(n="c1", t="Convolution", b="data", o=8, k=3, s=1, p=1, g=1)
+    + 'layer { name: "sig" type: "Sigmoid" bottom: "c1" top: "sig" }\n'
+    + 'layer { name: "th" type: "TanH" bottom: "sig" top: "th" }\n',
+}
+
+
+def int8_phase(card: str, pipe, ins: dict, counted: dict) -> dict:
+    """[int8]: ResNet-50 b32 int8-static in bench.py's configuration
+    (input_s2d with the host fold, the committed calibration sidecar, bf16),
+    captured and replayed: every conv but the stem and fc1000 on the int8
+    GEMM with a static scale, the stem on K3's entry; top-1 agreement with
+    the bf16 forward on the gen-data batch and on the real-image fixtures;
+    replay bit-equal to eager on two batches; every int8 GEMM call of the
+    forward bit-equal to the exact product of its own operands; int8-static,
+    int8-dynamic, act_int8 and bf16 ms per replay; per op, int8 against
+    bf16. ``pipe`` is main's ResNet-50 b32 pipe (fc1000 scaled), ``ins``
+    its gen-data batch. Returns the phase's numbers."""
+    import os
+
+    from boda_tpu_torch.apps.preproc import img_to_batch_np
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.ops import int8 as q8
+    from boda_tpu_torch.rtc.backends import graph_time
+    from boda_tpu_torch.utils.dims import NDA, Dims
+    from boda_tpu_torch.utils.img_io import Img, ImgError
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    calib = os.path.join(root, INT8_CALIB)
+    out = {"card": card, "calib": INT8_CALIB}
+    cfg = {"bf16": {}, "int8_static": {"int8": True, "calib_fn": calib},
+           "int8_dynamic": {"int8": True},
+           "act_int8": {"int8": True, "calib_fn": calib, "act_int8": [INT8_ACT]}}
+    engines = {}
+    for tag, kw in cfg.items():
+        e = engines[tag] = make("conv_fwd", "cuda", compute_tn="bfloat16", input_s2d=True, **kw)
+        e.init(pipe)
+
+    def fold(x_nchw):
+        xf = engines["bf16"].host_input_s2d("data", np.ascontiguousarray(x_nchw.transpose(0, 2, 3, 1)))
+        return {"data": NDA(Dims.of(img=xf.shape[0], y=xf.shape[1], x=xf.shape[2],
+                                    chan=xf.shape[3]), xf)}
+    fin = fold(ins["data"].data)
+    st = engines["int8_static"]
+    log = st.get_info_log().splitlines()
+    convs = [o.name for o in pipe.ops.values() if o.type == "Convolution"]
+    int8_ops = {ln.split(":")[0] for ln in log if "nhwc-int8_conv" in ln and "static_amax" in ln}
+    fc_ok = any(ln.startswith("fc1000: nhwc-ip int8") and "static_amax" in ln for ln in log)
+    stem_ok = any(ln.startswith("conv1: nhwc-stem_s2d") for ln in log)
+    print(f"[int8] resnet50 b{BATCH} int8-static ({INT8_CALIB}, input_s2d, bf16): "
+          f"{len(int8_ops)} of {len(convs)} convs on nhwc-int8_conv with a static_amax, "
+          f"fc1000 on nhwc-ip int8: {fc_ok}, conv1 on its stem_s2d rule: {stem_ok}")
+    check(int8_ops == set(convs) - {"conv1"} and fc_ok and stem_ok,
+          f"int8: the lowering's routes {sorted(set(convs) - int8_ops)}")
+
+    # every int8 GEMM call of an eager forward against the exact product of its
+    # operands (f64 is exact here: |sum| <= K * 127^2 < 2^53)
+    calls, worst = {}, 0
+    orig = q8.int8_mm
+
+    def checked(a, b, n=None):
+        got = orig(a, b, n)
+        k, nn = a.shape[1], got.shape[1]
+        want = (a.double() @ b[:k, :nn].double()).to(torch.int32)
+        sig = (a.shape[0], k, nn)
+        calls[sig] = calls.get(sig, 0) + 1
+        nonlocal worst
+        worst = max(worst, int((got - want).abs().max()))
+        return got
+    q8.int8_mm = checked
+    st.cuda_graph = False
+    try:
+        st.run_fwd(fin, ["prob"])
+    finally:
+        q8.int8_mm = orig
+        st.cuda_graph = True
+    n_calls = sum(calls.values())
+    print(f"[int8] each int8 GEMM call of the eager forward vs the exact product of its int8 "
+          f"operands: {n_calls} calls in {len(calls)} signatures, max |diff| {worst}")
+    check(n_calls == len(convs) and worst == 0, f"int8 GEMM calls: {n_calls}, max diff {worst}")
+    out["gemm_calls"], out["gemm_signatures"] = n_calls, len(calls)
+
+    # the captured forward: launches of the hand kernels (the stem alone)
+    res = {}
+    for tag, e in engines.items():
+        e.prepare(fin, ["prob"])
+        zero_counts(counted)
+        res[tag] = e.run_fwd(fin, ["prob"])["prob"].data
+        n = read_counts(counted)
+        if tag != "bf16":
+            want = {**dict.fromkeys(counted, 0), "conv": 1, "conv_nhwc": 1}
+            check(n == want, f"int8 {tag}: launches {n}, expected the stem's {want}")
+            out.setdefault("launches", n)
+    top = {t: np.argmax(p, 1) for t, p in res.items()}
+    distinct = len(set(top["bf16"].tolist()))
+    agree = {t: float(np.mean(top[t] == top["bf16"])) for t in res if t != "bf16"}
+    print(f"[int8] top-1 agreement with the bf16 forward on the gen-data batch: "
+          + ", ".join(f"{t} {a:.4f}" for t, a in agree.items())
+          + f" (gate {INT8_AGREE} for static and act_int8; the batch has {distinct} distinct "
+          f"bf16 top-1 classes)")
+    check(agree["int8_static"] >= INT8_AGREE and agree["act_int8"] >= INT8_AGREE,
+          f"int8 top-1 agreement {agree}")
+    out["top1_agree"], out["distinct_top1"] = agree, distinct
+
+    # the real-image fixtures, tiled to the batch as bench.py:112-134 does
+    try:
+        imgs = [Img.load(os.path.join(root, "testdata", "images", f)).resize(224, 224).rgb()
+                for f in INT8_IMAGES]
+    except ImgError as e:
+        imgs = None
+        print(f"[int8] the real-image gate did not run: {e}")
+        out["top1_agree_images"] = f"not run: {e}"
+    if imgs is not None:
+        xb = img_to_batch_np(np.stack([imgs[i % len(imgs)] for i in range(BATCH)]))
+        fim = fold(xb.astype(np.float32))
+        pim = {t: np.argmax(engines[t].run_fwd(fim, ["prob"])["prob"].data, 1)
+               for t in ("bf16", "int8_static", "act_int8")}
+        agree_im = {t: float(np.mean(pim[t] == pim["bf16"])) for t in ("int8_static", "act_int8")}
+        print(f"[int8] top-1 agreement with bf16 on {', '.join(INT8_IMAGES)} tiled to "
+              f"b{BATCH}: " + ", ".join(f"{t} {a:.4f}" for t, a in agree_im.items())
+              + f" (gate {INT8_AGREE_IMAGES})")
+        check(min(agree_im.values()) >= INT8_AGREE_IMAGES, f"int8 real images {agree_im}")
+        out["top1_agree_images"] = agree_im
+
+    # act_int8: the ReLU outputs stored as signed int8 and fed to the convs as they are
+    aq = engines["act_int8"]
+    signed = sum(not u for u, _ in aq._act_q.values())
+    print(f"[int8] act_int8 {INT8_ACT}: {len(aq._act_q)} nodes stored, {signed} as int8; "
+          f"{len(aq._q8_direct)} convs took the stored int8 as their operand")
+    check(signed == len(aq._act_q) > 0 and len(aq._q8_direct) > 0, "act_int8 storage")
+
+    # replay against eager, bit for bit, on this batch and a second one
+    fouts = ["prob", "fc1000"]
+    st.cuda_graph = False
+    eager = st.run_fwd(fin, fouts)
+    st.cuda_graph = True
+    replay = st.run_fwd(fin, fouts)
+    eager2, replay2 = replay_follows(st, other_batch(fin, 19), fouts)
+    bit = all(np.array_equal(replay[k].data, eager[k].data) and
+              np.array_equal(replay2[k].data, eager2[k].data) for k in fouts)
+    moved = not np.array_equal(eager2["fc1000"].data, eager["fc1000"].data)
+    print(f"[int8] int8-static replay vs eager on two batches: bit-equal {bit}; the second "
+          f"batch moved fc1000: {moved}")
+    check(bit and moved, "int8-static replay vs eager")
+    fc = replay["fc1000"].data
+    check(bool(np.isfinite(fc).all()) and fc.shape == (BATCH, 1000), "int8 fc1000 finite")
+
+    # ms per replay
+    rows = {}
+    for tag, e in engines.items():
+        secs = e.time_fwd(fin, ["prob"], n_iters=20, warmup=5)
+        rows[tag] = {"graph_ms": secs * 1e3, "img_per_s": BATCH / secs}
+    print(f"[int8] resnet50 b{BATCH} input_s2d graph ms/fwd: "
+          + ", ".join(f"{t} {r['graph_ms']:.3f} ({r['img_per_s']:.1f} img/s)"
+                      for t, r in rows.items()) + f" ({card})")
+    out["graph"] = rows
+
+    # per op: each conv/fc's own lowering, int8-static against bf16 (gen)
+    t_q, t_b = st.per_layer_times(fin), engines["bf16"].per_layer_times(fin)
+    ratio = sorted(((t_q[o] / t_b[o], o) for o in t_q
+                    if o in t_b and pipe.ops[o].type in ("Convolution", "InnerProduct")),
+                   reverse=True)
+
+    def shape(o):
+        op = pipe.ops[o]
+        ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+        if op.type == "InnerProduct":
+            return f"fc {ind['img']}x{fd['in_feats']}->{fd['out_chan']}"
+        return (f"{ind['y']}x{ind['x']} C={ind['chan']} OC={fd['out_chan']} "
+                f"k{op.kern_sz()[0]} s{op.stride()[0]}")
+    sum_q = sum(t_q[o] for _, o in ratio)
+    sum_b = sum(t_b[o] for _, o in ratio)
+    print(f"[int8] per op, each conv/fc lowering alone (device time in a CUDA graph), "
+          f"int8-static vs bf16 gen: sum {sum_q * 1e3:.3f} vs {sum_b * 1e3:.3f} ms; most "
+          "behind: " + "; ".join(f"{o} ({shape(o)}) {t_q[o] * 1e6:.1f} vs {t_b[o] * 1e6:.1f} us"
+                                 for _, o in ratio[:5]) + f" ({card})")
+    out["per_op_sum_ms"] = {"int8_static": sum_q * 1e3, "bf16": sum_b * 1e3}
+    out["per_op_most_behind"] = {o: {"shape": shape(o), "int8_us": t_q[o] * 1e6,
+                                     "bf16_us": t_b[o] * 1e6} for _, o in ratio[:5]}
+    # the GEMMs alone: cuBLASLt's int8 at each call's (M, K, N) on random int8
+    # operands, against cuBLAS's bf16 at the same shape, summed over the calls
+    g = torch.Generator(device="cuda").manual_seed(3)
+    gemm_ms = {"int8": 0.0, "bf16": 0.0}
+    for (m, k, n), cnt in calls.items():
+        a8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        a16, b16 = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+        gemm_ms["int8"] += graph_time(lambda: q8.int8_mm(a8, b8)) * 1e3 * cnt
+        gemm_ms["bf16"] += graph_time(lambda: torch.mm(a16, b16)) * 1e3 * cnt
+        del a8, b8, a16, b16
+    print(f"[int8] the forward's {n_calls} GEMMs alone (device time in a CUDA graph): int8 "
+          f"_int_mm {gemm_ms['int8']:.3f} ms, bf16 torch.mm at the same shapes "
+          f"{gemm_ms['bf16']:.3f} ms; the rest of the int8 lowerings' {sum_q * 1e3:.3f} ms is "
+          f"the quantize, the patch gather and the epilogue in PyTorch ({card})")
+    out["gemm_alone_ms"] = gemm_ms
+    del engines, st, aq
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[int8] phase took {out['seconds']:.1f} s")
+    return out
+
+
+def lmdb_phase(card: str, out_dir) -> dict:
+    """[lmdb]: real data in on the card. net_calib on each trained shapesnet's
+    train records, then test_lmdb on its test records in f32, bf16 and int8
+    with that sidecar, through the CLI (the goldens in f32; int8's top-1 and
+    top-5 equal to f32's); the Deconvolution, Sigmoid, TanH and Reduce rules,
+    each in a small net, f32 every node on the card against the CPU."""
+    import os
+
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.pipe import ConvOp
+    from boda_tpu_torch.models.zoo import NetBuilder
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.utils.dims import Dims
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    nets, recs = os.path.join(root, "testdata", "nets"), os.path.join(root, "testdata", "lmdb")
+    out = {"card": card}
+    for net, rec in LMDB_NETS.items():
+        base = [f"--ptt-fn={nets}/{net}.prototxt", f"--weights-fn={nets}/{net}.caffemodel"]
+        calib = os.path.join(str(out_dir), f"{net}.calib.json")
+        rc, lines = run_cli(["net_calib"] + base + [f"--lmdb-fn={recs}/{rec}_train.rec",
+                                                    "--img=8", f"--out-fn={calib}"])
+        check(rc == 0 and os.path.exists(calib), f"net_calib {net}: rc {rc}")
+        got = {}
+        for tag, eng in (("f32", "(mode=cuda)"), ("bf16", "(mode=cuda,compute_tn=bfloat16)"),
+                         ("int8", f"(mode=cuda,int8=1,calib_fn={calib})")):
+            rc, lines = run_cli(["test_lmdb"] + base + [f"--rec-fn={recs}/{rec}_test.rec",
+                                                        "--img=8", f"--conv-fwd={eng}"])
+            got[tag] = next((ln for ln in reversed(lines) if ln.startswith("test_lmdb:")), "")
+            check(rc == 0 and bool(got[tag]), f"test_lmdb {net} {tag}: rc {rc}")
+        print(f"[lmdb] {net}: net_calib on {rec}_train.rec -> {os.path.basename(calib)}; "
+              f"test_lmdb on {rec}_test.rec: "
+              + "; ".join(f"{t} '{ln}'" for t, ln in got.items()))
+        if net in LMDB_GOLDEN:
+            check(got["f32"] == LMDB_GOLDEN[net], f"{net} f32 vs the golden: {got['f32']}")
+        check(got["int8"] == got["f32"], f"{net}: int8 {got['int8']} != f32 {got['f32']}")
+        out[net] = got
+
+    # the last four rules, each in a small net: f32 on the card vs the CPU
+    for name, layers in RULE_NETS.items():
+        ptt = os.path.join(str(out_dir), f"{name}.prototxt")
+        with open(ptt, "w") as f:
+            f.write(_RULE_HEAD.format(name=name) + layers)
+        out[name] = _rule_case(name, *load_net(ptt_fn=ptt, img=0), make, gen_data_inputs)
+    b = NetBuilder("reduce3")
+    t = b.input("data")
+    parts = [b.conv(n, t, 6, k, pad=k // 2, in_chans=4) for n, k in (("a", 3), ("c", 1), ("d", 3))]
+    b.pipe.add_op(ConvOp("red", "Reduce", {}, bots=parts, tops=["red"]))
+    b.relu("red_relu", "red")
+    rdims = {"data": Dims.of(img=2, chan=4, y=15, x=15)}
+    out["reduce"] = _rule_case("reduce", b.done(rdims), rdims, make, gen_data_inputs)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[lmdb] phase took {out['seconds']:.1f} s")
+    return out
+
+
+def _rule_case(name, pipe, dims, make, gen_data_inputs) -> float:
+    ins, nodes = gen_data_inputs(dims), check_nodes(pipe)
+    r = {}
+    for d in ("cuda", "cpu"):
+        e = make("conv_fwd", "cuda", device=d)
+        e.init(pipe)
+        r[d] = e.run_fwd(ins, nodes)
+    _, (err, node) = node_agreement(r["cpu"], r["cuda"], nodes, RULE_TOL)
+    types = sorted({o.type for o in pipe.ops.values()})
+    print(f"[lmdb] rules {name} ({', '.join(types)}) f32 b2: {len(nodes)} nodes, card vs CPU "
+          f"worst {err:.3e} ({node}) (tol {RULE_TOL})")
+    check(err <= RULE_TOL, f"rule net {name}: card vs CPU {err:.3g}")
+    return err
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "a CUDA card", file=sys.stderr)
@@ -1894,6 +2203,12 @@ def main() -> int:
                                                  "pool": pool_case, "s2d": s2d_case})
     g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
 
+    # -- phase 8: [int8] ResNet-50 b32 int8-static in bench.py's configuration --------
+    int8 = int8_phase(card, pipe, ins, counted)
+
+    # -- phase 9: [lmdb] records in: net_calib and test_lmdb; the last four rules -----
+    lmdb = lmdb_phase(card, out_dir)
+
     # per kernel: launches on its main path (the forward for sgemm and conv,
     # the b32 bf16 gradient graph for atb and for K3's entry, the dgrads,
     # the fused forward for block, pool and s2d), and that path's per-pass
@@ -1972,13 +2287,14 @@ def main() -> int:
                     "library_launch_ms": stem_t["library_launch_ms"],
                     "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
                       "graph": graph_rows, "input_s2d_img_per_s": s2d_rates,
                       "host_us_per_launch": host_us, "grad_img_per_s": grad_rates,
                       "grad_img_per_s_eager": grad_eager_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
-                      "caffe": caffe, "card": card}))
+                      "caffe": caffe, "int8": int8, "lmdb": lmdb, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

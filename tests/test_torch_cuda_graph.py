@@ -3,7 +3,8 @@ is bit-equal to an eager forward of the same engine (``cuda_graph=0``) and
 launches the same kernels, for a gen and a fused net in bf16 and for a gen
 gradient graph, and a second batch of the same key replays the same graph
 and follows its input; the graph is dropped on init() and on a new key; a lowering
-that a capture cannot record raises, naming its op, and runs no forward.
+that a capture cannot record raises, naming its op, and runs no forward; a
+graph freed by Python's cyclic collector does not break another capture.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. On the
 machine with the card, from the repo root:
@@ -168,3 +169,49 @@ def test_capture_illegal_lowering_raises(dev):
         eng.run_fwd(_ins(pipe), ["prob"])
     assert eng._graph is None
     torch.cuda.synchronize()
+
+
+def test_capture_survives_a_graph_freed_by_the_collector(dev):
+    """An engine's captured graph lives in a reference cycle (the engine and
+    its net closure), so only Python's cyclic collector frees it, whenever an
+    allocation next starts it. Freeing a graph while another capture runs
+    invalidates that capture; the port's captures (rtc/backends.py:capture,
+    used by graph_time and the engine) hold the collector off. Here the
+    engine turns to garbage inside a capture whose allocations start a full
+    collection at once."""
+    import gc
+
+    from boda_tpu_torch.rtc.backends import graph_time
+    pipe, in_dims = build_model("mini_resnet", img=2)
+    ins = {"data": NDA(in_dims["data"], np.random.RandomState(3).randn(
+        *in_dims["data"].shape).astype(np.float32))}
+    x = torch.full((64, 64), 0.5, device=dev)  # no device RNG: a capture test before
+    old = gc.get_threshold()                      # may leave its state mid-capture
+    try:
+        for what in ("graph_time", "engine"):
+            e = make("conv_fwd", "cuda")
+            e.init(pipe)
+            e.run_fwd(ins, ["prob"])
+            assert e._graph is not None
+            held = [e]
+            del e
+
+            def run_once():
+                if torch.cuda.is_current_stream_capturing() and held:
+                    held.clear()  # the engine and its graph: garbage, in a cycle
+                    gc.set_threshold(1, 1, 1)
+                    _ = [[] for _ in range(1000)]
+                return x @ x
+            if what == "graph_time":
+                assert graph_time(run_once, 4) > 0
+            else:
+                e2 = make("conv_fwd", "cuda")
+                e2.init(pipe)
+                lowered = e2._lowered["prob"]
+                e2._lowered["prob"] = lambda *a: (run_once(), lowered(*a))[1]
+                out = e2.run_fwd(ins, ["prob"])["prob"].data
+                assert np.isfinite(out).all()
+            gc.set_threshold(*old)
+            gc.collect()
+    finally:
+        gc.set_threshold(*old)

@@ -74,10 +74,9 @@ def test_prototxt_pipes_identical(name):
 
 
 _UNPORTED = {
-    "Deconvolution": ("convolution_param { num_output: 4 kernel_size: 2 stride: 2 }",
-                      "item 4"),
-    "Sigmoid": ("", "item 4"),
-    "TanH": ("", "item 4"),
+    "Permute": ("permute_param { order: 0 order: 2 order: 3 order: 1 }", "item 6"),
+    "Flatten": ("", "item 6"),
+    "Normalize": ("", "item 6"),
 }
 
 
