@@ -1,1 +1,1 @@
-"""Applications on the engine: image preprocessing."""
+"""Applications on the engine: image preprocessing and detection scoring."""

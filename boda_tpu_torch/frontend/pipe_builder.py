@@ -2,9 +2,7 @@
 
 Counterpart of ``boda_tpu/frontend/pipe_builder.py``, copied (pure Python
 and numpy) onto the port's ConvPipe, with the same seeded weights, so a
-prototxt without a caffemodel gives both packages the same arrays. Layer
-types whose op rules the port does not have yet (:data:`NOT_PORTED`) raise
-``PipeError`` naming the ROADMAP item that brings them.
+prototxt without a caffemodel gives both packages the same arrays.
 
 Parity target: ``create_pipe_from_param`` (ref src/caffepb.cc:166) + the
 legacy-format upgrade behavior (ref src/ext/upgrade_proto.cpp): accepts both
@@ -26,12 +24,6 @@ from .textproto import get1, getl, parse_textproto_file
 class FrontendError(PipeError):
     pass
 
-
-# Caffe layer types without an op rule in the port yet -> the ROADMAP item
-# that brings them
-NOT_PORTED = dict.fromkeys(("Permute", "Flatten", "Reshape", "Normalize",
-                            "PriorBox", "DetectionOutput"),
-                           "ROADMAP §1 item 6, the SSD head")
 
 
 def _pair_param(msg: dict, base: str, default: int) -> tuple[int, int]:
@@ -274,9 +266,6 @@ def _const_shaper(dims: Dims, value: float):
 def _make_op(pipe: ConvPipe, lname: str, ltype: str, lmsg: dict,
              bots: list[str], tops: list[str]):
     """Build the ConvOp (+ the list of (weight node name, shaper))."""
-    if ltype in NOT_PORTED:
-        raise PipeError(f"layer {lname!r}: type {ltype!r} has no op rule in "
-                        f"boda_tpu_torch yet ({NOT_PORTED[ltype]})")
     wblobs: list[tuple[str, object]] = []
     params: dict = {}
     if ltype in ("Convolution", "Deconvolution"):
@@ -331,6 +320,55 @@ def _make_op(pipe: ConvPipe, lname: str, ltype: str, lmsg: dict,
         cp = get1(lmsg, "concat_param", {})
         axis = int(get1(cp, "axis", get1(cp, "concat_dim", 1)))
         params = {"axis": axis}
+    elif ltype == "Permute":
+        pp = get1(lmsg, "permute_param", {})
+        order = [int(o) for o in getl(pp, "order")]
+        params = {"order": order or [0, 1, 2, 3]}
+    elif ltype == "Flatten":
+        fp = get1(lmsg, "flatten_param", {})
+        params = {"axis": int(get1(fp, "axis", 1)),
+                  "end_axis": int(get1(fp, "end_axis", -1))}
+    elif ltype == "Reshape":
+        rp = get1(lmsg, "reshape_param", {})
+        shape = get1(rp, "shape", {})
+        params = {"shape": [int(d) for d in getl(shape, "dim")]}
+    elif ltype == "Normalize":
+        npr = get1(lmsg, "norm_param", {})
+        shared = bool(get1(npr, "channel_shared", False))
+        c = 1 if shared else _chan_of(pipe, bots[0])
+        fill = float(get1(get1(npr, "scale_filler", {}), "value", 1.0))
+        params = {"across_spatial": bool(get1(npr, "across_spatial", True)),
+                  "eps": float(get1(npr, "eps", 1e-10))}
+        wblobs = [(f"{lname}__scales",
+                   _const_shaper(Dims.of(out_chan=c), fill))]
+    elif ltype == "PriorBox":
+        pb = get1(lmsg, "prior_box_param", {})
+        params = {
+            "min_sizes": [float(v) for v in getl(pb, "min_size")],
+            "max_sizes": [float(v) for v in getl(pb, "max_size")],
+            "aspect_ratios": [float(v) for v in getl(pb, "aspect_ratio")],
+            "flip": bool(get1(pb, "flip", True)),
+            "clip": bool(get1(pb, "clip", False)),
+            "variance": [float(v) for v in getl(pb, "variance")],
+            "step": float(get1(pb, "step", 0)),
+            "step_h": float(get1(pb, "step_h", 0)),
+            "step_w": float(get1(pb, "step_w", 0)),
+            "offset": float(get1(pb, "offset", 0.5)),
+        }
+    elif ltype == "DetectionOutput":
+        dop = get1(lmsg, "detection_output_param", {})
+        nms = get1(dop, "nms_param", {})
+        params = {
+            "num_classes": int(get1(dop, "num_classes")),
+            "share_location": bool(get1(dop, "share_location", True)),
+            "background_label_id": int(get1(dop, "background_label_id", 0)),
+            "nms_threshold": float(get1(nms, "nms_threshold", 0.3)),
+            "top_k": int(get1(nms, "top_k", 400)),
+            "code_type": _s(get1(dop, "code_type", "CORNER")),
+            "keep_top_k": int(get1(dop, "keep_top_k", 200)),
+            "confidence_threshold": float(
+                get1(dop, "confidence_threshold", 0.01)),
+        }
     elif ltype == "Eltwise":
         ep = get1(lmsg, "eltwise_param", {})
         op_v = get1(ep, "operation", "SUM")

@@ -5,9 +5,8 @@ ConvPipe IR with deterministic pseudo-random weights, seeded per layer from
 ``stable_hash`` of the weight name exactly as ``boda_tpu`` seeds them, so the
 two packages build bit-identical weights: alexnet_ng_conv, nin_imagenet,
 googlenet_conv, VGG-16/19, ResNet-50/101/152, squeezenet, firenet, and the
-gradient regression net ``bconv_strides``. ``ssd300`` comes with the SSD
-head's op rules (Permute, Flatten, Reshape, Normalize, PriorBox,
-DetectionOutput).
+gradient regression net ``bconv_strides``, and the detection net ``ssd300``
+on the SSD head's op rules (graph/ssd_ops.py).
 """
 
 from __future__ import annotations
@@ -109,6 +108,56 @@ class NetBuilder:
         params = {} if axis is None else {"axis": axis}
         self.pipe.add_op(ConvOp(name, "Concat", params, bots=list(bots),
                                 tops=[name]))
+        return name
+
+    # -- SSD detection ops (graph/ssd_ops.py; SSD-Caffe's layer set) -------------
+    def permute(self, name: str, bot: str, order: list[int]) -> str:
+        self.pipe.add_op(ConvOp(name, "Permute", {"order": list(order)},
+                                bots=[bot], tops=[name]))
+        return name
+
+    def flatten(self, name: str, bot: str, axis: int = 1) -> str:
+        self.pipe.add_op(ConvOp(name, "Flatten", {"axis": axis, "end_axis": -1},
+                                bots=[bot], tops=[name]))
+        return name
+
+    def reshape(self, name: str, bot: str, shape: list[int]) -> str:
+        self.pipe.add_op(ConvOp(name, "Reshape", {"shape": list(shape)},
+                                bots=[bot], tops=[name]))
+        return name
+
+    def normalize(self, name: str, bot: str, chans: int, scale: float = 20.0) -> str:
+        """SSD's conv4_3 L2 Normalize with a learned per-channel scale."""
+        self.pipe.weights[f"{name}__scales"] = NDA(
+            Dims.of(out_chan=chans), np.full(chans, scale, dtype=np.float32))
+        self.pipe.add_op(ConvOp(name, "Normalize", {"across_spatial": False, "eps": 1e-10},
+                                bots=[bot, f"{name}__scales"], tops=[name]))
+        return name
+
+    def priorbox(self, name: str, feat: str, data: str, min_sizes, max_sizes,
+                 aspect_ratios, flip: bool = True, clip: bool = False,
+                 variance=(0.1, 0.1, 0.2, 0.2), step: float = 0) -> str:
+        self.pipe.add_op(ConvOp(name, "PriorBox", {
+            "min_sizes": list(min_sizes), "max_sizes": list(max_sizes),
+            "aspect_ratios": list(aspect_ratios), "flip": flip, "clip": clip,
+            "variance": list(variance), "step": step, "step_h": 0.0, "step_w": 0.0,
+            "offset": 0.5}, bots=[feat, data], tops=[name]))
+        return name
+
+    def detection_output(self, name: str, loc: str, conf: str, priors: str,
+                         num_classes: int, nms_threshold: float = 0.45,
+                         top_k: int = 400, keep_top_k: int = 200,
+                         confidence_threshold: float = 0.01) -> str:
+        self.pipe.add_op(ConvOp(name, "DetectionOutput", {
+            "num_classes": num_classes, "share_location": True,
+            "background_label_id": 0, "nms_threshold": nms_threshold,
+            "top_k": top_k, "code_type": "CENTER_SIZE", "keep_top_k": keep_top_k,
+            "confidence_threshold": confidence_threshold},
+            bots=[loc, conf, priors], tops=[name]))
+        return name
+
+    def softmax_axis(self, name: str, bot: str, axis: int) -> str:
+        self.pipe.add_op(ConvOp(name, "Softmax", {"axis": axis}, bots=[bot], tops=[name]))
         return name
 
     def eltwise(self, name: str, bots: list[str], op="sum", relu=False) -> str:
@@ -409,6 +458,72 @@ def build_bconv_strides(img: int = 2, num_cls: int = 8, in_sz: int = 24):
     return b.done(in_dims), in_dims
 
 
+def build_ssd300(img: int = 1, num_cls: int = 21, in_sz: int = 300):
+    """SSD300: the VGG-16 trunk, SSD's multi-scale heads and the fixed-shape
+    NMS head (canonical SSD300-VOC geometry). Sources conv4_3 (38x38, L2
+    Normalize at scale 20), fc7 (19), conv6_2 (10), conv7_2 (5), conv8_2
+    (3) and conv9_2 (1) with 4/6/6/6/4/4 priors per location: 8,732
+    priors. fc6 is dilated 6, so it takes the library conv."""
+    b = NetBuilder("ssd300")
+    d = b.input("data")
+    t = b.conv("conv1_1", d, 64, 3, pad=1, in_chans=3, relu=True)
+    t = b.conv("conv1_2", t, 64, 3, pad=1, in_chans=64, relu=True)
+    t = b.pool("pool1", t, kern=2, stride=2)
+    t = b.conv("conv2_1", t, 128, 3, pad=1, in_chans=64, relu=True)
+    t = b.conv("conv2_2", t, 128, 3, pad=1, in_chans=128, relu=True)
+    t = b.pool("pool2", t, kern=2, stride=2)
+    t = b.conv("conv3_1", t, 256, 3, pad=1, in_chans=128, relu=True)
+    t = b.conv("conv3_2", t, 256, 3, pad=1, in_chans=256, relu=True)
+    t = b.conv("conv3_3", t, 256, 3, pad=1, in_chans=256, relu=True)
+    t = b.pool("pool3", t, kern=2, stride=2)  # 38x38 (ceil)
+    t = b.conv("conv4_1", t, 512, 3, pad=1, in_chans=256, relu=True)
+    t = b.conv("conv4_2", t, 512, 3, pad=1, in_chans=512, relu=True)
+    c43 = b.conv("conv4_3", t, 512, 3, pad=1, in_chans=512, relu=True)
+    t = b.pool("pool4", c43, kern=2, stride=2)
+    t = b.conv("conv5_1", t, 512, 3, pad=1, in_chans=512, relu=True)
+    t = b.conv("conv5_2", t, 512, 3, pad=1, in_chans=512, relu=True)
+    t = b.conv("conv5_3", t, 512, 3, pad=1, in_chans=512, relu=True)
+    t = b.pool("pool5", t, kern=3, stride=1, pad=1)  # keeps 19x19
+    t = b.conv("fc6", t, 1024, 3, pad=6, dilation=6, in_chans=512, relu=True)
+    fc7 = b.conv("fc7", t, 1024, 1, in_chans=1024, relu=True)
+    t = b.conv("conv6_1", fc7, 256, 1, in_chans=1024, relu=True)
+    c62 = b.conv("conv6_2", t, 512, 3, stride=2, pad=1, in_chans=256, relu=True)
+    t = b.conv("conv7_1", c62, 128, 1, in_chans=512, relu=True)
+    c72 = b.conv("conv7_2", t, 256, 3, stride=2, pad=1, in_chans=128, relu=True)
+    t = b.conv("conv8_1", c72, 128, 1, in_chans=256, relu=True)
+    c82 = b.conv("conv8_2", t, 256, 3, in_chans=128, relu=True)  # 3x3
+    t = b.conv("conv9_1", c82, 128, 1, in_chans=256, relu=True)
+    c92 = b.conv("conv9_2", t, 256, 3, in_chans=128, relu=True)  # 1x1
+
+    n43 = b.normalize("conv4_3_norm", c43, 512, scale=20.0)
+    # (source, in_chans, priors per location, min, max, aspect ratios)
+    srcs = [(n43, 512, 4, 30.0, 60.0, [2.0]),
+            (fc7, 1024, 6, 60.0, 111.0, [2.0, 3.0]),
+            (c62, 512, 6, 111.0, 162.0, [2.0, 3.0]),
+            (c72, 256, 6, 162.0, 213.0, [2.0, 3.0]),
+            (c82, 256, 4, 213.0, 264.0, [2.0]),
+            (c92, 256, 4, 264.0, 315.0, [2.0])]
+    locs, confs, priors = [], [], []
+    for src, in_c, np_l, mn, mx, ars in srcs:
+        tag = src.replace("_relu", "")
+        lc = b.conv(f"{tag}_mbox_loc", src, np_l * 4, 3, pad=1, in_chans=in_c)
+        lc = b.permute(f"{tag}_mbox_loc_perm", lc, [0, 2, 3, 1])
+        locs.append(b.flatten(f"{tag}_mbox_loc_flat", lc))
+        cf = b.conv(f"{tag}_mbox_conf", src, np_l * num_cls, 3, pad=1, in_chans=in_c)
+        cf = b.permute(f"{tag}_mbox_conf_perm", cf, [0, 2, 3, 1])
+        confs.append(b.flatten(f"{tag}_mbox_conf_flat", cf))
+        priors.append(b.priorbox(f"{tag}_mbox_priorbox", src, d, [mn], [mx], ars))
+    loc = b.concat("mbox_loc", locs, axis=1)
+    conf = b.concat("mbox_conf", confs, axis=1)
+    pri = b.concat("mbox_priorbox", priors, axis=2)
+    cf = b.reshape("mbox_conf_reshape", conf, [0, -1, num_cls])
+    cf = b.softmax_axis("mbox_conf_softmax", cf, axis=2)
+    cf = b.flatten("mbox_conf_flatten", cf)
+    b.detection_output("detection_out", loc, cf, pri, num_classes=num_cls)
+    in_dims = {"data": Dims.of(img=img, chan=3, y=in_sz, x=in_sz)}
+    return b.done(in_dims), in_dims
+
+
 MODELS = {
     "mini_resnet": build_mini_resnet,
     "bconv_strides": build_bconv_strides,
@@ -422,6 +537,7 @@ MODELS = {
     "resnet101": lambda **kw: build_resnet(101, **kw),
     "resnet152": lambda **kw: build_resnet(152, **kw),
     "squeezenet": build_squeezenet,
+    "ssd300": build_ssd300,
 }
 
 

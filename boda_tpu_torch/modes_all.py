@@ -9,8 +9,10 @@ import importlib
 from . import rtc  # noqa: F401  (registers the "be" backends: cuda, interp)
 
 _MODE_MODULES = [
+    "boda_tpu_torch.modes.apps",
     "boda_tpu_torch.modes.calib",
     "boda_tpu_torch.modes.cnet",
+    "boda_tpu_torch.modes.detect",
     "boda_tpu_torch.modes.lmdb_modes",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",

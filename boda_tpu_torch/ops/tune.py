@@ -12,7 +12,8 @@ knob is an error, as there. The knobs fall in three groups:
   ``precision`` (the library's f32 path; bf16 always runs bf16 inputs with
   an f32 accumulator), ``use_xla`` (the library op: cuDNN/cuBLAS) and
   ``int8`` (a conv or fc on int8 operands with an int32 accumulator, ahead
-  of the kernel policy: graph/lowering_nhwc.py);
+  of the kernel policy: graph/lowering_nhwc.py) and ``det_top_k``
+  (DetectionOutput's NMS candidate count: graph/ssd_ops.py);
 * no effect on the card (:data:`NO_EFFECT`): they choose between variants
   of boda_tpu's Pallas kernels with the same result (tile sizes, halo DMA
   or row gather, tap concatenation, image batching, the stem's im2col, the
@@ -20,9 +21,7 @@ knob is an error, as there. The knobs fall in three groups:
   boda_tpu and read by none of its kernels (``acc_tn``, ``in_tn``). The
   port's kernels have one form each with compile-time tiles, so these are
   parsed and kept in the key, and :meth:`OpTune.no_effect` names them for
-  the logs;
-* not ported (:data:`NOT_PORTED`): a tune that sets one raises, naming the
-  ROADMAP item that will bring it, rather than being silently ignored.
+  the logs.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ class OpTune:
     # pooling on the hand pooling kernel (ops/kernels/pool.py) instead of
     # the library pool
     pool_pallas: int = 0
-    # DetectionOutput NMS candidate count (not ported)
+    # DetectionOutput NMS candidate count (0: the prototxt's top_k)
     det_top_k: int = 0
     # accumulate and compute dtype overrides (boda_tpu declares them and no
     # kernel of it reads them)
@@ -79,12 +78,6 @@ class OpTune:
     use_xla: bool = False
     # Mosaic's last-grid-dim semantics
     dimension_semantics: str = "arbitrary"
-
-    def __post_init__(self):
-        for name, item in NOT_PORTED.items():
-            if getattr(self, name) != _DEFAULTS[name]:
-                raise ValueError(f"op_tune knob {name}={getattr(self, name)} is not "
-                                 f"ported to boda_tpu_torch yet ({item})")
 
     def no_effect(self) -> list[str]:
         """The knobs set away from their defaults that do nothing on the card."""
@@ -131,8 +124,3 @@ _DEFAULTS = {f.name: f.default for f in fields(OpTune)}
 NO_EFFECT = ("bm", "bn", "bk", "chunk", "use_iconv", "stem_im2col", "tap_cat", "nb",
              "use_halo", "pool_shift", "pool_bview", "acc_tn", "in_tn",
              "dimension_semantics")
-
-# knob -> the ROADMAP item that will port it
-NOT_PORTED = {
-    "det_top_k": "ROADMAP §1 item 6, the SSD head",
-}

@@ -130,6 +130,21 @@ FUSED_TUNE = "(use_s2d=1,pool_pallas=1)"
 # against the unfolded one's, max|err|/max|ref|: the two differ by the bf16
 # rounding of the stores (one ulp is 2^-8 of a value), not by 50 layers
 STEM_FOLD_TOL = 1e-2
+# [graph]: the early nodes of the replayed b32 bf16 gen forward against lib's,
+# conv1 through res2a, at the chain tops the forward computes anyway (asking
+# for a chain's inner node would unfuse it). Two gates per node:
+# * max|err|/max|ref| <= 2e-2: the two differ by a few bf16 roundings per
+#   layer over at most four layers (lib rounds cuDNN's sum before its bias,
+#   and again at a residual add: ROADMAP §3), up to ~3 ulps at the largest
+#   value (an ulp is 2^-8 to 2^-7 of it); PR 16 run 2 read 1.190e-02 at
+#   res2a_relu, over the 1e-2 first stated;
+# * |mean err| / mean|ref| <= 1e-3: the one that sees a kernel's one-ulp
+#   change. The roundings of the two paths scatter both ways (read: <= 5.6e-4),
+#   while a systematic change of half an ulp moves the mean by 2e-3 to 3.9e-3
+#   of it.
+EARLY_NODES = ("conv1_relu", "pool1", "bn2a_branch1_scale", "res2a_branch2a_relu",
+               "res2a_branch2b_relu", "res2a_relu")
+EARLY_NODE_TOL, EARLY_BIAS_TOL = 2e-2, 1e-3
 # [stats]: the card's var_stats against the CPU's, f32 (min, max and sum_sq
 # relative to themselves, the sum to sqrt(cnt * sum_sq), which bounds
 # sum|x|); conv1 quantized to 4 bits of [0, 2]: equal or one quantum apart
@@ -614,14 +629,16 @@ def read_counts(counted: dict) -> dict:
     return {k: f.launches for k, f in counted.items()}
 
 
-def kernel_shape_checks(net, pipe, gen, fused, cases) -> list[str]:
+def kernel_shape_checks(net, pipe, gen, fused, cases, tag="caffe", rows=None) -> list[str]:
     """Each distinct K1 and K2 call of the gen forward, and, given the fused
     engine, each K8 and K4 call of the fused forward, at the net's own
     shapes on random bf16 operands (main's case builders ``cases``), against
-    its plain version: max pools exact, the rest within TOL of max|ref|; K1
-    on wgmma, K2 on wgmma but at C % 8 != 0 on mma.sync. Prints one line per
-    call, with the kernel's and the library's device time and the bound;
-    returns the miss lines."""
+    its plain version: max pools exact, the rest within TOL of max|ref|; each
+    call on the path ``plan_gemm`` gives its shape (wgmma, but mma.sync where
+    a row is not 16 bytes: K % 8 != 0 for K1, C % 8 != 0 for K2, or N % 8
+    != 0). Prints one ``[tag]`` line per call, with the kernel's and the
+    library's device time and the bound (and appends them to ``rows``, when
+    given); returns the miss lines."""
     from boda_tpu_torch.graph.lowering_nhwc import pool_geom
     from boda_tpu_torch.ops.kernels.conv import conv2d
     from boda_tpu_torch.ops.kernels.sgemm import matmul
@@ -636,9 +653,13 @@ def kernel_shape_checks(net, pipe, gen, fused, cases) -> list[str]:
         ok = (torch.equal(out, ref) if exact else err <= TOL[bf]) and path == want
         worst[kname] = max(worst.get(kname, 0.0), err)
         line = f"{kname} {what}: {err:.3e}" + (f" on {path}" if path else "")
-        print(f"[caffe] {net} {line}: {'ok' if ok else 'MISS'}; kernel "
-              f"{graph_time(kernel) * 1e6:.2f} us, library {graph_time(lib) * 1e6:.2f} us, "
-              f"bound {max(work(kname, sig)) * 1e3:.2f} us")
+        k_us, l_us, b_us = graph_time(kernel) * 1e6, graph_time(lib) * 1e6, \
+            max(work(kname, sig)) * 1e3
+        print(f"[{tag}] {net} {line}: {'ok' if ok else 'MISS'}; kernel {k_us:.2f} us, "
+              f"library {l_us:.2f} us, bound {b_us:.2f} us")
+        if rows is not None:
+            rows.append({"kernel": kname, "call": what, "path": path, "err": err,
+                         "kernel_us": k_us, "library_us": l_us, "bound_us": b_us})
         if not ok:
             misses.append(line)
 
@@ -649,13 +670,13 @@ def kernel_shape_checks(net, pipe, gen, fused, cases) -> list[str]:
         before = dict(matmul.paths)
         case = cases["gemm"](*sig, bf)
         held("sgemm", sig, f"M={M} K={K} N={N} relu={int(relu)} x{cnt}", case,
-             ran(matmul, before), ["wgmma"])
+             ran(matmul, before), ["mma"] if K % 8 or N % 8 else ["wgmma"])
     for sig, cnt in conv.items():
         n, h, c, oc, k, s, p = sig[:7]
         before = dict(conv2d.paths)
         case = cases["conv"](*sig, bf)
         held("conv", sig, f"{h}x{h} C={c} OC={oc} k{k} s{s} p{p} x{cnt}", case,
-             ran(conv2d, before), ["mma"] if c % 8 else ["wgmma"])
+             ran(conv2d, before), ["mma"] if c % 8 or oc % 8 else ["wgmma"])
     log = fused.get_info_log() if fused is not None else ""
     for op in pipe.ops.values() if fused is not None else ():
         if op.type in ("Pooling", "Convolution"):
@@ -671,7 +692,8 @@ def kernel_shape_checks(net, pipe, gen, fused, cases) -> list[str]:
             sig = (n, h, c, fd["out_chan"], fd["y"], op.stride()[0], op.pad()[0])
             held("s2d", sig, f"{op.name} {h}x{h} C={c} OC={fd['out_chan']}",
                  cases["s2d"](*sig, bf))
-    print(f"[caffe] {net} b{BATCH} bf16, each distinct call at the net's shapes vs its plain "
+    print(f"[{tag}] {net} b{pipe.must_dims('data')['img']} bf16, each distinct call at the "
+          f"net's shapes vs its plain "
           f"version: sgemm {len(gemm)}, conv {len(conv)}"
           + (", and the fused forward's pools and s2d" if fused is not None else "")
           + "; worst max|err|/max|ref| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
@@ -1199,6 +1221,259 @@ def _rule_case(name, pipe, dims, make, gen_data_inputs) -> float:
     return err
 
 
+# -- the [ssd] phase: ssd300 b4, the detection head inside the captured forward --------
+
+SSD_BATCH = 4  # the latency batch of docs/model_census.md:86
+# the head's three inputs, and the nodes the bf16 forwards are held on
+SSD_HEAD_INS = ["mbox_loc", "mbox_conf_flatten", "mbox_priorbox"]
+SSD_BF16_NODES = ["mbox_loc", "mbox_conf_softmax"]
+# ssd300 b4's kernel launches per forward: gen takes its five 1x1s on K1 and
+# its 29 kxk convs (13 trunk, 4 extra layers, 12 mbox heads) on K2, fc6 (dilated)
+# on the library conv; the fused tune moves conv6_2 and conv7_2 (3x3 s2) to
+# K4's fold (its conv counted under conv and conv_nhwc too) and the five
+# pools to K8
+SSD_LAUNCHES = {"gen": {"sgemm": 5, "conv": 29},
+                "fused": {"sgemm": 5, "conv": 29, "s2d": 2, "conv_nhwc": 2, "pool": 5}}
+# conv1_1 (C = 3) and the six mbox_conf heads (N = 84 or 126) on mma.sync
+SSD_MMA = 7
+# the head on the card against the CPU on the same f32 inputs: labels, keep
+# masks and row order equal; scores and boxes max|err|/max|ref| (an exp ulp
+# apart in a decoded box is ~6e-8 of it)
+SSD_HEAD_TOL = 1e-6
+# bf16 mbox_loc and mbox_conf_softmax against bf16 lib and f32 gen, max|err| /
+# max|ref|: as SLICE_TOL; each of the <= 17 convs on a path to a head rounds
+# its output to bf16 once (2^-9 of a value), lib up to three times (ROADMAP
+# §3, "the library conv rounds more often"); PR 14 read <= 2.444e-02 on
+# GoogLeNet's probabilities
+SSD_BF16_TOL = 5e-2
+# the golden of testdata/test_cmds.xml:107, and boda_tpu's cross-engine bounds
+# on its rows (tests/test_detect.py:52-55)
+SSD_GOLDEN = "testdata/good_tr/detect_ssd300_scored"
+SSD_SCORE_TOL, SSD_BOX_TOL = 1e-3, 0.15
+SSD_REPS = 5  # timed repeats of 20 replays each; their median
+
+
+def det_rows(text: str) -> list:
+    return [(p[0], p[1], float(p[2]), [float(v) for v in p[3:]])
+            for p in (ln.split() for ln in text.splitlines() if not ln.startswith("#"))]
+
+
+def head_agree(a: np.ndarray, b: np.ndarray) -> tuple[bool, float]:
+    """Two (rows, 7) detection tables: (image and label columns equal, i.e.
+    the same keep masks and row order; max|err|/max|b| over scores and
+    boxes)."""
+    same = np.array_equal(a[:, :2], b[:, :2])
+    return same, float(np.abs(a[:, 2:] - b[:, 2:]).max() / max(np.abs(b[:, 2:]).max(), 1e-30))
+
+
+def device_launches(fn) -> int:
+    """Kernels one call of fn runs on the card, from torch.profiler's device
+    events (copies and fills not counted); 0 when the profiler sees no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy" not in e.name and "Memset" not in e.name)
+
+
+def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
+    """[ssd]: ssd300 at b4 (300x300, 21 classes, 8,732 priors, top_k 400,
+    keep_top_k 200), the detection head inside the one CUDA graph of the
+    forward. bf16 gen and fused (tune=(use_s2d=1,pool_pallas=1)) captured and
+    replayed with their launches and each conv's route; each distinct K1, K2,
+    K4 and K8 call against its plain version; the head alone on the card
+    against the CPU; cnet_detect's golden in f32 on the card; bf16 against
+    bf16 lib and f32; det_top_k; ms per replay and the head's share and
+    launches. Returns the phase's numbers."""
+    import os
+
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph import ssd_ops
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.ops.kernels.conv import conv2d
+    from boda_tpu_torch.utils.lexp import parse_lexp
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    root = os.path.dirname(os.path.abspath(__file__))
+    pipe, dims = load_net("ssd300", img=SSD_BATCH)
+    ins = gen_data_inputs(dims)
+    det = ["detection_out"]
+    none = dict.fromkeys(counted, 0)
+
+    # -- gen and fused bf16, captured and replayed: launches, routes, replay ----------
+    engines = {}
+    for pol, kw in (("gen", {}), ("fused", {"tune": parse_lexp(FUSED_TUNE)})):
+        e = engines[pol] = make("conv_fwd", "cuda", compute_tn="bfloat16", **kw)
+        e.init(pipe)
+        routed = {}
+        for ln in e.get_info_log().splitlines():
+            name, _, rest = ln.partition(": ")
+            if name in pipe.ops and pipe.ops[name].type == "Convolution":
+                routed[name] = rest.split(" ")[0]
+        routes = {}
+        for name, r in routed.items():
+            fd = pipe.must_dims(pipe.ops[name].bots[1])
+            label = {"nhwc-k1conv": "K1", "nhwc-s2d_conv": "K4", "nhwc-lib_conv": "lib"}.get(r)
+            if r == "nhwc-direct_conv":
+                label = "K2-mma.sync" if fd["in_chan"] % 8 or fd["out_chan"] % 8 else "K2-wgmma"
+            routes.setdefault(label or r, []).append(name)
+        for label, names in sorted(routes.items()):
+            print(f"[ssd] ssd300 b{SSD_BATCH} bf16 {pol} routes {label} ({len(names)}): "
+                  + ", ".join(names))
+        check(routes.get("lib") == ["fc6"], f"ssd300 {pol}: library convs {routes.get('lib')}")
+        e.cuda_graph = False
+        eager = e.run_fwd(ins, det)
+        e.cuda_graph = True
+        e.prepare(ins, det)
+        zero_counts(counted)
+        replay = e.run_fwd(ins, det)
+        n = read_counts(counted)
+        cpaths = dict(counted["conv"].paths)
+        want = {**none, **SSD_LAUNCHES[pol]}
+        bit = np.array_equal(replay["detection_out"].data, eager["detection_out"].data)
+        print(f"[ssd] ssd300 b{SSD_BATCH} bf16 {pol}: one CUDA graph for the whole forward, "
+              f"detection_out included; launches {n} (expected {want}); conv paths {cpaths}; "
+              f"replay vs eager detection_out bit-equal {bit}")
+        check(n == want, f"ssd300 {pol}: launches {n}, expected {want}")
+        check(cpaths["mma"] == SSD_MMA and cpaths["wgmma"] == n["conv"] - SSD_MMA,
+              f"ssd300 {pol}: conv paths {cpaths}")
+        check(bit, f"ssd300 {pol}: the replayed detection_out differs from the eager one")
+        rows = replay["detection_out"].data.reshape(-1, 7)
+        check(rows.shape == (SSD_BATCH * 200, 7) and bool(np.isfinite(rows).all())
+              and set(rows[:, 0].tolist()) == set(range(SSD_BATCH))
+              and int((rows[:, 1] >= 0).sum()) > 0, f"ssd300 {pol}: detection_out rows")
+        if pol == "gen":
+            ins2 = other_batch(ins, 23)
+            eager2, replay2 = replay_follows(e, ins2, det)
+            moved = not np.array_equal(eager2["detection_out"].data, eager["detection_out"].data)
+            bit2 = np.array_equal(replay2["detection_out"].data, eager2["detection_out"].data)
+            print(f"[ssd] ssd300 gen: a second batch through the same graph: detection_out "
+                  f"moved {moved}, replay vs eager bit-equal {bit2}")
+            check(moved and bit2, "ssd300 gen: the second batch")
+        out[f"launches_{pol}"] = n
+        del eager, replay
+
+    # -- each distinct kernel call at ssd300's shapes against its plain version -------
+    rows = []
+    misses = kernel_shape_checks("ssd300", pipe, engines["gen"], engines["fused"], cases,
+                                 tag="ssd", rows=rows)
+    check(not misses, f"ssd300: {len(misses)} kernel calls differ from their plain "
+          f"versions: {misses}")
+    out["mbox_conf_calls"] = [r for r in rows if r["kernel"] == "conv"
+                              and (" OC=84 " in r["call"] or " OC=126 " in r["call"])]
+    for r in out["mbox_conf_calls"]:
+        print(f"[ssd] mbox_conf head {r['call']} on {r['path']}: kernel {r['kernel_us']:.2f} us, "
+              f"cuDNN {r['library_us']:.2f} us, bound {r['bound_us']:.2f} us ({card})")
+
+    # -- the head alone: card against CPU on the same f32 inputs ------------------------
+    e32 = make("conv_fwd", "cuda")
+    e32.init(pipe)
+    r32 = e32.run_fwd(ins, SSD_HEAD_INS + det + SSD_BF16_NODES)
+    op = pipe.ops["detection_out"]
+    head = {d: ssd_ops._detection_output_fn(op, int(op.p("num_classes")), SSD_BATCH, d)
+            for d in ("cuda", "cpu")}
+    hin = [torch.from_numpy(r32[k].data) for k in SSD_HEAD_INS]
+    with torch.inference_mode():
+        on_card = head["cuda"](*(t.cuda() for t in hin))[0].cpu().numpy().reshape(-1, 7)
+        on_cpu = head["cpu"](*hin)[0].numpy().reshape(-1, 7)
+    same, herr = head_agree(on_card, on_cpu)
+    same_g, gerr = head_agree(r32["detection_out"].data.reshape(-1, 7), on_cpu)
+    valid = int((on_cpu[:, 1] >= 0).sum())
+    print(f"[ssd] the head alone, f32 b{SSD_BATCH} inputs of the card's forward: card vs CPU "
+          f"image/label/order equal {same}, scores and boxes {herr:.3e}; the replayed "
+          f"forward's detection_out vs CPU equal {same_g}, {gerr:.3e} (tol {SSD_HEAD_TOL}); "
+          f"{valid} valid rows of {len(on_cpu)}")
+    check(same and same_g and herr <= SSD_HEAD_TOL and gerr <= SSD_HEAD_TOL and valid > 0,
+          f"ssd300 head card vs CPU: {same} {herr:.3g}, forward {same_g} {gerr:.3g}")
+    with torch.inference_mode():
+        card_ins = [t.cuda() for t in hin]
+        out["head_launches_alone"] = device_launches(lambda: head["cuda"](*card_ins))
+    out["head_card_vs_cpu"] = herr
+
+    # -- cnet_detect's golden in f32 on the card, through the CLI -----------------------
+    rc, lines = run_cli(["cnet_detect", "--model=ssd300", "--conf-thresh=0.05",
+                         f"--gt-fn={os.path.join(root, 'testdata', 'score', 'ssd300_gt.txt')}",
+                         f"--boda-output-dir={out_dir}"])
+    golden = open(os.path.join(root, SSD_GOLDEN, "test_out.txt")).read().splitlines()
+    got = det_rows((out_dir / "dets.txt").read_text()) if rc == 0 else []
+    want_rows = det_rows(open(os.path.join(root, SSD_GOLDEN, "dets.txt")).read())
+    row_ok = len(got) == len(want_rows) and all(
+        (a[0], a[1]) == (b[0], b[1]) and abs(a[2] - b[2]) <= SSD_SCORE_TOL
+        and max(abs(u - v) for u, v in zip(a[3], b[3])) <= SSD_BOX_TOL
+        for a, b in zip(got, want_rows))
+    worst = (max(abs(a[2] - b[2]) for a, b in zip(got, want_rows)),
+             max(abs(u - v) for a, b in zip(got, want_rows) for u, v in zip(a[3], b[3]))) \
+        if got and len(got) == len(want_rows) else (float("nan"), float("nan"))
+    for ln in lines:
+        print(f"[ssd] cnet_detect f32 on the card: {ln}")
+    print(f"[ssd] cnet_detect --model=ssd300 f32 gen rc={rc}: stdout equal to the golden "
+          f"{lines == golden}; dets.txt {len(got)} rows vs the golden's {len(want_rows)}, worst "
+          f"score {worst[0]:.2e} (tol {SSD_SCORE_TOL}), box {worst[1]:.2f} px (tol {SSD_BOX_TOL})")
+    check(rc == 0 and lines == golden and row_ok, "ssd300 cnet_detect golden on the card")
+    out["golden"] = {"mAP_line": lines[-1] if lines else "", "worst_score": worst[0],
+                     "worst_box_px": worst[1]}
+
+    # -- bf16 gen against bf16 lib and f32 gen ------------------------------------------
+    lib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
+    lib.init(pipe)
+    r_lib = lib.run_fwd(ins, SSD_BF16_NODES)
+    r_gen = engines["gen"].run_fwd(ins, SSD_BF16_NODES)
+    errs = {}
+    for ref_tag, ref in (("bf16 lib", r_lib), ("f32 gen", r32)):
+        for nd in SSD_BF16_NODES:
+            errs[f"{nd} vs {ref_tag}"] = rel_err(torch.from_numpy(r_gen[nd].data),
+                                                 torch.from_numpy(ref[nd].data))[1]
+    print("[ssd] bf16 gen: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {SSD_BF16_TOL}); max mbox_conf_softmax {r_gen['mbox_conf_softmax'].data.max():.4g}")
+    check(max(errs.values()) <= SSD_BF16_TOL, f"ssd300 bf16: {errs}")
+    out["bf16_errs"] = errs
+    del e32, r32, r_lib, r_gen
+
+    # -- det_top_k ---------------------------------------------------------------------
+    base = engines["gen"].run_fwd(ins, det)["detection_out"].data.reshape(-1, 7)
+    topk = {}
+    for k in (400, 64):
+        e = topk[k] = make("conv_fwd", "cuda", compute_tn="bfloat16",
+                           per_op_tune={"detection_out": parse_lexp(f"(det_top_k={k})")})
+        e.init(pipe)
+    r400 = topk[400].run_fwd(ins, det)["detection_out"].data.reshape(-1, 7)
+    r64 = topk[64].run_fwd(ins, det)["detection_out"].data.reshape(-1, 7)
+    v_base, v64 = int((base[:, 1] >= 0).sum()), int((r64[:, 1] >= 0).sum())
+    print(f"[ssd] det_top_k=400 bit-equal to the default: {np.array_equal(r400, base)}; "
+          f"det_top_k=64: {v64} valid rows against the default's {v_base}")
+    check(np.array_equal(r400, base) and 0 < v64 <= v_base, "ssd300 det_top_k")
+    del topk[400]
+
+    # -- ms per b4 replay, the head's share and its launches -----------------------------
+    def ms(e, outs):
+        return float(np.median([e.time_fwd(ins, outs, n_iters=20, warmup=3)
+                                for _ in range(SSD_REPS)])) * 1e3
+    t = {"gen": ms(engines["gen"], det), "lib": ms(lib, det), "det_top_k=64": ms(topk[64], det),
+         "fused": ms(engines["fused"], det), "gen_head_inputs": ms(engines["gen"], SSD_HEAD_INS)}
+    share = (t["gen"] - t["gen_head_inputs"]) / t["gen"]
+    e = engines["gen"]
+    e.cuda_graph = False
+    launches_all = device_launches(lambda: e.run_fwd(ins, det))
+    launches_in = device_launches(lambda: e.run_fwd(ins, SSD_HEAD_INS))
+    e.cuda_graph = True
+    out["head_launches"] = launches_all - launches_in if launches_all else None
+    print(f"[ssd] ssd300 b{SSD_BATCH} bf16 ms per replay (median of {SSD_REPS} x 20): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t.items())
+          + f"; the head's share of gen {share:.3f}; device launches per forward "
+          + (f"{launches_all}, of them the head's {out['head_launches']} (the head alone "
+             f"{out['head_launches_alone']})" if launches_all else "not measured (the "
+                                                                   "profiler saw no device events)")
+          + f" ({card})")
+    out.update(ms=t, head_share=share, launches_per_forward=launches_all or None)
+    del engines, lib, topk
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[ssd] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1242,6 +1517,13 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device_count {torch.cuda.device_count()}")
 
+    # the seconds each phase takes, for the time budget: lap(name) ends a phase
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
     # -- phase 1: build ---------------------------------------------------------
     kb = build.load()
     print(f"[build] nvcc sm_90a -> {kb.path.relative_to(build.BUILD_DIR.parents[1])}: "
@@ -1259,6 +1541,7 @@ def main() -> int:
     for ln in spills:
         print(f"[build]   {ln}")
 
+    lap("build")
     # -- phase 2: each kernel vs its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1518,6 +1801,7 @@ def main() -> int:
                  f"{tot['library_device_ms']:.3f} ms" if graphed else ""))
         summary[kname] = tot
 
+    lap("kernels")
     # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
     # at ResNet-50 b32's largest residual add (32x256x56x56), at n = 777 and at
     # a view one element off 16-byte alignment (the scalar path and tail);
@@ -1571,6 +1855,7 @@ def main() -> int:
           f"plan {elt_plan} ({card})")
     del a0, b0, x, y
 
+    lap("eltwise")
     # -- phase 2c: K7, the fused stem, at the b32 stem --------------------------------
     srng = np.random.default_rng(7)
     for dt in (torch.float32, torch.bfloat16):
@@ -1610,6 +1895,7 @@ def main() -> int:
           f"{stem_plan}; {card})")
     del x6, w2, sb, xsd, wf, out, ref, xs_lib, w_lib
 
+    lap("stem")
     # -- phase 2d: NaN at ReLU and max, as jnp.maximum gives it --------------------
     misses = []
     for name in NAN_CASES:
@@ -1619,6 +1905,7 @@ def main() -> int:
             misses.append(name)
     check(not misses, f"nan phase: {misses} differ from their plain versions")
 
+    lap("nan")
     # -- phase 3: the slice: ResNet-50 b32 bf16 through the kernels -----------------
     ins = gen_data_inputs(in_dims)
     log = eng.get_info_log().splitlines()
@@ -1663,6 +1950,7 @@ def main() -> int:
     print(f"[slice] top-1 agreement gen vs lib: {float(np.mean(top_gen == top_lib)):.3f}")
     del f32
 
+    lap("slice")
     # -- phase 3b: the fused configuration of the same forward -----------------------
     flog = fused.get_info_log()
     check("conv1: nhwc-s2d_conv" in flog, "conv1 did not take the space-to-depth fold")
@@ -1733,6 +2021,7 @@ def main() -> int:
     check(errs[-1][0] <= F32_NODE_TOL, "f32 fused per-node vs lib")
     del sfused, res
 
+    lap("fused")
     # -- phase 4: the gradient graph, f32, b8: every node gen vs lib --------------
     # The random-weight net's softmax is saturated (prob one-hot), and a
     # saturated SoftmaxWithLoss passes no gradient at all (its p is under
@@ -1810,6 +2099,7 @@ def main() -> int:
     check(not fails, f"grad-f32: {len(fails)} gradient nodes disagree")
     del fres
 
+    lap("grad-f32")
     # -- phase 5: the gradient graph, bf16, b32: loss, input and weight grads -------
     bins = gen_data_inputs(bdims)
     bwant = ["prob_loss", "data__grad__p0"] + weight_grads(bpipe)
@@ -1924,6 +2214,7 @@ def main() -> int:
     print(f"[slice] host us per launch over the gen forward: sgemm {host_us['sgemm']:.1f}, "
           f"conv {host_us['conv']:.1f} (wrapper checks, plan, allocations, ctypes launch)")
 
+    lap("grad-bf16")
     # -- phase 5b: [graph] each b32 forward captured once and replayed ----------------
     fwd_outs = ["prob", "fc1000"]
     ins2 = other_batch(ins, 13)
@@ -1985,6 +2276,25 @@ def main() -> int:
               f"({rates[pol]:.1f} img/s) ({card})")
         del eager, replay
 
+    # the replayed gen forward's early nodes, conv1 through res2a, against lib's
+    early = {pol: e.run_fwd(ins, list(EARLY_NODES)) for pol, e in (("gen", eng), ("lib", lib))}
+    early_errs = {}
+    for n in EARLY_NODES:
+        g, r = (torch.from_numpy(early[p][n].data) for p in ("gen", "lib"))
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+        early_errs[n] = (rel_err(g, r)[1], float(((g - r).abs() > ulp).float().mean()),
+                         float((g - r).mean() / r.abs().mean().clamp_min(1e-30)))
+    print(f"[graph] resnet50 b{BATCH} bf16 replayed gen vs lib, early nodes, max|err|/max|ref| "
+          f"(share of elements > 1 bf16 ulp apart, mean err / mean|ref|): "
+          + ", ".join(f"{n} {a:.3e} ({b:.4f}, {c:+.2e})" for n, (a, b, c) in early_errs.items())
+          + f" (tol {EARLY_NODE_TOL}; mean err {EARLY_BIAS_TOL})")
+    check(max(a for a, _, _ in early_errs.values()) <= EARLY_NODE_TOL
+          and max(abs(c) for _, _, c in early_errs.values()) <= EARLY_BIAS_TOL,
+          f"graph: early nodes gen vs lib {early_errs}")
+    graph_rows["early_nodes"] = early_errs
+    del early
+
+    lap("graph")
     # -- phase 5c: [input_s2d] bench.py's host-folded stem ---------------------------
     xh = np.ascontiguousarray(ins["data"].data.transpose(0, 2, 3, 1))
     unfolded = {"gen": outs, "lib": louts}
@@ -2075,6 +2385,7 @@ def main() -> int:
             check(err <= F32_NODE_TOL, f"input_s2d f32 {pol} pad_c={pad}: conv1 {err:.3g}")
         del e0, e
 
+    lap("input_s2d")
     # -- phase 5d: [stats] per_layer_stats and quantize, card against CPU -------------
     q = parse_lexp(STATS_QUANT)
     st = {}
@@ -2103,6 +2414,7 @@ def main() -> int:
     check(bool(np.all(dq <= quantum * (1 + 1e-6))), "quantize: more than one quantum apart")
     del st, co, po
 
+    lap("stats")
     # -- phase 5e: [run_cnet] per-layer times ----------------------------------------
     out_dir = build.BUILD_DIR.parent / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2118,6 +2430,7 @@ def main() -> int:
     print(f"[run_cnet] {next((ln for ln in lines if ln.startswith('{')), '')}")
     check(rc == 0 and len(pl_lines) == len(pipe.ops), "run_cnet --per-layer-fn")
 
+    lap("run_cnet")
     # -- phase 6: the rtc layer and per-op autotuning, through the CLI ---------------
     for fn in (eltwise, matmul, conv2d, space_to_depth_conv, stem_fused):
         fn.launches = 0
@@ -2198,16 +2511,24 @@ def main() -> int:
     check(e_w <= SLICE_TOL["fc1000"], f"wisdom-tuned fc1000 vs lib {e_w:.3g}")
     del weng
 
+    lap("rtc")
     # -- phase 7: [caffe] the Caffe frontend; GoogLeNet b32 bf16 read back ------------
     caffe = caffe_phase(card, out_dir, counted, {"gemm": gemm_case, "conv": conv_case,
                                                  "pool": pool_case, "s2d": s2d_case})
     g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
 
+    lap("caffe")
     # -- phase 8: [int8] ResNet-50 b32 int8-static in bench.py's configuration --------
     int8 = int8_phase(card, pipe, ins, counted)
 
+    lap("int8")
     # -- phase 9: [lmdb] records in: net_calib and test_lmdb; the last four rules -----
     lmdb = lmdb_phase(card, out_dir)
+
+    lap("lmdb")
+    # -- phase 10: [ssd] ssd300 b4, the detection head in the captured forward ------
+    ssd = ssd_phase(card, out_dir, counted, {"gemm": gemm_case, "conv": conv_case,
+                                             "pool": pool_case, "s2d": s2d_case})
 
     # per kernel: launches on its main path (the forward for sgemm and conv,
     # the b32 bf16 gradient graph for atb and for K3's entry, the dgrads,
@@ -2267,6 +2588,8 @@ def main() -> int:
             # from the run whose path the kernel is on
             entry["launches_googlenet"] = (g_gen if kname in ("sgemm", "conv")
                                            else g_fused)[kname]
+            entry["launches_ssd300"] = (ssd["launches_gen"] if kname in ("sgemm", "conv")
+                                        else ssd["launches_fused"])[kname]
         kernels.append(entry)
     # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
     # tests only); times of one call at the b32 shapes
@@ -2287,6 +2610,8 @@ def main() -> int:
                     "library_launch_ms": stem_t["library_launch_ms"],
                     "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
+    lap("ssd")
+    print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
                       "graph": graph_rows, "input_s2d_img_per_s": s2d_rates,
@@ -2294,7 +2619,8 @@ def main() -> int:
                       "grad_img_per_s_eager": grad_eager_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
-                      "caffe": caffe, "int8": int8, "lmdb": lmdb, "card": card}))
+                      "caffe": caffe, "int8": int8, "lmdb": lmdb, "ssd": ssd,
+                      "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

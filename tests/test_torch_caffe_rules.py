@@ -25,6 +25,7 @@ from boda_tpu_torch.config import make as tmake
 from boda_tpu_torch.frontend import pipe_builder as tpb
 from boda_tpu_torch.frontend.pipe_builder import pipe_from_prototxt as tfrom
 from boda_tpu_torch.frontend.surgery import write_caffemodel
+from boda_tpu_torch.graph.lowering_nhwc import _NHWC_RULES
 from boda_tpu_torch.graph.pipe import ConvOp as TConvOp
 from boda_tpu_torch.models.zoo import NetBuilder as TNetBuilder
 from boda_tpu_torch.utils.dims import NDA as TNDA
@@ -122,8 +123,9 @@ def test_frontend_reads_the_rules_as_boda_tpu(tmp_path):
     """Both frontends give the same ops and weights for the three prototxts
     with their caffemodels (the deconv blob transposed on load; a grouped
     blob of the filters' size read as it is, as boda_tpu reads it), raise the
-    same error for a deconv blob of the wrong size, and the port's
-    NOT_PORTED names only the SSD head's layers."""
+    same error for a deconv blob of the wrong size, and the port has an op
+    rule and an NHWC rule for every layer type its frontend reads, the SSD
+    head's included."""
     for name in sorted(_NETS):
         ptt, cm = _prototxt(tmp_path, name)
         (jp, _), (tp, _) = jfrom(ptt, cm), tfrom(ptt, cm)
@@ -135,6 +137,7 @@ def test_frontend_reads_the_rules_as_boda_tpu(tmp_path):
     shaper = tpb._deconv_winit_shaper(TDims.of(out_chan=6, in_chan=4, y=3, x=3), 4, 1, 36)
     with pytest.raises(tpb.FrontendError, match="deconv blob size 10 != expected 4x6x3x3"):
         shaper(np.zeros(10, np.float32))
-    assert set(tpb.NOT_PORTED) == {"Permute", "Flatten", "Reshape", "Normalize",
-                                   "PriorBox", "DetectionOutput"}
-    assert set(tpb.NOT_PORTED.values()) == {"ROADMAP §1 item 6, the SSD head"}
+    assert not hasattr(tpb, "NOT_PORTED")
+    for ltype in ("Permute", "Flatten", "Reshape", "Normalize", "PriorBox",
+                  "DetectionOutput", "Deconvolution", "Sigmoid", "TanH"):
+        assert ltype in tpb.OP_INFOS and ltype in _NHWC_RULES, ltype

@@ -5,10 +5,12 @@ nothing in a forward may make a device tensor from a Python or numpy value
 per call. Two places did: ``jax_maximum`` with a Python float (the ReLU
 rule, every Bck recompute of a ReLU, SoftmaxWithLoss) and the avg pool's
 divisor. Here their values, NaN and gradients are held against
-``jnp.maximum`` and the divisor's cache against inference_mode; and a CPU
+``jnp.maximum`` and the divisor's cache against inference_mode; a CPU
 engine under ``cuda_graph=1`` runs eagerly, since there is no card to
 capture on (the capture itself is held on the card, in
-tests/test_torch_cuda_graph.py).
+tests/test_torch_cuda_graph.py and tests/test_torch_cuda_ssd.py); and the
+ssd300 forward, the SSD head's constants included, makes no tensor from
+host data and moves none between devices once the engine is built.
 """
 
 import jax
@@ -20,6 +22,7 @@ from boda_tpu_torch.config import make as tmake
 from boda_tpu_torch.graph.lowering import jax_maximum
 from boda_tpu_torch.models.zoo import build_model as tbuild
 from boda_tpu_torch.ops.kernels import pool
+from boda_tpu_torch.modes.cnet import gen_data_inputs
 from boda_tpu_torch.utils.dims import NDA as TNDA
 
 
@@ -72,3 +75,44 @@ def test_cpu_engine_runs_eagerly_under_cuda_graph():
     np.testing.assert_array_equal(outs[0], outs[1])
     eng.prepare(x, ["prob"])  # compiles only: no warm-up off the card
     assert eng._warm_key is None
+
+
+def test_ssd300_forward_makes_no_host_tensor(monkeypatch):
+    """The whole ssd300 forward, Normalize, the PriorBox tables and
+    DetectionOutput's NMS head included, run with the calls that would copy
+    host data to the card spied on: ``torch.tensor`` of more than a scalar
+    (a 0-dim host scalar is a kernel argument), ``torch.as_tensor``,
+    ``torch.from_numpy``, and ``Tensor.to``/``.cuda`` with a device. None is
+    made: the tables, labels and image ids were put on the device at init."""
+    pipe, dims = tbuild("ssd300", img=2)
+    eng = tmake("conv_fwd", "cuda", device="cpu")
+    eng.init(pipe)
+    outs = ["detection_out", "mbox_priorbox", "conv4_3_norm"]
+    eng.compile_for(outs)
+    ins = eng._put_inputs(gen_data_inputs(dims))
+    seen = []
+
+    def spy(name, f, bad):
+        def wrapped(*a, **kw):
+            if bad(a, kw):
+                seen.append(name)
+            return f(*a, **kw)
+        return wrapped
+
+    def dev_arg(a, kw):
+        return "device" in kw or any(isinstance(v, (str, torch.device)) for v in a[1:])
+    monkeypatch.setattr(torch, "tensor", spy("tensor", torch.tensor,
+                                             lambda a, kw: np.ndim(a[0]) > 0))
+    monkeypatch.setattr(torch, "as_tensor", spy("as_tensor", torch.as_tensor, lambda a, kw: True))
+    monkeypatch.setattr(torch, "from_numpy", spy("from_numpy", torch.from_numpy,
+                                                 lambda a, kw: True))
+    monkeypatch.setattr(torch.Tensor, "to", spy("Tensor.to", torch.Tensor.to, dev_arg))
+    monkeypatch.setattr(torch.Tensor, "cuda", spy("Tensor.cuda", torch.Tensor.cuda,
+                                                  lambda a, kw: True))
+    with eng._run_ctx():
+        res = eng._fn(eng._weights_dev, ins)
+    monkeypatch.undo()
+    assert seen == []
+    det = res["detection_out"].reshape(-1, 7)
+    assert det.shape == (400, 7) and set(det[:, 0].tolist()) == {0.0, 1.0}
+    assert int((det[:, 1] >= 0).sum()) > 0

@@ -43,6 +43,9 @@ import boda_tpu_torch.ops.kernels.bconv, boda_tpu_torch.ops.kernels.stem
 import boda_tpu_torch.modes.rtc, boda_tpu_torch.modes.prof, boda_tpu_torch.prof.abtime
 import boda_tpu_torch.frontend.pipe_builder, boda_tpu_torch.frontend.surgery
 import boda_tpu_torch.modes.surgery_modes
+import boda_tpu_torch.graph.ssd_ops, boda_tpu_torch.apps.scoring
+import boda_tpu_torch.modes.detect, boda_tpu_torch.modes.apps
+import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
 from boda_tpu_torch.graph.autodiff import add_bck_ops
@@ -65,6 +68,12 @@ assert cli.main(["rtc_test", "--be=(be=cuda,device=cpu)", "--n=1000"]) == 0
 assert cli.main(["run_cnet", "--ptt-fn=testdata/nets/shapesnet.prototxt",
                  "--weights-fn=testdata/nets/shapesnet.caffemodel",
                  "--conv-fwd=(mode=cuda,device=cpu)"]) == 0
+with tempfile.TemporaryDirectory() as td:
+    assert cli.main(["cnet_detect", "--ptt-fn=testdata/nets/tinyssd.prototxt",
+                     "--conf-thresh=0.3", "--conv-fwd=(mode=cuda,device=cpu)",
+                     "--boda-output-dir=" + td, "--gt-fn=testdata/score/gt.txt"]) == 0
+assert cli.main(["score", "--dets-fn=testdata/score/dets.txt",
+                 "--gt-fn=testdata/score/gt.txt"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)

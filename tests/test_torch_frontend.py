@@ -2,8 +2,8 @@
 in testdata/nets gives the same pipe in both packages (op names, types,
 params, bots, tops, every node's dims) and bit-equal weights, read from the
 net's caffemodel or seeded, also with the input overridden; the V1
-upgrade; the layer types the port has no rule for yet raise, naming the
-ROADMAP item; and the same error texts."""
+upgrade; the SSD head's layer types (tinyssd and one-layer nets); and the
+same error texts."""
 
 import os
 
@@ -13,7 +13,6 @@ import pytest
 from boda_tpu.frontend.pipe_builder import pipe_from_prototxt as jfrom
 from boda_tpu_torch.frontend import caffemodel as tcm
 from boda_tpu_torch.frontend.pipe_builder import pipe_from_prototxt as tfrom
-from boda_tpu_torch.graph.pipe import PipeError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NETS = os.path.join(REPO, "testdata", "nets")
@@ -74,28 +73,26 @@ def test_prototxt_pipes_identical(name):
 
 
 _UNPORTED = {
-    "Permute": ("permute_param { order: 0 order: 2 order: 3 order: 1 }", "item 6"),
-    "Flatten": ("", "item 6"),
-    "Normalize": ("", "item 6"),
+    "Permute": "permute_param { order: 0 order: 2 order: 3 order: 1 }",
+    "Flatten": "",
+    "Normalize": "",
 }
 
 
 def test_unported_layer_types_raise(tmp_path):
-    """Layer types without an op rule in the port raise PipeError naming the
-    ROADMAP item that brings them (tinyssd's SSD head: item 6); boda_tpu
-    reads the same files."""
-    cases = [(_net("tinyssd.prototxt"), "item 6")]
-    for ltype, (param, item) in sorted(_UNPORTED.items()):
+    """The SSD head's layer types, which the port refused until it had their
+    op rules (ROADMAP §1 item 6), now build to boda_tpu's pipe: tinyssd, and
+    one-layer nets of Permute, Flatten and Normalize (its seeded scale blob
+    included); no layer type of these files raises."""
+    cases = [_net("tinyssd.prototxt")]
+    for ltype, param in sorted(_UNPORTED.items()):
         fn = str(tmp_path / f"{ltype}.prototxt")
         with open(fn, "w") as f:
             f.write('name: "u"\ninput: "data"\ninput_shape { dim: 1 dim: 3 dim: 8 dim: 8 }\n'
                     f'layer {{ name: "l" type: "{ltype}" bottom: "data" top: "l" {param} }}\n')
-        cases.append((fn, item))
-    for fn, item in cases:
-        jfrom(fn)
-        with pytest.raises(PipeError, match=f"has no op rule in boda_tpu_torch yet "
-                                            f"\\(ROADMAP §1 {item}"):
-            tfrom(fn)
+        cases.append(fn)
+    for fn in cases:
+        _same_pipe(jfrom(fn)[0], tfrom(fn)[0])
 
 
 _ERRORS = {

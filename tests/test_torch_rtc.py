@@ -120,7 +120,8 @@ def test_op_sig_roundtrip_matches_boda_tpu(tmp_path):
 
 def test_tune_keys_match_boda_tpu_and_unported_knobs_raise():
     """Every knob of boda_tpu's OpTune parses with the same key; the ones
-    with no effect on the card are named; unported ones raise."""
+    with no effect on the card are named; det_top_k, the last knob to be
+    ported (the SSD head), parses and has an effect; an unknown knob raises."""
     for s in ("()", "(use_halo=1,precision=default)", "(bm=512,bk=1024,tap_cat=1)",
               "(chunk=4,use_iconv=0,stem_im2col=1,nb=2,pool_shift=1,pool_bview=2,"
               "dimension_semantics=parallel)", "(use_s2d=1,pool_pallas=1,use_xla=1)",
@@ -132,7 +133,8 @@ def test_tune_keys_match_boda_tpu_and_unported_knobs_raise():
     assert OpTune.parse("(acc_tn=bfloat16,in_tn=bfloat16)").no_effect() == ["acc_tn",
                                                                             "in_tn"]
     assert OpTune.parse("(int8=1)").no_effect() == []
-    with pytest.raises(ValueError, match="not ported.*item 6"):
-        OpTune.parse("(det_top_k=100)")
+    assert OpTune.parse("(det_top_k=100)").key() == JOpTune.parse("(det_top_k=100)").key() \
+        == "(det_top_k=100)"
+    assert OpTune.parse("(det_top_k=100)").no_effect() == []
     with pytest.raises(ValueError, match="unknown knob"):
         OpTune.parse("(nosuch=1)")

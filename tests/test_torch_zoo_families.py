@@ -30,9 +30,8 @@ _NETS = {"alexnet_ng_conv": {}, "nin_imagenet": {"in_sz": 64},
 
 
 def test_models_registered_as_in_boda_tpu():
-    """Every builder of boda_tpu's zoo under its name, but ssd300 (its SSD
-    head's rules are ROADMAP §1 item 6)."""
-    assert sorted(TMODELS) == sorted(set(JMODELS) - {"ssd300"})
+    """Every builder of boda_tpu's zoo under its name, ssd300 included."""
+    assert sorted(TMODELS) == sorted(JMODELS)
 
 
 def test_zoo_weights_identical():
