@@ -97,6 +97,8 @@ class FwdEngine:
     device = Field(str, default="cuda",
                    help="torch device: cuda (the card; raises without one) | "
                         "cpu (kernels' plain versions, for tests)")
+    train = Field(bool, default="0", help="training mode (dropout active)")
+    det_drop_seed = Field(int, default="0", help="deterministic dropout seed")
     cuda_graph = Field(bool, default="1",
                        help="on the card, capture each forward once per key as a CUDA "
                             "graph and replay it; 0 = eager launches (per-launch host "
@@ -138,6 +140,15 @@ class FwdEngine:
         if d.type not in ("cuda", "cpu"):
             raise ConfigError(f"conv_fwd: unsupported device {self.device!r}")
         return d
+
+    def set_det_drop_seed(self, seed: int) -> None:
+        """A new dropout seed (boda_tpu: executor.py:163-168): the lowerings
+        are rebuilt, so the next forward draws the seed's masks."""
+        self.det_drop_seed = seed
+        if self.pipe is not None:
+            self._fn = None
+            self._fn_key = None
+            self.init(self.pipe)
 
     def get_info_log(self) -> str:
         return "\n".join(self._info_log)
@@ -480,7 +491,8 @@ class CudaFwd(FwdEngine):
             from ..prof.calib import read_calib
             amax = read_calib(self.calib_fn)
         ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn,
-                       act_amax=amax, device=str(self.dev()))
+                       act_amax=amax, device=str(self.dev()), train=self.train,
+                       det_drop_seed=self.det_drop_seed)
         if self.int8 and not self.calib_fn:
             # engine-wide int8 without a sidecar quantizes with an amax reduce
             # of every conv and fc input in every forward: say so at init
@@ -492,12 +504,12 @@ class CudaFwd(FwdEngine):
                                   "throughput REGRESSION vs bf16")
         self._chains = self._find_chains(pipe)
         self._blocks: dict[str, dict] = {}
-        # no block fusion in graphs with backward ops (the kernel has no
-        # backward; gradients flow through the unfused lowerings), as in
-        # boda_tpu (executor.py:900-902); the port has no train mode or tp
-        # mesh, boda_tpu's other two conditions there
+        # no block fusion in graphs with backward ops or in training (the
+        # kernel has no backward; gradients flow through the unfused
+        # lowerings), as in boda_tpu (executor.py:900-902); the port has no tp
+        # mesh, boda_tpu's third condition there
         if self.fuse_block and self.fuse_relu and self.fuse_eltwise and \
-                not pipe.bck_added:
+                not pipe.bck_added and not self.train:
             self._detect_blocks(pipe)
         # bck graphs keep the per-forward fold: BN/Scale grads flow through it
         self._prefold_on = bool(self.prefold) and not pipe.bck_added
@@ -584,7 +596,7 @@ class CudaFwd(FwdEngine):
         127); under engine-wide int8 always int8, so that an int8 conv can
         take the stored value as its operand."""
         import fnmatch
-        if pipe.bck_added:
+        if pipe.bck_added or self.train:
             raise ConfigError("act_int8 is inference-only (the storage "
                               "rounding has zero gradient)")
         if amax is None:

@@ -1,8 +1,8 @@
 """Shared lowering context and helpers for the NHWC op rules.
 
 Counterpart of the parts of ``boda_tpu/graph/lowering.py`` that the NHWC
-engine uses: ``LowerCtx``, the precision names, ``_softmax`` and
-``lrn_inv_pow``, plus
+engine uses: ``LowerCtx`` (``train`` and ``det_drop_seed`` among its
+fields), the precision names, ``_softmax`` and ``lrn_inv_pow``, plus
 :func:`lib_precision`, which applies a precision to the library ops, and
 :func:`jax_maximum`, ``jnp.maximum`` with JAX's gradient. The NCHW per-op
 rules of that module are not ported (the port runs channels-last only).
@@ -90,6 +90,8 @@ class LowerCtx:
     # stored int8 input dequantizes with the engine's own storage scale
     act_store_scale: Optional[dict] = None
     device: str = "cpu"            # where the lowerings' constants live
+    det_drop_seed: int = 0         # deterministic dropout seed
+    train: bool = False            # training mode (dropout active)
 
     def __post_init__(self):
         if self.precision not in PRECISIONS:

@@ -20,8 +20,9 @@ it), and the layout's name.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +30,7 @@ from ..ops import int8 as q8
 from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
+from ..utils.dims import stable_hash
 from .lowering import LowerCtx, _softmax, jax_maximum, lrn_inv_pow
 from .pipe import ConvOp, ConvPipe, PipeError, _concat_axis_name
 
@@ -489,9 +491,52 @@ def _nhwc_tanh(pipe, op, ctx, tune, info_log):
     return _no_preps(lambda x: (torch.tanh(x),))
 
 
+# dropout_mask(op_name, seed, shape, keep) -> a bool mask of the logical
+# (NCHW) shape, or None for the port's own; set by tests to inject boda_tpu's
+# jax.random masks, whose bits cannot be had without JAX
+DROPOUT_MASK_HOOK: Optional[Callable] = None
+
+
+def dropout_mask(op_name: str, seed: int, shape: tuple, keep: float) -> torch.Tensor:
+    """The training Dropout's keep mask at the logical shape: the hook's,
+    else uniform draws below ``keep`` from a CPU ``torch.Generator`` seeded
+    with ``seed``, so the card and the CPU draw the same mask."""
+    if DROPOUT_MASK_HOOK is not None:
+        mask = DROPOUT_MASK_HOOK(op_name, seed, shape, keep)
+        if isinstance(mask, torch.Tensor):
+            return mask.to(torch.bool)
+        if mask is not None:
+            return torch.from_numpy(np.array(mask, dtype=bool))
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g) < keep
+
+
 @nhwc_rule("Dropout")
 def _nhwc_dropout(pipe, op, ctx, tune, info_log):
-    return _no_preps(lambda x: (x,))  # inference: identity
+    """Identity in inference. In training (boda_tpu: lowering_nhwc.py:688-699)
+    x * mask / (1 - ratio) with a fixed mask per op: seed det_drop_seed +
+    (stable_hash(op name) & 0xFFFF), as boda_tpu's ``set_det_drop_seed``
+    masks are, drawn once per shape (:func:`dropout_mask`) and kept on the
+    input's device, so every step and a backward recompute see the same one."""
+    if not ctx.train:
+        return _no_preps(lambda x: (x,))
+    keep = 1.0 - float(op.p("dropout_ratio", 0.5))
+    seed = ctx.det_drop_seed + (stable_hash(op.name) & 0xFFFF)
+    nhwc = pipe.must_dims(op.bots[0]).names == ("img", "chan", "y", "x")
+    masks: dict = {}
+
+    def fn(x):
+        key = (tuple(x.shape), x.device)
+        mask = masks.get(key)
+        if mask is None:
+            shape = (x.shape[0], x.shape[3], x.shape[1], x.shape[2]) if nhwc \
+                else tuple(x.shape)
+            mask = dropout_mask(op.name, seed, shape, keep)
+            if nhwc:
+                mask = mask.permute(0, 2, 3, 1)
+            mask = masks[key] = mask.contiguous().to(x.device)
+        return ((x * mask / keep).to(x.dtype),)
+    return _no_preps(fn)
 
 
 @nhwc_rule("Split")

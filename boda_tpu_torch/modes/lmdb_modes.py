@@ -6,8 +6,8 @@ windows) and ``test_lmdb`` (ref src/lmdb_caffe_io.cc:37, top-1/top-5 over
 labelled records). Records come from a block-stream file (``--rec-fn``,
 testdata/lmdb) or a real LMDB (``--db-fn``, needs the ``lmdb`` module).
 ``test_lmdb`` runs the port's engine, on the card unless the engine is
-given ``device=cpu``; its ``--ckpt-fn`` (weights from a training
-checkpoint) waits for the training port (ROADMAP §1 item 7).
+given ``device=cpu``; its ``--ckpt-fn`` evaluates the weights of a
+train_lmdb checkpoint (either package's).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ class TestLmdb(Mode):
     ptt_fn = Field("filename", default="", help="caffe prototxt")
     weights_fn = Field("filename", default="", help="caffemodel weights")
     ckpt_fn = Field("filename", default="",
-                    help="train_lmdb checkpoint to evaluate (not ported: ROADMAP §1 item 7)")
+                    help="train_lmdb checkpoint to evaluate (overrides weights)")
     conv_fwd = Field("conv_fwd", default="(mode=cuda)", help="engine")
     out_node_name = Field(str, default="prob", help="prob node")
     img = Field(int, default="4", help="batch size")
@@ -79,11 +79,17 @@ class TestLmdb(Mode):
         from ..apps.preproc import img_to_batch_np
         from ..frontend.datum import parse_datum
         from ..utils.img_io import Img
-        if self.ckpt_fn:
-            raise ConfigError("test_lmdb --ckpt-fn: training checkpoints are not "
-                              "ported to boda_tpu_torch yet (ROADMAP §1 item 7, training)")
         pipe, in_dims = load_net(self.model, self.ptt_fn, self.weights_fn,
                                  img=self.img, in_sz=self.in_sz)
+        if self.ckpt_fn:  # train->eval loop: weights from a training checkpoint
+            from ..parallel.checkpoint import load_checkpoint
+            step, w_ck, _m = load_checkpoint(self.ckpt_fn)
+            unknown = sorted(set(w_ck) - set(pipe.weights))
+            if unknown:
+                raise ConfigError(f"ckpt weights not in net: {unknown[:4]}")
+            for k, v in w_ck.items():
+                pipe.weights[k] = NDA(pipe.weights[k].dims, v.float().numpy())
+            print(f"test_lmdb: weights from {self.ckpt_fn} (step {step})")
         self.conv_fwd.init(pipe)
         d = in_dims["data"]
         batch = np.zeros((self.img, d["y"], d["x"], 4), np.uint8)

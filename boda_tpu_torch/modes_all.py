@@ -18,6 +18,8 @@ _MODE_MODULES = [
     "boda_tpu_torch.modes.rtc",
     "boda_tpu_torch.modes.surgery_modes",
     "boda_tpu_torch.modes.test_compute",
+    "boda_tpu_torch.modes.train_bench",
+    "boda_tpu_torch.modes.train_lmdb",
 ]
 
 for _m in _MODE_MODULES:

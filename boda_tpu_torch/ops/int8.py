@@ -54,8 +54,9 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor, n: int | None = None) -> torch.Ten
 
 def weight_cache() -> WeakIdKeyDictionary:
     """A lowering's weight -> quantized form map for :func:`quant_weight`:
-    the weights are frozen after upload (a new upload makes new tensors), so
-    each is quantized on the first forward that reads it, and its entry dies
+    each weight is quantized on the first forward that reads it and again
+    after any in-place change to it (the entry is keyed by the tensor and
+    its ``_version``, which every in-place op bumps), and its entry dies
     with it."""
     return WeakIdKeyDictionary()
 
@@ -69,8 +70,8 @@ def quant_weight(w: torch.Tensor, reduce_dims: tuple[int, ...],
     dtype). Returns (wq as a (K', N') GEMM operand, K' and N' padded to
     multiples of 8; ws (N,) f32), kept in ``cache`` when one is given."""
     hit = cache.get(w) if cache is not None else None
-    if hit is not None:
-        return hit
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
     wf = w.float()
     ws = torch.clamp_min(wf.abs().amax(dim=reduce_dims), 1e-12) / const(127.0, w.device)
     wq = torch.round(wf / ws).to(torch.int8).reshape(-1, wf.shape[-1])
@@ -78,7 +79,7 @@ def quant_weight(w: torch.Tensor, reduce_dims: tuple[int, ...],
     wq = F.pad(wq, (0, _round_up(n, MM_ALIGN) - n, 0, _round_up(k, MM_ALIGN) - k))
     out = (wq.contiguous(), ws)
     if cache is not None:
-        cache[w] = out
+        cache[w] = (w._version, out)
     return out
 
 

@@ -1,0 +1,393 @@
+"""Training step over a ConvPipe: loss, gradients and SGD, eagerly on PyTorch.
+
+Counterpart of ``boda_tpu/parallel/train.py``. boda_tpu takes
+``jax.value_and_grad`` of the whole net as one jitted program; the port runs
+the net's NHWC rules (graph/lowering_nhwc.py) with ``train`` set, under
+autograd, one step per call:
+
+* weights are held in boda_tpu's logical layouts (conv filters OIHW, fc
+  (out, in)); each rule's upload layout (HWIO for the hand conv, the fc's
+  NHWC-permuted (in, out), OHWI for the library conv) is applied inside the
+  differentiated function, so the gradients, the momentum and the
+  checkpoints are in the logical layouts too. There is no prefold and no
+  fusion chain: BN, Scale, ReLU and the residual add are their own ops.
+* ``kernel_policy=gen``: every groups-1, dilation-1 conv and every fc runs
+  the autograd Functions of ops/kernels/train_conv.py (K1/K2 forward, K3, K5
+  and K1 backward, the library's backward for strided k > 1 convs);
+  ``lib``: autograd of the library rules (cuDNN/cuBLAS), the counterpart of
+  boda_tpu's stock XLA step. On CPU tensors both compute with the plain
+  versions.
+* train-mode BatchNorm (bn_momentum > 0): the batch's f32 mean and biased
+  two-pass variance, and the EMA of the unscaled running stats with the
+  scale factor pinned to 1;
+* the update: gradients widened to f32, the global norm clipped in f32, f32
+  momentum, decoupled weight decay, and one rounding to the weight's dtype;
+* remat through ``torch.utils.checkpoint`` (non-reentrant): per spatial
+  segment (``seg``), the whole net (``full``), or the whole net with a
+  selective policy that keeps conv and matmul outputs (``dots``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..graph import train_ops
+from ..graph.lowering import LowerCtx, lib_precision
+from ..graph.lowering_nhwc import HWIO, lower_op_nhwc, pool_geom
+from ..graph.pipe import ConvPipe, PipeError
+from ..ops.kernels.train_conv import conv_route, gen_conv, gen_fc
+from ..ops.tune import OpTune
+from ..utils.dims import torch_dtype
+
+_CANON = ("img", "chan", "y", "x")
+
+
+def find_logits_node(pipe: ConvPipe, prob_node: str = "prob") -> str:
+    """The input of the Softmax producing ``prob_node`` (pre-softmax logits)."""
+    node = pipe.nodes.get(prob_node)
+    if node and node.top_for:
+        op = pipe.ops[node.top_for[0]]
+        if op.type == "Softmax":
+            return op.bots[0]
+    return prob_node
+
+
+def spatial_segments(pipe: ConvPipe) -> list[list[str]]:
+    """Partition the topo op order at spatial-resolution boundaries: the
+    checkpoints of structured remat (resnet50: 112/56/28/14/7, ~5 segments,
+    about one extra forward in all)."""
+    segs: list[list[str]] = []
+    cur: list[str] = []
+    prev_y = None
+    for op_name in pipe.topo_op_order():
+        op = pipe.ops[op_name]
+        y = None
+        for t in op.tops:
+            node = pipe.nodes.get(t)
+            d = node.dims if node is not None else None
+            if d is not None and "y" in d:
+                y = d["y"]
+                break
+        if cur and y is not None and prev_y is not None and y != prev_y:
+            segs.append(cur)
+            cur = []
+        cur.append(op_name)
+        if y is not None:
+            prev_y = y
+    if cur:
+        segs.append(cur)
+    return segs
+
+
+# weight-name suffixes that are statistics, not trainable parameters
+_FROZEN_SUFFIXES = ("__means", "__vars", "__sf")
+
+
+def is_trainable(name: str) -> bool:
+    return not name.endswith(_FROZEN_SUFFIXES)
+
+
+def _needed_ops(pipe: ConvPipe, out_names) -> set[str]:
+    """The ops whose tops ``out_names`` depend on (an eager run computes no
+    more: the prob softmax and a loss layer past the logits are skipped)."""
+    need, ops = set(out_names), set()
+    for op_name in reversed(pipe.topo_op_order()):
+        op = pipe.ops[op_name]
+        if any(t in need for t in op.tops):
+            ops.add(op_name)
+            need.update(op.bots)
+    return ops
+
+
+def _lower_train(pipe: ConvPipe, op, ctx: LowerCtx, gen: bool, info_log: list[str]):
+    """(fn, weight preps) of one op in the training step."""
+    tune = dataclasses.replace(OpTune(), use_xla=not gen, precision=ctx.precision)
+    if op.type == "Convolution" and int(op.p("groups", 1)) == 1 \
+            and op.dilation() == (1, 1):
+        s, p, k = op.stride(), op.pad(), op.kern_sz()
+        if gen:
+            route = conv_route(k, s, p)
+            info_log.append(f"{op.name}: train-conv k={k} s={s} p={p} fwd="
+                            f"{'sgemm' if route == 'k1' else 'conv'} bck="
+                            + {"k1": "sgemm+atb", "direct": "conv_nhwc+atb",
+                               "library": "library (strided k>1)"}[route])
+
+            def fn(x, w, b):
+                return (gen_conv(x, w, b, stride=s, pad=p),)
+            return fn, {op.bots[1]: HWIO}
+        if k == (1, 1) and p == (0, 0) and train_ops.enabled():
+            conv = train_ops.conv1x1_explicit(s)
+            info_log.append(f"{op.name}: train-conv conv1x1_explicit s={s}")
+
+            def fn(x, w, b):
+                return ((conv(x, w) + b.float()).to(x.dtype),)
+            return fn, {op.bots[1]: HWIO}
+    if op.type == "Pooling" and train_ops.enabled() and not op.p("avg_pool", False):
+        k, s, pad_y, pad_x, oy, ox, _ = pool_geom(pipe, op)
+        ind = pipe.must_dims(op.bots[0])
+        pool = train_ops.make_maxpool_vjp(tuple(k), tuple(s), pad_y, pad_x,
+                                          ind["y"], ind["x"], oy, ox)
+        return (lambda x: (pool(x),)), {}
+    r = lower_op_nhwc(pipe, op, ctx, tune, info_log)
+    if r is None:
+        raise PipeError(f"no NHWC lowering for op type {op.type!r} (op {op.name!r})")
+    fn, preps = r
+    if op.type == "InnerProduct" and gen:  # the rule's weight prep, the hand kernels
+        return (lambda x, w, b: (gen_fc(x.reshape(x.shape[0], -1), w, b),)), preps
+    return fn, preps
+
+
+def _bn_train(op, vals: dict, new_stats: dict, bn_momentum: float):
+    """Train-mode BatchNorm (boda_tpu: train.py:82-111): normalize with the
+    batch's f32 mean over (n, y, x) and biased two-pass variance, cast back;
+    EMA the unscaled running stats into ``new_stats`` with sf pinned to 1."""
+    x = vals[op.bots[0]]
+    eps = float(op.p("eps", 1e-5))
+    if train_ops.enabled():
+        out, m_b, v_b = train_ops.make_bn_train(eps)(x)
+    else:
+        xf = x.float()
+        m_b = xf.mean(dim=(0, 1, 2))
+        xc = xf - m_b
+        v_b = (xc * xc).mean(dim=(0, 1, 2))
+        out = xc * torch.rsqrt(v_b + eps)
+    mean_w, var_w = op.bots[1], op.bots[2]
+    with torch.no_grad():
+        one = torch.ones((), device=x.device)
+        sf = vals[op.bots[3]][0].float() if len(op.bots) > 3 else one
+        inv_sf = torch.where(sf != 0, 1.0 / sf, one)
+        old_m = vals[mean_w].float() * inv_sf
+        old_v = vals[var_w].float() * inv_sf
+        new_stats[mean_w] = ((1 - bn_momentum) * old_m
+                             + bn_momentum * m_b.detach()).to(vals[mean_w].dtype)
+        new_stats[var_w] = ((1 - bn_momentum) * old_v
+                            + bn_momentum * v_b.detach()).to(vals[var_w].dtype)
+        if len(op.bots) > 3:
+            new_stats[op.bots[3]] = torch.ones_like(vals[op.bots[3]])
+    return (out.to(x.dtype),)
+
+
+def build_net_fn(pipe: ConvPipe, out_names: list[str],
+                 ctx: Optional[LowerCtx] = None,
+                 bn_momentum: float = 0.0,
+                 segments: Optional[list[list[str]]] = None,
+                 kernel_policy: str = "gen",
+                 info_log: Optional[list[str]] = None) -> Callable:
+    """fn(weights, inputs) -> {name: tensor}: the net's rules on channels-last
+    tensors, weights in the logical layouts, inputs and outputs logical
+    (NCHW for canonical nodes). bn_momentum > 0 switches BatchNorm to its
+    training semantics and adds the EMA running stats under
+    ``"__bn_stats__"``. ``segments`` (from :func:`spatial_segments`) runs
+    each segment under a non-reentrant ``torch.utils.checkpoint``: its
+    backward recomputes it from its boundary inputs. ``info_log`` collects
+    the rules' lines."""
+    if kernel_policy not in ("gen", "lib"):
+        raise PipeError(f"kernel_policy {kernel_policy!r}: gen | lib")
+    ctx = ctx or LowerCtx(train=True)
+    log = info_log if info_log is not None else []
+    need = _needed_ops(pipe, out_names)
+    topo = [o for o in pipe.topo_op_order() if o in need]
+    lowered, preps = {}, {}
+    for name in topo:
+        fn, pr = _lower_train(pipe, pipe.ops[name], ctx, kernel_policy == "gen", log)
+        lowered[name] = fn
+        preps.update(pr)
+
+    def canon(n):
+        node = pipe.nodes.get(n)
+        return node is not None and node.dims is not None and node.dims.names == _CANON
+
+    def run_ops(op_names, vals, new_stats):
+        for op_name in op_names:
+            op = pipe.ops[op_name]
+            if bn_momentum > 0 and op.type == "BatchNorm":
+                outs = _bn_train(op, vals, new_stats, bn_momentum)
+            else:
+                outs = lowered[op_name](*[vals[b] for b in op.bots])
+            vals.update(zip(op.tops, outs))
+
+    def enter(weights, inputs):
+        vals = {k: v.permute(0, 2, 3, 1).contiguous() if canon(k) else v
+                for k, v in inputs.items()}
+        vals.update({k: preps[k].prep(w) if k in preps else w for k, w in weights.items()})
+        return vals
+
+    def leave(vals, new_stats):
+        res = {n: vals[n].permute(0, 3, 1, 2) if canon(n) else vals[n] for n in out_names}
+        if bn_momentum > 0:
+            res["__bn_stats__"] = new_stats
+        return res
+
+    if segments is None:
+        def net_fn(weights, inputs):
+            vals = enter(weights, inputs)
+            new_stats: dict = {}
+            run_ops(topo, vals, new_stats)
+            return leave(vals, new_stats)
+        return net_fn
+
+    # structured remat: per-segment in/out name sets, each segment run under
+    # a checkpoint that keeps only its boundary inputs
+    from torch.utils.checkpoint import checkpoint
+    segments = [[o for o in s if o in need] for s in segments]
+    segments = [s for s in segments if s]
+    need_after = set(out_names)
+    seg_ins: list[set] = [set() for _ in segments]
+    seg_outs: list[set] = [set() for _ in segments]
+    for i in range(len(segments) - 1, -1, -1):
+        prod = {t for o in segments[i] for t in pipe.ops[o].tops}
+        seg_outs[i] = prod & need_after
+        cons = {b for o in segments[i] for b in pipe.ops[o].bots}
+        seg_ins[i] = cons - prod
+        need_after = (need_after - prod) | seg_ins[i]
+
+    def make_seg(seg_ops, outs_s):
+        def f(vin):
+            vals = dict(vin)
+            stats: dict = {}
+            run_ops(seg_ops, vals, stats)
+            return {n: vals[n] for n in outs_s}, stats
+        return lambda vin: checkpoint(f, vin, use_reentrant=False)
+
+    seg_fns = [(make_seg(s, seg_outs[i]), sorted(seg_ins[i])) for i, s in enumerate(segments)]
+
+    def net_fn(weights, inputs):
+        vals = enter(weights, inputs)
+        new_stats: dict = {}
+        for f, ins_s in seg_fns:
+            outs, stats = f({n: vals[n] for n in ins_s})
+            vals.update(outs)
+            new_stats.update(stats)
+        return leave(vals, new_stats)
+    return net_fn
+
+
+def _dots_context():
+    """remat=dots: a selective checkpoint that keeps the library's conv and
+    matmul outputs and recomputes the rest (the hand kernels' launches are
+    not aten ops, so under gen on the card nothing is kept: a full remat)."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+    aten = torch.ops.aten
+    kept = {aten.convolution.default, aten.mm.default, aten.addmm.default, aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in kept else CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
+                    precision: str = "default", clip_norm: float = 0.0,
+                    momentum: float = 0.0, weight_decay: float = 0.0,
+                    bn_momentum: float = 0.0,
+                    compute_dtype=None,
+                    lr_schedule: Optional[Callable] = None,
+                    remat: str = "",
+                    kernel_policy: str = "gen") -> Callable:
+    """SGD (+momentum, +decoupled weight decay) step:
+    fn(weights, inputs, labels[, mom_state][, step=]) -> (loss, new_weights)
+    — or (loss, new_weights, new_mom_state) when momentum > 0 (pass the
+    previous mom_state or None to start from zeros; f32 whatever the weight
+    dtype). Weights are a dict of tensors in the logical layouts, inputs a
+    dict of logical (NCHW) tensors, labels integer class ids; the step runs
+    where they lie. BatchNorm statistics (means/vars/scale factor) are not
+    updated by SGD. clip_norm > 0 clips the global gradient norm in f32.
+    compute_dtype (a torch dtype or its name): f32 master weights, the
+    forward and backward in compute_dtype, the frozen statistics kept in
+    f32. lr_schedule (parallel.schedules.make_lr_schedule) derives lr from
+    the ``step=`` index. remat: '' | seg | full | dots (module docstring).
+    kernel_policy: gen | lib. The returned function's ``info_log`` lists the
+    rules' choices (the gen convs' routes among them)."""
+    lctx = LowerCtx(precision=precision, train=True, det_drop_seed=42)
+    info_log: list[str] = []
+    build = functools.partial(build_net_fn, pipe, [logits_node], lctx,
+                              bn_momentum=bn_momentum, kernel_policy=kernel_policy,
+                              info_log=info_log)
+    if remat == "seg":
+        net_fn = build(segments=spatial_segments(pipe))
+    else:
+        net_fn = build()
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            policies = {"full": None, "dots": _dots_context}
+            if remat not in policies:
+                raise ValueError(f"remat must be one of "
+                                 f"{sorted(policies) + ['seg']} "
+                                 f"or '', not {remat!r}")
+            kw = {"context_fn": policies[remat]} if policies[remat] else {}
+            inner = net_fn
+
+            def net_fn(weights, inputs):
+                return checkpoint(inner, weights, inputs, use_reentrant=False, **kw)
+    cdt = torch_dtype(compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
+
+    def loss_fn(weights, inputs, labels):
+        res = net_fn(weights, inputs)
+        logits = res[logits_node]
+        logits = logits.reshape(logits.shape[0], -1).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 1, labels.reshape(-1, 1).long())
+        return torch.mean(nll), res.get("__bn_stats__", {})
+
+    def train_step(weights, inputs, labels, mom_state=None, step=None):
+        lr_t = lr if lr_schedule is None else lr_schedule(step)
+        names = [k for k in weights if is_trainable(k)]
+        frozen = {k: v for k, v in weights.items() if not is_trainable(k)}
+        if cdt is not None:
+            # f32 masters: forward and backward in the compute dtype; the
+            # frozen statistics stay f32 (they feed the running-stat EMA)
+            leaves = [weights[k].detach().to(cdt).requires_grad_() for k in names]
+            inputs = {k: v.to(cdt) if v.is_floating_point() else v
+                      for k, v in inputs.items()}
+        else:
+            leaves = [weights[k].detach().requires_grad_() for k in names]
+        with torch.enable_grad(), lib_precision(precision):
+            loss, bn_stats = loss_fn({**dict(zip(names, leaves)), **frozen}, inputs, labels)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            gs = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) if g is None
+                  else g.float() for g, t in zip(grads, leaves)]
+            if clip_norm > 0:
+                gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+                scale = torch.clamp(clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
+                torch._foreach_mul_(gs, scale)
+            new_mom = None
+            if momentum > 0:
+                prev = [mom_state[k] for k in names] if mom_state is not None \
+                    else [torch.zeros_like(g) for g in gs]
+                new_m = torch._foreach_mul(prev, momentum)
+                torch._foreach_add_(new_m, gs)
+                gs = new_m
+                new_mom = dict(zip(names, new_m))
+            wf = [weights[k].float() for k in names]
+            delta = torch._foreach_mul(gs, float(lr_t))
+            if weight_decay > 0:  # decoupled (AdamW-style) decay
+                c = lr * weight_decay if lr_schedule is None \
+                    else float(np.float32(lr_t) * np.float32(weight_decay))
+                torch._foreach_add_(delta, torch._foreach_mul(wf, c))
+            new_f = torch._foreach_sub(wf, delta)
+            new_w = {k: t.to(weights[k].dtype) for k, t in zip(names, new_f)}
+            new_w.update(frozen)
+            new_w.update({k: v.to(weights[k].dtype) for k, v in bn_stats.items()})
+        if momentum > 0:
+            return loss.detach(), new_w, new_mom
+        return loss.detach(), new_w
+
+    train_step.info_log = info_log
+    return train_step
+
+
+def train_device(name: str, who: str) -> torch.device:
+    """The training modes' device: the card unless ``cpu`` is asked for; no
+    silent CPU fallback (``cuda`` without a usable card raises)."""
+    d = torch.device(name)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device=cuda but torch finds no CUDA card; "
+                           f"pass --device=cpu to run the plain versions")
+    if d.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {name!r}")
+    return d

@@ -61,6 +61,15 @@ records, test_lmdb on its test records in f32, bf16 and int8 (the goldens
 in f32, int8's line equal to f32's), and Deconvolution, Sigmoid, TanH and
 Reduce each in a small net, f32 on the card against the CPU.
 
+Then [train]: the training step (parallel/train.py) at ResNet-50 b32 bf16
+and b8 f32, gen against lib (the loss and the running stats of free runs;
+the gradients of gen's step forced to lib's conv and fc outputs), the gen
+step's launches per wrapper exact with the library's conv backward only at
+the strided k > 1 stem, each distinct K1, K2, K3 and K5 call of that step
+against its plain version, train_bench under gen and lib with BN frozen and
+in train mode, tests/test_learning.py's deep gate through train_lmdb and
+test_lmdb --ckpt-fn, bn_freeze_at, and kill-and-resume.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -1474,6 +1483,485 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     return out
 
 
+# -- the [train] phase: the training step on the card ---------------------------------
+
+TRAIN_TOL = 5e-2         # bf16 b32 gen vs lib: loss, gradients, running stats
+TRAIN_F32_BATCH = 8
+TRAIN_F32_TOL = 1e-3     # f32 b8 gen vs lib, comp_vars on every gradient
+TRAIN_CALL_TOL = 1e-2    # each K1/K2/K3/K5 call of the gen step vs its plain version
+TRAIN_RESUME_TOL = 1e-5  # kill-and-resume losses against the straight run
+# tests/test_learning.py's deep gate (:130-165): shapesnet2 fresh-trained on
+# shapes10, milestone losses within its bounds and strictly decreasing, then
+# held-out top-1 through test_lmdb --ckpt-fn
+LEARN_ARGS = ["--ptt-fn=testdata/nets/shapesnet2.prototxt",
+              "--rec-fn=testdata/lmdb/shapes10_train.rec", "--img=16", "--n-steps=150",
+              "--lr=0.02", "--lr-schedule=cosine", "--warmup-steps=20", "--log-every=25"]
+LEARN_BOUNDS = {25: 2.5, 50: 1.2, 100: 0.5, 125: 0.4}
+LEARN_INIT_MIN, LEARN_TOP1 = 2.0, 0.92
+
+
+# the hand kernels' names (boda_tpu_torch/csrc), for sorting a profile's
+# device time into the port's kernels, the library's convs and GEMMs (cuDNN,
+# cuBLAS) and PyTorch's own (elementwise, reductions, copies)
+HAND_KERNELS = ("gemm_wgmma", "gemm_bf16", "gemm_f32", "gemm_splitk_reduce", "atb_bf16",
+                "atb_f32", "splitk_reduce_f32", "bottleneck_", "eltwise_ring",
+                "eltwise_scalar", "pool_rows", "pool_window", "pool_kernel", "stem_fma",
+                "stem_mma")
+
+
+def kernel_class(name: str) -> str:
+    """hand, library or pytorch, by a device kernel's name. The library's
+    names go first: cuDNN's (``sm90_xmma_gemm_bf16bf16_...``) hold a hand
+    kernel's name."""
+    low = name.lower()
+    if any(t in low for t in ("cudnn", "xmma", "cutlass", "nvjet", "cublas", "sm90_", "sm80_")):
+        return "library"
+    if any(h in name for h in HAND_KERNELS):
+        return "hand"
+    if "gemm" in low:
+        return "library"
+    return "pytorch"
+
+
+def train_calls(pipe) -> dict:
+    """The K1, K2/K3 and K5 calls of one gen training step of ``pipe``, from
+    each conv's and fc's route (ops/kernels/train_conv.py:conv_route):
+    {(kernel, what, sig): count}. A conv whose input needs no gradient (fed
+    by the data) takes no dgrad; a strided k > 1 conv's backward is the
+    library's. Kernel names as in ``counted_wrappers``; ``conv_nhwc`` calls
+    also count as ``conv`` launches."""
+    from boda_tpu_torch.ops.kernels.train_conv import conv_route
+    from boda_tpu_torch.parallel.train import _needed_ops, find_logits_node, is_trainable
+    need = _needed_ops(pipe, [find_logits_node(pipe)])
+    req = {k for k in pipe.weights if is_trainable(k)}
+    calls = {}
+
+    def add(*key):
+        calls[key] = calls.get(key, 0) + 1
+    for name in pipe.topo_op_order():
+        op = pipe.ops[name]
+        if name not in need:
+            continue
+        need_dx = op.bots[0] in req
+        if any(b in req for b in op.bots):
+            req.update(op.tops)
+        if op.type == "InnerProduct":
+            fd = pipe.must_dims(op.bots[1])
+            m, k, n = pipe.must_dims(op.bots[0])["img"], fd["in_feats"], fd["out_chan"]
+            add("sgemm", "fc fwd", (m, k, n))
+            if need_dx:
+                add("sgemm", "fc dgrad W^T", (m, n, k))
+            add("atb", "fc wgrad", (m, k, n))
+        elif op.type == "Convolution":
+            ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+            n, h, c, oc = ind["img"], ind["y"], fd["in_chan"], fd["out_chan"]
+            k, s, p = op.kern_sz(), op.stride(), op.pad()
+            route = conv_route(k, s, p)
+            if route == "k1":
+                oh = (h - 1) // s[0] + 1
+                m = n * oh * oh
+                add("sgemm", "1x1 fwd" + (f" s{s[0]}" if s[0] > 1 else ""), (m, c, oc))
+                if need_dx:
+                    add("sgemm", "1x1 dgrad W^T" + (f" s{s[0]} zero-stuffed" if s[0] > 1
+                                                     else ""), (m, oc, c))
+                add("atb", "1x1 wgrad", (m, c, oc))
+            else:
+                add("conv", "fwd", (n, h, c, oc, k[0], s[0], p[0]))
+                if route == "direct":
+                    if need_dx:
+                        add("conv_nhwc", "dgrad", (n, h, c, oc, k[0], p[0]))
+                    add("atb", "wgrad", (n, h, c, oc, k[0], p[0]))
+    return calls
+
+
+def train_launches(calls: dict) -> dict:
+    """The launches per counted wrapper that ``train_calls`` implies."""
+    out = dict.fromkeys(("sgemm", "conv", "conv_nhwc", "atb"), 0)
+    for (kname, _, _), cnt in calls.items():
+        out[kname] += cnt
+    out["conv"] += out["conv_nhwc"]  # K3's entry runs the conv kernel
+    return out
+
+
+class _Forced(torch.autograd.Function):
+    """The value of ``forced`` with the gradient flowing on to ``out``."""
+
+    @staticmethod
+    def forward(ctx, out, forced):
+        return forced.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@contextlib.contextmanager
+def conv_taps(record: dict | None = None, force: dict | None = None):
+    """Steps made inside this context keep each conv's and fc's output in
+    ``record`` (op name -> tensor), or take the value from ``force`` in
+    place of their own while their backward stays theirs: a gen step forced
+    to lib's forward values differs from lib's step only in the backward
+    kernels, as [grad-bf16]'s gate runs gen's backward from lib's forward."""
+    from boda_tpu_torch.parallel import train as ptrain
+    orig = ptrain._lower_train
+
+    def lower(pipe, op, ctx, gen, info_log):
+        fn, preps = orig(pipe, op, ctx, gen, info_log)
+        if op.type not in ("Convolution", "InnerProduct"):
+            return fn, preps
+
+        def tapped(*args):
+            (o,) = fn(*args)
+            if record is not None:
+                record[op.name] = o.detach()
+            if force is not None:
+                o = _Forced.apply(o, force[op.name])
+            return (o,)
+        return tapped, preps
+    ptrain._lower_train = lower
+    try:
+        yield
+    finally:
+        ptrain._lower_train = orig
+
+
+def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) -> dict:
+    """[train]: the training step (parallel/train.py) on the card. ResNet-50
+    b32 224x224 bf16 in train_bench's configuration (weights bf16, clip 1.0,
+    lr 0.01; fc1000 scaled as everywhere), one step from the same weights and
+    batch under gen and lib with BN frozen and in train mode: the loss and
+    the running stats within TRAIN_TOL, and every trainable weight's gradient
+    (a step with momentum 0.9 from zero momentum: its momentum is the
+    clipped f32 gradient) of gen's step forced to lib's conv and fc outputs
+    (``conv_taps``) against lib's; the same at b8 f32 within TRAIN_F32_TOL,
+    with cuDNN's deterministic algorithms. The gen step's launches per wrapper,
+    exact, and no library conv but the strided k > 1 backwards (profiler op
+    counts); each distinct K1, K2, K3 and K5 call of the gen step against its
+    plain version, its path asserted, its device time beside its bound;
+    train_bench through the CLI under gen and lib; the learning gate of
+    tests/test_learning.py (shapesnet2, 150 steps, test_lmdb --ckpt-fn) and
+    its bn_freeze_at run; kill and resume (mini_resnet 3+3 against 6)."""
+    import os
+    import re
+
+    from boda_tpu_torch.modes.cnet import load_net
+    from boda_tpu_torch.ops.kernels.bconv import matmul_atb
+    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.ops.kernels.gen_data import gen_data_pattern
+    from boda_tpu_torch.parallel.train import make_train_step
+    from boda_tpu_torch.rtc.backends import graph_time
+    from boda_tpu_torch.utils.digest import comp_vars
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"card": card}
+    dev = torch.device("cuda")
+    logits = "fc1000"
+    n_img = pipe.must_dims("data")["img"]
+    labels = (torch.arange(n_img) % 1000).to(dev)
+
+    def batch(p, dt):
+        d = p.must_dims("data")
+        return gen_data_pattern(d.shape, d.tn).to(dev, dt)
+
+    def weights_of(p, dt):
+        return {k: torch.from_numpy(np.asarray(w.data, np.float32)).to(dev, dt)
+                for k, w in p.weights.items()}
+
+    def one_step(p, w, x, lab, pol, mom, bn, prec="default"):
+        step = make_train_step(p, logits, lr=0.01, clip_norm=1.0, momentum=mom,
+                               bn_momentum=bn, precision=prec, kernel_policy=pol)
+        r = step(w, {"data": x}, lab)
+        torch.cuda.synchronize()
+        return r, step
+
+    def layer_filts(p) -> dict:
+        """Each weight -> the filters of the conv or fc it follows (its own,
+        or the one upstream of its BN or Scale)."""
+        prod = {t: op for op in p.ops.values() for t in op.tops}
+        out = {}
+        for op in p.ops.values():
+            src = op
+            while src is not None and src.type not in ("Convolution", "InnerProduct"):
+                src = prod.get(src.bots[0]) if src.bots else None
+            for b in op.bots[1:] if src is not None else ():
+                out[b] = src.bots[1]
+        return out
+
+    def agree(ref: dict, got: dict, tol: float, floor=None) -> tuple[list, float, str]:
+        """comp_vars(tol, atol=tol * scale) per tensor, scale its max|ref| or,
+        given ``floor`` (weight -> the filters of its layer), the larger of
+        that and its layer's filter gradient's max|ref|: a bias or Scale
+        parameter ahead of train-mode BN has a gradient of ~0 (BN takes out
+        the batch mean), so its computed value is rounding noise."""
+        fails, worst, at = [], 0.0, ""
+        for k in ref:
+            a, b = ref[k].float().cpu().numpy(), got[k].float().cpu().numpy()
+            check(bool(np.isfinite(b).all()), f"train: {k} not finite")
+            scale = max(1e-30, float(np.abs(a).max()))
+            if floor is not None and floor.get(k) in ref:
+                scale = max(scale, float(ref[floor[k]].float().abs().max()))
+            r = comp_vars(a, b, mrd_toler=tol, atol=tol * scale)
+            if r.mad / scale > worst:
+                worst, at = r.mad / scale, k
+            if not r.ok():
+                fails.append(f"{k}: {r}")
+        return fails, worst, at
+
+    def compare(tag, p, dt, tol, prec):
+        """One step under gen and under lib (free runs: loss and running
+        stats gated; the gradients reported, since the two forwards put some
+        ReLU inputs on opposite sides of 0), then gen's step forced to lib's
+        conv and fc outputs: every gradient gated."""
+        w, x = weights_of(p, dt), batch(p, dt)
+        lab = labels[:p.must_dims("data")["img"]]
+        floor = layer_filts(p)
+        for bn in (0.0, 0.1):
+            res, lib_outs = {}, {}
+            for pol, taps in (("lib", {"record": lib_outs}), ("gen", {}),
+                              ("gen_forced", {"force": lib_outs})):
+                with conv_taps(**taps):
+                    (loss, nw, mom), _ = one_step(p, w, x, lab, pol[:3], 0.9, bn, prec)
+                stats = {k: v for k, v in nw.items() if k.endswith(("__means", "__vars"))}
+                res[pol] = (float(loss), mom, stats)
+            (lg, mg, sg), (ll, ml, sl), mf = res["gen"], res["lib"], res["gen_forced"][1]
+            lerr = abs(lg - ll) / abs(ll)
+            _, gw, gat = agree(ml, mg, tol, floor)
+            strict = agree(ml, mf, tol)[0]
+            ffails, fw, fat = agree(ml, mf, tol, floor)
+            sfails, sw, sat = agree(sl, sg, tol) if bn else ([], 0.0, "")
+            mode = "train-mode BN (bn_momentum 0.1)" if bn else "BN frozen"
+            print(f"[train] {tag}, {mode}, one step gen vs lib: loss {lg:.6g} / {ll:.6g} "
+                  f"(rel {lerr:.3e})"
+                  + (f"; {len(sl)} running stats, {len(sfails)} disagree, worst {sw:.3e} "
+                     f"at {sat}" if bn else "")
+                  + f"; {len(ml)} gradients, free run worst max|err|/max|lib| {gw:.3e} at "
+                  f"{gat} (not gated); gen forced to lib's conv/fc outputs: "
+                  f"{len(ffails)} disagree, worst {fw:.3e} at {fat} (comp_vars {tol}, atol "
+                  f"from the layer's filter gradient; against each tensor's own max: "
+                  f"{len(strict)} disagree) ({card})")
+            if strict:
+                print("[train] off their own max only: " + ", ".join(
+                    ln.split(":")[0] for ln in strict))
+            for ln in (ffails + sfails)[:10]:
+                print(f"[train] FAIL {ln}")
+            check(lerr <= tol and not ffails and not sfails,
+                  f"train {tag} {mode}: gen vs lib")
+            out.setdefault("agree", {})[f"{tag} {mode}"] = {
+                "loss_rel": lerr, "grad_forced_worst": fw, "grad_free_worst": gw,
+                "stats_worst": sw}
+            del res, lib_outs
+        del w, x
+
+    # -- bf16 b32 and f32 b8: gen against lib ------------------------------------
+    compare(f"resnet50 b{n_img} bf16", pipe, torch.bfloat16, TRAIN_TOL, "default")
+    fpipe, _ = load_net("resnet50", img=TRAIN_F32_BATCH)
+    scale_fc1000([fpipe], fc_scale)
+    torch.backends.cudnn.deterministic = True
+    try:
+        compare(f"resnet50 b{TRAIN_F32_BATCH} f32", fpipe, torch.float32, TRAIN_F32_TOL,
+                "highest")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del fpipe
+
+    # -- the gen step's launches, exact; library convs only as named ---------------
+    calls = train_calls(pipe)
+    want = train_launches(calls)
+    w, x = weights_of(pipe, torch.bfloat16), batch(pipe, torch.bfloat16)
+    for pol in ("gen", "lib"):
+        step = make_train_step(pipe, logits, lr=0.01, clip_norm=1.0, kernel_policy=pol)
+        step(w, {"data": x}, labels)  # warm-up: cuDNN's algorithms, the plan caches
+        torch.cuda.synchronize()
+        zero_counts(counted)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            loss, _ = step(w, {"data": x}, labels)
+            torch.cuda.synchronize()
+        got = read_counts(counted)
+        ops, kern, n_dev = {}, {}, 0
+        for ev in prof.events():
+            if ev.name in ("aten::convolution", "aten::convolution_backward", "aten::mm",
+                           "aten::addmm"):
+                ops[ev.name] = ops.get(ev.name, 0) + 1
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    "Memcpy" not in ev.name and "Memset" not in ev.name:
+                kern[ev.name] = kern.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+                n_dev += 1
+        busy = sum(kern.values())
+        by = {}
+        for n, t in kern.items():
+            by[kernel_class(n)] = by.get(kernel_class(n), 0.0) + t
+        named = [ln.split(":")[0] for ln in step.info_log if "bck=library" in ln]
+        print(f"[train] resnet50 b{n_img} bf16 {pol} step (momentum 0, BN frozen): loss "
+              f"{float(loss):.6g}; launches {got}; library ops {ops}"
+              + (f"; library backward (strided k>1): {named}" if pol == "gen" else "")
+              + f"; device (torch.profiler): {n_dev} kernels, {busy:.3f} ms busy: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by.items())) + f" ms ({card})")
+        out[f"device_{pol}"] = {"kernels": n_dev, "busy_ms": busy, "by_class_ms": by}
+        if pol == "gen":
+            check(all(got[k] == v for k, v in want.items()) and
+                  all(got[k] == 0 for k in got if k not in want),
+                  f"train gen launches {got}, expected {want}")
+            check(ops.get("aten::convolution", 0) == 0 and
+                  ops.get("aten::convolution_backward", 0) == len(named) and
+                  ops.get("aten::mm", 0) == ops.get("aten::addmm", 0) == 0,
+                  f"train gen: library ops {ops}, named fallbacks {named}")
+            out["launches_gen"] = got
+            out["library_bck"] = named
+        else:
+            check(not any(got.values()), f"train lib launched kernels: {got}")
+            out["launches_lib"] = got
+    del w, x
+
+    # -- each distinct K1, K2, K3 and K5 call of the gen step vs its plain version ---
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def dgrad_gemm(m, k, n):  # dy (m, oc) @ W^T (oc, c), no bias
+        a, b = rnd((m, k)), rnd((n, k), k ** -0.5).t().contiguous()
+        return matmul(a, b), matmul_plain(a, b), (
+            lambda: matmul(a, b), lambda: matmul_plain(a, b), lambda: a @ b)
+    rows, misses, worst = [], [], {}
+    for (kname, what, sig), cnt in sorted(calls.items()):
+        f = {"sgemm": matmul, "atb": matmul_atb}.get(kname, counted.get(kname))
+        fwrap = counted["conv"] if kname in ("conv", "conv_nhwc") else f
+        before = dict(fwrap.paths)
+        if kname == "sgemm":
+            m, k, n = sig
+            case = dgrad_gemm(m, k, n) if "dgrad" in what else cases["gemm"](m, k, n, False,
+                                                                             False, bf)
+            want_path = "mma" if k % 8 or n % 8 else "wgmma"
+            bound = max(work("sgemm", (m, k, n, False, False)))
+        elif kname == "atb":
+            if len(sig) == 3:  # dense: (rows, C, OC)
+                case = cases["atb"](*sig, bf)
+                want_path = "wgmma" if sig[1] % 8 == 0 and sig[2] % 8 == 0 else "mma"
+                bound = max(work("atb_dense", sig))
+            else:
+                case = cases["wgrad"](*sig, bf)
+                want_path = "wgmma" if sig[2] % 8 == 0 and sig[3] % 8 == 0 else "mma"
+                bound = max(work("atb", sig))
+        elif kname == "conv":
+            n, h, c, oc, k, s, p = sig
+            case = cases["conv"](n, h, c, oc, k, s, p, False, False, bf)
+            want_path = "mma" if c % 8 or oc % 8 else "wgmma"
+            bound = max(work("conv", sig + (False,)))
+        else:  # conv_nhwc: K3's entry, the stride-1 dgrad
+            n, h, c, oc, k, p = sig
+            case = cases["dgrad"](n, h, c, oc, k, p, bf)
+            want_path = "mma" if c % 8 or oc % 8 else "wgmma"
+            bound = max(work("dgrad", sig))
+        path = [q for q in fwrap.paths if fwrap.paths[q] != before[q]]
+        got_o, ref, (kern, _, lib) = case
+        err = rel_err(got_o, ref)[1]
+        ok = err <= TRAIN_CALL_TOL and path == [want_path]
+        worst[kname] = max(worst.get(kname, 0.0), err)
+        k_us, l_us = graph_time(kern) * 1e6, graph_time(lib) * 1e6
+        print(f"[train] {kname} {what} {sig} x{cnt}: {err:.3e} on {path}: "
+              f"{'ok' if ok else 'MISS'}; kernel {k_us:.2f} us, library {l_us:.2f} us, "
+              f"bound {bound * 1e3:.2f} us")
+        rows.append({"kernel": kname, "call": what, "sig": list(sig), "count": cnt,
+                     "err": err, "path": path, "kernel_us": k_us, "library_us": l_us,
+                     "bound_us": bound * 1e3})
+        if not ok:
+            misses.append(f"{kname} {what} {sig}")
+        del case, got_o, ref
+    per_step = {k: sum(r["kernel_us"] * r["count"] for r in rows if r["kernel"] == k)
+                for k in ("sgemm", "conv", "conv_nhwc", "atb")}
+    print(f"[train] {len(rows)} distinct calls of the gen b{n_img} bf16 step vs plain "
+          f"(tol {TRAIN_CALL_TOL}); worst " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                        worst.items())
+          + "; kernel us per step by the counts: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per_step.items()) + f" ({card})")
+    check(not misses, f"train: calls off their plain version or path: {misses[:5]}")
+    out["calls"], out["kernel_us_per_step"] = rows, per_step
+
+    # -- train_bench through the CLI: BN frozen (its default) and train-mode ------------
+    for bn in ("0", "0.1"):
+        for pol in ("gen", "lib"):
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2 ** 30  # the script's own tensors
+            rc, lines = run_cli(["train_bench", "--model=resnet50", f"--img={n_img}",
+                                 f"--kernel-policy={pol}", f"--bn-momentum={bn}"])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+            js = json.loads(next((ln for ln in reversed(lines) if ln.startswith("{")), "{}"))
+            print(f"[train] train_bench resnet50 b{n_img} bf16 {pol} --bn-momentum={bn} "
+                  f"rc={rc}: {js.get('secs_per_step', 0) * 1e3:.3f} ms/step, "
+                  f"{js.get('img_per_sec')} img/s, {js.get('TF_per_s')} TF/s, peak "
+                  f"{peak:.2f} GiB over the {held:.2f} the script held, loss "
+                  f"{js.get('loss_first')} -> {js.get('loss_last')} ({card})")
+            check(rc == 0 and js.get("loss_decreased") is True, f"train_bench {pol}: {js}")
+            out[f"train_bench_{pol}_bn{bn}"] = dict(js, peak_gib=peak)
+
+    # -- learning on the card: the deep gate, and bn_freeze_at ----------------------
+    bdir = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(bdir, exist_ok=True)
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["train_lmdb", *LEARN_ARGS, "--ckpt-fn=shapesnet2_train.npz",
+                         f"--boda-output-dir={bdir}"])
+    curve = {int(m.group(1)): float(m.group(2)) for ln in lines
+             for m in [re.match(r"step (\d+): loss ([0-9.eE+-]+)", ln)] if m}
+    learn_s = time.perf_counter() - t0
+    ms = [curve.get(i, float("inf")) for i in (0, 25, 50, 100, 125)]
+    print(f"[train] train_lmdb shapesnet2 150 steps b16 rc={rc}: losses at 0/25/50/100/125 "
+          f"{ms} (bounds >= {LEARN_INIT_MIN}, <= {LEARN_BOUNDS}), {learn_s:.1f} s; "
+          f"{lines[-1] if lines else ''}")
+    check(rc == 0 and ms[0] >= LEARN_INIT_MIN and
+          all(curve.get(i, float("inf")) <= b for i, b in LEARN_BOUNDS.items()) and
+          all(a > b for a, b in zip(ms, ms[1:])), f"learning gate: curve {ms}")
+    rc, lines = run_cli(["test_lmdb", "--ptt-fn=testdata/nets/shapesnet2.prototxt",
+                         "--rec-fn=testdata/lmdb/shapes10_test.rec", "--img=8",
+                         f"--ckpt-fn={bdir}/shapesnet2_train.npz"])
+    got = next((ln for ln in reversed(lines) if ln.startswith("test_lmdb: n=")), "")
+    top1 = float(re.search(r"top1=([0-9.]+)", got).group(1)) if got else 0.0
+    print(f"[train] test_lmdb --ckpt-fn on the card's checkpoint rc={rc}: "
+          + " / ".join(ln for ln in lines if ln.startswith("test_lmdb:"))
+          + f" (gate top1 >= {LEARN_TOP1})")
+    check(rc == 0 and top1 >= LEARN_TOP1, f"learning gate: top1 {top1}")
+    rc, lines = run_cli(["train_lmdb", "--ptt-fn=testdata/nets/shapesnet2.prototxt",
+                         "--rec-fn=testdata/lmdb/shapes10_train.rec", "--img=8",
+                         "--n-steps=20", "--lr=0.05", "--bn-momentum=0.1",
+                         "--bn-freeze-at=10", "--log-every=5"])
+    froze = "step 10: BN frozen (inference running stats)" in lines
+    print(f"[train] train_lmdb --bn-freeze-at=10 rc={rc}: switch printed {froze}; "
+          f"{lines[-1] if lines else ''}")
+    check(rc == 0 and froze and lines[-1].endswith("(improved)"), "bn_freeze_at run")
+    out["learning"] = {"curve": curve, "top1": top1, "seconds": learn_s}
+
+    # -- kill and resume: mini_resnet 3+3 against 6 --------------------------------
+    common = ["train_lmdb", "--rec-fn=testdata/lmdb/cifar_mini.rec", "--model=mini_resnet",
+              "--img=4", "--lr-schedule=cosine", "--warmup-steps=2"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for args in (["--n-steps=6", f"--boda-output-dir={bdir}/full"],
+                     ["--n-steps=3", "--ckpt-fn=ck.npz", f"--boda-output-dir={bdir}/split"],
+                     ["--n-steps=6", "--ckpt-fn=ck.npz", "--resume=1",
+                      f"--boda-output-dir={bdir}/split"]):
+            if "--resume=1" not in args and os.path.exists(f"{bdir}/split/ck.npz"):
+                os.remove(f"{bdir}/split/ck.npz")
+            rc, lines = run_cli(common + args)
+            check(rc == 0, f"kill and resume: {args} rc {rc}")
+            runs.append({int(m.group(1)): float(m.group(2)) for ln in lines
+                         for m in [re.match(r"step (\d+): loss ([0-9.eE+-]+)", ln)] if m})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    full, resumed = runs[0], runs[2]
+    rerr = max(abs(full[i] - resumed[i]) / abs(full[i]) for i in (3, 4, 5)) \
+        if set(resumed) == {3, 4, 5} else float("inf")
+    print(f"[train] kill and resume mini_resnet on the card: steps 3-5 resumed "
+          f"{[resumed.get(i) for i in (3, 4, 5)]} vs straight {[full[i] for i in (3, 4, 5)]}, "
+          f"worst rel {rerr:.3e} (tol {TRAIN_RESUME_TOL})")
+    check(rerr <= TRAIN_RESUME_TOL, "kill and resume on the card")
+    out["resume_rel"] = rerr
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2530,6 +3018,12 @@ def main() -> int:
     ssd = ssd_phase(card, out_dir, counted, {"gemm": gemm_case, "conv": conv_case,
                                              "pool": pool_case, "s2d": s2d_case})
 
+    lap("ssd")
+    # -- phase 11: [train] the training step, train_bench, learning, resume ---------
+    train = train_phase(card, pipe, fc_scale, counted,
+                        {"gemm": gemm_case, "conv": conv_case, "dgrad": dgrad_case,
+                         "wgrad": wgrad_case, "atb": atb_case})
+
     # per kernel: launches on its main path (the forward for sgemm and conv,
     # the b32 bf16 gradient graph for atb and for K3's entry, the dgrads,
     # the fused forward for block, pool and s2d), and that path's per-pass
@@ -2569,6 +3063,9 @@ def main() -> int:
                          launch_ms=t["ms"], library_launch_ms=t["library_ms"])
         if kname in ("sgemm", "conv", "atb"):
             entry["launches_bck"] = launches_bck[kname]
+        if kname in ("sgemm", "conv", "atb", "dgrad"):  # one gen b32 bf16 training step
+            entry["launches_train"] = train["launches_gen"][
+                "conv_nhwc" if kname == "dgrad" else kname]
         if kname in ("sgemm", "conv"):
             entry["launches_fused"] = launches_fused[kname]
         if kname == "dgrad":  # K3's entry, conv2d_nhwc, on the conv kernel
@@ -2610,7 +3107,7 @@ def main() -> int:
                     "library_launch_ms": stem_t["library_launch_ms"],
                     "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
-    lap("ssd")
+    lap("train")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -2620,6 +3117,7 @@ def main() -> int:
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
                       "caffe": caffe, "int8": int8, "lmdb": lmdb, "ssd": ssd,
+                      "train": train,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -112,7 +112,8 @@ def test_act_int8_feed_quantized_node_as_input(calib_fn):
 
 def test_act_int8_errors(calib_fn, tmp_path):
     """boda_tpu's init errors: no calib_fn, a pattern matching no node, a
-    node the sidecar has no amax for, and a graph with backward ops."""
+    node the sidecar has no amax for, a graph with backward ops, and a
+    training engine (train=1)."""
     import json
     with pytest.raises(ConfigError, match="calib"):
         _run(2, act_int8=["relu1"])
@@ -129,6 +130,10 @@ def test_act_int8_errors(calib_fn, tmp_path):
     eng = tmake("conv_fwd", "cuda", device="cpu", act_int8=["relu1"], calib_fn=calib_fn)
     with pytest.raises(ConfigError, match="inference-only"):
         eng.init(pipe)
+    eng = tmake("conv_fwd", "cuda", device="cpu", act_int8=["relu1"], calib_fn=calib_fn,
+                train=True)
+    with pytest.raises(ConfigError, match="inference-only"):
+        eng.init(tbuild("mini_resnet", img=1, in_sz=8)[0])
 
 
 def test_act_int8_changes_fingerprint_and_capture_key(calib_fn):

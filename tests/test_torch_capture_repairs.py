@@ -10,7 +10,9 @@ engine under ``cuda_graph=1`` runs eagerly, since there is no card to
 capture on (the capture itself is held on the card, in
 tests/test_torch_cuda_graph.py and tests/test_torch_cuda_ssd.py); and the
 ssd300 forward, the SSD head's constants included, makes no tensor from
-host data and moves none between devices once the engine is built.
+host data and moves none between devices once the engine is built. Also
+the int8 weight cache, which an in-place update of a weight (an optimizer
+step) must not leave stale.
 """
 
 import jax
@@ -116,3 +118,22 @@ def test_ssd300_forward_makes_no_host_tensor(monkeypatch):
     det = res["detection_out"].reshape(-1, 7)
     assert det.shape == (400, 7) and set(det[:, 0].tolist()) == {0.0, 1.0}
     assert int((det[:, 1] >= 0).sum()) > 0
+
+
+def test_int8_weight_cache_follows_in_place_updates():
+    """quant_weight's cache is keyed by the tensor and its version: after an
+    in-place update the next call quantizes the new values; an unchanged
+    tensor keeps its entry."""
+    from boda_tpu_torch.ops import int8 as q8
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 5, 7)).astype(np.float32))
+    cache = q8.weight_cache()
+    wq0, _ = q8.quant_weight(w, (0, 1, 2), cache)
+    assert q8.quant_weight(w, (0, 1, 2), cache)[0] is wq0
+    step = torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32))
+    w.sub_(0.3 * step)  # an in-place SGD-style update
+    wq1, ws1 = q8.quant_weight(w, (0, 1, 2), cache)
+    fresh_q, fresh_s = q8.quant_weight(w.clone(), (0, 1, 2))
+    assert not torch.equal(wq1, wq0)
+    assert torch.equal(wq1, fresh_q) and torch.equal(ws1, fresh_s)
+    assert q8.quant_weight(w, (0, 1, 2), cache)[0] is wq1

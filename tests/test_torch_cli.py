@@ -45,6 +45,10 @@ import boda_tpu_torch.frontend.pipe_builder, boda_tpu_torch.frontend.surgery
 import boda_tpu_torch.modes.surgery_modes
 import boda_tpu_torch.graph.ssd_ops, boda_tpu_torch.apps.scoring
 import boda_tpu_torch.modes.detect, boda_tpu_torch.modes.apps
+import boda_tpu_torch.parallel.train, boda_tpu_torch.parallel.checkpoint
+import boda_tpu_torch.parallel.schedules, boda_tpu_torch.graph.train_ops
+import boda_tpu_torch.modes.train_lmdb, boda_tpu_torch.modes.train_bench
+import boda_tpu_torch.ops.kernels.train_conv
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
@@ -74,6 +78,15 @@ with tempfile.TemporaryDirectory() as td:
                      "--boda-output-dir=" + td, "--gt-fn=testdata/score/gt.txt"]) == 0
 assert cli.main(["score", "--dets-fn=testdata/score/dets.txt",
                  "--gt-fn=testdata/score/gt.txt"]) == 0
+assert cli.main(["train_bench", "--model=mini_resnet", "--img=2", "--chain=2",
+                 "--compute_tn=", "--golden_out=1", "--device=cpu"]) == 0
+with tempfile.TemporaryDirectory() as td:
+    assert cli.main(["train_lmdb", "--rec-fn=testdata/lmdb/cifar_mini.rec",
+                     "--model=mini_resnet", "--img=2", "--n-steps=2", "--device=cpu",
+                     "--ckpt-fn=ck.npz", "--boda-output-dir=" + td]) == 0
+    assert cli.main(["test_lmdb", "--rec-fn=testdata/lmdb/cifar_mini.rec",
+                     "--model=mini_resnet", "--img=2", "--ckpt-fn=" + td + "/ck.npz",
+                     "--conv-fwd=(mode=cuda,device=cpu)"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)
@@ -92,6 +105,15 @@ def test_cuda_device_without_card_raises(monkeypatch):
     eng = make("conv_fwd", "cuda")  # device defaults to cuda
     with pytest.raises(RuntimeError, match="no CUDA card"):
         eng.init(pipe)
+
+
+def test_train_bench_cuda_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from boda_tpu_torch.modes.train_bench import TrainBench
+    mode = make("mode", "train_bench", model="mini_resnet", img=2)  # device defaults to cuda
+    assert isinstance(mode, TrainBench)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mode.main()
 
 
 def test_cuda_backend_without_card_raises(monkeypatch):

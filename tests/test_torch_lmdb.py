@@ -129,10 +129,11 @@ def test_golden(tmp_path, name):
             assert np.array_equal(got, want), fn
 
 
-def test_images_and_optional_modules(monkeypatch):
+def test_images_and_optional_modules(monkeypatch, tmp_path):
     """Img and the preprocessing as boda_tpu's; without lmdb and without PIL
     the port raises what boda_tpu raises (PIL named), a resize to the image's
-    own size is a copy with no PIL, and test_lmdb --ckpt-fn names item 7."""
+    own size is a copy with no PIL, and test_lmdb --ckpt-fn refuses a
+    checkpoint holding a weight the net lacks with boda_tpu's error."""
     fn = os.path.join(TD, "images", "test1.png")
     ti, ji = timg.Img.load(fn), jimg.Img.load(fn)
     assert np.array_equal(ti.data, ji.data)
@@ -168,7 +169,9 @@ def test_images_and_optional_modules(monkeypatch):
     monkeypatch.delitem(sys.modules, "PIL")
     err = io.StringIO()
     monkeypatch.setattr(sys, "stderr", err)
+    from boda_tpu_torch.parallel.checkpoint import save_checkpoint
+    ck = str(tmp_path / "bogus.npz")
+    save_checkpoint(ck, 1, {"bogus__filts": np.zeros(2, np.float32)})
     assert cli.main(["test_lmdb", f"--rec-fn={RECS[0]}", "--model=mini_resnet",
-                     "--ckpt-fn=nosuch.ckpt", "--conv-fwd=(mode=cuda,device=cpu)"]) == 1
-    assert "training checkpoints are not ported" in err.getvalue() and \
-        "ROADMAP §1 item 7" in err.getvalue()
+                     f"--ckpt-fn={ck}", "--conv-fwd=(mode=cuda,device=cpu)"]) == 1
+    assert "error: ckpt weights not in net: ['bogus__filts']" in err.getvalue()
