@@ -1094,6 +1094,9 @@ class CudaFwd(FwdEngine):
             return (v.float() * q[1]).to(load_dt)
 
         def net_fn(weights: dict, inputs: dict):
+            # a profiler range per op (net_trace's attribution), only while a
+            # torch profiler records: outside a trace no range is entered
+            ranges = torch.autograd.profiler._is_profiler_enabled
             self._q8_direct = set()
             vals = dict(weights)
             vals.update((k, self._ingest(k, v)) for k, v in inputs.items())
@@ -1137,7 +1140,11 @@ class CudaFwd(FwdEngine):
                 except KeyError as e:
                     raise PipeError(f"op {op_name!r}: missing input {e}") from None
                 self._cur_op = op_name
-                outs = lowered[op_name](*bot_vals)
+                if ranges:
+                    with torch.profiler.record_function(op_name):
+                        outs = lowered[op_name](*bot_vals)
+                else:
+                    outs = lowered[op_name](*bot_vals)
                 tops = [chain_final_top[op_name]] if op_name in fused_now else op.tops
                 for t, v in zip(tops, outs):
                     if t in quant:

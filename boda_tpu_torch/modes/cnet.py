@@ -90,6 +90,11 @@ class CnetAna(_NetMode):
               f"bytes={tot_bytes / 1e6:.1f}M img={self.img}")
 
 
+@register("mode", "conv_ana", help="alias of cnet_ana (ref conv_ana dump mode)")
+class ConvAna(CnetAna):
+    pass
+
+
 @register("mode", "run_cnet", help="run one forward pass of a net on an engine")
 class RunCnet(_NetMode):
     conv_fwd = Field("conv_fwd", default="(mode=cuda)", help="forward engine")

@@ -6,14 +6,18 @@
 
 import importlib
 
-from . import rtc  # noqa: F401  (registers the "be" backends: cuda, interp)
+from . import rtc  # noqa: F401  (registers the "be" backends: cuda, interp, ipc)
 
 _MODE_MODULES = [
     "boda_tpu_torch.modes.apps",
     "boda_tpu_torch.modes.calib",
     "boda_tpu_torch.modes.cnet",
+    "boda_tpu_torch.modes.cnn_prof",
     "boda_tpu_torch.modes.detect",
+    "boda_tpu_torch.modes.ipc_modes",
     "boda_tpu_torch.modes.lmdb_modes",
+    "boda_tpu_torch.modes.net_trace",
+    "boda_tpu_torch.modes.net_tune",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",
     "boda_tpu_torch.modes.surgery_modes",

@@ -69,6 +69,11 @@ class Codegen:
         fi = self._cache.get(key)
         if fi is not None:
             return fi
+        if hasattr(self.be, "remote_gen_func"):
+            # remote backends regenerate kernels worker-side from the signature
+            fi = self.be.remote_gen_func(op, tune)
+            self._cache[key] = fi
+            return fi
         gen = _GENERATORS.get(op.type)
         if gen is None:
             raise RtcError(f"no kernel generator for op type {op.type!r}; "

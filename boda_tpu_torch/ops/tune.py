@@ -26,7 +26,7 @@ knob is an error, as there. The knobs fall in three groups:
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 from ..utils.lexp import Lexp, parse_lexp
 
@@ -82,6 +82,11 @@ class OpTune:
     def no_effect(self) -> list[str]:
         """The knobs set away from their defaults that do nothing on the card."""
         return [n for n in NO_EFFECT if getattr(self, n) != _DEFAULTS[n]]
+
+    def effective(self) -> "OpTune":
+        """This tune with the knobs that do nothing on the card at their
+        defaults: two tunes with the same effective tune run the same."""
+        return replace(self, **{n: _DEFAULTS[n] for n in NO_EFFECT})
 
     def key(self) -> str:
         parts = []

@@ -29,6 +29,7 @@ autograd, one step per call:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Optional
@@ -202,13 +203,22 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
         node = pipe.nodes.get(n)
         return node is not None and node.dims is not None and node.dims.names == _CANON
 
+    def run_op(op, vals, new_stats):
+        if bn_momentum > 0 and op.type == "BatchNorm":
+            return _bn_train(op, vals, new_stats, bn_momentum)
+        return lowered[op.name](*[vals[b] for b in op.bots])
+
     def run_ops(op_names, vals, new_stats):
+        # a profiler range per op (train_trace's attribution), only while a
+        # torch profiler records: outside a trace no range is entered
+        ranges = torch.autograd.profiler._is_profiler_enabled
         for op_name in op_names:
             op = pipe.ops[op_name]
-            if bn_momentum > 0 and op.type == "BatchNorm":
-                outs = _bn_train(op, vals, new_stats, bn_momentum)
+            if ranges:
+                with torch.profiler.record_function(op_name):
+                    outs = run_op(op, vals, new_stats)
             else:
-                outs = lowered[op_name](*[vals[b] for b in op.bots])
+                outs = run_op(op, vals, new_stats)
             vals.update(zip(op.tops, outs))
 
     def enter(weights, inputs):
@@ -265,6 +275,14 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
             new_stats.update(stats)
         return leave(vals, new_stats)
     return net_fn
+
+
+def _tagged(tag: str):
+    """A profiler range named ``tag`` while a torch profiler records, else
+    nothing."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(tag)
+    return contextlib.nullcontext()
 
 
 def _dots_context():
@@ -327,11 +345,14 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
 
     def loss_fn(weights, inputs, labels):
         res = net_fn(weights, inputs)
-        logits = res[logits_node]
-        logits = logits.reshape(logits.shape[0], -1).float()
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, 1, labels.reshape(-1, 1).long())
-        return torch.mean(nll), res.get("__bn_stats__", {})
+        # the __loss__ range: train_trace's softmax-CE rows, apart from the
+        # net's ops (boda_tpu's named scope of the same name)
+        with _tagged("__loss__"):
+            logits = res[logits_node]
+            logits = logits.reshape(logits.shape[0], -1).float()
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, 1, labels.reshape(-1, 1).long())
+            return torch.mean(nll), res.get("__bn_stats__", {})
 
     def train_step(weights, inputs, labels, mom_state=None, step=None):
         lr_t = lr if lr_schedule is None else lr_schedule(step)
@@ -348,7 +369,8 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
         with torch.enable_grad(), lib_precision(precision):
             loss, bn_stats = loss_fn({**dict(zip(names, leaves)), **frozen}, inputs, labels)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        with torch.no_grad():
+        # the __update__ range: train_trace's clip, momentum and SGD rows
+        with torch.no_grad(), _tagged("__update__"):
             gs = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) if g is None
                   else g.float() for g, t in zip(grads, leaves)]
             if clip_norm > 0:

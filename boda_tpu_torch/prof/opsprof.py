@@ -103,8 +103,11 @@ def profile_op(be: Backend, cg: Codegen, op: Op, tunes: list[OpTune],
             continue
         passed.append((t, fi))
     plat = be.get_plat_tag()
+    # the ab path calls fi.fn locally and reads local var buffers; remote
+    # (ipc) backends register stubs with fn=None and (dims, None) vars, so
+    # it falls back to the proxied time_func (chain tier) there
     use_ab = method == "ab" and len(passed) >= 2 and in_names and \
-        passed[0][1] is fis[0]
+        passed[0][1] is fis[0] and all(fi.fn is not None for _, fi in passed)
     if use_ab:
         from .abtime import ab_compare
         ins = {p: be.get_var_raw(p) for p in in_names}

@@ -70,6 +70,17 @@ against its plain version, train_bench under gen and lib with BN frozen and
 in train mode, tests/test_learning.py's deep gate through train_lmdb and
 test_lmdb --ckpt-fn, bn_freeze_at, and kill-and-resume.
 
+Then [tools]: rtc's tooling through the CLI at ResNet-50 b32 bf16 gen
+(``tools_phase``): net_trace --per-op (the share of kernel time on graph
+ops, the conv and fc rows on the hand kernels, the total per forward
+against an eager forward's device-busy time, the replay beside it),
+train_trace with BN frozen and in train mode (the rollup against the
+trace's kernel total, every conv's forward and backward rows, K3's and
+K5's kernels in backward rows only), net_ab gen against lib, net_tune with
+its wisdom read back by run_cnet, cnn_prof and cnn_op_info timed,
+net_decomp, and the ipc backend: cs_test_master and sgemm through a worker
+on the card over fds: and tcp:, bit-equal to the call in process.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -1962,6 +1973,307 @@ def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) ->
     return out
 
 
+# [tools] (rtc's tooling): net_trace's in-net share, train_trace's rollup and
+# the ipc worker on the card
+TRACE_MAPPED_MIN = 0.95   # net_trace: the share of kernel time a graph op holds
+TRACE_BUSY_TOL = 0.15     # net_trace's total per forward vs the eager device-busy time
+TRAIN_TRACE_SUM_TOL = 0.01  # train_trace's rollup vs the trace's kernel total
+TRAIN_TRACE_OTHER_MAX = 0.05  # train_trace's (other) share
+
+
+def trace_rows(lines: list[str], marker: str, per_what: str) -> dict:
+    """{row: us per forward or step} of a tool mode's table after the line
+    holding ``marker``."""
+    rows, on = {}, False
+    for ln in lines:
+        if marker in ln:
+            on = True
+        elif on and ln.startswith("  ") and f" us/{per_what}" in ln:
+            rows[ln[2:].rsplit(f" us/{per_what}", 1)[0].rsplit(None, 1)[0].strip()] = \
+                float(ln.rsplit(f" us/{per_what}", 1)[0].rsplit(None, 1)[1])
+        elif on:
+            break
+    return rows
+
+
+def kernel_rows(evs: list, ops, pick, train: bool) -> dict:
+    """{row: number of kernels} of a trace, over the kernels whose names
+    ``pick`` takes: net_trace's attribution with every kernel counted 1."""
+    from boda_tpu_torch.modes.net_trace import attribute
+    sub = [dict(e, dur=1.0) if e.get("cat") == "kernel" else e for e in evs
+           if e.get("cat") != "kernel" or pick(e["name"])]
+    if not any(e.get("cat") == "kernel" for e in sub):
+        return {}  # (a trace without kernels is attributed as host time)
+    return attribute(sub, ops, train=train)[0]
+
+
+def ipc_sgemm(be, a, b) -> np.ndarray:
+    """c = a @ b through the rtc sgemm op on backend ``be`` (bf16)."""
+    from boda_tpu_torch.ops.op_base import Op
+    from boda_tpu_torch.ops.registry import Codegen
+    from boda_tpu_torch.utils.dims import NDA, Dims
+    (m, k), n = a.shape, b.shape[1]
+    ds = {"a": Dims.of(M=m, K=k, tn="bfloat16"), "b": Dims.of(K=k, N=n, tn="bfloat16"),
+          "c": Dims.of(M=m, N=n, tn="bfloat16")}
+    cg = Codegen(be)
+    fi = cg.gen_func(Op("sgemm", {}, ds))
+    be.create_var_from_nda("a", NDA(ds["a"], a))
+    be.create_var_from_nda("b", NDA(ds["b"], b))
+    be.create_var_with_dims("c", ds["c"])
+    cg.compile()
+    cg.run_func(fi, {"a": "a", "b": "b", "c": "c"})
+    return be.copy_var_to_nda("c").data
+
+
+def tools_phase(card: str, out_dir, counted: dict) -> dict:
+    """[tools]: rtc's tooling through the CLI in process, ResNet-50 b32 bf16
+    gen. net_trace --per-op over 4 eager forwards: the share of kernel time
+    attributed to graph ops, every conv and fc row on the hand kernels (no
+    cuDNN or cuBLAS kernel in them), its total per forward against the same
+    engine's eager device-busy time (torch.profiler, this script's own sum),
+    the replay's ms beside it. train_trace over 2 steps, BN frozen and
+    train-mode: the rollup against the trace's kernel total, (other), every
+    conv's [fwd] and [bwd] rows, K5's kernels and K3's (the conv kernel's
+    launches through conv2d_nhwc) in [bwd] rows only, K2's in [fwd] ones.
+    net_ab gen against lib; net_tune on the hottest signature group, and on
+    the stem's across programs, its wisdom read back by run_cnet; cnn_prof
+    and cnn_op_info timed (every row, %-peak <= 100); net_decomp's stage
+    table; cs_test_master over a spawned worker on the card; sgemm through
+    an ipc worker over fds: and tcp:, bit-equal to the call in process. The
+    tables go to build/chip_smoke/tools/."""
+    import os
+    import re
+    import socket
+
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.modes.net_trace import attribute, load_trace
+    from boda_tpu_torch.ops.kernels.conv import conv2d_nhwc
+    from boda_tpu_torch.utils.lexp import parse_lexp
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tdir = os.path.join(root, "build", "chip_smoke", "tools")
+    os.makedirs(tdir, exist_ok=True)
+    out = {"card": card}
+    gen_cfg = "(mode=cuda,compute_tn=bfloat16)"
+    lib_cfg = "(mode=cuda,compute_tn=bfloat16,kernel_policy=lib)"
+    net = ["--model=resnet50", f"--img={BATCH}"]
+    pipe, in_dims = load_net("resnet50", img=BATCH)
+    convfc = [o for o, op in pipe.ops.items() if op.type in ("Convolution", "InnerProduct")]
+    zero_counts(counted)
+
+    def cli(name, argv):
+        rc, lines = run_cli(argv + [f"--boda-output-dir={tdir}"])
+        with open(os.path.join(tdir, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return rc, lines
+
+    # -- net_trace: the gen forward per op, eager, beside the replay ------------------
+    rc, lines = cli("net_trace", ["net_trace", *net, "--per-op=1", "--n-iters=4", "--top-k=0",
+                                  "--unmapped=8", f"--conv-fwd={gen_cfg}"])
+    check(rc == 0, "net_trace")
+    rows = trace_rows(lines, "per-op device time over 4 forwards", "fwd")
+    tot = sum(rows.values())
+    mapped = 1.0 - rows.get("(other)", 0.0) / max(tot, 1e-9)
+    replay_ms = float(re.search(r"replay ([0-9.]+) ms/fwd", lines[0]).group(1))
+    evs = load_trace(os.path.join(tdir, "trace", "resnet50.pt.trace.json"))
+    lib_rows = kernel_rows(evs, pipe.ops, lambda n: kernel_class(n) == "library", False)
+    hand_rows = kernel_rows(evs, pipe.ops, lambda n: kernel_class(n) == "hand", False)
+    on_lib = sorted(o for o in convfc if o in lib_rows)
+    lib_names = sorted({e["name"][:90] for e in evs if e.get("cat") == "kernel"
+                        and kernel_class(e["name"]) == "library"})
+    # the chain heads: a conv fused with its BN/Scale/ReLU is one row
+    heads = [o for o in convfc if o in rows]
+    off_hand = sorted(o for o in heads if o not in hand_rows)
+    eng = make("conv_fwd", "cuda", compute_tn="bfloat16", cuda_graph=False)
+    eng.init(pipe)
+    ins = gen_data_inputs(in_dims)
+    eng.run_fwd(ins, ["prob"])
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            eng.run_fwd(ins, ["prob"])
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy" not in e.name and "Memset" not in e.name) / 4
+    del eng
+    print(f"[tools] net_trace resnet50 b{BATCH} bf16 gen, 4 eager forwards: {len(rows)} rows, "
+          f"{tot:.1f} us/fwd in kernels, {100 * mapped:.2f}% on graph ops (min "
+          f"{100 * TRACE_MAPPED_MIN:.0f}%); eager device-busy {busy:.1f} us/fwd (torch.profiler, "
+          f"no attribution: {tot / busy:.3f}x); replay {replay_ms:.3f} ms/fwd; {len(heads)} "
+          f"conv/fc rows, {len(off_hand)} without a hand kernel, {len(on_lib)} with a library "
+          f"kernel; library kernels in the trace {lib_names} ({card})")
+    for ln in lines[:40]:
+        print(f"[tools]   {ln}")
+    check(mapped >= TRACE_MAPPED_MIN, f"net_trace: {mapped:.4f} of kernel time on graph ops")
+    check(abs(tot / busy - 1) <= TRACE_BUSY_TOL, f"net_trace total {tot:.1f} vs busy {busy:.1f}")
+    check(len(heads) >= 20 and not off_hand and not on_lib,
+          f"net_trace conv/fc rows: off the hand kernels {off_hand[:5]}, library {on_lib[:5]}")
+    out["net_trace"] = {"rows": rows, "us_per_fwd": tot, "mapped": mapped, "busy_us": busy,
+                        "replay_ms": replay_ms}
+
+    # -- train_trace: BN frozen and train-mode ----------------------------------------
+    convs = [o for o, op in pipe.ops.items() if op.type == "Convolution"]
+    k2_fwd = sum(1 for o in convs if pipe.ops[o].kern_sz() != (1, 1))
+
+    # the GEMM core's kernels by mode (csrc/gemm.cuh: 0 dense, 1 conv, 2 and 3
+    # K5's): K2's and K3's launches run the conv mode, the C = 3 stem on mma
+    def conv_mode(n):
+        return re.search(r"gemm_wgmma<\s*1\s*,", n) is not None or "gemm_bf16<true" in n
+    for bn in ("0", "0.1"):
+        k3_0 = conv2d_nhwc.launches
+        rc, lines = cli(f"train_trace_bn{bn}", ["train_trace", *net, "--n-iters=2",
+                                                f"--bn-momentum={bn}", "--top-k=0",
+                                                "--unmapped=8"])
+        check(rc == 0, f"train_trace --bn-momentum={bn}")
+        k3 = (conv2d_nhwc.launches - k3_0) * 2 // 3  # 3 steps ran, 2 traced
+        evs = load_trace(os.path.join(tdir, "trace", "resnet50_train.pt.trace.json"))
+        ktot = sum(float(e["dur"]) for e in evs if e.get("cat") == "kernel") / 2
+        roll = trace_rows(lines, "train-step phase rollup", "step")
+        per = attribute(evs, pipe.ops, train=True)[0]
+        missing = [c for c in convs if f"{c} [fwd]" not in per or f"{c} [bwd]" not in per]
+        k5 = kernel_rows(evs, pipe.ops, lambda n: re.search(r"gemm_wgmma<\s*[23]\s*,", n)
+                         is not None or "atb_bf16" in n or "atb_f32" in n, True)
+        cm = kernel_rows(evs, pipe.ops, conv_mode, True)
+        cm_f = sum(v for k, v in cm.items() if k.endswith("[fwd]"))
+        cm_b = sum(v for k, v in cm.items() if k.endswith("[bwd]"))
+        k5_off = sorted(k for k in k5 if not k.endswith("[bwd]"))
+        rsum = sum(roll.values())
+        oth = roll.get("(other)", 0.0) / max(ktot, 1e-9)
+        names = sorted({e["name"].split("(")[0] for e in evs if e.get("cat") == "kernel"
+                        and kernel_class(e["name"]) == "hand"})
+        mode = "train-mode BN (bn_momentum 0.1)" if bn != "0" else "BN frozen"
+        print(f"[tools] train_trace resnet50 b{BATCH} bf16 gen, {mode}, 2 steps: rollup "
+              + ", ".join(f"{k} {v:.1f}" for k, v in roll.items())
+              + f" us/step, sum {rsum:.1f} against the trace's kernels {ktot:.1f} "
+              f"({rsum / ktot - 1:+.3%}); (other) {100 * oth:.2f}%; convs without a [fwd] and a "
+              f"[bwd] row {missing[:3]}; K5 kernels per step off [bwd] rows {k5_off[:3]}; "
+              f"conv-mode kernels [fwd] {cm_f / 2:g} (K2 {k2_fwd}) [bwd] {cm_b / 2:g} (K3 "
+              f"{k3 / 2:g}); hand kernels {names} ({card})")
+        for ln in lines[:60]:
+            print(f"[tools]   {ln}")
+        check(abs(rsum / ktot - 1) <= TRAIN_TRACE_SUM_TOL, f"train_trace rollup {rsum} vs {ktot}")
+        check(oth <= TRAIN_TRACE_OTHER_MAX, f"train_trace (other) {oth:.4f}")
+        check(not missing and not k5_off and sum(k5.values()) > 0,
+              f"train_trace rows: convs {missing[:3]}, K5 off [bwd] {k5_off[:3]}")
+        check(cm_b == k3 and cm_f == 2 * k2_fwd and k3 > 0,
+              f"train_trace conv-mode kernels [fwd] {cm_f} [bwd] {cm_b}, K3 launches {k3}")
+        out[f"train_trace_bn{bn}"] = {"rollup_us": roll, "kernel_us": ktot, "other": oth}
+
+    # -- net_ab, net_tune and its wisdom read back --------------------------------------
+    rc, lines = cli("net_ab", ["net_ab", *net, f"--a={gen_cfg}", f"--b={lib_cfg}"])
+    print(f"[tools] net_ab gen (A) vs lib (B) rc={rc}: {lines[-1] if lines else ''} ({card})")
+    check(rc == 0, "net_ab")
+    out["net_ab"] = lines[-1]
+    # the stem's group across programs (replays), at a margin under its
+    # library conv's gain (7.9% of the forward on an H100 80GB HBM3, 700 W)
+    louts = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
+    louts.init(pipe)
+    ref = louts.run_fwd(ins, ["fc1000"])["fc1000"].data
+    del louts
+    from boda_tpu_torch.prof.wisdom import read_wisdom
+    readback = 0
+    for name, extra in (("net_tune", ["--max-groups=1"]),
+                        ("net_tune_stem", ["--ab=0", "--op-filter=conv1", "--max-groups=1",
+                                           "--n-iters=20", "--margin=0.04"])):
+        wis = os.path.join(tdir, f"{name}.wis")
+        rc, lines = cli(name, ["net_tune", *net, *extra, f"--wisdom-out-fn={name}.wis"])
+        print(f"[tools] net_tune {' '.join(extra)} rc={rc}: " + " | ".join(lines) + f" ({card})")
+        check(rc == 0, f"net_tune {extra}")
+        sigs = {w.op.key() for w in read_wisdom(wis)}
+        weng = make("conv_fwd", "cuda", compute_tn="bfloat16", wisdom_fn=wis)
+        weng.init(pipe)
+        tuned = {op for op in convfc if weng.wisdom_sig(op).key() in sigs}
+        _, e_w = rel_err(torch.from_numpy(weng.run_fwd(ins, ["fc1000"])["fc1000"].data),
+                         torch.from_numpy(ref))
+        del weng
+        rc, lines = run_cli(["run_cnet", *net, "--n-iters=10",
+                             f"--conv-fwd=(mode=cuda,compute_tn=bfloat16,wisdom_fn={wis})"])
+        got = {ln.split(":")[0] for ln in lines if ": wisdom tune " in ln and " on net:" in ln}
+        print(f"[tools] run_cnet --wisdom-fn={name}.wis rc={rc}: a net: wisdom tune on "
+              f"{sorted(got)} (the tuned groups' ops {sorted(tuned)}); fc1000 vs lib "
+              f"{e_w:.3e} (tol {SLICE_TOL['fc1000']}); "
+              f"{next((ln for ln in lines if ln.startswith('{')), '')}")
+        check(rc == 0 and got == tuned and e_w <= SLICE_TOL["fc1000"],
+              f"{name}.wis read back: {sorted(got ^ tuned)[:3]}, fc1000 {e_w:.3g}")
+        readback += bool(tuned)
+    print(f"[tools] net_tune wisdom with a tuned group read back from {readback} of 2 runs")
+    out["net_tune_readback"] = readback
+
+    # -- cnn_prof, cnn_op_info, net_decomp ------------------------------------------
+    for name, argv in (("cnn_prof", ["cnn_prof", *net, "--time=1", "--json-out=1"]),
+                       ("cnn_op_info", ["cnn_op_info",
+                                        "--ops-fn=testdata/ops/resnet50-ops-img8.txt",
+                                        "--time=1", "--tune-comp=(use_xla=1)",
+                                        "--json-out=1"])):
+        rc, lines = cli(name, argv)
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        untimed = [r for r in recs if "us" not in r]
+        over = [r for r in recs if r.get("pct_peak", 0) > 100]
+        pk = [r.get("pct_peak", 0) for r in recs]
+        comp = [r["speedup_vs_comp"] for r in recs if r.get("speedup_vs_comp")]
+        print(f"[tools] {name} --time=1 rc={rc}: {len(recs)} rows, {len(untimed)} untimed, "
+              f"%-peak {min(pk, default=0):.2f}-{max(pk, default=0):.2f}, {len(over)} over 100"
+              + (f"; gen vs lib speedup {min(comp):.2f}-{max(comp):.2f}x" if comp else "")
+              + f"; {lines[-1] if lines else ''} ({card})")
+        check(rc == 0 and recs and not untimed and not over, f"{name} --time=1")
+        out[name] = {"rows": len(recs), "pct_peak_max": max(pk, default=0)}
+    rc, lines = cli("net_decomp", ["net_decomp", *net, "--n-iters=10", "--repeats=2"])
+    for ln in lines:
+        print(f"[tools] {ln}")
+    check(rc == 0 and any("stage ->" in ln for ln in lines), "net_decomp")
+    out["net_decomp"] = lines
+
+    # -- the ipc backend: cs_test_master, sgemm over fds: and tcp: ----------------------
+    rc, lines = cli("cs_test_master", ["cs_test_master", "--worker-be=(be=cuda)"])
+    print(f"[tools] cs_test_master --worker-be=(be=cuda) rc={rc}: {lines[-1] if lines else ''}")
+    check(rc == 0 and lines and "PASS" in lines[-1] and "ipc:cuda:" in lines[-1],
+          "cs_test_master")
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((1024, 2048), dtype=np.float32)).bfloat16()
+    b = torch.from_numpy(rng.standard_normal((2048, 512), dtype=np.float32) *
+                         np.float32(2048 ** -0.5)).bfloat16()
+    a, b = a.float().numpy(), b.float().numpy()
+    want = ipc_sgemm(make("be", "cuda"), a, b)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    worker = subprocess.Popen([sys.executable, "-m", "boda_tpu_torch", "ipc_compute_worker",
+                               f"--addr=tcp:127.0.0.1:{port}", "--listen=1"], cwd=root)
+    try:
+        res = {}
+        for how in ("fds", "tcp"):
+            be = None
+            deadline = time.time() + 120
+            while be is None:
+                try:
+                    be = make("be", "ipc", worker_be=parse_lexp("(be=cuda)"),
+                              addr="" if how == "fds" else f"tcp:127.0.0.1:{port}")
+                except OSError:
+                    check(time.time() < deadline, "no tcp worker")
+                    time.sleep(0.5)
+            try:
+                res[how] = (be.get_plat_tag(), ipc_sgemm(be, a, b))
+            finally:
+                be.shutdown()
+    finally:
+        worker.wait(timeout=60)
+    for how, (tag, got) in res.items():
+        same = bool(np.array_equal(got, want))
+        print(f"[tools] sgemm 1024x2048x512 bf16 through an ipc worker over {how}: ({tag}) "
+              f"bit-equal to be=cuda in process: {same}")
+        check(same and tag.startswith("ipc:cuda:"), f"ipc sgemm over {how}")
+    counts = read_counts(counted)
+    out["launches"] = counts
+    check(counts["sgemm"] > 0 and counts["conv"] > 0 and counts["atb"] > 0,
+          f"tools launches {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[tools] launches in this process {counts}; phase took {out['seconds']:.1f} s "
+          f"({card})")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3108,6 +3420,13 @@ def main() -> int:
                     "plan": stem_plan._asdict(),
                     "path": "none: no engine routes to it, as in boda_tpu"})
     lap("train")
+    # -- phase 12: [tools] net_trace, train_trace, net_tune, cnn_prof, the ipc worker --
+    tools = tools_phase(card, out_dir, counted)
+    for entry in kernels:
+        k = {"dgrad": "conv_nhwc"}.get(entry["name"], entry["name"])
+        if k in tools["launches"]:
+            entry["launches_tools"] = tools["launches"][k]
+    lap("tools")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -3117,7 +3436,7 @@ def main() -> int:
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
                       "caffe": caffe, "int8": int8, "lmdb": lmdb, "ssd": ssd,
-                      "train": train,
+                      "train": train, "tools": tools,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

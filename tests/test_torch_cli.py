@@ -49,6 +49,9 @@ import boda_tpu_torch.parallel.train, boda_tpu_torch.parallel.checkpoint
 import boda_tpu_torch.parallel.schedules, boda_tpu_torch.graph.train_ops
 import boda_tpu_torch.modes.train_lmdb, boda_tpu_torch.modes.train_bench
 import boda_tpu_torch.ops.kernels.train_conv
+import boda_tpu_torch.modes.net_trace, boda_tpu_torch.modes.cnn_prof
+import boda_tpu_torch.modes.net_tune, boda_tpu_torch.modes.ipc_modes
+import boda_tpu_torch.rtc.ipc, boda_tpu_torch.rtc.stream_util
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
@@ -87,6 +90,13 @@ with tempfile.TemporaryDirectory() as td:
     assert cli.main(["test_lmdb", "--rec-fn=testdata/lmdb/cifar_mini.rec",
                      "--model=mini_resnet", "--img=2", "--ckpt-fn=" + td + "/ck.npz",
                      "--conv-fwd=(mode=cuda,device=cpu)"]) == 0
+with tempfile.TemporaryDirectory() as td:
+    assert cli.main(["net_trace", "--model=mini_resnet", "--img=2", "--n-iters=1",
+                     "--per-op=1", "--conv-fwd=(mode=cuda,device=cpu)",
+                     "--boda-output-dir=" + td]) == 0
+    assert cli.main(["train_trace", "--model=mini_resnet", "--img=2", "--n-iters=1",
+                     "--device=cpu", "--boda-output-dir=" + td]) == 0
+assert cli.main(["cs_test_master", "--worker-be=(be=cuda,device=cpu)", "--n=100"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)
