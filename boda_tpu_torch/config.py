@@ -118,6 +118,22 @@ def class_fields(cls) -> list[Field]:
 _ENV: dict[str, str] = {}
 
 
+def run_mode(mode) -> None:
+    """Run a mode with its ``boda_output_dir`` visible in the global env, so
+    nested non-mode components resolve relative output filenames under the
+    mode's output dir (boda_tpu: config.py:133; ref boda_output_dir
+    semantics, src/has_main.H)."""
+    prev = _ENV.get("boda_output_dir")
+    _ENV["boda_output_dir"] = mode.boda_output_dir
+    try:
+        mode.main()
+    finally:
+        if prev is None:
+            _ENV.pop("boda_output_dir", None)
+        else:
+            _ENV["boda_output_dir"] = prev
+
+
 def load_cfg_file(fn: str) -> None:
     """Load root attributes of an XML config file as global env vars."""
     import xml.etree.ElementTree as ET

@@ -43,7 +43,7 @@ import contextlib
 import dataclasses
 import sys
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -193,14 +193,8 @@ class FwdEngine:
         key = self._graph_key(ins, out_names)
         if key == self._warm_key or (self._graph is not None and self._graph.key == key):
             return
-        d = self.dev()
         dev_ins = self._put_inputs(ins)
-
-        def forward():
-            with self._run_ctx():
-                self._fn(self._weights_dev, dev_ins)
-        side_stream_warmup(forward, 1, d)
-        torch.cuda.synchronize(d)
+        self.warm_up(lambda w: self._fn(w, dev_ins))
         self._warm_key = key
 
     def _captured(self, ins: dict[str, NDA], out_names: list[str]) -> CapturedFwd:
@@ -214,19 +208,45 @@ class FwdEngine:
         self.prepare(ins, out_names)
         self._graph = None  # free the old key's graph before capturing
         static_ins = self._put_inputs(ins)
+        self._graph = self.capture_graph(lambda w: self._fn(w, static_ins), key, static_ins)
+        self._warm_key = None
+        return self._graph
+
+    def run_eager(self, forward: Callable[[dict], Any]) -> Any:
+        """``forward(weights)`` once, eagerly, under the run context: the
+        engine's uploaded weights as a ``build_raw_fn`` function takes them."""
+        with self._run_ctx():
+            return forward(self._weights_dev)
+
+    def warm_up(self, forward: Callable[[dict], Any]) -> None:
+        """The eager warm-up that a capture of ``forward(weights)`` needs:
+        one call on a side stream (kernel builds, shared-memory attributes,
+        plan caches, the libraries' algorithm choices), then a sync. The
+        launch counters tick for it."""
+        d = self.dev()
+        side_stream_warmup(lambda: self.run_eager(forward), 1, d)
+        torch.cuda.synchronize(d)
+
+    def capture_graph(self, forward: Callable[[dict], dict], key: tuple = (),
+                      ins: Optional[dict] = None) -> CapturedFwd:
+        """``forward(weights)``, a function of static device tensors
+        (``ins``) that returns a dict of outputs, captured as one CUDA graph
+        under the run context (call ``warm_up`` first): the outputs become
+        the handle's static outputs, which each replay overwrites. A capture that
+        fails raises, naming the op it was in; nothing runs eagerly in its
+        place. The engine's own forward and any caller's (a preprocess in
+        front of a ``build_raw_fn`` net, say) are captured here alone."""
         graph = torch.cuda.CUDAGraph()
         self._cur_op = None
         t0 = time.perf_counter()
         try:
             with self._run_ctx(), capture(graph):
-                outs = self._fn(self._weights_dev, static_ins)
+                outs = forward(self._weights_dev)
         except Exception as e:
             where = f"op {self._cur_op!r}" if self._cur_op else "the end of the capture"
             raise RuntimeError(f"conv_fwd: the CUDA-graph capture failed at {where}: "
                                f"{type(e).__name__}: {e}") from e
-        self._graph = CapturedFwd(key, graph, static_ins, outs, time.perf_counter() - t0)
-        self._warm_key = None
-        return self._graph
+        return CapturedFwd(key, graph, ins or {}, outs, time.perf_counter() - t0)
 
     def _put_inputs(self, ins: dict[str, NDA]) -> dict[str, torch.Tensor]:
         d = self.dev()
@@ -252,8 +272,8 @@ class FwdEngine:
             g.graph.replay()
             outs = dict(g.outs)
         else:
-            with self._run_ctx():
-                outs = self._fn(self._weights_dev, self._put_inputs(ins))
+            dev_ins = self._put_inputs(ins)
+            outs = self.run_eager(lambda w: self._fn(w, dev_ins))
         stats = outs.pop("__stats__", None)
         if stats is not None:
             self._last_stats = {n: stats[n].cpu().numpy() for n in sorted(stats)}

@@ -35,9 +35,12 @@ class TestCompute(Mode):
     weights_fn = Field("filename", default="", help="caffemodel path")
     img = Field(int, default="2", help="batch size")
     in_sz = Field(int, default="0", help="input size override")
+    # the labels are boda_tpu's (its output line, which the corpus golden
+    # test_compute_mini pins, names them): "oracle" is the library path,
+    # "pallas" the hand kernels (kernel_policy=gen)
     engines = Field((dict, "conv_fwd"),
-                    default="(lib=(mode=cuda,kernel_policy=lib),"
-                            "gen=(mode=cuda,kernel_policy=gen))",
+                    default="(oracle=(mode=cuda,kernel_policy=lib),"
+                            "pallas=(mode=cuda,kernel_policy=gen))",
                     help="engines; first is the comparison baseline")
     n_wins = Field(int, default="2", help="number of input windows to test")
     mrd_toler = Field(float, default="5e-4", help="default per-layer tolerance")

@@ -10,6 +10,7 @@ from . import rtc  # noqa: F401  (registers the "be" backends: cuda, interp, ipc
 
 _MODE_MODULES = [
     "boda_tpu_torch.modes.apps",
+    "boda_tpu_torch.modes.basic",
     "boda_tpu_torch.modes.calib",
     "boda_tpu_torch.modes.cnet",
     "boda_tpu_torch.modes.cnn_prof",
@@ -20,10 +21,13 @@ _MODE_MODULES = [
     "boda_tpu_torch.modes.net_tune",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",
+    "boda_tpu_torch.modes.serve_bench",
     "boda_tpu_torch.modes.surgery_modes",
+    "boda_tpu_torch.modes.test_cmds",
     "boda_tpu_torch.modes.test_compute",
     "boda_tpu_torch.modes.train_bench",
     "boda_tpu_torch.modes.train_lmdb",
+    "boda_tpu_torch.modes.zmq_modes",
 ]
 
 for _m in _MODE_MODULES:

@@ -81,6 +81,25 @@ its wisdom read back by run_cnet, cnn_prof and cnn_op_info timed,
 net_decomp, and the ipc backend: cs_test_master and sgemm through a worker
 on the card over fds: and tcp:, bit-equal to the call in process.
 
+Then [serve]: the serving path (modes/serve_bench.py): what the machine
+has (the native library, pyzmq, PIL); the preprocess on the card bit-equal
+to the host's; the served ResNet-50 b32 bf16 gen forward (preprocess+net
+captured as one CUDA graph from a uint8 RGBA batch) bit-equal to the
+engine's replay of the host-preprocessed batch, launching K1 37 and K2 17
+times; pinned host buffers, uploads on a stream of their own, and the last
+batch of a pipelined run bit-equal to a serial run; every batch that a
+stand-in loader writes into the pinned buffers (more batches than buffers)
+served bit-equal to the engine's replay of it; serve_bench and
+serve_stages at full width through the CLI, or, where the native library
+does not build (no libjpeg headers), their error and the same served
+function on PIL-decoded batches, the decode stage not measured; their
+goldens; zmq_det_server's b1 f32 logits (fc1000, all 1000) equal to
+cnet_predict's on the card and held to the CPU's; cnet_predict f32 on the
+card against the CPU: its logits, and its p over all classes with fc1000
+scaled so that the top p is 0.3, off one-hot. And [corpus]: the port's
+test_all (test_cmds on the repo corpus, then test_compute), every entry
+outside its skip table passing.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -2274,6 +2293,437 @@ def tools_phase(card: str, out_dir, counted: dict) -> dict:
     return out
 
 
+# [serve]: the serving path (modes/serve_bench.py: preprocess+net captured in
+# one CUDA graph, pinned uploads on a copy stream), zmq_det, cnet_predict
+SERVE_BATCHES = 50          # batches per full-width serving measurement
+SERVE_DEPTH = 2             # serve_bench's default pipeline_depth
+SERVE_P_TOL = 1e-4          # cnet_predict f32 p, card against the CPU
+# the random-weight net's softmax is one-hot on the fixtures (p = 1.0, then
+# zeros: any class order and any forward with the right argmax pass a p
+# gate), so cnet_predict's p is compared with fc1000 scaled to put the
+# larger of the two fixtures' top p here
+SERVE_P_TARGET = 0.3
+SERVE_SUM_TOL = 2e-2        # softmax row sums in bf16 (serve_bench.py's prob_ok)
+ZMQ_REQUESTS = 8
+
+
+def run_cli_err(argv) -> tuple[int, list[str], str]:
+    """One CLI command in process: (exit code, stdout lines, stderr)."""
+    from boda_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def pil_batches(paths, batch: int, y: int, x: int) -> list:
+    """uint8 RGBA batches decoded and resized by PIL (utils/img_io.Img): one
+    batch per fixture, each image of it the fixture."""
+    from boda_tpu_torch.utils.img_io import Img
+    return [np.ascontiguousarray(np.broadcast_to(Img.load(p).resize(y, x).data,
+                                                 (batch, y, x, 4))) for p in paths]
+
+
+class PoolLoader:
+    """Stands in for utils/native.BatchLoader: ``next(out=)`` writes batch i,
+    ``pool[i % len(pool)]``, into ``out`` (a pinned buffer's numpy view), for
+    ``n`` batches."""
+
+    def __init__(self, pool, n):
+        self.pool, self.n, self.i = pool, n, 0
+
+    def next(self, out):
+        if self.i == self.n:
+            return None
+        out[...] = self.pool[self.i % len(self.pool)]
+        self.i += 1
+        return self.i - 1, out
+
+
+@contextlib.contextmanager
+def fc1000_scaled(k: float):
+    """The app modes' nets (modes/apps.py's load_net) with fc1000's weights
+    times ``k`` (``scale_fc1000``), in this process."""
+    from boda_tpu_torch.modes import apps
+    load = apps.load_net
+
+    def scaled(*a, **kw):
+        pipe, in_dims = load(*a, **kw)
+        scale_fc1000([pipe], k)
+        return pipe, in_dims
+    apps.load_net = scaled
+    try:
+        yield
+    finally:
+        apps.load_net = load
+
+
+def predict_tops(img_fns: str, engine: str, *extra) -> list:
+    """cnet_predict --model=resnet50 through the CLI: per image, its class ->
+    value map over all 1000 classes and the classes in rank order."""
+    rc, lines = run_cli(["cnet_predict", "--model=resnet50", img_fns, "--top-n=1000",
+                         f"--conv-fwd={engine}", *extra])
+    check(rc == 0 and lines, f"cnet_predict {engine} {extra} rc={rc}")
+    tops = [json.loads(ln)["top"] for ln in lines]
+    return [({t["cls"]: t["p"] for t in top}, [t["cls"] for t in top]) for top in tops]
+
+
+def logit_err(got: dict, ref: dict) -> float:
+    """max|err|/max|ref| of two class -> logit maps over the same classes."""
+    check(set(got) == set(ref) and len(ref) == 1000, "logits over 1000 classes")
+    a = np.array([got[c] for c in sorted(ref)])
+    b = np.array([ref[c] for c in sorted(ref)])
+    check(bool(np.isfinite(a).all()) and float(np.ptp(b)) > 0, "logits finite, not flat")
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def zmq_roundtrip(root: str, img: str, engine: str) -> dict:
+    """zmq_det_server --model=resnet50 serving fc1000's 1000 logits (a
+    softmax of the random-weight net is one-hot) in a process of its own: 8
+    requests through zmq_det_client (the CLI, in process), then 8 timed ones
+    through its Client; each reply equal to cnet_predict's logits for the
+    image on the same engine and held to the CPU's within F32_NODE_TOL of
+    max|ref|. The server is stopped whatever happens."""
+    import socket
+
+    from boda_tpu_torch.apps.zmq_det import Client
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ep = f"tcp://127.0.0.1:{port}"
+    srv = subprocess.Popen([sys.executable, "-u", "-m", "boda_tpu_torch", "zmq_det_server",
+                            "--model=resnet50", f"--endpoint={ep}", f"--conv-fwd={engine}",
+                            "--out-node-name=fc1000", "--top-n=1000"],
+                           cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+    try:
+        head = []  # the server binds once its engine is up, and says so
+        while not (head and head[-1].startswith("zmq_det server listening")):
+            ln = srv.stdout.readline()
+            check(bool(ln), f"zmq_det_server ended before listening: {''.join(head)[-500:]}")
+            head.append(ln)
+        imgs = ",".join(f"i{k}={img}" for k in range(ZMQ_REQUESTS))
+        rc, lines = run_cli(["zmq_det_client", f"--endpoint={ep}", f"--img-fns=({imgs})"])
+        check(rc == 0 and len(lines) == ZMQ_REQUESTS, f"zmq_det_client rc={rc}: {lines}")
+        replies = [json.loads(ln) for ln in lines]
+        c = Client(ep)
+        ms = []
+        try:
+            for _ in range(ZMQ_REQUESTS):
+                t0 = time.perf_counter()
+                replies.append(c.predict_file(img))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            c.quit_server()
+        finally:
+            c.close()
+        tail, _ = srv.communicate(timeout=120)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+    check(srv.returncode == 0 and f"served {2 * ZMQ_REQUESTS} requests" in tail,
+          f"zmq_det_server rc={srv.returncode}: {tail[-500:]}")
+    fns = f"--img-fns=(a={img})"
+    (want, order), = predict_tops(fns, engine, "--out-node-name=fc1000")
+    (cpu, _), = predict_tops(fns, "(mode=cuda,device=cpu)", "--out-node-name=fc1000")
+    worst = 0.0
+    for r in replies:
+        got = {t["cls"]: round(t["p"], 5) for t in r["top"]}
+        check(got == want and [t["cls"] for t in r["top"]] == order,
+              "zmq reply differs from cnet_predict's fc1000 on the same engine")
+        worst = max(worst, logit_err({t["cls"]: t["p"] for t in r["top"]}, cpu))
+    check(worst <= F32_NODE_TOL, f"zmq logits vs the CPU {worst:.3e} (tol {F32_NODE_TOL})")
+    return {"requests": len(replies), "median_ms": float(np.median(ms)),
+            "ms": [round(m, 3) for m in ms], "top5": [(c, want[c]) for c in order[:5]],
+            "logit_err_vs_cpu": worst}
+
+
+def serve_phase(card: str, pipe, in_dims, out_dir, counted: dict) -> dict:
+    """[serve]: what the machine has (the native library, pyzmq, PIL); the
+    preprocess on the card bit-equal to the host's; the served ResNet-50 b32
+    bf16 gen forward (preprocess+net in one CUDA graph) bit-equal to the
+    engine's replay of the host-preprocessed batch, with K1 and K2 launched
+    as often as in [graph]'s gen forward; the pipeline's pinned host
+    buffers, its copy stream, its last batch against a serial run, and every
+    batch a stand-in loader writes into the pinned buffers against the
+    engine's replay of it; serve_bench and serve_stages at full width
+    through the CLI (or, where the native library does not build, their
+    error, and the same served function driven on PIL-decoded batches);
+    their goldens; zmq_det's logits against cnet_predict and the CPU; and
+    cnet_predict f32 on the card against the CPU, p off one-hot."""
+    import os
+
+    from boda_tpu_torch.apps.preproc import img_to_batch_np, img_to_batch_torch
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.modes.serve_bench import (ServedNet, Uploader, cached_batches,
+                                                  loader_batches, pinned_cache, serve_batches,
+                                                  stage_rates, stage_report)
+    from boda_tpu_torch.utils import native
+    from boda_tpu_torch.utils.dims import NDA
+    from boda_tpu_torch.utils.features import is_feature_enabled
+    root = os.path.dirname(os.path.abspath(__file__))
+    imgs = [os.path.join(root, "testdata", "images", f) for f in ("test2.jpg", "test1.png")]
+    sdir = out_dir / "serve"
+    sdir.mkdir(parents=True, exist_ok=True)
+    out = {"card": card}
+
+    # -- 1. the machine --------------------------------------------------------------
+    have_native = native.native_available()
+    have_zmq, have_pil = is_feature_enabled("zmq"), is_feature_enabled("PIL")
+    why = native.why_unavailable()
+    print(f"[serve] machine: native library {'built' if have_native else 'NOT built: ' + why}; "
+          f"pyzmq {'present' if have_zmq else 'absent'}; PIL "
+          f"{'present' if have_pil else 'absent'} ({card})")
+    out.update(native=have_native, native_error=why, pyzmq=have_zmq, pil=have_pil)
+    check(have_pil, "PIL is needed for the fixtures' decode")
+
+    # -- 2. the preprocess, card against host ------------------------------------------
+    rng = np.random.default_rng(19)
+    d = in_dims["data"]
+    shape = (BATCH, d["y"], d["x"], 4)
+    u8 = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(4)]
+    ref = img_to_batch_np(u8[0])
+    x_dev = torch.from_numpy(u8[0]).cuda()
+    for layout in ("nchw", "nhwc"):
+        got = img_to_batch_torch(x_dev, layout=layout).cpu().numpy()
+        want = ref if layout == "nchw" else ref.transpose(0, 2, 3, 1)
+        check(np.array_equal(got, want), f"img_to_batch_torch f32 {layout}")
+    got = img_to_batch_torch(x_dev, out_dtype=torch.bfloat16, layout="nhwc").cpu()
+    want = torch.from_numpy(np.ascontiguousarray(ref.transpose(0, 2, 3, 1))).bfloat16()
+    check(torch.equal(got, want), "img_to_batch_torch bf16 nhwc")
+    print(f"[serve] img_to_batch_torch on the card bit-equal to img_to_batch_np: "
+          f"f32 nchw and nhwc, bf16 nhwc ({BATCH}x{d['y']}x{d['x']} seeded u8)")
+
+    # -- 3. the served forward ------------------------------------------------------
+    # fc1000 scaled again, from this u8 batch's logits (its pixels span ~100x
+    # the gen-data pattern's range): prob not one-hot here either
+    eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    eng.init(pipe)
+    fc_max = float(np.abs(eng.run_fwd({"data": NDA(d, img_to_batch_np(u8[0]))},
+                                      ["fc1000"])["fc1000"].data).max())
+    scale_fc1000([pipe], 1.0 / fc_max)
+    eng = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    eng.init(pipe)
+    served = ServedNet(eng, "prob", BATCH, d["y"], d["x"])
+    t0 = time.perf_counter()
+    served.prepare()
+    zero_counts(counted)
+    served.capture()
+    launches = read_counts(counted)
+    cap_s = time.perf_counter() - t0
+    print(f"[serve] served resnet50 b{BATCH} bf16 gen (preprocess+net, one CUDA graph): "
+          f"launches per batch {launches}; warm-up + capture {cap_s:.2f} s")
+    check(launches["sgemm"] == 37 and launches["conv"] == 17,
+          f"served launches sgemm {launches['sgemm']} (37), conv {launches['conv']} (17)")
+    check(all(v == 0 for k, v in launches.items() if k not in ("sgemm", "conv")),
+          f"served gen forward launched other kernels: {launches}")
+    out["launches"] = launches
+    cache = pinned_cache(u8, torch.device("cuda"))
+    up = Uploader(shape, torch.device("cuda"), SERVE_DEPTH + 1)
+    dev_u8, ev = up.upload(0, cache[0])
+    s_out = served.run(dev_u8, ev).float().cpu().numpy()
+    up.release(0)
+    e_out = eng.run_fwd({"data": NDA(d, img_to_batch_np(u8[0]))}, ["prob"])["prob"].data
+    check(s_out.shape == e_out.shape == (BATCH, 1000) and bool(np.isfinite(s_out).all()),
+          f"served prob {s_out.shape}")
+    bit = np.array_equal(s_out, e_out)
+    _, err = rel_err(torch.from_numpy(s_out), torch.from_numpy(e_out))
+    sums = s_out.sum(axis=1)
+    print(f"[serve] served prob vs the engine's replay of img_to_batch_np: "
+          f"{'bit-equal' if bit else f'max|err|/max|ref| {err:.3e}'}; row sums "
+          f"{sums.min():.5f}..{sums.max():.5f}; max|prob| {s_out.max():.4g}")
+    check(bit, f"served forward not bit-equal to the engine's replay ({err:.3e})")
+    check(s_out.max() < 0.5, "served prob is saturated: its gates would check nothing")
+    check(bool((np.abs(sums - 1.0) < SERVE_SUM_TOL).all()), f"row sums {sums.min()}..{sums.max()}")
+
+    # -- 4. the pipeline ------------------------------------------------------------
+    check(all(h.is_pinned() for h in up.host) and all(c.is_pinned() for c in cache),
+          "serving host buffers are not pinned")
+    check(up.stream.cuda_stream != torch.cuda.current_stream().cuda_stream,
+          "uploads run on the replay's stream")
+    n_ovl = 10
+    _, last = serve_batches(served, up, cached_batches(cache, n_ovl), SERVE_DEPTH)
+    last = last.float().cpu().numpy()
+    serial = eng.run_fwd({"data": NDA(d, img_to_batch_np(u8[(n_ovl - 1) % len(u8)]))},
+                         ["prob"])["prob"].data
+    check(np.array_equal(last, serial), "overlapped run's last batch differs from a serial run")
+    print(f"[serve] pipeline: {len(up.host)} pinned host buffers and {len(cache)} pinned cache "
+          f"batches, uploads on stream {up.stream.cuda_stream:#x} (replays on "
+          f"{torch.cuda.current_stream().cuda_stream:#x}); the last of {n_ovl} overlapped "
+          f"batches (depth {SERVE_DEPTH}) bit-equal to a serial run")
+    # a loader writing each batch into the pinned buffers, more batches than
+    # buffers: a buffer refilled before its upload ran would serve another
+    # batch (with 1 buffer and 3 in flight an upload waits for the replay
+    # before it, which widens that window)
+    want = [eng.run_fwd({"data": NDA(d, img_to_batch_np(b))}, ["prob"])["prob"].data
+            for b in u8]
+    n_load = 12
+    for n_bufs, depth in ((SERVE_DEPTH + 1, SERVE_DEPTH), (1, SERVE_DEPTH + 1)):
+        lup = Uploader(shape, torch.device("cuda"), n_bufs)
+        outs = []
+        n_done, _ = serve_batches(served, lup, loader_batches(PoolLoader(u8, n_load), lup),
+                                  depth, outs=outs)
+        check(n_done == len(outs) == n_load, f"loader run served {n_done} of {n_load}")
+        bad = [i for i, o in enumerate(outs)
+               if not np.array_equal(o.float().cpu().numpy(), want[i % len(u8)])]
+        check(not bad, f"loader run ({n_bufs} buffers, depth {depth}): batches {bad} "
+                       "differ from the engine's replay of what the loader wrote")
+        print(f"[serve] loader_batches: {n_load} batches written by a stand-in loader into "
+              f"{n_bufs} pinned buffers, depth {depth}: each bit-equal to the engine's "
+              f"replay of its batch")
+        del lup, outs
+
+    # -- 5. full width: the modes through the CLI, or the served function ---------------
+    argv = ["--model=resnet50", f"--img={BATCH}", f"--n-batches={SERVE_BATCHES}",
+            f"--img-fns=(a={imgs[0]})", "--report-perf=1", f"--boda-output-dir={sdir}"]
+    if have_native:
+        reps = {}
+        for name, extra in (("serve_bench", []), ("serve_bench_cached", ["--cache-batches=4"]),
+                            ("serve_stages", [])):
+            rc, lines, err_txt = run_cli_err([name.replace("_cached", "")] + argv + extra)
+            check(rc == 0 and lines, f"{name} rc={rc}: {err_txt[-300:]}")
+            reps[name] = json.loads(lines[-1])
+            print(f"[serve] {name}: {lines[-1]} ({card})")
+        out["rates"] = reps
+        rc, lines, _ = run_cli_err(["test_cmds", "--filt=^serve_", f"--boda-output-dir={sdir}"])
+        print(f"[serve] goldens: {lines[-1] if lines else ''}")
+        check(rc == 0 and lines and lines[-1].startswith("test_cmds: 2/2 passed"),
+              f"serve goldens: {lines}")
+    else:
+        for name in ("serve_bench", "serve_stages"):
+            rc, _, err_txt = run_cli_err([name] + argv)
+            want = f"error: {name} needs the native library (make -C native failed?)"
+            check(rc == 1 and err_txt.strip() == want, f"{name} without the native "
+                  f"library: rc={rc} {err_txt.strip()!r}")
+        print("[serve] serve_bench and serve_stages raise boda_tpu's error without the "
+              "native library: the decode stage was not measured; "
+              "the same served function runs below on PIL-decoded batches")
+        pcache = pinned_cache(pil_batches(imgs, BATCH, d["y"], d["x"]), torch.device("cuda"))
+        t0 = time.perf_counter()
+        n_done, _ = serve_batches(served, up, cached_batches(pcache, SERVE_BATCHES),
+                                  SERVE_DEPTH)
+        secs = time.perf_counter() - t0
+        bench = {"mode": "serve_bench", "net": pipe.name, "batches": n_done, "img": BATCH,
+                 "cached": True, "img_per_sec": round(n_done * BATCH / secs, 1),
+                 "secs": round(secs, 3), "decode": "not measured (PIL-decoded cache)"}
+        st = stage_rates(served, up, pcache, SERVE_BATCHES, SERVE_DEPTH)
+        stages = {"mode": "serve_stages", "net": pipe.name, "img": BATCH,
+                  "batches": SERVE_BATCHES,
+                  **stage_report(st, BATCH, SERVE_BATCHES, int(np.prod(shape)), None),
+                  "decode_img_s": "not measured (no native library)"}
+        for rep in (bench, stages):
+            print(f"[serve] {json.dumps(rep)} ({card})")
+        out["rates"] = {"serve_bench_cached": bench, "serve_stages": stages}
+        print("[serve] goldens serve_bench_mini, serve_stages_mini: not run (no native "
+              "library; [corpus] skips them naming it)")
+    st = out["rates"]["serve_stages"]
+    out["dispatch_ms"] = BATCH / st["dispatch_img_s"] * 1e3
+    print(f"[serve] dispatch {st['dispatch_img_s']} img/s = {out['dispatch_ms']:.3f} ms per "
+          f"b{BATCH} batch; overlapped {st['overlapped_img_s']}, h2d {st['h2d_img_s']} "
+          f"({st['h2d_GB_s']} GB/s), overlap quality {st['overlap_quality']} ({card})")
+    del served, up, cache, eng
+
+    out.update(predict_gates(card, root, imgs, have_zmq))
+    return out
+
+
+def predict_gates(card: str, root: str, imgs: list, have_zmq: bool) -> dict:
+    """[serve]'s f32 app gates: zmq_det (7) and cnet_predict (8)."""
+    import os
+
+    from boda_tpu_torch.apps.preproc import img_to_batch_np
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.modes.cnet import load_net
+    from boda_tpu_torch.utils.dims import NDA
+    out = {}
+    # -- 7. zmq_det --------------------------------------------------------------------
+    f32 = "(mode=cuda)"
+    if have_zmq:
+        z = zmq_roundtrip(root, imgs[0], f32)
+        # the server's forward alone: the same engine's b1 replay
+        p1, d1 = load_net("resnet50", img=1)
+        e1 = make("conv_fwd", "cuda")
+        e1.init(p1)
+        z["replay_ms"] = e1.time_fwd({"data": NDA(d1["data"], img_to_batch_np(
+            pil_batches(imgs[:1], 1, d1["data"]["y"], d1["data"]["x"])[0]))}, ["prob"]) * 1e3
+        del e1
+        out["zmq"] = z
+        print(f"[serve] zmq_det_server --model=resnet50 (f32 b1, fc1000): {z['requests']} "
+              f"replies of 1000 logits equal to cnet_predict's on the card (top {z['top5'][:2]}"
+              f"...), vs the CPU max|err|/max|ref| {z['logit_err_vs_cpu']:.3e} (tol "
+              f"{F32_NODE_TOL}); median {z['median_ms']:.3f} ms per request, of which the "
+              f"b1 f32 replay {z['replay_ms']:.3f} ms ({card})")
+    else:
+        out["zmq"] = None
+        print("[serve] zmq_det: not run, pyzmq is not installed")
+
+    # -- 8. cnet_predict, f32 on the card against the CPU --------------------------------
+    # the logits first: the random-weight net's softmax is one-hot on the
+    # fixtures at any input --scale (its bias-driven floor alone saturates
+    # it), so p is compared with fc1000's weights times k, k chosen on the
+    # host from the card's logits (fc1000's biases are 0: the logits become
+    # k times these, and the top p grows with k)
+    fns = f"--img-fns=(a={imgs[1]},b={imgs[0]})"
+    cpu = "(mode=cuda,device=cpu)"
+    lg = {w: predict_tops(fns, e, "--out-node-name=fc1000") for w, e in (("card", f32),
+                                                                         ("cpu", cpu))}
+    lerr = max(logit_err(a, b) for (a, _), (b, _) in zip(lg["card"], lg["cpu"]))
+    check(lerr <= F32_NODE_TOL, f"cnet_predict fc1000 card vs cpu {lerr:.3e}")
+    print(f"[serve] cnet_predict resnet50 f32 fc1000 on the two fixtures: card vs CPU "
+          f"max|err|/max|ref| {lerr:.3e} over 1000 logits (tol {F32_NODE_TOL}) ({card})")
+    logits = np.array([[m[c] for c in range(1000)] for m, _ in lg["card"]], np.float64)
+
+    def top_p(k):
+        z = k * (logits - logits.max(axis=1, keepdims=True))
+        return float((1.0 / np.exp(z).sum(axis=1)).max())
+    lo, hi = 0.0, 1.0
+    for _ in range(60):
+        k = (lo + hi) / 2
+        lo, hi = (k, hi) if top_p(k) < SERVE_P_TARGET else (lo, k)
+    k = (lo + hi) / 2
+    with fc1000_scaled(k):
+        tops = {w: predict_tops(fns, e) for w, e in (("card", f32), ("cpu", cpu))}
+    worst = 0.0
+    for (pa, ra), (pb, rb) in zip(tops["card"], tops["cpu"]):
+        check(max(pa.values()) < 0.5 and max(pb.values()) < 0.5,
+              "cnet_predict's p is saturated: its gate would check nothing")
+        check(set(pa) == set(pb) and len(pa) == 1000, "cnet_predict p over 1000 classes")
+        worst = max(worst, max(abs(pa[c] - pb[c]) for c in pa))
+        for r, (ca, cb) in enumerate(zip(ra, rb)):
+            gap = min(abs(pa[ca] - pa[ra[j]]) for j in (r - 1, r + 1) if 0 <= j < len(ra))
+            check(ca == cb or gap <= SERVE_P_TOL, f"cnet_predict rank {r}: card {ca} cpu {cb}")
+    check(worst <= SERVE_P_TOL, f"cnet_predict p card vs cpu {worst:.3g}")
+    top5 = [[(c, pa[c]) for c in ra[:5]] for pa, ra in tops["card"]]
+    print(f"[serve] cnet_predict resnet50 f32 on the two fixtures, fc1000 times {k:.4g}: card "
+          f"vs CPU max |dp| over 1000 classes {worst:.3g} (tol {SERVE_P_TOL}), the same ranks "
+          f"where neighbours differ by more; card top-5 {top5} ({card})")
+    out.update(cnet_predict_max_dp=worst, cnet_predict_fc1000_times=k,
+               cnet_predict_top5=top5, cnet_predict_logit_err=lerr)
+    return out
+
+
+def corpus_phase(card: str, out_dir) -> dict:
+    """[corpus]: the port's test_all (test_cmds on testdata/test_cmds.xml,
+    then test_compute) in process on the card; every entry outside the skip
+    table must pass. Outputs under build/chip_smoke/corpus/."""
+    cdir = out_dir / "corpus"
+    rc, lines, err_txt = run_cli_err(["test_all", f"--boda-output-dir={cdir}"])
+    (cdir / "test_all.txt").write_text("\n".join(lines) + "\n" + err_txt)
+    skips = [ln for ln in lines if ln.startswith("SKIP ")]
+    fails = [i for i, ln in enumerate(lines) if ln.startswith("FAIL ") or ln.startswith("error:")]
+    summary = [ln for ln in lines if ln.startswith("test_cmds:") or ln.startswith("test_all:")]
+    for ln in skips:
+        print(f"[corpus] {ln[:400]}")
+    for i in fails:  # each failure with its diff
+        for ln in lines[i:i + 24]:
+            print(f"[corpus] {ln[:400]}")
+    for ln in summary:
+        print(f"[corpus] {ln}")
+    check(rc == 0 and not fails and summary and summary[-1] == "test_all: PASS",
+          f"test_all rc={rc}: {len(fails)} failures")
+    return {"summary": summary, "skipped": len(skips), "card": card}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3427,6 +3877,15 @@ def main() -> int:
         if k in tools["launches"]:
             entry["launches_tools"] = tools["launches"][k]
     lap("tools")
+    # -- phase 13: [serve] the served forward, the pipeline, zmq_det, cnet_predict ------
+    serve = serve_phase(card, pipe, in_dims, out_dir, counted)
+    for entry in kernels:
+        if entry["name"] in ("sgemm", "conv"):
+            entry["launches_serve"] = serve["launches"][entry["name"]]
+    lap("serve")
+    # -- phase 14: [corpus] the golden corpus through the port's test_all ------------
+    corpus = corpus_phase(card, out_dir)
+    lap("corpus")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -3436,7 +3895,7 @@ def main() -> int:
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
                       "caffe": caffe, "int8": int8, "lmdb": lmdb, "ssd": ssd,
-                      "train": train, "tools": tools,
+                      "train": train, "tools": tools, "serve": serve, "corpus": corpus,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

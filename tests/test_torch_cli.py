@@ -52,6 +52,11 @@ import boda_tpu_torch.ops.kernels.train_conv
 import boda_tpu_torch.modes.net_trace, boda_tpu_torch.modes.cnn_prof
 import boda_tpu_torch.modes.net_tune, boda_tpu_torch.modes.ipc_modes
 import boda_tpu_torch.rtc.ipc, boda_tpu_torch.rtc.stream_util
+import boda_tpu_torch.utils.native, boda_tpu_torch.apps.preproc
+import boda_tpu_torch.modes.serve_bench, boda_tpu_torch.modes.zmq_modes
+import boda_tpu_torch.apps.zmq_det, boda_tpu_torch.modes.basic
+import boda_tpu_torch.apps.pyramid, boda_tpu_torch.apps.pred_state
+import boda_tpu_torch.modes.test_cmds
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
@@ -97,6 +102,19 @@ with tempfile.TemporaryDirectory() as td:
     assert cli.main(["train_trace", "--model=mini_resnet", "--img=2", "--n-iters=1",
                      "--device=cpu", "--boda-output-dir=" + td]) == 0
 assert cli.main(["cs_test_master", "--worker-be=(be=cuda,device=cpu)", "--n=100"]) == 0
+with tempfile.TemporaryDirectory() as td:
+    assert cli.main(["serve_stages", "--model=mini_resnet", "--img=2", "--n-batches=2",
+                     "--img-fns=(a=testdata/images/test2.jpg)",
+                     "--conv-fwd=(mode=cuda,device=cpu)", "--boda-output-dir=" + td]) == 0
+    assert cli.main(["cnet_predict", "--model=mini_resnet", "--enable-upsamp-net=1",
+                     "--img-fns=(a=testdata/images/test1.png)",
+                     "--conv-fwd=(mode=cuda,device=cpu)"]) == 0
+    assert cli.main(["predict_dense", "--annos=1", "--model=mini_resnet", "--plane-sz=64",
+                     "--img-fn=testdata/images/test1.png", "--min-sz=32",
+                     "--conv-fwd=(mode=cuda,device=cpu)", "--boda-output-dir=" + td]) == 0
+    assert cli.main(["test_cmds", "--filt=^(noop|blf_pack_basic)$",
+                     "--boda-output-dir=" + td]) == 0
+    assert cli.main(["compsup"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]
 print("BAD", bad)
