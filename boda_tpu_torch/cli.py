@@ -10,7 +10,7 @@ from __future__ import annotations
 import sys
 
 from . import modes_all  # noqa: F401  (imports register all modes)
-from .config import ConfigError, default_cfg_init, help_str, instantiate
+from .config import ConfigError, default_cfg_init, help_str, instantiate, run_mode
 from .utils.lexp import LexpError, lexp_from_argv
 
 
@@ -27,7 +27,8 @@ def main(argv: list[str] | None = None) -> int:
         if len(argv) >= 2 and argv[1] in ("--help", "-h"):
             sys.stdout.write(help_str("mode", argv[0]))
             return 0
-        instantiate("mode", lexp_from_argv(argv), check_unused_keys=True).main()
+        # run_mode: the mode's output dir is where a nested stream sink writes
+        run_mode(instantiate("mode", lexp_from_argv(argv), check_unused_keys=True))
         return 0
     except (ConfigError, LexpError, ValueError, RuntimeError) as e:
         sys.stderr.write(f"error: {e}\n")

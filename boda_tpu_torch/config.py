@@ -118,6 +118,11 @@ def class_fields(cls) -> list[Field]:
 _ENV: dict[str, str] = {}
 
 
+def get_env() -> dict[str, str]:
+    """A copy of the global env (boda_tpu: config.py:129)."""
+    return dict(_ENV)
+
+
 def run_mode(mode) -> None:
     """Run a mode with its ``boda_output_dir`` visible in the global env, so
     nested non-mode components resolve relative output filenames under the

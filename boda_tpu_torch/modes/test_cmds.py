@@ -12,7 +12,8 @@ line diff for .txt, tolerance diff for digest streams, bytewise otherwise);
 One addition: ``NOT_RUN`` lists each corpus entry the port does not run yet,
 with its reason and the ROADMAP item that ports it; such an entry prints
 ``SKIP <name>: ...`` and counts as skipped. So does, decided at run time, an
-entry whose mode needs the native library where that library did not build.
+entry whose mode needs the native library where that library did not build,
+and an entry of ``PIL_ENTRIES`` where PIL is not installed.
 A mode's RuntimeError (a missing card, say) is that entry's failure, not
 the end of the run.
 """
@@ -40,20 +41,6 @@ REASONS = ("mode", "engine", "mode_list", "card")
 
 # test_cmds.xml entry name -> (reason, what, ROADMAP item)
 NOT_RUN = {
-    "display_pil": ("mode", "display_pil", "§1 item 9: display_modes"),
-    "err_no_camera": ("mode", "capture_classify", "§1 item 9: display_modes"),
-    "cs_disp_pipeline": ("mode", "cs_disp", "§1 item 9: proc_pipe"),
-    "render_pts_velo": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "hash_pair_check": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "velodyne_gen_scan": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "avi_mjpeg_scan": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "rosbag_scan_image": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "rosbag_scan": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "velo_scan_fixture": ("mode", "velo_scan", "§1 item 9: stream/ and stream_modes"),
-    "stream_sync": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "stream_merge_flatten": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "stream_fold_sort": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
-    "stream_seq_adj_angle": ("mode", "scan_data_stream", "§1 item 9: stream/ and stream_modes"),
     "dist_test_2x2": ("mode", "dist_test_master", "§1 item 10: multi-device"),
     "run_cnet_int8": ("engine", "pallas", "§1 item 11: boda_tpu's TPU engines are not ported"),
     "gen_src_tinynet": ("engine", "xla", "§1 item 3: gen_src_dir; §1 item 11"),
@@ -70,6 +57,9 @@ NOT_RUN_SUITES = {
 
 # modes that need the native library (native/boda_native.cc)
 NATIVE_MODES = ("serve_bench", "serve_stages")
+
+# entries that read or write images through PIL, an optional module
+PIL_ENTRIES = ("display_pil", "cs_disp_pipeline", "avi_mjpeg_scan")
 
 
 def skip_text(reason: str, what: str, item: str) -> str:
@@ -140,6 +130,13 @@ def diff_dirs(good_dir: str, new_dir: str, digest_mrd: float = 1e-5) -> str:
     return "".join(out)
 
 
+def _pil_skip(name: str) -> str:
+    """'' or why an entry that needs PIL skips here."""
+    if name not in PIL_ENTRIES or is_feature_enabled("PIL"):
+        return ""
+    return f"{name} reads or writes images through PIL, which is not installed here"
+
+
 def _native_skip(cli_str: str) -> str:
     """'' or why an entry whose mode needs the native library skips here."""
     argv = _split_cli(cli_str or "")
@@ -180,7 +177,7 @@ class TestCmds(Mode):
                 n_skip += 1
                 continue
             why = (skip_text(*NOT_RUN[name]) if name in NOT_RUN
-                   else _native_skip(li.get("cli_str")))
+                   else _native_skip(li.get("cli_str")) or _pil_skip(name))
             if why:
                 print(f"SKIP {name}: {why}")
                 n_skip += 1

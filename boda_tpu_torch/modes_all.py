@@ -15,13 +15,17 @@ _MODE_MODULES = [
     "boda_tpu_torch.modes.cnet",
     "boda_tpu_torch.modes.cnn_prof",
     "boda_tpu_torch.modes.detect",
+    "boda_tpu_torch.modes.display_modes",
     "boda_tpu_torch.modes.ipc_modes",
     "boda_tpu_torch.modes.lmdb_modes",
     "boda_tpu_torch.modes.net_trace",
     "boda_tpu_torch.modes.net_tune",
+    "boda_tpu_torch.modes.plot_modes",
+    "boda_tpu_torch.modes.proc_pipe",
     "boda_tpu_torch.modes.prof",
     "boda_tpu_torch.modes.rtc",
     "boda_tpu_torch.modes.serve_bench",
+    "boda_tpu_torch.modes.stream_modes",
     "boda_tpu_torch.modes.surgery_modes",
     "boda_tpu_torch.modes.test_cmds",
     "boda_tpu_torch.modes.test_compute",

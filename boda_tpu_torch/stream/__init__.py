@@ -1,2 +1,3 @@
-"""Data streams: the block-file container (the rest of boda_tpu's stream/ is
-ROADMAP §1 item 9)."""
+"""Data streams (counterpart of boda_tpu's stream/): the block pipelines and
+their formats."""
+from . import data_stream  # noqa: F401  (registers the "data_stream" base + types)

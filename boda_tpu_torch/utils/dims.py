@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -172,6 +172,16 @@ class NDA:
                 else:
                     raise ValueError(f"NDA: data shape {data.shape} != dims {dims}")
         self.data = data
+
+    @staticmethod
+    def from_array(a: np.ndarray, names: Optional[Sequence[str]] = None,
+                   tn: Optional[str] = None) -> "NDA":
+        a = np.asarray(a)
+        if names is None:
+            names = tuple(f"d{i}" for i in range(a.ndim))
+        if tn is None:
+            tn = a.dtype.name
+        return NDA(Dims.make(names, a.shape, tn), a)
 
     def __repr__(self) -> str:
         return f"NDA({self.dims}, mean={float(np.mean(self.data.astype(np.float64))):.6g})"

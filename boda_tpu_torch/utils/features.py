@@ -13,7 +13,7 @@ from functools import lru_cache
 
 @lru_cache(maxsize=None)
 def is_feature_enabled(name: str) -> bool:
-    if name in ("lmdb", "zmq", "torch", "PIL"):
+    if name in ("lmdb", "zmq", "torch", "PIL", "matplotlib"):
         try:
             importlib.import_module(name)
             return True

@@ -45,6 +45,12 @@ class Img:
         return self.data.shape[0], self.data.shape[1]
 
     @staticmethod
+    def zeros(y: int, x: int, fill: int = 0) -> "Img":
+        d = np.full((y, x, 4), fill, dtype=np.uint8)
+        d[:, :, 3] = 255
+        return Img(d)
+
+    @staticmethod
     def from_rgb(rgb: np.ndarray) -> "Img":
         rgb = np.asarray(rgb, dtype=np.uint8)
         a = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
@@ -65,6 +71,17 @@ class Img:
         except Exception as e:
             raise ImgError(f"failed to load image {fn!r}: {e}") from None
 
+    @staticmethod
+    def from_bytes(data: bytes, what: str = "image") -> "Img":
+        """Decode an in-memory encoded image (an MJPEG AVI chunk, say)."""
+        import io
+        Image = _pil_image()
+        try:
+            with Image.open(io.BytesIO(data)) as im:
+                return Img(np.asarray(im.convert("RGBA")))
+        except Exception as e:
+            raise ImgError(f"failed to decode {what}: {e}") from None
+
     def save(self, fn: str) -> None:
         _pil_image().fromarray(self.data, "RGBA").save(fn)
 
@@ -76,6 +93,10 @@ class Img:
         Image = _pil_image()
         im = Image.fromarray(self.data, "RGBA").resize((x, y), Image.LANCZOS)
         return Img(np.asarray(im))
+
+    def upsample_2x(self) -> "Img":
+        y, x = self.sz
+        return self.resize(y * 2, x * 2)
 
     def crop(self, y0: int, x0: int, y1: int, x1: int) -> "Img":
         return Img(np.ascontiguousarray(self.data[y0:y1, x0:x1]))

@@ -15,7 +15,7 @@ kernels:
   tune=(use_s2d=1,pool_pallas=1): each identity bottleneck one kernel, the
   pools on the pooling kernel, the stem on the space-to-depth fold), checked
   against lib and gen, and at f32 node by node against lib;
-* the graph-level backward (add_bck_ops): f32 at b8, every node gen vs lib
+* the graph-level backward (add_bck_ops): f32 at b4, every node gen vs lib
   under test_compute's own rule; bf16 at b32, the loss, the input gradient
   and every weight gradient gen vs lib, timed per policy; and the user's
   ``test_compute --add-bck-ops=1`` command line, in process;
@@ -61,6 +61,17 @@ records, test_lmdb on its test records in f32, bf16 and int8 (the goldens
 in f32, int8's line equal to f32's), and Deconvolution, Sigmoid, TanH and
 Reduce each in a small net, f32 on the card against the CPU.
 
+Before them, [caffe-grad]: GoogLeNet's gradient graph (googlenet_conv b32
+224x224 bf16, add_bck_ops) captured and replayed under gen and lib: gen's
+launches per kernel exact as the pipe gives them (K1 the 1x1s and the
+classifier, K2 the k x k forwards, K3's entry and K5 every stride-1 conv's
+dgrad and wgrad; the strided stem's backward the library's), on wgmma but
+the C = 3 stem; every distinct K1, K2, K3 and K5 call of gen's pass (the
+1x1, 3x3 and 5x5 dgrads, the 1-, 9- and 25-tap wgrads) against its plain
+version on the engine's own operands; gen's backward from lib's forward
+values against lib on every output; each replay bit-equal to eager on two
+batches under cuDNN's deterministic algorithms; eager and graph ms per pass.
+
 Then [train]: the training step (parallel/train.py) at ResNet-50 b32 bf16
 and b8 f32, gen against lib (the loss and the running stats of free runs;
 the gradients of gen's step forced to lib's conv and fc outputs), the gen
@@ -97,8 +108,10 @@ goldens; zmq_det_server's b1 f32 logits (fc1000, all 1000) equal to
 cnet_predict's on the card and held to the CPU's; cnet_predict f32 on the
 card against the CPU: its logits, and its p over all classes with fc1000
 scaled so that the top p is 0.3, off one-hot. And [corpus]: the port's
-test_all (test_cmds on the repo corpus, then test_compute), every entry
-outside its skip table passing.
+test_all with its slow suites (test_cmds on the repo corpus, the streams,
+display and proc_pipe entries among them, then every test_compute suite of
+testdata/test_all.xml, the gradient matrix's included), every entry
+outside its skip tables passing.
 
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
@@ -148,7 +161,10 @@ import numpy as np
 import torch
 
 BATCH = 32
-GRAD_F32_BATCH = 8
+# [grad-f32]'s batch: every node of ResNet-50's f32 gradient graph is held on
+# the host, so the phase's time grows with it (b8 took 131 s of a 466 s
+# run; b4 makes room for [caffe-grad] and the slow corpus suites)
+GRAD_F32_BATCH = 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # bf16 forward, gen vs lib: both round every activation to bf16 but at
 # slightly different points (cuDNN adds the residual after its own bf16
@@ -272,6 +288,102 @@ def replay_follows(e, ins: dict, outs: list[str]) -> tuple[dict, dict]:
     replay = e.run_fwd(ins, outs)
     check(g is not None and e._graph is g, "a second batch of the same key was recaptured")
     return eager, replay
+
+
+def grad_gate_vs_lib(tag: str, pipe, gen, lib, ins: dict, outs: list, gen_res: dict) -> tuple:
+    """A bf16 gradient graph's outputs ``outs`` (the loss, the input and
+    weight gradients), gen against lib: gen's free run ``gen_res``, reported
+    (two independent forwards put some ReLU inputs on opposite sides of 0),
+    and gen's backward from lib's forward values, fed in as inputs so that
+    both take the same masks, gated within GRAD_BF16_TOL of max|lib| on
+    every output. lib must launch no hand kernel. Returns the gate's
+    (worst, output)."""
+    fwd = [n for n in check_nodes(pipe) if "__grad" not in n]
+    counted = counted_wrappers()
+    lib.prepare(ins, outs + fwd)
+    zero_counts(counted)
+    lres = lib.run_fwd(ins, outs + fwd)
+    got = read_counts(counted)
+    check(not any(got.values()), f"{tag}: lib launched hand kernels {got}")
+    res = {"gen": gen_res, "lib": {n: lres[n] for n in outs}}
+    forced = dict(ins)
+    forced.update({n: lres[n] for n in fwd})
+    del lres
+    res["gen_forced"] = gen.run_fwd(forced, outs)
+    del forced
+    errs = {}
+    for which in ("gen", "gen_forced"):
+        e = []
+        for n in outs:
+            a, b = res["lib"][n].data, res[which][n].data
+            check(bool(np.isfinite(b).all()), f"{tag} {which} {n} non-finite")
+            check(np.abs(a).max() > 0, f"{tag} {n} all zero")
+            e.append((rel_err(torch.from_numpy(b), torch.from_numpy(a))[1], n))
+        e.sort(reverse=True)
+        errs[which] = e
+        byname = {n: v for v, n in e}
+        print(f"[{tag}] {which} vs lib, {len(outs)} outputs, max|err|/max|lib|: worst "
+              + ", ".join(f"{n} {v:.3e}" for v, n in e[:4])
+              + f"; median {e[len(e) // 2][0]:.3e}; loss {byname['prob_loss']:.3e}, "
+              f"data grad {byname['data__grad__p0']:.3e}"
+              + ("" if which == "gen_forced" else " (free run, not gated)"))
+    worst = errs["gen_forced"][0]
+    print(f"[{tag}] gate: gen's backward from lib's forward values, worst {worst[0]:.3e} "
+          f"at {worst[1]} (tol {GRAD_BF16_TOL})")
+    check(worst[0] <= GRAD_BF16_TOL, f"{tag}: {worst[1]} {worst[0]:.3g}")
+    return worst
+
+
+def grad_replays(tag: str, net: str, engines: dict, ins: dict, outs: list, card: str) -> dict:
+    """Each engine's captured gradient graph against an eager pass of the
+    same engine, on two batches (``other_batch``): every output bit-equal.
+    cuDNN is held to its deterministic algorithms for the comparison (its
+    default backward ones may differ between two eager passes:
+    scripts/torch_graph_determinism.py); then eager and graph ms per pass,
+    recaptured with the default ones. Returns {policy: times}."""
+    ins2 = other_batch(ins, 17)
+    deterministic = torch.backends.cudnn.deterministic
+    rows = {}
+    for pol, e in engines.items():
+        torch.backends.cudnn.deterministic = True
+        try:
+            e.drop_graph()
+            e.cuda_graph = False
+            eager = e.run_fwd(ins, outs)
+            e.cuda_graph = True
+            replay = e.run_fwd(ins, outs)
+            eager2, replay2 = replay_follows(e, ins2, outs)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        e.drop_graph()
+        check(not np.array_equal(eager2["data__grad__p0"].data, eager["data__grad__p0"].data),
+              f"{tag} {pol}: the second batch left the input gradient as it was")
+        for batch, (ea, re_) in (("", (eager, replay)), (", a second batch", (eager2, replay2))):
+            gerrs = sorted((rel_err(torch.from_numpy(re_[n].data),
+                                    torch.from_numpy(ea[n].data))[1], n) for n in outs)
+            n_bit = sum(np.array_equal(re_[n].data, ea[n].data) for n in outs)
+            print(f"[{tag}] {net} bf16 {pol}{batch}: replay vs eager, {n_bit} of {len(outs)} "
+                  f"outputs bit-equal (all must be), worst max|err|/max|eager| "
+                  f"{gerrs[-1][0]:.3e} at {gerrs[-1][1]}")
+            check(n_bit == len(outs), f"{tag} {pol}{batch}: {len(outs) - n_bit} outputs "
+                                      f"not bit-equal, worst {gerrs[-1]}")
+        del eager, replay, eager2, replay2
+        e.cuda_graph = False
+        eager_s = e.time_fwd(ins, outs, n_iters=10, warmup=3)
+        e.cuda_graph = True
+        torch.cuda.reset_peak_memory_stats()
+        secs = e.time_fwd(ins, outs, n_iters=10, warmup=5)
+        n_img = ins["data"].data.shape[0]
+        rows[pol] = {"eager_ms": eager_s * 1e3, "graph_ms": secs * 1e3,
+                     "img_per_s": n_img / secs, "eager_img_per_s": n_img / eager_s,
+                     "capture_s": e._graph.capture_secs,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        r = rows[pol]
+        print(f"[{tag}] {net} forward+backward {pol}: eager {r['eager_ms']:.3f} ms, graph "
+              f"{r['graph_ms']:.3f} ms per pass; {r['eager_img_per_s']:.1f} -> "
+              f"{r['img_per_s']:.1f} img/s; capture {r['capture_s']:.3f} s, "
+              f"max_memory_allocated {r['max_memory_allocated'] / 2 ** 30:.2f} GiB ({card})")
+    return rows
 
 
 def bck_shapes(pipe, eng):
@@ -964,6 +1076,273 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
     del vgen
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[caffe] phase took {out['seconds']:.1f} s")
+    return out
+
+
+# -- the [caffe-grad] phase: GoogLeNet's gradient graph on the card --------------------
+
+def grad_graph_calls(pipe) -> dict:
+    """The K1, K2, K3 and K5 calls of one gen pass of a gradient graph
+    (``add_bck_ops``), from the pipe: {(kernel, what, sig): count}. The
+    forward as the engine routes it (a 1x1 conv and an fc on K1, a k x k
+    conv on K2); each Bck op of a stride-1, groups-1, undilated conv takes
+    the hand backward (``executor._lower_bck_conv``): its dgrad on K3's
+    entry and its wgrad on K5 (the input gradient is wanted everywhere,
+    the data's included); every other Bck op, the strided convs' too, is
+    the autograd of the library lowering. Kernel names as in
+    ``counted_wrappers``; ``conv_nhwc`` calls also count as ``conv``."""
+    calls = {}
+
+    def add(*key):
+        calls[key] = calls.get(key, 0) + 1
+
+    def conv_geom(op):
+        ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
+        return (ind["img"], ind["y"], fd["in_chan"], fd["out_chan"], op.kern_sz(),
+                op.stride(), op.pad())
+    for op in pipe.ops.values():
+        if op.type == "InnerProduct":
+            fd = pipe.must_dims(op.bots[1])
+            add("sgemm", "fc fwd", (pipe.must_dims(op.bots[0])["img"], fd["in_feats"],
+                                    fd["out_chan"]))
+        elif op.type == "Convolution":
+            n, h, c, oc, k, s, p = conv_geom(op)
+            if k == (1, 1) and p == (0, 0):
+                oh = (h - 1) // s[0] + 1
+                add("sgemm", "1x1 fwd", (n * oh * oh, c, oc))
+            else:
+                add("conv", "fwd", (n, h, c, oc, k[0], s[0], p[0]))
+        elif op.type == "Bck":
+            fwd = pipe.ops[op.p("fwd_op")]
+            if fwd.type != "Convolution" or fwd.p("fused_relu", False) or \
+                    fwd.stride() != (1, 1) or fwd.dilation() != (1, 1) or \
+                    int(fwd.p("groups", 1)) != 1:
+                continue
+            n, h, c, oc, k, _, p = conv_geom(fwd)
+            add("conv_nhwc", "dgrad", (n, h, c, oc, k[0], p[0]))
+            add("atb", "wgrad", (n, h, c, oc, k[0], p[0]))
+    return calls
+
+
+def grad_graph_launches(pipe) -> dict:
+    """The launches per counted wrapper of one gen pass of a gradient graph,
+    as ``grad_graph_calls`` gives its calls (K3's entry runs the conv
+    kernel, so its calls count as ``conv`` launches too)."""
+    want = dict.fromkeys(counted_wrappers(), 0)
+    for (kname, _, _), cnt in grad_graph_calls(pipe).items():
+        want[kname] += cnt
+    want["conv"] += want["conv_nhwc"]
+    return want
+
+
+@contextlib.contextmanager
+def kernel_calls(record: dict):
+    """Engine passes made inside this context keep, per kernel and distinct
+    call, the first call's operands (cloned) and the number of calls in
+    ``record``: {(kernel, sig): [args, kwargs, count]}. The calls are taken
+    where the engine makes them: the forward's K1 and K2 in
+    graph/lowering_nhwc.py, a Bck conv's K3 dgrad and K5 wgrad in
+    graph/executor.py. Run the engine eagerly (``cuda_graph=0``) inside."""
+    from boda_tpu_torch.graph import executor, lowering_nhwc
+    spots = ((lowering_nhwc, "matmul", "sgemm"), (lowering_nhwc, "conv2d_halo", "conv"),
+             (executor, "conv2d_bck_in", "conv_nhwc"), (executor, "conv2d_bck_filts", "atb"))
+    orig = {(m, name): getattr(m, name) for m, name, _ in spots}
+
+    def spy(fn, kname):
+        def call(*args, **kw):
+            sig = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args) \
+                + tuple(sorted((k, v is not None if isinstance(v, torch.Tensor) or v is None
+                                else v) for k, v in kw.items()))
+            r = record.get((kname, sig))
+            if r is None:
+                clone = (lambda v: v.detach().clone() if isinstance(v, torch.Tensor) else v)
+                record[(kname, sig)] = [[clone(a) for a in args],
+                                        {k: clone(v) for k, v in kw.items()}, 1]
+            else:
+                r[2] += 1
+            return fn(*args, **kw)
+        return call
+    for m, name, kname in spots:
+        setattr(m, name, spy(orig[(m, name)], kname))
+    try:
+        yield
+    finally:
+        for (m, name), fn in orig.items():
+            setattr(m, name, fn)
+
+
+def grad_call_case(kname: str, args: list, kw: dict):
+    """One recorded K1, K2, K3 (dgrad) or K5 (wgrad) call of a gradient
+    graph (``kernel_calls``): (its shape as text, whether a row is narrower
+    than 16 bytes so that the mma.sync path takes it, its bound in ms, one
+    library call computing the same function)."""
+    import torch.nn.functional as F
+    if kname == "sgemm":
+        a, b = args[0], args[1]
+        shape = f"M={a.shape[0]} K={a.shape[1]} N={b.shape[1]}"
+        narrow = a.shape[1] % 8 or b.shape[1] % 8
+        bound = max(work("sgemm", (a.shape[0], a.shape[1], b.shape[1],
+                                   kw.get("residual") is not None, False)))
+        lib_fn = (lambda a=a, b=b: a @ b)
+    elif kname == "conv":
+        x, w = args[0], args[1]
+        s, p = kw.get("stride", (1, 1)), kw.get("pad", (0, 0))
+        shape = f"{x.shape[1]}x{x.shape[2]} C={x.shape[3]} OC={w.shape[3]} k{w.shape[0]} " \
+                f"s{s[0]} p{p[0]}"
+        narrow = x.shape[3] % 8 or w.shape[3] % 8
+        bound = max(work("conv", (x.shape[0], x.shape[1], x.shape[3], w.shape[3],
+                                  w.shape[0], s[0], p[0], False)))
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        lib_fn = (lambda xn=xn, wn=wn, s=s, p=p: F.conv2d(xn, wn, stride=tuple(s),
+                                                          padding=tuple(p)))
+    else:
+        if kname == "conv_nhwc":
+            dy, w = args[0], args[1]
+            x_shape = (dy.shape[0], dy.shape[1] + w.shape[0] - 1 - 2 * kw["pad"][0],
+                       dy.shape[2] + w.shape[1] - 1 - 2 * kw["pad"][1], w.shape[2])
+            n, h, c, oc, k = x_shape[0], x_shape[1], w.shape[2], w.shape[3], w.shape[0]
+            wn, dyn = w.permute(3, 2, 0, 1), dy.permute(0, 3, 1, 2)
+            xs = (n, c, x_shape[1], x_shape[2])
+            lib_fn = (lambda xs=xs, wn=wn, dyn=dyn, p=kw["pad"]:
+                      torch.nn.grad.conv2d_input(xs, wn, dyn, padding=tuple(p)))
+        else:
+            x, dy = args[0], args[1]
+            n, h, c, oc = x.shape[0], x.shape[1], x.shape[3], dy.shape[3]
+            k = x.shape[1] + 2 * kw["pad"][0] - dy.shape[1] + 1
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            ws = (oc, c, k, k)
+            lib_fn = (lambda xn=xn, dyn=dyn, ws=ws, p=kw["pad"]:
+                      torch.nn.grad.conv2d_weight(xn, ws, dyn, padding=tuple(p)))
+        sig = (n, h, c, oc, k, kw["pad"][0])
+        shape = f"{h}x{h} C={c} OC={oc} k{k} p{kw['pad'][0]}" + \
+            (f" ({k * k} taps)" if kname == "atb" else "")
+        narrow = c % 8 or oc % 8
+        bound = max(work("dgrad" if kname == "conv_nhwc" else "atb", sig))
+    return shape, narrow, bound, lib_fn
+
+
+def caffe_grad_phase(card: str, counted: dict) -> dict:
+    """[caffe-grad]: GoogLeNet's gradient graph (googlenet_conv b32 224x224
+    bf16, ``add_bck_ops``) on the card under gen and lib, in the manner of
+    ResNet-50's [grad-bf16] and [graph-grad]. Gates: gen's launches per
+    kernel exact, as ``grad_graph_calls`` works them out from the pipe, on
+    wgmma but the C = 3 stem; every distinct K1, K2, K3 and K5 call of the
+    gen pass against its plain version on the engine's own operands
+    (``kernel_calls``); gen's backward from lib's forward values (fed in as
+    inputs, so both take the same ReLU masks) against lib within
+    GRAD_BF16_TOL of max|lib| on every output; each graph's replay
+    bit-equal to an eager pass on two batches under cuDNN's deterministic
+    algorithms. Then eager and graph ms per pass. Returns the phase's
+    numbers."""
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.autodiff import add_bck_ops
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.ops.kernels.bconv import (conv2d_bck_filts, conv2d_bck_filts_plain,
+                                                  conv2d_bck_in, conv2d_bck_in_plain)
+    from boda_tpu_torch.ops.kernels.conv import conv2d_halo, conv2d_plain
+    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.rtc.backends import graph_time
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    pipe, dims = load_net("googlenet_conv", img=BATCH)
+    # the classifier scaled so that the loss passes a gradient (a saturated
+    # softmax passes none), as [caffe] scales it
+    e = make("conv_fwd", "cuda", compute_tn="bfloat16")
+    e.init(pipe)
+    lmax = float(np.abs(e.run_fwd(gen_data_inputs(dims),
+                                  [GOOGLENET_LOGITS])[GOOGLENET_LOGITS].data).max())
+    pipe.weights[f"{GOOGLENET_LOGITS}__filts"].data *= np.float32(1.0 / lmax)
+    del e
+    add_bck_ops(pipe)
+    dims["label"] = pipe.nodes["label"].dims
+    ins = gen_data_inputs(dims)
+    want_outs = ["prob_loss", "data__grad__p0"] + weight_grads(pipe)
+    want = grad_graph_launches(pipe)
+    engines = {pol: make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy=pol)
+               for pol in ("gen", "lib")}
+    for e in engines.values():
+        e.init(pipe)
+    gen, lib = engines["gen"], engines["lib"]
+    n_bck = sum(": bck-conv" in ln for ln in gen.get_info_log().splitlines())
+    print(f"[caffe-grad] googlenet_conv b{BATCH} bf16 with add_bck_ops: {len(pipe.ops)} ops, "
+          f"{len(want_outs)} outputs (loss, data and weight gradients), classifier scaled by "
+          f"{1 / lmax:.4g}; gen: {n_bck} Bck convs on the hand backward")
+    check(n_bck == want["conv_nhwc"], f"caffe-grad: {n_bck} bck-conv ops, the pipe gives "
+                                      f"{want['conv_nhwc']}")
+
+    # -- gen's launches per kernel, exact; on wgmma but the C = 3 stem -----------
+    gen.prepare(ins, want_outs)
+    zero_counts(counted)
+    gen_res = gen.run_fwd(ins, want_outs)
+    got = read_counts(counted)
+    paths = {k: dict(counted[k].paths) for k in ("sgemm", "conv", "atb")}
+    print(f"[caffe-grad] googlenet b{BATCH} bf16 gen: launches {got} (expected from the "
+          f"pipe {want}); paths sgemm {paths['sgemm']}, conv {paths['conv']}, atb "
+          f"{paths['atb']} ({card})")
+    check(got == want, f"caffe-grad gen launches {got}, expected {want}")
+    check_paths("caffe-grad sgemm", paths["sgemm"], got["sgemm"], 0)
+    check_paths("caffe-grad conv (forward + dgrads)", paths["conv"], got["conv"], 1)
+    check_paths("caffe-grad atb (wgrads)", paths["atb"], got["atb"], 0)
+    out["launches_gen"] = got
+
+    # -- the gate: gen's backward from lib's forward values ------------------------
+    worst = grad_gate_vs_lib("caffe-grad", pipe, gen, lib, ins, want_outs, gen_res)
+    del gen_res
+    out["gen_vs_lib_worst"] = worst[0]
+
+    # -- each distinct K1, K2, K3 and K5 call of gen's pass vs its plain version -------
+    record = {}
+    gen.cuda_graph = False
+    with kernel_calls(record):
+        gen.run_fwd(ins, want_outs)
+    gen.cuda_graph = True
+    plain = {"sgemm": (matmul, matmul_plain), "conv": (conv2d_halo, conv2d_plain),
+             "conv_nhwc": (conv2d_bck_in, conv2d_bck_in_plain),
+             "atb": (conv2d_bck_filts, conv2d_bck_filts_plain)}
+    wrap = {"sgemm": "sgemm", "conv": "conv", "conv_nhwc": "conv", "atb": "atb"}
+    seen = dict.fromkeys(plain, 0)
+    rows, misses, worst_k = [], [], {}
+    for (kname, _), (args, kw, cnt) in sorted(record.items(), key=lambda r: str(r[0])):
+        seen[kname] += cnt
+        kern, ref_fn = plain[kname]
+        f = counted[wrap[kname]]
+        before = dict(f.paths)
+        got_o = kern(*args, **kw)
+        path = [q for q in f.paths if f.paths[q] != before[q]]
+        ref = ref_fn(*args, **kw)
+        err = rel_err(got_o, ref)[1]
+        shape, narrow, bound, lib_fn = grad_call_case(kname, args, kw)
+        want_path = ["mma"] if narrow else ["wgmma"]
+        ok = err <= TOL[torch.bfloat16] and path == want_path
+        worst_k[kname] = max(worst_k.get(kname, 0.0), err)
+        k_us = graph_time(lambda kern=kern, args=args, kw=kw: kern(*args, **kw)) * 1e6
+        l_us = graph_time(lib_fn) * 1e6
+        print(f"[caffe-grad] {kname} {shape} x{cnt}: {err:.3e} on {path}: "
+              f"{'ok' if ok else 'MISS'}; kernel {k_us:.2f} us, library {l_us:.2f} us, "
+              f"bound {bound * 1e3:.2f} us")
+        rows.append({"kernel": kname, "call": shape, "count": cnt, "err": err, "path": path,
+                     "kernel_us": k_us, "library_us": l_us, "bound_us": bound * 1e3})
+        if not ok:
+            misses.append(f"{kname} {shape}")
+    del record
+    want_calls = {k: want[k] for k in plain}
+    want_calls["conv"] -= want["conv_nhwc"]
+    per_pass = {k: sum(r["kernel_us"] * r["count"] for r in rows if r["kernel"] == k)
+                for k in plain}
+    print(f"[caffe-grad] {len(rows)} distinct calls of gen's pass vs plain on the engine's "
+          f"operands (tol {TOL[torch.bfloat16]}): worst "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst_k.items())
+          + f"; calls seen {seen} (from the pipe {want_calls}); kernel us per pass by the "
+          f"counts: " + ", ".join(f"{k} {v:.1f}" for k, v in per_pass.items()) + f" ({card})")
+    check(seen == want_calls, f"caffe-grad: calls seen {seen}, expected {want_calls}")
+    check(not misses, f"caffe-grad: calls off their plain version or path: {misses[:5]}")
+    out["calls"], out["kernel_us_per_pass"] = rows, per_pass
+
+    # -- [graph-grad]'s gates: replay vs eager, two batches, deterministic cuDNN ----
+    out.update(grad_replays("caffe-grad", f"googlenet b{BATCH}", engines, ins, want_outs, card))
+    del engines, gen, lib
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[caffe-grad] phase took {out['seconds']:.1f} s")
     return out
 
 
@@ -2703,17 +3082,39 @@ def predict_gates(card: str, root: str, imgs: list, have_zmq: bool) -> dict:
 
 
 def corpus_phase(card: str, out_dir) -> dict:
-    """[corpus]: the port's test_all (test_cmds on testdata/test_cmds.xml,
-    then test_compute) in process on the card; every entry outside the skip
-    table must pass. Outputs under build/chip_smoke/corpus/."""
+    """[corpus]: the port's test_all with its slow suites (test_cmds on
+    testdata/test_cmds.xml, then every test_compute suite of
+    testdata/test_all.xml: the forward ones and the gradient matrix) in
+    process on the card; every entry outside the skip tables must pass.
+    Outputs under build/chip_smoke/corpus/."""
+    import os
+    import xml.etree.ElementTree as ET
+
+    from boda_tpu_torch.modes.test_cmds import NOT_RUN_SUITES, PIL_ENTRIES
+    from boda_tpu_torch.utils.features import is_feature_enabled
+    print(f"[corpus] machine: PIL {'present' if is_feature_enabled('PIL') else 'absent'} "
+          f"(without it {', '.join(PIL_ENTRIES)} skip)")
     cdir = out_dir / "corpus"
-    rc, lines, err_txt = run_cli_err(["test_all", f"--boda-output-dir={cdir}"])
+    rc, lines, err_txt = run_cli_err(["test_all", "--run-slow=1", f"--boda-output-dir={cdir}"])
     (cdir / "test_all.txt").write_text("\n".join(lines) + "\n" + err_txt)
     skips = [ln for ln in lines if ln.startswith("SKIP ")]
     fails = [i for i, ln in enumerate(lines) if ln.startswith("FAIL ") or ln.startswith("error:")]
     summary = [ln for ln in lines if ln.startswith("test_cmds:") or ln.startswith("test_all:")]
+    # each suite that ran, with its mode's summary line (test_compute's nodes
+    # and verdict); every suite of testdata/test_all.xml outside the skip
+    # table must run
+    suites = [ln[4:] for ln in lines if ln.startswith("=== ")]
     for ln in skips:
         print(f"[corpus] {ln[:400]}")
+    for cli_str in suites:
+        i = lines.index(f"=== {cli_str}")
+        end = next((j for j in range(i + 1, len(lines)) if lines[j].startswith("=== ")),
+                   len(lines))
+        last = [ln for ln in lines[i + 1:end] if ln.startswith(cli_str.split()[0])]
+        print(f"[corpus] {cli_str} -> {last[-1][:300] if last else ''}")
+    xml_fn = os.path.join(os.path.dirname(os.path.abspath(__file__)), "testdata", "test_all.xml")
+    listed = [li.get("cli_str") for li in ET.parse(xml_fn).getroot().iter("li")]
+    want = [c for c in listed if c not in NOT_RUN_SUITES]
     for i in fails:  # each failure with its diff
         for ln in lines[i:i + 24]:
             print(f"[corpus] {ln[:400]}")
@@ -2721,7 +3122,9 @@ def corpus_phase(card: str, out_dir) -> dict:
         print(f"[corpus] {ln}")
     check(rc == 0 and not fails and summary and summary[-1] == "test_all: PASS",
           f"test_all rc={rc}: {len(fails)} failures")
-    return {"summary": summary, "skipped": len(skips), "card": card}
+    check(suites == want, f"test_all ran {len(suites)} suites, testdata/test_all.xml lists "
+                          f"{len(want)} outside the skip table")
+    return {"summary": summary, "skipped": len(skips), "suites_run": len(suites), "card": card}
 
 
 def main() -> int:
@@ -3353,97 +3756,32 @@ def main() -> int:
     # -- phase 5: the gradient graph, bf16, b32: loss, input and weight grads -------
     bins = gen_data_inputs(bdims)
     bwant = ["prob_loss", "data__grad__p0"] + weight_grads(bpipe)
-    bfwd = [n for n in check_nodes(bpipe) if "__grad" not in n]
     beng = make("conv_fwd", "cuda", compute_tn="bfloat16")
     beng.init(bpipe)
     blib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
     blib.init(bpipe)
     beng.prepare(bins, bwant)
-    matmul.launches = conv2d.launches = matmul_atb.launches = conv2d_nhwc.launches = 0
-    matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
-    matmul_atb.paths = dict.fromkeys(matmul_atb.paths, 0)
+    zero_counts(counted)
     bres = {"gen": beng.run_fwd(bins, bwant)}
-    launches_bck = {"sgemm": matmul.launches, "conv": conv2d.launches,
-                    "atb": matmul_atb.launches, "conv_nhwc": conv2d_nhwc.launches}
-    # the forward's convs and the 46 dgrads: all wgmma but the C = 3 stem
-    check_paths("grad-bf16 sgemm", matmul.paths, launches_bck["sgemm"], 0)
-    check_paths("grad-bf16 conv (forward + 46 dgrads)", conv2d.paths, launches_bck["conv"], 1)
-    check_paths("grad-bf16 atb (46 wgrads)", matmul_atb.paths, launches_bck["atb"], 0)
-    print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} "
-          f"(bck-conv ops {n_bck_conv})")
-    check(launches_bck["atb"] >= n_bck_conv, "grad-bf16: atb launches below the bck-conv ops")
-    check(launches_bck["conv"] >= n_bck_conv, "grad-bf16: conv launches below the dgrads")
-    check(launches_bck["conv_nhwc"] == n_bck_conv, "grad-bf16: a dgrad per bck-conv op "
-          "through K3's entry")
-    check(launches_bck["sgemm"] > 0, "grad-bf16: no sgemm launch")
-    lres = blib.run_fwd(bins, bwant + bfwd)
-    bres["lib"] = {n: lres[n] for n in bwant}
-    # the gate: gen's backward from lib's forward values (as in phase 4 (b))
-    forced = dict(bins)
-    forced.update({n: lres[n] for n in bfwd})
-    del lres
-    bres["gen_forced"] = beng.run_fwd(forced, bwant)
-    del forced
-    errs = {}
-    for which in ("gen", "gen_forced"):
-        errs[which] = []
-        for n in bwant:
-            a, b = bres["lib"][n].data, bres[which][n].data
-            check(bool(np.isfinite(b).all()), f"grad-bf16 {which} {n} non-finite")
-            check(np.abs(a).max() > 0, f"grad-bf16 {n} all zero")
-            errs[which].append((rel_err(torch.from_numpy(b), torch.from_numpy(a))[1], n))
-        errs[which].sort(reverse=True)
-        e = errs[which]
-        byname = {n: v for v, n in e}
-        print(f"[grad-bf16] {which} vs lib, {len(bwant)} outputs, max|err|/max|lib|: "
-              f"worst " + ", ".join(f"{n} {v:.3e}" for v, n in e[:4])
-              + f"; median {e[len(e) // 2][0]:.3e}; loss {byname['prob_loss']:.3e}, "
-              f"data grad {byname['data__grad__p0']:.3e}")
-    worst = errs["gen_forced"][0]
-    print(f"[grad-bf16] gate: backward from lib's forward values, worst "
-          f"{worst[0]:.3e} (tol {GRAD_BF16_TOL})")
-    check(worst[0] <= GRAD_BF16_TOL, f"grad-bf16: {worst[1]} {worst[0]:.3g}")
+    launches_bck = read_counts(counted)
+    # exact, as the pipe gives them; the forward's convs and the 46 dgrads
+    # all on wgmma but the C = 3 stem
+    want_bck = grad_graph_launches(bpipe)
+    print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} (expected from the "
+          f"pipe {want_bck}; bck-conv ops {n_bck_conv})")
+    check(launches_bck == want_bck and want_bck["conv_nhwc"] == n_bck_conv,
+          f"grad-bf16 launches {launches_bck}, expected {want_bck}")
+    check_paths("grad-bf16 sgemm", counted["sgemm"].paths, launches_bck["sgemm"], 0)
+    check_paths("grad-bf16 conv (forward + 46 dgrads)", counted["conv"].paths,
+                launches_bck["conv"], 1)
+    check_paths("grad-bf16 atb (46 wgrads)", counted["atb"].paths, launches_bck["atb"], 0)
+    grad_gate_vs_lib("grad-bf16", bpipe, beng, blib, bins, bwant, bres["gen"])
     del bres
-    # [graph-grad]: the replay of each gradient graph against an eager pass of
-    # the same engine, on two batches: every output bit-equal. cuDNN is held to
-    # its deterministic algorithms for the comparison (its default backward
-    # ones may differ between two eager passes: scripts/torch_graph_determinism.py);
-    # then eager and graph ms per pass, recaptured with the default ones
-    grad_rates, grad_eager_rates = {}, {}
-    bins2 = other_batch(bins, 17)
-    deterministic = torch.backends.cudnn.deterministic
-    for pol, e in (("gen", beng), ("lib", blib)):
-        torch.backends.cudnn.deterministic = True
-        try:
-            e.drop_graph()
-            e.cuda_graph = False
-            eager = e.run_fwd(bins, bwant)
-            e.cuda_graph = True
-            replay = e.run_fwd(bins, bwant)
-            eager2, replay2 = replay_follows(e, bins2, bwant)
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        e.drop_graph()
-        check(not np.array_equal(eager2["data__grad__p0"].data, eager["data__grad__p0"].data),
-              f"graph-grad {pol}: the second batch left the input gradient as it was")
-        for batch, (ea, re_) in (("", (eager, replay)), (", a second batch", (eager2, replay2))):
-            gerrs = sorted((rel_err(torch.from_numpy(re_[n].data),
-                                    torch.from_numpy(ea[n].data))[1], n) for n in bwant)
-            n_bit = sum(np.array_equal(re_[n].data, ea[n].data) for n in bwant)
-            print(f"[graph-grad] resnet50 b{BATCH} bf16 {pol}{batch}: replay vs eager, {n_bit} "
-                  f"of {len(bwant)} outputs bit-equal (all must be), worst max|err|/max|eager| "
-                  f"{gerrs[-1][0]:.3e} at {gerrs[-1][1]}")
-            check(n_bit == len(bwant), f"graph-grad {pol}{batch}: {len(bwant) - n_bit} outputs "
-                                       f"not bit-equal, worst {gerrs[-1]}")
-        del eager, replay, eager2, replay2
-        e.cuda_graph = False
-        eager_s = e.time_fwd(bins, bwant, n_iters=10, warmup=3)
-        e.cuda_graph = True
-        secs = e.time_fwd(bins, bwant, n_iters=10, warmup=5)
-        grad_rates[pol], grad_eager_rates[pol] = BATCH / secs, BATCH / eager_s
-        print(f"[graph-grad] resnet50 b{BATCH} forward+backward {pol}: eager "
-              f"{eager_s * 1e3:.3f} ms, graph {secs * 1e3:.3f} ms per pass; "
-              f"{grad_eager_rates[pol]:.1f} -> {grad_rates[pol]:.1f} img/s ({card})")
+    # [graph-grad]: each gradient graph's replay against eager, two batches
+    grad_rows = grad_replays("graph-grad", f"resnet50 b{BATCH}", {"gen": beng, "lib": blib},
+                             bins, bwant, card)
+    grad_rates = {pol: r["img_per_s"] for pol, r in grad_rows.items()}
+    grad_eager_rates = {pol: r["eager_img_per_s"] for pol, r in grad_rows.items()}
     del beng, blib
 
     # the user's command line, in-process
@@ -3768,6 +4106,10 @@ def main() -> int:
     g_gen, g_fused = caffe["googlenet"]["gen"]["launches"], caffe["googlenet"]["fused"]["launches"]
 
     lap("caffe")
+    # -- phase 7b: [caffe-grad] GoogLeNet's gradient graph, gen and lib -------------
+    caffe_grad = caffe_grad_phase(card, counted)
+
+    lap("caffe-grad")
     # -- phase 8: [int8] ResNet-50 b32 int8-static in bench.py's configuration --------
     int8 = int8_phase(card, pipe, ins, counted)
 
@@ -3827,6 +4169,9 @@ def main() -> int:
             entry["launches_bck"] = launches_bck[kname]
         if kname in ("sgemm", "conv", "atb", "dgrad"):  # one gen b32 bf16 training step
             entry["launches_train"] = train["launches_gen"][
+                "conv_nhwc" if kname == "dgrad" else kname]
+            # and one gen pass of GoogLeNet's b32 bf16 gradient graph
+            entry["launches_googlenet_grad"] = caffe_grad["launches_gen"][
                 "conv_nhwc" if kname == "dgrad" else kname]
         if kname in ("sgemm", "conv"):
             entry["launches_fused"] = launches_fused[kname]
@@ -3894,7 +4239,7 @@ def main() -> int:
                       "grad_img_per_s_eager": grad_eager_rates,
                       "sgemm_run_4096": {tn: {k: r[k] for k in ("secs", "GF/s", "pct_peak")}
                                          for tn, r in sg.items()},
-                      "caffe": caffe, "int8": int8, "lmdb": lmdb, "ssd": ssd,
+                      "caffe": caffe, "caffe_grad": caffe_grad, "int8": int8, "lmdb": lmdb, "ssd": ssd,
                       "train": train, "tools": tools, "serve": serve, "corpus": corpus,
                       "phase_seconds": laps, "card": card}))
     print(smi())

@@ -57,6 +57,10 @@ import boda_tpu_torch.modes.serve_bench, boda_tpu_torch.modes.zmq_modes
 import boda_tpu_torch.apps.zmq_det, boda_tpu_torch.modes.basic
 import boda_tpu_torch.apps.pyramid, boda_tpu_torch.apps.pred_state
 import boda_tpu_torch.modes.test_cmds
+import boda_tpu_torch.stream.data_stream, boda_tpu_torch.stream.velodyne
+import boda_tpu_torch.stream.avi, boda_tpu_torch.stream.rosbag
+import boda_tpu_torch.modes.stream_modes, boda_tpu_torch.modes.display_modes
+import boda_tpu_torch.modes.proc_pipe, boda_tpu_torch.modes.plot_modes
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
@@ -112,8 +116,12 @@ with tempfile.TemporaryDirectory() as td:
     assert cli.main(["predict_dense", "--annos=1", "--model=mini_resnet", "--plane-sz=64",
                      "--img-fn=testdata/images/test1.png", "--min-sz=32",
                      "--conv-fwd=(mode=cuda,device=cpu)", "--boda-output-dir=" + td]) == 0
-    assert cli.main(["test_cmds", "--filt=^(noop|blf_pack_basic)$",
-                     "--boda-output-dir=" + td]) == 0
+    assert cli.main(["test_cmds", "--filt=^(noop|blf_pack_basic|display_pil|err_no_camera|"
+                     "cs_disp_pipeline|render_pts_velo|hash_pair_check|velodyne_gen_scan|"
+                     "avi_mjpeg_scan|rosbag_scan_image|rosbag_scan|velo_scan_fixture|"
+                     "stream_sync|stream_merge_flatten|stream_fold_sort|"
+                     "stream_seq_adj_angle)$", "--boda-output-dir=" + td]) == 0
+    assert cli.main(["roofline_plot", "--model=mini_resnet", "--boda-output-dir=" + td]) == 0
     assert cli.main(["compsup"]) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "boda_tpu")]

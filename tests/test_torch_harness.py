@@ -79,17 +79,17 @@ def test_diff_file_types(tmp_path):
 
 def test_device_free_goldens(tmp_path, capsys):
     """noop, blf_pack_basic, img_pyra_pack_t1 and the err_* entries of the
-    repo corpus through the port's test_cmds; err_bad_mode and err_no_camera
-    print SKIP lines naming why."""
+    repo corpus through the port's test_cmds, err_no_camera's capture error
+    among them; err_bad_mode prints a SKIP line naming why."""
     rc = cli.main(["test_cmds", f"--boda-output-dir={tmp_path}",
                    "--filt=^(noop|blf_pack_basic|img_pyra_pack_t1|err_.*)$"])
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "SKIP err_bad_mode: it pins boda_tpu's full mode list" in out
-    assert "SKIP err_no_camera: mode 'capture_classify' is not registered in the port" in out
+    assert "SKIP err_no_camera" not in out
     n_err = sum(1 for li in ET.parse(os.path.join(TD, "test_cmds.xml")).getroot().iter("li")
                 if li.get("test_name").startswith("err_"))
-    assert f"test_cmds: {n_err + 1}/{n_err + 1} passed, 2 skipped (test_cmds.xml)" in out
+    assert f"test_cmds: {n_err + 2}/{n_err + 2} passed, 1 skipped (test_cmds.xml)" in out
 
 
 def _roadmap_section3() -> str:
@@ -128,6 +128,14 @@ def test_skip_table_holds_only_its_reasons():
     for cli_str, (reason, what, _) in tc.NOT_RUN_SUITES.items():
         assert cli_str in suites and reason == "engine"
         assert all(f"mode={e}" in cli_str and e not in engines for e in what.split(", "))
+
+
+def test_skip_table_holds_four_entries():
+    """With the stream, display, proc_pipe and plot modes registered, NOT_RUN
+    holds the multi-device entry, the two that name boda_tpu's TPU engines
+    and boda_tpu's full mode list, and nothing else."""
+    assert set(tc.NOT_RUN) == {"dist_test_2x2", "run_cnet_int8", "gen_src_tinynet",
+                               "err_bad_mode"}
 
 
 def test_test_all_skips_and_native_gate(tmp_path, capsys, monkeypatch):
