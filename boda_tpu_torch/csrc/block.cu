@@ -110,6 +110,7 @@ constexpr int kMaxRows = 128;
 constexpr long kSmemLimit = 232448;   // 227 KB per block
 constexpr long kSmemPerSM = 233472;   // 228 KB per SM
 constexpr int kBlocksPerSMRegs = 2;   // __launch_bounds__(256, 2): 128 registers
+constexpr int kMaxDevices = 32;       // per-device state: opt-ins, SM counts
 // the wgmma route: up to 8 weight stages of 64 rows x 128 columns, as two
 // 64 x 64 TMA boxes of 8 KB, and 3 slots of phase A's x rows; one block per
 // SM (__launch_bounds__(256, 1))
@@ -1078,13 +1079,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // One launch of kernel k over the plan's blocks, in clusters of CL.
+// granted: the dynamic shared memory k has opted into so far, per device
+// (the attribute holds for the current device only).
 template <int CL, class... P, class... A>
-int launch_kernel(void (*k)(P...), const Args& a, size_t smem, size_t& granted, cudaStream_t s,
+int launch_kernel(void (*k)(P...), const Args& a, size_t smem, size_t* granted, cudaStream_t s,
                   A... args) {
-  if (smem > granted) {  // dynamic shared memory opted into so far
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > granted[dev]) {
     cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    granted = smem;
+    granted[dev] = smem;
   }
   long blocks = (long)a.n * a.tiles_per_img * CL;
   if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
@@ -1107,14 +1113,14 @@ int launch_kernel(void (*k)(P...), const Args& a, size_t smem, size_t& granted, 
 
 template <typename T, bool VEC>
 int launch(Args a, size_t smem, cudaStream_t s) {
-  static size_t granted = 0;
+  static size_t granted[kMaxDevices] = {};
   return launch_kernel<1>(bottleneck_kernel<T, VEC>, a, smem, granted, s, a);
 }
 
 // The wgmma route: the three weights' tensor maps, 64 x 64 boxes.
 template <int CL>
 int launch_wg(Args a, size_t smem, cudaStream_t s) {
-  static size_t granted = 0;
+  static size_t granted[kMaxDevices] = {};
   CUtensorMap m1 = {}, m2 = {}, m3 = {};
   int rc = encode_map(&m1, a.w1, a.c, a.k, 64, kBK);
   if (rc == 0) rc = encode_map(&m2, a.w2, 9 * a.k, a.k, 64, kBK);
@@ -1123,15 +1129,16 @@ int launch_wg(Args a, size_t smem, cudaStream_t s) {
   return launch_kernel<CL>(bottleneck_wg<CL>, a, smem, granted, s, m1, m2, m3, a);
 }
 
+// The current device's SM count, cached per device.
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
+  static int n[kMaxDevices] = {};
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && n[dev] > 0) return n[dev];
+  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+  v = v > 0 ? v : 1;
+  if (dev < kMaxDevices) n[dev] = v;
+  return v;
 }
 
 // Per-warp serial work of one GEMM: the warp's 16-row fragments times the
@@ -1168,9 +1175,11 @@ bool path_ok(int path, int dtype, int c, int k, bool aligned) {
 // cluster size CL in {1, 2, 4} (CL > 1 only on the wgmma route, with c and k
 // split into slices of 64 and all blocks in one wave) whose block fits
 // shared memory and whose modeled time is least, the larger T and then the
-// smaller CL on a tie. Returns T (0 if none fits) and writes CL.
+// smaller CL on a tie, on a card of sms SMs (0: the current device's).
+// Returns T (0 if none fits) and writes CL.
 extern "C" int boda_bottleneck_plan(int n, int h, int w, int c, int k, int dtype, int path,
-                                    int* cluster) {
+                                    int sms, int* cluster) {
+  if (sms <= 0) sms = sm_count();
   const int es = dtype == 0 ? 4 : 2;
   const bool wg = path == kPathWgmma;
   const int max_cluster = wg ? 4 : 1;
@@ -1187,10 +1196,10 @@ extern "C" int boda_bottleneck_plan(int n, int h, int w, int c, int k, int dtype
       // clusters only to fill the card: a second wave of blocks costs more
       // than the split saves (measured at res3 and res4)
       if (cl > 1 && (k % (cl * 64) || c % (cl * 64) ||
-                     tiles * cl > sm_count() * per_sm))
+                     tiles * cl > sms * per_sm))
         break;
       const long blocks = tiles * cl;
-      const long waves = (blocks + sm_count() * per_sm - 1) / (sm_count() * per_sm);
+      const long waves = (blocks + sms * per_sm - 1) / (sms * per_sm);
       // each tile streams all three weights from L2 once, split over its cluster
       const double cost =
           waves * (warp_work(L.hr, k / cl, c, wg) + warp_work(L.rb, k / cl, 9L * L.kp, wg) +
@@ -1225,7 +1234,7 @@ extern "C" int boda_bottleneck(const void* x, const void* w1, const void* b1,
   const bool vec = dtype == 1 && c % 8 == 0 && k % 8 == 0 && aligned;
   const bool wg = path == kPathWgmma;
   int cl = 1;
-  const int t = boda_bottleneck_plan(n, h, w, c, k, dtype, path, &cl);
+  const int t = boda_bottleneck_plan(n, h, w, c, k, dtype, path, sm_count(), &cl);
   if (t == 0) return (int)cudaErrorInvalidValue;
   if (plan) {
     plan[0] = t;

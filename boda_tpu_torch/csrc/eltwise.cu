@@ -58,6 +58,7 @@ constexpr int kRingThreads = kConsumers + 32;  // + the producer warp
 constexpr int kMaxStages = 8;
 constexpr int kBarBytes = 128;  // full[s] at 8s, empty[s] at 64 + 8s
 constexpr int kMaxSmem = 232448;
+constexpr int kMaxDevices = 32;  // per-device state: the shared-memory opt-ins
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -191,12 +192,17 @@ int launch(const void* a, const void* b, void* out, long long n, int path, int b
   constexpr int nin = F >= kMul ? 2 : 1;
   const int smem = kBarBytes + stages * stage_bytes * nin;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static int allowed = 48 * 1024;  // above 48 KB, allowed per function
-  if (smem > allowed) {
+  // above 48 KB, allowed per function and per device (the attribute holds
+  // for the current device only)
+  static int allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
     cudaError_t e = cudaFuncSetAttribute(eltwise_ring<T, F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    allowed = smem;
+    allowed[dev] = smem;
   }
   eltwise_ring<T, F><<<blocks, kRingThreads, smem, s>>>((const T*)a, (const T*)b, (T*)out, n,
                                                          stage_bytes, stages);

@@ -60,6 +60,7 @@ constexpr int kBarBytes = 128;  // the rows route's full[s] barriers
 constexpr int kMaxSlots = 16;
 constexpr int kMaxSmem = 232448;
 constexpr int kThreads = 256;
+constexpr int kMaxDevices = 32;  // per-device state: the shared-memory opt-ins
 
 struct PoolArgs {
   const void* x;
@@ -373,12 +374,17 @@ int launch_rows(const PoolArgs& a, int blocks, int slots, cudaStream_t s) {
   const long smem =
       kBarBytes + (long)slots * a.w * a.c * 2 + (long)(a.kh + 1) * a.ox * (a.c / 8) * hb;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static long allowed = 48 * 1024;  // above 48 KB, allowed per function
-  if (smem > allowed) {
+  // above 48 KB, allowed per function and per device (the attribute holds
+  // for the current device only)
+  static long allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > allowed[dev]) {
     cudaError_t e = cudaFuncSetAttribute(pool_rows<AVG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    allowed = smem;
+    allowed[dev] = smem;
   }
   pool_rows<AVG><<<blocks, kThreads, (int)smem, s>>>(a, slots);
   return (int)cudaGetLastError();

@@ -35,23 +35,37 @@ the requested outputs) as a CUDA graph after one eager warm-up forward, and
 ``run_fwd`` and ``time_fwd`` replay it: the counterpart of boda_tpu's one jit
 program per net, with the host out of the loop. ``cuda_graph=0`` runs every
 forward eagerly, launch by launch.
+
+Under a ``mesh`` (parallel/mesh.py; boda_tpu: executor.py:86-109, :713-769)
+each dp slice of the batch runs the whole net on its own device, with its
+own copy of the weights and its own captured graph (boda_tpu's pallas
+engine, through ``shard_map``), and the outputs are concatenated on the
+first device. Under ``kernel_policy=lib`` a tp axis splits every groups-1
+conv and fc weight over out_chan: each of the slice's tp devices computes
+its channels and the slices are gathered on the first before the next op
+(boda_tpu's GSPMD path); the block fusion is off and a gen tune is forced to
+the library, as there. ``gen_src_dir`` writes what each forward ran: its
+plan per op, and on the card the captured graph and the kernels' PTX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import sys
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import ConfigError, Field, register, register_base
+from ..ops.kernels import common as kcommon
 from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
 from ..ops.kernels.block import block_fuse_ok, bottleneck
 from ..ops.tune import OpTune
+from ..parallel.mesh import Mesh, make_mesh, weight_shardings
 from ..rtc.backends import capture, graph_time, side_stream_warmup
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
@@ -85,6 +99,74 @@ class CapturedFwd:
             self.ins[k].copy_(torch.from_numpy(np.ascontiguousarray(v.data)))
 
 
+class _Replica:
+    """A dp slice of a mesh after the first (the engine itself holds the
+    first's state, under the same names): its devices along tp (the first,
+    ``_lead``, runs the net; the others only their channels of the split
+    convs), its weights and its captured forward."""
+
+    def __init__(self, devs: list):
+        self._lead = devs[0]
+        self._tp_devs = devs
+        self._weights_dev: dict = {}
+        self._graph: Optional[CapturedFwd] = None
+        self._warm_key = None
+
+
+class _TpShards(NamedTuple):
+    """A dp slice's tp shards, under the key ``__tp__`` of its weights: its
+    devices along tp, and per split weight (a conv or fc filter, its bias,
+    their prefolded forms) the split axis and one shard per device."""
+    devs: list
+    parts: dict
+
+
+@dataclasses.dataclass
+class _SrcRecord:
+    """What a gen_src pass saw: per op run, its bots and tops (name,
+    dtype[shape]) and its calls; the kernel entries' calls and the library's
+    (torch functions outside a kernel entry) in call order; the chains that
+    fused."""
+    ops: dict = dataclasses.field(default_factory=dict)
+    kernels: list = dataclasses.field(default_factory=list)
+    lib: list = dataclasses.field(default_factory=list)
+    chains: dict = dataclasses.field(default_factory=dict)
+
+
+def _cuda_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _on(dev: torch.device):
+    """The CUDA device context of ``dev`` (nothing for the CPU)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _tp_call(fn: Callable, bots: list, vals: list, tp: _TpShards) -> tuple:
+    """One conv or fc op over its dp slice's tp devices (boda_tpu: the GSPMD
+    path, executor.py:251-273): each device computes its out_chan slice with
+    its weight shards, the other per-channel operands (unfolded BN/Scale
+    parameters, a fused residual) cut to the same channels; the slices are
+    concatenated on the first device, where the next op runs."""
+    axis, w_parts = tp.parts[bots[1]]
+    k = w_parts[0].shape[axis]
+    full = k * len(tp.devs)
+    pieces = []
+    for j, dev in enumerate(tp.devs):
+        args = [vals[0].to(dev), w_parts[j]]
+        for b, v in zip(bots[2:], vals[2:]):
+            if b in tp.parts:
+                args.append(tp.parts[b][1][j])
+            elif v.dim() >= 1 and v.shape[-1] == full:
+                args.append(v[..., j * k:(j + 1) * k].to(dev))
+            else:
+                args.append(v.to(dev))
+        pieces.append(fn(*args))
+    lead = vals[0].device
+    return tuple(torch.cat([p[i].to(lead) for p in pieces], dim=-1)
+                 for i in range(len(pieces[0])))
+
+
 @register_base("conv_fwd", tid_vn="mode")
 class FwdEngine:
     """Abstract engine: init(pipe) then run_fwd(ins, out_names)."""
@@ -110,6 +192,17 @@ class FwdEngine:
     # node name -> (max_val=...,keep_bits=...) clamps + drops mantissa bits
     quantize = Field((dict, "lexp"), default="()",
                      help="per-node quantization: (node=(max_val=8,keep_bits=6),...)")
+    # multi-device mesh (parallel/mesh.py), e.g. (dp=2,tp=4) over the local
+    # devices of the engine's kind: dp runs the whole net on each device's
+    # img slice; tp (kernel_policy=lib) splits the conv and fc weights over
+    # out_chan. From code, a built Mesh, whose devices may repeat.
+    mesh = Field("lexp", default="()", help="device mesh axes, e.g. (dp=2,tp=4)")
+    # gen_src analog (ref rtc_compute.H:39-40; boda_tpu: executor.py:283-296):
+    # once per forward key, the plan per op, and on the card the captured
+    # graph and the PTX of the kernels' sources that it launches
+    gen_src_dir = Field(str, default="",
+                        help="write each forward's plan (and, on the card, its "
+                             "captured graph and kernels' PTX) here")
 
     def base_setup(self) -> None:
         if self.precision not in PRECISIONS:
@@ -129,11 +222,51 @@ class FwdEngine:
         for node, q in (self.quantize or {}).items():
             qv = {k: float(v.leaf_val) for k, v in q.kids}
             self._quant[node] = (qv.get("max_val", 8.0), int(qv.get("keep_bits", 8)))
+        self._rec: Optional[_SrcRecord] = None  # the gen_src pass in progress
+        self._dumped: set = set()  # the keys gen_src_dir has
+        self._setup_mesh()
+
+    def _setup_mesh(self) -> None:
+        """The mesh (boda_tpu: executor.py:86-90) and its dp slices: the
+        engine itself holds the first's state, a :class:`_Replica` each
+        other's."""
+        kind = torch.device(self.device).type
+        m = self.mesh
+        if isinstance(m, Mesh):
+            self._mesh: Optional[Mesh] = m
+        else:
+            axes = {k: int(v.leaf_val) for k, v in (m.kids if m else [])}
+            self._mesh = make_mesh(axes, kind=kind) if axes else None
+        self._reps: list = [self]
+        self._tp_devs: list = []
+        self._tp_eager = False
+        if self._mesh is None:
+            return
+        kinds = {d.type for d in self._mesh.devices.flat}
+        if kinds != {kind}:
+            raise ConfigError(f"conv_fwd: mesh devices of kind {sorted(kinds)}, "
+                              f"engine device {self.device!r}")
+        dp, tp = self._mesh.size("dp"), self._mesh.size("tp")
+        rows = [[self._mesh.device(dp=i, tp=j) for j in range(tp)] for i in range(dp)]
+        self._tp_devs = rows[0]
+        self._reps += [_Replica(r) for r in rows[1:]]
+        # one CUDA graph captures one device's work: a slice whose tp shards
+        # lie on several cards runs eagerly
+        self._tp_eager = any(len(set(r)) > 1 for r in rows)
+        self._info_log.append(f"mesh {self._mesh}" + (
+            "; tp over several cards: eager forwards, no CUDA graph" if self._tp_eager else ""))
+
+    def _tp(self) -> int:
+        return self._mesh.size("tp") if self._mesh is not None else 1
+
+    @property
+    def _lead(self) -> torch.device:
+        return self.dev()
 
     def dev(self) -> torch.device:
-        """The engine's device. No silent CPU fallback: device=cuda without a
-        usable card raises."""
-        d = torch.device(self.device)
+        """The engine's device (under a mesh, its first device). No silent
+        CPU fallback: device=cuda without a usable card raises."""
+        d = self._mesh.device() if self._mesh is not None else torch.device(self.device)
         if d.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("conv_fwd: device=cuda but torch finds no CUDA "
                                "card; pass device=cpu to run the plain versions")
@@ -159,97 +292,171 @@ class FwdEngine:
     def compile_for(self, out_names: list[str]) -> None:
         key = tuple(out_names)
         if self._fn_key != key:
+            self._check_mesh(out_names)
             self._fn = self.build_raw_fn(list(out_names))
             self._fn_key = key
 
+    def _check_mesh(self, out_names: list[str]) -> None:
+        """Under dp, each output is gathered over its img dim."""
+        if len(self._reps) == 1:
+            return
+        for n in out_names:
+            d = self.pipe.must_dims(n)
+            if "img" not in d.names:
+                raise PipeError(f"mesh dp={len(self._reps)}: output {n!r} {d} has no "
+                                f"img dim to gather the slices over")
+
     def _graphed(self) -> bool:
-        return bool(self.cuda_graph) and self.dev().type == "cuda"
+        return bool(self.cuda_graph) and self.dev().type == "cuda" and not self._tp_eager
 
     def drop_graph(self) -> None:
         """Free the captured forward (its graph, memory pool and static
-        tensors). Done on init, on every weight upload (a graph holds the
-        weights' addresses and host-encoded tensor maps by value) and before
-        a new key is captured: an engine holds one graph at a time."""
-        self._graph = None
-        self._warm_key = None
+        tensors) of every dp slice. Done on init, on every weight upload (a
+        graph holds the weights' addresses and host-encoded tensor maps by
+        value) and before a new key is captured: an engine holds one graph
+        (per dp slice) at a time."""
+        for rep in self._reps:
+            rep._graph = None
+            rep._warm_key = None
 
     @staticmethod
     def _graph_key(ins: dict[str, NDA], out_names: list[str]) -> tuple:
         return (tuple(sorted((k, tuple(v.data.shape), str(v.data.dtype))
                              for k, v in ins.items())), tuple(out_names))
 
+    def _slices(self, ins: dict[str, NDA]) -> list[dict[str, NDA]]:
+        """The inputs of each dp slice: img split over dp (boda_tpu's
+        shard_map in_specs, executor.py:762); without a mesh, the inputs."""
+        dp = len(self._reps)
+        if dp == 1:
+            return [ins]
+        out: list[dict[str, NDA]] = [{} for _ in range(dp)]
+        for k, v in ins.items():
+            if "img" not in v.dims.names or v.dims["img"] % dp:
+                raise PipeError(f"mesh dp={dp}: input {k!r} {v.dims} has no img dim "
+                                f"that dp divides")
+            ax, n = v.dims.index("img"), v.dims["img"] // dp
+            d = v.dims.with_size("img", n)
+            for i in range(dp):
+                out[i][k] = NDA(d, np.take(v.data, np.arange(i * n, (i + 1) * n), axis=ax))
+        return out
+
+    def _gather(self, parts: list[dict], out_names: list[str]) -> dict:
+        """The dp slices' outputs concatenated over img on the first device;
+        per_layer_stats combined over the slices."""
+        lead = self.dev()
+        res = {n: torch.cat([p[n].to(lead) for p in parts],
+                            dim=self.pipe.must_dims(n).index("img")) for n in out_names}
+        if "__stats__" in parts[0]:
+            st = {}
+            for n in parts[0]["__stats__"]:
+                s = torch.stack([p["__stats__"][n].to(lead) for p in parts])
+                st[n] = torch.stack([s[:, 0].min(), s[:, 1].max(), s[:, 2].sum(),
+                                     s[:, 3].sum()])
+            res["__stats__"] = st
+        return res
+
     def prepare(self, ins: dict[str, NDA], out_names: list[str]) -> None:
         """Build the forward for (ins, out_names) and, under ``cuda_graph``
         on the card, run the eager warm-up forward its capture needs, on a
-        side stream: it builds the kernels, sets their shared-memory
-        attributes, fills the plan caches, lets cuDNN and cuBLAS choose
-        their algorithms and makes the pool divisors. The launch counters
-        tick for it. run_fwd and time_fwd call it for a new key; a caller
-        that wants the counts of the captured forward alone calls it first
-        and zeroes them after."""
+        side stream (under a mesh, each dp slice's on its slice): it builds
+        the kernels, sets their shared-memory attributes, fills the plan
+        caches, lets cuDNN and cuBLAS choose their algorithms and makes the
+        pool divisors. The launch counters tick for it. run_fwd and time_fwd
+        call it for a new key; a caller that wants the counts of the
+        captured forward alone calls it first and zeroes them after."""
         self.compile_for(out_names)
         if not self._graphed():
             return
+        for rep, sl in zip(self._reps, self._slices(ins)):
+            self._prepare_rep(rep, sl, out_names)
+
+    def _prepare_rep(self, rep, ins: dict[str, NDA], out_names: list[str]) -> None:
         key = self._graph_key(ins, out_names)
-        if key == self._warm_key or (self._graph is not None and self._graph.key == key):
+        if key == rep._warm_key or (rep._graph is not None and rep._graph.key == key):
             return
-        dev_ins = self._put_inputs(ins)
-        self.warm_up(lambda w: self._fn(w, dev_ins))
-        self._warm_key = key
+        dev_ins = self._put_inputs(ins, rep._lead)
+        self.warm_up(lambda w: self._fn(w, dev_ins), rep)
+        rep._warm_key = key
 
-    def _captured(self, ins: dict[str, NDA], out_names: list[str]) -> CapturedFwd:
-        """The captured forward for (ins, out_names): the engine's graph if it
-        has this key, else a new capture after the warm-up. A capture that
-        fails raises, naming the op it was in; nothing runs eagerly in its
-        place."""
+    def _captured(self, ins: dict[str, NDA], out_names: list[str], rep=None) -> CapturedFwd:
+        """The captured forward for (ins, out_names) of a dp slice (default:
+        the engine's own): its graph if it has this key, else a new capture
+        after the warm-up. A capture that fails raises, naming the op it was
+        in; nothing runs eagerly in its place. Under gen_src_dir, a new key's
+        warm-up records the plan, and the graph is captured in debug mode."""
+        rep = rep or self
         key = self._graph_key(ins, out_names)
-        if self._graph is not None and self._graph.key == key:
-            return self._graph
-        self.prepare(ins, out_names)
-        self._graph = None  # free the old key's graph before capturing
-        static_ins = self._put_inputs(ins)
-        self._graph = self.capture_graph(lambda w: self._fn(w, static_ins), key, static_ins)
-        self._warm_key = None
-        return self._graph
+        if rep._graph is not None and rep._graph.key == key:
+            return rep._graph
+        dump = rep is self and self._src_pending(key)
+        rec = None
+        if dump:  # the warm-up forward records the plan
+            rep._warm_key = None
+            with self._recording() as rec:
+                self._prepare_rep(rep, ins, out_names)
+        else:
+            self._prepare_rep(rep, ins, out_names)
+        rep._graph = None  # free the old key's graph before capturing
+        static_ins = self._put_inputs(ins, rep._lead)
+        rep._graph = self.capture_graph(lambda w: self._fn(w, static_ins), key, static_ins,
+                                        rep, debug=dump)
+        rep._warm_key = None
+        if dump:
+            self._dump_src(key, rec, rep._graph)
+        return rep._graph
 
-    def run_eager(self, forward: Callable[[dict], Any]) -> Any:
+    def run_eager(self, forward: Callable[[dict], Any], rep=None) -> Any:
         """``forward(weights)`` once, eagerly, under the run context: the
-        engine's uploaded weights as a ``build_raw_fn`` function takes them."""
-        with self._run_ctx():
-            return forward(self._weights_dev)
+        uploaded weights (of a dp slice; default: the engine's own) as a
+        ``build_raw_fn`` function takes them."""
+        rep = rep or self
+        with self._run_ctx(), _on(rep._lead):
+            return forward(rep._weights_dev)
 
-    def warm_up(self, forward: Callable[[dict], Any]) -> None:
+    def warm_up(self, forward: Callable[[dict], Any], rep=None) -> None:
         """The eager warm-up that a capture of ``forward(weights)`` needs:
         one call on a side stream (kernel builds, shared-memory attributes,
         plan caches, the libraries' algorithm choices), then a sync. The
         launch counters tick for it."""
-        d = self.dev()
-        side_stream_warmup(lambda: self.run_eager(forward), 1, d)
+        rep = rep or self
+        d = rep._lead
+        side_stream_warmup(lambda: self.run_eager(forward, rep), 1, d)
         torch.cuda.synchronize(d)
 
     def capture_graph(self, forward: Callable[[dict], dict], key: tuple = (),
-                      ins: Optional[dict] = None) -> CapturedFwd:
+                      ins: Optional[dict] = None, rep=None, debug: bool = False) -> CapturedFwd:
         """``forward(weights)``, a function of static device tensors
         (``ins``) that returns a dict of outputs, captured as one CUDA graph
-        under the run context (call ``warm_up`` first): the outputs become
-        the handle's static outputs, which each replay overwrites. A capture that
-        fails raises, naming the op it was in; nothing runs eagerly in its
-        place. The engine's own forward and any caller's (a preprocess in
-        front of a ``build_raw_fn`` net, say) are captured here alone."""
-        graph = torch.cuda.CUDAGraph()
+        under the run context (call ``warm_up`` first) on the device of a dp
+        slice (default: the engine's own): the outputs become the handle's
+        static outputs, which each replay overwrites. A capture that fails
+        raises, naming the op it was in; nothing runs eagerly in its place.
+        The engine's own forward and any caller's (a preprocess in front of
+        a ``build_raw_fn`` net, say) are captured here alone. ``debug``
+        keeps the graph for ``debug_dump``."""
+        rep = rep or self
+        graph = torch.cuda.CUDAGraph(keep_graph=debug)  # debug_dump reads the kept graph
+        if debug:
+            graph.enable_debug_mode()
         self._cur_op = None
         t0 = time.perf_counter()
+        # under a mesh, a capture stream of the slice's own card
+        stream = torch.cuda.Stream(rep._lead) if self._mesh is not None else None
         try:
-            with self._run_ctx(), capture(graph):
-                outs = forward(self._weights_dev)
+            with self._run_ctx(), _on(rep._lead), capture(graph, stream):
+                outs = forward(rep._weights_dev)
         except Exception as e:
             where = f"op {self._cur_op!r}" if self._cur_op else "the end of the capture"
             raise RuntimeError(f"conv_fwd: the CUDA-graph capture failed at {where}: "
                                f"{type(e).__name__}: {e}") from e
+        if debug:
+            graph.instantiate()
         return CapturedFwd(key, graph, ins or {}, outs, time.perf_counter() - t0)
 
-    def _put_inputs(self, ins: dict[str, NDA]) -> dict[str, torch.Tensor]:
-        d = self.dev()
+    def _put_inputs(self, ins: dict[str, NDA], dev: Optional[torch.device] = None
+                    ) -> dict[str, torch.Tensor]:
+        d = dev or self.dev()
         return {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(d)
                 for k, v in ins.items()}
 
@@ -264,16 +471,29 @@ class FwdEngine:
         stack.enter_context(lib_precision(self.precision))
         return stack
 
+    def _run_rep(self, rep, ins: dict[str, NDA], out_names: list[str]) -> dict:
+        """One dp slice's forward (default: the engine's own): a replay of
+        its captured graph, or an eager forward."""
+        if self._graphed():
+            g = self._captured(ins, out_names, rep)
+            with _on(rep._lead):
+                g.load(ins)
+                g.graph.replay()
+            return dict(g.outs)
+        key = self._graph_key(ins, out_names)
+        dump = rep is self and self._src_pending(key)
+        dev_ins = self._put_inputs(ins, rep._lead)
+        with (self._recording() if dump else contextlib.nullcontext()) as rec:
+            outs = self.run_eager(lambda w: self._fn(w, dev_ins), rep)
+        if dump:
+            self._dump_src(key, rec, None)
+        return outs
+
     def run_fwd(self, ins: dict[str, NDA], out_names: list[str]) -> dict[str, NDA]:
         self.compile_for(out_names)
-        if self._graphed():
-            g = self._captured(ins, out_names)
-            g.load(ins)
-            g.graph.replay()
-            outs = dict(g.outs)
-        else:
-            dev_ins = self._put_inputs(ins)
-            outs = self.run_eager(lambda w: self._fn(w, dev_ins))
+        parts = [self._run_rep(rep, sl, out_names)
+                 for rep, sl in zip(self._reps, self._slices(ins))]
+        outs = parts[0] if len(parts) == 1 else self._gather(parts, out_names)
         stats = outs.pop("__stats__", None)
         if stats is not None:
             self._last_stats = {n: stats[n].cpu().numpy() for n in sorted(stats)}
@@ -297,34 +517,147 @@ class FwdEngine:
         Under ``cuda_graph`` each forward is one replay of the captured graph,
         so the host is out of the loop (boda_tpu's on-device chain, executor.py
         :400-493); with ``cuda_graph=0`` each is an eager forward, and the
-        reading includes the host's dispatch."""
+        reading includes the host's dispatch. Under a mesh each forward
+        replays every dp slice's graph, and the second event waits for every
+        device's work (boda_tpu times its mesh without the chain, :425)."""
         d = self.dev()
         if d.type != "cuda":
             raise RuntimeError("time_fwd times the card; this engine runs on "
                                f"{d} (a CPU time is not a device metric)")
         self.compile_for(out_names)
         with contextlib.ExitStack() as stack:
-            if self._graphed():
-                g = self._captured(ins, out_names)
-                g.load(ins)
-                run = g.graph.replay
-            else:
+            runs = []
+            if not self._graphed():
                 stack.enter_context(self._run_ctx())
-                dev_ins = self._put_inputs(ins)
+            for rep, sl in zip(self._reps, self._slices(ins)):
+                if self._graphed():
+                    g = self._captured(sl, out_names, rep)
+                    with _on(rep._lead):
+                        g.load(sl)
+                    runs.append((rep._lead, g.graph.replay))
+                else:
+                    dev_ins = self._put_inputs(sl, rep._lead)
+                    runs.append((rep._lead, functools.partial(self._fn, rep._weights_dev,
+                                                              dev_ins)))
 
-                def run():
-                    self._fn(self._weights_dev, dev_ins)
+            def run():
+                for dv, r in runs:
+                    with _on(dv):
+                        r()
             for _ in range(max(1, warmup)):
                 run()
-            torch.cuda.synchronize(d)
+            devs = list(dict.fromkeys(_cuda_index(dv) for dv, _ in runs))
+            for i in devs:
+                torch.cuda.synchronize(i)
+            s0 = torch.cuda.current_stream(d)
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
+            t0.record(s0)
             for _ in range(n_iters):
                 run()
-            t1.record()
+            for i in devs:  # the last event waits for every device's forwards
+                if i != _cuda_index(d):
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(i))
+                    s0.wait_event(ev)
+            t1.record(s0)
             t1.synchronize()
         return t0.elapsed_time(t1) / 1e3 / n_iters
+
+    # -- gen_src ----------------------------------------------------------------
+
+    def _src_pending(self, key: tuple) -> bool:
+        return bool(self.gen_src_dir) and key not in self._dumped
+
+    @contextlib.contextmanager
+    def _recording(self):
+        """Record one forward for gen_src: net_fn notes each op it runs, the
+        kernel entries their calls (ops/kernels/common.py:recording), and a
+        TorchFunctionMode the library's calls outside a kernel entry."""
+        from torch.overrides import TorchFunctionMode
+        rec = _SrcRecord()
+
+        class LibCalls(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                mod = getattr(func, "__module__", None)
+                if mod and mod.startswith("torch") and not kcommon.in_kernel():
+                    rec.lib.append(f"{mod}.{func.__name__}")
+                return func(*args, **(kwargs or {}))
+        with kcommon.recording() as calls, LibCalls():
+            rec.kernels = calls
+            self._rec = rec
+            try:
+                yield rec
+            finally:
+                self._rec = None
+
+    def _dump_src(self, key: tuple, rec: _SrcRecord, graph: Optional[CapturedFwd]) -> None:
+        """Write the gen_src files of one key (boda_tpu: executor.py:283-296)
+        under gen_src_dir (a relative one under the mode's output dir):
+        ``<pipe>_<hash>.plan.txt`` always; on the card the captured graph,
+        ``<pipe>_<hash>.cuda_graph.dot``, and the PTX of each kernel source
+        the forward launched, ``<source>.ptx``."""
+        import os
+
+        from ..config import get_env
+        from ..ops.kernels import build
+        from ..utils.dims import stable_hash
+        d = self.gen_src_dir
+        if not os.path.isabs(d):
+            d = os.path.join(get_env().get("boda_output_dir", "."), d)
+        os.makedirs(d, exist_ok=True)
+        tag = f"{self.pipe.name}_{stable_hash(repr(key)) & 0xFFFF:04x}"
+        with open(os.path.join(d, f"{tag}.plan.txt"), "w") as f:
+            f.write(self._plan_text(key, rec))
+        wrote = [f"{tag}.plan.txt"]
+        if graph is not None:
+            graph.graph.debug_dump(os.path.join(d, f"{tag}.cuda_graph.dot"))
+            wrote.append(f"{tag}.cuda_graph.dot")
+        if self.dev().type == "cuda":
+            srcs = sorted({build.KERNEL_SOURCES[c.kernel] for c in rec.kernels})
+            wrote += build.write_ptx(srcs, d)
+        self._dumped.add(key)
+        self._info_log.append(f"gen_src: wrote {', '.join(wrote)}")
+
+    def _plan_text(self, key: tuple, rec: _SrcRecord) -> str:
+        """Each op of the pipe in topo order: the ops a forward ran with
+        their rule (the lowering's log lines), the chain ops fused into them,
+        their bots and tops, and their calls (a kernel entry with its route
+        and plan, or the library's functions); the others as fused or not
+        run."""
+        ins = ", ".join(f"{k} {dt}[{','.join(map(str, sh))}]" for k, sh, dt in key[0])
+        lines = [f"# {self.pipe.name}: inputs {ins}; outputs {', '.join(key[1])}",
+                 f"# engine: device={self.dev()} " + self._plan_engine()]
+        fused_into = {c: head for head, chain in rec.chains.items() for c in chain}
+        for i, op_name in enumerate(self.pipe.topo_op_order()):
+            op = self.pipe.ops[op_name]
+            head = f"{i} {op_name} {op.type}"
+            if op_name in fused_into:
+                lines.append(f"{head}: fused into {fused_into[op_name]}")
+                continue
+            r = rec.ops.get(op_name)
+            if r is None:
+                lines.append(f"{head}: not run (no requested output needs it)")
+                continue
+            lines.append(head)
+            lines += [f"  rule: {ln.split(': ', 1)[1]}" for ln in dict.fromkeys(self._info_log)
+                      if ln.startswith(f"{op_name}: ")]
+            if op_name in rec.chains:
+                lines.append(f"  fused: {', '.join(rec.chains[op_name])}")
+            lines.append("  in: " + ", ".join(f"{n} {t}" for n, t in r["in"]))
+            lines.append("  out: " + ", ".join(f"{n} {t}" for n, t in r["out"]))
+            for c in r["kernels"]:
+                plan = c.plan if isinstance(c.plan, str) else repr(c.plan)
+                route = getattr(c.plan, "path", getattr(c.plan, "route", c.plan))
+                lines.append(f"  kernel: {c.kernel} {c.entry} route={route} plan={plan} "
+                             f"({' '.join(c.operands)})")
+            if not r["kernels"]:
+                lines.append("  kernel: library " + (", ".join(dict.fromkeys(r["lib"]))
+                                                     or "(no call: a view)"))
+        return "\n".join(lines) + "\n"
+
+    def _plan_engine(self) -> str:  # pragma: no cover
+        return ""
 
 
 @register("conv_fwd", "cuda", help="NHWC engine: hand CUDA kernels for conv/fc "
@@ -391,6 +724,23 @@ class CudaFwd(FwdEngine):
         self._input_s2d_ops: set[str] = set()
         self._act_q: dict[str, tuple[bool, float]] = {}
         self._q8_direct: set[str] = set()
+        if self._mesh is not None and (self.int8 or self.act_int8) and \
+                len(set(self._mesh.devices.flat)) > 1:
+            raise ConfigError("conv_fwd: int8 under a mesh of several devices is not "
+                              "supported (its static scales are made on one device)")
+
+    def _check_mesh(self, out_names: list[str]) -> None:
+        super()._check_mesh(out_names)
+        # boda_tpu: executor.py:742-747; the hand kernels shard dp only
+        if self._tp() > 1 and self.kernel_policy != "lib":
+            raise PipeError("the cuda engine shards dp only with generated kernels "
+                            "(kernel_policy=gen); use kernel_policy=lib for tp")
+
+    def _plan_engine(self) -> str:
+        return (f"kernel_policy={self.kernel_policy} compute_tn={self.compute_tn or 'float32'} "
+                f"fuse_block={int(self.fuse_block)} tune={self.tune} "
+                f"cuda_graph={int(self._graphed())}"
+                + (f" mesh={self._mesh}" if self._mesh is not None else ""))
 
     def _graph_key(self, ins: dict[str, NDA], out_names: list[str]) -> tuple:
         return super()._graph_key(ins, out_names) + \
@@ -493,6 +843,13 @@ class CudaFwd(FwdEngine):
         if self.kernel_policy == "lib" and not explicit \
                 and "use_xla" not in str(self.tune):
             tune = dataclasses.replace(tune, use_xla=True)
+        # tp splits the library path's convs and fcs: a per-op or wisdom tune
+        # naming a hand kernel is forced to the library under tp, as boda_tpu
+        # forces it for GSPMD (executor.py:713-725); kernel_policy=gen with tp
+        # raises at the first forward (_check_mesh)
+        if not tune.use_xla and self.kernel_policy == "lib" and self._tp() > 1:
+            self._info_log.append(f"{op_name}: tp>1 forces use_xla (gen tune deferred)")
+            tune = dataclasses.replace(tune, use_xla=True)
         # an input_s2d stem must lower by the stem_s2d rule (the pre-folded
         # input shape only matches that rule's conv): over wisdom and policy
         if op_name in self._input_s2d_ops:
@@ -526,10 +883,10 @@ class CudaFwd(FwdEngine):
         self._blocks: dict[str, dict] = {}
         # no block fusion in graphs with backward ops or in training (the
         # kernel has no backward; gradients flow through the unfused
-        # lowerings), as in boda_tpu (executor.py:900-902); the port has no tp
-        # mesh, boda_tpu's third condition there
+        # lowerings), nor under tp (the block's convs are not split), as in
+        # boda_tpu (executor.py:900-902)
         if self.fuse_block and self.fuse_relu and self.fuse_eltwise and \
-                not pipe.bck_added and not self.train:
+                not pipe.bck_added and not self.train and self._tp() <= 1:
             self._detect_blocks(pipe)
         # bck graphs keep the per-forward fold: BN/Scale grads flow through it
         self._prefold_on = bool(self.prefold) and not pipe.bck_added
@@ -1026,10 +1383,17 @@ class CudaFwd(FwdEngine):
         return fn
 
     def _upload_weights(self) -> None:
+        """The weights on each dp slice's device: cast, prepped, prefolded;
+        under tp also each split weight's shards on the slice's devices."""
         self.drop_graph()
-        d = self.dev()
+        for rep in self._reps:
+            rep._weights_dev = self._upload_to(rep._lead)
+            if self._tp() > 1:
+                rep._weights_dev["__tp__"] = self._tp_shards(rep._weights_dev, rep._tp_devs)
+
+    def _upload_to(self, d: torch.device) -> dict[str, torch.Tensor]:
         cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
-        self._weights_dev = {}
+        wd = {}
         for k, w in self.pipe.weights.items():
             t = torch.from_numpy(np.ascontiguousarray(w.data)).to(d)
             if cdt is not None:  # cast first, then prep and fold
@@ -1037,10 +1401,33 @@ class CudaFwd(FwdEngine):
             prep = self._weight_preps.get(k)
             if prep is not None:
                 t = prep.prep(t)
-            self._weights_dev[k] = t
-        wd = self._weights_dev
+            wd[k] = t
         for wf, (wk, bk, fkeys, fold) in self._prefold_plan.items():
             wd[wf], wd[bk + "__folded"] = fold(wd[wk], wd[bk], [wd[k] for k in fkeys])
+        return wd
+
+    def _tp_shards(self, wd: dict, devs: list) -> _TpShards:
+        """The shards of every groups-1 conv's and every fc's filters that
+        boda_tpu's rule splits over tp (parallel/mesh.py:weight_shardings),
+        and of their biases, raw and prefolded, along out_chan's axis of the
+        uploaded layout."""
+        tp, parts = len(devs), {}
+        split = weight_shardings(self.pipe, self._mesh)
+        for op in self.pipe.ops.values():
+            if op.type not in ("Convolution", "InnerProduct") or \
+                    int(op.p("groups", 1)) != 1 or "tp" not in split[op.bots[1]]:
+                continue
+            prep = self._weight_preps.get(op.bots[1])
+            axis = prep.oc_axis if prep is not None else split[op.bots[1]].index("tp")
+            keys = [(op.bots[1], axis)] + [(b, 0) for b in op.bots[2:3]]
+            if op.name in self._prefold_keys:
+                wf, bf = self._prefold_keys[op.name]
+                keys += [(wf, axis), (bf, 0)]
+            for key, ax in keys:
+                k = wd[key].shape[ax] // tp
+                parts[key] = (ax, [wd[key].narrow(ax, j * k, k).contiguous().to(dev)
+                                   for j, dev in enumerate(devs)])
+        return _TpShards(devs, parts)
 
     def _is_4d(self, node: str) -> bool:
         d = self.pipe.nodes[node].dims
@@ -1117,6 +1504,9 @@ class CudaFwd(FwdEngine):
             # a profiler range per op (net_trace's attribution), only while a
             # torch profiler records: outside a trace no range is entered
             ranges = torch.autograd.profiler._is_profiler_enabled
+            tp, rec = weights.get("__tp__"), self._rec
+            if rec is not None:
+                rec.chains = dict(fused_now)
             self._q8_direct = set()
             vals = dict(weights)
             vals.update((k, self._ingest(k, v)) for k, v in inputs.items())
@@ -1160,12 +1550,23 @@ class CudaFwd(FwdEngine):
                 except KeyError as e:
                     raise PipeError(f"op {op_name!r}: missing input {e}") from None
                 self._cur_op = op_name
+                fn, args = lowered[op_name], bot_vals
+                if tp is not None and op.type in ("Convolution", "InnerProduct") \
+                        and bots[1] in tp.parts:
+                    fn, args = functools.partial(_tp_call, fn, bots, tp=tp), (bot_vals,)
+                if rec is not None:
+                    n_k, n_l = len(rec.kernels), len(rec.lib)
                 if ranges:
                     with torch.profiler.record_function(op_name):
-                        outs = lowered[op_name](*bot_vals)
+                        outs = fn(*args)
                 else:
-                    outs = lowered[op_name](*bot_vals)
+                    outs = fn(*args)
                 tops = [chain_final_top[op_name]] if op_name in fused_now else op.tops
+                if rec is not None:
+                    rec.ops[op_name] = {
+                        "in": [(b, kcommon.describe(v)) for b, v in zip(bots, bot_vals)],
+                        "out": [(t, kcommon.describe(v)) for t, v in zip(tops, outs)],
+                        "kernels": rec.kernels[n_k:], "lib": rec.lib[n_l:]}
                 for t, v in zip(tops, outs):
                     if t in quant:
                         v = _quantize(v, *quant[t])

@@ -142,11 +142,41 @@ def conv1x1_explicit(s):
     return _Conv1x1.apply
 
 
+# -- the collectives of the data-parallel step --------------------------------
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A copy of ``t`` summed over the process group's ranks. Every rank
+    gets the same bits: the backend reduces in one order for all."""
+    import torch.distributed as dist
+    out = t.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_reduce_buckets(ts: list, group) -> list:
+    """``ts`` summed over the group's ranks, one flat all-reduce per dtype.
+    Each result keeps its tensor's memory layout (a weight gradient is a
+    permuted view of the upload layout's), so that a reduction over it, the
+    clip's norm, sums in the same order as over the tensor itself."""
+    import torch.distributed as dist
+    out = list(ts)
+    by_dt: dict = {}
+    for i, t in enumerate(ts):
+        by_dt.setdefault(t.dtype, []).append(i)
+    for ix in by_dt.values():
+        flat = torch.cat([ts[i].reshape(-1) for i in ix])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(ix, flat.split([ts[i].numel() for i in ix])):
+            out[i] = torch.empty_like(ts[i]).copy_(part.view(ts[i].shape))
+    return out
+
+
 # -- 3. train-mode BatchNorm with the fused hand backward ---------------------
 
 
 @functools.lru_cache(maxsize=None)
-def make_bn_train(eps: float):
+def make_bn_train(eps: float, group=None):
     """fn(x_nhwc) -> (xhat[x.dtype], batch_mean[f32], batch_var[f32]).
 
     Forward: the training step's math (f32 mean over (n, y, x), the biased
@@ -154,13 +184,22 @@ def make_bn_train(eps: float):
     BN adjoint:
       dx = r/B * (B*dy - sum(dy) - xhat * sum(dy*xhat))
     plus the mean/var outputs' cotangent terms dm/B + dv*2(x-m)/B (zero in
-    the training step: the running-stat EMA reads them detached)."""
+    the training step: the running-stat EMA reads them detached). With a
+    process group (the data-parallel step's), B is the global batch: the
+    forward's mean and variance are each rank's scaled by 1/world and
+    summed, and the backward sums the two per-channel sums and dm, dv over
+    the ranks in one all-reduce."""
+    import torch.distributed as dist
+    world = dist.get_world_size(group) if group is not None else 1
+
+    def _global(t):
+        return all_reduce_sum(t * (1.0 / world), group) if group is not None else t
 
     def _fwd_math(x):
         xf = x.float()
-        m = xf.mean(dim=(0, 1, 2))
+        m = _global(xf.mean(dim=(0, 1, 2)))
         xc = xf - m
-        v = (xc * xc).mean(dim=(0, 1, 2))
+        v = _global((xc * xc).mean(dim=(0, 1, 2)))
         return (xc * torch.rsqrt(v + eps)).to(x.dtype), m, v
 
     class _BnTrain(torch.autograd.Function):
@@ -175,11 +214,15 @@ def make_bn_train(eps: float):
             x, m, v = ctx.saved_tensors
             xc = x.float() - m
             dyf = dy.float()
-            b_count = x.shape[0] * x.shape[1] * x.shape[2]
+            b_count = x.shape[0] * x.shape[1] * x.shape[2] * world
             r = torch.rsqrt(v + eps)
             # phase 1: one read of (dy, x) for both per-channel sums
             s_dy = dyf.sum(dim=(0, 1, 2))
-            s_dyxh = (dyf * xc).sum(dim=(0, 1, 2)) * r  # sum(dy * xhat)
+            s_dyxc = (dyf * xc).sum(dim=(0, 1, 2))
+            if group is not None:  # over the global batch
+                s_dy, s_dyxc, dm, dv = all_reduce_sum(
+                    torch.stack([s_dy, s_dyxc, dm.float(), dv.float()]), group).unbind(0)
+            s_dyxh = s_dyxc * r  # sum(dy * xhat)
             # phase 2: one read of (dy, x) and one write of dx
             dx = (r / b_count) * (b_count * dyf - s_dy - (xc * r) * s_dyxh)
             dx = dx + (dm + dv * 2.0 * xc) / b_count

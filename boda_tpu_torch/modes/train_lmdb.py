@@ -6,8 +6,8 @@ block-stream container), batch and preprocess them as test_lmdb does, and
 run optimizer steps (parallel/train.py: SGD, momentum, decoupled weight
 decay, clip, train-mode BN with ``bn_freeze_at``, f32 masters under
 ``compute_tn``, LR schedules, remat), with atomic checkpoints and resume.
-The steps run on the card unless ``--device=cpu``; ``mesh`` (boda_tpu's
-dp/tp sharding) is not ported.
+The steps run on the card unless ``--device=cpu``. ``mesh`` is refused:
+boda_tpu's train_lmdb declares it and never reads it.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class TrainLmdb(Mode):
                          help="switch BN to frozen running stats at this step (0=never)")
     compute_tn = Field(str, default="", help="bfloat16 = f32-master mixed precision")
     remat = Field(str, default="", help="rematerialization: '' | seg | full | dots")
-    mesh = Field("lexp", default="()", help="mesh axes, e.g. (dp=2) (not ported)")
+    mesh = Field("lexp", default="()", help="refused: boda_tpu's train_lmdb declares it and never reads it")
     log_every = Field(int, default="1", help="print loss every N steps")
     # LR schedules (parallel/schedules.py): lr is the base rate
     lr_schedule = Field(str, default="const", help="const | step | cosine")
@@ -74,8 +74,9 @@ class TrainLmdb(Mode):
         from ..parallel.train import find_logits_node, make_train_step, train_device
         from ..utils.img_io import Img
         if self.mesh.kids or self.mesh.leaf_val:
-            raise ConfigError("train_lmdb --mesh: multi-device training is not ported "
-                              "to boda_tpu_torch (ROADMAP §1 item 10, multi-device)")
+            raise ConfigError("train_lmdb --mesh: boda_tpu's train_lmdb declares mesh "
+                              "and never reads it (boda_tpu/modes/train_lmdb.py:49), so "
+                              "the port refuses it rather than ignore it (ROADMAP §3)")
         dev = train_device(self.device, "train_lmdb")
         pipe, in_dims = load_net(self.model, self.ptt_fn, "", self.img,
                                  self.in_sz, init_seed=self.init_seed)

@@ -15,6 +15,7 @@ _MODE_MODULES = [
     "boda_tpu_torch.modes.cnet",
     "boda_tpu_torch.modes.cnn_prof",
     "boda_tpu_torch.modes.detect",
+    "boda_tpu_torch.modes.dist_modes",
     "boda_tpu_torch.modes.display_modes",
     "boda_tpu_torch.modes.ipc_modes",
     "boda_tpu_torch.modes.lmdb_modes",

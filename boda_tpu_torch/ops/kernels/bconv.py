@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from . import build
 from .common import (PATH_CODES, WGMMA_CHUNK, aligned16, cdiv, check_operand, kernel_dtype,
-                     plan_cost, sm_count)
+                     kernel_entry, plan_cost, sm_count)
 from .conv import conv2d_nhwc
 
 # split-K plan of the WMMA and FMA paths: about this many blocks per SM
@@ -150,6 +150,7 @@ def matmul_atb_plain(a, b, out_dtype=torch.float32):
     return (a.float().t() @ b.float()).to(out_dtype)
 
 
+@kernel_entry("K5", lambda: matmul_atb.last_plan)
 def matmul_atb(a, b, out_dtype=torch.float32):
     """a[K,M]^T @ b[K,N] -> [M,N], f32 accumulate (then ``out_dtype``);
     a and b float32 or bfloat16, row-major."""
@@ -194,6 +195,7 @@ def conv2d_bck_filts_plain(x, dy, *, pad):
         for kx in range(kw)]) for ky in range(kh)])
 
 
+@kernel_entry("K5", lambda: matmul_atb.last_plan)
 def conv2d_bck_filts(x, dy, *, pad):
     """dW (KH,KW,C,OC) f32 from x (N,IH,IW,C) and dY (N,OH,OW,OC); stride 1.
     A 1x1 filter without padding is the dense form, x as [N*H*W, C] against
@@ -230,6 +232,7 @@ def conv2d_bck_in_plain(dy, w, *, pad):
     return dx.permute(0, 2, 3, 1).to(dy.dtype).contiguous()
 
 
+@kernel_entry("K3", lambda: conv2d.last_plan)
 def conv2d_bck_in(dy, w, *, pad):
     """dX (N,IH,IW,C) from dY (N,OH,OW,OC) and w (KH,KW,C,OC); stride 1:
     the forward conv of dY with rot180(w) io-transposed, pad k-1-p, zero

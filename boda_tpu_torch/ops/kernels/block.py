@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import KERNEL_DTYPES, PATH_CODES, aligned16, check_operand, kernel_dtype
+from .common import (KERNEL_DTYPES, PATH_CODES, aligned16, check_operand, kernel_dtype,
+                     kernel_entry, sm_count)
 
 
 class BlockPlan(NamedTuple):
@@ -81,6 +82,7 @@ def bottleneck_plain(x, w1, b1, w2, b2, w3, b3):
     return y.to(dt).contiguous()
 
 
+@kernel_entry("K6", lambda: bottleneck.last_plan)
 def bottleneck(x, w1, b1, w2, b2, w3, b3):
     """x (N,H,W,C) -> relu(x + conv1x1(relu(conv3x3(relu(conv1x1(x))))))."""
     if x.device.type == "cpu":
@@ -125,16 +127,23 @@ def _block_plan(path: str, n: int, h: int, w: int, t: int, cl: int) -> BlockPlan
     return BlockPlan(path, t, cl, blocks)
 
 
-@functools.lru_cache(maxsize=256)  # the C side's plan: a pure function of its arguments
 def plan(n: int, h: int, w: int, c: int, k: int, dtype: torch.dtype,
-         path: str | None = None, aligned: bool = True) -> BlockPlan:
+         path: str | None = None, aligned: bool = True,
+         dev: torch.device | None = None) -> BlockPlan:
     """The C side's plan for n images of h x w, c channels and k mid
     channels on ``path`` (default: :func:`route`'s; ``aligned``: every
-    operand starts on a 16-byte boundary), as a launch there would make it:
-    the tile side, the cluster of thread blocks per image and tile (more
-    than one only on the wgmma route), the blocks. Tile 0 if none fits."""
-    path = path or route(c, k, dtype, aligned)
+    operand starts on a 16-byte boundary) on the card ``dev`` (default: the
+    current one), as a launch there would make it: the tile side, the
+    cluster of thread blocks per image and tile (more than one only on the
+    wgmma route), the blocks. Tile 0 if none fits."""
+    return _plan(n, h, w, c, k, dtype, path or route(c, k, dtype, aligned),
+                 sm_count(dev if dev is not None else torch.device("cuda")))
+
+
+@functools.lru_cache(maxsize=256)  # the C side's plan: a pure function of its arguments
+def _plan(n: int, h: int, w: int, c: int, k: int, dtype: torch.dtype, path: str,
+          sms: int) -> BlockPlan:
     cl = ctypes.c_int(1)
     t = build.load().lib.boda_bottleneck_plan(n, h, w, c, k, KERNEL_DTYPES[dtype],
-                                              PATH_CODES[path], ctypes.byref(cl))
+                                              PATH_CODES[path], sms, ctypes.byref(cl))
     return _block_plan(path, n, h, w, t, cl.value)

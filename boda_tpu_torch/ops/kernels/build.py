@@ -38,10 +38,17 @@ _SIGS = {
     "boda_atb": [_P, _P, _P, _P] + [_I] * 18 + [_P],
     "boda_pool2d": [_P, _P] + [_I] * 17 + [_P],
     "boda_bottleneck": [_P] * 8 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int), _P],
-    "boda_bottleneck_plan": [_I] * 7 + [ctypes.POINTER(ctypes.c_int)],
+    "boda_bottleneck_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     "boda_eltwise": [_P, _P, _P, ctypes.c_longlong] + [_I] * 6 + [_P],
     "boda_stem": [_P] * 4 + [_I] * 14 + [_P],
 }
+
+
+# the source of each of boda_tpu's kernels that the port's entries launch
+# (ops/kernels/common.py KernelCall.kernel)
+KERNEL_SOURCES = {"K1": "sgemm.cu", "K2": "conv.cu", "K3": "conv.cu", "K4": "conv.cu",
+                  "K5": "atb.cu", "K6": "block.cu", "K7": "stem.cu", "K8": "pool.cu",
+                  "K9": "eltwise.cu"}
 
 
 class KernelBuild:
@@ -126,6 +133,28 @@ def load() -> KernelBuild:
         fn.restype = ctypes.c_int
     _loaded = KernelBuild(lib, so, secs, log)
     return _loaded
+
+
+def write_ptx(sources: list[str], out_dir) -> list[str]:
+    """``nvcc -ptx`` of the given ``csrc`` sources under the build's arch
+    flags into ``out_dir`` (one nvcc per source, all started together);
+    returns the files' names."""
+    nvcc, procs, names = _nvcc(), [], []
+    for src in sources:
+        name = Path(src).with_suffix(".ptx").name
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-ptx", f"-I{CSRC}",
+               "-o", str(Path(out_dir) / name), str(CSRC / src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        names.append(name)
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc -ptx failed:\n" + "\n".join(failed))
+    return names
 
 
 def check(rc: int, what: str) -> None:

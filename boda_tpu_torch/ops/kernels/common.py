@@ -4,8 +4,9 @@ plan (``bconv.py:plan_atb``) ranks its tiles by the same cost model."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -22,6 +23,68 @@ def epilogue(acc: torch.Tensor, bias, residual, relu: bool, out_dtype):
     if relu:
         acc = torch.clamp_min(acc, 0.0)
     return acc.to(out_dtype)
+
+
+# -- the kernels' calls, recorded on demand (the engine's gen_src plan) ----------
+
+_record: list | None = None  # the calls while recording() is on
+_depth = 0                   # entries in progress: a nested entry (a dgrad's conv) records once
+
+
+class KernelCall(NamedTuple):
+    kernel: str          # "K1" .. "K9", boda_tpu's kernel that the entry ports
+    entry: str           # the wrapper's name
+    plan: Any            # the plan it launched with, or "plain" for CPU tensors
+    operands: list[str]  # dtype[shape] of each tensor argument, then of the result
+
+
+def describe(t: torch.Tensor) -> str:
+    dt = str(t.dtype).removeprefix("torch.")
+    return f"{dt}[{','.join(map(str, t.shape))}]"
+
+
+def kernel_entry(kernel: str, plan_of: Callable[[], Any]):
+    """Decorator of a kernel's entry point: while :func:`recording` is on,
+    each outermost call appends a :class:`KernelCall` (``plan_of()`` gives
+    the plan of the launch just made; on CPU tensors the plain version ran).
+    Off, it adds one test of a global."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kw):
+            global _depth
+            if _record is None:
+                return fn(*args, **kw)
+            _depth += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                _depth -= 1
+            if _depth == 0:
+                ts = [a for a in args if isinstance(a, torch.Tensor)]
+                on_card = bool(ts) and ts[0].device.type == "cuda"
+                _record.append(KernelCall(kernel, fn.__name__,
+                                          plan_of() if on_card else "plain",
+                                          [describe(t) for t in ts + [out]]))
+            return out
+        return entry
+    return deco
+
+
+def in_kernel() -> bool:
+    """A kernel entry is running (its plain version's PyTorch calls are
+    the kernel's, not the library's)."""
+    return _depth > 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the kernel entries' calls into the list it yields."""
+    global _record
+    prev, _record = _record, []
+    try:
+        yield _record
+    finally:
+        _record = prev
 
 
 def check_operand(name: str, t: torch.Tensor, dev, dtype, shape) -> None:

@@ -32,7 +32,7 @@ from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
 from .common import (PATH_CODES, aligned16, check_operand, epilogue, kernel_dtype,
-                     plan_gemm, ptr, sm_count, splitk_workspace)
+                     kernel_entry, plan_gemm, ptr, sm_count, splitk_workspace)
 from .sgemm import matmul
 
 
@@ -101,6 +101,7 @@ conv2d.paths = dict.fromkeys(PATH_CODES, 0)
 conv2d.last_plan = None  # the plan of the latest launch
 
 
+@kernel_entry("K2", lambda: conv2d.last_plan)
 def conv2d_halo(x, wt, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
                 residual=None):
     """Entry point of K2 (``pallas_conv2d_halo``): the direct conv with the
@@ -109,6 +110,7 @@ def conv2d_halo(x, wt, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
                   residual=residual)
 
 
+@kernel_entry("K3", lambda: conv2d.last_plan)
 def conv2d_nhwc(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False):
     """Entry point of K3 (``pallas_conv2d_nhwc``): the direct conv without a
     residual. Unlike K3 it takes any stride."""
@@ -121,6 +123,7 @@ def conv2d_nhwc(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False):
 conv2d_nhwc.launches = 0  # conv-kernel launches through K3's entry (dgrads, folds)
 
 
+@kernel_entry("K4", lambda: conv2d.last_plan)
 def space_to_depth_conv(x, w, bias, *, stride, pad, relu: bool = False):
     """Entry point of K4 (``space_to_depth_conv``): a strided conv as a
     stride-1 conv on the space-to-depth fold, on the conv kernel

@@ -35,7 +35,7 @@ from ..op_base import Op
 from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
-from .common import aligned16, cdiv, sm_count
+from .common import aligned16, cdiv, kernel_entry, sm_count
 
 
 def _jnp_max(a, b):
@@ -117,6 +117,7 @@ def eltwise_plain(func: str, *xs, out_dtype=None):
     return f(*(x.float() for x in xs)).to(out_dtype, copy=True)
 
 
+@kernel_entry("K9", lambda: eltwise.last_plan)
 def eltwise(func: str, *xs, out_dtype=None):
     """f(a[, b]) elementwise over same-shape, same-dtype tensors (float32,
     bfloat16 or float16), output in ``out_dtype`` (must be the inputs')."""

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import aligned16, cdiv, check_operand, kernel_dtype, sm_count
+from .common import aligned16, cdiv, check_operand, kernel_dtype, kernel_entry, sm_count
 
 ROUTES = ("thread", "rows", "window")  # the C side's route codes, in order
 SMS = 132             # an H100 SXM's SMs: the plan's default, the card's own at a launch
@@ -188,6 +188,7 @@ def pool2d_plain(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+@kernel_entry("K8", lambda: pool2d.last_plan)
 def pool2d(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
     """x (N,H,W,C) -> (N,oy,ox,C): max or avg pool, caffe ceil-mode
     windows clipped to the image."""

@@ -22,7 +22,7 @@ from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
 from .common import (PATH_CODES, WGMMA_CHUNK, aligned16, cdiv, check_operand, epilogue,
-                     kernel_dtype, plan_gemm, ptr, sm_count, splitk_workspace)
+                     kernel_dtype, kernel_entry, plan_gemm, ptr, sm_count, splitk_workspace)
 
 
 def matmul_plain(a, b, bias=None, *, relu: bool = False, residual=None):
@@ -45,6 +45,7 @@ def matmul_splitk_plain(a, b, bias=None, *, relu: bool = False, residual=None,
     return epilogue(acc, bias, residual, relu, a.dtype)
 
 
+@kernel_entry("K1", lambda: matmul.last_plan)
 def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
     """a[M,K] @ b[K,N] (+bias[N]) (+residual[M,N]) (+ReLU), f32 accumulate,
     output in a's dtype (float32 or bfloat16). Row-major operands."""

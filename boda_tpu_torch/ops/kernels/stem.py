@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import aligned16, cdiv, check_operand, kernel_dtype, sm_count
+from .common import aligned16, cdiv, check_operand, kernel_dtype, kernel_entry, sm_count
 
 ROUTES = ("fma", "mma")  # the C side's route codes, in order
 SMS = 132                # an H100 SXM's SMs: the plan's default, the card's own at a launch
@@ -160,6 +160,7 @@ def stem_fused_plain(x6, w2, bias, *, kh: int, poh: int, pow_: int,
     return out.permute(0, 2, 3, 1).to(x6.dtype).contiguous()
 
 
+@kernel_entry("K7", lambda: stem_fused.last_plan)
 def stem_fused(x6, w2, bias, *, kh: int, poh: int, pow_: int, relu: bool = True):
     """x6 (N, XS_H, OW, CP), w2 (KH*CP, OC), bias (OC,) -> (N, POH, POW, OC):
     the stride-1 conv's NCV = XS_H - KH + 1 rows, bias, ReLU, and the 3x3 s2

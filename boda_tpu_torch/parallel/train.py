@@ -25,6 +25,17 @@ autograd, one step per call:
 * remat through ``torch.utils.checkpoint`` (non-reentrant): per spatial
   segment (``seg``), the whole net (``full``), or the whole net with a
   selective policy that keeps conv and matmul outputs (``dots``).
+* data parallel over a ``torch.distributed`` process group (``group``):
+  each rank steps its equal slice of the global batch and the step
+  computes what boda_tpu's dp-sharded GSPMD step computes on the global
+  batch. Train-mode BatchNorm takes its mean and two-pass variance over the
+  global batch (each rank's statistic scaled by 1/world and summed by an
+  all-reduce whose backward sums the cotangents over the ranks); the loss
+  is the global mean; the gradients are summed
+  over the ranks before the clip, one flat bucket per dtype, so every rank
+  clips, steps its momentum and updates its weights alike. With one rank
+  every all-reduce is the identity and the step is the step without a
+  group, bit for bit.
 """
 
 from __future__ import annotations
@@ -143,19 +154,43 @@ def _lower_train(pipe: ConvPipe, op, ctx: LowerCtx, gen: bool, info_log: list[st
     return fn, preps
 
 
-def _bn_train(op, vals: dict, new_stats: dict, bn_momentum: float):
+class _GlobalMean(torch.autograd.Function):
+    """The mean over (n, y, x) of an NHWC tensor over the global batch of a
+    process group: each rank's mean of its equal slice, scaled by 1/world,
+    summed by an all-reduce. Its backward is the mean's on the cotangent
+    summed over the ranks (each rank's output feeds that rank's share of the
+    global loss). One node, as the mean without a group is one, so that with
+    one rank the backward accumulates in the same order, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group, ctx.shape = group, x.shape
+        ctx.scale = 1.0 / dist.get_world_size(group)
+        return train_ops.all_reduce_sum(x.mean(dim=(0, 1, 2)) * ctx.scale, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = train_ops.all_reduce_sum(g, ctx.group) * ctx.scale
+        n, h, w, c = ctx.shape
+        return g.reshape(1, 1, 1, c).expand(ctx.shape) / (n * h * w), None
+
+
+def _bn_train(op, vals: dict, new_stats: dict, bn_momentum: float, group=None):
     """Train-mode BatchNorm (boda_tpu: train.py:82-111): normalize with the
     batch's f32 mean over (n, y, x) and biased two-pass variance, cast back;
-    EMA the unscaled running stats into ``new_stats`` with sf pinned to 1."""
+    EMA the unscaled running stats into ``new_stats`` with sf pinned to 1.
+    With a process group, the batch is the global one."""
     x = vals[op.bots[0]]
     eps = float(op.p("eps", 1e-5))
     if train_ops.enabled():
-        out, m_b, v_b = train_ops.make_bn_train(eps)(x)
+        out, m_b, v_b = train_ops.make_bn_train(eps, group)(x)
     else:
         xf = x.float()
-        m_b = xf.mean(dim=(0, 1, 2))
+        m_b = xf.mean(dim=(0, 1, 2)) if group is None else _GlobalMean.apply(xf, group)
         xc = xf - m_b
-        v_b = (xc * xc).mean(dim=(0, 1, 2))
+        v_b = (xc * xc).mean(dim=(0, 1, 2)) if group is None else \
+            _GlobalMean.apply(xc * xc, group)
         out = xc * torch.rsqrt(v_b + eps)
     mean_w, var_w = op.bots[1], op.bots[2]
     with torch.no_grad():
@@ -178,7 +213,8 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
                  bn_momentum: float = 0.0,
                  segments: Optional[list[list[str]]] = None,
                  kernel_policy: str = "gen",
-                 info_log: Optional[list[str]] = None) -> Callable:
+                 info_log: Optional[list[str]] = None,
+                 group=None) -> Callable:
     """fn(weights, inputs) -> {name: tensor}: the net's rules on channels-last
     tensors, weights in the logical layouts, inputs and outputs logical
     (NCHW for canonical nodes). bn_momentum > 0 switches BatchNorm to its
@@ -186,7 +222,8 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
     ``"__bn_stats__"``. ``segments`` (from :func:`spatial_segments`) runs
     each segment under a non-reentrant ``torch.utils.checkpoint``: its
     backward recomputes it from its boundary inputs. ``info_log`` collects
-    the rules' lines."""
+    the rules' lines. ``group``: train-mode BatchNorm over the global
+    batch of the group's ranks."""
     if kernel_policy not in ("gen", "lib"):
         raise PipeError(f"kernel_policy {kernel_policy!r}: gen | lib")
     ctx = ctx or LowerCtx(train=True)
@@ -205,7 +242,7 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
 
     def run_op(op, vals, new_stats):
         if bn_momentum > 0 and op.type == "BatchNorm":
-            return _bn_train(op, vals, new_stats, bn_momentum)
+            return _bn_train(op, vals, new_stats, bn_momentum, group)
         return lowered[op.name](*[vals[b] for b in op.bots])
 
     def run_ops(op_names, vals, new_stats):
@@ -305,7 +342,8 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                     compute_dtype=None,
                     lr_schedule: Optional[Callable] = None,
                     remat: str = "",
-                    kernel_policy: str = "gen") -> Callable:
+                    kernel_policy: str = "gen",
+                    group=None) -> Callable:
     """SGD (+momentum, +decoupled weight decay) step:
     fn(weights, inputs, labels[, mom_state][, step=]) -> (loss, new_weights)
     — or (loss, new_weights, new_mom_state) when momentum > 0 (pass the
@@ -318,13 +356,20 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
     forward and backward in compute_dtype, the frozen statistics kept in
     f32. lr_schedule (parallel.schedules.make_lr_schedule) derives lr from
     the ``step=`` index. remat: '' | seg | full | dots (module docstring).
-    kernel_policy: gen | lib. The returned function's ``info_log`` lists the
-    rules' choices (the gen convs' routes among them)."""
+    kernel_policy: gen | lib. group: a ``torch.distributed`` process group
+    whose ranks each step an equal slice of the global batch (module
+    docstring); the returned loss is then the global one. The returned
+    function's ``info_log`` lists the rules' choices (the gen convs' routes
+    among them)."""
     lctx = LowerCtx(precision=precision, train=True, det_drop_seed=42)
     info_log: list[str] = []
     build = functools.partial(build_net_fn, pipe, [logits_node], lctx,
                               bn_momentum=bn_momentum, kernel_policy=kernel_policy,
-                              info_log=info_log)
+                              info_log=info_log, group=group)
+    world = 1
+    if group is not None:
+        import torch.distributed as dist
+        world = dist.get_world_size(group)
     if remat == "seg":
         net_fn = build(segments=spatial_segments(pipe))
     else:
@@ -368,11 +413,17 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
             leaves = [weights[k].detach().requires_grad_() for k in names]
         with torch.enable_grad(), lib_precision(precision):
             loss, bn_stats = loss_fn({**dict(zip(names, leaves)), **frozen}, inputs, labels)
+            if group is not None:  # this rank's share of the global mean
+                loss = loss * (1.0 / world)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # the __update__ range: train_trace's clip, momentum and SGD rows
         with torch.no_grad(), _tagged("__update__"):
-            gs = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) if g is None
-                  else g.float() for g, t in zip(grads, leaves)]
+            gs = [torch.zeros(t.shape, dtype=t.dtype, device=t.device) if g is None
+                  else g for g, t in zip(grads, leaves)]
+            if group is not None:  # the global batch's gradients and loss
+                gs = train_ops.all_reduce_buckets(gs, group)
+                loss = train_ops.all_reduce_sum(loss.detach(), group)
+            gs = [g.float() for g in gs]
             if clip_norm > 0:
                 gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
                 scale = torch.clamp(clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)

@@ -111,17 +111,20 @@ def side_stream_warmup(run_once, n: int = 1, device=None) -> None:
 
 
 @contextlib.contextmanager
-def capture(graph):
-    """``torch.cuda.graph(graph)`` with Python's cyclic garbage collector held
-    off while the stream captures. A CUDA graph that an unreachable reference
-    cycle still holds (an engine and its net closure refer to each other) is
-    freed whenever the collector next runs, and an allocation inside a
-    capture can start it; freeing a graph during a capture invalidates the
-    capture (cudaErrorStreamCaptureInvalidated at its next launch)."""
+def capture(graph, stream=None):
+    """``torch.cuda.graph(graph, stream=stream)`` with Python's cyclic garbage
+    collector held off while the stream captures. A CUDA graph that an
+    unreachable reference cycle still holds (an engine and its net closure
+    refer to each other) is freed whenever the collector next runs, and an
+    allocation inside a capture can start it; freeing a graph during a
+    capture invalidates the capture (cudaErrorStreamCaptureInvalidated at its
+    next launch). Without a stream, torch captures on one process-wide
+    stream, made on the device that captured first: a capture on another
+    card passes a stream of that card."""
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             yield
     finally:
         if enabled:

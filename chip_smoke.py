@@ -113,6 +113,17 @@ display and proc_pipe entries among them, then every test_compute suite of
 testdata/test_all.xml, the gradient matrix's included), every entry
 outside its skip tables passing.
 
+Then [mesh]: the engine's ``mesh`` (parallel/mesh.py) on a 2-device mesh
+(the first two cards, or cuda:0 twice on a one-card machine) at ResNet-50
+b32 bf16: gen and fused (dp=2) replayed, each half bit-equal to the no-mesh
+replay at b16 with twice its launches; lib (dp=2,tp=2) against the no-mesh
+lib forward; gen (tp=2) refused; ms per forward beside the no-mesh b32; and
+``gen_src_dir``'s plan, captured graph and PTX. And [dist]: the data-parallel
+training step across ranks (modes/dist_modes.py): dist_test_master's golden
+2x2 case through the CLI on the card against the CPU, the flagship case
+(resnet50 224x224, remat=seg) against one process's step on the global
+batch, and a one-rank NCCL group's step bit-equal to the step with no group.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -3126,6 +3137,239 @@ def corpus_phase(card: str, out_dir) -> dict:
                           f"{len(want)} outside the skip table")
     return {"summary": summary, "skipped": len(skips), "suites_run": len(suites), "card": card}
 
+def mesh_devices(n: int) -> list:
+    """n mesh devices: the first n cards, or, with fewer cards, the cards in
+    turn (on a one-card machine cuda:0 n times)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def mesh_phase(card: str, fc_scale: float, out_dir, counted: dict) -> dict:
+    """[mesh]: the engine's ``mesh`` on a 2-device mesh (mesh_devices; on a
+    one-card machine cuda:0 twice) at ResNet-50 b32 224x224 bf16, fc1000
+    scaled as in [graph]: gen and fused ``(dp=2)`` replayed, each half of
+    the output bit-equal to the no-mesh engine's replay at b16 on its 16
+    images (the same shapes, so the same plans) with twice b16's launches;
+    lib ``(dp=2,tp=2)`` against the no-mesh lib forward within SLICE_TOL;
+    gen ``(tp=2)`` raising "dp only"; ms per dp=2 forward beside the no-mesh
+    b32; then ``gen_src_dir`` on the card: the plan, the captured graph and
+    the kernels' PTX of the gen forward."""
+    import os
+
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph.pipe import PipeError
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.parallel.mesh import make_mesh
+    from boda_tpu_torch.utils.dims import NDA
+    from boda_tpu_torch.utils.lexp import parse_lexp
+    devs = mesh_devices(2)
+    one_card = devs[0] == devs[1]
+    print(f"[mesh] the 2-device mesh: {', '.join(map(str, devs))}"
+          + (" (one card: its shards share cuda:0)" if one_card else ""))
+    pipe, in_dims = load_net("resnet50", img=BATCH)
+    half, hdims = load_net("resnet50", img=BATCH // 2)
+    scale_fc1000([pipe, half], fc_scale)
+    ins = gen_data_inputs(in_dims)
+    h = BATCH // 2
+    halves = [{"data": NDA(hdims["data"], ins["data"].data[i * h:(i + 1) * h])}
+              for i in range(2)]
+    outs = ["prob", "fc1000"]
+    res = {"devices": [str(d) for d in devs], "card": card}
+    for tag, kw in (("gen", {}), ("fused", {"fuse_block": True,
+                                            "tune": parse_lexp(FUSED_TUNE)})):
+        ref = make("conv_fwd", "cuda", compute_tn="bfloat16", **kw)
+        ref.init(half)
+        ref.prepare(halves[0], outs)
+        zero_counts(counted)
+        want = [ref.run_fwd(halves[0], outs)]
+        n_half = read_counts(counted)
+        want.append(ref.run_fwd(halves[1], outs))  # a replay of the same graph
+        e = make("conv_fwd", "cuda", compute_tn="bfloat16",
+                 mesh=make_mesh({"dp": 2}, devices=devs), **kw)
+        e.init(pipe)
+        e.prepare(ins, outs)
+        zero_counts(counted)
+        got = e.run_fwd(ins, outs)
+        n_mesh = read_counts(counted)
+        bit = all(np.array_equal(got[n].data[i * h:(i + 1) * h], want[i][n].data)
+                  for i in range(2) for n in outs)
+        check(bit, f"mesh {tag} (dp=2): a half differs from the no-mesh b{h} replay")
+        check(n_mesh == {k: 2 * v for k, v in n_half.items()},
+              f"mesh {tag} (dp=2) launches {n_mesh}, b{h} {n_half}")
+        b32 = make("conv_fwd", "cuda", compute_tn="bfloat16", **kw)
+        b32.init(pipe)
+        ms = e.time_fwd(ins, ["prob"], n_iters=20, warmup=3) * 1e3
+        ms_b32 = b32.time_fwd(ins, ["prob"], n_iters=20, warmup=3) * 1e3
+        res[tag] = {"launches": n_mesh, "launches_b16": n_half, "ms_dp2": ms,
+                    "ms_b32": ms_b32}
+        print(f"[mesh] resnet50 b{BATCH} bf16 {tag} (dp=2): each half bit-equal to the "
+              f"no-mesh b{h} replay; launches {n_mesh} = 2 x b{h}'s; {ms:.3f} ms per dp=2 "
+              f"forward, no mesh b{BATCH} {ms_b32:.3f} ms ({card})")
+        del ref, e, b32
+    lib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
+    lib.init(pipe)
+    ref = lib.run_fwd(ins, outs)
+    mt = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib",
+              mesh=make_mesh({"dp": 2, "tp": 2}, devices=mesh_devices(4)))
+    mt.init(pipe)
+    zero_counts(counted)
+    got = mt.run_fwd(ins, outs)
+    n_lib = read_counts(counted)
+    errs = {n: rel_err(torch.from_numpy(got[n].data), torch.from_numpy(ref[n].data))[1]
+            for n in outs}
+    split = len(mt._weights_dev["__tp__"].parts)
+    check(all(errs[n] <= SLICE_TOL[n] for n in outs), f"mesh lib (dp=2,tp=2): {errs}")
+    check(sum(n_lib.values()) == 0 and split > 0 and not mt._blocks,
+          f"mesh lib (dp=2,tp=2): launches {n_lib}, {split} split weights")
+    ms_tp = mt.time_fwd(ins, ["prob"], n_iters=20, warmup=3) * 1e3
+    ms_lib = lib.time_fwd(ins, ["prob"], n_iters=20, warmup=3) * 1e3
+    res["lib_dp2_tp2"] = {"max_rel_err": errs, "split_weights": split, "ms": ms_tp,
+                          "ms_b32": ms_lib}
+    print(f"[mesh] resnet50 b{BATCH} bf16 lib (dp=2,tp=2) on {', '.join(map(str, mesh_devices(4)))}"
+          f": {split} weights split over out_chan, vs no-mesh lib max|err|/max|ref| "
+          + ", ".join(f"{n} {errs[n]:.3e}" for n in outs)
+          + f" (tol {SLICE_TOL['fc1000']}); no hand kernel; {ms_tp:.3f} ms per forward, "
+          f"no mesh {ms_lib:.3f} ms ({card})")
+    del lib, mt
+    gtp = make("conv_fwd", "cuda", compute_tn="bfloat16",
+               mesh=make_mesh({"tp": 2}, devices=devs))
+    gtp.init(pipe)
+    try:
+        gtp.run_fwd(ins, outs)
+        raised = ""
+    except PipeError as e:
+        raised = str(e)
+    check("dp only" in raised, f"mesh gen (tp=2) did not raise 'dp only': {raised!r}")
+    print(f"[mesh] gen (tp=2) raises: {raised}")
+    # gen_src_dir on the card: the plan, the captured graph, the kernels' PTX
+    gdir = out_dir / "gen_src"
+    t0 = time.perf_counter()
+    gs = make("conv_fwd", "cuda", compute_tn="bfloat16", gen_src_dir=str(gdir))
+    gs.init(pipe)
+    gs.run_fwd(ins, ["prob"])
+    line = next((ln for ln in gs.get_info_log().splitlines() if ln.startswith("gen_src: ")), "")
+    files = sorted(os.listdir(gdir))
+    plan = next(f for f in files if f.endswith(".plan.txt"))
+    text = (gdir / plan).read_text()
+    check(any(f.endswith(".cuda_graph.dot") for f in files) and "sgemm.ptx" in files
+          and "conv.ptx" in files and "kernel: K2 conv2d_halo route=wgmma" in text,
+          f"gen_src on the card: {files}")
+    res["gen_src"] = {"files": files, "secs": time.perf_counter() - t0}
+    print(f"[mesh] gen_src_dir: {line} ({time.perf_counter() - t0:.1f} s; under "
+          f"build/chip_smoke/gen_src/)")
+    return res
+
+
+def dist_phase(card: str, out_dir) -> dict:
+    """[dist]: the dp training step across ranks on the card. The golden
+    case, ``dist_test_master --num-procs=2 --devices-per-proc=2 --steps=3``
+    through the CLI, its ranks bit-equal (the master compares their digests
+    of the losses, weights and momenta) and its losses within 1e-4 relative
+    of the same command's on the CPU; the flagship case (resnet50 224x224,
+    1000 classes, remat=seg, global b8, 2 steps), its ranks bit-equal and
+    its losses within 1e-3 relative of the single-process step on the global
+    batch on the card; a one-rank NCCL group's step bit-equal to the step
+    with no group (mini_resnet b8, 3 steps, every weight and momentum, with
+    cuDNN's deterministic algorithms). The ranks share the machine's cards
+    (modes/dist_modes.py: gloo where two share one). Prints ms per step per
+    rank and the backend."""
+    import re
+
+    import torch.distributed as dist
+
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.modes.dist_modes import _free_port
+    from boda_tpu_torch.parallel.train import find_logits_node, make_train_step
+    res = {"card": card}
+
+    def master(*extra):
+        rc, lines, err = run_cli_err(["dist_test_master", "--num-procs=2",
+                                      "--devices-per-proc=2", *extra])
+        (out_dir / "dist").mkdir(parents=True, exist_ok=True)
+        with open(out_dir / "dist" / "dist_test_master.txt", "a") as f:
+            f.write(" ".join(extra) + "\n" + "\n".join(lines) + "\n" + err + "\n")
+        check(rc == 0 and lines and lines[-1].endswith("all ranks agree OK"),
+              f"dist_test_master {' '.join(extra)} rc={rc}: {lines[-3:]} {err[-800:]}")
+        losses = [[float(v) for v in m.group(1).split(",")] for m in
+                  (re.search(r"losses=([\d.,-]+)", ln) for ln in lines) if m]
+        steps = [ln for ln in lines if "ms_per_step=" in ln]
+        for ln in steps + lines[-1:]:
+            print(f"[dist] {' '.join(extra) or 'card'}: {ln}")
+        return losses, steps, lines[-1]
+
+    t0 = time.perf_counter()
+    card_l, steps, last = master("--steps=3")
+    cpu_l, _, cpu_last = master("--steps=3", "--device=cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l[0], cpu_l[0]))
+    check(len(card_l) == 2 and card_l[0] == card_l[1], f"dist golden: ranks {card_l}")
+    check(rel <= 1e-4, f"dist golden: card {card_l[0]} vs CPU {cpu_l[0]} rel {rel:.3g}")
+    res["golden"] = {"losses": card_l[0], "cpu_losses": cpu_l[0], "max_rel": rel,
+                     "ranks": steps, "line": last, "secs": time.perf_counter() - t0}
+    print(f"[dist] golden 2x2: card {card_l[0]} vs CPU {cpu_l[0]}, max rel {rel:.3e} "
+          f"(tol 1e-4); {last}")
+
+    t0 = time.perf_counter()
+    flag = ("--model=resnet50", "--in-sz=224", "--num-cls=1000")
+    fl, fsteps, flast = master("--steps=2", *flag)
+    check(fl[0] == fl[1], f"dist flagship: ranks {fl}")
+    pipe, in_dims = build_model("resnet50", img=8, num_cls=1000, in_sz=224)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(*in_dims["data"].shape).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, size=(8,)).astype(np.int32)).cuda()
+    step = make_train_step(pipe, find_logits_node(pipe), lr=0.05, momentum=0.9,
+                           bn_momentum=0.1, clip_norm=1.0, remat="seg")
+    w = {k: torch.from_numpy(np.ascontiguousarray(v.data)).cuda()
+         for k, v in pipe.weights.items()}
+    mom, single, ms_single = None, [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        loss, w, mom = step(w, {"data": x}, y, mom)
+        single.append(float(loss))
+        ms_single.append((time.perf_counter() - t1) * 1e3)
+    del w, mom
+    frel = max(abs(a - b) / abs(b) for a, b in zip(fl[0], single))
+    check(frel <= 1e-3, f"dist flagship: ranks {fl[0]} vs one process {single} rel {frel:.3g}")
+    res["flagship"] = {"losses": fl[0], "single_process": single, "max_rel": frel,
+                       "ranks": fsteps, "line": flast, "single_ms_per_step": ms_single,
+                       "secs": time.perf_counter() - t0}
+    print(f"[dist] flagship resnet50 224 b8 (2 ranks x b4, remat=seg): {fl[0]} vs one "
+          f"process {single}, max rel {frel:.3e} (tol 1e-3); one process b8: ms per step "
+          + ",".join(f"{v:.3f}" for v in ms_single) + f" ({card})")
+
+    # a one-rank NCCL group: bit-equal to no group
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pipe, in_dims = build_model("mini_resnet", img=8, num_cls=16, in_sz=16)
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.randn(*in_dims["data"].shape).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 16, size=(8,)).astype(np.int32)).cuda()
+        runs = {}
+        for tag, group in (("none", None), ("nccl", dist.group.WORLD)):
+            step = make_train_step(pipe, find_logits_node(pipe), lr=0.05, momentum=0.9,
+                                   bn_momentum=0.1, clip_norm=1.0, group=group)
+            w = {k: torch.from_numpy(np.ascontiguousarray(v.data)).cuda()
+                 for k, v in pipe.weights.items()}
+            mom, losses = None, []
+            for _ in range(3):
+                loss, w, mom = step(w, {"data": x}, y, mom)
+                losses.append(loss)
+            runs[tag] = (losses, w, mom)
+        (la, wa, ma), (lb, wb, mb) = runs["none"], runs["nccl"]
+        same = all(torch.equal(a, b) for a, b in zip(la, lb)) and \
+            all(torch.equal(wa[k], wb[k]) for k in wa) and \
+            all(torch.equal(ma[k], mb[k]) for k in ma)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+    check(same, "dist: the one-rank NCCL group's step differs from the step with no group")
+    res["nccl_one_rank_bit_equal"] = same
+    print(f"[dist] a one-rank NCCL group: 3 steps of mini_resnet b8 bit-equal to no group "
+          f"(loss, {len(wa)} weights, {len(ma)} momenta) ({card})")
+    return res
+
 
 def main() -> int:
     t_main = time.perf_counter()
@@ -4231,6 +4475,15 @@ def main() -> int:
     # -- phase 14: [corpus] the golden corpus through the port's test_all ------------
     corpus = corpus_phase(card, out_dir)
     lap("corpus")
+    # -- phase 15: [mesh] the engine's dp/tp mesh; gen_src_dir on the card -------------
+    mesh = mesh_phase(card, fc_scale, out_dir, counted)
+    for entry in kernels:  # one gen dp=2 forward's launches
+        if entry["name"] in ("sgemm", "conv"):
+            entry["launches_mesh"] = mesh["gen"]["launches"][entry["name"]]
+    lap("mesh")
+    # -- phase 16: [dist] the dp training step across ranks ----------------------------
+    dist_run = dist_phase(card, out_dir)
+    lap("dist")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -4241,6 +4494,7 @@ def main() -> int:
                                          for tn, r in sg.items()},
                       "caffe": caffe, "caffe_grad": caffe_grad, "int8": int8, "lmdb": lmdb, "ssd": ssd,
                       "train": train, "tools": tools, "serve": serve, "corpus": corpus,
+                      "mesh": mesh, "dist": dist_run,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -61,6 +61,8 @@ import boda_tpu_torch.stream.data_stream, boda_tpu_torch.stream.velodyne
 import boda_tpu_torch.stream.avi, boda_tpu_torch.stream.rosbag
 import boda_tpu_torch.modes.stream_modes, boda_tpu_torch.modes.display_modes
 import boda_tpu_torch.modes.proc_pipe, boda_tpu_torch.modes.plot_modes
+import boda_tpu_torch.parallel.mesh, boda_tpu_torch.parallel.dryrun
+import boda_tpu_torch.modes.dist_modes
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make

@@ -80,29 +80,33 @@ def test_diff_file_types(tmp_path):
 def test_device_free_goldens(tmp_path, capsys):
     """noop, blf_pack_basic, img_pyra_pack_t1 and the err_* entries of the
     repo corpus through the port's test_cmds, err_no_camera's capture error
-    among them; err_bad_mode prints a SKIP line naming why."""
-    rc = cli.main(["test_cmds", f"--boda-output-dir={tmp_path}",
+    among them; err_bad_mode, which pins boda_tpu's full mode list, runs and
+    passes: the two packages register the same modes."""
+    rc = cli.main(["test_cmds", f"--boda-output-dir={tmp_path}", "--verbose=1",
                    "--filt=^(noop|blf_pack_basic|img_pyra_pack_t1|err_.*)$"])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "SKIP err_bad_mode: it pins boda_tpu's full mode list" in out
-    assert "SKIP err_no_camera" not in out
+    assert "PASS err_bad_mode" in out and "SKIP" not in out
     n_err = sum(1 for li in ET.parse(os.path.join(TD, "test_cmds.xml")).getroot().iter("li")
                 if li.get("test_name").startswith("err_"))
-    assert f"test_cmds: {n_err + 2}/{n_err + 2} passed, 1 skipped (test_cmds.xml)" in out
+    assert f"test_cmds: {n_err + 3}/{n_err + 3} passed, 0 skipped (test_cmds.xml)" in out
 
 
-def _roadmap_section3() -> str:
+def _roadmap_kept() -> str:
+    """ROADMAP §3's list of what was found in the reference and kept."""
     text = open(os.path.join(REPO, "ROADMAP.md")).read()
-    return text[text.index("### 3."):text.index("## Recent")]
+    text = text[text.index("### 3."):text.index("## Recent")]
+    start = text.index("**Found in the reference, kept as it is:**")
+    return text[start:text.index("\n\n**", start)]
 
 
 def test_skip_table_holds_only_its_reasons():
     """Each entry of NOT_RUN names a corpus entry that the port cannot run
-    for the reason it gives: a mode the port does not register, a conv_fwd
-    type it does not have, boda_tpu's full mode list, or (named in ROADMAP
-    §3) a golden that differs on the card. So the table shrinks as modes
-    arrive, and every other corpus mode is registered."""
+    for the reason it gives: a conv_fwd type it does not have, or a golden
+    that differs from boda_tpu's own output (on a line of ROADMAP §3 "Found
+    in the reference, kept as it is", naming the entry and its golden). So
+    every other corpus mode is registered, and the mode list that
+    err_bad_mode pins is boda_tpu's."""
     entries = {li.get("test_name"): li for li in
                ET.parse(os.path.join(TD, "test_cmds.xml")).getroot().iter("li")}
     modes, engines = set(registered_tids("mode")), set(registered_tids("conv_fwd"))
@@ -110,18 +114,17 @@ def test_skip_table_holds_only_its_reasons():
         assert name in entries, name
         assert reason in tc.REASONS and item.startswith("§"), name
         cli_str = entries[name].get("cli_str")
-        if reason == "mode":
-            assert cli_str.split()[0] == what and what not in modes, name
-        elif reason == "engine":
+        if reason == "engine":
             for e in what.split(", "):
                 assert f"mode={e}" in cli_str and e not in engines, name
-        elif reason == "mode_list":
-            listed = re.search(r"valid values: (\[.*\])", entries[name].get("err")).group(1)
-            assert listed != str(sorted(modes)), name
         else:
-            assert name in _roadmap_section3(), f"{name}: a card finding not in ROADMAP §3"
-    for name, li in entries.items():
-        if name not in tc.NOT_RUN:
+            assert os.path.exists(os.path.join(REPO, what)), name
+            line = next((ln for ln in _roadmap_kept().split("\n- ") if name in ln), "")
+            assert what in line.replace("\n  ", " "), f"{name}: its golden not in ROADMAP §3"
+    listed = re.search(r"valid values: (\[.*\])", entries["err_bad_mode"].get("err")).group(1)
+    assert listed == str(sorted(modes))
+    for name, li in entries.items():  # err_bad_mode names no mode, by design
+        if name not in tc.NOT_RUN and name != "err_bad_mode":
             assert tc._split_cli(li.get("cli_str"))[0] in modes, name
     suites = {li.get("cli_str") for li in
               ET.parse(os.path.join(TD, "test_all.xml")).getroot().iter("li")}
@@ -131,11 +134,12 @@ def test_skip_table_holds_only_its_reasons():
 
 
 def test_skip_table_holds_four_entries():
-    """With the stream, display, proc_pipe and plot modes registered, NOT_RUN
-    holds the multi-device entry, the two that name boda_tpu's TPU engines
-    and boda_tpu's full mode list, and nothing else."""
-    assert set(tc.NOT_RUN) == {"dist_test_2x2", "run_cnet_int8", "gen_src_tinynet",
-                               "err_bad_mode"}
+    """NOT_RUN held four entries until the dist modes were registered and
+    err_bad_mode left it. Now it holds the two entries that name boda_tpu's
+    TPU engines and dist_test_2x2, whose golden is stale, and nothing
+    else."""
+    assert set(tc.NOT_RUN) == {"dist_test_2x2", "run_cnet_int8", "gen_src_tinynet"}
+    assert tc.NOT_RUN["dist_test_2x2"][0] == "golden"
 
 
 def test_test_all_skips_and_native_gate(tmp_path, capsys, monkeypatch):

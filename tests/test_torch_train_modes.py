@@ -152,11 +152,13 @@ def test_lr_schedules_match_boda_tpu():
 
 
 def test_mesh_and_device_errors(monkeypatch, capsys):
-    """--mesh other than () names ROADMAP §1 item 10; device=cuda without a
-    card raises; train_bench on the CPU needs golden_out."""
+    """--mesh other than () is refused, naming boda_tpu's train_lmdb, which
+    declares mesh and never reads it; device=cuda without a card raises;
+    train_bench on the CPU needs golden_out."""
     common = ["train_lmdb", f"--rec-fn={REC}", "--model=mini_resnet", "--img=4"]
     assert main([*common, "--mesh=(dp=2)", CPU]) == 1
-    assert "ROADMAP §1 item 10" in capsys.readouterr().err
+    assert "declares mesh and never reads it (boda_tpu/modes/train_lmdb.py:49)" in \
+        capsys.readouterr().err
     assert main(["train_bench", "--model=mini_resnet", "--img=2", CPU]) == 1
     assert "--golden-out=1" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
