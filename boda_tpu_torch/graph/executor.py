@@ -43,7 +43,8 @@ engine, through ``shard_map``), and the outputs are concatenated on the
 first device. Under ``kernel_policy=lib`` a tp axis splits every groups-1
 conv and fc weight over out_chan: each of the slice's tp devices computes
 its channels and the slices are gathered on the first before the next op
-(boda_tpu's GSPMD path); the block fusion is off and a gen tune is forced to
+(boda_tpu's GSPMD path; parallel/mesh.py:tp_call, which the training step
+runs too); the block fusion is off and a gen tune is forced to
 the library, as there. ``gen_src_dir`` writes what each forward ran: its
 plan per op, and on the card the captured graph and the kernels' PTX.
 """
@@ -65,7 +66,7 @@ from ..ops.kernels import common as kcommon
 from ..ops.kernels.bconv import conv2d_bck_filts, conv2d_bck_in
 from ..ops.kernels.block import block_fuse_ok, bottleneck
 from ..ops.tune import OpTune
-from ..parallel.mesh import Mesh, make_mesh, weight_shardings
+from ..parallel.mesh import Mesh, make_mesh, split_tensor, tp_call, weight_shardings
 from ..rtc.backends import capture, graph_time, side_stream_warmup
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
@@ -116,7 +117,7 @@ class _Replica:
 class _TpShards(NamedTuple):
     """A dp slice's tp shards, under the key ``__tp__`` of its weights: its
     devices along tp, and per split weight (a conv or fc filter, its bias,
-    their prefolded forms) the split axis and one shard per device."""
+    their prefolded forms) its :class:`~..parallel.mesh.Shards`."""
     devs: list
     parts: dict
 
@@ -140,31 +141,6 @@ def _cuda_index(dev: torch.device) -> int:
 def _on(dev: torch.device):
     """The CUDA device context of ``dev`` (nothing for the CPU)."""
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-
-
-def _tp_call(fn: Callable, bots: list, vals: list, tp: _TpShards) -> tuple:
-    """One conv or fc op over its dp slice's tp devices (boda_tpu: the GSPMD
-    path, executor.py:251-273): each device computes its out_chan slice with
-    its weight shards, the other per-channel operands (unfolded BN/Scale
-    parameters, a fused residual) cut to the same channels; the slices are
-    concatenated on the first device, where the next op runs."""
-    axis, w_parts = tp.parts[bots[1]]
-    k = w_parts[0].shape[axis]
-    full = k * len(tp.devs)
-    pieces = []
-    for j, dev in enumerate(tp.devs):
-        args = [vals[0].to(dev), w_parts[j]]
-        for b, v in zip(bots[2:], vals[2:]):
-            if b in tp.parts:
-                args.append(tp.parts[b][1][j])
-            elif v.dim() >= 1 and v.shape[-1] == full:
-                args.append(v[..., j * k:(j + 1) * k].to(dev))
-            else:
-                args.append(v.to(dev))
-        pieces.append(fn(*args))
-    lead = vals[0].device
-    return tuple(torch.cat([p[i].to(lead) for p in pieces], dim=-1)
-                 for i in range(len(pieces[0])))
 
 
 @register_base("conv_fwd", tid_vn="mode")
@@ -1411,7 +1387,7 @@ class CudaFwd(FwdEngine):
         boda_tpu's rule splits over tp (parallel/mesh.py:weight_shardings),
         and of their biases, raw and prefolded, along out_chan's axis of the
         uploaded layout."""
-        tp, parts = len(devs), {}
+        parts = {}
         split = weight_shardings(self.pipe, self._mesh)
         for op in self.pipe.ops.values():
             if op.type not in ("Convolution", "InnerProduct") or \
@@ -1424,9 +1400,7 @@ class CudaFwd(FwdEngine):
                 wf, bf = self._prefold_keys[op.name]
                 keys += [(wf, axis), (bf, 0)]
             for key, ax in keys:
-                k = wd[key].shape[ax] // tp
-                parts[key] = (ax, [wd[key].narrow(ax, j * k, k).contiguous().to(dev)
-                                   for j, dev in enumerate(devs)])
+                parts[key] = split_tensor(wd[key], ax, devs)
         return _TpShards(devs, parts)
 
     def _is_4d(self, node: str) -> bool:
@@ -1553,7 +1527,8 @@ class CudaFwd(FwdEngine):
                 fn, args = lowered[op_name], bot_vals
                 if tp is not None and op.type in ("Convolution", "InnerProduct") \
                         and bots[1] in tp.parts:
-                    fn, args = functools.partial(_tp_call, fn, bots, tp=tp), (bot_vals,)
+                    fn, args = functools.partial(tp_call, fn, devs=tp.devs), (
+                        [tp.parts.get(b, v) for b, v in zip(bots, bot_vals)],)
                 if rec is not None:
                     n_k, n_l = len(rec.kernels), len(rec.lib)
                 if ranges:

@@ -155,16 +155,19 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_reduce_buckets(ts: list, group) -> list:
-    """``ts`` summed over the group's ranks, one flat all-reduce per dtype.
-    Each result keeps its tensor's memory layout (a weight gradient is a
-    permuted view of the upload layout's), so that a reduction over it, the
-    clip's norm, sums in the same order as over the tensor itself."""
+    """``ts`` summed over the group's ranks, one flat all-reduce per device
+    and dtype (a tp-split weight's gradients lie on the devices of its
+    shards), the buckets in the order of their first tensors: every rank
+    holds its tensors alike. Each result keeps its tensor's memory layout
+    (a weight gradient is a permuted view of the upload layout's), so that a
+    reduction over it, the clip's norm, sums in the same order as over the
+    tensor itself."""
     import torch.distributed as dist
     out = list(ts)
-    by_dt: dict = {}
+    buckets: dict = {}
     for i, t in enumerate(ts):
-        by_dt.setdefault(t.dtype, []).append(i)
-    for ix in by_dt.values():
+        buckets.setdefault((t.device, t.dtype), []).append(i)
+    for ix in buckets.values():
         flat = torch.cat([ts[i].reshape(-1) for i in ix])
         dist.all_reduce(flat, group=group)
         for i, part in zip(ix, flat.split([ts[i].numel() for i in ix])):

@@ -7,7 +7,10 @@ JSON ``__meta__`` (step, dtype manifest, has_mom), written to a temp file and
 bfloat16 arrays are stored as uint16 views named in the manifest. Arrays are
 kept in boda_tpu's logical layouts (conv filters OIHW, fc (out, in)), so a
 checkpoint written by either package loads in the other. Reading bf16 needs
-no ml_dtypes: the uint16 view becomes a torch bfloat16 tensor.
+no ml_dtypes: the uint16 view becomes a torch bfloat16 tensor. Weights and
+momenta split over a mesh's tp row (parallel/mesh.py ``Shards``) are
+written as their logical arrays, the file a step without a mesh writes;
+``load_checkpoint`` with a pipe and a mesh splits them again.
 """
 
 from __future__ import annotations
@@ -18,9 +21,13 @@ import os
 import numpy as np
 import torch
 
+from .mesh import Shards, shard_weights
+
 
 def _host(v) -> tuple[np.ndarray, bool]:
     """(numpy array, is bf16) of a tensor or an array; bf16 as uint16 bits."""
+    if isinstance(v, Shards):
+        v = v.gather(torch.device("cpu"))
     if isinstance(v, torch.Tensor):
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -57,8 +64,11 @@ def save_checkpoint(fn: str, step: int, weights: dict,
     os.replace(tmp, fn)  # atomic: readers never see a partial file
 
 
-def load_checkpoint(fn: str) -> tuple[int, dict, dict | None]:
-    """-> (step, weights, mom_state-or-None), as CPU torch tensors."""
+def load_checkpoint(fn: str, pipe=None, mesh=None,
+                    dp: int = 0) -> tuple[int, dict, dict | None]:
+    """-> (step, weights, mom_state-or-None), as CPU torch tensors; given
+    the pipe and a mesh, on dp slice ``dp``'s tp row as shard_weights
+    places them."""
     z = np.load(fn)
     meta = json.loads(bytes(z["__meta__"]).decode())
     dtypes = meta["dtypes"]
@@ -77,4 +87,7 @@ def load_checkpoint(fn: str) -> tuple[int, dict, dict | None]:
 
     weights = unpack("w/")
     mom = unpack("m/") if meta["has_mom"] else None
+    if mesh is not None:
+        weights = shard_weights(weights, pipe, mesh, dp)
+        mom = shard_weights(mom, pipe, mesh, dp) if mom is not None else None
     return meta["step"], weights, mom

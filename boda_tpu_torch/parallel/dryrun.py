@@ -6,16 +6,20 @@ jits boda_tpu's full training step over an n-device dp x tp mesh and runs
 the sharded inference forward against the single-device engine. Here:
 
 1. the full production step (momentum, clip, train-mode BatchNorm,
-   ``remat=seg``) on two ranks of a ``torch.distributed`` group
-   (parallel/train.py's dp step; gloo on the CPU, modes/dist_modes.py's
-   backend rule on the card), two steps: the loss finite, the BN
-   statistics moved, every rank's losses and weights the same bits;
+   ``remat=seg``) on the ``(dp=2,tp=n/2)`` mesh: two ranks of a
+   ``torch.distributed`` group, each stepping its half of the batch on its
+   tp row of n/2 devices (parallel/train.py's dp x tp step; the weights and
+   momenta split over out_chan as boda_tpu's ``weight_shardings`` splits
+   them), two steps: the loss finite, the BN statistics moved, every rank's
+   losses and its gathered weights and momenta the same bits;
 2. the engine's ``(dp=2,tp=n/2)`` forward under ``kernel_policy=lib`` on n
    logical devices (the engine's device repeated n times) against the
    single-device engine, ``comp_vars`` at 1e-5.
 
-Tensor parallelism in the training step is not ported: the ranks split the
-batch only.
+The n devices are the CPU n times, or on the card ``mesh_devices``' rule:
+the cards in turn (one card: cuda:0 n times). The ranks talk over NCCL
+where each rank's row is one card of its own, else over gloo (on the CUDA
+tensors where they lie on cards).
 
     python -m boda_tpu_torch.parallel.dryrun 8 [cpu]
 """
@@ -50,31 +54,57 @@ def _batch(in_dims, n_cls: int):
     return x, labels
 
 
+def _mesh(n_devices: int, dp: int, tp: int, device: str):
+    """The (dp, tp) mesh over n devices (module docstring), and the ranks'
+    backend (``rows_backend``)."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+    if device == "cpu":
+        devs = [torch.device("cpu")] * n_devices
+    else:
+        cards = torch.cuda.device_count()
+        devs = [torch.device("cuda", i % cards) for i in range(n_devices)]
+    mesh = make_mesh({"dp": dp, "tp": tp}, devices=devs)
+    return mesh, rows_backend(mesh)
+
+
+def rows_backend(mesh) -> str:
+    """The process group's backend for ranks that each step one tp row of
+    ``mesh``: NCCL where each row is one card of its own (NCCL takes one
+    device per rank), else gloo."""
+    from ..parallel.mesh import tp_row
+    rows = [set(tp_row(mesh, i)) for i in range(mesh.size("dp"))]
+    one_card = all(len(r) == 1 and next(iter(r)).type == "cuda" for r in rows)
+    return "nccl" if one_card and len(set().union(*rows)) == len(rows) else "gloo"
+
+
 def rank_body(rank: int, world: int, coord: str, n_devices: int, device: str) -> dict:
     """One rank of part 1: two production steps on this rank's slice of
-    the batch; returns its losses, whether the BN statistics moved, and a
-    digest of its weights and momentum."""
+    the batch and its tp row; returns its losses, whether the BN
+    statistics moved, and a digest of its gathered weights and momentum."""
     import torch
     import torch.distributed as dist
 
-    from ..modes.dist_modes import dist_backend, rank_device
+    from ..parallel.mesh import gather_weights, shard_weights, tp_row
     from ..parallel.train import find_logits_node, make_train_step
-    dev = rank_device(device, rank)
+    _, tp, pipe, in_dims = _case(n_devices)
+    mesh, backend = _mesh(n_devices, world, tp, device)
+    dev = tp_row(mesh, rank)[0]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(dist_backend(device, world), init_method=f"tcp://{coord}",
+    dist.init_process_group(backend, init_method=f"tcp://{coord}",
                             world_size=world, rank=rank)
     try:
-        _, tp, pipe, in_dims = _case(n_devices)
         step = make_train_step(pipe, find_logits_node(pipe), lr=0.01, clip_norm=1.0,
                                momentum=0.9, bn_momentum=0.1, remat="seg",
-                               group=dist.group.WORLD)
+                               group=dist.group.WORLD, mesh=mesh)
         x, labels = _batch(in_dims, 16 * tp)
         per = x.shape[0] // world
         xs = torch.from_numpy(x[rank * per:(rank + 1) * per]).to(dev)
         ys = torch.from_numpy(labels[rank * per:(rank + 1) * per]).to(dev)
-        w = {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(dev)
-             for k, v in pipe.weights.items()}
+        w = shard_weights({k: torch.from_numpy(np.ascontiguousarray(v.data))
+                           for k, v in pipe.weights.items()}, pipe, mesh, rank)
         bn_k = next(k for k in w if k.endswith("__means"))
         bn0 = w[bn_k].cpu().numpy()
         mom, losses = None, []
@@ -83,9 +113,10 @@ def rank_body(rank: int, world: int, coord: str, n_devices: int, device: str) ->
             losses.append(float(loss))
         h = hashlib.sha256()
         for d in (w, mom):
+            d = gather_weights(d, torch.device("cpu"))
             for k in sorted(d):
-                h.update(d[k].detach().cpu().numpy().tobytes())
-        return {"rank": rank, "losses": losses, "digest": h.hexdigest(),
+                h.update(d[k].detach().numpy().tobytes())
+        return {"rank": rank, "losses": losses, "digest": h.hexdigest(), "backend": backend,
                 "bn_moved": not np.allclose(w[bn_k].cpu().numpy(), bn0)}
     finally:
         dist.destroy_process_group()
@@ -116,8 +147,9 @@ def _train_across_ranks(n_devices: int, device: str, world: int = 2) -> list[dic
     return res
 
 
-def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
-    """Both parts; raises on any failure (a parity miss included)."""
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[float]:
+    """Both parts; raises on any failure (a parity miss included). Returns
+    part 1's losses."""
     import torch
 
     from ..config import make
@@ -125,7 +157,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     from ..utils.digest import comp_vars
     from ..utils.dims import NDA
     dp, tp, pipe, in_dims = _case(n_devices)
-    ranks = _train_across_ranks(n_devices, device)
+    ranks = _train_across_ranks(n_devices, device, world=dp)
     r0 = ranks[0]
     if not all(np.isfinite(r0["losses"])):
         raise RuntimeError(f"dryrun_multichip: non-finite loss {r0['losses']}")
@@ -135,8 +167,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
         if (r["losses"], r["digest"]) != (r0["losses"], r0["digest"]):
             raise RuntimeError(f"dryrun_multichip: rank {r['rank']} {r['losses']} "
                                f"differs from rank 0 {r0['losses']}")
-    print(f"dryrun_multichip({n_devices}): {len(ranks)} ranks, loss "
-          f"{r0['losses'][0]:.4f} -> {r0['losses'][1]:.4f} "
+    print(f"dryrun_multichip({n_devices}): {len(ranks)} ranks x (tp={tp}) over "
+          f"{r0['backend']}, loss {r0['losses'][0]:.4f} -> {r0['losses'][1]:.4f} "
           "(momentum+BN-stats+remat threaded, ranks bit-equal) OK")
 
     x, _ = _batch(in_dims, 16 * tp)
@@ -156,6 +188,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     print(f"dryrun_multichip({n_devices}): dp={dp} tp={tp} sharded inference forward OK "
           f"(prob sum {float(probs.sum()):.3f}, parity vs single-device "
           f"mrd={res.mrd:.2e}, gate rel 1e-5 + atol 1e-8)")
+    return r0["losses"]
 
 
 if __name__ == "__main__":

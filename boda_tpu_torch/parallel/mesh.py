@@ -18,13 +18,20 @@ splits it, or None (the entries of boda_tpu's ``PartitionSpec``).
 The devices of a mesh may repeat: an n-way mesh on one card (or on the CPU)
 places several shards on the same device, and computes what the n-device
 mesh computes.
+
+Under tp a split tensor is a :class:`Shards`: one part per device of a tp
+row, each an allocation of its own. :func:`shard_weights` and
+:func:`gather_weights` are the counterparts of ``jax.device_put`` with a
+weight's sharding and of ``np.asarray`` of a sharded array;
+:func:`tp_call` runs one conv or fc over a tp row, for the engine and the
+training step alike.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -129,3 +136,111 @@ def input_shardings(in_dims: dict, mesh: Mesh, dp_axis: str = "dp",
             spec[d.index("y")] = sp_axis
         out[name] = tuple(spec)
     return out
+
+
+class Shards(list):
+    """A tensor split into equal parts along ``axis``, one per device of a
+    tp row, in the row's order."""
+
+    def __init__(self, parts, axis: int):
+        super().__init__(parts)
+        self.axis = axis
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default: the first part's)."""
+        dev = device if device is not None else self[0].device
+        return torch.cat([p.to(dev) for p in self], dim=self.axis)
+
+    def map(self, fn: Callable, axis: int) -> "Shards":
+        """``fn`` of each part, split along ``axis`` of the results."""
+        return Shards([fn(p) for p in self], axis)
+
+
+def own_copy(t: torch.Tensor, dev) -> torch.Tensor:
+    """A contiguous copy of ``t`` on ``dev`` in an allocation of its own
+    (a narrowed view keeps its parent's offset, and with it loses the
+    16-byte alignment the kernels' vector paths want)."""
+    return t.to(dev, copy=True, memory_format=torch.contiguous_format)
+
+
+def split_tensor(t: torch.Tensor, axis: int, devs: list) -> Shards:
+    """``t`` cut into ``len(devs)`` equal parts along ``axis``, part j on
+    devs[j]."""
+    k = t.shape[axis] // len(devs)
+    return Shards([own_copy(t.narrow(axis, j * k, k), d) for j, d in enumerate(devs)], axis)
+
+
+def tp_row(mesh: Mesh, dp: int = 0) -> list:
+    """The devices along tp of dp slice ``dp``; its first is the lead."""
+    return [mesh.device(dp=dp, tp=j) for j in range(mesh.size("tp"))]
+
+
+def train_row(mesh: Mesh, world: int = 1, rank: int = 0) -> list:
+    """The tp row that training rank ``rank`` of ``world`` steps on: the
+    training step splits the batch over dp, one rank per dp slice, and
+    out_chan over tp."""
+    other = [a for a in mesh.axis_names if a not in ("dp", "tp")]
+    if other:
+        raise MeshError(f"mesh axes {other}: the training step splits over dp and tp only")
+    if mesh.size("dp") != world:
+        raise MeshError(f"mesh dp={mesh.size('dp')} needs as many ranks in the process "
+                        f"group, have {world}")
+    rows = [tp_row(mesh, i) for i in range(world)]
+    # the ranks bucket their gradients by device: their rows must repeat
+    # devices alike
+    if len({tuple(r.index(d) for d in r) for r in rows}) > 1:
+        raise MeshError(f"{mesh}: the tp rows repeat devices differently")
+    return rows[rank]
+
+
+def shard_weights(weights: dict, pipe, mesh: Mesh, dp: int = 0) -> dict:
+    """The weights on dp slice ``dp``'s tp row: each weight that
+    :func:`weight_shardings` splits as :class:`Shards` over the row, every
+    other whole on the row's lead. A weight given as Shards is gathered
+    first; a dict of some weights (a momentum state) takes the same form."""
+    row = tp_row(mesh, dp)
+    spec = weight_shardings(pipe, mesh)
+    out = {}
+    for k, v in weights.items():
+        t = v.gather(row[0]) if isinstance(v, Shards) else v
+        s = spec.get(k, ())
+        out[k] = split_tensor(t, s.index("tp"), row) if "tp" in s else t.to(row[0])
+    return out
+
+
+def gather_weights(weights: dict, device=None) -> dict:
+    """The logical tensors: each :class:`Shards` gathered on ``device``
+    (default: its first part's), every other tensor moved there."""
+    return {k: v.gather(device) if isinstance(v, Shards)
+            else (v.to(device) if device is not None else v) for k, v in weights.items()}
+
+
+def tp_call(fn: Callable, vals: list, devs: list) -> tuple:
+    """One conv or fc op over a tp row (boda_tpu: the GSPMD path,
+    executor.py:251-273). ``vals``: the op's operands, its input first,
+    its filters second as :class:`Shards`. Each device computes its
+    out_chan slice: the input moved there, every Shards operand's part,
+    every other operand whose last dim is out_chan (a bias, a residual,
+    unfolded BN/Scale parameters) cut to the slice's channels in a tensor
+    of its own; the slices are concatenated on the input's device, where
+    the next op runs. Autograd runs it backward: the concatenation cuts
+    the cotangent per slice, each slice's input gradient comes back to the
+    input's device and sums there, and each part's gradient stays on its
+    device."""
+    w = vals[1]
+    k = w[0].shape[w.axis]
+    full = k * len(devs)
+    pieces = []
+    for j, dev in enumerate(devs):
+        args = [vals[0].to(dev)]
+        for v in vals[1:]:
+            if isinstance(v, Shards):
+                args.append(v[j])
+            elif v.dim() >= 1 and v.shape[-1] == full:
+                args.append(own_copy(v.narrow(-1, j * k, k), dev))
+            else:
+                args.append(v.to(dev))
+        pieces.append(fn(*args))
+    lead = vals[0].device
+    return tuple(torch.cat([p[i].to(lead) for p in pieces], dim=-1)
+                 for i in range(len(pieces[0])))

@@ -36,6 +36,22 @@ autograd, one step per call:
   clips, steps its momentum and updates its weights alike. With one rank
   every all-reduce is the identity and the step is the step without a
   group, bit for bit.
+* tensor parallel over a ``mesh`` (parallel/mesh.py) of axes dp and tp:
+  each rank of the group (one rank, without a group) steps the tp row of
+  its dp slice. Every weight that ``weight_shardings`` splits is held as
+  ``Shards`` over the row (``shard_weights``); each groups-1 conv and fc
+  with split filters runs ``tp_call``: its out_chan slice on each device of
+  the row, on the hand kernels under gen, at the slice's width, the slices
+  gathered on the row's first device (the lead), where BN, Scale, ReLU,
+  the residual add, the pools and the loss run whole. Each shard's
+  gradient, momentum and update stay on its device; the clip's global
+  norm is taken on the lead from every tensor's f32 norm. A bias stays
+  whole on the lead and is cut per slice; its gradient comes back whole.
+  In bf16, each slice's input gradient is rounded by its kernel before the
+  slices sum on the lead: tp roundings where the unsplit conv has one. A
+  row over several devices runs its backward on the calling thread, in one
+  order on every rank. A ``(tp=1)`` mesh splits nothing and is the step
+  without a mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ from ..graph.pipe import ConvPipe, PipeError
 from ..ops.kernels.train_conv import conv_route, gen_conv, gen_fc
 from ..ops.tune import OpTune
 from ..utils.dims import torch_dtype
+from .mesh import Mesh, Shards, train_row, tp_call, weight_shardings
 
 _CANON = ("img", "chan", "y", "x")
 
@@ -208,13 +225,28 @@ def _bn_train(op, vals: dict, new_stats: dict, bn_momentum: float, group=None):
     return (out.to(x.dtype),)
 
 
+def _group_shape(group) -> tuple[int, int]:
+    """(world size, rank) of a process group; (1, 0) without one."""
+    if group is None:
+        return 1, 0
+    import torch.distributed as dist
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _splits_out_chan(op) -> bool:
+    """Whether tp runs the op per out_chan slice: a groups-1 conv or an fc
+    (the engine's rule)."""
+    return op.type == "InnerProduct" or \
+        (op.type == "Convolution" and int(op.p("groups", 1)) == 1)
+
+
 def build_net_fn(pipe: ConvPipe, out_names: list[str],
                  ctx: Optional[LowerCtx] = None,
                  bn_momentum: float = 0.0,
                  segments: Optional[list[list[str]]] = None,
                  kernel_policy: str = "gen",
                  info_log: Optional[list[str]] = None,
-                 group=None) -> Callable:
+                 group=None, mesh: Optional[Mesh] = None) -> Callable:
     """fn(weights, inputs) -> {name: tensor}: the net's rules on channels-last
     tensors, weights in the logical layouts, inputs and outputs logical
     (NCHW for canonical nodes). bn_momentum > 0 switches BatchNorm to its
@@ -223,11 +255,15 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
     each segment under a non-reentrant ``torch.utils.checkpoint``: its
     backward recomputes it from its boundary inputs. ``info_log`` collects
     the rules' lines. ``group``: train-mode BatchNorm over the global
-    batch of the group's ranks."""
+    batch of the group's ranks. ``mesh``: the weights that it splits come
+    as ``Shards`` over this rank's tp row, and the convs and fcs that read
+    them run ``tp_call`` over the row (module docstring); any other op
+    reads a split weight gathered on the lead."""
     if kernel_policy not in ("gen", "lib"):
         raise PipeError(f"kernel_policy {kernel_policy!r}: gen | lib")
     ctx = ctx or LowerCtx(train=True)
     log = info_log if info_log is not None else []
+    row = train_row(mesh, *_group_shape(group)) if mesh is not None else None
     need = _needed_ops(pipe, out_names)
     topo = [o for o in pipe.topo_op_order() if o in need]
     lowered, preps = {}, {}
@@ -235,6 +271,16 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
         fn, pr = _lower_train(pipe, pipe.ops[name], ctx, kernel_policy == "gen", log)
         lowered[name] = fn
         preps.update(pr)
+    # a split weight stays split only where every op reads it as the
+    # filters of a conv or fc that tp runs per slice (a grouped conv's, say,
+    # is read whole, gathered on the lead)
+    whole_reads = {b for name in topo for i, b in enumerate(pipe.ops[name].bots)
+                   if i != 1 or not _splits_out_chan(pipe.ops[name])}
+    if row is not None:
+        split = [k for k, sp in weight_shardings(pipe, mesh).items() if "tp" in sp]
+        log.append(f"mesh {mesh}: this rank's tp row {[str(d) for d in row]}; "
+                   f"{len(split)} weights split over out_chan, "
+                   f"{len([k for k in split if k not in whole_reads])} of them run per slice")
 
     def canon(n):
         node = pipe.nodes.get(n)
@@ -243,7 +289,10 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
     def run_op(op, vals, new_stats):
         if bn_momentum > 0 and op.type == "BatchNorm":
             return _bn_train(op, vals, new_stats, bn_momentum, group)
-        return lowered[op.name](*[vals[b] for b in op.bots])
+        args = [vals[b] for b in op.bots]
+        if len(args) > 1 and isinstance(args[1], Shards):
+            return tp_call(lowered[op.name], args, row)
+        return lowered[op.name](*args)
 
     def run_ops(op_names, vals, new_stats):
         # a profiler range per op (train_trace's attribution), only while a
@@ -261,7 +310,14 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
     def enter(weights, inputs):
         vals = {k: v.permute(0, 2, 3, 1).contiguous() if canon(k) else v
                 for k, v in inputs.items()}
-        vals.update({k: preps[k].prep(w) if k in preps else w for k, w in weights.items()})
+        for k, w in weights.items():
+            if isinstance(w, Shards) and k in whole_reads:
+                w = w.gather()
+            p = preps.get(k)
+            if p is None:
+                vals[k] = w
+            else:  # a split weight's prep per shard: out_chan moves to p.oc_axis
+                vals[k] = w.map(p.prep, p.oc_axis) if isinstance(w, Shards) else p.prep(w)
         return vals
 
     def leave(vals, new_stats):
@@ -343,7 +399,7 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                     lr_schedule: Optional[Callable] = None,
                     remat: str = "",
                     kernel_policy: str = "gen",
-                    group=None) -> Callable:
+                    group=None, mesh: Optional[Mesh] = None) -> Callable:
     """SGD (+momentum, +decoupled weight decay) step:
     fn(weights, inputs, labels[, mom_state][, step=]) -> (loss, new_weights)
     — or (loss, new_weights, new_mom_state) when momentum > 0 (pass the
@@ -358,18 +414,27 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
     the ``step=`` index. remat: '' | seg | full | dots (module docstring).
     kernel_policy: gen | lib. group: a ``torch.distributed`` process group
     whose ranks each step an equal slice of the global batch (module
-    docstring); the returned loss is then the global one. The returned
+    docstring); the returned loss is then the global one. mesh: a
+    parallel.mesh.Mesh of axes dp (the group's size) and tp; the weights
+    that it splits, and their momenta, come and go as ``Shards`` over this
+    rank's tp row (parallel.mesh.shard_weights), the rest on the row's
+    lead, where the inputs and labels lie (module docstring). The returned
     function's ``info_log`` lists the rules' choices (the gen convs' routes
     among them)."""
     lctx = LowerCtx(precision=precision, train=True, det_drop_seed=42)
     info_log: list[str] = []
     build = functools.partial(build_net_fn, pipe, [logits_node], lctx,
                               bn_momentum=bn_momentum, kernel_policy=kernel_policy,
-                              info_log=info_log, group=group)
-    world = 1
-    if group is not None:
-        import torch.distributed as dist
-        world = dist.get_world_size(group)
+                              info_log=info_log, group=group, mesh=mesh)
+    world = _group_shape(group)[0]
+    split = [] if mesh is None else \
+        [k for k, sp in weight_shardings(pipe, mesh).items() if "tp" in sp]
+    # a tp row over several devices: autograd would run the backward on a
+    # thread per device, and the lead's nodes, train-mode BN's all-reduces
+    # among them, in an order that varies with the timing of the others
+    # (two ranks then all-reduce different tensors). On the calling thread
+    # the nodes run in one order, the same on every rank.
+    one_thread = mesh is not None and len(set(train_row(mesh, *_group_shape(group)))) > 1
     if remat == "seg":
         net_fn = build(segments=spatial_segments(pipe))
     else:
@@ -401,18 +466,41 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
 
     def train_step(weights, inputs, labels, mom_state=None, step=None):
         lr_t = lr if lr_schedule is None else lr_schedule(step)
+        for k in split:
+            if not isinstance(weights[k], Shards):
+                raise ValueError(f"weight {k!r} is split over tp by the mesh: pass the "
+                                 f"weights through parallel.mesh.shard_weights")
         names = [k for k in weights if is_trainable(k)]
         frozen = {k: v for k, v in weights.items() if not is_trainable(k)}
+        # one slot per tensor: (name, None) for a whole weight, (name, j)
+        # for shard j of a split one
+        slots = [(k, j) for k in names for j in (
+            range(len(weights[k])) if isinstance(weights[k], Shards) else [None])]
+
+        def flat(d):
+            return [d[k] if j is None else d[k][j] for k, j in slots]
+
+        def regroup(ts):
+            out = {}
+            for (k, j), t in zip(slots, ts):
+                if j is None:
+                    out[k] = t
+                else:
+                    out.setdefault(k, Shards([], weights[k].axis)).append(t)
+            return out
+        w_flat = flat(weights)
         if cdt is not None:
             # f32 masters: forward and backward in the compute dtype; the
             # frozen statistics stay f32 (they feed the running-stat EMA)
-            leaves = [weights[k].detach().to(cdt).requires_grad_() for k in names]
+            leaves = [w.detach().to(cdt).requires_grad_() for w in w_flat]
             inputs = {k: v.to(cdt) if v.is_floating_point() else v
                       for k, v in inputs.items()}
         else:
-            leaves = [weights[k].detach().requires_grad_() for k in names]
-        with torch.enable_grad(), lib_precision(precision):
-            loss, bn_stats = loss_fn({**dict(zip(names, leaves)), **frozen}, inputs, labels)
+            leaves = [w.detach().requires_grad_() for w in w_flat]
+        with torch.enable_grad(), lib_precision(precision), (
+                torch.autograd.set_multithreading_enabled(False) if one_thread
+                else contextlib.nullcontext()):
+            loss, bn_stats = loss_fn({**regroup(leaves), **frozen}, inputs, labels)
             if group is not None:  # this rank's share of the global mean
                 loss = loss * (1.0 / world)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -424,30 +512,45 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                 gs = train_ops.all_reduce_buckets(gs, group)
                 loss = train_ops.all_reduce_sum(loss.detach(), group)
             gs = [g.float() for g in gs]
+            # the foreach ops take one device's tensors: the slots by device
+            by_dev: dict = {}
+            for i, g in enumerate(gs):
+                by_dev.setdefault(g.device, []).append(i)
+            scale = None
             if clip_norm > 0:
-                gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+                norms = [None] * len(gs)
+                for ix in by_dev.values():
+                    for i, n in zip(ix, torch._foreach_norm([gs[i] for i in ix])):
+                        norms[i] = n.to(loss.device)
+                gnorm = torch.linalg.vector_norm(torch.stack(norms))
                 scale = torch.clamp(clip_norm / torch.clamp_min(gnorm, 1e-12), max=1.0)
-                torch._foreach_mul_(gs, scale)
-            new_mom = None
-            if momentum > 0:
-                prev = [mom_state[k] for k in names] if mom_state is not None \
-                    else [torch.zeros_like(g) for g in gs]
-                new_m = torch._foreach_mul(prev, momentum)
-                torch._foreach_add_(new_m, gs)
-                gs = new_m
-                new_mom = dict(zip(names, new_m))
-            wf = [weights[k].float() for k in names]
-            delta = torch._foreach_mul(gs, float(lr_t))
-            if weight_decay > 0:  # decoupled (AdamW-style) decay
-                c = lr * weight_decay if lr_schedule is None \
-                    else float(np.float32(lr_t) * np.float32(weight_decay))
-                torch._foreach_add_(delta, torch._foreach_mul(wf, c))
-            new_f = torch._foreach_sub(wf, delta)
-            new_w = {k: t.to(weights[k].dtype) for k, t in zip(names, new_f)}
+            prev = flat(mom_state) if momentum > 0 and mom_state is not None else None
+            new_f, new_m = [None] * len(gs), [None] * len(gs)
+            for dev, ix in by_dev.items():
+                g = [gs[i] for i in ix]
+                if scale is not None:
+                    torch._foreach_mul_(g, scale.to(dev))
+                if momentum > 0:
+                    m = torch._foreach_mul([prev[i] for i in ix], momentum) \
+                        if prev is not None else torch._foreach_mul(
+                            [torch.zeros_like(t) for t in g], momentum)
+                    torch._foreach_add_(m, g)
+                    g = m
+                    for i, t in zip(ix, m):
+                        new_m[i] = t
+                wf = [w_flat[i].float() for i in ix]
+                delta = torch._foreach_mul(g, float(lr_t))
+                if weight_decay > 0:  # decoupled (AdamW-style) decay
+                    c = lr * weight_decay if lr_schedule is None \
+                        else float(np.float32(lr_t) * np.float32(weight_decay))
+                    torch._foreach_add_(delta, torch._foreach_mul(wf, c))
+                for i, t in zip(ix, torch._foreach_sub(wf, delta)):
+                    new_f[i] = t.to(w_flat[i].dtype)
+            new_w = regroup(new_f)
             new_w.update(frozen)
             new_w.update({k: v.to(weights[k].dtype) for k, v in bn_stats.items()})
         if momentum > 0:
-            return loss.detach(), new_w, new_mom
+            return loss.detach(), new_w, regroup(new_m)
         return loss.detach(), new_w
 
     train_step.info_log = info_log

@@ -123,6 +123,12 @@ training step across ranks (modes/dist_modes.py): dist_test_master's golden
 2x2 case through the CLI on the card against the CPU, the flagship case
 (resnet50 224x224, remat=seg) against one process's step on the global
 batch, and a one-rank NCCL group's step bit-equal to the step with no group.
+Last, [tp-train]: the training step on a (tp=2) mesh of the same 2 devices
+(parallel/train.py with ``mesh``; each conv and fc per out_chan slice on the
+hand kernels), ResNet-50 b32 bf16 gen with momentum and train-mode BN
+against the no-mesh step (losses, launches and paths per step, each
+distinct call against its plain version, ms per step), b4 f32 at 1e-4, and
+a (tp=1) step bit-equal to no mesh.
 
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
@@ -1943,21 +1949,24 @@ def kernel_class(name: str) -> str:
     return "pytorch"
 
 
-def train_calls(pipe) -> dict:
+def train_calls(pipe, tp: int = 1) -> dict:
     """The K1, K2/K3 and K5 calls of one gen training step of ``pipe``, from
     each conv's and fc's route (ops/kernels/train_conv.py:conv_route):
     {(kernel, what, sig): count}. A conv whose input needs no gradient (fed
     by the data) takes no dgrad; a strided k > 1 conv's backward is the
     library's. Kernel names as in ``counted_wrappers``; ``conv_nhwc`` calls
-    also count as ``conv`` launches."""
+    also count as ``conv`` launches. ``tp``: the step on a (tp) mesh, where
+    each conv and fc whose out_chan tp divides makes its calls once per
+    slice, at out_chan / tp."""
     from boda_tpu_torch.ops.kernels.train_conv import conv_route
     from boda_tpu_torch.parallel.train import _needed_ops, find_logits_node, is_trainable
     need = _needed_ops(pipe, [find_logits_node(pipe)])
     req = {k for k in pipe.weights if is_trainable(k)}
     calls = {}
+    reps = [1]
 
     def add(*key):
-        calls[key] = calls.get(key, 0) + 1
+        calls[key] = calls.get(key, 0) + reps[0]
     for name in pipe.topo_op_order():
         op = pipe.ops[name]
         if name not in need:
@@ -1965,16 +1974,20 @@ def train_calls(pipe) -> dict:
         need_dx = op.bots[0] in req
         if any(b in req for b in op.bots):
             req.update(op.tops)
+        if op.type not in ("InnerProduct", "Convolution"):
+            continue
+        oc_all = pipe.must_dims(op.bots[1])["out_chan"]
+        reps[0] = tp if oc_all % tp == 0 else 1
         if op.type == "InnerProduct":
             fd = pipe.must_dims(op.bots[1])
-            m, k, n = pipe.must_dims(op.bots[0])["img"], fd["in_feats"], fd["out_chan"]
+            m, k, n = pipe.must_dims(op.bots[0])["img"], fd["in_feats"], oc_all // reps[0]
             add("sgemm", "fc fwd", (m, k, n))
             if need_dx:
                 add("sgemm", "fc dgrad W^T", (m, n, k))
             add("atb", "fc wgrad", (m, k, n))
-        elif op.type == "Convolution":
+        else:
             ind, fd = pipe.must_dims(op.bots[0]), pipe.must_dims(op.bots[1])
-            n, h, c, oc = ind["img"], ind["y"], fd["in_chan"], fd["out_chan"]
+            n, h, c, oc = ind["img"], ind["y"], fd["in_chan"], oc_all // reps[0]
             k, s, p = op.kern_sz(), op.stride(), op.pad()
             route = conv_route(k, s, p)
             if route == "k1":
@@ -2045,6 +2058,93 @@ def conv_taps(record: dict | None = None, force: dict | None = None):
         ptrain._lower_train = orig
 
 
+def call_path(kname: str, sig) -> str:
+    """The GEMM core's path for a call of ``train_calls`` on aligned bf16
+    operands: mma.sync where a row of K or N (C or OC) is off 8 elements,
+    else wgmma."""
+    if kname == "sgemm":
+        k, n = sig[1:3]
+    elif kname == "atb":
+        k, n = sig[1:3] if len(sig) == 3 else sig[2:4]
+    else:  # conv (n, h, c, oc, ...), conv_nhwc
+        k, n = sig[2:4]
+    return "mma" if k % 8 or n % 8 else "wgmma"
+
+
+def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
+                      cases: dict, card: str) -> tuple[list, dict]:
+    """Each distinct K1, K2, K3 and K5 call of ``calls`` (``train_calls``) on
+    seeded bf16 operands at its shapes against its plain version within
+    TRAIN_CALL_TOL, its path asserted by the GEMM core's rule (mma.sync
+    where a row of K or N is off 8 elements, else wgmma), its device time in
+    a CUDA graph beside the library's and its bound; one ``[tag]`` line per
+    call. Returns the rows and the kernel us per step by the counts."""
+    from boda_tpu_torch.ops.kernels.bconv import matmul_atb
+    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.rtc.backends import graph_time
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def dgrad_gemm(m, k, n):  # dy (m, oc) @ W^T (oc, c), no bias
+        a, b = rnd((m, k)), rnd((n, k), k ** -0.5).t().contiguous()
+        return matmul(a, b), matmul_plain(a, b), (
+            lambda: matmul(a, b), lambda: matmul_plain(a, b), lambda: a @ b)
+    rows, misses, worst = [], [], {}
+    for (kname, what, sig), cnt in sorted(calls.items()):
+        f = {"sgemm": matmul, "atb": matmul_atb}.get(kname, counted.get(kname))
+        fwrap = counted["conv"] if kname in ("conv", "conv_nhwc") else f
+        before = dict(fwrap.paths)
+        want_path = call_path(kname, sig)
+        if kname == "sgemm":
+            m, k, n = sig
+            case = dgrad_gemm(m, k, n) if "dgrad" in what else cases["gemm"](m, k, n, False,
+                                                                             False, bf)
+            bound = max(work("sgemm", (m, k, n, False, False)))
+        elif kname == "atb":
+            if len(sig) == 3:  # dense: (rows, C, OC)
+                case = cases["atb"](*sig, bf)
+                bound = max(work("atb_dense", sig))
+            else:
+                case = cases["wgrad"](*sig, bf)
+                bound = max(work("atb", sig))
+        elif kname == "conv":
+            n, h, c, oc, k, s, p = sig
+            case = cases["conv"](n, h, c, oc, k, s, p, False, False, bf)
+            bound = max(work("conv", sig + (False,)))
+        else:  # conv_nhwc: K3's entry, the stride-1 dgrad
+            n, h, c, oc, k, p = sig
+            case = cases["dgrad"](n, h, c, oc, k, p, bf)
+            bound = max(work("dgrad", sig))
+        path = [q for q in fwrap.paths if fwrap.paths[q] != before[q]]
+        got_o, ref, (kern, _, lib) = case
+        err = rel_err(got_o, ref)[1]
+        ok = err <= TRAIN_CALL_TOL and path == [want_path]
+        worst[kname] = max(worst.get(kname, 0.0), err)
+        k_us, l_us = graph_time(kern) * 1e6, graph_time(lib) * 1e6
+        print(f"[{tag}] {kname} {what} {sig} x{cnt}: {err:.3e} on {path}: "
+              f"{'ok' if ok else 'MISS'}; kernel {k_us:.2f} us, library {l_us:.2f} us, "
+              f"bound {bound * 1e3:.2f} us")
+        rows.append({"kernel": kname, "call": what, "sig": list(sig), "count": cnt,
+                     "err": err, "path": path, "kernel_us": k_us, "library_us": l_us,
+                     "bound_us": bound * 1e3})
+        if not ok:
+            misses.append(f"{kname} {what} {sig}")
+        del case, got_o, ref
+    per_step = {k: sum(r["kernel_us"] * r["count"] for r in rows if r["kernel"] == k)
+                for k in ("sgemm", "conv", "conv_nhwc", "atb")}
+    print(f"[{tag}] {len(rows)} distinct calls of {what_step} vs plain "
+          f"(tol {TRAIN_CALL_TOL}); worst " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                        worst.items())
+          + "; kernel us per step by the counts: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per_step.items()) + f" ({card})")
+    check(not misses, f"{tag}: calls off their plain version or path: {misses[:5]}")
+    return rows, per_step
+
+
 def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) -> dict:
     """[train]: the training step (parallel/train.py) on the card. ResNet-50
     b32 224x224 bf16 in train_bench's configuration (weights bf16, clip 1.0,
@@ -2065,11 +2165,8 @@ def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) ->
     import re
 
     from boda_tpu_torch.modes.cnet import load_net
-    from boda_tpu_torch.ops.kernels.bconv import matmul_atb
-    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.ops.kernels.gen_data import gen_data_pattern
     from boda_tpu_torch.parallel.train import make_train_step
-    from boda_tpu_torch.rtc.backends import graph_time
     from boda_tpu_torch.utils.digest import comp_vars
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2234,69 +2331,8 @@ def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) ->
     del w, x
 
     # -- each distinct K1, K2, K3 and K5 call of the gen step vs its plain version ---
-    bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(17)
-
-    def rnd(shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
-
-    def dgrad_gemm(m, k, n):  # dy (m, oc) @ W^T (oc, c), no bias
-        a, b = rnd((m, k)), rnd((n, k), k ** -0.5).t().contiguous()
-        return matmul(a, b), matmul_plain(a, b), (
-            lambda: matmul(a, b), lambda: matmul_plain(a, b), lambda: a @ b)
-    rows, misses, worst = [], [], {}
-    for (kname, what, sig), cnt in sorted(calls.items()):
-        f = {"sgemm": matmul, "atb": matmul_atb}.get(kname, counted.get(kname))
-        fwrap = counted["conv"] if kname in ("conv", "conv_nhwc") else f
-        before = dict(fwrap.paths)
-        if kname == "sgemm":
-            m, k, n = sig
-            case = dgrad_gemm(m, k, n) if "dgrad" in what else cases["gemm"](m, k, n, False,
-                                                                             False, bf)
-            want_path = "mma" if k % 8 or n % 8 else "wgmma"
-            bound = max(work("sgemm", (m, k, n, False, False)))
-        elif kname == "atb":
-            if len(sig) == 3:  # dense: (rows, C, OC)
-                case = cases["atb"](*sig, bf)
-                want_path = "wgmma" if sig[1] % 8 == 0 and sig[2] % 8 == 0 else "mma"
-                bound = max(work("atb_dense", sig))
-            else:
-                case = cases["wgrad"](*sig, bf)
-                want_path = "wgmma" if sig[2] % 8 == 0 and sig[3] % 8 == 0 else "mma"
-                bound = max(work("atb", sig))
-        elif kname == "conv":
-            n, h, c, oc, k, s, p = sig
-            case = cases["conv"](n, h, c, oc, k, s, p, False, False, bf)
-            want_path = "mma" if c % 8 or oc % 8 else "wgmma"
-            bound = max(work("conv", sig + (False,)))
-        else:  # conv_nhwc: K3's entry, the stride-1 dgrad
-            n, h, c, oc, k, p = sig
-            case = cases["dgrad"](n, h, c, oc, k, p, bf)
-            want_path = "mma" if c % 8 or oc % 8 else "wgmma"
-            bound = max(work("dgrad", sig))
-        path = [q for q in fwrap.paths if fwrap.paths[q] != before[q]]
-        got_o, ref, (kern, _, lib) = case
-        err = rel_err(got_o, ref)[1]
-        ok = err <= TRAIN_CALL_TOL and path == [want_path]
-        worst[kname] = max(worst.get(kname, 0.0), err)
-        k_us, l_us = graph_time(kern) * 1e6, graph_time(lib) * 1e6
-        print(f"[train] {kname} {what} {sig} x{cnt}: {err:.3e} on {path}: "
-              f"{'ok' if ok else 'MISS'}; kernel {k_us:.2f} us, library {l_us:.2f} us, "
-              f"bound {bound * 1e3:.2f} us")
-        rows.append({"kernel": kname, "call": what, "sig": list(sig), "count": cnt,
-                     "err": err, "path": path, "kernel_us": k_us, "library_us": l_us,
-                     "bound_us": bound * 1e3})
-        if not ok:
-            misses.append(f"{kname} {what} {sig}")
-        del case, got_o, ref
-    per_step = {k: sum(r["kernel_us"] * r["count"] for r in rows if r["kernel"] == k)
-                for k in ("sgemm", "conv", "conv_nhwc", "atb")}
-    print(f"[train] {len(rows)} distinct calls of the gen b{n_img} bf16 step vs plain "
-          f"(tol {TRAIN_CALL_TOL}); worst " + ", ".join(f"{k} {v:.3e}" for k, v in
-                                                        worst.items())
-          + "; kernel us per step by the counts: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in per_step.items()) + f" ({card})")
-    check(not misses, f"train: calls off their plain version or path: {misses[:5]}")
+    rows, per_step = train_call_checks("train", f"the gen b{n_img} bf16 step", calls,
+                                       counted, cases, card)
     out["calls"], out["kernel_us_per_step"] = rows, per_step
 
     # -- train_bench through the CLI: BN frozen (its default) and train-mode ------------
@@ -3369,6 +3405,177 @@ def dist_phase(card: str, out_dir) -> dict:
     print(f"[dist] a one-rank NCCL group: 3 steps of mini_resnet b8 bit-equal to no group "
           f"(loss, {len(wa)} weights, {len(ma)} momenta) ({card})")
     return res
+
+
+# -- the [tp-train] phase: tensor parallelism in the training step -------------------
+
+TP_STEPS = 3
+TP_F32_BATCH = 4
+TP_F32_TOL = 1e-4  # boda_tpu's sharded-vs-local bound (tests/test_parallel.py:71-73)
+# the step of [train] with momentum and train-mode BN
+TP_KW = dict(lr=0.01, clip_norm=1.0, momentum=0.9, bn_momentum=0.1, kernel_policy="gen")
+
+
+def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) -> dict:
+    """[tp-train]: the training step on a (tp=2) mesh (mesh_devices; on a
+    one-card machine cuda:0 twice). ResNet-50 b32 224x224 bf16 gen in
+    [train]'s configuration with momentum 0.9 and train-mode BN (fc1000
+    scaled as everywhere): TP_STEPS steps on the (tp=2) row and without a
+    mesh from the same weights on a fixed batch, the loss falling and each
+    step's within TRAIN_TOL of the no-mesh step's; each run's K1/K2/K3/K5
+    launches and paths in its second step exact by ``train_calls`` (every
+    conv and fc1000 per slice at out_chan / 2, fc1000's N = 500 off wgmma);
+    each distinct call of the tp step against its plain version
+    (``train_call_checks``); ms per step of both. Then ResNet-50 b4 f32, one
+    step (tp=2) against no mesh, weights and momenta at TP_F32_TOL by
+    tests/test_torch_train_step.py's ``_close`` rule; and a (tp=1)
+    mini_resnet step bit-equal to no mesh."""
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.modes.cnet import load_net
+    from boda_tpu_torch.ops.kernels.gen_data import gen_data_pattern
+    from boda_tpu_torch.parallel.mesh import gather_weights, make_mesh, shard_weights
+    from boda_tpu_torch.parallel.train import find_logits_node, make_train_step
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    devs = mesh_devices(2)
+    mesh = make_mesh({"tp": 2}, devices=devs)
+    out = {"card": card, "devices": [str(d) for d in devs]}
+    print(f"[tp-train] the (tp=2) row: {', '.join(map(str, devs))}"
+          + (" (one card: both slices on cuda:0)" if devs[0] == devs[1] else ""))
+    kw = TP_KW
+
+    def steps(p, w0, x, labels, m, n, counts=False):
+        """n steps from w0 on the fixed batch: losses, ms per step, and the
+        second step's launches and paths (the first builds the plans)."""
+        step = make_train_step(p, "fc1000", mesh=m, **kw)
+        w = w0 if m is None else shard_weights(w0, p, m)
+        mom, losses, ms, seen = None, [], [], {}
+        for i in range(n):
+            if counts and i == 1:
+                zero_counts(counted)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, w, mom = step(w, {"data": x}, labels, mom)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if counts and i == 1:
+                seen = {"launches": read_counts(counted),
+                        "paths": {k: {q: v for q, v in counted[k].paths.items() if v}
+                                  for k in ("sgemm", "conv", "atb")}}
+        return losses, ms, seen, step, w, mom
+
+    # -- ResNet-50 b32 bf16 gen: (tp=2) against no mesh ---------------------------------
+    n_img = pipe.must_dims("data")["img"]
+    d = pipe.must_dims("data")
+    x = gen_data_pattern(d.shape, d.tn).to(dev, torch.bfloat16)
+    labels = (torch.arange(n_img) % 1000).to(dev)
+    w0 = {k: torch.from_numpy(np.asarray(w.data, np.float32)).to(dev, torch.bfloat16)
+          for k, w in pipe.weights.items()}
+    runs = {}
+    for tag, m, tp in (("none", None, 1), ("tp2", mesh, 2)):
+        calls = train_calls(pipe, tp)
+        want_paths: dict = {}
+        for (kname, _, sig), cnt in calls.items():
+            wk = {"conv_nhwc": "conv"}.get(kname, kname)
+            q = want_paths.setdefault(wk, {})
+            q[call_path(kname, sig)] = q.get(call_path(kname, sig), 0) + cnt
+        losses, ms, seen, step, _, _ = steps(pipe, w0, x, labels, m, TP_STEPS, counts=True)
+        want = train_launches(calls)
+        got = seen["launches"]
+        ok = all(got[k] == v for k, v in want.items()) and \
+            all(got[k] == 0 for k in got if k not in want)
+        print(f"[tp-train] resnet50 b{n_img} bf16 gen {'(tp=2)' if m else 'no mesh'}: "
+              f"losses {[f'{v:.6g}' for v in losses]}, ms per step "
+              f"{[f'{v:.3f}' for v in ms]}; launches per step {got} (by train_calls "
+              f"{want}); paths {seen['paths']} (by the core's rule {want_paths}) ({card})")
+        if m is not None:
+            print("[tp-train] " + next(ln for ln in step.info_log if ln.startswith("mesh ")))
+        check(ok, f"tp-train {tag}: launches {got}, expected {want}")
+        check(seen["paths"] == want_paths,
+              f"tp-train {tag}: paths {seen['paths']}, expected {want_paths}")
+        check(all(np.isfinite(losses)), f"tp-train {tag}: losses {losses}")
+        runs[tag] = {"losses": losses, "ms": ms, "launches": got, "paths": seen["paths"],
+                     "calls": calls}
+        del step
+    a, b = runs["tp2"]["losses"], runs["none"]["losses"]
+    rel = [abs(u - v) / abs(v) for u, v in zip(a, b)]
+    print(f"[tp-train] (tp=2) vs no mesh per step: loss rel {[f'{r:.3e}' for r in rel]} "
+          f"(tol {TRAIN_TOL}); (tp=2) loss {a[0]:.6g} -> {a[-1]:.6g}; ms per step after "
+          f"the first: (tp=2) {min(runs['tp2']['ms'][1:]):.3f}, no mesh "
+          f"{min(runs['none']['ms'][1:]):.3f} ({card})")
+    check(max(rel) <= TRAIN_TOL, f"tp-train: losses {a} vs no mesh {b}")
+    check(a[-1] < a[0], f"tp-train: the (tp=2) loss did not fall: {a}")
+    for tag in ("tp2", "none"):
+        out[tag] = {k: v for k, v in runs[tag].items() if k != "calls"}
+    out["loss_rel"] = rel
+
+    # -- each distinct K1, K2, K3 and K5 call of the (tp=2) step vs plain -------------
+    rows, per_step = train_call_checks("tp-train", f"the gen b{n_img} bf16 (tp=2) step",
+                                       runs["tp2"]["calls"], counted, cases, card)
+    out["calls"], out["kernel_us_per_step"] = rows, per_step
+    del runs
+
+    # -- ResNet-50 b4 f32: one step (tp=2) against no mesh ------------------------------
+    fpipe, fdims = load_net("resnet50", img=TP_F32_BATCH)
+    scale_fc1000([fpipe], fc_scale)
+    d = fdims["data"]
+    xf = gen_data_pattern(d.shape, d.tn).to(dev, torch.float32)
+    lf = (torch.arange(TP_F32_BATCH) % 1000).to(dev)
+    wf = {k: torch.from_numpy(np.asarray(w.data, np.float32)).to(dev)
+          for k, w in fpipe.weights.items()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = {}
+        for tag, m in (("none", None), ("tp2", mesh)):
+            losses, _, _, _, w, mom = steps(fpipe, wf, xf, lf, m, 1)
+            res[tag] = (losses[0], gather_weights(w), gather_weights(mom))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (gl, gw, gm), (rl, rw, rm) = res["tp2"], res["none"]
+    upd = max(float((rw[k] - wf[k]).abs().max()) for k in wf)
+    werr = max(float((gw[k] - rw[k]).abs().max()) / max(float(rw[k].abs().max()), upd)
+               for k in rw)
+    mmax = max(float(v.abs().max()) for v in rm.values())
+    merr = max(float((gm[k] - rm[k]).abs().max()) for k in rm) / mmax
+    lrel = abs(gl - rl) / abs(rl)
+    print(f"[tp-train] resnet50 b{TP_F32_BATCH} f32 one step (tp=2) vs no mesh: loss "
+          f"{gl:.7g} / {rl:.7g} (rel {lrel:.3e}); weights worst {werr:.3e} of max(max|w|, "
+          f"the largest update), momenta worst {merr:.3e} of the largest (tol {TP_F32_TOL}) "
+          f"({card})")
+    check(max(lrel, werr, merr) <= TP_F32_TOL, "tp-train: f32 (tp=2) vs no mesh")
+    out["f32"] = {"loss_rel": lrel, "weights": werr, "momenta": merr}
+    del res, wf, fpipe
+
+    # -- mini_resnet: a (tp=1) mesh is the step without one, bit for bit ---------------
+    mp, mdims = build_model("mini_resnet", img=8, num_cls=16, in_sz=16)
+    rng = np.random.RandomState(0)
+    xm = torch.from_numpy(rng.randn(*mdims["data"].shape).astype(np.float32)).to(dev)
+    ym = torch.from_numpy(rng.randint(0, 16, size=(8,)).astype(np.int32)).to(dev)
+    wm = {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(dev)
+          for k, v in mp.weights.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = {}
+        for tag, m in (("none", None), ("tp1", make_mesh({"tp": 1}, devices=devs[:1]))):
+            step = make_train_step(mp, find_logits_node(mp), mesh=m, **dict(kw, lr=0.05))
+            w, mom, ls = wm, None, []
+            for _ in range(3):
+                loss, w, mom = step(w, {"data": xm}, ym, mom)
+                ls.append(loss)
+            one[tag] = (ls, w, mom)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (la, wa, ma), (lb, wb, mb) = one["none"], one["tp1"]
+    same = all(torch.equal(u, v) for u, v in zip(la, lb)) and \
+        all(torch.equal(wa[k], wb[k]) for k in wa) and all(torch.equal(ma[k], mb[k]) for k in ma)
+    print(f"[tp-train] mini_resnet b8 gen (tp=1): 3 steps bit-equal to no mesh: {same} "
+          f"({card})")
+    check(same, "tp-train: the (tp=1) step differs from the step without a mesh")
+    out["tp1_bit_equal"] = same
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[tp-train] phase took {out['seconds']:.1f} s ({card})")
+    return out
 
 
 def main() -> int:
@@ -4484,6 +4691,15 @@ def main() -> int:
     # -- phase 16: [dist] the dp training step across ranks ----------------------------
     dist_run = dist_phase(card, out_dir)
     lap("dist")
+    # -- phase 17: [tp-train] tensor parallelism in the training step ----------------
+    tp_train = tp_train_phase(card, pipe, fc_scale, counted,
+                              {"gemm": gemm_case, "conv": conv_case, "dgrad": dgrad_case,
+                               "wgrad": wgrad_case, "atb": atb_case})
+    for entry in kernels:  # the second step of the gen b32 bf16 (tp=2) step
+        k = {"dgrad": "conv_nhwc"}.get(entry["name"], entry["name"])
+        if entry["name"] in ("sgemm", "conv", "dgrad", "atb"):
+            entry["launches_tp_train"] = tp_train["tp2"]["launches"][k]
+    lap("tp-train")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -4494,7 +4710,7 @@ def main() -> int:
                                          for tn, r in sg.items()},
                       "caffe": caffe, "caffe_grad": caffe_grad, "int8": int8, "lmdb": lmdb, "ssd": ssd,
                       "train": train, "tools": tools, "serve": serve, "corpus": corpus,
-                      "mesh": mesh, "dist": dist_run,
+                      "mesh": mesh, "dist": dist_run, "tp_train": tp_train,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,7 +2,9 @@
 and dist_test_worker (boda_tpu_torch/modes/dist_modes.py) over gloo, the
 ``group`` of parallel/train.py's step, and parallel/dryrun.py.
 
-Gates: the master's line is the one boda_tpu's dist_test_master prints
+Gates: parallel/dryrun.py's (dp=2,tp=4) production step within 1e-5
+relative of boda_tpu's ``_dryrun_body``; the master's line is the one
+boda_tpu's dist_test_master prints
 today (its golden testdata/good_tr/dist_test_2x2/test_out.txt is stale:
 ROADMAP §3); each rank's losses within 1e-5 relative of boda_tpu's jitted
 single-device step on the global batch; two gloo ranks' weights and momenta
@@ -177,12 +179,48 @@ def test_failing_worker_reaches_master(monkeypatch):
         assert m and "unknown model 'no_such_model'" in m.group(1), out
 
 
+def _dryrun_body_losses(n_devices: int) -> list[float]:
+    """The losses of ``__graft_entry__.py:_dryrun_body``'s two steps (it
+    prints them to 4 places): boda_tpu's production step jitted over the
+    (dp=2, tp=n/2) mesh, the same code on the 8 CPU devices."""
+    from boda_tpu.models.zoo import build_mini_resnet
+    from boda_tpu.parallel import mesh as jm
+    dp, tp = 2, n_devices // 2
+    mesh = jm.make_mesh({"dp": dp, "tp": tp})
+    pipe, in_dims = build_mini_resnet(img=2 * dp, num_cls=16 * tp, in_sz=16)
+    step = jmake_step(pipe, jlogits(pipe), lr=0.01, clip_norm=1.0, momentum=0.9,
+                      bn_momentum=0.1, remat="seg")
+    w_sh, in_sh = jm.weight_shardings(pipe, mesh), jm.input_shardings(in_dims, mesh)
+    rng = np.random.RandomState(0)
+    x = jax.device_put(rng.randn(*in_dims["data"].shape).astype(np.float32), in_sh["data"])
+    y = jax.device_put(rng.randint(0, 16 * tp, size=(2 * dp,)).astype(np.int32),
+                       jm.named_sharding(mesh, "dp"))
+    w = {k: jax.device_put(v.data, w_sh[k]) for k, v in pipe.weights.items()}
+    m_sh = {k: w_sh[k] for k in pipe.weights if not k.endswith(("__means", "__vars", "__sf"))}
+    mom = {k: jax.device_put(np.zeros(pipe.weights[k].dims.shape, np.float32), m_sh[k])
+           for k in m_sh}
+    jstep = jax.jit(step, in_shardings=(w_sh, {"data": in_sh["data"]},
+                                        jm.named_sharding(mesh, "dp"), m_sh),
+                    out_shardings=(jm.named_sharding(mesh), w_sh, m_sh))
+    losses = []
+    with mesh:
+        for _ in range(2):
+            loss, w, mom = jstep(w, {"data": x}, y, mom)
+            losses.append(float(loss))
+    return losses
+
+
 def test_dryrun_multichip_8(capsys, monkeypatch):
+    """The production step on (dp=2, tp=4): two gloo ranks, each on its tp
+    row of 4 CPU devices, bit-equal to each other, and their losses within
+    1e-5 relative of boda_tpu's _dryrun_body on the same seeded batch."""
     monkeypatch.setenv("OMP_NUM_THREADS", THREADS)
-    dryrun_multichip(8, device="cpu")
+    losses = dryrun_multichip(8, device="cpu")
     out = capsys.readouterr().out
-    assert "dryrun_multichip(8): 2 ranks, loss 5.6920 -> 5.5587" in out
+    assert "dryrun_multichip(8): 2 ranks x (tp=4) over gloo, loss 5.6920 -> 5.5587" in out
     assert "dp=2 tp=4 sharded inference forward OK" in out
+    want = _dryrun_body_losses(8)
+    assert np.allclose(losses, want, rtol=1e-5, atol=0), (losses, want)
 
 
 def test_one_rank_group_is_the_step_bit_for_bit(monkeypatch):
