@@ -1,9 +1,15 @@
-"""The whole-net forward engine on PyTorch: registered conv_fwd mode ``cuda``.
+"""The whole-net forward engines on PyTorch: conv_fwd modes ``cuda``, ``xla``
+and ``pallas``.
 
-Counterpart of ``boda_tpu/graph/executor.py`` ``FwdEngine`` and the NHWC
-path of ``PallasFwd``: the same fusion chains, the same upload-time weight
-preps and BN/Scale prefold, and the same per-call fusion decision, run
-eagerly by PyTorch instead of as one jit program. Under
+Counterpart of ``boda_tpu/graph/executor.py``. ``FwdEngine``'s own path is
+boda_tpu's ``xla`` engine (``XlaFwd``): every op by the logical-layout
+rules of graph/lowering.py, NCHW, no rewrite. ``pallas`` (``PallasFwd``)
+is boda_tpu's engine of the same name: ``layout=nhwc`` is the ``cuda``
+engine, ``layout=nchw`` the logical path with each conv and fc routed by
+ops/cnn_variants.py to K1 or K3. The ``cuda`` engine (``CudaFwd``) is the
+NHWC path of boda_tpu's ``PallasFwd``: the same fusion chains, the same
+upload-time weight preps and BN/Scale prefold, and the same per-call
+fusion decision, run eagerly by PyTorch instead of as one jit program. Under
 ``kernel_policy=gen`` every conv and fc runs a hand-written CUDA kernel
 (``ops/kernels``: the GEMM for 1x1 convs and fc, the direct conv for the
 rest); under ``lib`` they run cuDNN/cuBLAS through ``F.conv2d`` and
@@ -70,7 +76,7 @@ from ..parallel.mesh import Mesh, make_mesh, split_tensor, tp_call, weight_shard
 from ..rtc.backends import capture, graph_time, side_stream_warmup
 from ..utils.dims import NDA, torch_dtype
 from .autodiff import _wants_grad
-from .lowering import PRECISIONS, LowerCtx, lib_precision
+from .lowering import AUTOGRAD_RULES, PRECISIONS, LowerCtx, lib_precision, lower_op
 from .lowering_nhwc import HWIO, Prep, host_stem_s2d, lower_op_nhwc, stem_s2d_geom
 from .pipe import ConvPipe, PipeError
 
@@ -134,6 +140,55 @@ class _SrcRecord:
     chains: dict = dataclasses.field(default_factory=dict)
 
 
+def resolve_batch_split(pipe: ConvPipe, specs, units: list[str], tops_of: Callable,
+                        deps_of: Callable) -> list[dict]:
+    """boda_tpu's batch_split regions (executor.py:1523-1575): each spec
+    'in_node:out_node:k' resolved to the execution units (ops, or fused
+    chains) between its nodes, walking back from out_node to in_node. A
+    region must be closed (no data input but in_node and weights), none of
+    its nodes may be read outside it, and k must divide in_node's img."""
+    regions = []
+    for spec in specs:
+        try:
+            a_node, b_node, k_str = str(spec).split(":")
+            k = int(k_str)
+        except ValueError:
+            raise ConfigError(f"batch_split entry {spec!r} is not 'in_node:out_node:k'")
+        region, needed = [], {b_node}
+        for op_name in reversed(units):
+            tops = tops_of(op_name)
+            if any(t in needed for t in tops):
+                region.append(op_name)
+                needed.difference_update(tops)
+                needed.update(d for d in deps_of(op_name) if d != a_node)
+        region.reverse()
+        ext = [n for n in needed if n not in pipe.weights and not n.endswith("__folded")]
+        if not region or ext:
+            raise ConfigError(f"batch_split region {spec!r}: external data deps {ext} "
+                              f"(region must be closed between its in and out nodes)")
+        internal = set()
+        for u in region:
+            internal.update(tops_of(u))
+        internal.discard(b_node)
+        inside = set(region)
+        for op_name in units:
+            leak = set() if op_name in inside else internal.intersection(deps_of(op_name))
+            if leak:
+                raise ConfigError(f"batch_split region {spec!r}: node(s) {sorted(leak)} "
+                                  f"consumed outside the region")
+        img = pipe.must_dims(a_node)["img"]
+        if img % k != 0:
+            raise ConfigError(f"batch_split region {spec!r}: k={k} does not divide "
+                              f"batch {img}")
+        regions.append({"a": a_node, "b": b_node, "k": k, "units": region,
+                        "internal": internal})
+    return regions
+
+
+# FwdEngine.platform -> the torch device type it runs on
+_PLATFORMS = {"": "", "cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
 def _cuda_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
@@ -152,9 +207,14 @@ class FwdEngine:
     # entry, computes the whole net in bf16, and returns outputs in each
     # node's logical dtype. '' = keep input dtypes (f32).
     compute_tn = Field(str, default="", help="compute dtype: '' | bfloat16 | float32")
-    device = Field(str, default="cuda",
+    device = Field(str, default="",
                    help="torch device: cuda (the card; raises without one) | "
-                        "cpu (kernels' plain versions, for tests)")
+                        "cpu (kernels' plain versions, for tests); '' = the "
+                        "platform's, else cuda")
+    # boda_tpu's jax platform override (executor.py:48): the same names, on
+    # torch's devices; a TPU has no counterpart here
+    platform = Field(str, default="",
+                     help="platform: '' (the engine's device) | cpu | gpu | cuda")
     train = Field(bool, default="0", help="training mode (dropout active)")
     det_drop_seed = Field(int, default="0", help="deterministic dropout seed")
     cuda_graph = Field(bool, default="1",
@@ -179,8 +239,17 @@ class FwdEngine:
     gen_src_dir = Field(str, default="",
                         help="write each forward's plan (and, on the card, its "
                              "captured graph and kernels' PTX) here")
+    # boda_tpu's per-program XLA backend flags (executor.py:70): accepted
+    # empty only, since no flag of XLA's has a counterpart here
+    compiler_options = Field((dict, "lexp"), default="()",
+                             help="XLA backend flags: () only (the port has no XLA)")
 
     def base_setup(self) -> None:
+        self._resolve_device()
+        flags = sorted(self.compiler_options or {})
+        if flags:
+            raise ConfigError(f"conv_fwd: compiler_options {flags}: XLA compiler flags, "
+                              f"which have no counterpart in the port")
         if self.precision not in PRECISIONS:
             raise ConfigError(f"precision {self.precision!r}: have {sorted(PRECISIONS)}")
         if self.compute_tn:
@@ -201,6 +270,21 @@ class FwdEngine:
         self._rec: Optional[_SrcRecord] = None  # the gen_src pass in progress
         self._dumped: set = set()  # the keys gen_src_dir has
         self._setup_mesh()
+
+    def _resolve_device(self) -> None:
+        """``device`` from ``platform`` (boda_tpu: ``FwdEngine.device()``,
+        executor.py:136): '' keeps the engine's device (default cuda), cpu
+        runs on the CPU, gpu and cuda on the card; any other platform, and
+        one that contradicts an explicit device, raises."""
+        want = _PLATFORMS.get(self.platform)
+        if want is None:
+            raise ConfigError(f"conv_fwd: platform {self.platform!r} has no counterpart "
+                              f"in the port (have {sorted(_PLATFORMS)}; '' = the "
+                              f"engine's device)")
+        if self.device and want and torch.device(self.device).type != want:
+            raise ConfigError(f"conv_fwd: platform {self.platform!r} contradicts "
+                              f"device {self.device!r}")
+        self.device = self.device or want or "cuda"
 
     def _setup_mesh(self) -> None:
         """The mesh (boda_tpu: executor.py:86-90) and its dp slices: the
@@ -262,8 +346,254 @@ class FwdEngine:
     def get_info_log(self) -> str:
         return "\n".join(self._info_log)
 
-    def build_raw_fn(self, out_names: list[str]) -> Callable:  # pragma: no cover
-        raise NotImplementedError
+    # -- the logical-layout engine (boda_tpu: FwdEngine, executor.py:112-494) ---------
+
+    def init(self, pipe: ConvPipe) -> None:
+        """Lower every op by the logical-layout rules (graph/lowering.py) and
+        upload the weights (cast to compute_tn, in their logical layout but
+        where a lowering names another, ``_weight_preps``)."""
+        self.pipe = pipe
+        self._fn, self._fn_key = None, None
+        self.drop_graph()
+        self._weight_preps: dict[str, Prep] = {}
+        self._prefold_plan, self._prefold_keys = {}, {}
+        unknown = sorted(set(self._quant) - set(pipe.nodes))
+        if unknown:
+            raise ConfigError(f"quantize: no node {unknown} in {pipe.name!r}")
+        ctx = self.lower_ctx()
+        self._lowered: dict[str, Callable] = {}
+        for op_name in pipe.topo_op_order():
+            self._lowered[op_name] = self.lower_one(pipe, pipe.ops[op_name], ctx)
+        self._upload_weights()
+
+    def lower_ctx(self) -> LowerCtx:
+        amax = None
+        if getattr(self, "calib_fn", ""):
+            from ..prof.calib import read_calib
+            amax = read_calib(self.calib_fn)
+        return LowerCtx(precision=self.precision, compute_tn=self.compute_tn,
+                        act_amax=amax, device=str(self.dev()), train=self.train,
+                        det_drop_seed=self.det_drop_seed)
+
+    def lower_one(self, pipe: ConvPipe, op, ctx: LowerCtx) -> Callable:
+        return lower_op(pipe, op, ctx)
+
+    def _batch_split(self) -> tuple:
+        return ()
+
+    def build_raw_fn(self, out_names: list[str]) -> Callable:
+        """fn(weights, inputs) -> {name: tensor} on the logical layout: every
+        op's lowering in topo order, pruned to the ops that the requested
+        outputs need from the given inputs (so a mid-graph node may be an
+        input); quantize and per_layer_stats as boda_tpu's; under tp each
+        split conv and fc through ``tp_call``; outputs in each node's
+        logical dtype, weight gradients in the logical layout."""
+        pipe = self.pipe
+        topo = pipe.topo_op_order()
+        lowered = self._lowered
+        grad_inv = {n: prep.inv for n in out_names
+                    for w, prep in self._weight_preps.items() if n.startswith(w + "__grad")}
+        regions = resolve_batch_split(pipe, self._batch_split(), topo,
+                                      lambda o: list(pipe.ops[o].tops),
+                                      lambda o: list(pipe.ops[o].bots))
+        cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
+        quant, stats = self._quant, bool(self.per_layer_stats)
+
+        def net_fn(weights: dict, inputs: dict):
+            ranges = torch.autograd.profiler._is_profiler_enabled
+            tp, rec = weights.get("__tp__"), self._rec
+            vals = dict(weights)
+            vals.update((k, self._ingest(k, v)) for k, v in inputs.items())
+            stat_out = {}
+            needed = set(out_names)
+            run_ops = set()
+            for op_name in reversed(topo):
+                op = pipe.ops[op_name]
+                if any(t in needed and t not in vals for t in op.tops):
+                    run_ops.add(op_name)
+                    needed.update(op.bots)
+
+            def exec_one(op_name, look):
+                op = pipe.ops[op_name]
+                try:
+                    bot_vals = [look(b) for b in op.bots]
+                except KeyError as e:
+                    raise PipeError(f"op {op_name!r}: missing input {e}") from None
+                self._cur_op = op_name
+                fn, args = lowered[op_name], bot_vals
+                if tp is not None and op.type in ("Convolution", "InnerProduct") \
+                        and op.bots[1] in tp.parts:
+                    fn, args = functools.partial(tp_call, fn, devs=tp.devs, out_dim=1), (
+                        [tp.parts.get(b, v) for b, v in zip(op.bots, bot_vals)],)
+                if rec is not None:
+                    n_k, n_l = len(rec.kernels), len(rec.lib)
+                if ranges:
+                    with torch.profiler.record_function(op_name):
+                        outs = fn(*args)
+                else:
+                    outs = fn(*args)
+                if rec is not None:
+                    rec.ops[op_name] = {
+                        "in": [(b, kcommon.describe(v)) for b, v in zip(op.bots, bot_vals)],
+                        "out": [(t, kcommon.describe(v)) for t, v in zip(op.tops, outs)],
+                        "kernels": rec.kernels[n_k:], "lib": rec.lib[n_l:]}
+                return list(zip(op.tops, outs))
+
+            def store(t, v):
+                if t in quant:
+                    v = _quantize(v, *quant[t])
+                if stats and v.is_floating_point():
+                    v32 = v.float()
+                    stat_out[t] = torch.stack([v32.min(), v32.max(), v32.sum(),
+                                               (v32 * v32).sum()])
+                return v
+            self._run_topo(topo, run_ops, regions, vals, out_names, exec_one, store)
+            self._cur_op = None
+            res = {}
+            for n in out_names:
+                v = vals[n]
+                if n in grad_inv:
+                    v = grad_inv[n](v)
+                if cdt is not None:
+                    v = v.to(torch_dtype(pipe.must_dims(n).tn))
+                res[n] = v.contiguous()
+            if stats:
+                res["__stats__"] = stat_out
+            return res
+
+        return net_fn
+
+    def _run_topo(self, topo, run_ops, regions, vals, out_names, exec_one, store,
+                  inner=lambda t, v: v) -> None:
+        """Run the ops of ``run_ops`` in topo order into ``vals``:
+        ``exec_one(op, look)`` gives an op's (top, value) pairs, its inputs
+        read through ``look``; ``store(top, value)`` is the value kept. A
+        batch_split region whose units all run and no node inside which is
+        an input or a requested output runs as k chunks of its in node's
+        img dim, its units in order per chunk, and the chunks of its out
+        node concatenated (boda_tpu: executor.py:1626-1650), a value inside
+        kept as ``inner(top, value)``; the regions that applied are in
+        ``_bs_applied``."""
+        unit_region = {}
+        for reg in regions:
+            if all(u in run_ops for u in reg["units"]) and \
+                    not reg["internal"].intersection(vals) and \
+                    not reg["internal"].intersection(out_names):
+                for u in reg["units"]:
+                    unit_region[u] = reg
+        self._bs_applied = sorted({(r["a"], r["b"]) for r in unit_region.values()})
+        done = set()
+        for op_name in topo:
+            if op_name not in run_ops:
+                continue
+            reg = unit_region.get(op_name)
+            if reg is None:
+                for t, v in exec_one(op_name, vals.__getitem__):
+                    vals[t] = store(t, v)
+                continue
+            if id(reg) in done:
+                continue
+            done.add(id(reg))
+            xa = vals[reg["a"]]
+            parts = []
+            for xc in torch.split(xa, xa.shape[0] // reg["k"], dim=0):
+                rv = {reg["a"]: xc}
+                for u in reg["units"]:
+                    for t, v in exec_one(u, lambda n, rv=rv: rv[n] if n in rv else vals[n]):
+                        rv[t] = inner(t, v)
+                parts.append(rv[reg["b"]])
+            vals[reg["b"]] = store(reg["b"], torch.cat(parts, dim=0))
+
+    def _upload_weights(self) -> None:
+        """The weights on each dp slice's device: cast, prepped, prefolded;
+        under tp also each split weight's shards on the slice's devices."""
+        self.drop_graph()
+        for rep in self._reps:
+            rep._weights_dev = self._upload_to(rep._lead)
+            if self._tp() > 1:
+                rep._weights_dev["__tp__"] = self._tp_shards(rep._weights_dev, rep._tp_devs)
+
+    def _upload_to(self, d: torch.device) -> dict[str, torch.Tensor]:
+        cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
+        wd = {}
+        for k, w in self.pipe.weights.items():
+            t = torch.from_numpy(np.ascontiguousarray(w.data)).to(d)
+            if cdt is not None:  # cast first, then prep and fold
+                t = t.to(cdt)
+            prep = self._weight_preps.get(k)
+            if prep is not None:
+                t = prep.prep(t)
+            wd[k] = t
+        for wf, (wk, bk, fkeys, fold) in self._prefold_plan.items():
+            wd[wf], wd[bk + "__folded"] = fold(wd[wk], wd[bk], [wd[k] for k in fkeys])
+        return wd
+
+    def _tp_shards(self, wd: dict, devs: list) -> _TpShards:
+        """The shards of every groups-1 conv's and every fc's filters that
+        boda_tpu's rule splits over tp (parallel/mesh.py:weight_shardings),
+        and of their biases, raw and prefolded, along out_chan's axis of the
+        uploaded layout."""
+        parts = {}
+        split = weight_shardings(self.pipe, self._mesh)
+        for op in self.pipe.ops.values():
+            if op.type not in ("Convolution", "InnerProduct") or \
+                    int(op.p("groups", 1)) != 1 or "tp" not in split[op.bots[1]]:
+                continue
+            prep = self._weight_preps.get(op.bots[1])
+            axis = prep.oc_axis if prep is not None else split[op.bots[1]].index("tp")
+            keys = [(op.bots[1], axis)] + [(b, 0) for b in op.bots[2:3]]
+            if op.name in self._prefold_keys:
+                wf, bf = self._prefold_keys[op.name]
+                keys += [(wf, axis), (bf, 0)]
+            for key, ax in keys:
+                parts[key] = split_tensor(wd[key], ax, devs)
+        return _TpShards(devs, parts)
+
+    def _is_4d(self, node: str) -> bool:
+        d = self.pipe.nodes[node].dims
+        return d is not None and d.names == ("img", "chan", "y", "x")
+
+    def _ingest(self, k: str, v: torch.Tensor) -> torch.Tensor:
+        """An input as net_fn holds it: cast to the compute dtype, in the
+        logical layout."""
+        if self.compute_tn and v.is_floating_point():
+            v = v.to(torch_dtype(self.compute_tn))
+        return v
+
+    def per_layer_times(self, ins: dict[str, NDA], n_iters: int = 10) -> dict[str, float]:
+        """Device seconds per call of each op's own (unfused) lowering, timed
+        alone on the activations of one full forward (boda_tpu:
+        executor.py:357-395): ``n_iters`` calls captured in one CUDA graph
+        and replayed between two CUDA events (rtc/backends.py:graph_time),
+        so the host's cost per launch stays out. An op whose inputs the
+        forward does not give, or whose timing raises, is skipped with an
+        info-log line. Raises off the card, as time_fwd does."""
+        d = self.dev()
+        if d.type != "cuda":
+            raise RuntimeError("per_layer_times times the card; this engine runs on "
+                               f"{d} (a CPU time is not a device metric)")
+        pipe = self.pipe
+        acts = self.run_fwd(ins, [n for n, node in pipe.nodes.items()
+                                  if node.dims is not None and node.top_for
+                                  and n not in pipe.weights and n not in ins])
+        acts.update(ins)
+        vals = dict(self._weights_dev)
+        vals.update((k, self._ingest(k, torch.from_numpy(np.ascontiguousarray(v.data)).to(d)))
+                    for k, v in acts.items())
+        out: dict[str, float] = {}
+        with self._run_ctx():
+            for op_name in pipe.topo_op_order():
+                op = pipe.ops[op_name]
+                try:
+                    bots = [vals[b] for b in op.bots]
+                except KeyError:
+                    continue
+                fn = self._lowered[op_name]
+                try:
+                    out[op_name] = graph_time(lambda fn=fn, bots=bots: fn(*bots), n_iters)
+                except Exception as e:
+                    self._info_log.append(f"per_layer_times: {op_name} skipped ({e})")
+        return out
 
     def compile_for(self, out_names: list[str]) -> None:
         key = tuple(out_names)
@@ -442,8 +772,9 @@ class FwdEngine:
         backward ops (its Bck ops turn autograd on for their recompute, and
         inference tensors cannot enter autograd)."""
         stack = contextlib.ExitStack()
-        stack.enter_context(torch.no_grad() if self.pipe.bck_added
-                            else torch.inference_mode())
+        autograd = self.pipe.bck_added or any(op.type in AUTOGRAD_RULES
+                                              for op in self.pipe.ops.values())
+        stack.enter_context(torch.no_grad() if autograd else torch.inference_mode())
         stack.enter_context(lib_precision(self.precision))
         return stack
 
@@ -728,7 +1059,7 @@ class CudaFwd(FwdEngine):
         precision, policy and int8, over this engine's own Fields). Wisdom
         recorded under one fingerprint is not applied under another."""
         from ..utils.dims import stable_hash
-        cfg = ("nhwc", bool(self.fuse_relu), bool(self.fuse_eltwise),
+        cfg = (getattr(self, "layout", "nhwc"), bool(self.fuse_relu), bool(self.fuse_eltwise),
                self.compute_tn, self.precision, self.kernel_policy) + \
             (("block",) if self.fuse_block else ()) + \
             (("prefold",) if self.prefold else ()) + \
@@ -736,7 +1067,8 @@ class CudaFwd(FwdEngine):
             ((f"pad_c{self.input_pad_c}",) if self.input_pad_c else ()) + \
             (("int8",) if self.int8 else ()) + \
             (("act_int8",) + tuple(sorted(map(str, self.act_int8)))
-             if self.act_int8 else ())
+             if self.act_int8 else ()) + \
+            tuple(sorted(map(str, self._batch_split())))
         return f"{stable_hash(repr(cfg)) & 0xFFFFFFFF:08x}"
 
     def wisdom_plats(self) -> tuple[str, str]:
@@ -846,15 +1178,7 @@ class CudaFwd(FwdEngine):
         ctx = LowerCtx(precision=self.precision, compute_tn=self.compute_tn,
                        act_amax=amax, device=str(self.dev()), train=self.train,
                        det_drop_seed=self.det_drop_seed)
-        if self.int8 and not self.calib_fn:
-            # engine-wide int8 without a sidecar quantizes with an amax reduce
-            # of every conv and fc input in every forward: say so at init
-            print("conv_fwd: int8=1 without calib_fn uses DYNAMIC per-forward act "
-                  "scales (a max|x| reduce of every conv and fc input per forward); "
-                  "run net_calib and pass --calib-fn for the static-scale serving "
-                  "config", file=sys.stderr)
-            self._info_log.append("int8 dynamic (no calib_fn): expect a "
-                                  "throughput REGRESSION vs bf16")
+        self._int8_notice()
         self._chains = self._find_chains(pipe)
         self._blocks: dict[str, dict] = {}
         # no block fusion in graphs with backward ops or in training (the
@@ -888,20 +1212,30 @@ class CudaFwd(FwdEngine):
             ctx = dataclasses.replace(ctx, act_store_scale={
                 n: sc for n, (uns, sc) in self._act_q.items() if not uns})
         topo = pipe.topo_op_order()
-        # every op's own lowering first: it registers the weight preps the
-        # fused lowerings fold in (a block's convs B and C come after A)
-        for op_name in topo:
-            self._lowered[op_name] = self._lower(pipe, pipe.ops[op_name], ctx,
-                                                 fused=False)
+        # each op's own lowering, then its chain's, in boda_tpu's order (the
+        # info log's); the blocks after every op, since a block folds in the
+        # weight preps of its convs B and C, which come after A
         for op_name in topo:
             op = pipe.ops[op_name]
-            if op_name in self._blocks:
-                self._lowered_fused[op_name] = self._lower_block(
-                    pipe, op, self._blocks[op_name])
-            elif op_name in self._chains:
+            self._lowered[op_name] = self._lower(pipe, op, ctx, fused=False)
+            if op_name in self._chains and op_name not in self._blocks:
                 self._lowered_fused[op_name] = self._lower_chain(
                     pipe, op, self._chains[op_name], ctx)
+        for op_name in self._blocks:
+            self._lowered_fused[op_name] = self._lower_block(
+                pipe, pipe.ops[op_name], self._blocks[op_name])
         self._upload_weights()
+
+    def _int8_notice(self) -> None:
+        """Engine-wide int8 without a sidecar quantizes with an amax reduce
+        of every conv and fc input in every forward: say so at init."""
+        if self.int8 and not self.calib_fn:
+            print("conv_fwd: int8=1 without calib_fn uses DYNAMIC per-forward act "
+                  "scales (a max|x| reduce of every conv and fc input per forward); "
+                  "run net_calib and pass --calib-fn for the static-scale serving "
+                  "config", file=sys.stderr)
+            self._info_log.append("int8 dynamic (no calib_fn): expect a "
+                                  "throughput REGRESSION vs bf16")
 
     def _detect_input_s2d(self, pipe: ConvPipe) -> None:
         """Find net inputs whose single consumer is a stem conv qualifying
@@ -1358,55 +1692,6 @@ class CudaFwd(FwdEngine):
             return tuple(outs)
         return fn
 
-    def _upload_weights(self) -> None:
-        """The weights on each dp slice's device: cast, prepped, prefolded;
-        under tp also each split weight's shards on the slice's devices."""
-        self.drop_graph()
-        for rep in self._reps:
-            rep._weights_dev = self._upload_to(rep._lead)
-            if self._tp() > 1:
-                rep._weights_dev["__tp__"] = self._tp_shards(rep._weights_dev, rep._tp_devs)
-
-    def _upload_to(self, d: torch.device) -> dict[str, torch.Tensor]:
-        cdt = torch_dtype(self.compute_tn) if self.compute_tn else None
-        wd = {}
-        for k, w in self.pipe.weights.items():
-            t = torch.from_numpy(np.ascontiguousarray(w.data)).to(d)
-            if cdt is not None:  # cast first, then prep and fold
-                t = t.to(cdt)
-            prep = self._weight_preps.get(k)
-            if prep is not None:
-                t = prep.prep(t)
-            wd[k] = t
-        for wf, (wk, bk, fkeys, fold) in self._prefold_plan.items():
-            wd[wf], wd[bk + "__folded"] = fold(wd[wk], wd[bk], [wd[k] for k in fkeys])
-        return wd
-
-    def _tp_shards(self, wd: dict, devs: list) -> _TpShards:
-        """The shards of every groups-1 conv's and every fc's filters that
-        boda_tpu's rule splits over tp (parallel/mesh.py:weight_shardings),
-        and of their biases, raw and prefolded, along out_chan's axis of the
-        uploaded layout."""
-        parts = {}
-        split = weight_shardings(self.pipe, self._mesh)
-        for op in self.pipe.ops.values():
-            if op.type not in ("Convolution", "InnerProduct") or \
-                    int(op.p("groups", 1)) != 1 or "tp" not in split[op.bots[1]]:
-                continue
-            prep = self._weight_preps.get(op.bots[1])
-            axis = prep.oc_axis if prep is not None else split[op.bots[1]].index("tp")
-            keys = [(op.bots[1], axis)] + [(b, 0) for b in op.bots[2:3]]
-            if op.name in self._prefold_keys:
-                wf, bf = self._prefold_keys[op.name]
-                keys += [(wf, axis), (bf, 0)]
-            for key, ax in keys:
-                parts[key] = split_tensor(wd[key], ax, devs)
-        return _TpShards(devs, parts)
-
-    def _is_4d(self, node: str) -> bool:
-        d = self.pipe.nodes[node].dims
-        return d is not None and d.names == ("img", "chan", "y", "x")
-
     def build_raw_fn(self, out_names: list[str]) -> Callable:
         """fn(weights, inputs) -> {name: tensor}: inputs are logical-layout
         device tensors; outputs come back in logical NCHW and dtype."""
@@ -1445,6 +1730,11 @@ class CudaFwd(FwdEngine):
         lowered = {o: (self._lowered_fused[o] if o in fused_now else self._lowered[o])
                    for o in topo}
         is4d = {n: self._is_4d(n) for n in pipe.nodes}
+        # batch_split regions over the units that run (a fused chain is one)
+        regions = resolve_batch_split(
+            pipe, self._batch_split(), [o for o in topo if o not in skip_ops],
+            lambda o: [chain_final_top[o]] if o in fused_now else list(pipe.ops[o].tops),
+            lambda o: list(pipe.ops[o].bots) + chain_args.get(o, []))
         # weight gradients come out in the prepped layout: invert
         grad_inv = {n: prep.inv for n in out_names if not is4d.get(n)
                     for w, prep in self._weight_preps.items()
@@ -1499,9 +1789,8 @@ class CudaFwd(FwdEngine):
                     needed.update(op.bots)
                     if op_name in fused_now:
                         needed.update(chain_args[op_name])
-            for op_name in topo:
-                if op_name not in run_ops:
-                    continue
+
+            def exec_one(op_name, look):
                 op = pipe.ops[op_name]
                 bots = op.bots
                 pf = self._prefold_keys.get(op_name) if op_name in fused_now else None
@@ -1515,7 +1804,7 @@ class CudaFwd(FwdEngine):
                 try:
                     bot_vals = []
                     for i, b in enumerate(bots):
-                        v = vals[b]
+                        v = look(b)
                         if i == 0 and q8ok and v.dtype == torch.int8:
                             self._q8_direct.add(op_name)
                         else:
@@ -1542,14 +1831,17 @@ class CudaFwd(FwdEngine):
                         "in": [(b, kcommon.describe(v)) for b, v in zip(bots, bot_vals)],
                         "out": [(t, kcommon.describe(v)) for t, v in zip(tops, outs)],
                         "kernels": rec.kernels[n_k:], "lib": rec.lib[n_l:]}
-                for t, v in zip(tops, outs):
-                    if t in quant:
-                        v = _quantize(v, *quant[t])
-                    if stats and v.is_floating_point():
-                        v32 = v.float()
-                        stat_out[t] = torch.stack([v32.min(), v32.max(), v32.sum(),
-                                                   (v32 * v32).sum()])
-                    vals[t] = qstore(t, v)
+                return list(zip(tops, outs))
+
+            def store(t, v):
+                if t in quant:
+                    v = _quantize(v, *quant[t])
+                if stats and v.is_floating_point():
+                    v32 = v.float()
+                    stat_out[t] = torch.stack([v32.min(), v32.max(), v32.sum(),
+                                               (v32 * v32).sum()])
+                return qstore(t, v)
+            self._run_topo(topo, run_ops, regions, vals, out_names, exec_one, store, qstore)
             self._cur_op = None
             res = {}
             for n in out_names:
@@ -1593,37 +1885,124 @@ class CudaFwd(FwdEngine):
                    f"{g['c_eff']})" if g is not None else ""))
         return v
 
-    def per_layer_times(self, ins: dict[str, NDA], n_iters: int = 10) -> dict[str, float]:
-        """Device seconds per call of each op's own (unfused) lowering, timed
-        alone on the activations of one full forward (boda_tpu:
-        executor.py:357-395): ``n_iters`` calls captured in one CUDA graph
-        and replayed between two CUDA events (rtc/backends.py:graph_time),
-        so the host's cost per launch stays out. An op whose inputs the
-        forward does not give, or whose timing raises, is skipped with an
-        info-log line. Raises off the card, as time_fwd does."""
-        d = self.dev()
-        if d.type != "cuda":
-            raise RuntimeError("per_layer_times times the card; this engine runs on "
-                               f"{d} (a CPU time is not a device metric)")
-        pipe = self.pipe
-        acts = self.run_fwd(ins, [n for n, node in pipe.nodes.items()
-                                  if node.dims is not None and node.top_for
-                                  and n not in pipe.weights and n not in ins])
-        acts.update(ins)
-        vals = dict(self._weights_dev)
-        vals.update((k, self._ingest(k, torch.from_numpy(np.ascontiguousarray(v.data)).to(d)))
-                    for k, v in acts.items())
-        out: dict[str, float] = {}
-        with self._run_ctx():
-            for op_name in pipe.topo_op_order():
-                op = pipe.ops[op_name]
-                try:
-                    bots = [vals[b] for b in op.bots]
-                except KeyError:
-                    continue
-                fn = self._lowered[op_name]
-                try:
-                    out[op_name] = graph_time(lambda fn=fn, bots=bots: fn(*bots), n_iters)
-                except Exception as e:
-                    self._info_log.append(f"per_layer_times: {op_name} skipped ({e})")
-        return out
+
+@register("conv_fwd", "xla", help="logical-layout (NCHW) engine on the library's ops: "
+                                  "the oracle, sharing no rule with the NHWC engine")
+class XlaFwd(FwdEngine):
+    """boda_tpu's ``xla`` engine (executor.py:503), its default and the
+    oracle of test_compute: every op by the logical-layout rules of
+    graph/lowering.py and graph/ssd_ops.py (cuDNN/cuBLAS on the card, the
+    conv and fc with an f32 accumulator), NCHW activations and OIHW
+    filters as uploaded, no prefold, no fusion chain and no space-to-depth,
+    so it shares none of the NHWC engine's rewrites. A ``Bck`` op is the
+    autograd of its forward rule. Under a mesh, dp runs each img slice on
+    its own device and tp splits every groups-1 conv's and fc's out_chan
+    (boda_tpu's ``_weight_sharding``/``_input_sharding``, executor.py:93-109)."""
+
+    def _plan_engine(self) -> str:
+        return (f"mode=xla compute_tn={self.compute_tn or 'float32'} "
+                f"cuda_graph={int(self._graphed())}"
+                + (f" mesh={self._mesh}" if self._mesh is not None else ""))
+
+
+@register("conv_fwd", "pallas", help="boda_tpu's generated-kernel engine: layout=nhwc is "
+                                     "the cuda engine, layout=nchw the per-op K1/K3 route")
+class PallasFwd(CudaFwd):
+    """boda_tpu's ``pallas`` engine (executor.py:508) with its Fields and
+    defaults: ``kernel_policy`` defaults to lib. ``layout=nhwc`` is the
+    ``cuda`` engine, its code shared; ``layout=nchw`` runs the logical
+    engine of the base class with each conv and fc routed by
+    ops/cnn_variants.py (K1 for fc and 1x1 convs, K3 for stride-1 k x k
+    convs, the logical rules for the rest), as boda_tpu's does: its fusion
+    chains, blocks, prefold and input_s2d are the NHWC engine's, act_int8
+    refuses it, and int8 is the same no-op that it is there (the NCHW
+    route and the logical rules compute in the compute dtype; only the
+    dynamic-scale notice prints). Each routing decision is logged once (boda_tpu
+    logs a chain head's again for the fused lowering that its NCHW build
+    never runs). ``batch_split`` runs its regions in k img chunks under
+    either layout."""
+
+    layout = Field(str, default="nhwc", help="internal layout: nhwc | nchw")
+    kernel_policy = Field(str, default="lib",
+                          help="conv/fc default: lib (cuDNN/cuBLAS; boda_tpu's default) | "
+                               "gen (the hand CUDA kernels)")
+    # net-level tune (boda_tpu: executor.py:608): the subgraph in_node ->
+    # out_node runs as k img chunks, each a full pass of its ops; inference
+    # ops are per-sample along img, so the split is exact
+    batch_split = Field((list, str), default="()",
+                        help="batch-split regions 'in_node:out_node:k'")
+
+    def base_setup(self) -> None:
+        if self.layout not in ("nhwc", "nchw"):
+            raise ConfigError(f"layout {self.layout!r}: nhwc | nchw")
+        super().base_setup()
+
+    def _nchw(self) -> bool:
+        return self.layout == "nchw"
+
+    def _batch_split(self) -> tuple:
+        return tuple(self.batch_split or ())
+
+    def _check_mesh(self, out_names: list[str]) -> None:
+        FwdEngine._check_mesh(self, out_names)
+        # boda_tpu: executor.py:742-747
+        if self._tp() > 1 and self.kernel_policy != "lib":
+            raise PipeError("pallas engine shards dp only with generated kernels; use "
+                            "kernel_policy=lib or mode=xla for tp")
+
+    def _plan_engine(self) -> str:
+        return f"mode=pallas layout={self.layout} " + super()._plan_engine()
+
+    def init(self, pipe: ConvPipe) -> None:
+        if not self._nchw():
+            super().init(pipe)
+            return
+        self._int8_notice()
+        if self.input_pad_c and not self.input_s2d:
+            raise ConfigError("input_pad_c requires input_s2d=1 (the pad is "
+                              "part of the host-folded entry layout)")
+        if self.act_int8:
+            raise ConfigError("act_int8 requires the NHWC engine layout")
+        self._chains, self._blocks, self._lowered_fused = {}, {}, {}
+        FwdEngine.init(self, pipe)
+
+    def lower_one(self, pipe: ConvPipe, op, ctx: LowerCtx) -> Callable:
+        """The NCHW route of one op: a conv or fc by ops/cnn_variants.py,
+        whose filters are turned to the kernel's layout at upload; the
+        logical rule for the rest, and for a ``Bck`` op, whose prepped
+        filters are turned back to OIHW for its autograd and its filter
+        gradient to the prepped layout."""
+        from ..ops.cnn_variants import lower_op_pallas
+        if op.type == "Bck":
+            return self._nchw_bck(pipe, op, ctx)
+        r = lower_op_pallas(pipe, op, ctx, self.op_tune(op.name), self._info_log)
+        if r is None:
+            return lower_op(pipe, op, ctx)
+        fn, preps = r
+        self._weight_preps.update(preps)
+        return fn
+
+    def _nchw_bck(self, pipe: ConvPipe, op, ctx: LowerCtx) -> Callable:
+        fn = lower_op(pipe, op, ctx)
+        fwd = pipe.ops[op.p("fwd_op")]
+        preps = {i: self._weight_preps[b] for i, b in enumerate(fwd.bots)
+                 if b in self._weight_preps}
+        if not preps:
+            return fn
+        grad_pos = [i for i, b in enumerate(fwd.bots) if _wants_grad(pipe, op, b)]
+
+        def bck(*args):
+            args = [preps[i].inv(a) if i in preps else a for i, a in enumerate(args)]
+            return tuple(preps[p].prep(g) if p in preps else g
+                         for p, g in zip(grad_pos, fn(*args)))
+        return bck
+
+    def build_raw_fn(self, out_names: list[str]) -> Callable:
+        if self._nchw():
+            return FwdEngine.build_raw_fn(self, out_names)
+        return super().build_raw_fn(out_names)
+
+    def _ingest(self, k: str, v: torch.Tensor) -> torch.Tensor:
+        if self._nchw():
+            return FwdEngine._ingest(self, k, v)
+        return super()._ingest(k, v)

@@ -19,7 +19,6 @@ it), and the layout's name.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +30,7 @@ from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
 from ..utils.dims import stable_hash
-from .lowering import LowerCtx, _softmax, jax_maximum, lrn_inv_pow
+from .lowering import LowerCtx, _softmax, eltwise, jax_maximum, lrn_window
 from .pipe import ConvOp, ConvPipe, PipeError, _concat_axis_name
 
 _NHWC_RULES: dict[str, Callable] = {}
@@ -429,24 +428,11 @@ def _nhwc_pool(pipe, op, ctx, tune, info_log):
 
 @nhwc_rule("LRN")
 def _nhwc_lrn(pipe, op, ctx, tune, info_log):
-    """Caffe's across-channel LRN (boda_tpu: lowering_nhwc.py:625-644): the
-    squares summed over a window of local_size channels in f32, scaled, then
-    x * (k + alpha / size * sum)^-beta cast back to x's dtype."""
-    size = int(op.p("local_size", 5))
-    alpha = float(op.p("alpha", 1e-4))
-    beta = float(op.p("beta", 0.75))
-    kk = float(op.p("k", 1.0))
-    half = (size - 1) // 2
-
-    def fn(x):
-        x32 = x.float()
-        c = x.shape[3]
-        sqp = F.pad(x32 * x32, (half, size - 1 - half))
-        ssum = sqp[..., 0:c]
-        for i in range(1, size):
-            ssum = ssum + sqp[..., i:i + c]
-        return ((x32 * lrn_inv_pow(kk + (alpha / size) * ssum, beta)).to(x.dtype),)
-    return _no_preps(fn)
+    """Caffe's across-channel LRN (boda_tpu: lowering_nhwc.py:625-644) on
+    NHWC's channel axis: ``lowering.lrn_window``."""
+    size, alpha = int(op.p("local_size", 5)), float(op.p("alpha", 1e-4))
+    beta, kk = float(op.p("beta", 0.75)), float(op.p("k", 1.0))
+    return _no_preps(lambda x: (lrn_window(x, size, alpha, beta, kk, 3),))
 
 
 @nhwc_rule("BatchNorm")
@@ -561,21 +547,8 @@ def _nhwc_concat(pipe, op, ctx, tune, info_log):
 
 @nhwc_rule("Eltwise")
 def _nhwc_eltwise(pipe, op, ctx, tune, info_log):
-    kind = op.p("eltwise_op", "sum")
-    coeffs = op.p("coeffs", None)
-
-    def fn(*xs):
-        if kind == "sum":
-            out = sum((c * x for c, x in zip(coeffs, xs)), start=0.0) \
-                if coeffs else sum(xs[1:], start=xs[0])
-        elif kind == "prod":
-            out = functools.reduce(torch.mul, xs)
-        elif kind == "max":
-            out = functools.reduce(jax_maximum, xs)
-        else:
-            raise PipeError(f"eltwise: unknown op {kind!r}")
-        return (out,)
-    return _no_preps(fn)
+    kind, coeffs = op.p("eltwise_op", "sum"), op.p("coeffs", None)
+    return _no_preps(lambda *xs: (eltwise(kind, coeffs, xs),))
 
 
 @nhwc_rule("Reduce")

@@ -377,9 +377,28 @@ def _calc_sml(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
     return [Dims.of(img=ind["img"], tn=ind.tn), ind]
 
 
+@_op_info("Accuracy", min_bots=2, max_bots=2)
+def _calc_acc(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    ind = pipe.must_dims(op.bots[0])
+    return [Dims.of(img=ind["img"], tn=ind.tn)]
+
+
+@_op_info("Spreading", min_bots=3, max_bots=3)
+def _calc_spreading(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    # (out, out_grad_loss, in) -> in_grad_loss (pooling backward; ref
+    # conv_util.cc:63 Spreading_coi)
+    return [pipe.must_dims(op.bots[2])]
+
+
+@_op_info("ZeroIfNonPos", min_bots=2, max_bots=2)
+def _calc_zinp(pipe: ConvPipe, op: ConvOp) -> list[Dims]:
+    return [pipe.must_dims(op.bots[0])]
+
+
 # same-dims unary ops (Scale takes optional scales/biases weight bots;
-# BatchNorm takes means/vars/scale-factor weight bots)
+# BatchNorm takes means/vars/scale-factor weight bots; the explicit
+# backward ops BckDropout and BckLRN their extra inputs)
 for _t, _mb in (("ReLU", 1), ("Sigmoid", 1), ("TanH", 1), ("Dropout", 1),
-                ("LRN", 1), ("Softmax", 1),
+                ("BckDropout", 2), ("LRN", 1), ("BckLRN", 3), ("Softmax", 1),
                 ("Scale", 3), ("BatchNorm", 4), ("Data", 1)):
     OP_INFOS[_t] = OpInfo(_t, 1, _mb, 1, same_dims=True)

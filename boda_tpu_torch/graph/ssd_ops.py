@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.dims import Dims
+from .lowering import lower_rule
 from .lowering_nhwc import _no_preps, nhwc_rule
 from .pipe import ConvOp, ConvPipe, PipeError, _op_info
 
@@ -385,6 +386,49 @@ def _detection_output_fn(op: ConvOp, n_classes: int, n_img: int, device,
         dets = torch.cat([img_ids[:n], out], dim=2).reshape(1, 1, -1, 7)
         return (dets.to(loc.dtype),)
     return fn
+
+
+# -- logical rules (boda_tpu: ssd_ops.py:173-434): the xla engine's, the NCHW route's --
+
+@lower_rule("Permute")
+def _lower_permute(pipe, op, ctx):
+    order = tuple(op.p("order"))
+    return lambda x: (x.permute(order),)
+
+
+@lower_rule("Flatten")
+def _lower_flatten(pipe, op, ctx):
+    return _reshape_rule(pipe, op)
+
+
+@lower_rule("Reshape")
+def _lower_reshape(pipe, op, ctx):
+    return _reshape_rule(pipe, op)
+
+
+@lower_rule("Normalize")
+def _lower_normalize(pipe, op, ctx):
+    across = bool(op.p("across_spatial", False))
+    eps = float(op.p("eps", 1e-10))
+    return lambda x, scales: (_normalize_math(x, scales, chan_axis=1, across_spatial=across,
+                                              eps=eps, out_dtype=x.dtype),)
+
+
+@lower_rule("PriorBox")
+def _lower_priorbox(pipe, op, ctx):
+    """The table, made once here on the engine's device."""
+    pri = torch.from_numpy(_compute_priors(op, pipe.must_dims(op.bots[0]),
+                                           pipe.must_dims(op.bots[1]))[None]).to(ctx.device)
+    return lambda feat, data: (pri,)
+
+
+@lower_rule("DetectionOutput")
+def _lower_detout(pipe, op, ctx):
+    """The head with the prototxt's own top_k (boda_tpu's logical rule takes
+    no det_top_k)."""
+    ind = pipe.must_dims(op.bots[0])
+    n_img = ind["img"] if "img" in ind.names else ind.sizes[0]
+    return _detection_output_fn(op, int(op.p("num_classes")), n_img, ctx.device)
 
 
 # -- NHWC rules: a canonical 4-D (physically NHWC) input turned logical first ------

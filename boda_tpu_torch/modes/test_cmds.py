@@ -35,25 +35,21 @@ from ..utils.features import is_feature_enabled
 from ..utils.lexp import LexpError, lexp_from_argv
 
 # why an entry may be in NOT_RUN: its cli_str names a conv_fwd type the port
-# does not have; or its golden differs from what boda_tpu prints today (named
-# in ROADMAP §3 "Found in the reference, kept as it is")
-REASONS = ("engine", "golden")
+# does not have; its golden differs from what boda_tpu prints today (named
+# in ROADMAP §3 "Found in the reference, kept as it is"); or its golden
+# holds XLA's program text, which no PyTorch engine writes
+REASONS = ("engine", "golden", "hlo")
 
 # test_cmds.xml entry name -> (reason, what, ROADMAP item)
 NOT_RUN = {
     "dist_test_2x2": ("golden", "testdata/good_tr/dist_test_2x2/test_out.txt",
                       "§3: found in the reference, kept as it is"),
-    "run_cnet_int8": ("engine", "pallas", "§1 item 11: boda_tpu's TPU engines are not ported"),
-    "gen_src_tinynet": ("engine", "xla", "§1 item 3: gen_src_dir; §1 item 11"),
+    "gen_src_tinynet": ("hlo", "testdata/good_tr/gen_src_tinynet/gs",
+                        "§1 item 11: XLA's HLO text is TPU tooling"),
 }
 
 # test_all.xml suite cli_str -> (reason, what, ROADMAP item)
-NOT_RUN_SUITES = {
-    "test_compute --model=mini_resnet --img=2 --n-wins=1 --engines=(oracle=(mode=xla),"
-    "bf16=(mode=pallas,compute_tn=bfloat16,precision=default,kernel_policy=gen)) "
-    "--mrd-toler=3e-2": ("engine", "xla, pallas",
-                         "§1 item 11: boda_tpu's TPU engines are not ported"),
-}
+NOT_RUN_SUITES: dict = {}
 
 # modes that need the native library (native/boda_native.cc)
 NATIVE_MODES = ("serve_bench", "serve_stages")
@@ -65,6 +61,10 @@ PIL_ENTRIES = ("display_pil", "cs_disp_pipeline", "avi_mjpeg_scan")
 def skip_text(reason: str, what: str, item: str) -> str:
     if reason == "engine":
         why = f"its conv_fwd type ({what}) is not in the port"
+    elif reason == "hlo":
+        why = (f"its golden ({what}) holds XLA's StableHLO and optimized HLO text, "
+               f"which no PyTorch engine writes (the port's gen_src_dir writes the "
+               f"plan per op)")
     else:
         why = f"its golden differs from boda_tpu's own output ({what})"
     return f"{why} (ROADMAP {item})"

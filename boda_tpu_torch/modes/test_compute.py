@@ -1,10 +1,12 @@
 """test_compute: cross-engine per-layer numeric regression over real nets.
 
 Counterpart of ``boda_tpu/modes/test_compute.py`` (``test_compute`` and
-``comp_ndas``), run on the port's engines: by default the library path
-(``kernel_policy=lib``, cuDNN/cuBLAS) is the baseline and the hand kernels
-(``gen``) are held against it, node by node, forward and (with
-``--add-bck-ops=1``) gradient. Digest streams are boda_tpu's format, so a
+``comp_ndas``), run on the port's engines: by default boda_tpu's pair, the ``xla`` engine
+(the logical-layout rules on the library's ops) as the baseline and the
+``pallas`` engine under ``kernel_policy=gen`` (the NHWC engine on the hand
+kernels) held against it, node by node, forward and (with
+``--add-bck-ops=1``) gradient. The two share no lowering rule, so a fault
+in one engine's rule shows against the other. Digest streams are boda_tpu's format, so a
 stream written by either package checks the other. Models come from the
 zoo (--model=) or a Caffe prototxt (--ptt-fn=, --weights-fn=).
 
@@ -35,12 +37,11 @@ class TestCompute(Mode):
     weights_fn = Field("filename", default="", help="caffemodel path")
     img = Field(int, default="2", help="batch size")
     in_sz = Field(int, default="0", help="input size override")
-    # the labels are boda_tpu's (its output line, which the corpus golden
-    # test_compute_mini pins, names them): "oracle" is the library path,
-    # "pallas" the hand kernels (kernel_policy=gen)
+    # boda_tpu's default (its output line, which the corpus golden
+    # test_compute_mini pins, names the labels): the xla oracle and the
+    # pallas engine on the hand kernels (kernel_policy=gen)
     engines = Field((dict, "conv_fwd"),
-                    default="(oracle=(mode=cuda,kernel_policy=lib),"
-                            "pallas=(mode=cuda,kernel_policy=gen))",
+                    default="(oracle=(mode=xla),pallas=(mode=pallas,kernel_policy=gen))",
                     help="engines; first is the comparison baseline")
     n_wins = Field(int, default="2", help="number of input windows to test")
     mrd_toler = Field(float, default="5e-4", help="default per-layer tolerance")

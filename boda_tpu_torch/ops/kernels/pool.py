@@ -160,17 +160,26 @@ def _nchw_pad(pad_y, pad_x):
 
 
 def pool2d_lib(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
-    """The library pool (``F.max_pool2d``, ``F.avg_pool2d`` on the NCHW view
-    of x): the engine's pooling without ``pool_pallas``, and the function
-    whose autograd is the kernel's backward. Avg divides by the divisor."""
-    p = (pad_y[0], pad_x[0])
+    """The library pool on NHWC x (:func:`pool2d_lib_nchw` on its NCHW
+    view): the engine's pooling without ``pool_pallas``, and the function
+    whose autograd is the kernel's backward."""
+    return pool2d_lib_nchw(x.permute(0, 3, 1, 2), k, s, pad_y, pad_x, oy, ox, avg) \
+        .permute(0, 2, 3, 1).contiguous()
+
+
+def pool2d_lib_nchw(x, k, s, pad_y, pad_x, oy, ox, avg: bool):
+    """The library pool (``F.max_pool2d``, ``F.avg_pool2d``) on NCHW x, with
+    Caffe's ceil-mode windows as the bottom/right pad of ``pool_geom``: max
+    over the -inf-padded window; avg as an f32 window sum divided by the
+    non-padding divisor. Output NCHW in x's dtype."""
     if avg:
-        xp = F.pad(x.permute(0, 3, 1, 2).float(), _nchw_pad(pad_y, pad_x))
+        xp = F.pad(x.float(), _nchw_pad(pad_y, pad_x))
         sums = F.avg_pool2d(xp, k, s, divisor_override=1)
-        out = sums / _divisor(x.device, x.shape[1], x.shape[2], k, s, p, oy, ox, False)
-        return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
-    xp = F.pad(x.permute(0, 3, 1, 2), _nchw_pad(pad_y, pad_x), value=float("-inf"))
-    return F.max_pool2d(xp, k, s).permute(0, 2, 3, 1).contiguous()
+        p = (pad_y[0], pad_x[0])
+        return (sums / _divisor(x.device, x.shape[2], x.shape[3], k, s, p, oy, ox, False)) \
+            .to(x.dtype)
+    xp = F.pad(x, _nchw_pad(pad_y, pad_x), value=float("-inf"))
+    return F.max_pool2d(xp, k, s)
 
 
 def pool2d_plain(x, k, s, pad_y, pad_x, oy, ox, avg: bool):

@@ -215,15 +215,16 @@ def gather_weights(weights: dict, device=None) -> dict:
             else (v.to(device) if device is not None else v) for k, v in weights.items()}
 
 
-def tp_call(fn: Callable, vals: list, devs: list) -> tuple:
+def tp_call(fn: Callable, vals: list, devs: list, out_dim: int = -1) -> tuple:
     """One conv or fc op over a tp row (boda_tpu: the GSPMD path,
     executor.py:251-273). ``vals``: the op's operands, its input first,
     its filters second as :class:`Shards`. Each device computes its
     out_chan slice: the input moved there, every Shards operand's part,
     every other operand whose last dim is out_chan (a bias, a residual,
     unfolded BN/Scale parameters) cut to the slice's channels in a tensor
-    of its own; the slices are concatenated on the input's device, where
-    the next op runs. Autograd runs it backward: the concatenation cuts
+    of its own; the slices are concatenated along ``out_dim`` (NHWC's
+    channels by default, 1 for the logical layout's) on the input's device,
+    where the next op runs. Autograd runs it backward: the concatenation cuts
     the cotangent per slice, each slice's input gradient comes back to the
     input's device and sums there, and each part's gradient stays on its
     device."""
@@ -242,5 +243,5 @@ def tp_call(fn: Callable, vals: list, devs: list) -> tuple:
                 args.append(v.to(dev))
         pieces.append(fn(*args))
     lead = vals[0].device
-    return tuple(torch.cat([p[i].to(lead) for p in pieces], dim=-1)
+    return tuple(torch.cat([p[i].to(lead) for p in pieces], dim=out_dim)
                  for i in range(len(pieces[0])))

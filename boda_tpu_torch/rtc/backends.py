@@ -149,7 +149,20 @@ def graph_time(run_once, n_iters: int = 20, warmup: int = 2) -> float:
 
 class _TorchBackend(Backend):
     """Shared torch-tensor var store; "compile" binds a generated function to
-    the backend's device."""
+    the backend's device. With ``donate=1`` a call's output bound to the
+    same var as one of its inputs is written into that input's buffer (the
+    var keeps its storage) instead of replacing it."""
+
+    # boda_tpu: rtc/backends.py:71 (declared there, never read)
+    donate = Field(bool, default="0", help="donate inputs named like outputs (memory reuse)")
+
+    def _store_out(self, vn: str, dims: Dims, arr, in_vars: set) -> None:
+        old = self.vars.get(vn, (None, None))[1]
+        if self.donate and vn in in_vars and isinstance(old, torch.Tensor) and \
+                isinstance(arr, torch.Tensor) and old.shape == arr.shape and \
+                old.dtype == arr.dtype and old.device == arr.device:
+            arr = old.copy_(arr)
+        self.vars[vn] = (dims, arr)
 
     def _zeros(self, dims: Dims):
         return torch.zeros(dims.shape, dtype=torch_dtype(dims.tn),

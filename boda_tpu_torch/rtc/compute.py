@@ -188,12 +188,12 @@ class Backend:
         outs, dt = self._timed_call(self._compiled[fi.name], ins)
         if not isinstance(outs, (tuple, list)):
             outs = (outs,)
+        in_vars = {call.arg_map[p] for p in fi.in_names}
         for pname, arr in zip(fi.out_names, outs):
             vn = call.arg_map.get(pname)
             if vn is None:
                 raise RtcError(f"call {call.fn_name}: missing out arg {pname!r}")
-            dims = self._get(vn)[0]
-            self.vars[vn] = (dims, arr)
+            self._store_out(vn, self._get(vn)[0], arr, in_vars)
         self._call_durs.append((call.call_tag or call.fn_name, dt))
         return len(self._call_durs) - 1
 
@@ -206,6 +206,11 @@ class Backend:
         return sum(d for _, d in self._call_durs[b:e + 1])
 
     # -- backend-specific primitives ------------------------------------------------
+    def _store_out(self, vn: str, dims: Dims, arr, in_vars: set) -> None:
+        """Bind a call's output to its var (``in_vars``: the call's input
+        vars, for a backend that may write into their buffers)."""
+        self.vars[vn] = (dims, arr)
+
     def _timed_call(self, fn: Callable, ins: list):
         """(outs, secs) of one call: host seconds around the call and a sync."""
         t0 = time.perf_counter()

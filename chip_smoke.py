@@ -130,6 +130,16 @@ against the no-mesh step (losses, launches and paths per step, each
 distinct call against its plain version, ms per step), b4 f32 at 1e-4, and
 a (tp=1) step bit-equal to no mesh.
 
+Then [xla]: boda_tpu's own engines (``xla_phase``): ResNet-50 b32 bf16
+under ``(mode=xla)``, the logical-layout rules on the library's ops, and
+``(mode=pallas,layout=nchw,kernel_policy=gen)``, the NCHW route on K1 (37
+launches) and K3 (16), beside the cuda engine's lib: fc1000 within 5e-2 of
+lib's, replays bit-equal to eager on two batches, each distinct K1/K3 call
+of the route against its plain version, ms per replay and eager forward;
+f32 b2 every node of xla against lib within 1e-4, and f32 b4's gradient
+graph under test_compute's 1e-3; googlenet_conv b32 and ssd300 b4 bf16
+under xla against lib, and ssd300's head against the CPU's.
+
 The elementwise kernel (K9) is held bit for bit against its plain version
 for every func and dtype on both its paths (the b32 add must take the
 ring), and the fused stem kernel (K7, on no path: no engine routes to it,
@@ -3131,8 +3141,9 @@ def predict_gates(card: str, root: str, imgs: list, have_zmq: bool) -> dict:
 def corpus_phase(card: str, out_dir) -> dict:
     """[corpus]: the port's test_all with its slow suites (test_cmds on
     testdata/test_cmds.xml, then every test_compute suite of
-    testdata/test_all.xml: the forward ones and the gradient matrix) in
-    process on the card; every entry outside the skip tables must pass.
+    testdata/test_all.xml: the forward ones, the gradient matrix and the
+    xla/pallas suite) in process on the card; every entry outside the skip
+    tables must pass, run_cnet_int8 among them.
     Outputs under build/chip_smoke/corpus/."""
     import os
     import xml.etree.ElementTree as ET
@@ -3171,6 +3182,10 @@ def corpus_phase(card: str, out_dir) -> dict:
           f"test_all rc={rc}: {len(fails)} failures")
     check(suites == want, f"test_all ran {len(suites)} suites, testdata/test_all.xml lists "
                           f"{len(want)} outside the skip table")
+    # boda_tpu's engines: run_cnet_int8 (pallas) and the xla/pallas suite run
+    check(not any(ln.startswith("SKIP run_cnet_int8") for ln in skips)
+          and any("(oracle=(mode=xla)" in c for c in suites),
+          "[corpus] run_cnet_int8 or test_all's xla/pallas suite did not run")
     return {"summary": summary, "skipped": len(skips), "suites_run": len(suites), "card": card}
 
 def mesh_devices(n: int) -> list:
@@ -3575,6 +3590,238 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     out["tp1_bit_equal"] = same
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[tp-train] phase took {out['seconds']:.1f} s ({card})")
+    return out
+
+# [xla]: boda_tpu's own engines. The NCHW route's hand-kernel launches per
+# ResNet-50 forward (ops/cnn_variants.py): K1 the 36 1x1 convs (the four
+# strided ones on their subsample) and fc1000, K3 the 16 3x3s (all stride
+# 1; the conv kernel counted under conv and conv_nhwc); the 7x7 s2 stem is
+# a strided k x k conv, so the logical rule's
+XLA_LAUNCHES = {"sgemm": 37, "conv": 16, "conv_nhwc": 16}
+XLA_CALL_TOL = 1e-2     # each distinct K1/K3 call of the NCHW route vs its plain version
+XLA_F32_NODE_TOL = 1e-4  # resnet50 f32 b2, every node of xla vs cuda lib
+XLA_GRAD_BATCH = 4
+LIB_R50_PR13_MS = 2.888  # cuda lib's b32 bf16 replay, PERF.md (PR 13 run 1)
+
+
+def xla_phase(card: str, pipe, ins: dict, fc_scale: float, counted: dict) -> dict:
+    """[xla]: boda_tpu's engines on the card. ResNet-50 b32 224x224 bf16
+    (fc1000 scaled as in every phase) under ``(mode=xla)``, the
+    logical-layout rules on the library's ops, and ``(mode=pallas,
+    layout=nchw,kernel_policy=gen)``, the NCHW route on K1/K3, beside the
+    ``cuda`` engine's lib policy: each captured and replayed, fc1000 within
+    SLICE_TOL of cuda lib's, replay bit-equal to eager on two batches
+    (cuDNN held to its deterministic algorithms for that comparison), the
+    route's launches exact (XLA_LAUNCHES; the stem on the logical rule),
+    each distinct K1/K3 call of the route against its plain version on the
+    route's own operands, ms per replay and per eager forward (with cuDNN's
+    default algorithms). Then f32: resnet50 b2, every node of xla against
+    cuda lib within 1e-4; resnet50 b4 with add_bck_ops, xla against cuda
+    lib under test_compute's rule at 1e-3, the forward nodes of free runs
+    and the gradient nodes of both backwards from lib's forward values (two
+    free forwards put some ReLU inputs on opposite sides of 0). Last,
+    googlenet_conv b32 bf16 (its classifier scaled as in [caffe]) and
+    ssd300 b4 bf16 under xla against cuda lib, and ssd300's head of the xla
+    engine on the card against the same rule on the CPU (SSD_HEAD_TOL)."""
+    from boda_tpu_torch.config import make
+    from boda_tpu_torch.graph import ssd_ops
+    from boda_tpu_torch.graph.autodiff import add_bck_ops
+    from boda_tpu_torch.modes.cnet import gen_data_inputs, load_net
+    from boda_tpu_torch.ops import cnn_variants
+    from boda_tpu_torch.ops.kernels.conv import conv2d_plain
+    from boda_tpu_torch.ops.kernels.sgemm import matmul_plain
+    out = {"card": card}
+    engines = {"cuda lib": ("cuda", {"kernel_policy": "lib"}), "xla": ("xla", {}),
+               "pallas nchw gen": ("pallas", {"layout": "nchw", "kernel_policy": "gen"})}
+
+    def replays(tag, net, mode, kw, pins, outs, lib_res=None, logits=None):
+        """One engine: captured, replay vs eager on two batches (bit-equal),
+        launches of the captured forward, logits vs cuda lib's, ms per
+        replay and eager forward."""
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            e = make("conv_fwd", mode, compute_tn="bfloat16", **kw)
+            e.init(pipe_of[net])
+            e.prepare(pins, outs)
+            zero_counts(counted)
+            replay = e.run_fwd(pins, outs)
+            n = read_counts(counted)
+            e.cuda_graph = False
+            eager = e.run_fwd(pins, outs)
+            e.cuda_graph = True
+            eager2, replay2 = replay_follows(e, other_batch(pins, 29), outs)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        n_bit = sum(np.array_equal(a[k].data, b[k].data) for a, b in
+                    ((replay, eager), (replay2, eager2)) for k in outs)
+        check(n_bit == 2 * len(outs), f"[xla] {net} {tag}: replay vs eager, {n_bit} of "
+                                      f"{2 * len(outs)} outputs bit-equal")
+        check(not np.array_equal(eager[outs[0]].data, eager2[outs[0]].data),
+              f"[xla] {net} {tag}: the second batch left {outs[0]} as it was")
+        e.drop_graph()
+        e.cuda_graph = False
+        eager_s = e.time_fwd(pins, outs, n_iters=10, warmup=2)
+        e.cuda_graph = True
+        secs = e.time_fwd(pins, outs, n_iters=20, warmup=3)
+        row = {"launches": n, "replay_ms": secs * 1e3, "eager_ms": eager_s * 1e3,
+               "img_per_s": pins["data"].data.shape[0] / secs}
+        if lib_res is not None:
+            row["logits_vs_lib"] = rel_err(torch.from_numpy(replay[logits].data),
+                                           torch.from_numpy(lib_res[logits].data))[1]
+            check(row["logits_vs_lib"] <= SLICE_TOL["fc1000"],
+                  f"[xla] {net} {tag}: {logits} vs cuda lib {row['logits_vs_lib']:.3g}")
+        print(f"[xla] {net} b{pins['data'].data.shape[0]} bf16 {tag}: replay "
+              f"{row['replay_ms']:.3f} ms, eager {row['eager_ms']:.3f} ms ("
+              f"{row['img_per_s']:.1f} img/s); replay bit-equal to eager on two batches"
+              + (f"; {logits} vs cuda lib {row['logits_vs_lib']:.3e} (tol "
+                 f"{SLICE_TOL['fc1000']})" if lib_res is not None else "")
+              + f"; launches {n} ({card})")
+        return e, replay, row
+
+    # -- ResNet-50 b32 bf16 -------------------------------------------------------------
+    pipe_of = {"resnet50": pipe}
+    outs = ["fc1000", "prob"]
+    rows, res = {}, {}
+    for tag, (mode, kw) in engines.items():
+        e, res[tag], rows[tag] = replays(tag, "resnet50", mode, kw, ins, outs,
+                                         res.get("cuda lib"), "fc1000")
+        n = rows[tag]["launches"]
+        if tag == "pallas nchw gen":
+            log = e.get_info_log()
+            want = dict.fromkeys(n, 0) | XLA_LAUNCHES
+            print(f"[xla] the NCHW route: {log.count(': k1conv ')} k1conv, "
+                  f"{log.count(': ipmatmul ')} ipmatmul, {log.count(': pallas_conv ')} "
+                  f"pallas_conv; conv1: {'strided conv -> xla' in log}")
+            check(n == want, f"[xla] nchw gen launches {n}, expected {want}")
+            check("conv1: strided conv -> xla" in log, "[xla] the stem is not on the logical rule")
+            route_e = e
+        else:
+            check(not any(n.values()), f"[xla] {tag} launched hand kernels {n}")
+        del e
+    print(f"[xla] resnet50 b{BATCH} bf16 replay ms: " + ", ".join(
+        f"{t} {r['replay_ms']:.3f}" for t, r in rows.items())
+        + f"; cuda lib's {LIB_R50_PR13_MS} ms in PR 13 ({card})")
+    out["resnet50"] = rows
+
+    # each distinct K1/K3 call of the NCHW route, on the route's own operands
+    calls, real = {}, {"K1": cnn_variants.matmul, "K3": cnn_variants.conv2d_nhwc}
+
+    def recorder(k):
+        def call(*a, **kw):
+            key = (k, tuple((tuple(t.shape), str(t.dtype)) for t in a), tuple(sorted(kw.items())))
+            calls.setdefault(key, (k, [t.clone() for t in a], dict(kw)))
+            return real[k](*a, **kw)
+        return call
+    cnn_variants.matmul, cnn_variants.conv2d_nhwc = recorder("K1"), recorder("K3")
+    try:
+        route_e.cuda_graph = False
+        route_e.run_fwd(ins, outs)
+    finally:
+        cnn_variants.matmul, cnn_variants.conv2d_nhwc = real["K1"], real["K3"]
+    worst = (0.0, "")
+    for k, args, kw in calls.values():
+        with torch.inference_mode():
+            got = real[k](*args, **kw)
+            ref = matmul_plain(*args, **kw) if k == "K1" else conv2d_plain(*args, **kw)
+        err = rel_err(got, ref)[1]
+        what = f"{k} " + "x".join(map(str, args[0].shape)) + " @ " + \
+            "x".join(map(str, args[1].shape)) + f" relu={int(kw.get('relu', False))}"
+        worst = max(worst, (err, what))
+        check(err <= XLA_CALL_TOL, f"[xla] {what}: {err:.3g} of max|plain|")
+    print(f"[xla] {len(calls)} distinct K1/K3 calls of the NCHW route vs plain: worst "
+          f"{worst[0]:.3e} at {worst[1]} (tol {XLA_CALL_TOL})")
+    out["route_calls"] = {"n": len(calls), "worst": worst[0], "at": worst[1]}
+    del route_e, res
+
+    # -- f32: every node at b2, the gradient graph at b4 ---------------------------------
+    spipe, sdims = load_net("resnet50", img=2)
+    scale_fc1000([spipe], fc_scale)
+    sins, nodes = gen_data_inputs(sdims), check_nodes(spipe)
+    fres = {}
+    for tag, mode, kw in (("lib", "cuda", {"kernel_policy": "lib"}), ("xla", "xla", {})):
+        e = make("conv_fwd", mode, cuda_graph=False, **kw)  # eager: a check, not a replay
+        e.init(spipe)
+        fres[tag] = e.run_fwd(sins, nodes)
+        del e
+    fails, worst = node_agreement(fres["lib"], fres["xla"], nodes, XLA_F32_NODE_TOL)
+    print(f"[xla] resnet50 f32 b2, every node xla vs cuda lib: {len(nodes) - len(fails)}/"
+          f"{len(nodes)} agree, worst {worst[0]:.3e} at {worst[1]} (tol {XLA_F32_NODE_TOL})")
+    check(not fails, f"[xla] f32 nodes: {fails[:3]}")
+    out["f32_nodes_worst"] = worst[0]
+    del fres
+
+    gpipe, gdims = load_net("resnet50", img=XLA_GRAD_BATCH)
+    scale_fc1000([gpipe], fc_scale)
+    add_bck_ops(gpipe)
+    gdims["label"] = gpipe.nodes["label"].dims
+    gins, gnodes = gen_data_inputs(gdims), check_nodes(gpipe)
+    fwd = [n for n in gnodes if "__grad" not in n]
+    grad = [n for n in gnodes if "__grad" in n]
+    geng = {"lib": make("conv_fwd", "cuda", kernel_policy="lib", cuda_graph=False),
+            "xla": make("conv_fwd", "xla", cuda_graph=False)}
+    gres = {}
+    for tag, e in geng.items():
+        e.init(gpipe)
+        gres[tag] = e.run_fwd(gins, gnodes)
+    fails, worst = node_agreement(gres["lib"], gres["xla"], fwd, GRAD_F32_TOL)
+    gfails, gworst = node_agreement(gres["lib"], gres["xla"], grad, GRAD_F32_TOL)
+    print(f"[xla] resnet50 f32 b{XLA_GRAD_BATCH} add_bck_ops, free runs: forward nodes "
+          f"{len(fwd) - len(fails)}/{len(fwd)} agree (worst {worst[0]:.3e} at {worst[1]}); "
+          f"gradient nodes {len(grad) - len(gfails)}/{len(grad)} (worst {gworst[0]:.3e}, "
+          f"not gated)")
+    check(not fails, f"[xla] gradient graph forward nodes: {fails[:3]}")
+    forced = dict(gins)
+    forced.update({n: gres["lib"][n] for n in fwd})
+    del gres
+    bres = {tag: e.run_fwd(forced, grad) for tag, e in geng.items()}
+    fails, worst = node_agreement(bres["lib"], bres["xla"], grad, GRAD_F32_TOL)
+    print(f"[xla] backward from lib's forward values, {len(grad)} gradient nodes xla vs cuda "
+          f"lib: {len(grad) - len(fails)} agree, worst {worst[0]:.3e} at {worst[1]} "
+          f"(comp_vars {GRAD_F32_TOL})")
+    check(not fails, f"[xla] gradient nodes: {fails[:3]}")
+    out["grad_worst"] = worst[0]
+    del bres, geng, forced
+
+    # -- GoogLeNet b32 and ssd300 b4, bf16, under xla ------------------------------------
+    gpipe, gdims = load_net("googlenet_conv", img=BATCH)
+    lib = make("conv_fwd", "cuda", compute_tn="bfloat16", kernel_policy="lib")
+    lib.init(gpipe)
+    g_ins = gen_data_inputs(gdims)
+    lmax = float(np.abs(lib.run_fwd(g_ins, [GOOGLENET_LOGITS])[GOOGLENET_LOGITS].data).max())
+    gpipe.weights[f"{GOOGLENET_LOGITS}__filts"].data *= np.float32(1.0 / lmax)
+    del lib
+    spipe, s_dims = load_net("ssd300", img=SSD_BATCH)
+    pipe_of.update(googlenet_conv=gpipe, ssd300=spipe)
+    s_ins = gen_data_inputs(s_dims)
+    for net, nins, nouts, logits in (("googlenet_conv", g_ins, [GOOGLENET_LOGITS, "prob"],
+                                      GOOGLENET_LOGITS),
+                                     ("ssd300", s_ins, SSD_BF16_NODES, None)):
+        _, lres, lrow = replays("cuda lib", net, "cuda", {"kernel_policy": "lib"}, nins, nouts)
+        _, xres, xrow = replays("xla", net, "xla", {}, nins, nouts, lres, logits or nouts[0])
+        if logits is None:
+            errs = {n: rel_err(torch.from_numpy(xres[n].data),
+                               torch.from_numpy(lres[n].data))[1] for n in nouts}
+            print(f"[xla] ssd300 bf16 xla vs cuda lib: " + ", ".join(
+                f"{n} {v:.3e}" for n, v in errs.items()) + f" (tol {SSD_BF16_TOL})")
+            check(max(errs.values()) <= SSD_BF16_TOL, f"[xla] ssd300 vs lib {errs}")
+            xrow["vs_lib"] = errs
+        out[net] = {"cuda lib": lrow, "xla": xrow}
+    e32 = make("conv_fwd", "xla")
+    e32.init(spipe)
+    r32 = e32.run_fwd(s_ins, SSD_HEAD_INS + ["detection_out"])
+    op = spipe.ops["detection_out"]
+    head = ssd_ops._detection_output_fn(op, int(op.p("num_classes")), SSD_BATCH, "cpu")
+    with torch.inference_mode():
+        on_cpu = head(*(torch.from_numpy(r32[k].data) for k in SSD_HEAD_INS))[0] \
+            .numpy().reshape(-1, 7)
+    same, herr = head_agree(r32["detection_out"].data.reshape(-1, 7), on_cpu)
+    valid = int((on_cpu[:, 1] >= 0).sum())
+    print(f"[xla] ssd300 f32 b{SSD_BATCH} xla: the replayed head vs the CPU's on its inputs, "
+          f"image/label/order equal {same}, scores and boxes {herr:.3e} (tol {SSD_HEAD_TOL}); "
+          f"{valid} valid rows")
+    check(same and herr <= SSD_HEAD_TOL and valid > 0, f"[xla] ssd300 head {same} {herr:.3g}")
+    out["ssd300"]["head_vs_cpu"] = herr
     return out
 
 
@@ -4700,6 +4947,13 @@ def main() -> int:
         if entry["name"] in ("sgemm", "conv", "dgrad", "atb"):
             entry["launches_tp_train"] = tp_train["tp2"]["launches"][k]
     lap("tp-train")
+    # -- phase 18: [xla] boda_tpu's engines: the logical-layout oracle, the NCHW route --
+    xla = xla_phase(card, pipe, ins, fc_scale, counted)
+    for entry in kernels:  # one ResNet-50 b32 forward of the NCHW route
+        k = {"dgrad": "conv_nhwc"}.get(entry["name"], entry["name"])
+        if entry["name"] in ("sgemm", "dgrad"):
+            entry["launches_xla"] = xla["resnet50"]["pallas nchw gen"]["launches"][k]
+    lap("xla")
     print("chip_smoke: seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to the kernels line")
     print(json.dumps({"kernels": kernels, "img_per_s": rates, "img_per_s_eager": eager_rates,
@@ -4710,7 +4964,7 @@ def main() -> int:
                                          for tn, r in sg.items()},
                       "caffe": caffe, "caffe_grad": caffe_grad, "int8": int8, "lmdb": lmdb, "ssd": ssd,
                       "train": train, "tools": tools, "serve": serve, "corpus": corpus,
-                      "mesh": mesh, "dist": dist_run, "tp_train": tp_train,
+                      "mesh": mesh, "dist": dist_run, "tp_train": tp_train, "xla": xla,
                       "phase_seconds": laps, "card": card}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -63,6 +63,7 @@ import boda_tpu_torch.modes.stream_modes, boda_tpu_torch.modes.display_modes
 import boda_tpu_torch.modes.proc_pipe, boda_tpu_torch.modes.plot_modes
 import boda_tpu_torch.parallel.mesh, boda_tpu_torch.parallel.dryrun
 import boda_tpu_torch.modes.dist_modes
+import boda_tpu_torch.ops.cnn_variants, boda_tpu_torch.graph.lowering
 import tempfile
 from boda_tpu_torch import cli
 from boda_tpu_torch.config import make
@@ -82,6 +83,17 @@ eng.init(pipe)
 out = eng.run_fwd(gen_data_inputs(in_dims), ["data__grad__p0", "prob_loss"])
 assert out["data__grad__p0"].data.shape == (1, 3, 8, 8)
 assert "bck-conv" in eng.get_info_log()
+for kw in ({}, {"layout": "nchw", "kernel_policy": "gen"}):
+    eng = make("conv_fwd", "xla" if not kw else "pallas", platform="cpu", **kw)
+    eng.init(pipe)
+    out = eng.run_fwd(gen_data_inputs(in_dims), ["data__grad__p0", "prob_loss"])
+    assert out["data__grad__p0"].data.shape == (1, 3, 8, 8)
+assert "k1conv" in eng.get_info_log()
+assert cli.main(["run_cnet", "--model=mini_resnet", "--img=2",
+                 "--conv-fwd=(mode=pallas,int8=1,platform=cpu)"]) == 0
+assert cli.main(["test_compute", "--model=mini_resnet", "--img=1", "--n-wins=1",
+                 "--engines=(oracle=(mode=xla,platform=cpu),"
+                 "pallas=(mode=pallas,layout=nchw,kernel_policy=gen,platform=cpu))"]) == 0
 assert cli.main(["rtc_test", "--be=(be=cuda,device=cpu)", "--n=1000"]) == 0
 assert cli.main(["run_cnet", "--ptt-fn=testdata/nets/shapesnet.prototxt",
                  "--weights-fn=testdata/nets/shapesnet.caffemodel",

@@ -102,11 +102,11 @@ def _roadmap_kept() -> str:
 
 def test_skip_table_holds_only_its_reasons():
     """Each entry of NOT_RUN names a corpus entry that the port cannot run
-    for the reason it gives: a conv_fwd type it does not have, or a golden
+    for the reason it gives: a conv_fwd type it does not have, a golden
     that differs from boda_tpu's own output (on a line of ROADMAP §3 "Found
-    in the reference, kept as it is", naming the entry and its golden). So
-    every other corpus mode is registered, and the mode list that
-    err_bad_mode pins is boda_tpu's."""
+    in the reference, kept as it is", naming the entry and its golden), or
+    a golden of XLA's HLO text. So every other corpus mode is registered,
+    and the mode list that err_bad_mode pins is boda_tpu's."""
     entries = {li.get("test_name"): li for li in
                ET.parse(os.path.join(TD, "test_cmds.xml")).getroot().iter("li")}
     modes, engines = set(registered_tids("mode")), set(registered_tids("conv_fwd"))
@@ -117,6 +117,10 @@ def test_skip_table_holds_only_its_reasons():
         if reason == "engine":
             for e in what.split(", "):
                 assert f"mode={e}" in cli_str and e not in engines, name
+        elif reason == "hlo":
+            hlo = sorted(os.listdir(os.path.join(REPO, what)))
+            assert hlo and all(f.endswith((".stablehlo.txt", ".opt_hlo.txt")) for f in hlo)
+            assert "gen_src_dir=" in cli_str, name
         else:
             assert os.path.exists(os.path.join(REPO, what)), name
             line = next((ln for ln in _roadmap_kept().split("\n- ") if name in ln), "")
@@ -135,17 +139,21 @@ def test_skip_table_holds_only_its_reasons():
 
 def test_skip_table_holds_four_entries():
     """NOT_RUN held four entries until the dist modes were registered and
-    err_bad_mode left it. Now it holds the two entries that name boda_tpu's
-    TPU engines and dist_test_2x2, whose golden is stale, and nothing
-    else."""
-    assert set(tc.NOT_RUN) == {"dist_test_2x2", "run_cnet_int8", "gen_src_tinynet"}
+    err_bad_mode left it, and three until the xla and pallas engines were:
+    run_cnet_int8 and test_all's engine suite left it. Now it holds
+    dist_test_2x2, whose golden is stale, and gen_src_tinynet, whose golden
+    is XLA's HLO text, and nothing else; NOT_RUN_SUITES is empty."""
+    assert set(tc.NOT_RUN) == {"dist_test_2x2", "gen_src_tinynet"}
     assert tc.NOT_RUN["dist_test_2x2"][0] == "golden"
+    assert tc.NOT_RUN["gen_src_tinynet"][0] == "hlo" and tc.NOT_RUN_SUITES == {}
 
 
 def test_test_all_skips_and_native_gate(tmp_path, capsys, monkeypatch):
-    """test_all prints a SKIP line for a suite in NOT_RUN_SUITES and runs the
-    rest; without the native library, serve_bench_mini skips naming it."""
-    suite = next(iter(tc.NOT_RUN_SUITES))
+    """test_all prints a SKIP line for a suite in NOT_RUN_SUITES (a stand-in
+    entry: the table is empty) and runs the rest; without the native
+    library, serve_bench_mini skips naming it."""
+    suite = "noop --msg=on-a-tpu"
+    monkeypatch.setitem(tc.NOT_RUN_SUITES, suite, ("engine", "xla, pallas", "§1 item 11"))
     xml = tmp_path / "all.xml"
     xml.write_text(f'<t><li cli_str="{suite}"/><li cli_str="noop --msg=ok"/></t>')
     assert cli.main(["test_all", f"--xml-fn={xml}", f"--boda-output-dir={tmp_path}"]) == 0
@@ -169,8 +177,8 @@ def _cwd(monkeypatch):
 
 def test_test_compute_mini_golden_with_default_labels(tmp_path, capsys):
     """test_compute_mini pins boda_tpu's engine labels: the port's default
-    engines carry them (oracle: the library path, pallas: gen), and its
-    golden passes with those engines on the CPU."""
+    engines are boda_tpu's (oracle: the xla engine, pallas: the pallas
+    engine under gen), and its golden passes with them on the CPU."""
     from boda_tpu.modes.test_compute import TestCompute as RefTestCompute
     from boda_tpu_torch.config import class_fields
     from boda_tpu_torch.modes.test_compute import TestCompute
@@ -183,12 +191,14 @@ def test_test_compute_mini_golden_with_default_labels(tmp_path, capsys):
     f = next(f for f in ref_class_fields(RefTestCompute) if f.name == "engines")
     assert labels(TestCompute) == [k for k, _ in parse_lexp(f.default).kids] == \
         ["oracle", "pallas"]
+    tf = next(f for f in class_fields(TestCompute) if f.name == "engines")
+    assert str(parse_lexp(tf.default)) == str(parse_lexp(f.default))
     out = tmp_path / "test_compute_mini"
     out.mkdir()
     rc = cli.main(["test_compute", "--model=mini_resnet", "--img=2", "--n-wins=1",
                    "--write-digests-fn=digests.boda", f"--boda-output-dir={out}",
-                   "--engines=(oracle=(mode=cuda,kernel_policy=lib,device=cpu),"
-                   "pallas=(mode=cuda,kernel_policy=gen,device=cpu))"])
+                   "--engines=(oracle=(mode=xla,platform=cpu),"
+                   "pallas=(mode=pallas,kernel_policy=gen,platform=cpu))"])
     (out / "test_out.txt").write_text(capsys.readouterr().out)
     assert rc == 0
     d = tc.diff_dirs(os.path.join(TD, "good_tr", "test_compute_mini"), str(out), 1e-3)
