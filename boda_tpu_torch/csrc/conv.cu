@@ -20,8 +20,19 @@
 // by TMA, the input by 16-byte cp.async gathers at the swizzled addresses
 // wgmma reads, with (ky, kx, c) carried from chunk to chunk instead of divided
 // out per vector; a per-shape plan splits K at res4/res5. Each input pixel is
-// still read once per tap through L2. The C = 3 stem cannot take 16-byte
-// loads and stays on the mma.sync loop, element by element.
+// still read once per tap through L2.
+//
+// Which shapes take which route (ops/kernels/common.py:plan_gemm):
+//   * C % 8 == 0, N % 8 == 0, aligned: wgmma with 16-byte cp.async gathers.
+//   * C % 8 != 0 (every C = 3 stem: ResNet-50's and GoogLeNet's 7x7 s2,
+//     VGG-16's and ssd300's conv1_1), N % 8 == 0: wgmma_narrow, the same ring
+//     with 64-row tiles, whose producer builds each 16-byte row piece of A
+//     from 8 element loads (8 consecutive k may span taps: each element has
+//     its own (ky, kx, c), carried from chunk to chunk, and its own bounds
+//     test). The stem's input (9.6 MB at b32) sits in L2, so these loads
+//     wait on latency, not on HBM.
+//   * N % 8 != 0 (ssd300's mbox_conf heads) or a misaligned w, bias,
+//     residual or output (or x where C % 8 == 0): the mma.sync loop.
 #include "gemm.cuh"
 
 // path, bm, bn, splits: the plan (gemm.cuh launch_gemm); ws: splits x M x OC

@@ -12,13 +12,18 @@
 // atb.cu's two modes store A MN-major (its rows are K) and write f32 with no
 // epilogue: see "Operand modes" at the wgmma path.
 //
-// Three paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
+// Four paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
 // from the shape before the launch, never after a failure:
 //   * wgmma (bf16; K % 8 == 0 for the GEMM or C % 8 == 0 for the conv,
 //     N % 8 == 0, 16-byte aligned operands): Hopper's warpgroup MMA fed by a
 //     ring of 3-8 stages of 64-deep K chunks in shared memory (gemm_wgmma below).
-//   * mma (bf16, every other shape: the C = 3 stem, ragged N): WMMA
-//     (mma.sync) 16x16x16 fragments on a 128x128 tile, one buffer.
+//   * wgmma_narrow (bf16 conv with C % 8 != 0, such as every C = 3 stem;
+//     N % 8 == 0, B, the output, the bias and the residual 16-byte aligned,
+//     x in any alignment): the same ring and consumers, with the conv's A
+//     built element by element by the producer (NARROW below), 64-row tiles.
+//   * mma (bf16, every other shape: N % 8 != 0, the GEMM's K % 8 != 0, a
+//     misaligned operand): WMMA (mma.sync) 16x16x16 fragments on a 128x128
+//     tile, one buffer.
 //   * fma (f32): FMA pipes, full f32 (no TF32), 64x64 tiles.
 // Ragged M/N/K edges are masked in the kernels: loads outside the problem
 // read 0, stores outside it are skipped.
@@ -312,11 +317,14 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
 //
 // A persistent grid (one block per SM at most) walks the work items: output
 // tiles of BM x BN (BM = 64 x NWG), times the K splits. A block runs NWG + 1
-// warpgroups. The last is the producer: it only fills a ring of stages in
+// warpgroups (NWG + 2 for the narrow conv). The last is the producer (the
+// last two for the narrow conv): it only fills a ring of stages in
 // shared memory, each one K chunk of 64 (128 bytes of bf16, one 128-byte
 // swizzle row): B (and the GEMM's A) by TMA with the 128-byte swizzle, the
 // conv's A by 16-byte cp.async copies with zero-fill for the padding and for
-// rows past M, written at the swizzled address TMA would have used. Each
+// rows past M, written at the swizzled address TMA would have used (the
+// narrow conv, C % 8 != 0: each thread builds the same 16 bytes from 8 element
+// loads, each with its own tap and bounds test, and stores them there). Each
 // stage has a full and an empty mbarrier, and the ring runs on across work
 // items, so the next tile's chunks load while this one's epilogue runs. The
 // other NWG warpgroups only issue wgmma.mma_async m64nBNk16 on the 64 rows
@@ -471,6 +479,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 // (.noinc: the arrival is counted in the barrier's init count).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// 16 bytes into shared memory from registers (the narrow conv's A).
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t w0, uint32_t w1, uint32_t w2,
+                                            uint32_t w3) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(w0), "r"(w1),
+               "r"(w2), "r"(w3)
+               : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {
@@ -702,13 +718,23 @@ __device__ __forceinline__ Item work_item(int w, int tiles_m, int tiles_n, int t
   return it;
 }
 
-template <int MODE, int NWG, int BN>
-__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+// NARROW (kModeConv with C % 8 != 0, NWG == 1): the producer builds each
+// thread's 16 bytes of A from 8 element loads instead of one cp.async, in
+// two warpgroups (kProducerWgs); see "the narrow fill" below.
+template <bool NARROW>
+constexpr int kProducerWgs = NARROW ? 2 : 1;
+
+template <int MODE, int NWG, int BN, bool NARROW = false>
+__global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
                const __grid_constant__ CUtensorMap tma_b,
                const __grid_constant__ CUtensorMap tma_c, Prob p, float* ws, int splits,
                int kb_per_split) {
-  constexpr bool GATHER = MODE == kModeConv || MODE == kModeWgrad;  // A by cp.async
+  static_assert(!NARROW || (MODE == kModeConv && NWG == 1 && BN <= 128),
+                "narrow: the conv, 64-row tiles, at most 128 columns");
+  constexpr int PT = kProducerWgs<NARROW> * 128;  // producer threads
+  // A by the producer's threads (cp.async, or the narrow fill's stores)
+  constexpr bool GATHER = MODE == kModeConv || MODE == kModeWgrad;
   constexpr bool TRANS_A = MODE == kModeAtb || MODE == kModeWgrad;  // A [K][M], f32 out
   constexpr int BM = NWG * 64;
   using L = RingLayout<BM, BN, TRANS_A>;
@@ -726,9 +752,10 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      // full: the TMA thread's expect_tx, plus one cp.async arrival per
-      // producer thread for a gathered A; empty: each consumer warp
-      mbar_init(full0 + 8 * s, GATHER ? 1 + 128 : 1);
+      // full: the TMA thread's expect_tx, plus one arrival per producer
+      // thread for a gathered A (cp.async's, or the narrow fill's own);
+      // empty: each consumer warp
+      mbar_init(full0 + 8 * s, GATHER ? 1 + PT : 1);
       mbar_init(empty0 + 8 * s, NWG * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -749,9 +776,57 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     //   * kModeWgrad: rows are K, output pixels (n, oy, ox); lanes j < 4 carry
     //     their row's pixel from chunk to chunk (64 pixels on: step_y rows and
     //     step_x columns) and compute its input pixel's offset for the tap.
+    //   * kModeConv NARROW (the narrow fill): the thread's 16 bytes are the 8
+    //     elements k .. k + 7, which may span several taps (C % 8 != 0), so
+    //     each element e carries its own tap: its filter row ky in ey and its
+    //     place in that row's KW * C contiguous elements, kx * C + c, in el
+    //     (so its input x is inside the image iff 0 <= ix * C + el < W * C),
+    //     stepped 64 on per chunk by 64 = dky * KW * C + dl. Its two warpgroups
+    //     (256 threads, so two producer warps on each scheduler to hide the
+    //     loads' and the index arithmetic's latency) split the rows: the
+    //     thread's are rr + 32 q, and it keeps their input pointers and
+    //     top-left corners for the whole tile. It loads each element that
+    //     lies inside the image and below K (0 elsewhere), packs the 8 into
+    //     16 bytes, stores them with st.shared at the swizzled address,
+    //     fences them for wgmma (the async proxy) and arrives on the full
+    //     barrier itself.
     const int j = pt & 7, rr = pt >> 3, lane8 = threadIdx.x & 24;
     const int step_y = MODE == kModeWgrad ? kChunk / p.OW : 0;
     const int step_x = MODE == kModeWgrad ? kChunk - step_y * p.OW : 0;
+    constexpr int RS = PT / 8;                 // rows rr + RS q: 16 apart, 32 narrow
+    constexpr int NR = NARROW ? BM / RS : 1;   // the narrow fill's rows per thread
+    int ey[8], el[8];                          // the narrow fill's taps, per element
+    const unsigned short* xrow[NR];  // the rows' top-left input pixel (may lie outside x)
+    int riy[NR], rix[NR];  // the rows' top-left corner: y, and x * C
+    int dky = 0, dl = 0, kh = 0, kwc = 0, wc = 0;
+    // the narrow fill's loads of the thread's NR x 8 elements at the
+    // current taps (0 outside the image and past K)
+    const auto fill_loads = [&](uint32_t (&v)[NR][8]) {
+      int toff[8], eyk[8];  // offset from the row's top-left pixel; ky, or 2^20 past K
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        toff[e] = ey[e] * wc + el[e];
+        eyk[e] = ey[e] < kh ? ey[e] : 1 << 20;
+        asm("" : "+r"(toff[e]));  // once per chunk, not once per row
+      }
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool ok = (unsigned)(riy[q] + eyk[e]) < (unsigned)p.H &&
+                          (unsigned)(rix[q] + el[e]) < (unsigned)wc;
+          v[q][e] = ok ? __ldg(xrow[q] + toff[e]) : 0u;
+        }
+      }
+    };
+    uint32_t va[NR][8];  // the narrow fill's loads for the chunk being filled
+    if constexpr (NARROW) {
+      kwc = p.KW * p.C;
+      wc = p.W * p.C;
+      dky = kChunk / kwc;
+      dl = kChunk - dky * kwc;
+      kh = p.K / kwc;
+    }
     int stage = 0;
     uint32_t phase = 0;
     for (int w = blockIdx.x; w < work; w += gridDim.x) {
@@ -760,7 +835,7 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
       long k = (long)it.kb0 * kChunk + j * 8;
       int c = 0, kx = 0, ky = 0;
       RowInfo mine = {0, 0, 0};
-      if (MODE == kModeConv) {
+      if (MODE == kModeConv && !NARROW) {
         const long tap = k / p.C;
         c = (int)(k - tap * p.C);
         ky = (int)(tap / p.KW);
@@ -776,6 +851,43 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
         } else {  // rows past M: an input row that is never in bounds
           mine.iy = INT_MIN / 2;
         }
+      }
+      if constexpr (NARROW) {
+        // as above in 32 bits (M and K are ints, so k and m fit unsigned)
+        const unsigned ku = (unsigned)k, y0 = ku / kwc;
+        const unsigned m = (unsigned)m0 + rr + RS * j;
+        if (j < NR && m < (unsigned)p.M) {
+          const unsigned t = m / p.OW, img = t / p.OH;
+          mine.nh = (int)img * p.H;
+          mine.iy = (int)(t - img * p.OH) * p.sy - p.py;
+          mine.ix = (int)(m - t * p.OW) * p.sx - p.px;
+        } else {
+          mine.iy = INT_MIN / 2;
+        }
+        // element 0 at (y0, ku - y0 * KW * C), the others one step on each
+        int y = (int)y0, l = (int)(ku - y0 * kwc);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ey[e] = y;
+          el[e] = l;
+          if (++l == kwc) {
+            l = 0;
+            ++y;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          const int nh = __shfl_sync(0xffffffffu, mine.nh, lane8 + q);
+          riy[q] = __shfl_sync(0xffffffffu, mine.iy, lane8 + q);
+          const int ix = __shfl_sync(0xffffffffu, mine.ix, lane8 + q);
+          rix[q] = ix * p.C;
+          // kept in registers (opaque to the compiler), not recomputed per element
+          unsigned long long a = (unsigned long long)((const unsigned short*)p.a +
+                                                      ((long)(nh + riy[q]) * p.W + ix) * p.C);
+          asm("" : "+l"(a));
+          xrow[q] = (const unsigned short*)a;
+        }
+        fill_loads(va);  // the item's first chunk, before its stage is free
       }
       int n = 0, oy = 0, ox = 0;  // kModeWgrad: output pixel of row rr + 16 j
       if (MODE == kModeWgrad) {
@@ -804,7 +916,28 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
           for (int q = 0; q < BN / 64; ++q)
             tma_load_2d(sb + q * 8192, &tma_b, fb, it.n0 + q * 64, kb * kChunk);
         }
-        if (MODE == kModeConv) {
+        if (MODE == kModeConv && NARROW) {
+          if (i > 0) fill_loads(va);
+#pragma unroll
+          for (int q = 0; q < NR; ++q) {
+            const int r = rr + RS * q;
+            st_shared16(sa + r * 128 + ((j ^ (r & 7)) << 4), va[q][0] | va[q][1] << 16,
+                        va[q][2] | va[q][3] << 16, va[q][4] | va[q][5] << 16,
+                        va[q][6] | va[q][7] << 16);
+          }
+          fence_proxy_async();  // the stores, visible to wgmma's async proxy
+          mbar_arrive(fb);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {  // the taps 64 on
+            el[e] += dl;
+            ey[e] += dky;
+            if (el[e] >= kwc) {
+              el[e] -= kwc;
+              ++ey[e];
+            }
+          }
+        }
+        if (MODE == kModeConv && !NARROW) {
           const bf16* X = (const bf16*)p.a;
           const bool kin = k < p.K;
 #pragma unroll
@@ -887,7 +1020,9 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       for (int i = 0; i < it.nk; ++i) {
         mbar_wait(full0 + 8 * stage, phase);
-        if (GATHER) fence_proxy_async();  // cp.async wrote A through the generic proxy
+        // cp.async (or the narrow fill's st.shared, fenced by its writers
+        // too) wrote A through the generic proxy
+        if (GATHER) fence_proxy_async();
         // this warpgroup's 64 rows of A: the K-major rows wg*64.., or the
         // M-major box wg; both 8,192 bytes on
         const uint32_t sa = sbase + stage * L::kStage + wg * 8192;
@@ -1095,7 +1230,7 @@ static int reduce_f32(const float* ws, float* out, long total, int splits, cudaS
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int NWG, int BN>
+template <int MODE, int NWG, int BN, bool NARROW = false>
 static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtensorMap& tb,
                              const CUtensorMap& tc, float* ws, int splits, int kb_per_split,
                              cudaStream_t s) {
@@ -1108,7 +1243,7 @@ static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtenso
   cudaGetDevice(&dev);
   if (dev >= 32) return (int)cudaErrorInvalidDevice;
   if (!(attr_set & (1u << dev))) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<MODE, NWG, BN>,
+    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<MODE, NWG, BN, NARROW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
@@ -1119,22 +1254,27 @@ static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtenso
                     (F32OUT ? p.taps : 1) * splits;
   if (work > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = work < sms[dev] ? (int)work : sms[dev];  // persistent: one block per SM
-  gemm_wgmma<MODE, NWG, BN><<<grid, (NWG + 1) * 128, bytes, s>>>(ta, tb, tc, p, ws, splits,
-                                                                 kb_per_split);
+  gemm_wgmma<MODE, NWG, BN, NARROW><<<grid, (NWG + kProducerWgs<NARROW>) * 128, bytes, s>>>(
+      ta, tb, tc, p, ws, splits, kb_per_split);
   return (int)cudaGetLastError();
 }
 
 // The wgmma path of every mode: per = K chunks per split (the last split may
 // hold fewer, none is empty); ws: splits x taps x M x N f32 when splits > 1.
-template <int MODE>
+// NARROW: the conv with its A built element by element, 64 x 64 or 64 x 128
+// tiles.
+template <int MODE, bool NARROW = false>
 static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void* ws,
                         cudaStream_t s) {
+  static_assert(!NARROW || MODE == kModeConv, "the narrow fill is the conv's");
   constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
   // 16-byte rows for TMA and cp.async: A's (the GEMM's K, the conv's C, the
-  // f32 modes' M: A [K][M] and x's channels) and B's N
+  // f32 modes' M: A [K][M] and x's channels) and B's N; the narrow fill
+  // reads x element by element, so x takes any C and any alignment
   const int arow = MODE == kModeConv ? p.C : MODE == kModeGemm ? p.K : p.M;
-  const bool shape_ok = arow % 8 == 0 && p.N % 8 == 0 && (!F32OUT || p.taps >= 1);
-  const bool aligned = aligned16(p.a) && aligned16(p.b) && aligned16(p.c) &&
+  const bool shape_ok =
+      (NARROW || arow % 8 == 0) && p.N % 8 == 0 && (!F32OUT || p.taps >= 1);
+  const bool aligned = (NARROW || aligned16(p.a)) && aligned16(p.b) && aligned16(p.c) &&
                        (p.bias == nullptr || aligned16(p.bias)) &&
                        (p.res == nullptr || aligned16(p.res));
   const int nkb = (p.K + kChunk - 1) / kChunk;
@@ -1148,7 +1288,14 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
   if (rc == 0 && !F32OUT && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
   if (rc != 0) return rc;
   float* part = splits > 1 ? (float*)ws : nullptr;
-  if (bm == 128 && bn == 64)
+  if (NARROW) {
+    if (bm == 64 && bn == 64)
+      rc = launch_wgmma_tile<MODE, 1, 64, NARROW>(p, ta, tb, tc, part, splits, per, s);
+    else if (bm == 64 && bn == 128)
+      rc = launch_wgmma_tile<MODE, 1, 128, NARROW>(p, ta, tb, tc, part, splits, per, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else if (bm == 128 && bn == 64)
     rc = launch_wgmma_tile<MODE, 2, 64>(p, ta, tb, tc, part, splits, per, s);
   else if (bm == 128 && bn == 128)
     rc = launch_wgmma_tile<MODE, 2, 128>(p, ta, tb, tc, part, splits, per, s);
@@ -1171,7 +1318,7 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
   return (int)cudaGetLastError();
 }
 
-enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
+enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2, kPathWgmmaNarrow = 3 };
 
 // dtype: 0 = float32, 1 = bfloat16. path, bm, bn, splits: the caller's plan
 // (ops/kernels/common.py:plan_gemm); ws: splits x M x N f32 of workspace when
@@ -1198,9 +1345,15 @@ static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int s
       gemm_bf16<CONV, false, true><<<grid, kThreads, 0, s>>>(p);
     else
       gemm_bf16<CONV, false, false><<<grid, kThreads, 0, s>>>(p);
-  } else if (path == kPathWgmma && dtype == 1) {
+  } else if ((path == kPathWgmma || path == kPathWgmmaNarrow) && dtype == 1) {
     const int nkb = (p.K + kChunk - 1) / kChunk;  // the plan makes every split equal
     if (splits < 1 || nkb % splits != 0) return (int)cudaErrorInvalidValue;
+    if constexpr (CONV) {
+      if (path == kPathWgmmaNarrow)
+        return launch_wgmma<kModeConv, true>(p, bm, bn, splits, nkb / splits, ws, s);
+    } else if (path == kPathWgmmaNarrow) {
+      return (int)cudaErrorInvalidValue;  // the narrow fill is the conv's
+    }
     return launch_wgmma<CONV ? kModeConv : kModeGemm>(p, bm, bn, splits, nkb / splits, ws, s);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -248,8 +248,9 @@ def _stem_s2d_conv(op, geom, tune, lib: bool, relu: bool, info_log):
     arrives host-folded (input_s2d, channels maybe padded to ``pad_c``) or is
     folded here. Under gen the hand conv runs through K3's stride-1 entry,
     ``conv2d_nhwc``, on channels zero-padded to a multiple of 8 (as K4's
-    fold pads them), so it takes wgmma and not the mma.sync loop of
-    C % 8 != 0; under lib, cuDNN on the same fold."""
+    fold pads them), so it takes wgmma's 16-byte gathers and not the
+    element-by-element fill of C % 8 != 0; under lib, cuDNN on the same
+    fold."""
     sb, kk, m, cin = geom["sb"], geom["kk"], geom["m"], geom["cin"]
     (p0, p1), (pry, prx) = geom["pad"], geom["pad_r"]
     xs_h, xs_w = geom["xs_h"], geom["xs_w"]

@@ -134,13 +134,13 @@ def sm_count(dev: torch.device) -> int:
 # -- the GEMM core's tile plan ------------------------------------------------------
 
 # the C side's path codes (gemm.cuh enum Path)
-PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "wgmma_narrow": 3}
 WGMMA_CHUNK = 64     # K per ring stage (128 bytes of bf16)
 SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
 
 
 class GemmPlan(NamedTuple):
-    path: str   # "wgmma" | "mma" | "fma"
+    path: str   # "wgmma" | "wgmma_narrow" | "mma" | "fma"
     bm: int     # output tile rows
     bn: int     # output tile columns
     split: int  # K splits (1: none); divides the K chunks on the wgmma path
@@ -167,7 +167,9 @@ def wgmma_smem(bm: int, bn: int) -> int:
 # conv's cp.async gather per chunk, by tile rows; a work item's fixed cost
 # (its epilogue writes the tile at ~25 GB/s, an SM's share of HBM); and a
 # split's cost (the reduction's launch and its f32 partials, which stay in
-# L2). Work items run in rounds of one per SM on the persistent grid.
+# L2). Work items run in rounds of one per SM on the persistent grid. The
+# narrow conv's plans are ranked by the same terms (its fill's cost per chunk
+# changes no choice at the narrow shapes: scripts/torch_narrow_conv.py).
 _CHUNK_US = {(128, 256): 0.77, (128, 128): 0.41, (128, 64): 0.47,
              (64, 256): 0.60, (64, 128): 0.30, (64, 64): 0.28}
 _GATHER_US = {128: 0.41, 64: 0.25}
@@ -194,30 +196,35 @@ def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None
               aligned: bool = True) -> GemmPlan:
     """The plan of one C[M,N] = A[M,K] . B[K,N] launch; ``conv_c`` is the
     conv's input channel count (A gathered from NHWC), None for the GEMM.
-    ``aligned``: every operand starts on a 16-byte boundary. A pure function
+    ``aligned``: every operand that the wgmma paths read or write 16 bytes
+    at a time starts on a 16-byte boundary (for a conv with C % 8 != 0 that
+    is all but x, which its fill reads element by element). A pure function
     of its arguments.
 
     * f32 -> the FMA path, 64x64 tiles.
-    * bf16 whose 16-byte rows TMA and cp.async cannot take (K % 8 for the
-      GEMM, C % 8 for the conv, N % 8, or a misaligned operand) -> the mma.sync
-      loop, 128x128 tiles.
+    * bf16 with N % 8 != 0, K % 8 != 0 for the GEMM, or a misaligned
+      operand -> the mma.sync loop, 128x128 tiles.
+    * a bf16 conv with C % 8 != 0 (every C = 3 stem) -> ``wgmma_narrow``:
+      the wgmma ring with A built element by element, 64-row tiles of 64 or
+      128 columns.
     * other bf16 -> wgmma: the tile (64 or 128 rows; 64, 128 or 256 columns,
       no wider than N needs) and the K split (a divisor of the 64-deep
       chunks, at most 16) that :func:`plan_cost` ranks first among the plans
       whose work items give at least 2/3 of the SMs one each (or, where none
       does, among those with the most items). The grid is persistent:
-      min(items, sms) blocks walk the work items."""
+      min(items, sms) blocks walk the work items. ``wgmma_narrow`` takes
+      its columns and split the same way."""
     if dtype == torch.float32:
         return GemmPlan("fma", 64, 64, 1, cdiv(M, 64) * cdiv(N, 64))
     if dtype != torch.bfloat16:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
-    vec = (K if conv_c is None else conv_c) % 8 == 0 and N % 8 == 0
-    if not (vec and aligned):
+    narrow = conv_c is not None and conv_c % 8 != 0
+    if N % 8 or (conv_c is None and K % 8) or not aligned:
         return GemmPlan("mma", 128, 128, 1, cdiv(M, 128) * cdiv(N, 128))
     chunks = cdiv(K, WGMMA_CHUNK)
     cands = []
-    for bm in (128, 64):
-        for bn in (256, 128, 64):
+    for bm in (64,) if narrow else (128, 64):
+        for bn in (128, 64) if narrow else (256, 128, 64):
             if bn > max(64, cdiv(N, 64) * 64):
                 continue
             for split in range(1, min(_MAX_SPLIT, chunks) + 1):
@@ -227,7 +234,7 @@ def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None
                     cands.append((min(items, -(-2 * sms // 3)), -cost, bm, bn, split, items))
     busy = max(c[0] for c in cands)
     _, _, bm, bn, split, items = max(c for c in cands if c[0] == busy)
-    return GemmPlan("wgmma", bm, bn, split, min(items, sms))
+    return GemmPlan("wgmma_narrow" if narrow else "wgmma", bm, bn, split, min(items, sms))
 
 
 def splitk_workspace(plan: GemmPlan, M: int, N: int, dev) -> torch.Tensor | None:

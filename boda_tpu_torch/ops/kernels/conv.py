@@ -7,8 +7,10 @@ call one CUDA kernel, ``csrc/conv.cu`` on the GEMM core ``csrc/gemm.cuh``
 that K1 shares: the K2/K3 split exists only because of Mosaic's DMA and
 layout limits (c % 128, no bf16 stride, VMEM budgets), none of which binds
 on Hopper. Each launch takes the core's tile plan for its implicit GEMM
-(:func:`~.common.plan_gemm`: wgmma for C % 8 == 0, the mma.sync loop for the
-C = 3 stem). :func:`conv2d` launches the kernel for CUDA tensors and runs
+(:func:`~.common.plan_gemm`: wgmma for C % 8 == 0, ``wgmma_narrow`` for the
+C = 3 stems and every other C % 8 != 0, the mma.sync loop where N % 8 != 0
+or an operand is misaligned). :func:`conv2d` launches the kernel for CUDA
+tensors and runs
 :func:`conv2d_plain` for CPU tensors; there is no other fallback.
 
 K4 (``space_to_depth_conv``, a strided conv folded into a stride-1 one)
@@ -75,8 +77,10 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
     if residual is not None:
         check_operand("residual", residual, x.device, x.dtype, (n, oh, ow, oc))
     M = n * oh * ow
+    # x need not be 16-byte aligned where C % 8 != 0: the narrow fill reads
+    # it element by element
     plan = plan_gemm(M, oc, kh * kw * c, sm_count(x.device), x.dtype, conv_c=c,
-                     aligned=aligned16(x, w, bias, residual))
+                     aligned=aligned16(w, bias, residual) and (c % 8 != 0 or aligned16(x)))
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=x.device)
     ws = splitk_workspace(plan, M, oc, x.device)
     kb = build.load()

@@ -66,7 +66,7 @@ Before them, [caffe-grad]: GoogLeNet's gradient graph (googlenet_conv b32
 launches per kernel exact as the pipe gives them (K1 the 1x1s and the
 classifier, K2 the k x k forwards, K3's entry and K5 every stride-1 conv's
 dgrad and wgrad; the strided stem's backward the library's), on wgmma but
-the C = 3 stem; every distinct K1, K2, K3 and K5 call of gen's pass (the
+the C = 3 stem, which takes the narrow fill; every distinct K1, K2, K3 and K5 call of gen's pass (the
 1x1, 3x3 and 5x5 dgrads, the 1-, 9- and 25-tap wgrads) against its plain
 version on the engine's own operands; gen's backward from lib's forward
 values against lib on every output; each replay bit-equal to eager on two
@@ -155,10 +155,14 @@ counts are those of the captured forward, which every replay launches. The
 GEMM core (K1, K2/K3) and K5 also count their launches per path of their
 plans: every b32 bf16 GEMM and conv of the gen and fused forwards, all 46
 dgrads and all 46 wgrads must take the wgmma path, the gen forward's C = 3
-stem alone the mma.sync loop; K6 counts its routes (bottleneck.paths), and
-all 12 bottlenecks of the fused b32 forward must take its wgmma route; K8
-counts its routes (pool2d.paths): the fused b32 forward's pool1 must take
-rows, its pool5 window. fc1000's weights are scaled in every ResNet-50
+stem alone wgmma_narrow (the ring with A built element by element), and
+only N % 8 != 0 (ssd300's mbox_conf heads) the mma.sync loop. [narrow]
+holds K2's narrow route at every conv with C % 8 != 0 and N % 8 == 0 that
+a path launches (NARROW_SHAPES) against its plain version, its device
+time beside the mma.sync loop's, cuDNN's and the bound; K6 counts its
+routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
+must take its wgmma route; K8 counts its routes (pool2d.paths): the fused
+b32 forward's pool1 must take rows, its pool5 window. fc1000's weights are scaled in every ResNet-50
 pipe (scale_fc1000), so that prob is not one-hot and the forward's prob
 gates compare something.
 
@@ -251,8 +255,16 @@ ELT_FUNCS = ("relu", "copy", "neg", "mul", "add", "sub", "max")
 # the nan phase: a NaN planted in small inputs of every kernel with a ReLU or
 # a max (K1 with ReLU and a residual, K2/K3 with ReLU, K6, K7, K8's max), on
 # each path of each; "<kernel> <path>" (nan_case)
+# K2's narrow route (wgmma_narrow): every conv with C % 8 != 0 and N % 8 == 0
+# that a path launches, (n, h, c, oc, k, s, p) -> where (ssd300 at SSD_BATCH)
+NARROW_SHAPES = {(BATCH, 224, 3, 64, 7, 2, 3): "resnet50 and googlenet conv1, the 7x7 s2 stem, b32",
+                 (BATCH, 224, 3, 64, 3, 1, 1): "vgg16 conv1_1 b32",
+                 (4, 300, 3, 64, 3, 1, 1): "ssd300 conv1_1 b4",
+                 (BATCH, 224, 3, 32, 7, 2, 3): "resnet50 conv1's (tp=2) slice b32"}
+NARROW_MAIN = (BATCH, 224, 3, 64, 7, 2, 3)  # the main path's (the gen forward's stem)
 NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm mma", "sgemm fma",
-             "conv wgmma", "conv_nhwc wgmma split-K", "conv mma", "conv fma",
+             "conv wgmma", "conv_nhwc wgmma split-K", "conv wgmma_narrow", "conv mma",
+             "conv fma",
              "block wgmma", "block mma", "block fma", "stem mma", "stem fma",
              "pool rows", "pool window", "pool thread")
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
@@ -466,11 +478,22 @@ def pool_plan_str(plan) -> str:
             else "-")
 
 
-def check_paths(what: str, paths: dict, launches: int, mma: int) -> None:
+def core_path(c: int, n: int, conv: bool = True) -> str:
+    """The GEMM core's bf16 path by shape on aligned operands (the rule of
+    ops/kernels/common.py:plan_gemm, stated here on its own): the mma.sync
+    loop where N % 8 != 0 or the GEMM's K % 8 != 0; the narrow fill where a
+    conv's input channels C % 8 != 0; else wgmma. ``c``: the conv's C, or
+    the GEMM's K."""
+    if n % 8 or (not conv and c % 8):
+        return "mma"
+    return "wgmma_narrow" if conv and c % 8 else "wgmma"
+
+
+def check_paths(what: str, paths: dict, launches: int, mma: int, narrow: int = 0) -> None:
     """The launches per path of the GEMM core (K1, K2/K3/K4) or of K5: ``mma``
-    on the mma.sync loop (the C = 3 stem), every other one on wgmma, none on
-    the f32 path."""
-    want = {"wgmma": launches - mma, "mma": mma, "fma": 0}
+    on the mma.sync loop (N % 8 != 0), ``narrow`` on wgmma_narrow (the C = 3
+    stems), every other one on wgmma, none on the f32 path."""
+    want = {"wgmma": launches - mma - narrow, "mma": mma, "wgmma_narrow": narrow, "fma": 0}
     print(f"[paths] {what}: {paths} (expected {want})")
     check(paths == want, f"{what}: GEMM-core paths {paths}, expected {want}")
 
@@ -570,7 +593,8 @@ def nan_case(name: str, dev):
         return sgemm.matmul, sgemm.matmul_plain, ops, kw, False, sgemm.matmul.paths, path
     if kind in ("conv", "conv_nhwc"):
         n, h, c, oc, k, s, p = {"wgmma": (8, 28, 64, 64, 3, 1, 1),
-                                "split-K": (2, 14, 64, 64, 3, 1, 1)}.get(
+                                "split-K": (2, 14, 64, 64, 3, 1, 1),
+                                "wgmma_narrow": (2, 13, 3, 24, 7, 2, 3)}.get(
             name.split()[-1], (2, 13, 3, 20, 7, 2, 3))
         oh = (h + 2 * p - k) // s + 1
         ops = (t((n, h, h, c), nan=[(0, 0, 0, c - 1), (n - 1, h // 2, h // 3, 1)]),
@@ -812,9 +836,9 @@ def kernel_shape_checks(net, pipe, gen, fused, cases, tag="caffe", rows=None) ->
     engine, each K8 and K4 call of the fused forward, at the net's own
     shapes on random bf16 operands (main's case builders ``cases``), against
     its plain version: max pools exact, the rest within TOL of max|ref|; each
-    call on the path ``plan_gemm`` gives its shape (wgmma, but mma.sync where
-    a row is not 16 bytes: K % 8 != 0 for K1, C % 8 != 0 for K2, or N % 8
-    != 0). Prints one ``[tag]`` line per call, with the kernel's and the
+    call on the path ``plan_gemm`` gives its shape (``core_path``: wgmma;
+    wgmma_narrow for K2 at C % 8 != 0; mma.sync where N % 8 != 0 or, for
+    K1, K % 8 != 0). Prints one ``[tag]`` line per call, with the kernel's and the
     library's device time and the bound (and appends them to ``rows``, when
     given); returns the miss lines."""
     from boda_tpu_torch.graph.lowering_nhwc import pool_geom
@@ -848,13 +872,13 @@ def kernel_shape_checks(net, pipe, gen, fused, cases, tag="caffe", rows=None) ->
         before = dict(matmul.paths)
         case = cases["gemm"](*sig, bf)
         held("sgemm", sig, f"M={M} K={K} N={N} relu={int(relu)} x{cnt}", case,
-             ran(matmul, before), ["mma"] if K % 8 or N % 8 else ["wgmma"])
+             ran(matmul, before), [core_path(K, N, conv=False)])
     for sig, cnt in conv.items():
         n, h, c, oc, k, s, p = sig[:7]
         before = dict(conv2d.paths)
         case = cases["conv"](*sig, bf)
         held("conv", sig, f"{h}x{h} C={c} OC={oc} k{k} s{s} p{p} x{cnt}", case,
-             ran(conv2d, before), ["mma"] if c % 8 or oc % 8 else ["wgmma"])
+             ran(conv2d, before), [core_path(c, oc)])
     log = fused.get_info_log() if fused is not None else ""
     for op in pipe.ops.values() if fused is not None else ():
         if op.type in ("Pooling", "Convolution"):
@@ -1000,8 +1024,8 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
         check(n == want[pol], f"googlenet {pol}: launches {n}, expected {want[pol]}")
         if pol != "lib":
             check_paths(f"googlenet {pol} sgemm", paths["sgemm"], n["sgemm"], 0)
-            check_paths(f"googlenet {pol} conv", paths["conv"], n["conv"],
-                        1 if pol == "gen" else 0)  # gen: the C = 3 stem on mma.sync
+            check_paths(f"googlenet {pol} conv", paths["conv"], n["conv"], 0,
+                        1 if pol == "gen" else 0)  # gen: the C = 3 stem, narrow
             check(pol == "gen" or "conv1/7x7_s2: nhwc-s2d_conv" in elog,
                   "googlenet fused: conv1 did not take the space-to-depth fold")
         bit = {k: np.array_equal(replay[k].data, eager[k].data) for k in fwd_outs}
@@ -1084,9 +1108,9 @@ def caffe_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
         out[f"vgg16_{pol}"] = {"graph_ms": secs * 1e3, "img_per_s": BATCH / secs, "launches": n}
         print(f"[caffe] vgg16 b{BATCH} 224 bf16 {pol}: launches {n}, conv paths {cpaths}; graph "
               f"{secs * 1e3:.3f} ms/fwd ({BATCH / secs:.1f} img/s) ({card})")
-        if pol == "gen":  # 13 3x3 convs, conv1_1 (C = 3) on mma.sync; fc6-fc8
+        if pol == "gen":  # 13 3x3 convs, conv1_1 (C = 3) narrow; fc6-fc8
             check(n["conv"] == 13 and n["sgemm"] == 3, f"vgg16 gen launches {n}")
-            check_paths("vgg16 gen conv", cpaths, n["conv"], 1)
+            check_paths("vgg16 gen conv", cpaths, n["conv"], 0, 1)
             vgen = e
         del e
     errs = {k: rel_err(torch.from_numpy(v["gen"][k].data), torch.from_numpy(v["lib"][k].data))[1]
@@ -1200,14 +1224,13 @@ def kernel_calls(record: dict):
 
 def grad_call_case(kname: str, args: list, kw: dict):
     """One recorded K1, K2, K3 (dgrad) or K5 (wgrad) call of a gradient
-    graph (``kernel_calls``): (its shape as text, whether a row is narrower
-    than 16 bytes so that the mma.sync path takes it, its bound in ms, one
-    library call computing the same function)."""
+    graph (``kernel_calls``): (its shape as text, the path its shape takes,
+    its bound in ms, one library call computing the same function)."""
     import torch.nn.functional as F
     if kname == "sgemm":
         a, b = args[0], args[1]
         shape = f"M={a.shape[0]} K={a.shape[1]} N={b.shape[1]}"
-        narrow = a.shape[1] % 8 or b.shape[1] % 8
+        path = core_path(a.shape[1], b.shape[1], conv=False)
         bound = max(work("sgemm", (a.shape[0], a.shape[1], b.shape[1],
                                    kw.get("residual") is not None, False)))
         lib_fn = (lambda a=a, b=b: a @ b)
@@ -1216,7 +1239,7 @@ def grad_call_case(kname: str, args: list, kw: dict):
         s, p = kw.get("stride", (1, 1)), kw.get("pad", (0, 0))
         shape = f"{x.shape[1]}x{x.shape[2]} C={x.shape[3]} OC={w.shape[3]} k{w.shape[0]} " \
                 f"s{s[0]} p{p[0]}"
-        narrow = x.shape[3] % 8 or w.shape[3] % 8
+        path = core_path(x.shape[3], w.shape[3])
         bound = max(work("conv", (x.shape[0], x.shape[1], x.shape[3], w.shape[3],
                                   w.shape[0], s[0], p[0], False)))
         xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
@@ -1243,9 +1266,11 @@ def grad_call_case(kname: str, args: list, kw: dict):
         sig = (n, h, c, oc, k, kw["pad"][0])
         shape = f"{h}x{h} C={c} OC={oc} k{k} p{kw['pad'][0]}" + \
             (f" ({k * k} taps)" if kname == "atb" else "")
-        narrow = c % 8 or oc % 8
+        # the dgrad convolves dy (oc channels) into c; K5 has no narrow route
+        path = (core_path(oc, c) if kname == "conv_nhwc" else
+                "mma" if c % 8 or oc % 8 else "wgmma")
         bound = max(work("dgrad" if kname == "conv_nhwc" else "atb", sig))
-    return shape, narrow, bound, lib_fn
+    return shape, path, bound, lib_fn
 
 
 def caffe_grad_phase(card: str, counted: dict) -> dict:
@@ -1308,7 +1333,7 @@ def caffe_grad_phase(card: str, counted: dict) -> dict:
           f"{paths['atb']} ({card})")
     check(got == want, f"caffe-grad gen launches {got}, expected {want}")
     check_paths("caffe-grad sgemm", paths["sgemm"], got["sgemm"], 0)
-    check_paths("caffe-grad conv (forward + dgrads)", paths["conv"], got["conv"], 1)
+    check_paths("caffe-grad conv (forward + dgrads)", paths["conv"], got["conv"], 0, 1)
     check_paths("caffe-grad atb (wgrads)", paths["atb"], got["atb"], 0)
     out["launches_gen"] = got
 
@@ -1338,8 +1363,8 @@ def caffe_grad_phase(card: str, counted: dict) -> dict:
         path = [q for q in f.paths if f.paths[q] != before[q]]
         ref = ref_fn(*args, **kw)
         err = rel_err(got_o, ref)[1]
-        shape, narrow, bound, lib_fn = grad_call_case(kname, args, kw)
-        want_path = ["mma"] if narrow else ["wgmma"]
+        shape, want_p, bound, lib_fn = grad_call_case(kname, args, kw)
+        want_path = [want_p]
         ok = err <= TOL[torch.bfloat16] and path == want_path
         worst_k[kname] = max(worst_k.get(kname, 0.0), err)
         k_us = graph_time(lambda kern=kern, args=args, kw=kw: kern(*args, **kw)) * 1e6
@@ -1679,8 +1704,10 @@ SSD_BF16_NODES = ["mbox_loc", "mbox_conf_softmax"]
 # pools to K8
 SSD_LAUNCHES = {"gen": {"sgemm": 5, "conv": 29},
                 "fused": {"sgemm": 5, "conv": 29, "s2d": 2, "conv_nhwc": 2, "pool": 5}}
-# conv1_1 (C = 3) and the six mbox_conf heads (N = 84 or 126) on mma.sync
-SSD_MMA = 7
+# the six mbox_conf heads (N = 84 or 126) on mma.sync, conv1_1 (C = 3) on
+# the narrow fill
+SSD_MMA = 6
+SSD_NARROW = 1
 # the head on the card against the CPU on the same f32 inputs: labels, keep
 # masks and row order equal; scores and boxes max|err|/max|ref| (an exp ulp
 # apart in a decoded box is ~6e-8 of it)
@@ -1763,7 +1790,8 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
             fd = pipe.must_dims(pipe.ops[name].bots[1])
             label = {"nhwc-k1conv": "K1", "nhwc-s2d_conv": "K4", "nhwc-lib_conv": "lib"}.get(r)
             if r == "nhwc-direct_conv":
-                label = "K2-mma.sync" if fd["in_chan"] % 8 or fd["out_chan"] % 8 else "K2-wgmma"
+                label = {"mma": "K2-mma.sync", "wgmma_narrow": "K2-wgmma_narrow",
+                         "wgmma": "K2-wgmma"}[core_path(fd["in_chan"], fd["out_chan"])]
             routes.setdefault(label or r, []).append(name)
         for label, names in sorted(routes.items()):
             print(f"[ssd] ssd300 b{SSD_BATCH} bf16 {pol} routes {label} ({len(names)}): "
@@ -1783,7 +1811,8 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
               f"detection_out included; launches {n} (expected {want}); conv paths {cpaths}; "
               f"replay vs eager detection_out bit-equal {bit}")
         check(n == want, f"ssd300 {pol}: launches {n}, expected {want}")
-        check(cpaths["mma"] == SSD_MMA and cpaths["wgmma"] == n["conv"] - SSD_MMA,
+        check(cpaths["mma"] == SSD_MMA and cpaths["wgmma_narrow"] == SSD_NARROW
+              and cpaths["wgmma"] == n["conv"] - SSD_MMA - SSD_NARROW,
               f"ssd300 {pol}: conv paths {cpaths}")
         check(bit, f"ssd300 {pol}: the replayed detection_out differs from the eager one")
         rows = replay["detection_out"].data.reshape(-1, 7)
@@ -2070,25 +2099,24 @@ def conv_taps(record: dict | None = None, force: dict | None = None):
 
 def call_path(kname: str, sig) -> str:
     """The GEMM core's path for a call of ``train_calls`` on aligned bf16
-    operands: mma.sync where a row of K or N (C or OC) is off 8 elements,
-    else wgmma."""
+    operands (``core_path``); K5 (``atb``): mma.sync where a row of M or N
+    is off 8 elements, else wgmma."""
     if kname == "sgemm":
-        k, n = sig[1:3]
-    elif kname == "atb":
+        return core_path(sig[1], sig[2], conv=False)
+    if kname == "atb":
         k, n = sig[1:3] if len(sig) == 3 else sig[2:4]
-    else:  # conv (n, h, c, oc, ...), conv_nhwc
-        k, n = sig[2:4]
-    return "mma" if k % 8 or n % 8 else "wgmma"
+        return "mma" if k % 8 or n % 8 else "wgmma"
+    c, oc = sig[2:4]  # conv (n, h, c, oc, ...); conv_nhwc, the dgrad: dy's oc into c
+    return core_path(c, oc) if kname == "conv" else core_path(oc, c)
 
 
 def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
                       cases: dict, card: str) -> tuple[list, dict]:
     """Each distinct K1, K2, K3 and K5 call of ``calls`` (``train_calls``) on
     seeded bf16 operands at its shapes against its plain version within
-    TRAIN_CALL_TOL, its path asserted by the GEMM core's rule (mma.sync
-    where a row of K or N is off 8 elements, else wgmma), its device time in
-    a CUDA graph beside the library's and its bound; one ``[tag]`` line per
-    call. Returns the rows and the kernel us per step by the counts."""
+    TRAIN_CALL_TOL, its path asserted by the GEMM core's rule (``call_path``),
+    its device time in a CUDA graph beside the library's and its bound; one
+    ``[tag]`` line per call. Returns the rows and the kernel us per step by the counts."""
     from boda_tpu_torch.ops.kernels.bconv import matmul_atb
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.rtc.backends import graph_time
@@ -3825,6 +3853,81 @@ def xla_phase(card: str, pipe, ins: dict, fc_scale: float, counted: dict) -> dic
     return out
 
 
+def mma_conv(x, w, bias, stride: int, pad: int, relu: bool = True):
+    """One launch of the GEMM core's mma.sync loop on a bf16 conv, past the
+    plan (the route of a conv with C % 8 != 0 before wgmma_narrow), to time
+    beside the planned route; it counts no launch."""
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    n, h, wd, c = x.shape
+    kh, kw, _, oc = w.shape
+    oh, ow = (h + 2 * pad - kh) // stride + 1, (wd + 2 * pad - kw) // stride + 1
+    out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=x.device)
+    rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
+                                      out.data_ptr(), None, n, h, wd, c, oh, ow, oc, kh, kw,
+                                      stride, stride, pad, pad, int(relu), 1, PATH_CODES["mma"],
+                                      128, 128, 1, build.stream_ptr(x))
+    build.check(rc, "boda_conv2d on the mma.sync loop")
+    return out
+
+
+def narrow_phase(card: str) -> dict:
+    """[narrow]: K2's narrow route at each of NARROW_SHAPES, ReLU fused as the
+    engine fuses it, on seeded bf16 operands: the path the launch counted
+    (wgmma_narrow), the output within TOL of ``conv2d_plain``; the device
+    time in a CUDA graph (``graph_time``, L2 warm) of the kernel, of the
+    mma.sync loop on the same operands (held to plain as well), and of
+    cuDNN's ``F.conv2d`` in bf16 on the channels_last views with ReLU; the
+    plain version's back-to-back time; the bound. Returns the rows by
+    shape."""
+    import torch.nn.functional as F
+
+    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
+    from boda_tpu_torch.rtc.backends import graph_time
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    for sig, where in NARROW_SHAPES.items():
+        n, h, c, oc, k, st, p = sig
+        x = torch.randn((n, h, h, c), generator=gen, device=dev).to(bf)
+        w = (torch.randn((k, k, c, oc), generator=gen, device=dev) * (k * k * c) ** -0.5).to(bf)
+        bias = (torch.randn((oc,), generator=gen, device=dev) * 0.1).to(bf)
+        kw = dict(stride=(st, st), pad=(p, p), relu=True)
+        before = dict(conv2d.paths)
+        out = conv2d(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        ran = [q for q in before if conv2d.paths[q] != before[q]]
+        plan = conv2d.last_plan
+        ref = conv2d_plain(x, w, bias, **kw)
+        ae, re = rel_err(out, ref)
+        _, re_mma = rel_err(mma_conv(x, w, bias, st, p), ref)
+        w_lib = w.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
+        xn, wn = x.permute(0, 3, 1, 2), w_lib.permute(0, 3, 1, 2)
+
+        def lib():
+            return torch.relu(F.conv2d(xn, wn, bias, stride=st, padding=p))
+        b_ms, o_ms = work("conv", sig + (False,))
+        row = {"where": where, "path": ran, "plan": plan_str(plan), "max_abs_err": ae,
+               "max_rel_err": re, "mma_rel_err": re_mma,
+               "us": graph_time(lambda: conv2d(x, w, bias, **kw)) * 1e6,
+               "mma_us": graph_time(lambda: mma_conv(x, w, bias, st, p)) * 1e6,
+               "library_us": graph_time(lib) * 1e6,
+               "plain_ms": cuda_ms(lambda: conv2d_plain(x, w, bias, **kw), reps=5),
+               "bound_us": max(b_ms, o_ms) * 1e3,
+               "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        rows[sig] = row
+        print(f"[narrow] {where} {sig}: {re:.3e} on {ran} (mma.sync loop {re_mma:.3e}), plan "
+              f"{row['plan']}; kernel {row['us']:.2f} us, mma.sync loop {row['mma_us']:.2f} us, "
+              f"cuDNN {row['library_us']:.2f} us, bound {row['bound_us']:.2f} us "
+              f"({row['bound_by']}) ({card})")
+        check(ran == ["wgmma_narrow"] and plan.path == "wgmma_narrow",
+              f"narrow {sig}: path {ran}, plan {plan}")
+        check(bool(torch.isfinite(out.float()).all()) and re <= TOL[bf] and re_mma <= TOL[bf],
+              f"narrow {sig}: rel err {re:.3g}, mma.sync loop {re_mma:.3g} > {TOL[bf]}")
+        del x, w, out, ref, xn, wn, w_lib
+    return rows
+
+
 def main() -> int:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4153,6 +4256,10 @@ def main() -> int:
         summary[kname] = tot
 
     lap("kernels")
+    # -- phase 2a: K2's narrow route (C % 8 != 0) at every shape a path runs ----------
+    narrow = narrow_phase(card)
+
+    lap("narrow")
     # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
     # at ResNet-50 b32's largest residual add (32x256x56x56), at n = 777 and at
     # a view one element off 16-byte alignment (the scalar path and tail);
@@ -4269,8 +4376,10 @@ def main() -> int:
     matmul.paths, conv2d.paths = dict.fromkeys(matmul.paths, 0), dict.fromkeys(conv2d.paths, 0)
     outs = eng.run_fwd(ins, ["prob", "fc1000"])
     launches = {"sgemm": matmul.launches, "conv": conv2d.launches}
+    gen_paths = {"sgemm": dict(matmul.paths), "conv": dict(conv2d.paths)}
     check_paths("gen forward sgemm", matmul.paths, launches["sgemm"], 0)
-    check_paths("gen forward conv", conv2d.paths, launches["conv"], 1)  # the C = 3 stem
+    check_paths("gen forward conv", conv2d.paths, launches["conv"], 0, 1)  # the C = 3 stem
+    launches["conv_narrow"] = conv2d.paths["wgmma_narrow"]
     print(f"[slice] resnet50 b{BATCH} bf16 gen: launches sgemm {launches['sgemm']} "
           f"(layers {n_gemm}), conv {launches['conv']} (layers {n_conv})")
     check(launches["sgemm"] >= n_gemm > 0, "sgemm launch count below its layers")
@@ -4463,7 +4572,7 @@ def main() -> int:
     bres = {"gen": beng.run_fwd(bins, bwant)}
     launches_bck = read_counts(counted)
     # exact, as the pipe gives them; the forward's convs and the 46 dgrads
-    # all on wgmma but the C = 3 stem
+    # all on wgmma but the C = 3 stem, on wgmma_narrow
     want_bck = grad_graph_launches(bpipe)
     print(f"[grad-bf16] resnet50 b{BATCH} gen: launches {launches_bck} (expected from the "
           f"pipe {want_bck}; bck-conv ops {n_bck_conv})")
@@ -4471,7 +4580,7 @@ def main() -> int:
           f"grad-bf16 launches {launches_bck}, expected {want_bck}")
     check_paths("grad-bf16 sgemm", counted["sgemm"].paths, launches_bck["sgemm"], 0)
     check_paths("grad-bf16 conv (forward + 46 dgrads)", counted["conv"].paths,
-                launches_bck["conv"], 1)
+                launches_bck["conv"], 0, 1)
     check_paths("grad-bf16 atb (46 wgrads)", counted["atb"].paths, launches_bck["atb"], 0)
     grad_gate_vs_lib("grad-bf16", bpipe, beng, blib, bins, bwant, bres["gen"])
     del bres
@@ -4873,6 +4982,7 @@ def main() -> int:
                 "conv_nhwc" if kname == "dgrad" else kname]
         if kname in ("sgemm", "conv"):
             entry["launches_fused"] = launches_fused[kname]
+            entry["paths"] = gen_paths[kname]  # the gen forward's launches per route
         if kname == "dgrad":  # K3's entry, conv2d_nhwc, on the conv kernel
             entry["entry"] = "boda_tpu_torch/ops/kernels/conv.py:conv2d_nhwc"
         if kname == "atb":
@@ -4893,6 +5003,16 @@ def main() -> int:
             entry["launches_ssd300"] = (ssd["launches_gen"] if kname in ("sgemm", "conv")
                                         else ssd["launches_fused"])[kname]
         kernels.append(entry)
+    # K2's narrow route: the gen forward's stem; its times at that shape, and
+    # at every narrow shape under "shapes"
+    nm = narrow[NARROW_MAIN]
+    kernels.append({"name": "conv_narrow", "route": "cuda", "source": "boda_tpu_torch/csrc/conv.cu",
+                    "replaces": "boda_tpu/ops/kernels/conv.py:575", "path": "wgmma_narrow",
+                    "launches": launches["conv_narrow"], "max_abs_err": nm["max_abs_err"],
+                    "ms": nm["us"] * 1e-3, "plain_ms": nm["plain_ms"],
+                    "bound_ms": nm["bound_us"] * 1e-3, "bound_by": nm["bound_by"],
+                    "library_ms": nm["library_us"] * 1e-3, "mma_ms": nm["mma_us"] * 1e-3,
+                    "shapes": {str(sig): r for sig, r in narrow.items()}})
     # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
     # tests only); times of one call at the b32 shapes
     kernels.append({"name": "eltwise", "route": "cuda", "source": "boda_tpu_torch/csrc/eltwise.cu",

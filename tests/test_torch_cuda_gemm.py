@@ -1,6 +1,9 @@
-"""The GEMM core's wgmma path (csrc/gemm.cuh) against the plain versions, on
+"""The GEMM core's wgmma paths (csrc/gemm.cuh) against the plain versions, on
 the card: K1 (matmul) and K2/K3 (conv2d, conv2d_bck_in) at the plans the
-shapes get, each case asserting which path ran.
+shapes get, each case asserting which path ran; K2's narrow route
+(``wgmma_narrow``, C % 8 != 0) at C = 1, 3, 5 and 12, strides 1 and 2, padding
+0-3, odd sizes, M off the 64-row tile, a residual, split-K, an x off 16-byte
+alignment, and replayed in a CUDA graph.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. Run them on
 the machine with the card from the repo root with
@@ -62,9 +65,12 @@ def _gemm(dev, M, K, N, *, res=False, relu=False, seed=0):
     return out, _plan(M, N, K), ran, (a, b, bias, r)
 
 
-def _conv(dev, n, h, c, oc, k, s, p, *, res=False, relu=True, seed=0):
+def _conv(dev, n, h, c, oc, k, s, p, *, res=False, relu=True, seed=0, x_off=0):
+    """One conv2d launch against conv2d_plain; x_off: x starts that many
+    elements into its allocation."""
     rng = np.random.default_rng(seed)
-    x, w = _t(rng, (n, h, h, c), dev), _t(rng, (k, k, c, oc), dev, (k * k * c) ** -0.5)
+    x = _t(rng, (n * h * h * c + x_off,), dev)[x_off:].view(n, h, h, c)
+    w = _t(rng, (k, k, c, oc), dev, (k * k * c) ** -0.5)
     bias = _t(rng, (oc,), dev, 0.1)
     oh = (h + 2 * p - k) // s + 1
     r = _t(rng, (n, oh, oh, oc), dev) if res else None
@@ -112,13 +118,101 @@ def test_residual_relu_and_ragged_edges(dev):
 
 
 def test_stem_takes_the_mma_path(dev):
-    # C = 3 cannot take 16-byte gathers: the mma.sync loop, chosen by shape
+    # C = 3 cannot take 16-byte gathers: the wgmma ring with A built element
+    # by element (wgmma_narrow), chosen by shape, within 1e-2 of plain
     _, plan, ran, _ = _conv(dev, 2, 32, 3, 64, 7, 2, 3)
+    assert ran == ["wgmma_narrow"] and plan.path == "wgmma_narrow"
+    # N % 8 != 0 keeps the mma.sync loop
+    _, plan, ran, _ = _conv(dev, 2, 13, 3, 20, 7, 2, 3)
     assert ran == ["mma"] and plan.path == "mma"
     # the fold's C = 16 (4 taps per 64-deep chunk) and a strided 3x3 take wgmma
     for sig in ((2, 30, 16, 64, 4, 1, 0), (2, 15, 128, 128, 3, 2, 1), (2, 14, 24, 40, 3, 1, 1)):
         _, plan, ran, _ = _conv(dev, *sig, res=sig[2] == 24, seed=sig[2])
         assert ran == ["wgmma"], (sig, plan)
+
+
+# (n, h, c, oc, k, s, p, residual): C = 1, 3, 5 and 12; strides 1 and 2;
+# padding 0-3; odd H and W; M = n * oh * ow off the 64-row tile (578, 147,
+# 338, 242, 81, 72 rows)
+_NARROW = [(2, 17, 1, 64, 3, 1, 1, False), (3, 13, 3, 64, 7, 2, 3, True),
+           (2, 25, 5, 72, 5, 2, 2, True), (2, 13, 12, 136, 3, 1, 0, False),
+           (1, 9, 5, 64, 7, 1, 3, True), (2, 11, 3, 256, 3, 2, 1, False)]
+
+
+@pytest.mark.parametrize("sig", _NARROW)
+def test_narrow_route(dev, sig):
+    n, h, c, oc, k, s, p, res = sig
+    out, plan, ran, again = _conv(dev, n, h, c, oc, k, s, p, res=res, seed=c + k)
+    assert ran == ["wgmma_narrow"] and plan.path == "wgmma_narrow" and plan.bm == 64, plan
+    if plan.split > 1:  # the split's sum in a fixed order: bit-equal across calls
+        assert torch.equal(out, again())
+    # no ReLU, with the same epilogue terms
+    _, _, ran, _ = _conv(dev, n, h, c, oc, k, s, p, res=res, relu=False, seed=c)
+    assert ran == ["wgmma_narrow"]
+
+
+def test_narrow_tile_widths(dev):
+    # each of the narrow kernel's tiles (64 rows; 64 or 128 columns),
+    # launched past the plan through the C entry point, against plain
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    rng = np.random.default_rng(3)
+    n, h, c, oc, k, s, p = 2, 19, 3, 256, 5, 2, 2
+    oh = (h + 2 * p - k) // s + 1
+    x, w = _t(rng, (n, h, h, c), dev), _t(rng, (k, k, c, oc), dev, (k * k * c) ** -0.5)
+    bias, r = _t(rng, (oc,), dev, 0.1), _t(rng, (n, oh, oh, oc), dev)
+    ref = conv2d_plain(x, w, bias, stride=(s, s), pad=(p, p), relu=True, residual=r)
+    for bn in (64, 128):
+        out = torch.empty_like(ref)
+        rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                          r.data_ptr(), out.data_ptr(), None, n, h, h, c, oh,
+                                          oh, oc, k, k, s, s, p, p, 1, 1,
+                                          PATH_CODES["wgmma_narrow"], 64, bn, 1,
+                                          build.stream_ptr(x))
+        build.check(rc, f"narrow 64x{bn}")
+        torch.cuda.synchronize()
+        assert _err(out, ref) <= 1e-2, bn
+    # a 128-row or 256-column tile is not a narrow plan: refused, never rerouted
+    for bm, bn in ((128, 64), (64, 256)):
+        rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
+                                          out.data_ptr(), None, n, h, h, c, oh, oh, oc, k, k, s,
+                                          s, p, p, 1, 1, PATH_CODES["wgmma_narrow"], bm, bn, 1,
+                                          build.stream_ptr(x))
+        assert rc != 0, (bm, bn)
+
+
+def test_narrow_split_k_and_misaligned_x(dev):
+    # 81 rows, K = 245: two tiles, so the plan splits K in 4
+    out, plan, ran, again = _conv(dev, 1, 9, 5, 64, 7, 1, 3, res=True)
+    assert ran == ["wgmma_narrow"] and plan.split == 4, plan
+    assert torch.equal(out, again())
+    # x one element past a 16-byte boundary: the fill reads it element by element
+    _, plan, ran, _ = _conv(dev, 2, 17, 3, 64, 7, 2, 3, x_off=1)
+    assert ran == ["wgmma_narrow"], plan
+
+
+def test_narrow_replayed_in_a_cuda_graph(dev):
+    # the stem at b2: a captured launch replays bit-equal to the eager one
+    rng = np.random.default_rng(5)
+    x, w = _t(rng, (2, 224, 224, 3), dev), _t(rng, (7, 7, 3, 64), dev, 147 ** -0.5)
+    bias = _t(rng, (64,), dev, 0.1)
+    kw = dict(stride=(2, 2), pad=(3, 3), relu=True)
+    eager = conv2d(x, w, bias, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv2d(x, w, bias, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    paths = dict(conv2d.paths)
+    with torch.cuda.graph(g):
+        out = conv2d(x, w, bias, **kw)
+    assert conv2d.paths["wgmma_narrow"] == paths["wgmma_narrow"] + 1
+    out.fill_(0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert _err(out, conv2d_plain(x, w, bias, **kw)) <= 1e-2
 
 
 def test_dgrad_shapes(dev):

@@ -41,9 +41,8 @@ def calls():
 def test_plans_cover_the_problem_and_fit_in_shared_memory(calls):
     for M, N, K, c in calls:
         plan = plan_gemm(M, N, K, SMS, BF16, conv_c=c)
-        if c == 3:  # the stem: below
-            continue
-        assert plan.path == "wgmma", (M, N, K, c, plan)
+        # the C = 3 stem on the narrow fill, 64-row tiles
+        assert plan.path == ("wgmma_narrow" if c == 3 else "wgmma"), (M, N, K, c, plan)
         tiles = cdiv(M, plan.bm) * cdiv(N, plan.bn)
         assert tiles * plan.bm * plan.bn >= M * N
         chunks = cdiv(K, WGMMA_CHUNK)
@@ -79,8 +78,6 @@ def test_work_items_fill_the_sms_and_follow_the_measurements(calls):
     split = 0
     for M, N, K, c in calls:
         plan = plan_gemm(M, N, K, SMS, BF16, conv_c=c)
-        if plan.path != "wgmma":
-            continue
         # a work item for at least 2/3 of the SMs, or K split to the end
         assert plan.ctas >= 2 * SMS / 3 or plan.split == min(16, cdiv(K, WGMMA_CHUNK)), \
             (M, N, K, plan)
@@ -92,11 +89,16 @@ def test_work_items_fill_the_sms_and_follow_the_measurements(calls):
 
 
 def test_stem_odd_shapes_and_f32_take_the_other_paths():
-    # the gen forward's 7x7 s2 stem at C = 3: no 16-byte rows -> mma.sync
-    assert plan_gemm(32 * 112 * 112, 64, 147, SMS, BF16, conv_c=3).path == "mma"
+    # the gen forward's 7x7 s2 stem at C = 3, and any conv whose only narrow
+    # dimension is C: the wgmma ring with A built element by element
+    assert plan_gemm(32 * 112 * 112, 64, 147, SMS, BF16, conv_c=3).path == "wgmma_narrow"
+    assert plan_gemm(1000, 64, 64, SMS, BF16, conv_c=12).path == "wgmma_narrow"
+    # mma.sync: N % 8, the GEMM's K % 8, a misaligned operand
     assert plan_gemm(77, 100, 147, SMS, BF16).path == "mma"     # K, N % 8
     assert plan_gemm(1000, 100, 64, SMS, BF16).path == "mma"    # N % 8
-    assert plan_gemm(1000, 64, 64, SMS, BF16, conv_c=12).path == "mma"
+    assert plan_gemm(1000, 64, 147, SMS, BF16).path == "mma"    # the GEMM's K % 8
+    assert plan_gemm(1000, 20, 147, SMS, BF16, conv_c=3).path == "mma"  # a narrow conv's N % 8
+    assert plan_gemm(1000, 64, 147, SMS, BF16, conv_c=3, aligned=False).path == "mma"
     assert plan_gemm(1000, 64, 64, SMS, BF16, aligned=False).path == "mma"
     # the fused stem's fold (C = 16) and the ragged card-test shapes take wgmma
     assert plan_gemm(32 * 112 * 112, 64, 256, SMS, BF16, conv_c=16).path == "wgmma"
