@@ -317,6 +317,7 @@ extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M
     p.M = M;
     p.N = N;
     p.K = K;
+    p.ldb = N;
     p.H = H;
     p.W = W;
     p.OH = OH;

@@ -31,16 +31,24 @@
 //     its own (ky, kx, c), carried from chunk to chunk, and its own bounds
 //     test). The stem's input (9.6 MB at b32) sits in L2, so these loads
 //     wait on latency, not on HBM.
-//   * N % 8 != 0 (ssd300's mbox_conf heads) or a misaligned w, bias,
-//     residual or output (or x where C % 8 == 0): the mma.sync loop.
+//   * C % 8 == 0, N % 8 != 0 and N even (ssd300's six mbox_conf heads, N =
+//     84 and 126): wgmma_edge, the same ring as wgmma with the filters' rows
+//     padded to 16 bytes in memory (the engine's HWIO prep stores them so)
+//     and the output stored from the accumulators in 4-byte pairs, masked at
+//     the N edge.
+//   * odd N, C % 8 != 0 with N % 8 != 0, or a misaligned w, bias, residual
+//     or output (or x where C % 8 == 0): the mma.sync loop.
 #include "gemm.cuh"
 
 // path, bm, bn, splits: the plan (gemm.cuh launch_gemm); ws: splits x M x OC
-// f32 when splits > 1, with M = n * oh * ow.
+// f32 when splits > 1, with M = n * oh * ow; ldb: w's row stride in elements,
+// w being (KH * KW * C) rows of OC (OC when dense; a multiple of 8 on the
+// wgmma paths: the engine's padded HWIO filters where OC % 8 != 0).
 extern "C" int boda_conv2d(const void* x, const void* w, const void* bias, const void* res,
                            void* out, void* ws, int n, int h, int wd, int c, int oh, int ow,
                            int oc, int kh, int kw, int sy, int sx, int py, int px, int relu,
-                           int dtype, int path, int bm, int bn, int splits, void* stream) {
+                           int dtype, int path, int bm, int bn, int splits, int ldb,
+                           void* stream) {
   boda::Prob p = {};
   p.a = x;
   p.b = w;
@@ -51,6 +59,7 @@ extern "C" int boda_conv2d(const void* x, const void* w, const void* bias, const
   p.N = oc;
   p.K = kh * kw * c;
   p.relu = relu;
+  p.ldb = ldb;
   p.H = h;
   p.W = wd;
   p.C = c;

@@ -12,7 +12,7 @@
 // atb.cu's two modes store A MN-major (its rows are K) and write f32 with no
 // epilogue: see "Operand modes" at the wgmma path.
 //
-// Four paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
+// Five paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
 // from the shape before the launch, never after a failure:
 //   * wgmma (bf16; K % 8 == 0 for the GEMM or C % 8 == 0 for the conv,
 //     N % 8 == 0, 16-byte aligned operands): Hopper's warpgroup MMA fed by a
@@ -21,12 +21,20 @@
 //     N % 8 == 0, B, the output, the bias and the residual 16-byte aligned,
 //     x in any alignment): the same ring and consumers, with the conv's A
 //     built element by element by the producer (NARROW below), 64-row tiles.
-//   * mma (bf16, every other shape: N % 8 != 0, the GEMM's K % 8 != 0, a
-//     misaligned operand): WMMA (mma.sync) 16x16x16 fragments on a 128x128
-//     tile, one buffer.
+//   * wgmma_edge (bf16 with N % 8 != 0 and N even, such as ssd300's
+//     mbox_conf heads at N = 84 and 126; otherwise as wgmma): the same ring,
+//     B's rows padded to 16 bytes in memory (ldb, a multiple of 8 >= N;
+//     TMA reads the columns past N as zeros), the output written straight
+//     from the accumulators by 4-byte stores masked at the edge (EDGE
+//     below), and a split-K reduce by column pairs. Tiles of 64 or 128
+//     rows and columns.
+//   * mma (bf16, every other shape: odd N, the GEMM's K % 8 != 0, a narrow
+//     conv with N % 8 != 0, a misaligned operand): WMMA (mma.sync) 16x16x16
+//     fragments on a 128x128 tile, one buffer.
 //   * fma (f32): FMA pipes, full f32 (no TF32), 64x64 tiles.
 // Ragged M/N/K edges are masked in the kernels: loads outside the problem
-// read 0, stores outside it are skipped.
+// read 0, stores outside it are skipped. B is read at its row stride ldb on
+// every path (N for a dense B).
 //
 // The output-tile index with the most tiles (M) is on gridDim.x, whose limit
 // is 2^31-1; gridDim.y (N tiles) stays far below its 65,535 limit.
@@ -51,6 +59,7 @@ struct Prob {
   const void* res;   // may be null
   void* c;
   int M, N, K, relu;
+  int ldb;  // B's row stride in elements (>= N; a multiple of 8 on the wgmma paths)
   // conv geometry; unused by the plain GEMM. KH is implied by K = KH*KW*C.
   int H, W, C, OH, OW, KW, sy, sx, py, px;
   // the f32 modes: filter taps (KH*KW for kModeWgrad, 1 for kModeAtb) and
@@ -208,13 +217,13 @@ __global__ void __launch_bounds__(kThreads) gemm_bf16(Prob p) {
       int k = k0 + r, n = n0 + nc;
       Pack8 v;
       if (VB) {
-        v.u = (k < p.K && n < p.N) ? *(const uint4*)(B + (long)k * p.N + n)
+        v.u = (k < p.K && n < p.N) ? *(const uint4*)(B + (long)k * p.ldb + n)
                                    : make_uint4(0, 0, 0, 0);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           v.h[e] = (k < p.K && n + e < p.N)
-                       ? __bfloat16_as_ushort(B[(long)k * p.N + n + e])
+                       ? __bfloat16_as_ushort(B[(long)k * p.ldb + n + e])
                        : (unsigned short)0;
       }
       *(uint4*)&Bs[r * kBLd + nc] = v.u;
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
     for (int e = tid; e < kFK * kFN; e += kThreads) {
       int r = e / kFN, nc = e % kFN;
       int k = k0 + r, n = n0 + nc;
-      Bs[r][nc] = (k < p.K && n < p.N) ? B[(long)k * p.N + n] : 0.f;
+      Bs[r][nc] = (k < p.K && n < p.N) ? B[(long)k * p.ldb + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -338,6 +347,15 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
 // columns clipped), so the output is written once in whole lines while the
 // warpgroup goes on to its next tile.
 //
+// EDGE (kModeGemm or kModeConv with N % 8 != 0, N even): C's rows are N * 2
+// bytes, which TMA cannot address (a row stride must be a multiple of 16
+// bytes), and B's rows are read at the caller's padded stride ldb instead.
+// The epilogue computes the same values and writes each column pair from
+// the registers as one 4-byte bf16x2 store, masked at m < M and n < N; it
+// keeps no output tile in shared memory, so the ring takes its room. A
+// split's partial tile is stored as for any other split, and the reduce
+// walks M * N in column pairs (a pair never crosses a row: N is even).
+//
 // Split-K: a work item covers kb_per_split chunks of one split (the last
 // split may be shorter; the GEMM's and the conv's plans make every split
 // equal) and writes its f32 partial tile to ws[split][tap][M][N];
@@ -361,14 +379,14 @@ enum Mode { kModeGemm = 0, kModeConv = 1, kModeAtb = 2, kModeWgrad = 3 };
 constexpr int kChunk = 64;  // K per stage
 constexpr int kSmemMax = 232448;  // shared memory one block may use (227 KB)
 
-template <int BM, int BN, bool F32OUT>
+template <int BM, int BN, bool REG_OUT>
 struct RingLayout {
   static constexpr int kA = BM * kChunk * 2;  // bytes of A per stage
   static constexpr int kB = kChunk * BN * 2;  // bytes of B per stage (BN/64 TMA boxes)
   static constexpr int kStage = kA + kB;
-  // the bf16 output tile (BN/64 boxes per 64 rows); the f32 modes store
-  // from registers
-  static constexpr int kOut = F32OUT ? 0 : BM * BN * 2;
+  // the bf16 output tile (BN/64 boxes per 64 rows); the f32 modes and EDGE
+  // store from registers (REG_OUT)
+  static constexpr int kOut = REG_OUT ? 0 : BM * BN * 2;
   // as many stages (16 bytes of barriers each) as fit beside it, at most 8;
   // 1,024 bytes align the base and 1,536 stay spare (common.py:wgmma_stages
   // mirrors the bf16 layout)
@@ -695,6 +713,26 @@ __device__ __forceinline__ void store8(const Prob& p, long m, int n, float (&v)[
   *(uint4*)((bf16*)p.c + off) = t.u;
 }
 
+// The same for the column pair n, n + 1 (EDGE: N even, so 4-byte accesses).
+__device__ __forceinline__ void store2(const Prob& p, long m, int n, float (&v)[2]) {
+  const long off = m * p.N + n;
+  float x = v[0], y = v[1];
+#pragma unroll
+  for (int term = 0; term < 2; ++term) {
+    const void* src = term == 0 ? p.bias : p.res;
+    if (src == nullptr) continue;
+    const float2 f = __bfloat1622float2(
+        *(const __nv_bfloat162*)((const bf16*)src + (term == 0 ? n : off)));
+    x += f.x;
+    y += f.y;
+  }
+  if (p.relu) {
+    x = relu_j(x);
+    y = relu_j(y);
+  }
+  *(__nv_bfloat162*)((bf16*)p.c + off) = __floats2bfloat162_rn(x, y);
+}
+
 // One work item of the persistent grid: output tile (m0, n0), filter tap
 // (kModeWgrad's; 0 in the other modes) and K split: chunks kb0 .. kb0+nk-1.
 struct Item {
@@ -724,7 +762,7 @@ __device__ __forceinline__ Item work_item(int w, int tiles_m, int tiles_n, int t
 template <bool NARROW>
 constexpr int kProducerWgs = NARROW ? 2 : 1;
 
-template <int MODE, int NWG, int BN, bool NARROW = false>
+template <int MODE, int NWG, int BN, bool NARROW = false, bool EDGE = false>
 __global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap tma_a,
                const __grid_constant__ CUtensorMap tma_b,
@@ -732,12 +770,14 @@ __global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
                int kb_per_split) {
   static_assert(!NARROW || (MODE == kModeConv && NWG == 1 && BN <= 128),
                 "narrow: the conv, 64-row tiles, at most 128 columns");
+  static_assert(!EDGE || ((MODE == kModeGemm || MODE == kModeConv) && !NARROW && BN <= 128),
+                "edge: the bf16 epilogue's modes, A by 16 bytes, at most 128 columns");
   constexpr int PT = kProducerWgs<NARROW> * 128;  // producer threads
   // A by the producer's threads (cp.async, or the narrow fill's stores)
   constexpr bool GATHER = MODE == kModeConv || MODE == kModeWgrad;
   constexpr bool TRANS_A = MODE == kModeAtb || MODE == kModeWgrad;  // A [K][M], f32 out
   constexpr int BM = NWG * 64;
-  using L = RingLayout<BM, BN, TRANS_A>;
+  using L = RingLayout<BM, BN, TRANS_A || EDGE>;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t dsmem[];
   // the swizzle pattern repeats every 1024 bytes: align every tile to it
@@ -1074,8 +1114,10 @@ __global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
         continue;
       }
       if constexpr (!TRANS_A) {
-        if (tw == 0) bulk_wait<true>();  // the last tile's store has read the staging
-        named_bar_sync(2 + wg, 128);
+        if constexpr (!EDGE) {
+          if (tw == 0) bulk_wait<true>();  // the last tile's store has read the staging
+          named_bar_sync(2 + wg, 128);
+        }
 #pragma unroll
         for (int g = 0; g < BN / 8; ++g) {
           const int col = g * 8 + cq, n = n0 + col;
@@ -1100,12 +1142,18 @@ __global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
               x = relu_j(x);
               y = relu_j(y);
             }
-            // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
-            *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +
-                               ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2) =
-                __floats2bfloat162_rn(x, y);
+            if constexpr (EDGE) {  // straight to C, masked at the edge
+              if (m < p.M && n < p.N)
+                *(__nv_bfloat162*)((bf16*)p.c + m * p.N + n) = __floats2bfloat162_rn(x, y);
+            } else {
+              // box col / 64, 128-byte swizzle: 16-byte chunk (col % 64) / 8 ^ r % 8
+              *(__nv_bfloat162*)(out_p + (col >> 6) * 8192 + r * 128 +
+                                 ((((col & 63) >> 3) ^ (r & 7)) << 4) + (col & 7) * 2) =
+                  __floats2bfloat162_rn(x, y);
+            }
           }
         }
+        if constexpr (EDGE) continue;
         fence_proxy_async();  // the TMA store reads through the async proxy
         named_bar_sync(2 + wg, 128);
         if (tw == 0 && mw < p.M) {
@@ -1120,31 +1168,43 @@ __global__ void __launch_bounds__((NWG + kProducerWgs<NARROW>) * 128, 1)
   }
 }
 
-// out = epilogue(sum over s of ws[s], s in order): deterministic. (static:
-// sgemm.cu and conv.cu each get their own copy.)
+// out = epilogue(sum over s of ws[s], s in order): deterministic, 8 elements
+// per step (N % 8 == 0), or 2 for EDGE (N even: a pair stays in its row).
+// (static: sgemm.cu and conv.cu each get their own copy.)
+template <bool EDGE>
 static __global__ void __launch_bounds__(256)
     gemm_splitk_reduce(Prob p, const float* __restrict__ ws, int splits) {
-  const long mn = (long)p.M * p.N, chunks = mn / 8;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < chunks;
+  constexpr int V = EDGE ? 2 : 8;
+  const long mn = (long)p.M * p.N, steps = mn / V;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < steps;
        i += (long)gridDim.x * blockDim.x) {
-    const long e = i * 8;
-    float v[8];
+    const long e = i * V;
+    float v[V];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = 0.f;
+    for (int q = 0; q < V; ++q) v[q] = 0.f;
     for (int s = 0; s < splits; ++s) {
-      const float4* src = (const float4*)(ws + s * mn + e);
-      const float4 a = src[0], b = src[1];
-      v[0] += a.x;
-      v[1] += a.y;
-      v[2] += a.z;
-      v[3] += a.w;
-      v[4] += b.x;
-      v[5] += b.y;
-      v[6] += b.z;
-      v[7] += b.w;
+      if constexpr (EDGE) {
+        const float2 a = *(const float2*)(ws + s * mn + e);
+        v[0] += a.x;
+        v[1] += a.y;
+      } else {
+        const float4* src = (const float4*)(ws + s * mn + e);
+        const float4 a = src[0], b = src[1];
+        v[0] += a.x;
+        v[1] += a.y;
+        v[2] += a.z;
+        v[3] += a.w;
+        v[4] += b.x;
+        v[5] += b.y;
+        v[6] += b.z;
+        v[7] += b.w;
+      }
     }
     const long m = e / p.N;
-    store8(p, m, (int)(e - m * p.N), v);
+    if constexpr (EDGE)
+      store2(p, m, (int)(e - m * p.N), v);
+    else
+      store8(p, m, (int)(e - m * p.N), v);
   }
 }
 
@@ -1175,20 +1235,28 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 [rows, cols] matrix as a TMA map of box_cols x box_rows
-// boxes, 128-byte swizzle; out-of-bounds elements read as zero.
-static int encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
-                      int box_rows) {
+// A row-major bf16 [rows, cols] matrix whose rows lie ld elements apart
+// (ld * 2 a multiple of 16 bytes) as a TMA map of box_cols x box_rows boxes,
+// 128-byte swizzle; out-of-bounds elements (columns past cols too) read as
+// zero.
+static int encode_map_ld(CUtensorMap* map, const void* base, int rows, int cols, long ld,
+                         int box_cols, int box_rows) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   cuuint32_t estr[2] = {1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                    strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same for a dense matrix (ld = cols).
+static int encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+                      int box_rows) {
+  return encode_map_ld(map, base, rows, cols, cols, box_cols, box_rows);
 }
 
 // out[i] = sum over s of ws[s * total + i], s in order, f32 as it is:
@@ -1230,20 +1298,20 @@ static int reduce_f32(const float* ws, float* out, long total, int splits, cudaS
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int NWG, int BN, bool NARROW = false>
+template <int MODE, int NWG, int BN, bool NARROW = false, bool EDGE = false>
 static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtensorMap& tb,
                              const CUtensorMap& tc, float* ws, int splits, int kb_per_split,
                              cudaStream_t s) {
   constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
   constexpr int BM = NWG * 64;
-  constexpr int bytes = RingLayout<BM, BN, F32OUT>::kBytes;
+  constexpr int bytes = RingLayout<BM, BN, F32OUT || EDGE>::kBytes;
   static unsigned attr_set = 0;  // one bit per device
   static int sms[32] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 32) return (int)cudaErrorInvalidDevice;
   if (!(attr_set & (1u << dev))) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<MODE, NWG, BN, NARROW>,
+    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma<MODE, NWG, BN, NARROW, EDGE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
@@ -1254,7 +1322,7 @@ static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtenso
                     (F32OUT ? p.taps : 1) * splits;
   if (work > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = work < sms[dev] ? (int)work : sms[dev];  // persistent: one block per SM
-  gemm_wgmma<MODE, NWG, BN, NARROW><<<grid, (NWG + kProducerWgs<NARROW>) * 128, bytes, s>>>(
+  gemm_wgmma<MODE, NWG, BN, NARROW, EDGE><<<grid, (NWG + kProducerWgs<NARROW>) * 128, bytes, s>>>(
       ta, tb, tc, p, ws, splits, kb_per_split);
   return (int)cudaGetLastError();
 }
@@ -1262,18 +1330,23 @@ static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtenso
 // The wgmma path of every mode: per = K chunks per split (the last split may
 // hold fewer, none is empty); ws: splits x taps x M x N f32 when splits > 1.
 // NARROW: the conv with its A built element by element, 64 x 64 or 64 x 128
-// tiles.
-template <int MODE, bool NARROW = false>
+// tiles. EDGE: N % 8 != 0 and N even (the GEMM or the conv with A by 16
+// bytes), tiles of 64 or 128 rows and columns.
+template <int MODE, bool NARROW = false, bool EDGE = false>
 static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void* ws,
                         cudaStream_t s) {
   static_assert(!NARROW || MODE == kModeConv, "the narrow fill is the conv's");
+  static_assert(!EDGE || ((MODE == kModeGemm || MODE == kModeConv) && !NARROW),
+                "the edge store is the bf16 epilogue's");
   constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
   // 16-byte rows for TMA and cp.async: A's (the GEMM's K, the conv's C, the
-  // f32 modes' M: A [K][M] and x's channels) and B's N; the narrow fill
-  // reads x element by element, so x takes any C and any alignment
+  // f32 modes' M: A [K][M] and x's channels), B's in memory (ldb) and, but
+  // for EDGE, B's and C's N; the narrow fill reads x element by element, so
+  // x takes any C and any alignment
   const int arow = MODE == kModeConv ? p.C : MODE == kModeGemm ? p.K : p.M;
-  const bool shape_ok =
-      (NARROW || arow % 8 == 0) && p.N % 8 == 0 && (!F32OUT || p.taps >= 1);
+  const bool n_ok = EDGE ? p.N % 8 != 0 && p.N % 2 == 0 : p.N % 8 == 0;
+  const bool shape_ok = (NARROW || arow % 8 == 0) && n_ok && p.ldb % 8 == 0 &&
+                        p.ldb >= p.N && (!F32OUT || p.taps >= 1);
   const bool aligned = (NARROW || aligned16(p.a)) && aligned16(p.b) && aligned16(p.c) &&
                        (p.bias == nullptr || aligned16(p.bias)) &&
                        (p.res == nullptr || aligned16(p.res));
@@ -1282,10 +1355,10 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
       (long)splits * per < nkb || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta = {}, tb = {}, tc = {};
-  int rc = encode_map(&tb, p.b, p.K, p.N, 64, kChunk);
+  int rc = encode_map_ld(&tb, p.b, p.K, p.N, p.ldb, 64, kChunk);
   if (rc == 0 && MODE == kModeGemm) rc = encode_map(&ta, p.a, p.M, p.K, kChunk, bm);
   if (rc == 0 && MODE == kModeAtb) rc = encode_map(&ta, p.a, p.K, p.M, 64, kChunk);
-  if (rc == 0 && !F32OUT && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
+  if (rc == 0 && !F32OUT && !EDGE && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
   if (rc != 0) return rc;
   float* part = splits > 1 ? (float*)ws : nullptr;
   if (NARROW) {
@@ -1293,6 +1366,17 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
       rc = launch_wgmma_tile<MODE, 1, 64, NARROW>(p, ta, tb, tc, part, splits, per, s);
     else if (bm == 64 && bn == 128)
       rc = launch_wgmma_tile<MODE, 1, 128, NARROW>(p, ta, tb, tc, part, splits, per, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else if (EDGE) {
+    if (bm == 128 && bn == 64)
+      rc = launch_wgmma_tile<MODE, 2, 64, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+    else if (bm == 128 && bn == 128)
+      rc = launch_wgmma_tile<MODE, 2, 128, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+    else if (bm == 64 && bn == 64)
+      rc = launch_wgmma_tile<MODE, 1, 64, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+    else if (bm == 64 && bn == 128)
+      rc = launch_wgmma_tile<MODE, 1, 128, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
     else
       return (int)cudaErrorInvalidValue;
   } else if (bm == 128 && bn == 64)
@@ -1311,14 +1395,14 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
     return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits == 1) return rc;
   if (F32OUT) return reduce_f32(part, (float*)p.c, (long)p.taps * p.M * p.N, splits, s);
-  const long chunks = (long)p.M * p.N / 8;
-  long blocks = (chunks + 255) / 256;
+  const long steps = (long)p.M * p.N / (EDGE ? 2 : 8);
+  long blocks = (steps + 255) / 256;
   if (blocks > 4096) blocks = 4096;
-  gemm_splitk_reduce<<<(unsigned)blocks, 256, 0, s>>>(p, part, splits);
+  gemm_splitk_reduce<EDGE><<<(unsigned)blocks, 256, 0, s>>>(p, part, splits);
   return (int)cudaGetLastError();
 }
 
-enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2, kPathWgmmaNarrow = 3 };
+enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2, kPathWgmmaNarrow = 3, kPathWgmmaEdge = 4 };
 
 // dtype: 0 = float32, 1 = bfloat16. path, bm, bn, splits: the caller's plan
 // (ops/kernels/common.py:plan_gemm); ws: splits x M x N f32 of workspace when
@@ -1329,14 +1413,14 @@ enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2, kPathWgmmaNarrow = 3 };
 template <bool CONV>
 static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int splits,
                        void* ws, cudaStream_t s) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0) return (int)cudaErrorInvalidValue;
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.ldb < p.N) return (int)cudaErrorInvalidValue;
   if (path == kPathFma && dtype == 0) {
     dim3 grid((p.M + kFM - 1) / kFM, (p.N + kFN - 1) / kFN);
     gemm_f32<CONV><<<grid, kThreads, 0, s>>>(p);
   } else if (path == kPathMma && dtype == 1) {
     dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
     bool va = (CONV ? p.C % 8 == 0 : p.K % 8 == 0) && aligned16(p.a);
-    bool vb = p.N % 8 == 0 && aligned16(p.b);
+    bool vb = p.N % 8 == 0 && p.ldb % 8 == 0 && aligned16(p.b);
     if (va && vb)
       gemm_bf16<CONV, true, true><<<grid, kThreads, 0, s>>>(p);
     else if (va)
@@ -1345,16 +1429,20 @@ static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int s
       gemm_bf16<CONV, false, true><<<grid, kThreads, 0, s>>>(p);
     else
       gemm_bf16<CONV, false, false><<<grid, kThreads, 0, s>>>(p);
-  } else if ((path == kPathWgmma || path == kPathWgmmaNarrow) && dtype == 1) {
+  } else if ((path == kPathWgmma || path == kPathWgmmaNarrow || path == kPathWgmmaEdge) &&
+             dtype == 1) {
     const int nkb = (p.K + kChunk - 1) / kChunk;  // the plan makes every split equal
     if (splits < 1 || nkb % splits != 0) return (int)cudaErrorInvalidValue;
+    constexpr int mode = CONV ? kModeConv : kModeGemm;
+    if (path == kPathWgmmaEdge)
+      return launch_wgmma<mode, false, true>(p, bm, bn, splits, nkb / splits, ws, s);
     if constexpr (CONV) {
       if (path == kPathWgmmaNarrow)
         return launch_wgmma<kModeConv, true>(p, bm, bn, splits, nkb / splits, ws, s);
     } else if (path == kPathWgmmaNarrow) {
       return (int)cudaErrorInvalidValue;  // the narrow fill is the conv's
     }
-    return launch_wgmma<CONV ? kModeConv : kModeGemm>(p, bm, bn, splits, nkb / splits, ws, s);
+    return launch_wgmma<mode>(p, bm, bn, splits, nkb / splits, ws, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -18,14 +18,17 @@
 // to the accumulator registers and stores the tile by TMA (the output written
 // once, the residual read once), and a per-shape plan (ops/kernels/common.py:plan_gemm)
 // picks the tile (64 or 128 rows, 64/128/256 columns) and splits K where the
-// tiles alone would leave SMs idle.
+// tiles alone would leave SMs idle. An even N % 8 != 0 (fc1000's (tp=2) slice,
+// N = 500) takes wgmma_edge: B read by TMA at a row stride padded to 16 bytes,
+// the output stored from the accumulators, masked at the N edge.
 #include "gemm.cuh"
 
 // path, bm, bn, splits: the plan (gemm.cuh launch_gemm); ws: splits x M x N
-// f32 when splits > 1.
+// f32 when splits > 1; ldb: b's row stride in elements (N when dense; a
+// multiple of 8 on the wgmma paths, the wrapper's padded rows where N % 8 != 0).
 extern "C" int boda_gemm(const void* a, const void* b, const void* bias, const void* res,
                          void* c, void* ws, int M, int N, int K, int relu, int dtype, int path,
-                         int bm, int bn, int splits, void* stream) {
+                         int bm, int bn, int splits, int ldb, void* stream) {
   boda::Prob p = {};
   p.a = a;
   p.b = b;
@@ -36,5 +39,6 @@ extern "C" int boda_gemm(const void* a, const void* b, const void* bias, const v
   p.N = N;
   p.K = K;
   p.relu = relu;
+  p.ldb = ldb;
   return boda::launch_gemm<false>(p, dtype, path, bm, bn, splits, ws, (cudaStream_t)stream);
 }

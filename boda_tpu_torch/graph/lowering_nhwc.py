@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import int8 as q8
+from ..ops.kernels.common import pad_rows
 from ..ops.kernels.conv import conv2d_halo, conv2d_nhwc, space_to_depth_conv
 from ..ops.kernels.pool import Pool2d, pool2d_lib
 from ..ops.kernels.sgemm import matmul
@@ -48,8 +49,12 @@ class Prep(NamedTuple):
 
 
 # conv filters, logical OIHW: HWIO for the hand kernels, OHWI (a
-# channels_last OIHW view) for cuDNN
-HWIO = Prep(lambda w: w.permute(2, 3, 1, 0).contiguous(),
+# channels_last OIHW view) for cuDNN. HWIO with OC % 8 != 0 is the
+# (KH, KW, C, OC) view of zero-padded (KH, KW, C, OC8) storage (pad_rows):
+# the GEMM core's wgmma_edge reads the filters' rows by TMA, 16 bytes apart,
+# with no copy per call. The rules, the inverse (a gradient of the view), the
+# BN/Scale fold and the tp split see the logical OC only.
+HWIO = Prep(lambda w: pad_rows(w.permute(2, 3, 1, 0)),
             lambda g: g.permute(3, 2, 0, 1).contiguous(), 3, "HWIO")
 OHWI = Prep(lambda w: w.permute(0, 2, 3, 1).contiguous(),
             lambda g: g.permute(0, 3, 1, 2).contiguous(), 0, "OHWI")

@@ -87,17 +87,53 @@ def recording():
         _record = prev
 
 
-def check_operand(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
-    """What a launch needs of each operand: same card, same dtype, the shape
-    the kernel indexes with, and dense row-major storage."""
+def _check_kind(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
     if t.device != dev:
         raise ValueError(f"{name}: on {t.device}, expected {dev}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def check_operand(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
+    """What a launch needs of each operand: same card, same dtype, the shape
+    the kernel indexes with, and dense row-major storage."""
+    _check_kind(name, t, dev, dtype, shape)
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_rows(name: str, t: torch.Tensor, dev, dtype, shape) -> int:
+    """:func:`check_operand` for the GEMM core's B (the GEMM's [K,N], the
+    conv's HWIO filters as KH*KW*C rows of OC): its rows of N elements may
+    lie further apart than N, as in :func:`pad_rows`'s views, so long as
+    every other dimension is dense over them. Returns the row stride ``ldb``
+    in elements (N for a contiguous B)."""
+    _check_kind(name, t, dev, dtype, shape)
+    if t.is_contiguous():
+        return shape[-1]
+    ldb = next((t.stride(i) for i in range(t.dim() - 2, -1, -1) if t.shape[i] > 1),
+               shape[-1])
+    dense = [ldb]
+    for n in reversed(shape[1:-1]):
+        dense.insert(0, dense[0] * n)
+    if (t.shape[-1] > 1 and t.stride(-1) != 1) or ldb < shape[-1] or any(
+            n > 1 and st != want for n, st, want in zip(shape[:-1], t.stride()[:-1], dense)):
+        raise ValueError(f"{name}: strides {t.stride()} are not rows of {shape[-1]} "
+                         "elements at one stride")
+    return ldb
+
+
+def pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """t as the ``[..., :N]`` view of a zero-padded copy whose rows are a
+    multiple of 8 elements (16 bytes of bf16): the layout in which the GEMM
+    core's wgmma paths read a B with N % 8 != 0 by TMA. A contiguous copy of
+    t where N % 8 == 0."""
+    pad = -t.shape[-1] % 8
+    if not pad:
+        return t.contiguous()
+    return torch.nn.functional.pad(t, (0, pad))[..., :t.shape[-1]]
 
 
 def kernel_dtype(t: torch.Tensor) -> int:
@@ -134,13 +170,14 @@ def sm_count(dev: torch.device) -> int:
 # -- the GEMM core's tile plan ------------------------------------------------------
 
 # the C side's path codes (gemm.cuh enum Path)
-PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "wgmma_narrow": 3}
+PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "wgmma_narrow": 3, "wgmma_edge": 4}
+WGMMA_PATHS = ("wgmma", "wgmma_narrow", "wgmma_edge")  # B by TMA: 16-byte rows
 WGMMA_CHUNK = 64     # K per ring stage (128 bytes of bf16)
 SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
 
 
 class GemmPlan(NamedTuple):
-    path: str   # "wgmma" | "wgmma_narrow" | "mma" | "fma"
+    path: str   # "wgmma" | "wgmma_narrow" | "wgmma_edge" | "mma" | "fma"
     bm: int     # output tile rows
     bn: int     # output tile columns
     split: int  # K splits (1: none); divides the K chunks on the wgmma path
@@ -202,29 +239,36 @@ def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None
     of its arguments.
 
     * f32 -> the FMA path, 64x64 tiles.
-    * bf16 with N % 8 != 0, K % 8 != 0 for the GEMM, or a misaligned
-      operand -> the mma.sync loop, 128x128 tiles.
+    * bf16 with odd N, K % 8 != 0 for the GEMM, a conv with both C % 8 != 0
+      and N % 8 != 0, or a misaligned operand -> the mma.sync loop, 128x128
+      tiles.
     * a bf16 conv with C % 8 != 0 (every C = 3 stem) -> ``wgmma_narrow``:
       the wgmma ring with A built element by element, 64-row tiles of 64 or
       128 columns.
+    * bf16 with N % 8 != 0 and N even (ssd300's mbox_conf heads at N = 84
+      and 126, fc1000's (tp=2) slice at 500) -> ``wgmma_edge``: the wgmma
+      ring with B's rows padded to 16 bytes in memory and the output stored
+      from the accumulators, masked at the N edge; tiles of 64 or 128 rows
+      and columns.
     * other bf16 -> wgmma: the tile (64 or 128 rows; 64, 128 or 256 columns,
       no wider than N needs) and the K split (a divisor of the 64-deep
       chunks, at most 16) that :func:`plan_cost` ranks first among the plans
       whose work items give at least 2/3 of the SMs one each (or, where none
       does, among those with the most items). The grid is persistent:
-      min(items, sms) blocks walk the work items. ``wgmma_narrow`` takes
-      its columns and split the same way."""
+      min(items, sms) blocks walk the work items. ``wgmma_narrow`` and
+      ``wgmma_edge`` take their tiles and split the same way."""
     if dtype == torch.float32:
         return GemmPlan("fma", 64, 64, 1, cdiv(M, 64) * cdiv(N, 64))
     if dtype != torch.bfloat16:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
     narrow = conv_c is not None and conv_c % 8 != 0
-    if N % 8 or (conv_c is None and K % 8) or not aligned:
+    edge = N % 8 != 0
+    if N % 2 or (conv_c is None and K % 8) or (narrow and edge) or not aligned:
         return GemmPlan("mma", 128, 128, 1, cdiv(M, 128) * cdiv(N, 128))
     chunks = cdiv(K, WGMMA_CHUNK)
     cands = []
     for bm in (64,) if narrow else (128, 64):
-        for bn in (128, 64) if narrow else (256, 128, 64):
+        for bn in (128, 64) if narrow or edge else (256, 128, 64):
             if bn > max(64, cdiv(N, 64) * 64):
                 continue
             for split in range(1, min(_MAX_SPLIT, chunks) + 1):
@@ -234,7 +278,8 @@ def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None
                     cands.append((min(items, -(-2 * sms // 3)), -cost, bm, bn, split, items))
     busy = max(c[0] for c in cands)
     _, _, bm, bn, split, items = max(c for c in cands if c[0] == busy)
-    return GemmPlan("wgmma_narrow" if narrow else "wgmma", bm, bn, split, min(items, sms))
+    path = "wgmma_narrow" if narrow else "wgmma_edge" if edge else "wgmma"
+    return GemmPlan(path, bm, bn, split, min(items, sms))
 
 
 def splitk_workspace(plan: GemmPlan, M: int, N: int, dev) -> torch.Tensor | None:

@@ -8,9 +8,10 @@ that K1 shares: the K2/K3 split exists only because of Mosaic's DMA and
 layout limits (c % 128, no bf16 stride, VMEM budgets), none of which binds
 on Hopper. Each launch takes the core's tile plan for its implicit GEMM
 (:func:`~.common.plan_gemm`: wgmma for C % 8 == 0, ``wgmma_narrow`` for the
-C = 3 stems and every other C % 8 != 0, the mma.sync loop where N % 8 != 0
-or an operand is misaligned). :func:`conv2d` launches the kernel for CUDA
-tensors and runs
+C = 3 stems and every other C % 8 != 0, ``wgmma_edge`` for ssd300's
+mbox_conf heads and every other even OC % 8 != 0 with C % 8 == 0, the
+mma.sync loop for odd OC, both C and OC off 8, or a misaligned operand).
+:func:`conv2d` launches the kernel for CUDA tensors and runs
 :func:`conv2d_plain` for CPU tensors; there is no other fallback.
 
 K4 (``space_to_depth_conv``, a strided conv folded into a stride-1 one)
@@ -18,7 +19,10 @@ is :func:`space_to_depth_conv`: the fold in PyTorch, as it is XLA in
 boda_tpu, and the conv kernel on the fold.
 
 Layouts are the JAX package's: x (N,H,W,C), w HWIO (KH,KW,C,OC), bias (OC),
-residual and output (N,OH,OW,OC). :func:`gen_conv` is the rtc ``conv`` op,
+residual and output (N,OH,OW,OC). w may be the ``[..., :OC]`` view of filters
+whose rows are padded (:func:`~.common.pad_rows`, as the engine's HWIO prep
+stores OC % 8 != 0); a wgmma plan on a dense w with OC % 8 != 0 launches on
+a padded copy, counted in ``conv2d.pad_copies``. :func:`gen_conv` is the rtc ``conv`` op,
 NCHW at its signature.
 """
 
@@ -33,8 +37,9 @@ from ..op_base import Op
 from ..registry import GenCtx, kernel_gen, tune_note
 from ..tune import OpTune
 from . import build
-from .common import (PATH_CODES, aligned16, check_operand, epilogue, kernel_dtype,
-                     kernel_entry, plan_gemm, ptr, sm_count, splitk_workspace)
+from .common import (PATH_CODES, WGMMA_PATHS, aligned16, check_operand, check_rows, epilogue,
+                     kernel_dtype, kernel_entry, pad_rows, plan_gemm, ptr, sm_count,
+                     splitk_workspace)
 from .sgemm import matmul
 
 
@@ -72,7 +77,7 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
         raise ValueError(f"conv2d: empty output {oh}x{ow}")
     dt = kernel_dtype(x)
     check_operand("x", x, x.device, x.dtype, (n, h, wd, c))
-    check_operand("w", w, x.device, x.dtype, (kh, kw, c, oc))
+    ldb = check_rows("w", w, x.device, x.dtype, (kh, kw, c, oc))
     check_operand("bias", bias, x.device, x.dtype, (oc,))
     if residual is not None:
         check_operand("residual", residual, x.device, x.dtype, (n, oh, ow, oc))
@@ -81,6 +86,10 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
     # it element by element
     plan = plan_gemm(M, oc, kh * kw * c, sm_count(x.device), x.dtype, conv_c=c,
                      aligned=aligned16(w, bias, residual) and (c % 8 != 0 or aligned16(x)))
+    if plan.path in WGMMA_PATHS and ldb % 8:  # TMA reads B's rows 16 bytes apart
+        w = pad_rows(w)
+        ldb = w.stride(2)
+        conv2d.pad_copies += 1
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=x.device)
     ws = splitk_workspace(plan, M, oc, x.device)
     kb = build.load()
@@ -89,7 +98,7 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
                                 ptr(residual), out.data_ptr(), ptr(ws), n, h, wd, c,
                                 oh, ow, oc, kh, kw, stride[0], stride[1], pad[0],
                                 pad[1], int(relu), dt, PATH_CODES[plan.path], plan.bm,
-                                plan.bn, plan.split, build.stream_ptr(x))
+                                plan.bn, plan.split, ldb, build.stream_ptr(x))
     if rc:
         build.check(rc, f"boda_conv2d {plan}")
     conv2d.launches += 1
@@ -103,6 +112,7 @@ def conv2d(x, w, bias, *, stride=(1, 1), pad=(0, 0), relu: bool = False,
 conv2d.launches = 0
 conv2d.paths = dict.fromkeys(PATH_CODES, 0)
 conv2d.last_plan = None  # the plan of the latest launch
+conv2d.pad_copies = 0  # launches on a padded copy of a dense w (OC % 8 != 0 on wgmma_edge)
 
 
 @kernel_entry("K2", lambda: conv2d.last_plan)

@@ -155,11 +155,16 @@ counts are those of the captured forward, which every replay launches. The
 GEMM core (K1, K2/K3) and K5 also count their launches per path of their
 plans: every b32 bf16 GEMM and conv of the gen and fused forwards, all 46
 dgrads and all 46 wgrads must take the wgmma path, the gen forward's C = 3
-stem alone wgmma_narrow (the ring with A built element by element), and
-only N % 8 != 0 (ssd300's mbox_conf heads) the mma.sync loop. [narrow]
+stem alone wgmma_narrow (the ring with A built element by element),
+ssd300's six mbox_conf heads (N = 84 and 126) wgmma_edge (the ring with
+B's rows padded to 16 bytes and the output stored from the accumulators),
+and no main-path forward the mma.sync loop. [narrow]
 holds K2's narrow route at every conv with C % 8 != 0 and N % 8 == 0 that
 a path launches (NARROW_SHAPES) against its plain version, its device
-time beside the mma.sync loop's, cuDNN's and the bound; K6 counts its
+time beside the mma.sync loop's, cuDNN's and the bound; [edge] holds the
+edge route at each product with an even N % 8 != 0 that a path launches
+(EDGE_SHAPES: the six heads on K2, fc1000's (tp=2) slice on K1) the same
+way, the loop forced by an explicit plan; K6 counts its
 routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
 must take its wgmma route; K8 counts its routes (pool2d.paths): the fused
 b32 forward's pool1 must take rows, its pool5 window. fc1000's weights are scaled in every ResNet-50
@@ -262,9 +267,20 @@ NARROW_SHAPES = {(BATCH, 224, 3, 64, 7, 2, 3): "resnet50 and googlenet conv1, th
                  (4, 300, 3, 64, 3, 1, 1): "ssd300 conv1_1 b4",
                  (BATCH, 224, 3, 32, 7, 2, 3): "resnet50 conv1's (tp=2) slice b32"}
 NARROW_MAIN = (BATCH, 224, 3, 64, 7, 2, 3)  # the main path's (the gen forward's stem)
-NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm mma", "sgemm fma",
-             "conv wgmma", "conv_nhwc wgmma split-K", "conv wgmma_narrow", "conv mma",
-             "conv fma",
+# the GEMM core's edge route (wgmma_edge): every product with an even N % 8
+# != 0 that a path launches; K2's, (n, h, c, oc, k, s, p) -> where (ssd300's
+# mbox_conf heads at SSD_BATCH, the main path [ssd] drives), and K1's, (M,
+# K, N) -> where
+EDGE_SHAPES = {(4, 38, 512, 84, 3, 1, 1): "ssd300 conv4_3_norm_mbox_conf b4",
+               (4, 19, 1024, 126, 3, 1, 1): "ssd300 fc7_mbox_conf b4",
+               (4, 10, 512, 126, 3, 1, 1): "ssd300 conv6_2_mbox_conf b4",
+               (4, 5, 256, 126, 3, 1, 1): "ssd300 conv7_2_mbox_conf b4",
+               (4, 3, 256, 84, 3, 1, 1): "ssd300 conv8_2_mbox_conf b4",
+               (4, 1, 256, 84, 3, 1, 1): "ssd300 conv9_2_mbox_conf b4"}
+EDGE_GEMMS = {(BATCH, 2048, 500): "resnet50 fc1000's (tp=2) slice b32, forward"}
+NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm wgmma_edge", "sgemm mma",
+             "sgemm fma", "conv wgmma", "conv_nhwc wgmma split-K", "conv wgmma_narrow",
+             "conv wgmma_edge", "conv mma", "conv fma",
              "block wgmma", "block mma", "block fma", "stem mma", "stem fma",
              "pool rows", "pool window", "pool thread")
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 tensor-core
@@ -481,19 +497,24 @@ def pool_plan_str(plan) -> str:
 def core_path(c: int, n: int, conv: bool = True) -> str:
     """The GEMM core's bf16 path by shape on aligned operands (the rule of
     ops/kernels/common.py:plan_gemm, stated here on its own): the mma.sync
-    loop where N % 8 != 0 or the GEMM's K % 8 != 0; the narrow fill where a
-    conv's input channels C % 8 != 0; else wgmma. ``c``: the conv's C, or
+    loop where N is odd, the GEMM's K % 8 != 0, or a conv has both C % 8 !=
+    0 and N % 8 != 0; the narrow fill where a conv's input channels C % 8 !=
+    0; the edge store where N % 8 != 0; else wgmma. ``c``: the conv's C, or
     the GEMM's K."""
-    if n % 8 or (not conv and c % 8):
+    narrow, edge = conv and c % 8 != 0, n % 8 != 0
+    if n % 2 or (not conv and c % 8) or (narrow and edge):
         return "mma"
-    return "wgmma_narrow" if conv and c % 8 else "wgmma"
+    return "wgmma_narrow" if narrow else "wgmma_edge" if edge else "wgmma"
 
 
-def check_paths(what: str, paths: dict, launches: int, mma: int, narrow: int = 0) -> None:
+def check_paths(what: str, paths: dict, launches: int, mma: int, narrow: int = 0,
+                edge: int = 0) -> None:
     """The launches per path of the GEMM core (K1, K2/K3/K4) or of K5: ``mma``
-    on the mma.sync loop (N % 8 != 0), ``narrow`` on wgmma_narrow (the C = 3
-    stems), every other one on wgmma, none on the f32 path."""
-    want = {"wgmma": launches - mma - narrow, "mma": mma, "wgmma_narrow": narrow, "fma": 0}
+    on the mma.sync loop, ``narrow`` on wgmma_narrow (the C = 3 stems),
+    ``edge`` on wgmma_edge (N % 8 != 0), every other one on wgmma, none on
+    the f32 path."""
+    want = {"wgmma": launches - mma - narrow - edge, "mma": mma, "wgmma_narrow": narrow,
+            "wgmma_edge": edge, "fma": 0}
     print(f"[paths] {what}: {paths} (expected {want})")
     check(paths == want, f"{what}: GEMM-core paths {paths}, expected {want}")
 
@@ -586,15 +607,16 @@ def nan_case(name: str, dev):
             v[idx] = np.nan
         return torch.from_numpy(v).to(dev, dt)
     if kind == "sgemm":
-        M, K, N = {"wgmma": (4096, 128, 128), "split-K": (32, 2048, 1000)}.get(
-            name.split()[-1], (77, 147, 100))
+        M, K, N = {"wgmma": (4096, 128, 128), "split-K": (32, 2048, 1000),
+                   "wgmma_edge": (4096, 128, 84)}.get(name.split()[-1], (77, 147, 100))
         ops = (t((M, K), nan=[(1, 3), (M - 1, K - 1)]), t((K, N), K ** -0.5), t((N,), 0.1))
         kw = dict(relu=True, residual=t((M, N), nan=[(5, 2), (M - 2, N - 1)]))
         return sgemm.matmul, sgemm.matmul_plain, ops, kw, False, sgemm.matmul.paths, path
     if kind in ("conv", "conv_nhwc"):
         n, h, c, oc, k, s, p = {"wgmma": (8, 28, 64, 64, 3, 1, 1),
                                 "split-K": (2, 14, 64, 64, 3, 1, 1),
-                                "wgmma_narrow": (2, 13, 3, 24, 7, 2, 3)}.get(
+                                "wgmma_narrow": (2, 13, 3, 24, 7, 2, 3),
+                                "wgmma_edge": (8, 28, 64, 84, 3, 1, 1)}.get(
             name.split()[-1], (2, 13, 3, 20, 7, 2, 3))
         oh = (h + 2 * p - k) // s + 1
         ops = (t((n, h, h, c), nan=[(0, 0, 0, c - 1), (n - 1, h // 2, h // 3, 1)]),
@@ -837,10 +859,11 @@ def kernel_shape_checks(net, pipe, gen, fused, cases, tag="caffe", rows=None) ->
     shapes on random bf16 operands (main's case builders ``cases``), against
     its plain version: max pools exact, the rest within TOL of max|ref|; each
     call on the path ``plan_gemm`` gives its shape (``core_path``: wgmma;
-    wgmma_narrow for K2 at C % 8 != 0; mma.sync where N % 8 != 0 or, for
-    K1, K % 8 != 0). Prints one ``[tag]`` line per call, with the kernel's and the
-    library's device time and the bound (and appends them to ``rows``, when
-    given); returns the miss lines."""
+    wgmma_narrow for K2 at C % 8 != 0; wgmma_edge at an even N % 8 != 0;
+    mma.sync at odd N, at both, or, for K1, K % 8 != 0). Prints one
+    ``[tag]`` line per call, with the kernel's and the library's device
+    time and the bound (and appends them to ``rows``, when given); returns
+    the miss lines."""
     from boda_tpu_torch.graph.lowering_nhwc import pool_geom
     from boda_tpu_torch.ops.kernels.conv import conv2d
     from boda_tpu_torch.ops.kernels.sgemm import matmul
@@ -1704,10 +1727,12 @@ SSD_BF16_NODES = ["mbox_loc", "mbox_conf_softmax"]
 # pools to K8
 SSD_LAUNCHES = {"gen": {"sgemm": 5, "conv": 29},
                 "fused": {"sgemm": 5, "conv": 29, "s2d": 2, "conv_nhwc": 2, "pool": 5}}
-# the six mbox_conf heads (N = 84 or 126) on mma.sync, conv1_1 (C = 3) on
-# the narrow fill
-SSD_MMA = 6
+# the six mbox_conf heads (N = 84 or 126) on the edge store, on filters the
+# HWIO prep padded to 16-byte rows (no copy per call), conv1_1 (C = 3) on the
+# narrow fill, none on mma.sync
+SSD_MMA = 0
 SSD_NARROW = 1
+SSD_EDGE = 6
 # the head on the card against the CPU on the same f32 inputs: labels, keep
 # masks and row order equal; scores and boxes max|err|/max|ref| (an exp ulp
 # apart in a decoded box is ~6e-8 of it)
@@ -1791,6 +1816,7 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
             label = {"nhwc-k1conv": "K1", "nhwc-s2d_conv": "K4", "nhwc-lib_conv": "lib"}.get(r)
             if r == "nhwc-direct_conv":
                 label = {"mma": "K2-mma.sync", "wgmma_narrow": "K2-wgmma_narrow",
+                         "wgmma_edge": "K2-wgmma_edge",
                          "wgmma": "K2-wgmma"}[core_path(fd["in_chan"], fd["out_chan"])]
             routes.setdefault(label or r, []).append(name)
         for label, names in sorted(routes.items()):
@@ -1798,9 +1824,11 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
                   + ", ".join(names))
         check(routes.get("lib") == ["fc6"], f"ssd300 {pol}: library convs {routes.get('lib')}")
         e.cuda_graph = False
+        copies = conv2d.pad_copies
         eager = e.run_fwd(ins, det)
         e.cuda_graph = True
         e.prepare(ins, det)
+        copies = conv2d.pad_copies - copies
         zero_counts(counted)
         replay = e.run_fwd(ins, det)
         n = read_counts(counted)
@@ -1809,11 +1837,14 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
         bit = np.array_equal(replay["detection_out"].data, eager["detection_out"].data)
         print(f"[ssd] ssd300 b{SSD_BATCH} bf16 {pol}: one CUDA graph for the whole forward, "
               f"detection_out included; launches {n} (expected {want}); conv paths {cpaths}; "
+              f"padded weight copies in the eager forward and the capture {copies}; "
               f"replay vs eager detection_out bit-equal {bit}")
         check(n == want, f"ssd300 {pol}: launches {n}, expected {want}")
         check(cpaths["mma"] == SSD_MMA and cpaths["wgmma_narrow"] == SSD_NARROW
-              and cpaths["wgmma"] == n["conv"] - SSD_MMA - SSD_NARROW,
+              and cpaths["wgmma_edge"] == SSD_EDGE
+              and cpaths["wgmma"] == n["conv"] - SSD_MMA - SSD_NARROW - SSD_EDGE,
               f"ssd300 {pol}: conv paths {cpaths}")
+        check(copies == 0, f"ssd300 {pol}: {copies} launches copied their weights")
         check(bit, f"ssd300 {pol}: the replayed detection_out differs from the eager one")
         rows = replay["detection_out"].data.reshape(-1, 7)
         check(rows.shape == (SSD_BATCH * 200, 7) and bool(np.isfinite(rows).all())
@@ -1828,6 +1859,7 @@ def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
                   f"moved {moved}, replay vs eager bit-equal {bit2}")
             check(moved and bit2, "ssd300 gen: the second batch")
         out[f"launches_{pol}"] = n
+        out[f"conv_paths_{pol}"] = cpaths
         del eager, replay
 
     # -- each distinct kernel call at ssd300's shapes against its plain version -------
@@ -3467,7 +3499,8 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     mesh from the same weights on a fixed batch, the loss falling and each
     step's within TRAIN_TOL of the no-mesh step's; each run's K1/K2/K3/K5
     launches and paths in its second step exact by ``train_calls`` (every
-    conv and fc1000 per slice at out_chan / 2, fc1000's N = 500 off wgmma);
+    conv and fc1000 per slice at out_chan / 2: fc1000's forward at N = 500
+    on wgmma_edge, its dgrad at K = 500 on the mma.sync loop);
     each distinct call of the tp step against its plain version
     (``train_call_checks``); ms per step of both. Then ResNet-50 b4 f32, one
     step (tp=2) against no mesh, weights and momenta at TP_F32_TOL by
@@ -3855,19 +3888,36 @@ def xla_phase(card: str, pipe, ins: dict, fc_scale: float, counted: dict) -> dic
 
 def mma_conv(x, w, bias, stride: int, pad: int, relu: bool = True):
     """One launch of the GEMM core's mma.sync loop on a bf16 conv, past the
-    plan (the route of a conv with C % 8 != 0 before wgmma_narrow), to time
-    beside the planned route; it counts no launch."""
+    plan (the route of a conv with C % 8 != 0 before wgmma_narrow, and of
+    N % 8 != 0 before wgmma_edge), to time beside the planned route; it
+    counts no launch. w may have padded rows (``pad_rows``)."""
     from boda_tpu_torch.ops.kernels import build
-    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES, check_rows
     n, h, wd, c = x.shape
     kh, kw, _, oc = w.shape
+    ldb = check_rows("w", w, x.device, x.dtype, w.shape)
     oh, ow = (h + 2 * pad - kh) // stride + 1, (wd + 2 * pad - kw) // stride + 1
     out = torch.empty((n, oh, ow, oc), dtype=x.dtype, device=x.device)
     rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
                                       out.data_ptr(), None, n, h, wd, c, oh, ow, oc, kh, kw,
                                       stride, stride, pad, pad, int(relu), 1, PATH_CODES["mma"],
-                                      128, 128, 1, build.stream_ptr(x))
+                                      128, 128, 1, ldb, build.stream_ptr(x))
     build.check(rc, "boda_conv2d on the mma.sync loop")
+    return out
+
+
+def mma_gemm(a, b, bias):
+    """mma_conv's counterpart for K1: a @ b + bias on the mma.sync loop, past
+    the plan; b may have padded rows."""
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES, check_rows
+    (M, K), N = a.shape, b.shape[1]
+    ldb = check_rows("b", b, a.device, a.dtype, b.shape)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    rc = build.load().lib.boda_gemm(a.data_ptr(), b.data_ptr(), bias.data_ptr(), None,
+                                    out.data_ptr(), None, M, N, K, 0, 1, PATH_CODES["mma"],
+                                    128, 128, 1, ldb, build.stream_ptr(a))
+    build.check(rc, "boda_gemm on the mma.sync loop")
     return out
 
 
@@ -3925,6 +3975,91 @@ def narrow_phase(card: str) -> dict:
         check(bool(torch.isfinite(out.float()).all()) and re <= TOL[bf] and re_mma <= TOL[bf],
               f"narrow {sig}: rel err {re:.3g}, mma.sync loop {re_mma:.3g} > {TOL[bf]}")
         del x, w, out, ref, xn, wn, w_lib
+    return rows
+
+
+def edge_phase(card: str) -> dict:
+    """[edge]: the GEMM core's edge route at each of EDGE_SHAPES (K2, without
+    ReLU, as the engine runs ssd300's mbox_conf heads) and EDGE_GEMMS (K1, the
+    (tp=2) step's fc1000 slice), on seeded bf16 operands, B in the padded
+    rows the engine's HWIO prep stores (``pad_rows``): the path the launch
+    counted (wgmma_edge) and no weight copy, the output within TOL of the
+    plain version; the device time in a CUDA graph (``graph_time``, L2 warm)
+    of the kernel, of the mma.sync loop on the same operands (an explicit
+    plan past the planner, held to plain as well) and of the library's call
+    (cuDNN's ``F.conv2d`` on the channels_last views, cuBLAS's
+    ``torch.addmm``); for K1 also the call on a dense b, whose padded copy
+    the wrapper makes; the plain version's back-to-back time; the bound.
+    Returns the rows by shape."""
+    import torch.nn.functional as F
+
+    from boda_tpu_torch.ops.kernels.common import pad_rows
+    from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
+    from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
+    from boda_tpu_torch.rtc.backends import graph_time
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rows = {}
+    for sig, where in {**EDGE_SHAPES, **EDGE_GEMMS}.items():
+        is_conv = len(sig) == 7
+        if is_conv:
+            n, h, c, oc, k, st, p = sig
+            x = torch.randn((n, h, h, c), generator=gen, device=dev).to(bf)
+            dense = (torch.randn((k, k, c, oc), generator=gen, device=dev)
+                     * (k * k * c) ** -0.5).to(bf)
+            kw = dict(stride=(st, st), pad=(p, p))
+            fk, counter = (lambda w: conv2d(x, w, bias, **kw)), conv2d
+            plain = (lambda: conv2d_plain(x, dense, bias, **kw))
+            mma = (lambda w: mma_conv(x, w, bias, st, p, relu=False))
+            w_lib = dense.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
+            xn, wn = x.permute(0, 3, 1, 2), w_lib.permute(0, 3, 1, 2)
+            lib = (lambda: F.conv2d(xn, wn, bias, stride=st, padding=p))
+            b_ms, o_ms = work("conv", sig + (False,))
+        else:
+            M, K, oc = sig
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            dense = (torch.randn((K, oc), generator=gen, device=dev) * K ** -0.5).to(bf)
+            fk, counter = (lambda w: matmul(x, w, bias)), matmul
+            plain = (lambda: matmul_plain(x, dense, bias))
+            mma = (lambda w: mma_gemm(x, w, bias))
+            lib = (lambda: torch.addmm(bias, x, dense))
+            b_ms, o_ms = work("sgemm", (M, K, oc, False, False))
+        bias = (torch.randn((oc,), generator=gen, device=dev) * 0.1).to(bf)
+        w = pad_rows(dense)
+        before, copies = dict(counter.paths), counter.pad_copies
+        out = fk(w)
+        torch.cuda.synchronize()
+        ran = [q for q in before if counter.paths[q] != before[q]]
+        copies = counter.pad_copies - copies
+        plan = counter.last_plan
+        ref = plain()
+        ae, re = rel_err(out, ref)
+        _, re_mma = rel_err(mma(w), ref)
+        _, re_dense = rel_err(fk(dense), ref)
+        row = {"where": where, "path": ran, "plan": plan_str(plan), "max_abs_err": ae,
+               "max_rel_err": re, "mma_rel_err": re_mma, "dense_rel_err": re_dense,
+               "us": graph_time(lambda: fk(w)) * 1e6,
+               "mma_us": graph_time(lambda: mma(w)) * 1e6,
+               "library_us": graph_time(lib) * 1e6,
+               "plain_ms": cuda_ms(plain, reps=5),
+               "bound_us": max(b_ms, o_ms) * 1e3,
+               "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        if not is_conv:
+            row["dense_us"] = graph_time(lambda: fk(dense)) * 1e6
+        rows[sig] = row
+        print(f"[edge] {where} {sig}: {re:.3e} on {ran} (mma.sync loop {re_mma:.3e}, dense "
+              f"B {re_dense:.3e}), plan {row['plan']}; kernel {row['us']:.2f} us"
+              + (f" ({row['dense_us']:.2f} us on a dense b, its copy included)"
+                 if not is_conv else "")
+              + f", mma.sync loop {row['mma_us']:.2f} us, {'cuDNN' if is_conv else 'cuBLAS'} "
+              f"{row['library_us']:.2f} us, bound {row['bound_us']:.2f} us "
+              f"({row['bound_by']}) ({card})")
+        check(ran == ["wgmma_edge"] and plan.path == "wgmma_edge" and copies == 0,
+              f"edge {sig}: path {ran}, plan {plan}, {copies} weight copies")
+        check(bool(torch.isfinite(out.float()).all()) and max(re, re_mma, re_dense) <= TOL[bf],
+              f"edge {sig}: rel err {re:.3g}, mma.sync loop {re_mma:.3g}, dense B "
+              f"{re_dense:.3g} > {TOL[bf]}")
+        del x, w, dense, out, ref
     return rows
 
 
@@ -4260,6 +4395,10 @@ def main() -> int:
     narrow = narrow_phase(card)
 
     lap("narrow")
+    # -- phase 2a': the edge route (N % 8 != 0) at every shape a path runs -------------
+    edge = edge_phase(card)
+
+    lap("edge")
     # -- phase 2b: K9, the elementwise kernel, bit for bit ----------------------------
     # at ResNet-50 b32's largest residual add (32x256x56x56), at n = 777 and at
     # a view one element off 16-byte alignment (the scalar path and tail);
@@ -5013,6 +5152,22 @@ def main() -> int:
                     "bound_ms": nm["bound_us"] * 1e-3, "bound_by": nm["bound_by"],
                     "library_ms": nm["library_us"] * 1e-3, "mma_ms": nm["mma_us"] * 1e-3,
                     "shapes": {str(sig): r for sig, r in narrow.items()}})
+    # K2's edge route: ssd300's six mbox_conf heads, one launch each per gen
+    # forward ([ssd]'s captured forward gives the launches); the times of the
+    # six summed, as one forward runs them, and each under "shapes"
+    heads = [edge[sig] for sig in EDGE_SHAPES]
+    kernels.append({"name": "conv_edge", "route": "cuda", "source": "boda_tpu_torch/csrc/conv.cu",
+                    "replaces": "boda_tpu/ops/kernels/conv.py:575", "path": "wgmma_edge",
+                    "launches": ssd["conv_paths_gen"]["wgmma_edge"],
+                    "max_abs_err": max(r["max_abs_err"] for r in heads),
+                    "ms": sum(r["us"] for r in heads) * 1e-3,
+                    "plain_ms": sum(r["plain_ms"] for r in heads),
+                    "bound_ms": sum(r["bound_us"] for r in heads) * 1e-3,
+                    "bound_by": max(heads, key=lambda r: r["bound_us"])["bound_by"],
+                    "library_ms": sum(r["library_us"] for r in heads) * 1e-3,
+                    "mma_ms": sum(r["mma_us"] for r in heads) * 1e-3,
+                    "main_path": f"ssd300 b{SSD_BATCH} bf16 gen, the captured forward",
+                    "shapes": {str(sig): edge[sig] for sig in EDGE_SHAPES}})
     # K9 on the rtc path (rtc_test, ops_prof); K7 on no path (as in boda_tpu:
     # tests only); times of one call at the b32 shapes
     kernels.append({"name": "eltwise", "route": "cuda", "source": "boda_tpu_torch/csrc/eltwise.cu",
@@ -5066,6 +5221,21 @@ def main() -> int:
         k = {"dgrad": "conv_nhwc"}.get(entry["name"], entry["name"])
         if entry["name"] in ("sgemm", "conv", "dgrad", "atb"):
             entry["launches_tp_train"] = tp_train["tp2"]["launches"][k]
+    # K1's edge route: fc1000's forward per (tp=2) slice, its launches from
+    # that step (its dgrad, K = 500, stays on the mma.sync loop)
+    (gsig, fc), = ((s, edge[s]) for s in EDGE_GEMMS)
+    kernels.append({"name": "sgemm_edge", "route": "cuda", "source": "boda_tpu_torch/csrc/sgemm.cu",
+                    "replaces": "boda_tpu/ops/kernels/sgemm.py:80", "path": "wgmma_edge",
+                    "launches": tp_train["tp2"]["paths"]["sgemm"].get("wgmma_edge", 0),
+                    "max_abs_err": fc["max_abs_err"], "ms": fc["us"] * 1e-3,
+                    "plain_ms": fc["plain_ms"], "bound_ms": fc["bound_us"] * 1e-3,
+                    "bound_by": fc["bound_by"], "library_ms": fc["library_us"] * 1e-3,
+                    "mma_ms": fc["mma_us"] * 1e-3, "dense_ms": fc["dense_us"] * 1e-3,
+                    "main_path": "the gen b32 bf16 (tp=2) training step, its second step",
+                    "shapes": {str(gsig): fc}})
+    check(all(e["launches"] > 0 for e in kernels if e["name"].endswith("_edge")),
+          "the edge route ran on no main path: "
+          f"{[(e['name'], e['launches']) for e in kernels if e['name'].endswith('_edge')]}")
     lap("tp-train")
     # -- phase 18: [xla] boda_tpu's engines: the logical-layout oracle, the NCHW route --
     xla = xla_phase(card, pipe, ins, fc_scale, counted)

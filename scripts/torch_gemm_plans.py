@@ -81,7 +81,7 @@ def main() -> int:
                                      None if r is None else r.data_ptr(), out.data_ptr(),
                                      None if ws is None else ws.data_ptr(), M, N, K, int(relu),
                                      1, PATH_CODES[plan.path], plan.bm, plan.bn, plan.split,
-                                     torch.cuda.current_stream().cuda_stream)
+                                     N, torch.cuda.current_stream().cuda_stream)
         else:
             n, h, c, oc, k, s, p, res, relu = sig
             oh = (h + 2 * p - k) // s + 1
@@ -96,7 +96,7 @@ def main() -> int:
                                        None if ws is None else ws.data_ptr(), n, h, h, c, oh,
                                        oh, oc, k, k, s, s, p, p, int(relu), 1,
                                        PATH_CODES[plan.path], plan.bm, plan.bn, plan.split,
-                                       torch.cuda.current_stream().cuda_stream)
+                                       oc, torch.cuda.current_stream().cuda_stream)
         M, N, K = dims
 
         def fn(plan):

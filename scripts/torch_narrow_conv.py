@@ -161,7 +161,7 @@ def main() -> int:
                                         out.data_ptr(), None if ws is None else ws.data_ptr(),
                                         n, h, h, c, oh, oh, oc, k, k, s, s, p, p, 1, 1,
                                         PATH_CODES[plan.path], plan.bm, plan.bn, plan.split,
-                                        build.stream_ptr(x)), f"conv {plan}")
+                                        oc, build.stream_ptr(x)), f"conv {plan}")
             return out
         return fn
 

@@ -2,10 +2,11 @@
 that the gen forwards of ResNet-50, GoogLeNet and VGG-16 at b32 and of
 ssd300 at b4 launch, from the port's zoo and the engine's own dispatch on the
 CPU (chip_smoke.py's extraction, ``layer_shapes``): ``wgmma_narrow`` exactly
-where C % 8 != 0 (each net's C = 3 conv1), the mma.sync loop only where
-N % 8 != 0 (ssd300's six mbox_conf heads), in agreement with chip_smoke.py's
-own statement of the rule (``core_path``), its per-net counts and its list of
-narrow shapes (``NARROW_SHAPES``). And the narrow plans: 64-row tiles of 64
+where C % 8 != 0 (each net's C = 3 conv1), ``wgmma_edge`` exactly where N % 8
+!= 0 (ssd300's six mbox_conf heads), the mma.sync loop nowhere, in agreement
+with chip_smoke.py's own statement of the rule (``core_path``), its per-net
+counts and its lists of narrow and edge shapes (``NARROW_SHAPES``,
+``EDGE_SHAPES``). And the narrow plans: 64-row tiles of 64
 or 128 columns that cover the problem, split K evenly and fit in shared
 memory. The kernel itself runs on the card: tests/test_torch_cuda_gemm.py."""
 
@@ -22,12 +23,12 @@ SMS = 132  # an H100 SXM
 BF16 = torch.bfloat16
 
 # each net's K2 launches per gen forward by route (chip_smoke.py's
-# check_paths and SSD_MMA / SSD_NARROW)
+# check_paths and SSD_NARROW / SSD_EDGE; SSD_MMA is 0)
 _ROUTES = {("resnet50", 32): {"wgmma": 16, "wgmma_narrow": 1},
            ("googlenet_conv", 32): {"wgmma": 19, "wgmma_narrow": 1},
            ("vgg16", 32): {"wgmma": 12, "wgmma_narrow": 1},
            ("ssd300", chip_smoke.SSD_BATCH): {"wgmma": 22, "wgmma_narrow": chip_smoke.SSD_NARROW,
-                                              "mma": chip_smoke.SSD_MMA}}
+                                              "wgmma_edge": chip_smoke.SSD_EDGE}}
 
 
 @pytest.mark.parametrize("net,batch", list(_ROUTES))
@@ -45,8 +46,11 @@ def test_each_conv_takes_its_route(net, batch):
         assert path != "mma" or oc % 8, (net, (n, h, c, oc))
         if path == "wgmma_narrow":
             assert (n, h, c, oc, k, s, p) in chip_smoke.NARROW_SHAPES
+        if path == "wgmma_edge":
+            assert (n, h, c, oc, k, s, p) in chip_smoke.EDGE_SHAPES
         got[path] = got.get(path, 0) + count
     assert got == _ROUTES[net, batch]
+    assert chip_smoke.SSD_MMA == 0 and "mma" not in got
     if net == "ssd300":
         assert sum(got.values()) == chip_smoke.SSD_LAUNCHES["gen"]["conv"]
 

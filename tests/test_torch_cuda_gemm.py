@@ -3,7 +3,11 @@ the card: K1 (matmul) and K2/K3 (conv2d, conv2d_bck_in) at the plans the
 shapes get, each case asserting which path ran; K2's narrow route
 (``wgmma_narrow``, C % 8 != 0) at C = 1, 3, 5 and 12, strides 1 and 2, padding
 0-3, odd sizes, M off the 64-row tile, a residual, split-K, an x off 16-byte
-alignment, and replayed in a CUDA graph.
+alignment, and replayed in a CUDA graph; the edge route (``wgmma_edge``, N %
+8 != 0 and even) at N = 20, 84, 126 and 500 on K1 and K2, with and without a
+residual and ReLU, split-K bit-equal across launches, a dense B (the
+wrapper's padded copy, counted) against the padded view the engine holds,
+replayed in a CUDA graph, and the C entry's refusals.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. Run them on
 the machine with the card from the repo root with
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from boda_tpu_torch.ops.kernels.bconv import conv2d_bck_in, conv2d_bck_in_plain
-from boda_tpu_torch.ops.kernels.common import plan_gemm
+from boda_tpu_torch.ops.kernels.common import pad_rows, plan_gemm
 from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
 from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
 
@@ -49,10 +53,13 @@ def _plan(M, N, K, conv_c=None):
     return plan_gemm(M, N, K, sms, BF16, conv_c=conv_c)
 
 
-def _gemm(dev, M, K, N, *, res=False, relu=False, seed=0):
-    """One matmul launch against matmul_plain; returns (out, plan, path run)."""
+def _gemm(dev, M, K, N, *, res=False, relu=False, seed=0, padded=False):
+    """One matmul launch against matmul_plain; returns (out, plan, path run).
+    padded: b in rows of a multiple of 8 elements (``pad_rows``)."""
     rng = np.random.default_rng(seed)
     a, b = _t(rng, (M, K), dev), _t(rng, (K, N), dev, K ** -0.5)
+    if padded:
+        b = pad_rows(b)
     bias = _t(rng, (N,), dev, 0.1)
     r = _t(rng, (M, N), dev) if res else None
     paths = dict(matmul.paths)
@@ -65,12 +72,16 @@ def _gemm(dev, M, K, N, *, res=False, relu=False, seed=0):
     return out, _plan(M, N, K), ran, (a, b, bias, r)
 
 
-def _conv(dev, n, h, c, oc, k, s, p, *, res=False, relu=True, seed=0, x_off=0):
+def _conv(dev, n, h, c, oc, k, s, p, *, res=False, relu=True, seed=0, x_off=0,
+          padded=False):
     """One conv2d launch against conv2d_plain; x_off: x starts that many
-    elements into its allocation."""
+    elements into its allocation; padded: w in the engine's padded HWIO
+    rows (``pad_rows``)."""
     rng = np.random.default_rng(seed)
     x = _t(rng, (n * h * h * c + x_off,), dev)[x_off:].view(n, h, h, c)
     w = _t(rng, (k, k, c, oc), dev, (k * k * c) ** -0.5)
+    if padded:
+        w = pad_rows(w)
     bias = _t(rng, (oc,), dev, 0.1)
     oh = (h + 2 * p - k) // s + 1
     r = _t(rng, (n, oh, oh, oc), dev) if res else None
@@ -167,7 +178,7 @@ def test_narrow_tile_widths(dev):
         rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                                           r.data_ptr(), out.data_ptr(), None, n, h, h, c, oh,
                                           oh, oc, k, k, s, s, p, p, 1, 1,
-                                          PATH_CODES["wgmma_narrow"], 64, bn, 1,
+                                          PATH_CODES["wgmma_narrow"], 64, bn, 1, oc,
                                           build.stream_ptr(x))
         build.check(rc, f"narrow 64x{bn}")
         torch.cuda.synchronize()
@@ -177,7 +188,7 @@ def test_narrow_tile_widths(dev):
         rc = build.load().lib.boda_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(), None,
                                           out.data_ptr(), None, n, h, h, c, oh, oh, oc, k, k, s,
                                           s, p, p, 1, 1, PATH_CODES["wgmma_narrow"], bm, bn, 1,
-                                          build.stream_ptr(x))
+                                          oc, build.stream_ptr(x))
         assert rc != 0, (bm, bn)
 
 
@@ -213,6 +224,106 @@ def test_narrow_replayed_in_a_cuda_graph(dev):
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
     assert _err(out, conv2d_plain(x, w, bias, **kw)) <= 1e-2
+
+
+# (M, K, N) and (n, h, c, oc, k, s, p): N = 20, 84, 126 and 500 (N % 8 != 0,
+# even); M off the tiles; ssd300's heads at b1 and b2
+_EDGE_GEMMS = [(77, 64, 20), (1000, 256, 84), (300, 512, 126), (32, 2048, 500)]
+_EDGE_CONVS = [(2, 9, 8, 20, 3, 1, 1), (2, 19, 64, 84, 3, 1, 1), (1, 10, 128, 126, 3, 1, 1),
+               (2, 7, 32, 500, 1, 1, 0), (2, 11, 16, 126, 3, 2, 1)]
+
+
+@pytest.mark.parametrize("res,relu", [(False, False), (True, True)])
+@pytest.mark.parametrize("sig", _EDGE_GEMMS)
+def test_edge_gemm(dev, sig, res, relu):
+    M, K, N = sig
+    for padded in (True, False):
+        _, plan, ran, _ = _gemm(dev, M, K, N, res=res, relu=relu, seed=N, padded=padded)
+        assert ran == ["wgmma_edge"] and plan.path == "wgmma_edge", plan
+
+
+@pytest.mark.parametrize("res,relu", [(False, False), (True, True)])
+@pytest.mark.parametrize("sig", _EDGE_CONVS)
+def test_edge_conv(dev, sig, res, relu):
+    _, plan, ran, _ = _conv(dev, *sig, res=res, relu=relu, seed=sig[3], padded=True)
+    assert ran == ["wgmma_edge"] and plan.path == "wgmma_edge", plan
+
+
+def test_edge_split_k_bit_equal(dev):
+    # fc1000's (tp=2) slice and ssd300's conv9_2_mbox_conf: few tiles, K
+    # split; the reduce sums the splits in one order, so two launches agree
+    out, plan, ran, (a, b, bias, _) = _gemm(dev, 32, 2048, 500, padded=True)
+    assert ran == ["wgmma_edge"] and plan.split > 1, plan
+    assert torch.equal(out, matmul(a, b, bias))
+    out, plan, ran, again = _conv(dev, 4, 1, 256, 84, 3, 1, 1, relu=False, padded=True)
+    assert ran == ["wgmma_edge"] and plan.split > 1, plan
+    assert torch.equal(out, again())
+
+
+def test_edge_dense_b_gets_a_counted_copy(dev):
+    # a dense B with N % 8 != 0: the wrapper launches on a padded copy, and
+    # says so; the engine's padded view needs none; both give the same bits
+    rng = np.random.default_rng(7)
+    x, w = _t(rng, (2, 19, 19, 64), dev), _t(rng, (3, 3, 64, 84), dev, 576 ** -0.5)
+    bias = _t(rng, (84,), dev, 0.1)
+    copies = conv2d.pad_copies
+    dense = conv2d(x, w, bias, pad=(1, 1))
+    assert conv2d.pad_copies == copies + 1 and conv2d.last_plan.path == "wgmma_edge"
+    view = conv2d(x, pad_rows(w), bias, pad=(1, 1))
+    assert conv2d.pad_copies == copies + 1
+    assert torch.equal(dense, view)
+    a, b = _t(rng, (100, 128), dev), _t(rng, (128, 84), dev, 128 ** -0.5)
+    copies = matmul.pad_copies
+    out = matmul(a, b)
+    assert matmul.pad_copies == copies + 1 and matmul.last_plan.path == "wgmma_edge"
+    assert torch.equal(out, matmul(a, pad_rows(b))) and matmul.pad_copies == copies + 1
+
+
+def test_edge_replayed_in_a_cuda_graph(dev):
+    # ssd300's conv4_3_norm_mbox_conf at b4 on its padded filters: a captured
+    # launch replays bit-equal to the eager one
+    rng = np.random.default_rng(9)
+    x, w = _t(rng, (4, 38, 38, 512), dev), pad_rows(_t(rng, (3, 3, 512, 84), dev, 4608 ** -0.5))
+    bias = _t(rng, (84,), dev, 0.1)
+    kw = dict(pad=(1, 1))
+    eager = conv2d(x, w, bias, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv2d(x, w, bias, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    paths = dict(conv2d.paths)
+    with torch.cuda.graph(g):
+        out = conv2d(x, w, bias, **kw)
+    assert conv2d.paths["wgmma_edge"] == paths["wgmma_edge"] + 1
+    out.fill_(0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert _err(out, conv2d_plain(x, w, bias, **kw)) <= 1e-2
+
+
+def test_edge_refusals(dev):
+    # the C entry runs wgmma_edge only where the plan gives it: N % 8 != 0
+    # and even, B's rows a multiple of 8 elements, tiles of at most 128
+    # columns; anything else is refused, never rerouted
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    lib, edge = build.load().lib, PATH_CODES["wgmma_edge"]
+    rng = np.random.default_rng(4)
+    a = _t(rng, (64, 64), dev)
+    b = _t(rng, (64, 128), dev)
+    out = torch.empty((64, 128), dtype=BF16, device=dev)
+
+    def launch(N, ldb, bm=64, bn=64):
+        return lib.boda_gemm(a.data_ptr(), b.data_ptr(), None, None, out.data_ptr(), None,
+                             64, N, 64, 0, 1, edge, bm, bn, 1, ldb, build.stream_ptr(a))
+    assert launch(84, 88) == 0 and launch(84, 128, 128, 128) == 0
+    torch.cuda.synchronize()
+    for N, ldb, bm, bn in ((64, 64, 64, 64), (83, 88, 64, 64), (84, 84, 64, 64),
+                           (84, 88, 64, 256), (84, 80, 64, 64)):
+        assert launch(N, ldb, bm, bn) != 0, (N, ldb, bm, bn)
 
 
 def test_dgrad_shapes(dev):

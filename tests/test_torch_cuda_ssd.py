@@ -1,7 +1,9 @@
 """The SSD head on the card: DetectionOutput on the card against the same rule
 on the CPU, called alone and inside ssd300's captured forward; K2 at the
-mbox_conf heads' odd output widths (N = 84 and 126, the mma.sync loop)
-against its plain version; and the captured ssd300 forward holding no copy
+mbox_conf heads' odd output widths (N = 84 and 126: wgmma_edge on the
+padded filters the engine holds, and the mma.sync loop they took before,
+forced by an explicit plan) against its plain version; and the captured
+ssd300 forward holding no copy
 from the host (a capture refuses one, and the replay's device activity
 shows none).
 
@@ -67,21 +69,28 @@ def test_head_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("oc", [84, 126])
 def test_mbox_conf_odd_n_on_mma(dev, oc):
-    """K2 at the mbox_conf heads' shapes in bf16 (3x3 p1, N % 8 != 0): the
-    mma.sync loop, within 1e-2 of max|ref| of its plain version."""
+    """K2 at the mbox_conf heads' shapes in bf16 (3x3 p1, N % 8 != 0), on the
+    filters padded as the HWIO prep stores them: the planned route,
+    wgmma_edge, with no weight copy, and the mma.sync loop that the heads
+    took before it (an explicit plan, chip_smoke.mma_conv), each within 1e-2
+    of max|ref| of its plain version."""
+    import chip_smoke
+    from boda_tpu_torch.ops.kernels.common import pad_rows
     g = torch.Generator(device=dev).manual_seed(1)
     for h, c in ((38, 512), (19, 1024), (3, 256)):
         x = torch.randn((4, h, h, c), generator=g, device=dev).to(torch.bfloat16)
-        w = (torch.randn((3, 3, c, oc), generator=g, device=dev) * (9 * c) ** -0.5) \
-            .to(torch.bfloat16)
+        w = pad_rows((torch.randn((3, 3, c, oc), generator=g, device=dev) * (9 * c) ** -0.5)
+                     .to(torch.bfloat16))
         b = (torch.randn((oc,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
-        before = dict(conv.conv2d.paths)
+        before, copies = dict(conv.conv2d.paths), conv.conv2d.pad_copies
         out = conv.conv2d(x, w, b, pad=(1, 1))
         torch.cuda.synchronize()
-        assert conv.conv2d.paths["mma"] == before["mma"] + 1
+        assert conv.conv2d.paths["wgmma_edge"] == before["wgmma_edge"] + 1
+        assert conv.conv2d.pad_copies == copies
         ref = conv.conv2d_plain(x, w, b, pad=(1, 1))
-        err = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
-        assert out.shape == (4, h, h, oc) and err <= 1e-2, (h, c, err)
+        for got in (out, chip_smoke.mma_conv(x, w, b, 1, 1, relu=False)):
+            err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+            assert got.shape == (4, h, h, oc) and err <= 1e-2, (h, c, err)
 
 
 def test_captured_ssd300_forward_holds_no_host_copy(dev):

@@ -93,9 +93,11 @@ def test_stem_odd_shapes_and_f32_take_the_other_paths():
     # dimension is C: the wgmma ring with A built element by element
     assert plan_gemm(32 * 112 * 112, 64, 147, SMS, BF16, conv_c=3).path == "wgmma_narrow"
     assert plan_gemm(1000, 64, 64, SMS, BF16, conv_c=12).path == "wgmma_narrow"
-    # mma.sync: N % 8, the GEMM's K % 8, a misaligned operand
+    # mma.sync: odd N, the GEMM's K % 8, a narrow conv's N % 8, a misaligned
+    # operand; an even N % 8 alone takes the edge store
     assert plan_gemm(77, 100, 147, SMS, BF16).path == "mma"     # K, N % 8
-    assert plan_gemm(1000, 100, 64, SMS, BF16).path == "mma"    # N % 8
+    assert plan_gemm(1000, 100, 64, SMS, BF16).path == "wgmma_edge"    # N % 8
+    assert plan_gemm(1000, 101, 64, SMS, BF16).path == "mma"    # odd N
     assert plan_gemm(1000, 64, 147, SMS, BF16).path == "mma"    # the GEMM's K % 8
     assert plan_gemm(1000, 20, 147, SMS, BF16, conv_c=3).path == "mma"  # a narrow conv's N % 8
     assert plan_gemm(1000, 64, 147, SMS, BF16, conv_c=3, aligned=False).path == "mma"
