@@ -101,10 +101,13 @@ class DistTestWorker(Mode):
                                         in_sz=self.in_sz)
             # resnet50-class runs use the flagship step config (remat=seg, as
             # boda_tpu's worker and dryrun)
+            # the compiled step, as the other training modes ask for it: a
+            # group step is not captured yet, so it runs eagerly and its
+            # info_log says so
             step = make_train_step(pipe, find_logits_node(pipe), lr=0.05, momentum=0.9,
                                    bn_momentum=0.1, clip_norm=1.0,
                                    remat="seg" if self.model != "mini_resnet" else "",
-                                   group=dist.group.WORLD)
+                                   group=dist.group.WORLD, cuda_graph=True)
             # identical global data on every rank (same seed); each rank steps
             # its process-local slice
             rng = np.random.RandomState(self.seed)

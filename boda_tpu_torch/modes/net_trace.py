@@ -412,7 +412,8 @@ class TrainTrace(Mode):
             momentum=self.momentum, weight_decay=self.weight_decay,
             bn_momentum=self.bn_momentum,
             compute_dtype=cdt if self.master_f32 and self.compute_tn else None,
-            remat=self.remat, kernel_policy=self.kernel_policy)
+            remat=self.remat, kernel_policy=self.kernel_policy,
+            cuda_graph=False)  # a replay shows no per-op ranges: trace eagerly
         d = in_dims["data"]
         wdt = torch.float32 if self.master_f32 else cdt
         weights = {k: torch.from_numpy(np.asarray(w.data, np.float32)).to(dev, wdt)
@@ -457,7 +458,8 @@ class TrainTrace(Mode):
                        and pipe.ops[s[: -len(f" [{ph}]")]].type in ctypes) / n
         what = "kernels" if on_dev else "ops, host time, no card"
         print(f"train-step phase rollup over {n} steps ({n_mapped} mapped {what}, "
-              f"total {tot / n:.0f}us/step, loss {loss_f:.3f}):")
+              f"total {tot / n:.0f}us/step, loss {loss_f:.3f}; eager steps, no CUDA "
+              f"graph: a replay shows no per-op ranges):")
         for ph, mult in (("fwd", 1.0), ("bwd", 2.0)):
             pus, cus = phase_us(ph), conv_us(ph)
             tfs = conv_fl * mult / (cus * 1e-6) / 1e12 if cus > 0 else 0.0

@@ -6,8 +6,11 @@ back, each on the weights the last one returned, from the same starting
 weights in every timed run. On the card, ``secs_per_step`` is the best of
 ``n_best`` medians of ``n_iters / chain`` runs, each timed between CUDA
 events and divided by ``chain``; TF/s counts 3x the forward's FLOPs (the
-forward, the input gradient and the weight gradient). The CPU runs only for
-``golden_out``, which drops the timing fields.
+forward, the input gradient and the weight gradient). With ``cuda_graph``
+(the default) the card replays the step captured once (parallel/train.py:
+CapturedStep), and each run's first step copies the starting weights and
+momenta into the step's static tensors inside the timed window. The CPU runs
+only for ``golden_out``, which drops the timing fields.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ class TrainBench(Mode):
                    help="cuda (the card; raises without one) | cpu (golden_out only)")
     kernel_policy = Field(str, default="gen",
                           help="convs and fcs: gen (hand CUDA kernels) | lib (cuDNN/cuBLAS)")
+    cuda_graph = Field(bool, default="1",
+                       help="on the card: the step captured once as one CUDA graph and "
+                            "replayed, its weights and momentum donated (0 = eager)")
 
     def main(self) -> None:
         from ..ops.kernels.gen_data import gen_data_pattern
@@ -66,7 +72,8 @@ class TrainBench(Mode):
                                compute_dtype=(cdt if self.master_f32 and
                                               self.compute_tn else None),
                                remat=self.remat,
-                               kernel_policy=self.kernel_policy)
+                               kernel_policy=self.kernel_policy,
+                               cuda_graph=self.cuda_graph)
         d = in_dims["data"]
         # every weight in the compute dtype, or f32 masters under master_f32
         wdt = torch.float32 if self.master_f32 else cdt

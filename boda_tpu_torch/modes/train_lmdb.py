@@ -6,7 +6,11 @@ block-stream container), batch and preprocess them as test_lmdb does, and
 run optimizer steps (parallel/train.py: SGD, momentum, decoupled weight
 decay, clip, train-mode BN with ``bn_freeze_at``, f32 masters under
 ``compute_tn``, LR schedules, remat), with atomic checkpoints and resume.
-The steps run on the card unless ``--device=cpu``. ``mesh`` is refused:
+The steps run on the card unless ``--device=cpu``, each replayed from a
+CUDA graph captured once (``cuda_graph``; ``bn_freeze_at`` captures the
+frozen step as a second graph), the weights and momenta it returns being the
+step's static tensors, which the checkpoints read before the next step
+overwrites them. ``mesh`` is refused:
 boda_tpu's train_lmdb declares it and never reads it.
 """
 
@@ -65,6 +69,10 @@ class TrainLmdb(Mode):
                    help="cuda (the card; raises without one) | cpu (plain versions)")
     kernel_policy = Field(str, default="gen",
                           help="convs and fcs: gen (hand CUDA kernels) | lib (cuDNN/cuBLAS)")
+    cuda_graph = Field(bool, default="1",
+                       help="on the card: each step captured once as one CUDA graph and "
+                            "replayed, its weights and momentum donated (0 = eager, launch "
+                            "by launch: the fallback where a capture fails)")
 
     def main(self) -> None:
         from ..apps.preproc import img_to_batch_np
@@ -96,7 +104,8 @@ class TrainLmdb(Mode):
                                    compute_dtype=self.compute_tn or None,
                                    lr_schedule=sched,
                                    remat=self.remat,
-                                   kernel_policy=self.kernel_policy)
+                                   kernel_policy=self.kernel_policy,
+                                   cuda_graph=self.cuda_graph)
         step_fn = build_step(self.bn_momentum)
         # bn_freeze_at: a second step with inference-stats BN; the running
         # stats the warmup accumulated live in `weights`, so only the step

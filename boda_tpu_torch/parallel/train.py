@@ -1,9 +1,11 @@
-"""Training step over a ConvPipe: loss, gradients and SGD, eagerly on PyTorch.
+"""Training step over a ConvPipe: loss, gradients and SGD on PyTorch.
 
 Counterpart of ``boda_tpu/parallel/train.py``. boda_tpu takes
-``jax.value_and_grad`` of the whole net as one jitted program; the port runs
+``jax.value_and_grad`` of the whole net as one jitted program, and its
+callers jit the step with its weights and momentum donated; the port runs
 the net's NHWC rules (graph/lowering_nhwc.py) with ``train`` set, under
-autograd, one step per call:
+autograd, and on the card captures that step once per key as one CUDA graph
+(:class:`CapturedStep`) that each call replays:
 
 * weights are held in boda_tpu's logical layouts (conv filters OIHW, fc
   (out, in)); each rule's upload layout (HWIO for the hand conv, the fc's
@@ -52,6 +54,13 @@ autograd, one step per call:
   row over several devices runs its backward on the calling thread, in one
   order on every rank. A ``(tp=1)`` mesh splits nothing and is the step
   without a mesh, bit for bit.
+* the compiled step (``cuda_graph``, which the training modes turn on, as
+  boda_tpu's callers jit the step): on CUDA tensors, without a group or a
+  mesh, forward, backward and update are captured as one CUDA graph per
+  key over static tensors that the step owns; the weights and momenta it
+  returns are those tensors, overwritten by the next call (the counterpart
+  of ``donate_argnums``). A group or mesh step, and any step on CPU
+  tensors, runs eagerly, launch by launch.
 """
 
 from __future__ import annotations
@@ -59,6 +68,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import time
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
@@ -70,6 +81,7 @@ from ..graph.lowering_nhwc import HWIO, lower_op_nhwc, pool_geom
 from ..graph.pipe import ConvPipe, PipeError
 from ..ops.kernels.train_conv import conv_route, gen_conv, gen_fc
 from ..ops.tune import OpTune
+from ..rtc.backends import capture, side_stream_warmup
 from ..utils.dims import torch_dtype
 from .mesh import Mesh, Shards, train_row, tp_call, weight_shardings
 
@@ -258,7 +270,8 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
     batch of the group's ranks. ``mesh``: the weights that it splits come
     as ``Shards`` over this rank's tp row, and the convs and fcs that read
     them run ``tp_call`` over the row (module docstring); any other op
-    reads a split weight gathered on the lead."""
+    reads a split weight gathered on the lead. An exception raised in an
+    op carries the note ``at op '<name>'`` (a failed capture names it)."""
     if kernel_policy not in ("gen", "lib"):
         raise PipeError(f"kernel_policy {kernel_policy!r}: gen | lib")
     ctx = ctx or LowerCtx(train=True)
@@ -300,11 +313,15 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
         ranges = torch.autograd.profiler._is_profiler_enabled
         for op_name in op_names:
             op = pipe.ops[op_name]
-            if ranges:
-                with torch.profiler.record_function(op_name):
+            try:
+                if ranges:
+                    with torch.profiler.record_function(op_name):
+                        outs = run_op(op, vals, new_stats)
+                else:
                     outs = run_op(op, vals, new_stats)
-            else:
-                outs = run_op(op, vals, new_stats)
+            except Exception as e:
+                e.add_note(f"at op {op_name!r}")
+                raise
             vals.update(zip(op.tops, outs))
 
     def enter(weights, inputs):
@@ -355,7 +372,7 @@ def build_net_fn(pipe: ConvPipe, out_names: list[str],
             stats: dict = {}
             run_ops(seg_ops, vals, stats)
             return {n: vals[n] for n in outs_s}, stats
-        return lambda vin: checkpoint(f, vin, use_reentrant=False)
+        return lambda vin: checkpoint(f, vin, use_reentrant=False, preserve_rng_state=False)
 
     seg_fns = [(make_seg(s, seg_outs[i]), sorted(seg_ins[i])) for i, s in enumerate(segments)]
 
@@ -391,6 +408,140 @@ def _dots_context():
     return create_selective_checkpoint_contexts(policy)
 
 
+def _sig(d: dict) -> tuple:
+    """A dict of tensors' part of a captured step's key."""
+    return tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in d.items())
+
+
+def capture_step(body: Callable[[], None], warm: Callable[[], object], device: torch.device):
+    """The handle whose ``replay()`` runs ``body``. On the card: ``body``
+    captured as one CUDA graph after two eager ``warm`` steps on a side
+    stream (the kernels' builds and shared-memory attributes, the plan
+    caches, the libraries' algorithm choices, the pools' divisors), under
+    rtc/backends.py's ``capture``; the capture runs nothing. A capture that
+    fails raises, naming where it was (the notes ``build_net_fn``'s ops and
+    the backward add to the exception); nothing runs eagerly in its place.
+    On the CPU there is no graph: ``body`` runs at each replay."""
+    if device.type != "cuda":
+        return SimpleNamespace(replay=body)
+    with torch.cuda.device(device):
+        side_stream_warmup(warm, 2, device)
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with capture(graph, torch.cuda.Stream(device)):
+                body()
+        except Exception as e:
+            at = "; ".join(getattr(e, "__notes__", ())) or "outside the net's ops"
+            raise RuntimeError(f"train step: the CUDA-graph capture failed {at}: "
+                               f"{type(e).__name__}: {e}") from e
+    return graph
+
+
+class CapturedStep:
+    """The training step captured once per key as one CUDA graph and
+    replayed: the port's ``jax.jit(step, donate_argnums=(0, 3))``
+    (boda_tpu/modes/train_lmdb.py).
+
+    It owns one static tensor per weight (trainable or frozen, the BN
+    running statistics among them), per momentum (zeros where a call passes
+    ``mom_state=None``), per input and for the labels; the learning rate and
+    the decoupled decay's coefficient as 0-dim f32 tensors, filled on the
+    host from ``step=`` before a replay, so that a schedule replays with no
+    recapture; and the loss. The body is ``values`` (make_train_step's step
+    arithmetic) on the static tensors, then copies of its results into them,
+    after the backward (a weight or running statistic that is rounded to its
+    dtype is rounded straight into its static tensor). The key is the names,
+    shapes, dtypes and devices of the weights, the inputs and the labels,
+    and whether momentum is on; a new key frees the old graph and is
+    captured anew (:func:`capture_step`).
+
+    A call copies in each weight and momentum that is not the step's own
+    static tensor (``copies`` counts them), and the inputs and labels: a
+    call that passes the last call's return copies no weight and no
+    momentum. Donation: the weights and momenta returned ARE the static
+    tensors, which the next call overwrites (keep a copy to hold a value);
+    the loss is a fresh tensor per call. On CPU tensors the same body runs
+    eagerly at each call."""
+
+    def __init__(self, values: Callable, rates: Callable, momentum: bool, info_log: list):
+        self._values, self._rates, self._momentum = values, rates, momentum
+        self._info_log = info_log
+        self.key, self.graph = None, None
+        self.copies = 0  # weight and momentum tensors copied in
+        self.captures = 0
+
+    def _new_key(self, weights, inputs, labels) -> None:
+        self.key, self.graph = None, None  # free the old key's graph first
+        dev = labels.device
+        self.w = {k: torch.empty_like(v) for k, v in weights.items()}
+        self.m = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                  for k, v in weights.items() if is_trainable(k)} if self._momentum else {}
+        self.x = {k: torch.empty_like(v) for k, v in inputs.items()}
+        self.y = torch.empty_like(labels)
+        self.lr, self.c, self.loss = (torch.zeros((), dtype=torch.float32, device=dev)
+                                      for _ in range(3))
+        self._rates_in = None
+
+    def _step_values(self, into: bool = False):
+        return self._values(self.w, self.x, self.y, self.m if self._momentum else None,
+                            self.lr, self.c, into)
+
+    def _body(self) -> None:
+        loss, new_w, new_m = self._step_values(into=True)
+        self.loss.copy_(loss)
+        for k, t in new_w.items():
+            if t is not self.w[k]:
+                self.w[k].copy_(t)
+        for k, t in (new_m or {}).items():
+            self.m[k].copy_(t)
+
+    def _load(self, weights, inputs, labels, mom_state, step) -> None:
+        for k, t in weights.items():
+            if t is not self.w[k]:
+                self.w[k].copy_(t)
+                self.copies += 1
+        if self._momentum and mom_state is None:
+            torch._foreach_zero_(list(self.m.values()))
+        elif self._momentum:
+            for k, s in self.m.items():
+                if mom_state[k] is not s:
+                    s.copy_(mom_state[k])
+                    self.copies += 1
+        for k, t in inputs.items():
+            if t is not self.x[k]:
+                self.x[k].copy_(t)
+        if labels is not self.y:
+            self.y.copy_(labels)
+        rates = self._rates(step)
+        if rates != self._rates_in:
+            self.lr.fill_(rates[0])
+            self.c.fill_(rates[1])
+            self._rates_in = rates
+
+    def __call__(self, weights, inputs, labels, mom_state=None, step=None):
+        key = (_sig(weights), _sig(inputs), (tuple(labels.shape), labels.dtype, labels.device),
+               self._momentum)
+        new = key != self.key
+        if new:
+            self._new_key(weights, inputs, labels)
+        self._load(weights, inputs, labels, mom_state, step)
+        if new:
+            t0 = time.perf_counter()
+            self.graph = capture_step(self._body, self._step_values, labels.device)
+            self.key = key
+            self.captures += 1
+            if labels.device.type == "cuda":
+                self._info_log.append(
+                    f"captured the step on {labels.device}: inputs "
+                    f"{[tuple(v.shape) for v in inputs.values()]}, "
+                    f"{time.perf_counter() - t0:.2f} s with its two warm-up steps")
+        self.graph.replay()
+        if self._momentum:
+            return self.loss.clone(), dict(self.w), dict(self.m)
+        return self.loss.clone(), dict(self.w)
+
+
 def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                     precision: str = "default", clip_norm: float = 0.0,
                     momentum: float = 0.0, weight_decay: float = 0.0,
@@ -399,7 +550,8 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                     lr_schedule: Optional[Callable] = None,
                     remat: str = "",
                     kernel_policy: str = "gen",
-                    group=None, mesh: Optional[Mesh] = None) -> Callable:
+                    group=None, mesh: Optional[Mesh] = None,
+                    cuda_graph: bool = False) -> Callable:
     """SGD (+momentum, +decoupled weight decay) step:
     fn(weights, inputs, labels[, mom_state][, step=]) -> (loss, new_weights)
     — or (loss, new_weights, new_mom_state) when momentum > 0 (pass the
@@ -411,16 +563,27 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
     compute_dtype (a torch dtype or its name): f32 master weights, the
     forward and backward in compute_dtype, the frozen statistics kept in
     f32. lr_schedule (parallel.schedules.make_lr_schedule) derives lr from
-    the ``step=`` index. remat: '' | seg | full | dots (module docstring).
+    the ``step=`` index. remat: '' | seg | full | dots (module docstring;
+    its checkpoints keep no RNG state, since the net draws nothing on the
+    device: the Dropout masks are host draws made once per shape).
     kernel_policy: gen | lib. group: a ``torch.distributed`` process group
     whose ranks each step an equal slice of the global batch (module
     docstring); the returned loss is then the global one. mesh: a
     parallel.mesh.Mesh of axes dp (the group's size) and tp; the weights
     that it splits, and their momenta, come and go as ``Shards`` over this
     rank's tp row (parallel.mesh.shard_weights), the rest on the row's
-    lead, where the inputs and labels lie (module docstring). The returned
-    function's ``info_log`` lists the rules' choices (the gen convs' routes
-    among them)."""
+    lead, where the inputs and labels lie (module docstring).
+    cuda_graph (off by default; the training modes' ``cuda_graph`` Field
+    turns it on, as boda_tpu's callers choose to ``jax.jit(step,
+    donate_argnums=(0, 3))`` it): on CUDA tensors, without a group or a
+    mesh, every call goes to the returned function's ``captured``
+    (:class:`CapturedStep`): the step replayed as one CUDA graph per key,
+    its returned weights and momenta the step's own static tensors,
+    DONATED: the next call overwrites them. Off, on CPU tensors, and under
+    a group or a mesh (which the ``info_log`` says), each call runs eagerly
+    and returns new tensors. The returned
+    function's ``info_log`` lists the rules' choices (the gen convs'
+    routes among them)."""
     lctx = LowerCtx(precision=precision, train=True, det_drop_seed=42)
     info_log: list[str] = []
     build = functools.partial(build_net_fn, pipe, [logits_node], lctx,
@@ -450,7 +613,8 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
             inner = net_fn
 
             def net_fn(weights, inputs):
-                return checkpoint(inner, weights, inputs, use_reentrant=False, **kw)
+                return checkpoint(inner, weights, inputs, use_reentrant=False,
+                                  preserve_rng_state=False, **kw)
     cdt = torch_dtype(compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
 
     def loss_fn(weights, inputs, labels):
@@ -464,8 +628,20 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
             nll = -torch.gather(logp, 1, labels.reshape(-1, 1).long())
             return torch.mean(nll), res.get("__bn_stats__", {})
 
-    def train_step(weights, inputs, labels, mom_state=None, step=None):
-        lr_t = lr if lr_schedule is None else lr_schedule(step)
+    def rates(step) -> tuple[float, float]:
+        """(lr, the decoupled decay's lr * weight_decay) of ``step=``."""
+        if lr_schedule is None:
+            return float(lr), lr * weight_decay
+        lr_t = lr_schedule(step)
+        return float(lr_t), float(np.float32(lr_t) * np.float32(weight_decay))
+
+    def step_values(weights, inputs, labels, mom_state, lr_v, c_v, into=False):
+        """(loss, new weights, new momenta or None) of one step. ``lr_v`` and
+        ``c_v`` (see ``rates``) are floats, or the captured step's 0-dim f32
+        tensors: the same f32 products either way. ``into``: a new weight or
+        running statistic that is rounded to the dtype of the tensor it
+        replaces is rounded into that tensor (the same conversion as ``to``),
+        which is then returned in its place (the captured step's body)."""
         for k in split:
             if not isinstance(weights[k], Shards):
                 raise ValueError(f"weight {k!r} is split over tp by the mesh: pass the "
@@ -503,7 +679,11 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
             loss, bn_stats = loss_fn({**regroup(leaves), **frozen}, inputs, labels)
             if group is not None:  # this rank's share of the global mean
                 loss = loss * (1.0 / world)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            try:
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            except Exception as e:
+                e.add_note("in the backward")
+                raise
         # the __update__ range: train_trace's clip, momentum and SGD rows
         with torch.no_grad(), _tagged("__update__"):
             gs = [torch.zeros(t.shape, dtype=t.dtype, device=t.device) if g is None
@@ -539,21 +719,34 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                     for i, t in zip(ix, m):
                         new_m[i] = t
                 wf = [w_flat[i].float() for i in ix]
-                delta = torch._foreach_mul(g, float(lr_t))
+                delta = torch._foreach_mul(g, lr_v)
                 if weight_decay > 0:  # decoupled (AdamW-style) decay
-                    c = lr * weight_decay if lr_schedule is None \
-                        else float(np.float32(lr_t) * np.float32(weight_decay))
-                    torch._foreach_add_(delta, torch._foreach_mul(wf, c))
+                    torch._foreach_add_(delta, torch._foreach_mul(wf, c_v))
                 for i, t in zip(ix, torch._foreach_sub(wf, delta)):
-                    new_f[i] = t.to(w_flat[i].dtype)
+                    w = w_flat[i]
+                    new_f[i] = w.copy_(t) if into and w.dtype != t.dtype else t.to(w.dtype)
             new_w = regroup(new_f)
             new_w.update(frozen)
-            new_w.update({k: v.to(weights[k].dtype) for k, v in bn_stats.items()})
+            new_w.update({k: weights[k].copy_(v) if into else v.to(weights[k].dtype)
+                          for k, v in bn_stats.items()})
+        return loss.detach(), new_w, regroup(new_m) if momentum > 0 else None
+
+    captured = None
+    if cuda_graph and group is None and mesh is None:
+        captured = CapturedStep(step_values, rates, momentum > 0, info_log)
+    elif cuda_graph:
+        info_log.append("eager: a mesh or group step is not captured yet")
+
+    def train_step(weights, inputs, labels, mom_state=None, step=None):
+        if captured is not None and labels.is_cuda:
+            return captured(weights, inputs, labels, mom_state, step)
+        loss, new_w, new_m = step_values(weights, inputs, labels, mom_state, *rates(step))
         if momentum > 0:
-            return loss.detach(), new_w, regroup(new_m)
-        return loss.detach(), new_w
+            return loss, new_w, new_m
+        return loss, new_w
 
     train_step.info_log = info_log
+    train_step.captured = captured
     return train_step
 
 

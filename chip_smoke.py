@@ -77,9 +77,15 @@ and b8 f32, gen against lib (the loss and the running stats of free runs;
 the gradients of gen's step forced to lib's conv and fc outputs), the gen
 step's launches per wrapper exact with the library's conv backward only at
 the strided k > 1 stem, each distinct K1, K2, K3 and K5 call of that step
-against its plain version, train_bench under gen and lib with BN frozen and
-in train mode, tests/test_learning.py's deep gate through train_lmdb and
-test_lmdb --ckpt-fn, bn_freeze_at, and kill-and-resume.
+against its plain version, the compiled step (the step captured once per
+key as one CUDA graph and replayed, train_bench's and train_lmdb's default
+on the card) against the eager step from the same weights on two batches, gen and
+lib, BN frozen and in train mode, bit for bit under cuDNN's deterministic
+algorithms, a cosine schedule replayed with one capture, the kernels of a
+replay equal to an eager step's, a planted capture failure raising, then
+train_bench with ``--cuda-graph=1`` and ``=0`` under gen and lib with BN
+frozen and in train mode, tests/test_learning.py's deep gate through
+train_lmdb and test_lmdb --ckpt-fn, bn_freeze_at, and kill-and-resume.
 
 Then [tools]: rtc's tooling through the CLI at ResNet-50 b32 bf16 gen
 (``tools_phase``): net_trace --per-op (the share of kernel time on graph
@@ -1763,17 +1769,42 @@ def head_agree(a: np.ndarray, b: np.ndarray) -> tuple[bool, float]:
     return same, float(np.abs(a[:, 2:] - b[:, 2:]).max() / max(np.abs(b[:, 2:]).max(), 1e-30))
 
 
-def device_launches(fn) -> int:
-    """Kernels one call of fn runs on the card, from torch.profiler's device
-    events (copies and fills not counted); 0 when the profiler sees no device
-    activity."""
+def device_kernels(fn) -> tuple[dict, float]:
+    """{kernel name: launches} of one call of fn on the card and their summed
+    device ms, from torch.profiler's device events (copies and fills not
+    counted); empty when the profiler sees no device activity. A lead-in
+    kernel (``torch.cuda._sleep``, not counted) runs first: the profiler can
+    drop the first device records of its window (a CUDA graph's first two
+    kernels went missing when its replay opened the window)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "Memcpy" not in e.name and "Memset" not in e.name)
+    names, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "Memcpy" not in e.name \
+                and "Memset" not in e.name and "spin_kernel" not in e.name:
+            names[e.name] = names.get(e.name, 0) + 1
+            busy += e.time_range.elapsed_us() / 1e3
+    return names, busy
+
+
+def kernel_counts(fn, n: int) -> tuple[dict, float, list]:
+    """``device_kernels`` over ``n`` (odd) calls of fn: each name's median
+    launches per call (one call whose profile drops or adds a record moves
+    no median), the median device ms, and each call's {name: launches}."""
+    reads = [device_kernels(fn) for _ in range(n)]
+    names = {k for r in reads for k in r[0]}
+    return ({k: sorted(r[0].get(k, 0) for r in reads)[n // 2] for k in names},
+            sorted(r[1] for r in reads)[n // 2], [r[0] for r in reads])
+
+
+def device_launches(fn) -> int:
+    """Kernels one call of fn runs on the card (``device_kernels``)."""
+    return sum(device_kernels(fn)[0].values())
 
 
 def ssd_phase(card: str, out_dir, counted: dict, cases: dict) -> dict:
@@ -1987,6 +2018,8 @@ TRAIN_F32_BATCH = 8
 TRAIN_F32_TOL = 1e-3     # f32 b8 gen vs lib, comp_vars on every gradient
 TRAIN_CALL_TOL = 1e-2    # each K1/K2/K3/K5 call of the gen step vs its plain version
 TRAIN_RESUME_TOL = 1e-5  # kill-and-resume losses against the straight run
+TRAIN_GRAPH_REPS = 10    # calls per ms reading of the eager step and of a replay
+TRAIN_GRAPH_PROFILES = 5  # profiled calls per kernel count (odd: a median)
 # tests/test_learning.py's deep gate (:130-165): shapesnet2 fresh-trained on
 # shapes10, milestone losses within its bounds and strictly decreasing, then
 # held-out top-1 through test_lmdb --ckpt-fn
@@ -2018,6 +2051,47 @@ def kernel_class(name: str) -> str:
     if "gemm" in low:
         return "library"
     return "pytorch"
+
+
+def hand_launches(names: dict) -> dict:
+    """The hand kernels of a profile's {kernel name: launches}, by the counted
+    wrapper that launches them: the GEMM core's gemm_wgmma by its MODE
+    (csrc/gemm.cuh: 0 sgemm, 1 conv, 2 and 3 atb), its gemm_bf16/gemm_f32 by
+    CONV, atb_bf16/atb_f32 as atb; the split-K reduces that follow a split
+    call (gemm_splitk_reduce, splitk_reduce_f32) as ``reduce``, any other
+    hand kernel as ``other``. K3's dgrads run the conv kernel: ``conv``
+    holds them, as the conv wrapper's count does."""
+    import re
+    out = dict.fromkeys(("sgemm", "conv", "atb", "reduce", "other"), 0)
+    for name, n in names.items():
+        if kernel_class(name) != "hand":
+            continue
+        if "splitk_reduce" in name:
+            key = "reduce"
+        elif "atb_" in name:
+            key = "atb"
+        elif (m := re.search(r"gemm_wgmma<(\d+),", name)):
+            key = ("sgemm", "conv", "atb", "atb")[int(m.group(1))]
+        elif (m := re.search(r"gemm_(?:bf16|f32)<(true|false)", name)):
+            key = "conv" if m.group(1) == "true" else "sgemm"
+        else:
+            key = "other"
+        out[key] += n
+    return out
+
+
+def lr_rename_only(only: dict) -> bool:
+    """Whether an eager step's kernels and a replay's ({name: eager minus
+    replay launches}, the equal names left out) differ only as the learning
+    rate's form makes them: eagerly the update's scalar products with lr
+    (and the decay's lr * weight_decay) take a number
+    (BinaryOpScalarFunctor), in the graph a 0-dim device tensor
+    (BinaryOpScalarTensorFunctor), launch for launch."""
+    num = sum(v for k, v in only.items() if "BinaryOpScalarFunctor" in k and "multiplies" in k)
+    ten = sum(v for k, v in only.items()
+              if "BinaryOpScalarTensorFunctor" in k and "multiplies" in k)
+    named = sum(1 for k in only if "multiplies" in k and "BinaryOpScalar" in k)
+    return named == len(only) and num == -ten
 
 
 def train_calls(pipe, tp: int = 1) -> dict:
@@ -2215,6 +2289,220 @@ def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
     return rows, per_step
 
 
+def train_step_states(step, w0: dict, feeds: list) -> list:
+    """The steps of ``step`` from the weights ``w0`` and zero momentum over
+    ``feeds`` [(x, labels, step index)]: per step, the loss and a copy of
+    every weight and momentum (the captured step's returns are its static
+    tensors, which its next call overwrites)."""
+    w, m, res = w0, None, []
+    for x, y, i in feeds:
+        loss, w, m = step(w, {"data": x}, y, m, step=i)
+        res.append({"loss": loss, **{k: v.clone() for k, v in w.items()},
+                    **{f"{k} (momentum)": v.clone() for k, v in m.items()}})
+    torch.cuda.synchronize()
+    return res
+
+
+def max_diffs(a: dict, b: dict) -> dict:
+    """Per tensor max|a - b| in f32; 0.0 where the two are bit-equal."""
+    return {k: 0.0 if torch.equal(a[k], b[k]) else
+            float((a[k].float() - b[k].float()).abs().max()) for k in a}
+
+
+def train_graph_checks(card: str, pipe, w0: dict, x: torch.Tensor, labels: torch.Tensor,
+                       want: dict, counted: dict) -> dict:
+    """[train]'s compiled step (parallel/train.py:CapturedStep), ResNet-50
+    b32 bf16, momentum 0.9, clip 1.0, cuDNN's deterministic algorithms: for
+    gen and lib, BN frozen and in train mode, two eager runs and one captured
+    run of two steps from the same weights over two different batches. The
+    loss, every weight (the running statistics among them) and every
+    momentum of the captured run bit-equal to the first eager run's, or,
+    where the two eager runs already differ, no further from it than the
+    second eager run (those tensors named). The kernels of one replay
+    against one eager step's (torch.profiler, each name's median over
+    TRAIN_GRAPH_PROFILES calls): the same total, differing by name only in
+    the lr's form (``lr_rename_only``); the hand kernels per wrapper
+    (``hand_launches``) equal in the eager step and in every profiled
+    replay, and equal to ``want`` (train_launches) under gen, 0 under lib;
+    the wrappers' counts (``counted``) over the first graphed call, 3 x
+    ``want`` (two warm-up steps and the capture; a replay calls no
+    wrapper). Their device ms, the ms per step of both (CUDA events over
+    TRAIN_GRAPH_REPS calls), and what the body's copies into the static
+    tensors cost alone in a graph. A cosine schedule
+    with decoupled decay over three replays on one capture, held the same
+    way; a capture failure planted in mini_resnet's first conv raises,
+    naming the op, and leaves no graph."""
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.parallel import train as ptrain
+    from boda_tpu_torch.parallel.schedules import make_lr_schedule
+    from boda_tpu_torch.parallel.train import find_logits_node, make_train_step
+    t0 = time.perf_counter()
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(26)
+    xf = x.float()
+    x2 = (torch.randn(x.shape, generator=g, device=dev) * xf.std() + xf.mean()).to(x.dtype)
+    two = [(x, labels, 0), (x2, labels.roll(1), 1)]
+    out: dict = {}
+
+    def hold(tag: str, kw: dict, feeds: list):
+        eager = make_train_step(pipe, "fc1000", **kw)
+        e1, e2 = (train_step_states(eager, w0, feeds) for _ in range(2))
+        graphed = make_train_step(pipe, "fc1000", cuda_graph=True, **kw)
+        zero_counts(counted)
+        t1 = time.perf_counter()
+        c = train_step_states(graphed, w0, feeds)
+        first_s = time.perf_counter() - t1
+        capture_counts = read_counts(counted)  # the replays call no wrapper
+        differs, misses, bit = set(), [], True
+        for i, (a, b, r) in enumerate(zip(e1, e2, c)):
+            de, dc = max_diffs(a, b), max_diffs(a, r)
+            differs |= {k for k, v in de.items() if v}
+            bit = bit and not any(dc.values())
+            misses += [f"step {i} {k}: {dc[k]:.3e} > eager {de[k]:.3e}" for k in dc
+                       if dc[k] > de[k]]
+        cap = graphed.captured
+        print(f"[train-graph] {tag}: {len(feeds)} replays on {cap.captures} capture vs eager, "
+              f"{len(e1[0])} tensors per step (loss, weights and running stats, momenta): "
+              f"bit-equal {bit}; eager vs eager differs at {sorted(differs)[:6] or 'none'}"
+              f"{' ...' if len(differs) > 6 else ''}; first call (2 warm-up steps, the "
+              f"capture, a replay) {first_s:.2f} s ({card})")
+        for ln in misses[:10]:
+            print(f"[train-graph] FAIL {ln}")
+        check(not misses, f"train-graph {tag}: captured vs eager")
+        check(cap.captures == 1, f"train-graph {tag}: {cap.captures} captures")
+        del e1, e2, c
+        return eager, graphed, {"bit_equal": bit, "eager_differs": sorted(differs),
+                                "first_call_s": first_s, "capture_counts": capture_counts}
+
+    for pol in ("gen", "lib"):
+        for bn in (0.0, 0.1):
+            mode = "train-mode BN" if bn else "BN frozen"
+            tag = f"resnet50 b{x.shape[0]} bf16 {pol}, {mode}"
+            kw = dict(lr=0.01, clip_norm=1.0, momentum=0.9, bn_momentum=bn,
+                      kernel_policy=pol)
+            eager, graphed, res = hold(tag, kw, two)
+            # one eager step and one replay: kernels, device ms, ms per step
+            m0 = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+                  for k, v in graphed.captured.m.items()}
+            cw, cm = dict(graphed.captured.w), dict(graphed.captured.m)
+
+            def eager_call():
+                return eager(w0, {"data": x}, labels, m0)
+
+            def replay():
+                return graphed(cw, {"data": x}, labels, cm)
+            # the graph's own replay, without the call's copies of the batch
+            en, ebusy, ereads = kernel_counts(eager_call, TRAIN_GRAPH_PROFILES)
+            cn, cbusy, creads = kernel_counts(graphed.captured.graph.replay,
+                                              TRAIN_GRAPH_PROFILES)
+            ems = cuda_ms(eager_call, TRAIN_GRAPH_REPS, 1)
+            cms = cuda_ms(replay, TRAIN_GRAPH_REPS, 1)
+            # a graph runs its copy and fill nodes as kernels named memcpy*/memset*:
+            # the copies into the static tensors, the eager step's Memcpy/Memset
+            nodes = {k: v for k, v in cn.items() if k.startswith(("memcpy", "memset"))}
+            ne, nc = sum(en.values()), sum(cn.values()) - sum(nodes.values())
+            only = {k: en.get(k, 0) - cn.get(k, 0) for k in set(en) | set(cn)
+                    if en.get(k, 0) != cn.get(k, 0) and k not in nodes}
+            # the hand kernels per wrapper: in each profiled replay, in the eager
+            # step, and the wrappers' own counts over the first graphed call
+            he, hc = hand_launches(en), hand_launches(cn)
+            hreads = [hand_launches(r) for r in creads]
+            want_hand = {k: want.get(k, 0) if pol == "gen" else 0
+                         for k in ("sgemm", "conv", "atb")}
+            print(f"[train-graph] {tag}: kernels per step eager {ne}, replay {nc} (and "
+                  f"{sum(nodes.values())} copy and fill nodes {nodes}; per profiled call "
+                  f"eager {[sum(r.values()) for r in ereads]}, replay "
+                  f"{[sum(r.values()) for r in creads]}); hand kernels per wrapper eager "
+                  f"{he}, replay {hc} (each replay's {[hr == hreads[0] for hr in hreads]} "
+                  f"equal), expected {want_hand} and a reduce per split call; wrapper "
+                  f"counts over the first graphed call (2 warm-up steps and the capture) "
+                  f"{res['capture_counts']}"
+                  + (f"; by name, eager minus replay: {only}" if only else "")
+                  + f"; device busy eager {ebusy:.3f} ms, replay {cbusy:.3f} ms; ms per step "
+                  f"eager {ems:.3f}, replay {cms:.3f} (busy share {ebusy / ems:.3f} / "
+                  f"{cbusy / cms:.3f}); copies in {graphed.captured.copies} ({card})")
+            check(ne == nc and ne > 0 and lr_rename_only(only),
+                  f"train-graph {tag}: kernels eager {ne}, replay {nc}, by name {only}")
+            check(he == hc and all(hr == hc for hr in hreads) and
+                  all(hc[k] == v for k, v in want_hand.items()) and hc["other"] == 0,
+                  f"train-graph {tag}: hand kernels eager {he}, replays {hreads}, "
+                  f"expected {want_hand}")
+            check(all(v == (3 * want.get(k, 0) if pol == "gen" else 0)
+                      for k, v in res["capture_counts"].items()),
+                  f"train-graph {tag}: wrapper counts {res['capture_counts']}, expected 3 x "
+                  f"{want if pol == 'gen' else 0}")
+            # what the copies into the static tensors cost a replay: the same
+            # memcpy nodes (each momentum, and the loss) alone in a graph
+            srcs = [t.clone() for t in cm.values()] + [graphed.captured.loss.clone()]
+            dsts = list(cm.values()) + [graphed.captured.loss]
+            cg = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(cg):
+                for d_, s_ in zip(dsts, srcs):
+                    d_.copy_(s_)
+            copy_ms = cuda_ms(cg.replay, TRAIN_GRAPH_REPS, 1)
+            copy_mb = sum(t.numel() * t.element_size() for t in srcs) / 1e6
+            print(f"[train-graph] {tag}: the body's {len(dsts)} same-dtype copies into the "
+                  f"static tensors (each momentum, the loss; {copy_mb:.1f} MB, held twice: "
+                  f"the graph's pool keeps the new values) alone in a graph: {copy_ms:.4f} "
+                  f"ms per replay ({card})")
+            del cg, srcs, dsts
+            out[f"{pol}_bn{bn}"] = dict(res, kernels=ne, copy_nodes=sum(nodes.values()),
+                                        hand_eager=he, hand_replay=hc,
+                                        eager_busy_ms=ebusy, replay_busy_ms=cbusy,
+                                        eager_ms=ems, replay_ms=cms,
+                                        copy_ms=copy_ms, copy_mb=copy_mb)
+            del eager, graphed, cw, cm, m0
+            torch.cuda.empty_cache()
+
+    # -- a cosine schedule with decay: three replays, one capture ----------------------
+    sched = make_lr_schedule("cosine", 0.01, total_steps=3)
+    kw = dict(lr=0.01, clip_norm=1.0, momentum=0.9, weight_decay=1e-4, lr_schedule=sched,
+              kernel_policy="gen")
+    _, graphed, res = hold(f"resnet50 b{x.shape[0]} bf16 gen, cosine lr "
+                           f"{[float(sched(i)) for i in range(3)]} with decay 1e-4",
+                           kw, two + [(x, labels, 2)])
+    out["cosine"] = res
+    del graphed
+    torch.cuda.empty_cache()
+
+    # -- a capture that fails raises, names the op and leaves no graph ------------------
+    mp, mdims = build_model("mini_resnet", img=8, num_cls=16, in_sz=16)
+    first = next(o for o in mp.topo_op_order() if mp.ops[o].type == "Convolution")
+    orig = ptrain._lower_train
+
+    def planted(p, op, ctx, gen, info_log):
+        fn, preps = orig(p, op, ctx, gen, info_log)
+        if op.name != first:
+            return fn, preps
+
+        def failing(*args):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a failure planted in the capture")
+            return fn(*args)
+        return failing, preps
+    ptrain._lower_train = planted
+    try:
+        step = make_train_step(mp, find_logits_node(mp), lr=0.05, momentum=0.9,
+                               cuda_graph=True)
+    finally:
+        ptrain._lower_train = orig
+    wm = {k: torch.from_numpy(np.ascontiguousarray(v.data)).to(dev)
+          for k, v in mp.weights.items()}
+    xm = torch.zeros(mdims["data"].shape, device=dev)
+    msg = ""
+    try:
+        step(wm, {"data": xm}, torch.zeros(8, dtype=torch.int64, device=dev))
+    except RuntimeError as e:
+        msg = str(e)
+    print(f"[train-graph] a failure planted in {first!r} during the capture: raised "
+          f"{msg[:160]!r}; graph left {step.captured.graph}")
+    check(f"capture failed at op {first!r}" in msg and step.captured.graph is None,
+          "train-graph: the planted capture failure")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[train-graph] took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) -> dict:
     """[train]: the training step (parallel/train.py) on the card. ResNet-50
     b32 224x224 bf16 in train_bench's configuration (weights bf16, clip 1.0,
@@ -2405,22 +2693,40 @@ def train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict) ->
                                        counted, cases, card)
     out["calls"], out["kernel_us_per_step"] = rows, per_step
 
-    # -- train_bench through the CLI: BN frozen (its default) and train-mode ------------
+    # -- the compiled step against the eager step -------------------------------------
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["graph"] = train_graph_checks(card, pipe, weights_of(pipe, torch.bfloat16),
+                                          batch(pipe, torch.bfloat16), labels, want, counted)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # -- train_bench through the CLI: BN frozen (its default) and train-mode, the step
+    # -- captured (its default) and eager; the busy share from [train-graph]'s profile
     for bn in ("0", "0.1"):
         for pol in ("gen", "lib"):
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated() / 2 ** 30  # the script's own tensors
-            rc, lines = run_cli(["train_bench", "--model=resnet50", f"--img={n_img}",
-                                 f"--kernel-policy={pol}", f"--bn-momentum={bn}"])
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
-            js = json.loads(next((ln for ln in reversed(lines) if ln.startswith("{")), "{}"))
-            print(f"[train] train_bench resnet50 b{n_img} bf16 {pol} --bn-momentum={bn} "
-                  f"rc={rc}: {js.get('secs_per_step', 0) * 1e3:.3f} ms/step, "
-                  f"{js.get('img_per_sec')} img/s, {js.get('TF_per_s')} TF/s, peak "
-                  f"{peak:.2f} GiB over the {held:.2f} the script held, loss "
-                  f"{js.get('loss_first')} -> {js.get('loss_last')} ({card})")
-            check(rc == 0 and js.get("loss_decreased") is True, f"train_bench {pol}: {js}")
-            out[f"train_bench_{pol}_bn{bn}"] = dict(js, peak_gib=peak)
+            for cg in ("1", "0"):
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2 ** 30  # the script's own tensors
+                rc, lines = run_cli(["train_bench", "--model=resnet50", f"--img={n_img}",
+                                     f"--kernel-policy={pol}", f"--bn-momentum={bn}",
+                                     f"--cuda-graph={cg}"])
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30 - held
+                js = json.loads(next((ln for ln in reversed(lines) if ln.startswith("{")),
+                                     "{}"))
+                ms = js.get("secs_per_step", 0) * 1e3
+                busy = out["graph"][f"{pol}_bn{float(bn)}"][
+                    "replay_busy_ms" if cg == "1" else "eager_busy_ms"]
+                print(f"[train] train_bench resnet50 b{n_img} bf16 {pol} --bn-momentum={bn} "
+                      f"--cuda-graph={cg} rc={rc}: {ms:.3f} ms/step, "
+                      f"{js.get('img_per_sec')} img/s, {js.get('TF_per_s')} TF/s, device "
+                      f"busy share {busy / max(ms, 1e-9):.3f} ({busy:.3f} ms of kernels per "
+                      f"step), peak {peak:.2f} GiB over the {held:.2f} the script held, loss "
+                      f"{js.get('loss_first')} -> {js.get('loss_last')} ({card})")
+                check(rc == 0 and js.get("loss_decreased") is True,
+                      f"train_bench {pol} --cuda-graph={cg}: {js}")
+                out[f"train_bench_{pol}_bn{bn}_cg{cg}"] = dict(js, peak_gib=peak,
+                                                               busy_share=busy / max(ms, 1e-9))
 
     # -- learning on the card: the deep gate, and bn_freeze_at ----------------------
     bdir = os.path.join(root, "build", "chip_smoke")
@@ -5116,6 +5422,11 @@ def main() -> int:
         if kname in ("sgemm", "conv", "atb", "dgrad"):  # one gen b32 bf16 training step
             entry["launches_train"] = train["launches_gen"][
                 "conv_nhwc" if kname == "dgrad" else kname]
+            # and one replay of it captured (BN frozen, momentum 0.9), from the
+            # replay's device profile: K3's dgrads run the conv kernel, in conv's
+            if kname != "dgrad":
+                entry["launches_train_replay"] = train["graph"]["gen_bn0.0"][
+                    "hand_replay"][kname]
             # and one gen pass of GoogLeNet's b32 bf16 gradient graph
             entry["launches_googlenet_grad"] = caffe_grad["launches_gen"][
                 "conv_nhwc" if kname == "dgrad" else kname]
