@@ -20,7 +20,10 @@ boda_tpu's virtual CPU devices share one CPU. ``--device=cpu``: gloo and the
 kernels' plain versions. ``--device=cuda`` (the default): rank r on
 ``cuda:(r % device_count)``, over NCCL when every rank has a card of its
 own, else over gloo on the CUDA tensors (ranks sharing a card: NCCL refuses
-two ranks on one device); the worker prints which.
+two ranks on one device); the worker prints which. Over NCCL the step is
+compiled (``--cuda-graph``, default 1: captured once as one CUDA graph with
+its all-reduces and replayed, as boda_tpu jits its sharded step); over gloo
+it runs eagerly; the worker prints the step's line saying which.
 """
 
 from __future__ import annotations
@@ -75,6 +78,9 @@ class DistTestWorker(Mode):
     num_cls = Field(int, default="16", help="classes (head width)")
     device = Field(str, default="cuda",
                    help="cuda (the card; raises without one) | cpu (gloo, plain versions)")
+    cuda_graph = Field(bool, default="1",
+                       help="on the card over NCCL: the step captured once as one CUDA graph "
+                            "and replayed (0 = eager, launch by launch)")
 
     def main(self) -> None:
         import hashlib
@@ -94,20 +100,21 @@ class DistTestWorker(Mode):
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=f"tcp://{self.coord}",
                                 world_size=self.num_procs, rank=self.process_id)
+        step = None
         try:
             n_dev = self.num_procs * cpu_device_count()
             img = 2 * n_dev  # global batch; 2 per device
             pipe, in_dims = build_model(self.model, img=img, num_cls=self.num_cls,
                                         in_sz=self.in_sz)
             # resnet50-class runs use the flagship step config (remat=seg, as
-            # boda_tpu's worker and dryrun)
-            # the compiled step, as the other training modes ask for it: a
-            # group step is not captured yet, so it runs eagerly and its
-            # info_log says so
+            # boda_tpu's worker and dryrun). The compiled step, as boda_tpu's
+            # worker jits its sharded step: captured over NCCL on the card;
+            # over gloo (ranks sharing a card) it runs eagerly, and the line
+            # printed below says why
             step = make_train_step(pipe, find_logits_node(pipe), lr=0.05, momentum=0.9,
                                    bn_momentum=0.1, clip_norm=1.0,
                                    remat="seg" if self.model != "mini_resnet" else "",
-                                   group=dist.group.WORLD, cuda_graph=True)
+                                   group=dist.group.WORLD, cuda_graph=self.cuda_graph)
             # identical global data on every rank (same seed); each rank steps
             # its process-local slice
             rng = np.random.RandomState(self.seed)
@@ -133,9 +140,14 @@ class DistTestWorker(Mode):
             print(f"dist_test_worker rank={self.process_id} backend={backend} device={dev} "
                   f"ms_per_step=" + ",".join(f"{s * 1e3:.3f}" for s in secs)
                   + f" digest={h.hexdigest()[:16]}")
+            for ln in step.info_log:
+                if ln.startswith(("eager", "captured")):
+                    print(f"dist_test_worker rank={self.process_id} step: {ln}")
             print(f"dist_test_worker rank={self.process_id} ndev={n_dev} "
                   "losses=" + ",".join(f"{v:.6f}" for v in losses))
         finally:
+            if step is not None:  # NCCL's teardown waits for the graph that holds its kernels
+                step.release()
             dist.destroy_process_group()
 
 
@@ -152,6 +164,7 @@ class DistTestMaster(Mode):
     device = Field(str, default="cuda",
                    help="the workers' device: cuda (the card; raises without one) | "
                         "cpu (gloo, plain versions)")
+    cuda_graph = Field(bool, default="1", help="the workers' cuda_graph (see worker)")
 
     def main(self) -> None:
         port = self.port or _free_port()
@@ -171,17 +184,23 @@ class DistTestMaster(Mode):
                    f"--coord={coord}", f"--num-procs={self.num_procs}",
                    f"--process-id={rank}", f"--steps={self.steps}",
                    f"--model={self.model}", f"--in-sz={self.in_sz}",
-                   f"--num-cls={self.num_cls}", f"--device={self.device}"]
+                   f"--num-cls={self.num_cls}", f"--device={self.device}",
+                   f"--cuda-graph={int(self.cuda_graph)}"]
             procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True, cwd=root))
         outs = []
         fail = False
-        for rank, p in enumerate(procs):
-            out, _ = p.communicate(timeout=600)
-            outs.append(out)
-            if p.returncode != 0:
-                fail = True
-                print(f"rank {rank} FAILED rc={p.returncode}:\n{out[-2000:]}")
+        try:
+            for rank, p in enumerate(procs):
+                out, _ = p.communicate(timeout=600)
+                outs.append(out)
+                if p.returncode != 0:
+                    fail = True
+                    print(f"rank {rank} FAILED rc={p.returncode}:\n{out[-2000:]}")
+        finally:
+            for p in procs:  # the others, where one rank's wait timed out
+                if p.poll() is None:
+                    p.kill()
         if fail:
             raise RuntimeError("dist_test_master: worker process failed")
         # every rank must report the SAME decreasing global loss sequence

@@ -10,8 +10,10 @@ the sharded inference forward against the single-device engine. Here:
    ``torch.distributed`` group, each stepping its half of the batch on its
    tp row of n/2 devices (parallel/train.py's dp x tp step; the weights and
    momenta split over out_chan as boda_tpu's ``weight_shardings`` splits
-   them), two steps: the loss finite, the BN statistics moved, every rank's
-   losses and its gathered weights and momenta the same bits;
+   them), compiled as boda_tpu jits it (``cuda_graph``: captured where
+   the ranks talk over NCCL, eager over gloo), two steps: the loss
+   finite, the BN statistics moved, every rank's losses and its gathered
+   weights and momenta the same bits;
 2. the engine's ``(dp=2,tp=n/2)`` forward under ``kernel_policy=lib`` on n
    logical devices (the engine's device repeated n times) against the
    single-device engine, ``comp_vars`` at 1e-5.
@@ -95,10 +97,13 @@ def rank_body(rank: int, world: int, coord: str, n_devices: int, device: str) ->
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"tcp://{coord}",
                             world_size=world, rank=rank)
+    step = None
     try:
+        # compiled as __graft_entry__.py jits its step: captured where the
+        # ranks talk over NCCL, each row on one card; eager otherwise
         step = make_train_step(pipe, find_logits_node(pipe), lr=0.01, clip_norm=1.0,
                                momentum=0.9, bn_momentum=0.1, remat="seg",
-                               group=dist.group.WORLD, mesh=mesh)
+                               group=dist.group.WORLD, mesh=mesh, cuda_graph=True)
         x, labels = _batch(in_dims, 16 * tp)
         per = x.shape[0] // world
         xs = torch.from_numpy(x[rank * per:(rank + 1) * per]).to(dev)
@@ -119,6 +124,8 @@ def rank_body(rank: int, world: int, coord: str, n_devices: int, device: str) ->
         return {"rank": rank, "losses": losses, "digest": h.hexdigest(), "backend": backend,
                 "bn_moved": not np.allclose(w[bn_k].cpu().numpy(), bn0)}
     finally:
+        if step is not None:  # NCCL's teardown waits for the graph that holds its kernels
+            step.release()
         dist.destroy_process_group()
 
 

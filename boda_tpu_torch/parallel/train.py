@@ -55,12 +55,21 @@ autograd, and on the card captures that step once per key as one CUDA graph
   order on every rank. A ``(tp=1)`` mesh splits nothing and is the step
   without a mesh, bit for bit.
 * the compiled step (``cuda_graph``, which the training modes turn on, as
-  boda_tpu's callers jit the step): on CUDA tensors, without a group or a
-  mesh, forward, backward and update are captured as one CUDA graph per
-  key over static tensors that the step owns; the weights and momenta it
-  returns are those tensors, overwritten by the next call (the counterpart
-  of ``donate_argnums``). A group or mesh step, and any step on CPU
-  tensors, runs eagerly, launch by launch.
+  boda_tpu's callers jit the step, its sharded form included): forward,
+  backward, the collectives and the update are captured as one CUDA graph
+  per key over static tensors that the step owns, and replayed; the
+  weights and momenta it returns are those tensors (each shard's own under
+  a mesh), overwritten by the next call (the counterpart of
+  ``donate_argnums``). It is captured on CUDA tensors without a group or
+  with an NCCL one, and without a mesh or with a mesh whose tp row for
+  this rank lies on one card. Two cases stay eager, launch by launch, and
+  the ``info_log`` says why: a gloo group (it reduces through the host,
+  which a graph cannot hold) and a tp row over several cards (tp_call's
+  copies between cards; a capture's pool belongs to one device). Any step
+  on CPU tensors runs eagerly. Under a group every rank must step equal
+  slices, so that all ranks meet the same sequence of keys: at a new key
+  the ranks compare the key's digest before they capture, and raise where
+  the keys differ.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import time
 from types import SimpleNamespace
 from typing import Callable, Optional
@@ -408,9 +418,59 @@ def _dots_context():
     return create_selective_checkpoint_contexts(policy)
 
 
+def _parts(v) -> list:
+    """The tensors of a weight or momentum: a Shards' parts, or the tensor."""
+    return list(v) if isinstance(v, Shards) else [v]
+
+
 def _sig(d: dict) -> tuple:
-    """A dict of tensors' part of a captured step's key."""
-    return tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in d.items())
+    """A dict of tensors' part of a captured step's key: per entry its
+    shape, dtype and device, per part for a Shards (with its axis)."""
+    def one(v):
+        return (tuple(v.shape), v.dtype, v.device)
+    return tuple((k, ("shards", v.axis, tuple(one(p) for p in v)) if isinstance(v, Shards)
+                  else one(v)) for k, v in d.items())
+
+
+def _copy_in(static, given) -> int:
+    """Copy each part of ``given`` that is not the static tensor itself into
+    it; the number of parts copied."""
+    n = 0
+    for s, t in zip(_parts(static), _parts(given)):
+        if t is not s:
+            s.copy_(t)
+            n += 1
+    return n
+
+
+def _key_digest(key) -> int:
+    """A key's digest, alike on every rank: devices by their type (each
+    rank steps on its own card), below 2**56 so that it and its negation
+    are exact in an int64."""
+    def strip(o):
+        if isinstance(o, torch.device):
+            return o.type
+        return tuple(strip(x) for x in o) if isinstance(o, tuple) else o
+    return int.from_bytes(hashlib.sha256(repr(strip(key)).encode()).digest()[:7], "little")
+
+
+def check_ranks_key(key, group, device: torch.device, what: str) -> None:
+    """Raise unless every rank of ``group`` meets the same new key: one
+    small eager all-reduce (MAX of the digest and of its negation) before
+    any warm-up or capture. A rank that captured while another replayed
+    would pair a warm-up's collective with a replayed one, and hang or
+    reduce garbage."""
+    import torch.distributed as dist
+    d = _key_digest(key)
+    t = torch.tensor([d, -d], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    hi, lo = int(t[0]), -int(t[1])
+    if hi != lo:
+        raise RuntimeError(
+            f"train step: rank {dist.get_rank(group)} of {dist.get_world_size(group)} meets "
+            f"a new key that differs from another rank's ({what}; digest {d:014x}, the ranks' "
+            f"{lo:014x}..{hi:014x}); every rank must step equal slices of the global batch, "
+            f"so that all meet the same sequence of keys")
 
 
 def capture_step(body: Callable[[], None], warm: Callable[[], object], device: torch.device):
@@ -441,41 +501,62 @@ def capture_step(body: Callable[[], None], warm: Callable[[], object], device: t
 class CapturedStep:
     """The training step captured once per key as one CUDA graph and
     replayed: the port's ``jax.jit(step, donate_argnums=(0, 3))``
-    (boda_tpu/modes/train_lmdb.py).
+    (boda_tpu/modes/train_lmdb.py), and under a group or a mesh its jitted
+    sharded step (boda_tpu/modes/dist_modes.py, ``__graft_entry__.py``).
 
     It owns one static tensor per weight (trainable or frozen, the BN
     running statistics among them), per momentum (zeros where a call passes
-    ``mom_state=None``), per input and for the labels; the learning rate and
-    the decoupled decay's coefficient as 0-dim f32 tensors, filled on the
+    ``mom_state=None``), per input and for the labels; a weight that a mesh
+    splits, and its momentum, as a ``Shards`` of static parts, each on its
+    part's device. The learning rate and the decoupled decay's coefficient
+    are 0-dim f32 tensors on the lead (the labels' device), filled on the
     host from ``step=`` before a replay, so that a schedule replays with no
-    recapture; and the loss. The body is ``values`` (make_train_step's step
-    arithmetic) on the static tensors, then copies of its results into them,
-    after the backward (a weight or running statistic that is rounded to its
-    dtype is rounded straight into its static tensor). The key is the names,
-    shapes, dtypes and devices of the weights, the inputs and the labels,
-    and whether momentum is on; a new key frees the old graph and is
-    captured anew (:func:`capture_step`).
+    recapture; the loss lies there too. The body is ``values``
+    (make_train_step's step arithmetic, its collectives included) on the
+    static tensors, then copies of its results into them, after the
+    backward (a weight or running statistic that is rounded to its dtype is
+    rounded straight into its static tensor). The key is the names, shapes,
+    dtypes and devices of the weights (of each part), the inputs and the
+    labels, and whether momentum is on; a new key frees the old graph and is
+    captured anew (:func:`capture_step`). With a ``group``, the ranks first
+    compare the new key (:func:`check_ranks_key`): the contract is that
+    every rank steps equal slices, so that every rank meets the same
+    sequence of keys.
 
-    A call copies in each weight and momentum that is not the step's own
-    static tensor (``copies`` counts them), and the inputs and labels: a
+    A call copies in each weight and momentum part that is not the step's
+    own static tensor (``copies`` counts them), and the inputs and labels: a
     call that passes the last call's return copies no weight and no
     momentum. Donation: the weights and momenta returned ARE the static
-    tensors, which the next call overwrites (keep a copy to hold a value);
-    the loss is a fresh tensor per call. On CPU tensors the same body runs
-    eagerly at each call."""
+    tensors (the Shards of static parts), which the next call overwrites
+    (keep a copy to hold a value); the loss is a fresh tensor per call. On
+    CPU tensors the same body runs eagerly at each call. :meth:`release`
+    frees the graph: an NCCL communicator is not torn down while a graph
+    that holds its kernels lives (``destroy_process_group`` waits for it),
+    so release the step before destroying its group."""
 
-    def __init__(self, values: Callable, rates: Callable, momentum: bool, info_log: list):
+    def __init__(self, values: Callable, rates: Callable, momentum: bool, info_log: list,
+                 group=None):
         self._values, self._rates, self._momentum = values, rates, momentum
-        self._info_log = info_log
+        self._info_log, self._group = info_log, group
         self.key, self.graph = None, None
-        self.copies = 0  # weight and momentum tensors copied in
+        self.copies = 0  # weight and momentum tensors (parts) copied in
         self.captures = 0
 
+    def release(self) -> None:
+        """Free the graph now (the next call captures anew)."""
+        if isinstance(self.graph, torch.cuda.CUDAGraph):
+            self.graph.reset()
+        self.key, self.graph = None, None
+
     def _new_key(self, weights, inputs, labels) -> None:
-        self.key, self.graph = None, None  # free the old key's graph first
+        self.release()  # free the old key's graph first
         dev = labels.device
-        self.w = {k: torch.empty_like(v) for k, v in weights.items()}
-        self.m = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+
+        def zeros(t):
+            return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        self.w = {k: v.map(torch.empty_like, v.axis) if isinstance(v, Shards)
+                  else torch.empty_like(v) for k, v in weights.items()}
+        self.m = {k: v.map(zeros, v.axis) if isinstance(v, Shards) else zeros(v)
                   for k, v in weights.items() if is_trainable(k)} if self._momentum else {}
         self.x = {k: torch.empty_like(v) for k, v in inputs.items()}
         self.y = torch.empty_like(labels)
@@ -491,23 +572,18 @@ class CapturedStep:
         loss, new_w, new_m = self._step_values(into=True)
         self.loss.copy_(loss)
         for k, t in new_w.items():
-            if t is not self.w[k]:
-                self.w[k].copy_(t)
+            _copy_in(self.w[k], t)
         for k, t in (new_m or {}).items():
-            self.m[k].copy_(t)
+            _copy_in(self.m[k], t)
 
     def _load(self, weights, inputs, labels, mom_state, step) -> None:
         for k, t in weights.items():
-            if t is not self.w[k]:
-                self.w[k].copy_(t)
-                self.copies += 1
+            self.copies += _copy_in(self.w[k], t)
         if self._momentum and mom_state is None:
-            torch._foreach_zero_(list(self.m.values()))
+            torch._foreach_zero_([p for v in self.m.values() for p in _parts(v)])
         elif self._momentum:
             for k, s in self.m.items():
-                if mom_state[k] is not s:
-                    s.copy_(mom_state[k])
-                    self.copies += 1
+                self.copies += _copy_in(s, mom_state[k])
         for k, t in inputs.items():
             if t is not self.x[k]:
                 self.x[k].copy_(t)
@@ -524,6 +600,10 @@ class CapturedStep:
                self._momentum)
         new = key != self.key
         if new:
+            shapes = f"inputs {[tuple(v.shape) for v in inputs.values()]}"
+            if self._group is not None:
+                check_ranks_key(key, self._group, labels.device,
+                                f"{shapes}, labels {tuple(labels.shape)}")
             self._new_key(weights, inputs, labels)
         self._load(weights, inputs, labels, mom_state, step)
         if new:
@@ -533,13 +613,32 @@ class CapturedStep:
             self.captures += 1
             if labels.device.type == "cuda":
                 self._info_log.append(
-                    f"captured the step on {labels.device}: inputs "
-                    f"{[tuple(v.shape) for v in inputs.values()]}, "
+                    f"captured the step on {labels.device}: {shapes}, "
                     f"{time.perf_counter() - t0:.2f} s with its two warm-up steps")
         self.graph.replay()
         if self._momentum:
             return self.loss.clone(), dict(self.w), dict(self.m)
         return self.loss.clone(), dict(self.w)
+
+
+def eager_reasons(group, row: list) -> list[str]:
+    """Why a step asked for ``cuda_graph`` runs eagerly on CUDA tensors, one
+    line per cause; empty where it is captured (no group or an NCCL one,
+    and no mesh or a tp row on one card)."""
+    why = []
+    if group is not None:
+        import torch.distributed as dist
+        backend = str(dist.get_backend(group))
+        if backend != "nccl":
+            why.append(f"eager on CUDA tensors: the process group's backend is {backend}, "
+                       f"which reduces through the host; a CUDA graph holds only the card's "
+                       f"work (an NCCL group's step is captured)")
+    if len(set(row)) > 1:
+        why.append(f"eager on CUDA tensors: this rank's tp row spans {len(set(row))} devices "
+                   f"({', '.join(map(str, row))}); tp_call's copies between cards and a "
+                   f"capture's pool, which belongs to one device, keep it out of one CUDA "
+                   f"graph (a row on one card is captured)")
+    return why
 
 
 def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
@@ -575,13 +674,23 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
     lead, where the inputs and labels lie (module docstring).
     cuda_graph (off by default; the training modes' ``cuda_graph`` Field
     turns it on, as boda_tpu's callers choose to ``jax.jit(step,
-    donate_argnums=(0, 3))`` it): on CUDA tensors, without a group or a
-    mesh, every call goes to the returned function's ``captured``
-    (:class:`CapturedStep`): the step replayed as one CUDA graph per key,
-    its returned weights and momenta the step's own static tensors,
-    DONATED: the next call overwrites them. Off, on CPU tensors, and under
-    a group or a mesh (which the ``info_log`` says), each call runs eagerly
-    and returns new tensors. The returned
+    donate_argnums=(0, 3))`` it, or with shardings under a mesh): every call
+    on CUDA tensors goes to the returned function's ``captured``
+    (:class:`CapturedStep`) when there is no group or an NCCL one, and no
+    mesh or one whose tp row for this rank lies on one card: the step
+    replayed as one CUDA graph per key, its all-reduces inside it, its
+    returned weights and momenta the step's own static tensors (the parts
+    of each Shards among them), DONATED: the next call overwrites them.
+    Under a group every rank must step equal slices, so that all meet the
+    same sequence of keys (a new key is compared across the ranks first,
+    and a mismatch raises). Eager, each call returning new tensors: with
+    ``cuda_graph`` off; on CPU tensors (where ``captured`` runs the same
+    body eagerly); under a gloo group or a tp row over several cards, each
+    a line of the ``info_log`` that says why. A capture that fails raises;
+    no call drops to the eager step on its own; the returned function's
+    ``release()`` frees the graph, which must come before
+    ``destroy_process_group`` of an NCCL group (NCCL's teardown waits for
+    every graph that holds its kernels). The returned
     function's ``info_log`` lists the rules' choices (the gen convs'
     routes among them)."""
     lctx = LowerCtx(precision=precision, train=True, det_drop_seed=42)
@@ -597,7 +706,8 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
     # among them, in an order that varies with the timing of the others
     # (two ranks then all-reduce different tensors). On the calling thread
     # the nodes run in one order, the same on every rank.
-    one_thread = mesh is not None and len(set(train_row(mesh, *_group_shape(group)))) > 1
+    row = train_row(mesh, *_group_shape(group)) if mesh is not None else []
+    one_thread = len(set(row)) > 1
     if remat == "seg":
         net_fn = build(segments=spatial_segments(pipe))
     else:
@@ -731,22 +841,29 @@ def make_train_step(pipe: ConvPipe, logits_node: str, lr: float = 0.01,
                           for k, v in bn_stats.items()})
         return loss.detach(), new_w, regroup(new_m) if momentum > 0 else None
 
-    captured = None
-    if cuda_graph and group is None and mesh is None:
-        captured = CapturedStep(step_values, rates, momentum > 0, info_log)
-    elif cuda_graph:
-        info_log.append("eager: a mesh or group step is not captured yet")
+    captured, eager_why = None, []
+    if cuda_graph:
+        captured = CapturedStep(step_values, rates, momentum > 0, info_log, group)
+        eager_why = eager_reasons(group, row)
+        info_log.extend(eager_why)
 
     def train_step(weights, inputs, labels, mom_state=None, step=None):
-        if captured is not None and labels.is_cuda:
+        if captured is not None and not eager_why and labels.is_cuda:
             return captured(weights, inputs, labels, mom_state, step)
         loss, new_w, new_m = step_values(weights, inputs, labels, mom_state, *rates(step))
         if momentum > 0:
             return loss, new_w, new_m
         return loss, new_w
 
+    def release() -> None:
+        """Free the captured graph, if any; call it before destroying the
+        NCCL group the step reduces over (CapturedStep.release)."""
+        if captured is not None:
+            captured.release()
+
     train_step.info_log = info_log
     train_step.captured = captured
+    train_step.release = release
     return train_step
 
 

@@ -128,13 +128,21 @@ lib forward; gen (tp=2) refused; ms per forward beside the no-mesh b32; and
 training step across ranks (modes/dist_modes.py): dist_test_master's golden
 2x2 case through the CLI on the card against the CPU, the flagship case
 (resnet50 224x224, remat=seg) against one process's step on the global
-batch, and a one-rank NCCL group's step bit-equal to the step with no group.
+batch (over gloo, the ranks sharing a card: the step eager, its line
+printed), and a one-rank NCCL group's step, eager and captured, bit-equal
+to the step with no group; then that group's step captured at ResNet-50 b32
+bf16 gen, train-mode BN: replays bit-equal to the eager step on two batches,
+the hand kernels of each replay per wrapper exact, ms per step replayed and
+eager beside the no-group replay.
 Last, [tp-train]: the training step on a (tp=2) mesh of the same 2 devices
 (parallel/train.py with ``mesh``; each conv and fc per out_chan slice on the
 hand kernels), ResNet-50 b32 bf16 gen with momentum and train-mode BN
 against the no-mesh step (losses, launches and paths per step, each
-distinct call against its plain version, ms per step), b4 f32 at 1e-4, and
-a (tp=1) step bit-equal to no mesh.
+distinct call against its plain version, ms per step); the same step
+captured on its one-card row the same way as [dist]'s, its replays'
+hand kernels per wrapper equal to ``train_calls(pipe, 2)``'s, ms per step
+replayed and eager beside the no-mesh replay; b4 f32 at 1e-4, and a (tp=1)
+step bit-equal to no mesh.
 
 Then [xla]: boda_tpu's own engines (``xla_phase``): ResNet-50 b32 bf16
 under ``(mode=xla)``, the logical-layout rules on the library's ops, and
@@ -2292,13 +2300,17 @@ def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
 def train_step_states(step, w0: dict, feeds: list) -> list:
     """The steps of ``step`` from the weights ``w0`` and zero momentum over
     ``feeds`` [(x, labels, step index)]: per step, the loss and a copy of
-    every weight and momentum (the captured step's returns are its static
-    tensors, which its next call overwrites)."""
+    every weight and momentum, a tp-split one gathered (the captured step's
+    returns are its static tensors, which its next call overwrites)."""
+    from boda_tpu_torch.parallel.mesh import Shards
+
+    def copy(v):
+        return v.gather() if isinstance(v, Shards) else v.clone()
     w, m, res = w0, None, []
     for x, y, i in feeds:
         loss, w, m = step(w, {"data": x}, y, m, step=i)
-        res.append({"loss": loss, **{k: v.clone() for k, v in w.items()},
-                    **{f"{k} (momentum)": v.clone() for k, v in m.items()}})
+        res.append({"loss": loss, **{k: copy(v) for k, v in w.items()},
+                    **{f"{k} (momentum)": copy(v) for k, v in m.items()}})
     torch.cuda.synchronize()
     return res
 
@@ -2309,70 +2321,142 @@ def max_diffs(a: dict, b: dict) -> dict:
             float((a[k].float() - b[k].float()).abs().max()) for k in a}
 
 
+def second_batch(x: torch.Tensor, labels: torch.Tensor, seed: int) -> list:
+    """Two feeds [(x, labels, step index)] for a step's replays: the batch,
+    then a seeded one of its mean and spread with the labels rolled by one."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    xf = x.float()
+    x2 = (torch.randn(x.shape, generator=g, device=x.device) * xf.std() + xf.mean()).to(x.dtype)
+    return [(x, labels, 0), (x2, labels.roll(1), 1)]
+
+
+def zero_state(m: dict) -> dict:
+    """f32 zeros shaped as a momentum state (a Shards' parts each on its
+    device)."""
+    from boda_tpu_torch.parallel.mesh import Shards
+
+    def z(t):
+        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    return {k: v.map(z, v.axis) if isinstance(v, Shards) else z(v) for k, v in m.items()}
+
+
+def graph_vs_eager(phase: str, tag: str, make, w0: dict, feeds: list, counted: dict,
+                   card: str):
+    """``make(cuda_graph)``'s step (parallel/train.py:CapturedStep where
+    cuda_graph is set) from the weights ``w0`` over ``feeds``: two eager runs
+    and one captured run (``train_step_states``). The loss, every weight
+    (the running statistics among them) and every momentum of the captured
+    run bit-equal to the first eager run's, or, where the two eager runs
+    already differ, no further from it than the second eager run (those
+    tensors named); one capture; the wrappers' counts over the captured run
+    (two warm-up steps and the capture: a replay calls no wrapper). Returns
+    (the eager step, the captured step, the readings)."""
+    eager = make(False)
+    e1, e2 = (train_step_states(eager, w0, feeds) for _ in range(2))
+    graphed = make(True)
+    zero_counts(counted)
+    t1 = time.perf_counter()
+    c = train_step_states(graphed, w0, feeds)
+    first_s = time.perf_counter() - t1
+    capture_counts = read_counts(counted)  # the replays call no wrapper
+    differs, misses, bit = set(), [], True
+    for i, (a, b, r) in enumerate(zip(e1, e2, c)):
+        de, dc = max_diffs(a, b), max_diffs(a, r)
+        differs |= {k for k, v in de.items() if v}
+        bit = bit and not any(dc.values())
+        misses += [f"step {i} {k}: {dc[k]:.3e} > eager {de[k]:.3e}" for k in dc
+                   if dc[k] > de[k]]
+    cap = graphed.captured
+    print(f"[{phase}] {tag}: {len(feeds)} replays on {cap.captures} capture vs eager, "
+          f"{len(e1[0])} tensors per step (loss, weights and running stats, momenta): "
+          f"bit-equal {bit}; eager vs eager differs at {sorted(differs)[:6] or 'none'}"
+          f"{' ...' if len(differs) > 6 else ''}; first call (2 warm-up steps, the "
+          f"capture, a replay) {first_s:.2f} s ({card})")
+    for ln in misses[:10]:
+        print(f"[{phase}] FAIL {ln}")
+    check(not misses, f"{phase} {tag}: captured vs eager")
+    check(cap.captures == 1, f"{phase} {tag}: {cap.captures} captures")
+    del e1, e2, c
+    return eager, graphed, {"bit_equal": bit, "eager_differs": sorted(differs),
+                            "first_call_s": first_s, "capture_counts": capture_counts}
+
+
+def replay_profile(phase: str, tag: str, eager_call, replay, graphed, want: dict,
+                   capture_counts: dict, card: str) -> dict:
+    """One eager step (``eager_call``) against one replay of ``graphed``'s
+    graph: their kernels (torch.profiler, each name's median over
+    TRAIN_GRAPH_PROFILES calls) the same total, differing by name only in
+    the lr's form (``lr_rename_only``); the hand kernels per wrapper
+    (``hand_launches``) equal in the eager step and in every profiled replay,
+    and equal to ``want`` (train_launches; {} where no hand kernel runs);
+    the wrappers' counts over the first graphed call (``capture_counts``) 3
+    x ``want``. Their device busy ms and the ms per step of both (CUDA
+    events over TRAIN_GRAPH_REPS calls; ``replay`` a call of the step with
+    its own static tensors)."""
+    en, ebusy, ereads = kernel_counts(eager_call, TRAIN_GRAPH_PROFILES)
+    cn, cbusy, creads = kernel_counts(graphed.captured.graph.replay, TRAIN_GRAPH_PROFILES)
+    ems = cuda_ms(eager_call, TRAIN_GRAPH_REPS, 1)
+    cms = cuda_ms(replay, TRAIN_GRAPH_REPS, 1)
+    # a graph runs its copy and fill nodes as kernels named memcpy*/memset*:
+    # the copies into the static tensors, the eager step's Memcpy/Memset
+    nodes = {k: v for k, v in cn.items() if k.startswith(("memcpy", "memset"))}
+    ne, nc = sum(en.values()), sum(cn.values()) - sum(nodes.values())
+    only = {k: en.get(k, 0) - cn.get(k, 0) for k in set(en) | set(cn)
+            if en.get(k, 0) != cn.get(k, 0) and k not in nodes}
+    # the hand kernels per wrapper: in each profiled replay, in the eager step,
+    # and the wrappers' own counts over the first graphed call
+    he, hc = hand_launches(en), hand_launches(cn)
+    hreads = [hand_launches(r) for r in creads]
+    want_hand = {k: want.get(k, 0) for k in ("sgemm", "conv", "atb")}
+    print(f"[{phase}] {tag}: kernels per step eager {ne}, replay {nc} (and "
+          f"{sum(nodes.values())} copy and fill nodes {nodes}; per profiled call "
+          f"eager {[sum(r.values()) for r in ereads]}, replay "
+          f"{[sum(r.values()) for r in creads]}); hand kernels per wrapper eager "
+          f"{he}, replay {hc} (each replay's {[hr == hreads[0] for hr in hreads]} "
+          f"equal), expected {want_hand} and a reduce per split call; wrapper "
+          f"counts over the first graphed call (2 warm-up steps and the capture) "
+          f"{capture_counts}"
+          + (f"; by name, eager minus replay: {only}" if only else "")
+          + f"; device busy eager {ebusy:.3f} ms, replay {cbusy:.3f} ms; ms per step "
+          f"eager {ems:.3f}, replay {cms:.3f} (busy share {ebusy / ems:.3f} / "
+          f"{cbusy / cms:.3f}); copies in {graphed.captured.copies} ({card})")
+    check(ne == nc and ne > 0 and lr_rename_only(only),
+          f"{phase} {tag}: kernels eager {ne}, replay {nc}, by name {only}")
+    check(he == hc and all(hr == hc for hr in hreads) and
+          all(hc[k] == v for k, v in want_hand.items()) and hc["other"] == 0,
+          f"{phase} {tag}: hand kernels eager {he}, replays {hreads}, expected {want_hand}")
+    check(all(v == 3 * want.get(k, 0) for k, v in capture_counts.items()),
+          f"{phase} {tag}: wrapper counts {capture_counts}, expected 3 x {want}")
+    return {"kernels": ne, "copy_nodes": sum(nodes.values()), "hand_eager": he,
+            "hand_replay": hc, "eager_busy_ms": ebusy, "replay_busy_ms": cbusy,
+            "eager_ms": ems, "replay_ms": cms}
+
+
 def train_graph_checks(card: str, pipe, w0: dict, x: torch.Tensor, labels: torch.Tensor,
                        want: dict, counted: dict) -> dict:
     """[train]'s compiled step (parallel/train.py:CapturedStep), ResNet-50
     b32 bf16, momentum 0.9, clip 1.0, cuDNN's deterministic algorithms: for
-    gen and lib, BN frozen and in train mode, two eager runs and one captured
-    run of two steps from the same weights over two different batches. The
-    loss, every weight (the running statistics among them) and every
-    momentum of the captured run bit-equal to the first eager run's, or,
-    where the two eager runs already differ, no further from it than the
-    second eager run (those tensors named). The kernels of one replay
-    against one eager step's (torch.profiler, each name's median over
-    TRAIN_GRAPH_PROFILES calls): the same total, differing by name only in
-    the lr's form (``lr_rename_only``); the hand kernels per wrapper
-    (``hand_launches``) equal in the eager step and in every profiled
-    replay, and equal to ``want`` (train_launches) under gen, 0 under lib;
-    the wrappers' counts (``counted``) over the first graphed call, 3 x
-    ``want`` (two warm-up steps and the capture; a replay calls no
-    wrapper). Their device ms, the ms per step of both (CUDA events over
-    TRAIN_GRAPH_REPS calls), and what the body's copies into the static
-    tensors cost alone in a graph. A cosine schedule
-    with decoupled decay over three replays on one capture, held the same
-    way; a capture failure planted in mini_resnet's first conv raises,
-    naming the op, and leaves no graph."""
+    gen and lib, BN frozen and in train mode, ``graph_vs_eager`` over two
+    steps from the same weights on two different batches, then
+    ``replay_profile``: the kernels of one replay against one eager step's,
+    the hand kernels per wrapper equal to ``want`` (train_launches) under
+    gen, 0 under lib, both ms per step; and what the body's copies into the
+    static tensors cost alone in a graph. A cosine schedule with decoupled
+    decay over three replays on one capture, held the same way; a capture
+    failure planted in mini_resnet's first conv raises, naming the op, and
+    leaves no graph."""
     from boda_tpu_torch.models.zoo import build_model
     from boda_tpu_torch.parallel import train as ptrain
     from boda_tpu_torch.parallel.schedules import make_lr_schedule
     from boda_tpu_torch.parallel.train import find_logits_node, make_train_step
     t0 = time.perf_counter()
     dev = x.device
-    g = torch.Generator(device=dev).manual_seed(26)
-    xf = x.float()
-    x2 = (torch.randn(x.shape, generator=g, device=dev) * xf.std() + xf.mean()).to(x.dtype)
-    two = [(x, labels, 0), (x2, labels.roll(1), 1)]
+    two = second_batch(x, labels, 26)
     out: dict = {}
 
     def hold(tag: str, kw: dict, feeds: list):
-        eager = make_train_step(pipe, "fc1000", **kw)
-        e1, e2 = (train_step_states(eager, w0, feeds) for _ in range(2))
-        graphed = make_train_step(pipe, "fc1000", cuda_graph=True, **kw)
-        zero_counts(counted)
-        t1 = time.perf_counter()
-        c = train_step_states(graphed, w0, feeds)
-        first_s = time.perf_counter() - t1
-        capture_counts = read_counts(counted)  # the replays call no wrapper
-        differs, misses, bit = set(), [], True
-        for i, (a, b, r) in enumerate(zip(e1, e2, c)):
-            de, dc = max_diffs(a, b), max_diffs(a, r)
-            differs |= {k for k, v in de.items() if v}
-            bit = bit and not any(dc.values())
-            misses += [f"step {i} {k}: {dc[k]:.3e} > eager {de[k]:.3e}" for k in dc
-                       if dc[k] > de[k]]
-        cap = graphed.captured
-        print(f"[train-graph] {tag}: {len(feeds)} replays on {cap.captures} capture vs eager, "
-              f"{len(e1[0])} tensors per step (loss, weights and running stats, momenta): "
-              f"bit-equal {bit}; eager vs eager differs at {sorted(differs)[:6] or 'none'}"
-              f"{' ...' if len(differs) > 6 else ''}; first call (2 warm-up steps, the "
-              f"capture, a replay) {first_s:.2f} s ({card})")
-        for ln in misses[:10]:
-            print(f"[train-graph] FAIL {ln}")
-        check(not misses, f"train-graph {tag}: captured vs eager")
-        check(cap.captures == 1, f"train-graph {tag}: {cap.captures} captures")
-        del e1, e2, c
-        return eager, graphed, {"bit_equal": bit, "eager_differs": sorted(differs),
-                                "first_call_s": first_s, "capture_counts": capture_counts}
+        return graph_vs_eager("train-graph", tag, lambda cg: make_train_step(
+            pipe, "fc1000", cuda_graph=cg, **kw), w0, feeds, counted, card)
 
     for pol in ("gen", "lib"):
         for bn in (0.0, 0.1):
@@ -2382,55 +2466,12 @@ def train_graph_checks(card: str, pipe, w0: dict, x: torch.Tensor, labels: torch
                       kernel_policy=pol)
             eager, graphed, res = hold(tag, kw, two)
             # one eager step and one replay: kernels, device ms, ms per step
-            m0 = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
-                  for k, v in graphed.captured.m.items()}
+            m0 = zero_state(graphed.captured.m)
             cw, cm = dict(graphed.captured.w), dict(graphed.captured.m)
-
-            def eager_call():
-                return eager(w0, {"data": x}, labels, m0)
-
-            def replay():
-                return graphed(cw, {"data": x}, labels, cm)
-            # the graph's own replay, without the call's copies of the batch
-            en, ebusy, ereads = kernel_counts(eager_call, TRAIN_GRAPH_PROFILES)
-            cn, cbusy, creads = kernel_counts(graphed.captured.graph.replay,
-                                              TRAIN_GRAPH_PROFILES)
-            ems = cuda_ms(eager_call, TRAIN_GRAPH_REPS, 1)
-            cms = cuda_ms(replay, TRAIN_GRAPH_REPS, 1)
-            # a graph runs its copy and fill nodes as kernels named memcpy*/memset*:
-            # the copies into the static tensors, the eager step's Memcpy/Memset
-            nodes = {k: v for k, v in cn.items() if k.startswith(("memcpy", "memset"))}
-            ne, nc = sum(en.values()), sum(cn.values()) - sum(nodes.values())
-            only = {k: en.get(k, 0) - cn.get(k, 0) for k in set(en) | set(cn)
-                    if en.get(k, 0) != cn.get(k, 0) and k not in nodes}
-            # the hand kernels per wrapper: in each profiled replay, in the eager
-            # step, and the wrappers' own counts over the first graphed call
-            he, hc = hand_launches(en), hand_launches(cn)
-            hreads = [hand_launches(r) for r in creads]
-            want_hand = {k: want.get(k, 0) if pol == "gen" else 0
-                         for k in ("sgemm", "conv", "atb")}
-            print(f"[train-graph] {tag}: kernels per step eager {ne}, replay {nc} (and "
-                  f"{sum(nodes.values())} copy and fill nodes {nodes}; per profiled call "
-                  f"eager {[sum(r.values()) for r in ereads]}, replay "
-                  f"{[sum(r.values()) for r in creads]}); hand kernels per wrapper eager "
-                  f"{he}, replay {hc} (each replay's {[hr == hreads[0] for hr in hreads]} "
-                  f"equal), expected {want_hand} and a reduce per split call; wrapper "
-                  f"counts over the first graphed call (2 warm-up steps and the capture) "
-                  f"{res['capture_counts']}"
-                  + (f"; by name, eager minus replay: {only}" if only else "")
-                  + f"; device busy eager {ebusy:.3f} ms, replay {cbusy:.3f} ms; ms per step "
-                  f"eager {ems:.3f}, replay {cms:.3f} (busy share {ebusy / ems:.3f} / "
-                  f"{cbusy / cms:.3f}); copies in {graphed.captured.copies} ({card})")
-            check(ne == nc and ne > 0 and lr_rename_only(only),
-                  f"train-graph {tag}: kernels eager {ne}, replay {nc}, by name {only}")
-            check(he == hc and all(hr == hc for hr in hreads) and
-                  all(hc[k] == v for k, v in want_hand.items()) and hc["other"] == 0,
-                  f"train-graph {tag}: hand kernels eager {he}, replays {hreads}, "
-                  f"expected {want_hand}")
-            check(all(v == (3 * want.get(k, 0) if pol == "gen" else 0)
-                      for k, v in res["capture_counts"].items()),
-                  f"train-graph {tag}: wrapper counts {res['capture_counts']}, expected 3 x "
-                  f"{want if pol == 'gen' else 0}")
+            prof = replay_profile(
+                "train-graph", tag, lambda: eager(w0, {"data": x}, labels, m0),
+                lambda: graphed(cw, {"data": x}, labels, cm), graphed,
+                want if pol == "gen" else {}, res["capture_counts"], card)
             # what the copies into the static tensors cost a replay: the same
             # memcpy nodes (each momentum, and the loss) alone in a graph
             srcs = [t.clone() for t in cm.values()] + [graphed.captured.loss.clone()]
@@ -2446,11 +2487,7 @@ def train_graph_checks(card: str, pipe, w0: dict, x: torch.Tensor, labels: torch
                   f"the graph's pool keeps the new values) alone in a graph: {copy_ms:.4f} "
                   f"ms per replay ({card})")
             del cg, srcs, dsts
-            out[f"{pol}_bn{bn}"] = dict(res, kernels=ne, copy_nodes=sum(nodes.values()),
-                                        hand_eager=he, hand_replay=hc,
-                                        eager_busy_ms=ebusy, replay_busy_ms=cbusy,
-                                        eager_ms=ems, replay_ms=cms,
-                                        copy_ms=copy_ms, copy_mb=copy_mb)
+            out[f"{pol}_bn{bn}"] = dict(res, **prof, copy_ms=copy_ms, copy_mb=copy_mb)
             del eager, graphed, cw, cm, m0
             torch.cuda.empty_cache()
 
@@ -3685,11 +3722,13 @@ def dist_phase(card: str, out_dir) -> dict:
     of the same command's on the CPU; the flagship case (resnet50 224x224,
     1000 classes, remat=seg, global b8, 2 steps), its ranks bit-equal and
     its losses within 1e-3 relative of the single-process step on the global
-    batch on the card; a one-rank NCCL group's step bit-equal to the step
-    with no group (mini_resnet b8, 3 steps, every weight and momentum, with
-    cuDNN's deterministic algorithms). The ranks share the machine's cards
-    (modes/dist_modes.py: gloo where two share one). Prints ms per step per
-    rank and the backend."""
+    batch on the card; a one-rank NCCL group's step, eager and captured,
+    bit-equal to the step with no group (mini_resnet b8, 3 steps, every
+    weight and momentum, with cuDNN's deterministic algorithms), then the
+    captured one-rank NCCL step at ResNet-50 b32 (``nccl_graph_checks``).
+    The ranks share the machine's cards (modes/dist_modes.py: gloo where two
+    share one, and the step eager, as each worker's step line says). Prints
+    ms per step per rank and the backend."""
     import re
 
     import torch.distributed as dist
@@ -3710,7 +3749,7 @@ def dist_phase(card: str, out_dir) -> dict:
         losses = [[float(v) for v in m.group(1).split(",")] for m in
                   (re.search(r"losses=([\d.,-]+)", ln) for ln in lines) if m]
         steps = [ln for ln in lines if "ms_per_step=" in ln]
-        for ln in steps + lines[-1:]:
+        for ln in steps + [ln for ln in lines if " step: " in ln] + lines[-1:]:
             print(f"[dist] {' '.join(extra) or 'card'}: {ln}")
         return losses, steps, lines[-1]
 
@@ -3753,7 +3792,7 @@ def dist_phase(card: str, out_dir) -> dict:
           f"process {single}, max rel {frel:.3e} (tol 1e-3); one process b8: ms per step "
           + ",".join(f"{v:.3f}" for v in ms_single) + f" ({card})")
 
-    # a one-rank NCCL group: bit-equal to no group
+    # a one-rank NCCL group: eager and captured, bit-equal to no group
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0)
     det = torch.backends.cudnn.deterministic
@@ -3763,29 +3802,51 @@ def dist_phase(card: str, out_dir) -> dict:
         rng = np.random.RandomState(0)
         x = torch.from_numpy(rng.randn(*in_dims["data"].shape).astype(np.float32)).cuda()
         y = torch.from_numpy(rng.randint(0, 16, size=(8,)).astype(np.int32)).cuda()
+        w0 = {k: torch.from_numpy(np.ascontiguousarray(v.data)).cuda()
+              for k, v in pipe.weights.items()}
         runs = {}
-        for tag, group in (("none", None), ("nccl", dist.group.WORLD)):
+        for tag, group, cg in (("none", None, False), ("nccl", dist.group.WORLD, False),
+                               ("nccl captured", dist.group.WORLD, True)):
             step = make_train_step(pipe, find_logits_node(pipe), lr=0.05, momentum=0.9,
-                                   bn_momentum=0.1, clip_norm=1.0, group=group)
-            w = {k: torch.from_numpy(np.ascontiguousarray(v.data)).cuda()
-                 for k, v in pipe.weights.items()}
-            mom, losses = None, []
-            for _ in range(3):
-                loss, w, mom = step(w, {"data": x}, y, mom)
-                losses.append(loss)
-            runs[tag] = (losses, w, mom)
-        (la, wa, ma), (lb, wb, mb) = runs["none"], runs["nccl"]
-        same = all(torch.equal(a, b) for a, b in zip(la, lb)) and \
-            all(torch.equal(wa[k], wb[k]) for k in wa) and \
-            all(torch.equal(ma[k], mb[k]) for k in ma)
+                                   bn_momentum=0.1, clip_norm=1.0, group=group, cuda_graph=cg)
+            runs[tag] = train_step_states(step, w0, [(x, y, i) for i in range(3)])
+            step.release()  # before the group's teardown, which waits for its graphs
+            if cg:
+                check(step.captured.captures == 1
+                      and not any(ln.startswith("eager") for ln in step.info_log),
+                      f"dist: the one-rank NCCL step was not captured once: {step.info_log[-2:]}")
+        same = {tag: not any(d for a, b in zip(runs["none"], r)
+                             for d in max_diffs(a, b).values()) for tag, r in runs.items()}
+        res["nccl_one_rank_bit_equal"] = same
+        print(f"[dist] a one-rank NCCL group: 3 steps of mini_resnet b8 bit-equal to no group "
+              f"(loss, weights, momenta): eager {same['nccl']}, captured "
+              f"{same['nccl captured']} ({card})")
+        check(all(same.values()), f"dist: the one-rank NCCL steps against no group: {same}")
+        del runs
+        res["graph"] = nccl_graph_checks(card, dist.group.WORLD)
     finally:
         torch.backends.cudnn.deterministic = det
         dist.destroy_process_group()
-    check(same, "dist: the one-rank NCCL group's step differs from the step with no group")
-    res["nccl_one_rank_bit_equal"] = same
-    print(f"[dist] a one-rank NCCL group: 3 steps of mini_resnet b8 bit-equal to no group "
-          f"(loss, {len(wa)} weights, {len(ma)} momenta) ({card})")
     return res
+
+
+def nccl_graph_checks(card: str, group) -> dict:
+    """[dist]'s compiled step at full width: ResNet-50 b32 224x224 bf16 on a
+    one-rank NCCL ``group`` (fc1000 unscaled, as train_bench), held by
+    ``captured_step_checks`` (hand kernels per replay by ``train_calls``)."""
+    from boda_tpu_torch.modes.cnet import load_net
+    from boda_tpu_torch.ops.kernels.gen_data import gen_data_pattern
+    from boda_tpu_torch.parallel.train import make_train_step
+    pipe, dims = load_net("resnet50", img=BATCH)
+    d = dims["data"]
+    x = gen_data_pattern(d.shape, d.tn).to("cuda", torch.bfloat16)
+    labels = (torch.arange(BATCH) % 1000).cuda()
+    w0 = {k: torch.from_numpy(np.asarray(v.data, np.float32)).to("cuda", torch.bfloat16)
+          for k, v in pipe.weights.items()}
+    return captured_step_checks(
+        "dist", f"resnet50 b{BATCH} bf16 gen, train-mode BN, a one-rank NCCL group", pipe,
+        lambda cg: make_train_step(pipe, "fc1000", group=group, cuda_graph=cg, **TP_KW),
+        w0, w0, x, labels, train_launches(train_calls(pipe)), counted_wrappers(), card, 28)
 
 
 # -- the [tp-train] phase: tensor parallelism in the training step -------------------
@@ -3808,7 +3869,10 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     conv and fc1000 per slice at out_chan / 2: fc1000's forward at N = 500
     on wgmma_edge, its dgrad at K = 500 on the mma.sync loop);
     each distinct call of the tp step against its plain version
-    (``train_call_checks``); ms per step of both. Then ResNet-50 b4 f32, one
+    (``train_call_checks``); ms per step of both. The compiled (tp=2) step
+    (``captured_step_checks``): replays bit-equal to the eager (tp=2) steps on two
+    batches, the hand kernels per replay exact, ms per step replayed and
+    eager beside the no-mesh replay. Then ResNet-50 b4 f32, one
     step (tp=2) against no mesh, weights and momenta at TP_F32_TOL by
     tests/test_torch_train_step.py's ``_close`` rule; and a (tp=1)
     mini_resnet step bit-equal to no mesh."""
@@ -3895,7 +3959,14 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     rows, per_step = train_call_checks("tp-train", f"the gen b{n_img} bf16 (tp=2) step",
                                        runs["tp2"]["calls"], counted, cases, card)
     out["calls"], out["kernel_us_per_step"] = rows, per_step
+    want = train_launches(runs["tp2"]["calls"])
     del runs
+
+    # -- the compiled (tp=2) step: captured on its one-card row, replayed -----------
+    out["graph"] = captured_step_checks(
+        "tp-train", f"resnet50 b{n_img} bf16 gen, train-mode BN, (tp=2)", pipe,
+        lambda cg: make_train_step(pipe, "fc1000", mesh=mesh, cuda_graph=cg, **kw),
+        shard_weights(w0, pipe, mesh), w0, x, labels, want, counted, card, 27)
 
     # -- ResNet-50 b4 f32: one step (tp=2) against no mesh ------------------------------
     fpipe, fdims = load_net("resnet50", img=TP_F32_BATCH)
@@ -3958,6 +4029,45 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[tp-train] phase took {out['seconds']:.1f} s ({card})")
     return out
+
+def captured_step_checks(phase: str, tag: str, pipe, make, ws: dict, w0: dict,
+                         x: torch.Tensor, labels: torch.Tensor, want: dict, counted: dict,
+                         card: str, seed: int) -> dict:
+    """A mesh's or a group's compiled step, ``make(cuda_graph)``, at
+    ResNet-50 in TP_KW's configuration (gen, train-mode BN), under cuDNN's
+    deterministic algorithms: captured (no eager line in its info_log),
+    ``graph_vs_eager`` from ``ws`` (the weights as the step takes them) on two
+    batches, ``replay_profile`` (the hand kernels per wrapper of every
+    profiled replay equal to ``want``); its ms per step replayed and eager
+    beside the replay of the step with neither mesh nor group, from ``w0``."""
+    from boda_tpu_torch.parallel.train import make_train_step
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, graphed, res = graph_vs_eager(phase, tag, make, ws, second_batch(x, labels, seed),
+                                             counted, card)
+        check(not any(ln.startswith("eager") for ln in graphed.info_log),
+              f"{phase} {tag}: not captured: {graphed.info_log[-2:]}")
+        m0 = zero_state(graphed.captured.m)
+        cw, cm = dict(graphed.captured.w), dict(graphed.captured.m)
+        prof = replay_profile(phase, tag, lambda: eager(ws, {"data": x}, labels, m0),
+                              lambda: graphed(cw, {"data": x}, labels, cm), graphed, want,
+                              res["capture_counts"], card)
+        graphed.release()  # before a group's teardown, which waits for its graphs
+        del eager, graphed, cw, cm, m0
+        torch.cuda.empty_cache()
+        single = make_train_step(pipe, "fc1000", cuda_graph=True, **TP_KW)
+        _, sw, sm = single(w0, {"data": x}, labels)
+        single_ms = cuda_ms(lambda: single(sw, {"data": x}, labels, sm), TRAIN_GRAPH_REPS, 1)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"[{phase}] {tag}: ms per step replayed {prof['replay_ms']:.3f}, eager "
+          f"{prof['eager_ms']:.3f}; the step without a mesh or group replayed {single_ms:.3f} "
+          f"({card})")
+    del single, sw, sm
+    torch.cuda.empty_cache()
+    return dict(res, **prof, single_replay_ms=single_ms)
+
 
 # [xla]: boda_tpu's own engines. The NCHW route's hand-kernel launches per
 # ResNet-50 forward (ops/cnn_variants.py): K1 the 36 1x1 convs (the four
@@ -5532,6 +5642,8 @@ def main() -> int:
         k = {"dgrad": "conv_nhwc"}.get(entry["name"], entry["name"])
         if entry["name"] in ("sgemm", "conv", "dgrad", "atb"):
             entry["launches_tp_train"] = tp_train["tp2"]["launches"][k]
+        if entry["name"] in ("sgemm", "conv", "atb"):  # one replay of it captured
+            entry["launches_tp_train_replay"] = tp_train["graph"]["hand_replay"][k]
     # K1's edge route: fc1000's forward per (tp=2) slice, its launches from
     # that step (its dgrad, K = 500, stays on the mma.sync loop)
     (gsig, fc), = ((s, edge[s]) for s in EDGE_GEMMS)

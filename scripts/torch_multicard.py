@@ -15,7 +15,10 @@ a machine with two cards or more; four for the 4-rank case).
    golden 2x2 and flagship cases, NCCL when every rank has a card, a
    one-rank NCCL group) phases, as chip_smoke.py runs them.
 3. ``dist_test_master --num-procs=4 --devices-per-proc=1`` on the cards
-   (NCCL, a rank per card) and on the CPU (gloo).
+   (NCCL, a rank per card), its step captured (``--cuda-graph=1``) against
+   eager (``=0``), mini_resnet and the flagship worker (resnet50 224x224,
+   1000 classes, remat=seg), each rank's ms per step of both side by side
+   and their losses within DIST4_TOL; and mini_resnet on the CPU (gloo).
 4. tests/test_torch_cuda_mesh.py.
 5. The training step split over tp across cards (parallel/train.py with a
    mesh): ResNet-50 b32 bf16 gen, momentum 0.9, clip 1, train-mode BN, the
@@ -39,6 +42,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DIST4_TOL = 1e-4  # the captured step's losses against the eager step's, relative
 
 # one launch each of K6, K8 and K9 above 48 KB of shared memory on cuda:0,
 # then on cuda:1, in the tree named by argv[1]
@@ -198,6 +202,48 @@ def tp_cards(card: str, fc_scale: float) -> bool:
                        [max(a, b) for a, b in zip(ranks[0]["ms"], ranks[1]["ms"])])
 
 
+def dist4(card: str) -> bool:
+    """Check 3: four ranks over NCCL, a card each, the step captured against
+    eager, mini_resnet and the flagship worker; mini_resnet over gloo on the
+    CPU."""
+    import re
+
+    import chip_smoke as cs
+
+    def master(*extra):
+        rc, lines, err = cs.run_cli_err(["dist_test_master", "--num-procs=4",
+                                         "--devices-per-proc=1", *extra])
+        for ln in lines[-13:]:
+            print(f"[dist4] {' '.join(extra)}: {ln}", flush=True)
+        if rc:
+            print(err[-1500:])
+            return None
+        ms = [[float(v) for v in m.group(1).split(",")] for m in
+              (re.search(r"ms_per_step=([\d.,]+)", ln) for ln in lines) if m]
+        loss = [float(v) for v in re.search(r"losses=([\d.,-]+)",
+                                            "\n".join(lines)).group(1).split(",")]
+        digest = re.search(r"digest=(\w+)", "\n".join(lines)).group(1)
+        return ms, loss, digest
+    ok = master("--steps=3", "--device=cpu") is not None
+    for model, steps in ((("--model=mini_resnet",), 5),
+                         (("--model=resnet50", "--in-sz=224", "--num-cls=1000"), 3)):
+        runs = {cg: master(f"--steps={steps}", f"--cuda-graph={cg}", *model) for cg in (1, 0)}
+        if None in runs.values():
+            ok = False
+            continue
+        (gms, gl, gd), (ems, el, ed) = runs[1], runs[0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el))
+        # per step, the slowest rank
+        slow = [[max(r[i] for r in ms) for i in range(steps)] for ms in (gms, ems)]
+        print(f"[dist4] {model[0][8:]} 4 ranks over NCCL, ms per step (the slowest rank): "
+              f"captured {[f'{v:.3f}' for v in slow[0]]} (the first: 2 warm-up steps and the "
+              f"capture), eager {[f'{v:.3f}' for v in slow[1]]}; losses captured {gl} vs "
+              f"eager {el}, max rel {rel:.3e} (tol {DIST4_TOL}); digests bit-equal "
+              f"{gd == ed} ({card})", flush=True)
+        ok &= rel <= DIST4_TOL
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default="", help="another checkout to run check 1 on first")
@@ -246,15 +292,9 @@ def main() -> int:
             ok = False
         laps[name] = time.perf_counter() - t
     if torch.cuda.device_count() >= 4 and 3 in checks:
-        for dev in ("cuda", "cpu"):
-            rc, lines, err = cs.run_cli_err(["dist_test_master", "--num-procs=4",
-                                             "--devices-per-proc=1", "--steps=3",
-                                             f"--device={dev}"])
-            for ln in lines[-9:]:
-                print(f"[dist4] {dev} {ln}")
-            if rc:
-                print(err[-1500:])
-            ok &= rc == 0
+        t = time.perf_counter()
+        ok &= dist4(card)
+        laps["dist4"] = time.perf_counter() - t
     if torch.cuda.device_count() >= 4 and 5 in checks:
         t = time.perf_counter()
         try:

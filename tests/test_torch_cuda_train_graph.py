@@ -3,7 +3,10 @@ the step captured once per key as one CUDA graph and replayed, against the
 eager step from the same weights, under cuDNN's deterministic algorithms, at
 mini_resnet b4 16x16 f32: three steps bit-equal with momentum and train-mode
 BN under gen and lib; the four remat modes; bn_freeze_at's two graphs;
-train_lmdb's kill and resume on the captured step; a failed capture raising.
+train_lmdb's kill and resume on the captured step; a failed capture raising;
+the (tp=2) step on cuda:0 twice and a one-rank NCCL group's step (remat
+none and seg) each replayed bit-equal to its eager step on two batches,
+each captured once.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. On the
 machine with the card, from the repo root:
@@ -155,3 +158,53 @@ def test_failed_capture_raises(dev):
     with pytest.raises(RuntimeError, match="capture failed at op 'conv1'"):
         step(w, {"data": x}, y)
     assert step.captured.graph is None and step.captured.key is None
+
+
+def test_tp2_one_card_replay_bit_equal(dev):
+    """A (tp=2) mesh whose row is cuda:0 twice: two replays of one capture
+    bit-equal to two eager (tp=2) steps (the weights and momenta gathered),
+    and the returned shards the step's static parts."""
+    import chip_smoke
+    from boda_tpu_torch.parallel.mesh import Shards, make_mesh, shard_weights
+    pipe, w, feeds = _setup(dev)
+    mesh = make_mesh({"tp": 2}, devices=[dev, dev])
+    ws = shard_weights(w, pipe, mesh)
+    kw = dict(KW, bn_momentum=0.1, mesh=mesh)
+    eager = chip_smoke.train_step_states(make_train_step(pipe, "fc", **kw), ws, feeds[:2])
+    step = make_train_step(pipe, "fc", cuda_graph=True, **kw)
+    assert not any(ln.startswith("eager") for ln in step.info_log)
+    got = chip_smoke.train_step_states(step, ws, feeds[:2])
+    assert _same(eager, got) == []
+    cap = step.captured
+    assert cap.captures == 1 and any(isinstance(v, Shards) for v in cap.w.values())
+    assert cap.copies == sum(len(v) if isinstance(v, Shards) else 1 for v in ws.values())
+
+
+def test_nccl_one_rank_replay_bit_equal(dev):
+    """A one-rank NCCL group: the captured step (its all-reduces in the
+    graph) replayed bit-equal to the eager group step on two batches, remat
+    none and seg (train-mode BN's all-reduces run again in the recompute),
+    and to the captured step without a group; each captured once."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from boda_tpu_torch.modes.dist_modes import _free_port
+    pipe, w, feeds = _setup(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for remat in ("", "seg"):
+            kw = dict(KW, bn_momentum=0.1, remat=remat)
+            g = dict(kw, group=dist.group.WORLD)
+            eager = chip_smoke.train_step_states(make_train_step(pipe, "fc", **g), w, feeds[:2])
+            step = make_train_step(pipe, "fc", cuda_graph=True, **g)
+            assert not any(ln.startswith("eager") for ln in step.info_log), remat
+            got = chip_smoke.train_step_states(step, w, feeds[:2])
+            alone = chip_smoke.train_step_states(
+                make_train_step(pipe, "fc", cuda_graph=True, **kw), w, feeds[:2])
+            assert _same(eager, got) == [] and _same(alone, got) == [], remat
+            assert step.captured.captures == 1, remat
+            step.release()  # before the group's teardown, which waits for its graphs
+            assert step.captured.graph is None
+    finally:
+        dist.destroy_process_group()

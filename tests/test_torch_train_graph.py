@@ -9,9 +9,9 @@ five cases and tolerances: 1e-5 after one step, 1e-4 after three, 5e-2 for
 bf16 masters). Then the donation contract (the returned weights and momenta
 are the step's static tensors; a call with them copies nothing in; a foreign
 state is copied in; the losses of a chain stay distinct), the learning rate
-and decay held as 0-dim tensors, the eager step under a mesh or a group
-saying so, and the key cache: a new batch shape captures anew, a new
-``step=`` does not.
+and decay held as 0-dim tensors, the eager steps under a gloo group or a
+tp row over two cards saying why, and the key cache: a new batch shape
+captures anew, a new ``step=`` does not.
 """
 
 import numpy as np
@@ -136,24 +136,35 @@ def test_donation_and_rates():
 
 
 def test_eager_under_mesh_or_group_and_key_cache(monkeypatch, tmp_path):
-    """A step under a mesh or a process group stays eager (no ``captured``)
-    and says so once in its info_log; a step on CPU tensors runs eagerly
-    whatever ``cuda_graph`` says. The key cache, with the capture function
-    spied on: the first call captures, a new ``step=`` does not, a new batch
-    shape does (and its results are the eager step's), and the remat modes'
-    bodies are their eager steps."""
+    """A step under a mesh whose tp row lies on one device keeps its body
+    (``captured``) and says nothing; a row over two cards and a gloo group
+    each keep the body too (the CPU tests run it) but stay eager on CUDA
+    tensors, each saying why once in its info_log; a step on CPU tensors
+    runs eagerly whatever ``cuda_graph`` says. The key cache, with the
+    capture function spied on: the first call captures, a new ``step=``
+    does not, a new batch shape does (and its results are the eager
+    step's), and the remat modes' bodies are their eager steps."""
     import torch.distributed as dist
     from boda_tpu_torch.models.zoo import build_model
     from boda_tpu_torch.parallel.mesh import make_mesh
     _, tp, W, xs, ys = _setup()
-    line = "eager: a mesh or group step is not captured yet"
+    row = "eager on CUDA tensors: this rank's tp row spans 2 devices"
+    gloo = "eager on CUDA tensors: the process group's backend is gloo"
+
+    def count(step, line):
+        return sum(ln.startswith(line) for ln in step.info_log)
     mstep = tmake(tp, "fc", mesh=make_mesh({"tp": 1}, kind="cpu"), cuda_graph=True)
-    assert mstep.captured is None and mstep.info_log.count(line) == 1
-    assert line not in tmake(tp, "fc", mesh=make_mesh({"tp": 1}, kind="cpu")).info_log
+    assert mstep.captured is not None and not any(ln.startswith("eager")
+                                                  for ln in mstep.info_log)
+    two = make_mesh({"tp": 2}, devices=["cuda:0", "cuda:1"])
+    rstep = tmake(tp, "fc", mesh=two, cuda_graph=True)
+    assert rstep.captured is not None and count(rstep, row) == 1
+    assert count(tmake(tp, "fc", mesh=two), row) == 0
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
     try:
         gstep = tmake(tp, "fc", group=dist.group.WORLD, cuda_graph=True)
-        assert gstep.captured is None and gstep.info_log.count(line) == 1
+        assert gstep.captured is not None and count(gstep, gloo) == 1
+        assert count(tmake(tp, "fc", group=dist.group.WORLD), gloo) == 0
     finally:
         dist.destroy_process_group()
 
