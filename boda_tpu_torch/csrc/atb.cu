@@ -27,7 +27,7 @@
 // res5) at the ResNet-50 wgrad shapes, against the card's ~295 FLOP/B ridge:
 // res2-res4 are bound by bytes, res5 by the tensor cores.
 //
-// Three paths, chosen by shape before the launch (bconv.py:plan_atb):
+// Four paths, chosen by shape before the launch (bconv.py:plan_atb):
 //   * wgmma (bf16, M % 8 == 0, N % 8 == 0, 16-byte aligned operands): the
 //     GEMM core's wgmma path (gemm.cuh, modes kModeAtb and kModeWgrad). A's
 //     stage is stored MN-major (64 K rows by 64 M columns per 128-byte
@@ -38,6 +38,12 @@
 //     on across items, so loads overlap the MMAs and every SM streams x and
 //     dY at its share of HBM; tiles of 64 or 128 rows and 64-256 columns,
 //     so res2's 64-wide outputs do not pay for 128x128.
+//   * wgmma_edge (the dense form in bf16 with M % 8 == 0, N % 8 != 0 and N
+//     even, such as fc1000's (tp=2) wgrad at N = 500): the same path with
+//     B's rows padded to 16 bytes in memory (ldb, a multiple of 8 >= N; the
+//     training step's fc writes dY so), TMA reading the columns past N as
+//     zeros, the f32 output stored in 8-byte pairs masked at the N edge;
+//     tiles of 64 or 128 rows and columns.
 //   * mma (bf16, every other shape): WMMA (mma.sync) on one shared-memory
 //     buffer, 128x128 tiles, A staged [k][m] as it lies and loaded as a
 //     col_major matrix_a fragment; splits over gridDim.z.
@@ -55,10 +61,10 @@ using boda::Pack8;
 
 struct AtbProb {
   const void* a;  // dense: [K,M] row-major; gather: x (N,H,W,C=M) NHWC
-  const void* b;  // [K,N] row-major (dY as (N*OH*OW, OC) for the wgrad)
+  const void* b;  // [K,N] row-major, rows ldb apart (dY as (N*OH*OW, OC) for the wgrad)
   float* out;     // [taps, M, N]
   float* ws;      // [splits, taps, M, N] partial sums; used when splits > 1
-  int M, N, K;
+  int M, N, K, ldb;
   int splits, chunk;  // split s covers k in [s*chunk, min(K, (s+1)*chunk))
   // gather geometry: k = (n, oy, ox) an output pixel; tap = (ky, kx)
   int H, W, OH, OW, KW, py, px;
@@ -154,12 +160,12 @@ __global__ void __launch_bounds__(kThreads) atb_bf16(AtbProb p) {
       int k = k0 + r, n = n0 + nc;
       Pack8 v;
       if (VB) {
-        v.u = (k < rg.k_end && n < p.N) ? *(const uint4*)(B + (long)k * p.N + n) : zero;
+        v.u = (k < rg.k_end && n < p.N) ? *(const uint4*)(B + (long)k * p.ldb + n) : zero;
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           v.h[e] = (k < rg.k_end && n + e < p.N)
-                       ? __bfloat16_as_ushort(B[(long)k * p.N + n + e])
+                       ? __bfloat16_as_ushort(B[(long)k * p.ldb + n + e])
                        : (unsigned short)0;
       }
       *(uint4*)&Bs[r * kBLd + nc] = v.u;
@@ -235,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) atb_f32(AtbProb p) {
     for (int e = tid; e < kFK * kFN; e += kThreads) {
       int r = e / kFN, nc = e % kFN;
       int k = k0 + r, n = n0 + nc;
-      Bs[r][nc] = (k < rg.k_end && n < p.N) ? B[(long)k * p.N + n] : 0.f;
+      Bs[r][nc] = (k < rg.k_end && n < p.N) ? B[(long)k * p.ldb + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -270,7 +276,7 @@ int launch(const AtbProb& p, int taps, int dtype, cudaStream_t s) {
   } else {
     dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN, taps * p.splits);
     bool va = p.M % 8 == 0 && boda::aligned16(p.a);
-    bool vb = p.N % 8 == 0 && boda::aligned16(p.b);
+    bool vb = p.N % 8 == 0 && p.ldb % 8 == 0 && boda::aligned16(p.b);
     if (va && vb)
       atb_bf16<GATHER, true, true><<<grid, kThreads, 0, s>>>(p);
     else if (va)
@@ -288,28 +294,32 @@ int launch(const AtbProb& p, int taps, int dtype, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16 (a and b alike; out is always float32).
 // gather = 0: a is [K,M] and there is one tap (KH = KW = 1). gather = 1: a is
 // the NHWC input (N,H,W,C=M), b is dY as (N*OH*OW, OC=N) with K = N*OH*OW,
-// stride 1, and out is (KH,KW,M,N). path (gemm.cuh enum Path), bm, bn,
+// stride 1, and out is (KH,KW,M,N). ldb: b's row stride in elements (>= N;
+// N when dense, as the gather takes it; a multiple of 8 on wgmma_edge).
+// path (gemm.cuh enum Path), bm, bn,
 // splits, chunk: the plan (ops/kernels/bconv.py:plan_atb); split s covers k
 // in [s*chunk, min(K, (s+1)*chunk)), chunk a multiple of the path's K step
-// (64 wgmma, 32 mma, 16 fma), no split empty; ws: splits x taps x M x N f32
+// (64 wgmma and wgmma_edge, 32 mma, 16 fma), no split empty; ws: splits x taps x M x N f32
 // when splits > 1. A plan this entry point cannot run is refused
 // (cudaErrorInvalidValue), never rerouted. Returns cudaGetLastError() after
 // the launches.
 extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M, int N,
                         int K, int splits, int chunk, int gather, int H, int W, int OH,
                         int OW, int KH, int KW, int py, int px, int dtype, int path, int bm,
-                        int bn, void* stream) {
-  const int bk = path == boda::kPathWgmma ? boda::kChunk : dtype == 0 ? kFK : kBK;
-  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || chunk <= 0 || chunk % bk != 0 ||
+                        int bn, int ldb, void* stream) {
+  const bool ring = path == boda::kPathWgmma || path == boda::kPathWgmmaEdge;
+  const int bk = ring ? boda::kChunk : dtype == 0 ? kFK : kBK;
+  if (M <= 0 || N <= 0 || K <= 0 || ldb < N || splits <= 0 || chunk <= 0 || chunk % bk != 0 ||
       (long)(splits - 1) * chunk >= K || (long)splits * chunk < K ||
       (splits > 1 && ws == nullptr) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (gather && (KH <= 0 || KW <= 0 || OH <= 0 || OW <= 0 || K % (OH * OW) != 0))
+  if (gather && (KH <= 0 || KW <= 0 || OH <= 0 || OW <= 0 || K % (OH * OW) != 0 || ldb != N))
     return (int)cudaErrorInvalidValue;
   const int taps = gather ? KH * KW : 1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (path == boda::kPathWgmma) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (ring) {
+    // the edge route is the dense form's: the gather's dY is dense
+    if (dtype != 1 || (path == boda::kPathWgmmaEdge && gather)) return (int)cudaErrorInvalidValue;
     boda::Prob p = {};
     p.a = a;
     p.b = b;
@@ -317,7 +327,7 @@ extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M
     p.M = M;
     p.N = N;
     p.K = K;
-    p.ldb = N;
+    p.ldb = ldb;
     p.H = H;
     p.W = W;
     p.OH = OH;
@@ -328,6 +338,8 @@ extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M
     p.taps = taps;
     p.nimg = gather ? K / (OH * OW) : 0;
     const int per = chunk / boda::kChunk;
+    if (path == boda::kPathWgmmaEdge)
+      return boda::launch_wgmma<boda::kModeAtb, false, true>(p, bm, bn, splits, per, ws, s);
     return gather ? boda::launch_wgmma<boda::kModeWgrad>(p, bm, bn, splits, per, ws, s)
                   : boda::launch_wgmma<boda::kModeAtb>(p, bm, bn, splits, per, ws, s);
   }
@@ -340,6 +352,7 @@ extern "C" int boda_atb(const void* a, const void* b, void* out, void* ws, int M
   p.M = M;
   p.N = N;
   p.K = K;
+  p.ldb = ldb;
   p.splits = splits;
   p.chunk = chunk;
   p.H = H;

@@ -14,9 +14,12 @@
 //
 // Five paths, chosen by the caller's plan (ops/kernels/common.py:plan_gemm)
 // from the shape before the launch, never after a failure:
-//   * wgmma (bf16; K % 8 == 0 for the GEMM or C % 8 == 0 for the conv,
-//     N % 8 == 0, 16-byte aligned operands): Hopper's warpgroup MMA fed by a
-//     ring of 3-8 stages of 64-deep K chunks in shared memory (gemm_wgmma below).
+//   * wgmma (bf16; A's rows 16-byte aligned in memory: the GEMM's lda % 8 ==
+//     0, any K, or the conv's C % 8 == 0; N % 8 == 0, 16-byte aligned
+//     operands): Hopper's warpgroup MMA fed by a ring of 3-8 stages of
+//     64-deep K chunks in shared memory (gemm_wgmma below). A GEMM with K % 8
+//     != 0 (fc1000's (tp=2) dgrad, K = 500) reads A from rows padded to a
+//     multiple of 8 elements (lda); TMA reads the columns past K as zeros.
 //   * wgmma_narrow (bf16 conv with C % 8 != 0, such as every C = 3 stem;
 //     N % 8 == 0, B, the output, the bias and the residual 16-byte aligned,
 //     x in any alignment): the same ring and consumers, with the conv's A
@@ -28,13 +31,13 @@
 //     from the accumulators by 4-byte stores masked at the edge (EDGE
 //     below), and a split-K reduce by column pairs. Tiles of 64 or 128
 //     rows and columns.
-//   * mma (bf16, every other shape: odd N, the GEMM's K % 8 != 0, a narrow
+//   * mma (bf16, every other shape: odd N, the GEMM's lda % 8 != 0, a narrow
 //     conv with N % 8 != 0, a misaligned operand): WMMA (mma.sync) 16x16x16
 //     fragments on a 128x128 tile, one buffer.
 //   * fma (f32): FMA pipes, full f32 (no TF32), 64x64 tiles.
 // Ragged M/N/K edges are masked in the kernels: loads outside the problem
-// read 0, stores outside it are skipped. B is read at its row stride ldb on
-// every path (N for a dense B).
+// read 0, stores outside it are skipped. B is read at its row stride ldb, and
+// the GEMM's A at its row stride lda, on every path (N and K when dense).
 //
 // The output-tile index with the most tiles (M) is on gridDim.x, whose limit
 // is 2^31-1; gridDim.y (N tiles) stays far below its 65,535 limit.
@@ -60,6 +63,8 @@ struct Prob {
   void* c;
   int M, N, K, relu;
   int ldb;  // B's row stride in elements (>= N; a multiple of 8 on the wgmma paths)
+  int lda;  // the GEMM's A row stride in elements (>= K; a multiple of 8 on the wgmma
+            // paths); unused by the conv, whose A is gathered
   // conv geometry; unused by the plain GEMM. KH is implied by K = KH*KW*C.
   int H, W, C, OH, OW, KW, sy, sx, py, px;
   // the f32 modes: filter taps (KH*KW for kModeWgrad, 1 for kModeAtb) and
@@ -121,21 +126,21 @@ __device__ __forceinline__ T a_elem(const Prob& p, const RowInfo* ri, int r, lon
                                     int k) {
   const T* A = (const T*)p.a;
   if (k >= p.K) return from_f32<T>(0.f);
-  if (!CONV) return m < p.M ? A[m * p.K + k] : from_f32<T>(0.f);
+  if (!CONV) return m < p.M ? A[m * p.lda + k] : from_f32<T>(0.f);
   long off = conv_off(p, ri[r], k);
   return off < 0 ? from_f32<T>(0.f) : A[off];
 }
 
 // 8 consecutive bf16 of A's row m starting at k (k % 8 == 0). Needs K % 8 == 0
-// (GEMM) or C % 8 == 0 (CONV, so the 8 stay inside one tap) and a 16-byte
-// aligned base.
+// and lda % 8 == 0 (GEMM) or C % 8 == 0 (CONV, so the 8 stay inside one tap)
+// and a 16-byte aligned base.
 template <bool CONV>
 __device__ __forceinline__ uint4 a_vec8(const Prob& p, const RowInfo* ri, int r, long m,
                                         int k) {
   const bf16* A = (const bf16*)p.a;
   uint4 z = make_uint4(0, 0, 0, 0);
   if (k >= p.K) return z;
-  if (!CONV) return m < p.M ? *(const uint4*)(A + m * p.K + k) : z;
+  if (!CONV) return m < p.M ? *(const uint4*)(A + m * p.lda + k) : z;
   long off = conv_off(p, ri[r], k);
   return off < 0 ? z : *(const uint4*)(A + off);
 }
@@ -347,9 +352,13 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
 // columns clipped), so the output is written once in whole lines while the
 // warpgroup goes on to its next tile.
 //
-// EDGE (kModeGemm or kModeConv with N % 8 != 0, N even): C's rows are N * 2
-// bytes, which TMA cannot address (a row stride must be a multiple of 16
-// bytes), and B's rows are read at the caller's padded stride ldb instead.
+// EDGE (N % 8 != 0, N even; kModeGemm, kModeConv or kModeAtb): C's rows are
+// N * 2 bytes, which TMA cannot address (a row stride must be a multiple of
+// 16 bytes), and B's rows are read at the caller's padded stride ldb instead.
+// kModeAtb's f32 output is stored from the registers in any case (8-byte
+// pairs masked at m < M and n < N, a pair never crossing a row as N is even)
+// and its split-K reduce is splitk_reduce_f32's, so there EDGE changes only
+// what the launch accepts, and the kernel is the non-EDGE one.
 // The epilogue computes the same values and writes each column pair from
 // the registers as one 4-byte bf16x2 store, masked at m < M and n < N; it
 // keeps no output tile in shared memory, so the ring takes its room. A
@@ -364,7 +373,8 @@ __global__ void __launch_bounds__(kThreads) gemm_f32(Prob p) {
 //
 // Operand modes (MODE):
 //   * kModeGemm, kModeConv: A K-major (each of the tile's M rows holds a
-//     chunk's 64 K values), as above; the bf16 epilogue.
+//     chunk's 64 K values; the GEMM's rows lda apart in memory), as above;
+//     the bf16 epilogue.
 //   * kModeAtb, kModeWgrad (atb.cu): out[tap][M][N] = sum_k A[k,m] B[k,n],
 //     f32, with A stored [K][M]. Its stage is laid out as B's is: BM/64
 //     boxes of 64 K rows by 64 M columns, 128-byte swizzle, and wgmma reads
@@ -1331,22 +1341,26 @@ static int launch_wgmma_tile(const Prob& p, const CUtensorMap& ta, const CUtenso
 // hold fewer, none is empty); ws: splits x taps x M x N f32 when splits > 1.
 // NARROW: the conv with its A built element by element, 64 x 64 or 64 x 128
 // tiles. EDGE: N % 8 != 0 and N even (the GEMM or the conv with A by 16
-// bytes), tiles of 64 or 128 rows and columns.
+// bytes, or kModeAtb), tiles of 64 or 128 rows and columns.
 template <int MODE, bool NARROW = false, bool EDGE = false>
 static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void* ws,
                         cudaStream_t s) {
   static_assert(!NARROW || MODE == kModeConv, "the narrow fill is the conv's");
-  static_assert(!EDGE || ((MODE == kModeGemm || MODE == kModeConv) && !NARROW),
-                "the edge store is the bf16 epilogue's");
+  static_assert(!EDGE || ((MODE == kModeGemm || MODE == kModeConv || MODE == kModeAtb) &&
+                          !NARROW),
+                "the edge store: the bf16 epilogue's, or kModeAtb's f32 pairs");
   constexpr bool F32OUT = MODE == kModeAtb || MODE == kModeWgrad;
-  // 16-byte rows for TMA and cp.async: A's (the GEMM's K, the conv's C, the
-  // f32 modes' M: A [K][M] and x's channels), B's in memory (ldb) and, but
-  // for EDGE, B's and C's N; the narrow fill reads x element by element, so
-  // x takes any C and any alignment
-  const int arow = MODE == kModeConv ? p.C : MODE == kModeGemm ? p.K : p.M;
+  // the kernel's EDGE: kModeAtb stores from the registers anyway
+  constexpr bool KEDGE = EDGE && !F32OUT;
+  // 16-byte rows for TMA and cp.async: A's (the GEMM's lda, the conv's C,
+  // the f32 modes' M: A [K][M] and x's channels), B's in memory (ldb) and,
+  // but for EDGE, B's and C's N; the narrow fill reads x element by element,
+  // so x takes any C and any alignment
+  const int arow = MODE == kModeConv ? p.C : MODE == kModeGemm ? p.lda : p.M;
   const bool n_ok = EDGE ? p.N % 8 != 0 && p.N % 2 == 0 : p.N % 8 == 0;
   const bool shape_ok = (NARROW || arow % 8 == 0) && n_ok && p.ldb % 8 == 0 &&
-                        p.ldb >= p.N && (!F32OUT || p.taps >= 1);
+                        p.ldb >= p.N && (MODE != kModeGemm || p.lda >= p.K) &&
+                        (!F32OUT || p.taps >= 1);
   const bool aligned = (NARROW || aligned16(p.a)) && aligned16(p.b) && aligned16(p.c) &&
                        (p.bias == nullptr || aligned16(p.bias)) &&
                        (p.res == nullptr || aligned16(p.res));
@@ -1356,7 +1370,7 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta = {}, tb = {}, tc = {};
   int rc = encode_map_ld(&tb, p.b, p.K, p.N, p.ldb, 64, kChunk);
-  if (rc == 0 && MODE == kModeGemm) rc = encode_map(&ta, p.a, p.M, p.K, kChunk, bm);
+  if (rc == 0 && MODE == kModeGemm) rc = encode_map_ld(&ta, p.a, p.M, p.K, p.lda, kChunk, bm);
   if (rc == 0 && MODE == kModeAtb) rc = encode_map(&ta, p.a, p.K, p.M, 64, kChunk);
   if (rc == 0 && !F32OUT && !EDGE && splits == 1) rc = encode_map(&tc, p.c, p.M, p.N, 64, 64);
   if (rc != 0) return rc;
@@ -1370,13 +1384,13 @@ static int launch_wgmma(const Prob& p, int bm, int bn, int splits, int per, void
       return (int)cudaErrorInvalidValue;
   } else if (EDGE) {
     if (bm == 128 && bn == 64)
-      rc = launch_wgmma_tile<MODE, 2, 64, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+      rc = launch_wgmma_tile<MODE, 2, 64, false, KEDGE>(p, ta, tb, tc, part, splits, per, s);
     else if (bm == 128 && bn == 128)
-      rc = launch_wgmma_tile<MODE, 2, 128, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+      rc = launch_wgmma_tile<MODE, 2, 128, false, KEDGE>(p, ta, tb, tc, part, splits, per, s);
     else if (bm == 64 && bn == 64)
-      rc = launch_wgmma_tile<MODE, 1, 64, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+      rc = launch_wgmma_tile<MODE, 1, 64, false, KEDGE>(p, ta, tb, tc, part, splits, per, s);
     else if (bm == 64 && bn == 128)
-      rc = launch_wgmma_tile<MODE, 1, 128, false, EDGE>(p, ta, tb, tc, part, splits, per, s);
+      rc = launch_wgmma_tile<MODE, 1, 128, false, KEDGE>(p, ta, tb, tc, part, splits, per, s);
     else
       return (int)cudaErrorInvalidValue;
   } else if (bm == 128 && bn == 64)
@@ -1413,13 +1427,14 @@ enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2, kPathWgmmaNarrow = 3, kP
 template <bool CONV>
 static int launch_gemm(const Prob& p, int dtype, int path, int bm, int bn, int splits,
                        void* ws, cudaStream_t s) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.ldb < p.N) return (int)cudaErrorInvalidValue;
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.ldb < p.N || (!CONV && p.lda < p.K))
+    return (int)cudaErrorInvalidValue;
   if (path == kPathFma && dtype == 0) {
     dim3 grid((p.M + kFM - 1) / kFM, (p.N + kFN - 1) / kFN);
     gemm_f32<CONV><<<grid, kThreads, 0, s>>>(p);
   } else if (path == kPathMma && dtype == 1) {
     dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN);
-    bool va = (CONV ? p.C % 8 == 0 : p.K % 8 == 0) && aligned16(p.a);
+    bool va = (CONV ? p.C % 8 == 0 : p.K % 8 == 0 && p.lda % 8 == 0) && aligned16(p.a);
     bool vb = p.N % 8 == 0 && p.ldb % 8 == 0 && aligned16(p.b);
     if (va && vb)
       gemm_bf16<CONV, true, true><<<grid, kThreads, 0, s>>>(p);

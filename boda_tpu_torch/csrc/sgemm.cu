@@ -20,15 +20,19 @@
 // picks the tile (64 or 128 rows, 64/128/256 columns) and splits K where the
 // tiles alone would leave SMs idle. An even N % 8 != 0 (fc1000's (tp=2) slice,
 // N = 500) takes wgmma_edge: B read by TMA at a row stride padded to 16 bytes,
-// the output stored from the accumulators, masked at the N edge.
+// the output stored from the accumulators, masked at the N edge. A K % 8 != 0
+// (fc1000's (tp=2) dgrad, K = 500) takes wgmma when A's rows are padded the
+// same way (lda, as the training step's fc writes dY): TMA reads the columns
+// past K as zeros.
 #include "gemm.cuh"
 
 // path, bm, bn, splits: the plan (gemm.cuh launch_gemm); ws: splits x M x N
-// f32 when splits > 1; ldb: b's row stride in elements (N when dense; a
-// multiple of 8 on the wgmma paths, the wrapper's padded rows where N % 8 != 0).
+// f32 when splits > 1; lda, ldb: a's and b's row strides in elements (K and N
+// when dense; multiples of 8 on the wgmma paths: padded rows where K % 8 != 0
+// or N % 8 != 0).
 extern "C" int boda_gemm(const void* a, const void* b, const void* bias, const void* res,
                          void* c, void* ws, int M, int N, int K, int relu, int dtype, int path,
-                         int bm, int bn, int splits, int ldb, void* stream) {
+                         int bm, int bn, int splits, int lda, int ldb, void* stream) {
   boda::Prob p = {};
   p.a = a;
   p.b = b;
@@ -39,6 +43,7 @@ extern "C" int boda_gemm(const void* a, const void* b, const void* bias, const v
   p.N = N;
   p.K = K;
   p.relu = relu;
+  p.lda = lda;
   p.ldb = ldb;
   return boda::launch_gemm<false>(p, dtype, path, bm, bn, splits, ws, (cudaStream_t)stream);
 }

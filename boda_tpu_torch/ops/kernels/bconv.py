@@ -5,8 +5,10 @@ Counterparts of ``boda_tpu/ops/kernels/bconv.py``, stride 1, groups 1:
   * :func:`matmul_atb` — ``pallas_matmul_atb`` (K5): a[K,M]^T . b[K,N] -> [M,N]
     f32, contracting the leading axis without materialising a^T. The CUDA
     kernel is ``csrc/atb.cu``: for bf16 with 16-byte rows the GEMM core's
-    wgmma path (``csrc/gemm.cuh``, A stored M-major), else a WMMA or an FMA
-    loop; split-K, a deterministic second pass sums the splits.
+    wgmma path (``csrc/gemm.cuh``, A stored M-major), for an even N % 8 != 0
+    on b's rows padded to 16 bytes (:func:`~.common.copy_rows`'s view, as the
+    training step's fc writes dY) its ``wgmma_edge`` route, else a WMMA or an
+    FMA loop; split-K, a deterministic second pass sums the splits.
   * :func:`conv2d_bck_filts` — ``pallas_conv2d_bck_filts``: the weight
     gradient dW (KH,KW,C,OC) f32. boda_tpu runs one K5 per filter tap on a
     copied tap slice of the padded input; here one launch of the same kernel
@@ -31,9 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .common import (PATH_CODES, WGMMA_CHUNK, aligned16, cdiv, check_operand, kernel_dtype,
-                     kernel_entry, plan_cost, sm_count)
-from .conv import conv2d_nhwc
+from .common import (PATH_CODES, WGMMA_CHUNK, aligned16, cdiv, check_operand, check_rows,
+                     kernel_dtype, kernel_entry, plan_cost, sm_count)
+from .conv import conv2d, conv2d_nhwc
 
 # split-K plan of the WMMA and FMA paths: about this many blocks per SM
 # across the grid, and no split shorter than this many K tiles (each split
@@ -48,7 +50,7 @@ _MAX_SPLIT = 256
 
 
 class AtbPlan(NamedTuple):
-    path: str   # "wgmma" | "mma" | "fma"
+    path: str   # "wgmma" | "wgmma_edge" | "mma" | "fma"
     bm: int     # output tile rows
     bn: int     # output tile columns
     split: int  # K splits (1: none)
@@ -72,11 +74,11 @@ def atb_plan(M: int, N: int, K: int, taps: int, dtype, sms: int) -> tuple[int, i
 
 @functools.lru_cache(maxsize=4096)  # a pure function, called once per launch
 def plan_atb(M: int, N: int, K: int, taps: int, sms: int, dtype, aligned: bool = True,
-             gather: bool = False) -> AtbPlan:
+             gather: bool = False, ldb: int | None = None) -> AtbPlan:
     """The plan of one K5 launch, out[taps][M][N] = sum over K; ``gather``:
     A is gathered from the NHWC input (the weight gradient), ``aligned``:
-    both operands start on a 16-byte boundary. Chosen by shape, before the
-    launch:
+    both operands start on a 16-byte boundary, ``ldb``: B's row stride in
+    elements (None: N, a dense B). Chosen by shape, before the launch:
 
     * bf16 with M % 8 == 0 and N % 8 == 0, aligned -> the GEMM core's wgmma
       path. Its tile (64 or 128 rows; 64, 128 or 256 columns, no wider than
@@ -86,11 +88,18 @@ def plan_atb(M: int, N: int, K: int, taps: int, sms: int, dtype, aligned: bool =
       forward (with the taps and the f32 output), ranks first among the
       plans whose work items give at least 2/3 of the SMs one each (or,
       where none does, among those with the most items): plan_gemm's rule.
-    * other bf16 -> the WMMA loop (128x128), f32 -> FMA (64x64), split by
-      :func:`atb_plan`."""
+    * the dense form in bf16 with M % 8 == 0, N % 8 != 0 and N even on B
+      rows padded to 16 bytes (ldb % 8 == 0: fc1000's (tp=2) wgrad, N = 500
+      at ldb = 504), aligned -> ``wgmma_edge``: the same ring, the f32
+      output stored in pairs masked at the N edge; tiles of 64 or 128 rows
+      and columns, ranked as above.
+    * other bf16 (M % 8 != 0, odd N, a dense B with N % 8 != 0, the gather
+      with N % 8 != 0) -> the WMMA loop (128x128), f32 -> FMA (64x64), split
+      by :func:`atb_plan`."""
     if dtype not in _TILES:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
-    if not (dtype == torch.bfloat16 and M % 8 == 0 and N % 8 == 0 and aligned):
+    edge = N % 8 != 0 and N % 2 == 0 and (N if ldb is None else ldb) % 8 == 0 and not gather
+    if not (dtype == torch.bfloat16 and M % 8 == 0 and (N % 8 == 0 or edge) and aligned):
         bm, bn, _ = _TILES[dtype]
         splits, chunk = atb_plan(M, N, K, taps, dtype, sms)
         return AtbPlan("fma" if dtype == torch.float32 else "mma", bm, bn, splits, chunk,
@@ -98,7 +107,7 @@ def plan_atb(M: int, N: int, K: int, taps: int, sms: int, dtype, aligned: bool =
     chunks = cdiv(K, WGMMA_CHUNK)
     cands = []
     for bm in (128, 64):
-        for bn in (256, 128, 64):
+        for bn in (128, 64) if edge else (256, 128, 64):
             if bn > max(64, cdiv(N, 64) * 64):
                 continue
             splits = {cdiv(chunks, cdiv(chunks, s)) for s in range(1, min(_MAX_SPLIT, chunks) + 1)}
@@ -109,7 +118,8 @@ def plan_atb(M: int, N: int, K: int, taps: int, sms: int, dtype, aligned: bool =
                 cands.append((min(items, -(-2 * sms // 3)), -cost, bm, bn, split, per, items))
     busy = max(c[0] for c in cands)
     _, _, bm, bn, split, per, items = max(c for c in cands if c[0] == busy)
-    return AtbPlan("wgmma", bm, bn, split, per * WGMMA_CHUNK, min(items, sms))
+    return AtbPlan("wgmma_edge" if edge else "wgmma", bm, bn, split, per * WGMMA_CHUNK,
+                   min(items, sms))
 
 
 def atb_workspace(plan: AtbPlan, taps: int, M: int, N: int, dev) -> torch.Tensor | None:
@@ -120,12 +130,14 @@ def atb_workspace(plan: AtbPlan, taps: int, M: int, N: int, dev) -> torch.Tensor
     return torch.empty((plan.split * taps * M * N,), dtype=torch.float32, device=dev)
 
 
-def _launch_atb(a, b, M: int, N: int, K: int, geom=None) -> torch.Tensor:
+def _launch_atb(a, b, M: int, N: int, K: int, geom=None, ldb: int | None = None
+                ) -> torch.Tensor:
     """One launch of csrc/atb.cu: dense (geom None) -> (M,N), or the wgrad
-    gather (geom = (H, W, OH, OW, KH, KW, py, px)) -> (KH,KW,M,N); f32."""
+    gather (geom = (H, W, OH, OW, KH, KW, py, px)) -> (KH,KW,M,N); f32.
+    ``ldb``: b's row stride (None: N)."""
     taps = 1 if geom is None else geom[4] * geom[5]
     plan = plan_atb(M, N, K, taps, sm_count(a.device), a.dtype, aligned16(a, b),
-                    geom is not None)
+                    geom is not None, ldb)
     out_shape = (M, N) if geom is None else (geom[4], geom[5], M, N)
     out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
     ws = atb_workspace(plan, taps, M, N, a.device)
@@ -136,7 +148,7 @@ def _launch_atb(a, b, M: int, N: int, K: int, geom=None) -> torch.Tensor:
                              None if ws is None else ws.data_ptr(), M, N, K,
                              plan.split, plan.chunk, int(geom is not None), *g,
                              kernel_dtype(a), PATH_CODES[plan.path], plan.bm, plan.bn,
-                             build.stream_ptr(a))
+                             N if ldb is None else ldb, build.stream_ptr(a))
     if rc:
         build.check(rc, f"boda_atb {plan}")
     matmul_atb.launches += 1
@@ -153,7 +165,8 @@ def matmul_atb_plain(a, b, out_dtype=torch.float32):
 @kernel_entry("K5", lambda: matmul_atb.last_plan)
 def matmul_atb(a, b, out_dtype=torch.float32):
     """a[K,M]^T @ b[K,N] -> [M,N], f32 accumulate (then ``out_dtype``);
-    a and b float32 or bfloat16, row-major."""
+    a and b float32 or bfloat16, row-major; b's rows may lie further apart
+    than N (:func:`~.common.check_rows`)."""
     if a.device.type == "cpu":
         return matmul_atb_plain(a, b, out_dtype)
     if a.device.type != "cuda":
@@ -164,8 +177,8 @@ def matmul_atb(a, b, out_dtype=torch.float32):
     N = b.shape[1]
     kernel_dtype(a)
     check_operand("a", a, a.device, a.dtype, (K, M))
-    check_operand("b", b, a.device, a.dtype, (K, N))
-    out = _launch_atb(a, b, M, N, K)
+    ldb = check_rows("b", b, a.device, a.dtype, (K, N))
+    out = _launch_atb(a, b, M, N, K, ldb=ldb)
     return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 

@@ -33,9 +33,9 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer)
 _SIGS = {
-    "boda_gemm": [_P] * 6 + [_I] * 10 + [_P],
+    "boda_gemm": [_P] * 6 + [_I] * 11 + [_P],
     "boda_conv2d": [_P] * 6 + [_I] * 20 + [_P],
-    "boda_atb": [_P, _P, _P, _P] + [_I] * 18 + [_P],
+    "boda_atb": [_P, _P, _P, _P] + [_I] * 19 + [_P],
     "boda_pool2d": [_P, _P] + [_I] * 17 + [_P],
     "boda_bottleneck": [_P] * 8 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int), _P],
     "boda_bottleneck_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],

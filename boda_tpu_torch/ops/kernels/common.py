@@ -105,11 +105,12 @@ def check_operand(name: str, t: torch.Tensor, dev, dtype, shape) -> None:
 
 
 def check_rows(name: str, t: torch.Tensor, dev, dtype, shape) -> int:
-    """:func:`check_operand` for the GEMM core's B (the GEMM's [K,N], the
-    conv's HWIO filters as KH*KW*C rows of OC): its rows of N elements may
-    lie further apart than N, as in :func:`pad_rows`'s views, so long as
-    every other dimension is dense over them. Returns the row stride ``ldb``
-    in elements (N for a contiguous B)."""
+    """:func:`check_operand` for an operand read as rows (the GEMM core's B:
+    the GEMM's [K,N], the conv's HWIO filters as KH*KW*C rows of OC; the
+    GEMM's A [M,K]; K5's B [K,N]): its rows of N elements may lie further
+    apart than N, as in :func:`pad_rows`'s and :func:`copy_rows`' views, so
+    long as every other dimension is dense over them. Returns the row stride
+    (``ldb``, ``lda``) in elements (N for a contiguous operand)."""
     _check_kind(name, t, dev, dtype, shape)
     if t.is_contiguous():
         return shape[-1]
@@ -134,6 +135,22 @@ def pad_rows(t: torch.Tensor) -> torch.Tensor:
     if not pad:
         return t.contiguous()
     return torch.nn.functional.pad(t, (0, pad))[..., :t.shape[-1]]
+
+
+def copy_rows(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t in ``dtype``, written once (one copy, as ``t.to(dtype).contiguous()``
+    makes) into rows of a multiple of 8 elements where its last dimension is
+    off 8, as the ``[..., :N]`` view: the layout in which the GEMM core's
+    wgmma paths read a GEMM's A with K % 8 != 0, and K5's wgmma_edge its B,
+    by TMA. The padding is not written: no kernel reads it (TMA reads the
+    columns past the view as zeros, the other paths mask them)."""
+    n = t.shape[-1]
+    if n % 8 == 0:
+        return t.to(dtype).contiguous()
+    out = torch.empty(t.shape[:-1] + (cdiv(n, 8) * 8,), dtype=dtype, device=t.device)
+    out = out[..., :n]
+    out.copy_(t)
+    return out
 
 
 def kernel_dtype(t: torch.Tensor) -> int:
@@ -230,18 +247,22 @@ def plan_cost(M: int, N: int, K: int, sms: int, bm: int, bn: int, split: int,
 
 @functools.lru_cache(maxsize=4096)  # a pure function, called once per launch
 def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None,
-              aligned: bool = True) -> GemmPlan:
+              aligned: bool = True, lda: int | None = None) -> GemmPlan:
     """The plan of one C[M,N] = A[M,K] . B[K,N] launch; ``conv_c`` is the
     conv's input channel count (A gathered from NHWC), None for the GEMM.
     ``aligned``: every operand that the wgmma paths read or write 16 bytes
     at a time starts on a 16-byte boundary (for a conv with C % 8 != 0 that
-    is all but x, which its fill reads element by element). A pure function
+    is all but x, which its fill reads element by element). ``lda``: the
+    GEMM's A row stride in elements (None: K, a dense A). A pure function
     of its arguments.
 
     * f32 -> the FMA path, 64x64 tiles.
-    * bf16 with odd N, K % 8 != 0 for the GEMM, a conv with both C % 8 != 0
-      and N % 8 != 0, or a misaligned operand -> the mma.sync loop, 128x128
-      tiles.
+    * bf16 with odd N, a GEMM whose A rows are off 16 bytes (lda % 8 != 0:
+      a dense A with K % 8 != 0), a conv with both C % 8 != 0 and N % 8 !=
+      0, or a misaligned operand -> the mma.sync loop, 128x128 tiles. A
+      GEMM with K % 8 != 0 on rows padded to 16 bytes (fc1000's (tp=2)
+      dgrad, K = 500 at lda = 504) takes the wgmma rows below, TMA reading
+      the columns past K as zeros.
     * a bf16 conv with C % 8 != 0 (every C = 3 stem) -> ``wgmma_narrow``:
       the wgmma ring with A built element by element, 64-row tiles of 64 or
       128 columns.
@@ -263,7 +284,8 @@ def plan_gemm(M: int, N: int, K: int, sms: int, dtype, conv_c: int | None = None
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
     narrow = conv_c is not None and conv_c % 8 != 0
     edge = N % 8 != 0
-    if N % 2 or (conv_c is None and K % 8) or (narrow and edge) or not aligned:
+    if N % 2 or (conv_c is None and (K if lda is None else lda) % 8) or (narrow and edge) \
+            or not aligned:
         return GemmPlan("mma", 128, 128, 1, cdiv(M, 128) * cdiv(N, 128))
     chunks = cdiv(K, WGMMA_CHUNK)
     cands = []

@@ -5,10 +5,13 @@ kernel is ``csrc/sgemm.cu`` on the shared core ``csrc/gemm.cuh``: bf16 on
 wgmma with a TMA ring, a tile plan per shape and split-K
 (:func:`~.common.plan_gemm`), on ``wgmma_edge`` for an even N % 8 != 0
 (B's rows padded to 16 bytes, the output stored from the accumulators), or on
-the mma.sync loop for the shapes TMA cannot take; f32 on FMA. Ragged edges
-are masked in the kernel; only a dense B with N % 8 != 0 on ``wgmma_edge`` is
-copied, once per call, into padded rows (``matmul.pad_copies``), which a
-caller avoids by passing :func:`~.common.pad_rows`'s view. :func:`matmul`
+the mma.sync loop for the shapes TMA cannot take; f32 on FMA. A with K % 8 !=
+0 takes wgmma when its rows are padded to 16 bytes (:func:`~.common.copy_rows`'s
+view, as the training step's fc writes dY), the mma.sync loop when dense.
+Ragged edges are masked in the kernel; only a dense B with N % 8 != 0 on
+``wgmma_edge`` is copied, once per call, into padded rows
+(``matmul.pad_copies``), which a caller avoids by passing
+:func:`~.common.pad_rows`'s view. :func:`matmul`
 launches it for CUDA tensors and runs :func:`matmul_plain` for CPU tensors;
 there is no other fallback.
 :func:`matmul_splitk_plain` sums K splits as the split kernel does.
@@ -53,8 +56,8 @@ def matmul_splitk_plain(a, b, bias=None, *, relu: bool = False, residual=None,
 @kernel_entry("K1", lambda: matmul.last_plan)
 def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
     """a[M,K] @ b[K,N] (+bias[N]) (+residual[M,N]) (+ReLU), f32 accumulate,
-    output in a's dtype (float32 or bfloat16). Row-major operands; b's rows
-    may lie further apart than N (:func:`~.common.check_rows`)."""
+    output in a's dtype (float32 or bfloat16). Row-major operands; a's and
+    b's rows may lie further apart than K and N (:func:`~.common.check_rows`)."""
     if a.device.type == "cpu":
         return matmul_plain(a, b, bias, relu=relu, residual=residual)
     if a.device.type != "cuda":
@@ -64,14 +67,14 @@ def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
     M, K = a.shape
     N = b.shape[1]
     dt = kernel_dtype(a)
-    check_operand("a", a, a.device, a.dtype, (M, K))
+    lda = check_rows("a", a, a.device, a.dtype, (M, K))
     ldb = check_rows("b", b, a.device, a.dtype, (K, N))
     if bias is not None:
         check_operand("bias", bias, a.device, a.dtype, (N,))
     if residual is not None:
         check_operand("residual", residual, a.device, a.dtype, (M, N))
     plan = plan_gemm(M, N, K, sm_count(a.device), a.dtype,
-                     aligned=aligned16(a, b, bias, residual))
+                     aligned=aligned16(a, b, bias, residual), lda=lda)
     if plan.path in WGMMA_PATHS and ldb % 8:  # TMA reads B's rows 16 bytes apart
         b = pad_rows(b)
         ldb = b.stride(0)
@@ -82,12 +85,13 @@ def matmul(a, b, bias=None, *, relu: bool = False, residual=None):
     with torch.cuda.device(a.device):
         rc = kb.lib.boda_gemm(a.data_ptr(), b.data_ptr(), ptr(bias), ptr(residual),
                               out.data_ptr(), ptr(ws), M, N, K, int(relu), dt,
-                              PATH_CODES[plan.path], plan.bm, plan.bn, plan.split, ldb,
-                              build.stream_ptr(a))
+                              PATH_CODES[plan.path], plan.bm, plan.bn, plan.split, lda,
+                              ldb, build.stream_ptr(a))
     if rc:
         build.check(rc, f"boda_gemm {plan}")
     matmul.launches += 1
     matmul.paths[plan.path] += 1
+    matmul.padded_a += lda != K
     matmul.last_plan = plan
     return out
 
@@ -98,6 +102,7 @@ matmul.launches = 0
 matmul.paths = dict.fromkeys(PATH_CODES, 0)
 matmul.last_plan = None  # the plan of the latest launch
 matmul.pad_copies = 0  # launches on a padded copy of a dense b (N % 8 != 0 on wgmma_edge)
+matmul.padded_a = 0  # launches with a's rows further apart than K (lda != K)
 
 
 # -- standalone rtc-layer sgemm op ----------------------------------------------------

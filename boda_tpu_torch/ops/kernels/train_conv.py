@@ -21,7 +21,10 @@ passes go through the ported kernels:
     info log;
   - bias: a plain f32 sum.
   Every gradient is rounded to its operand's dtype, as ``jax.grad`` returns
-  it.
+  it. An fc's dY is written once into rows padded to 16 bytes where its
+  width is off 8 (:func:`~.common.copy_rows`: fc1000's (tp=2) slices, 500
+  wide, at a row stride of 504), so that its dgrad (A with K = 500) and its
+  wgrad (B with N = 500) both read it by TMA on the wgmma ring.
 
 Each kernel wrapper runs its plain version on CPU tensors, so on the CPU the
 Functions compute with the plain versions; on the card they launch the
@@ -33,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from .bconv import conv2d_bck_filts, conv2d_bck_in, matmul_atb
+from .common import copy_rows
 from .conv import conv2d_halo
 from .sgemm import matmul
 
@@ -126,7 +130,7 @@ class GenFc(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype).contiguous()
+        dy = copy_rows(dy, x.dtype)
         need_x, need_w, need_b = ctx.needs_input_grad
         dx = matmul(dy, w.t().contiguous()) if need_x else None
         dw = matmul_atb(x, dy).to(w.dtype) if need_w else None

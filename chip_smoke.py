@@ -172,13 +172,16 @@ dgrads and all 46 wgrads must take the wgmma path, the gen forward's C = 3
 stem alone wgmma_narrow (the ring with A built element by element),
 ssd300's six mbox_conf heads (N = 84 and 126) wgmma_edge (the ring with
 B's rows padded to 16 bytes and the output stored from the accumulators),
-and no main-path forward the mma.sync loop. [narrow]
+and no main-path forward the mma.sync loop; nor any hand-kernel call of a
+training step: the (tp=2) step's fc1000 dgrads read dY's padded rows on
+wgmma and its wgrads on K5's wgmma_edge. [narrow]
 holds K2's narrow route at every conv with C % 8 != 0 and N % 8 == 0 that
 a path launches (NARROW_SHAPES) against its plain version, its device
 time beside the mma.sync loop's, cuDNN's and the bound; [edge] holds the
 edge route at each product with an even N % 8 != 0 that a path launches
-(EDGE_SHAPES: the six heads on K2, fc1000's (tp=2) slice on K1) the same
-way, the loop forced by an explicit plan; K6 counts its
+(EDGE_SHAPES: the six heads on K2; EDGE_GEMMS: fc1000's (tp=2) slice on
+K1, and its dgrad on K1's wgmma and wgrad on K5's wgmma_edge, both on dY's
+padded rows) the same way, the loop forced by an explicit plan; K6 counts its
 routes (bottleneck.paths), and all 12 bottlenecks of the fused b32 forward
 must take its wgmma route; K8 counts its routes (pool2d.paths): the fused
 b32 forward's pool1 must take rows, its pool5 window. fc1000's weights are scaled in every ResNet-50
@@ -283,15 +286,20 @@ NARROW_SHAPES = {(BATCH, 224, 3, 64, 7, 2, 3): "resnet50 and googlenet conv1, th
 NARROW_MAIN = (BATCH, 224, 3, 64, 7, 2, 3)  # the main path's (the gen forward's stem)
 # the GEMM core's edge route (wgmma_edge): every product with an even N % 8
 # != 0 that a path launches; K2's, (n, h, c, oc, k, s, p) -> where (ssd300's
-# mbox_conf heads at SSD_BATCH, the main path [ssd] drives), and K1's, (M,
-# K, N) -> where
+# mbox_conf heads at SSD_BATCH, the main path [ssd] drives), and the (tp=2)
+# step's fc1000 products on 16-byte rows, (kernel, sig) -> where: K1's
+# forward (sgemm, (M, K, N), B's rows padded) and dgrad (A = dY's rows
+# padded: K = 500 at lda 504, the wgmma route), K5's wgrad (atb, (K, M, N)
+# as train_calls writes it: B = dY's rows padded, wgmma_edge)
 EDGE_SHAPES = {(4, 38, 512, 84, 3, 1, 1): "ssd300 conv4_3_norm_mbox_conf b4",
                (4, 19, 1024, 126, 3, 1, 1): "ssd300 fc7_mbox_conf b4",
                (4, 10, 512, 126, 3, 1, 1): "ssd300 conv6_2_mbox_conf b4",
                (4, 5, 256, 126, 3, 1, 1): "ssd300 conv7_2_mbox_conf b4",
                (4, 3, 256, 84, 3, 1, 1): "ssd300 conv8_2_mbox_conf b4",
                (4, 1, 256, 84, 3, 1, 1): "ssd300 conv9_2_mbox_conf b4"}
-EDGE_GEMMS = {(BATCH, 2048, 500): "resnet50 fc1000's (tp=2) slice b32, forward"}
+EDGE_GEMMS = {("sgemm", (BATCH, 2048, 500)): "resnet50 fc1000's (tp=2) slice b32, forward",
+              ("sgemm", (BATCH, 500, 2048)): "resnet50 fc1000's (tp=2) slice b32, dgrad",
+              ("atb", (BATCH, 2048, 500)): "resnet50 fc1000's (tp=2) slice b32, wgrad"}
 NAN_CASES = ("sgemm wgmma", "sgemm wgmma split-K", "sgemm wgmma_edge", "sgemm mma",
              "sgemm fma", "conv wgmma", "conv_nhwc wgmma split-K", "conv wgmma_narrow",
              "conv wgmma_edge", "conv mma", "conv fma",
@@ -508,15 +516,17 @@ def pool_plan_str(plan) -> str:
             else "-")
 
 
-def core_path(c: int, n: int, conv: bool = True) -> str:
+def core_path(c: int, n: int, conv: bool = True, lda: int | None = None) -> str:
     """The GEMM core's bf16 path by shape on aligned operands (the rule of
     ops/kernels/common.py:plan_gemm, stated here on its own): the mma.sync
-    loop where N is odd, the GEMM's K % 8 != 0, or a conv has both C % 8 !=
-    0 and N % 8 != 0; the narrow fill where a conv's input channels C % 8 !=
-    0; the edge store where N % 8 != 0; else wgmma. ``c``: the conv's C, or
-    the GEMM's K."""
+    loop where N is odd, the GEMM's A rows are off 16 bytes (lda % 8 != 0:
+    a dense A with K % 8 != 0; a K % 8 != 0 on rows padded to a multiple of
+    8 elements reads by TMA), or a conv has both C % 8 != 0 and N % 8 != 0;
+    the narrow fill where a conv's input channels C % 8 != 0; the edge store
+    where N % 8 != 0; else wgmma. ``c``: the conv's C, or the GEMM's K;
+    ``lda``: the GEMM's A row stride (None: K)."""
     narrow, edge = conv and c % 8 != 0, n % 8 != 0
-    if n % 2 or (not conv and c % 8) or (narrow and edge):
+    if n % 2 or (not conv and (c if lda is None else lda) % 8) or (narrow and edge):
         return "mma"
     return "wgmma_narrow" if narrow else "wgmma_edge" if edge else "wgmma"
 
@@ -860,6 +870,8 @@ def zero_counts(counted: dict) -> None:
         f.launches = 0
         if hasattr(f, "paths"):
             f.paths = dict.fromkeys(f.paths, 0)
+        if hasattr(f, "padded_a"):
+            f.padded_a = 0
 
 
 def read_counts(counted: dict) -> dict:
@@ -1267,7 +1279,7 @@ def grad_call_case(kname: str, args: list, kw: dict):
     if kname == "sgemm":
         a, b = args[0], args[1]
         shape = f"M={a.shape[0]} K={a.shape[1]} N={b.shape[1]}"
-        path = core_path(a.shape[1], b.shape[1], conv=False)
+        path = core_path(a.shape[1], b.shape[1], conv=False, lda=a.stride(0))
         bound = max(work("sgemm", (a.shape[0], a.shape[1], b.shape[1],
                                    kw.get("residual") is not None, False)))
         lib_fn = (lambda a=a, b=b: a @ b)
@@ -2211,15 +2223,22 @@ def conv_taps(record: dict | None = None, force: dict | None = None):
         ptrain._lower_train = orig
 
 
-def call_path(kname: str, sig) -> str:
-    """The GEMM core's path for a call of ``train_calls`` on aligned bf16
-    operands (``core_path``); K5 (``atb``): mma.sync where a row of M or N
-    is off 8 elements, else wgmma."""
+def call_path(kname: str, sig, what: str = "") -> str:
+    """The GEMM core's path for a call ``what`` of ``train_calls`` on aligned
+    bf16 operands (``core_path``); K5 (``atb``): mma.sync where M is off 8
+    elements, N is odd or off 8 on dense rows, else wgmma, or wgmma_edge for
+    an even N % 8 != 0 on padded rows. An fc writes dY into rows padded to a
+    multiple of 8 elements (ops/kernels/train_conv.py:GenFc), which its
+    dgrad reads as A (K = the fc's width) and its wgrad as B (N = it)."""
+    padded = what.startswith("fc ")
     if kname == "sgemm":
-        return core_path(sig[1], sig[2], conv=False)
+        k = sig[1]
+        return core_path(k, sig[2], conv=False, lda=-(-k // 8) * 8 if padded else None)
     if kname == "atb":
         k, n = sig[1:3] if len(sig) == 3 else sig[2:4]
-        return "mma" if k % 8 or n % 8 else "wgmma"
+        if k % 8 or n % 2 or (n % 8 and not padded):
+            return "mma"
+        return "wgmma_edge" if n % 8 else "wgmma"
     c, oc = sig[2:4]  # conv (n, h, c, oc, ...); conv_nhwc, the dgrad: dy's oc into c
     return core_path(c, oc) if kname == "conv" else core_path(oc, c)
 
@@ -2232,6 +2251,7 @@ def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
     its device time in a CUDA graph beside the library's and its bound; one
     ``[tag]`` line per call. Returns the rows and the kernel us per step by the counts."""
     from boda_tpu_torch.ops.kernels.bconv import matmul_atb
+    from boda_tpu_torch.ops.kernels.common import copy_rows
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.rtc.backends import graph_time
     dev = torch.device("cuda")
@@ -2241,8 +2261,10 @@ def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    def dgrad_gemm(m, k, n):  # dy (m, oc) @ W^T (oc, c), no bias
+    def dgrad_gemm(m, k, n, padded):  # dy (m, oc) @ W^T (oc, c), no bias; an fc's dy
+        # in its padded rows (GenFc)
         a, b = rnd((m, k)), rnd((n, k), k ** -0.5).t().contiguous()
+        a = copy_rows(a, bf) if padded else a
         return matmul(a, b), matmul_plain(a, b), (
             lambda: matmul(a, b), lambda: matmul_plain(a, b), lambda: a @ b)
     rows, misses, worst = [], [], {}
@@ -2250,15 +2272,15 @@ def train_call_checks(tag: str, what_step: str, calls: dict, counted: dict,
         f = {"sgemm": matmul, "atb": matmul_atb}.get(kname, counted.get(kname))
         fwrap = counted["conv"] if kname in ("conv", "conv_nhwc") else f
         before = dict(fwrap.paths)
-        want_path = call_path(kname, sig)
+        want_path = call_path(kname, sig, what)
         if kname == "sgemm":
             m, k, n = sig
-            case = dgrad_gemm(m, k, n) if "dgrad" in what else cases["gemm"](m, k, n, False,
-                                                                             False, bf)
+            case = dgrad_gemm(m, k, n, what.startswith("fc ")) if "dgrad" in what else \
+                cases["gemm"](m, k, n, False, False, bf)
             bound = max(work("sgemm", (m, k, n, False, False)))
         elif kname == "atb":
-            if len(sig) == 3:  # dense: (rows, C, OC)
-                case = cases["atb"](*sig, bf)
+            if len(sig) == 3:  # dense: (rows, C, OC); an fc's dy in its padded rows
+                case = cases["atb"](*sig, bf, padded=what.startswith("fc "))
                 bound = max(work("atb_dense", sig))
             else:
                 case = cases["wgrad"](*sig, bf)
@@ -3867,7 +3889,9 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     step's within TRAIN_TOL of the no-mesh step's; each run's K1/K2/K3/K5
     launches and paths in its second step exact by ``train_calls`` (every
     conv and fc1000 per slice at out_chan / 2: fc1000's forward at N = 500
-    on wgmma_edge, its dgrad at K = 500 on the mma.sync loop);
+    on wgmma_edge, its dgrad at K = 500 on wgmma and its wgrad at N = 500 on
+    wgmma_edge, both reading dY from rows padded to 504: none on mma.sync;
+    the K1 launches on A's padded rows counted by matmul.padded_a);
     each distinct call of the tp step against its plain version
     (``train_call_checks``); ms per step of both. The compiled (tp=2) step
     (``captured_step_checks``): replays bit-equal to the eager (tp=2) steps on two
@@ -3892,7 +3916,8 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
 
     def steps(p, w0, x, labels, m, n, counts=False):
         """n steps from w0 on the fixed batch: losses, ms per step, and the
-        second step's launches and paths (the first builds the plans)."""
+        second step's launches and paths (the first builds the plans), and
+        its K1 launches on A's padded rows (``matmul.padded_a``)."""
         step = make_train_step(p, "fc1000", mesh=m, **kw)
         w = w0 if m is None else shard_weights(w0, p, m)
         mom, losses, ms, seen = None, [], [], {}
@@ -3907,7 +3932,8 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
             if counts and i == 1:
                 seen = {"launches": read_counts(counted),
                         "paths": {k: {q: v for q, v in counted[k].paths.items() if v}
-                                  for k in ("sgemm", "conv", "atb")}}
+                                  for k in ("sgemm", "conv", "atb")},
+                        "k1_padded_a": counted["sgemm"].padded_a}
         return losses, ms, seen, step, w, mom
 
     # -- ResNet-50 b32 bf16 gen: (tp=2) against no mesh ---------------------------------
@@ -3921,10 +3947,10 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
     for tag, m, tp in (("none", None, 1), ("tp2", mesh, 2)):
         calls = train_calls(pipe, tp)
         want_paths: dict = {}
-        for (kname, _, sig), cnt in calls.items():
+        for (kname, what, sig), cnt in calls.items():
             wk = {"conv_nhwc": "conv"}.get(kname, kname)
             q = want_paths.setdefault(wk, {})
-            q[call_path(kname, sig)] = q.get(call_path(kname, sig), 0) + cnt
+            q[call_path(kname, sig, what)] = q.get(call_path(kname, sig, what), 0) + cnt
         losses, ms, seen, step, _, _ = steps(pipe, w0, x, labels, m, TP_STEPS, counts=True)
         want = train_launches(calls)
         got = seen["launches"]
@@ -3940,8 +3966,15 @@ def tp_train_phase(card: str, pipe, fc_scale: float, counted: dict, cases: dict)
         check(seen["paths"] == want_paths,
               f"tp-train {tag}: paths {seen['paths']}, expected {want_paths}")
         check(all(np.isfinite(losses)), f"tp-train {tag}: losses {losses}")
+        padded = sum(cnt for (kname, what, sig), cnt in calls.items()
+                     if kname == "sgemm" and what.startswith("fc ") and sig[1] % 8)
+        print(f"[tp-train] {tag}: K1 launches on A's padded rows (matmul.padded_a) "
+              f"{seen['k1_padded_a']} (by train_calls, the fc dgrads at K % 8 != 0: {padded})")
+        check(seen["k1_padded_a"] == padded,
+              f"tp-train {tag}: {seen['k1_padded_a']} K1 launches on padded rows, "
+              f"expected {padded}")
         runs[tag] = {"losses": losses, "ms": ms, "launches": got, "paths": seen["paths"],
-                     "calls": calls}
+                     "k1_padded_a": seen["k1_padded_a"], "calls": calls}
         del step
     a, b = runs["tp2"]["losses"], runs["none"]["losses"]
     rel = [abs(u - v) / abs(v) for u, v in zip(a, b)]
@@ -4322,18 +4355,40 @@ def mma_conv(x, w, bias, stride: int, pad: int, relu: bool = True):
     return out
 
 
-def mma_gemm(a, b, bias):
-    """mma_conv's counterpart for K1: a @ b + bias on the mma.sync loop, past
-    the plan; b may have padded rows."""
+def mma_gemm(a, b, bias=None):
+    """mma_conv's counterpart for K1: a @ b (+ bias) on the mma.sync loop,
+    past the plan; a and b may have padded rows."""
     from boda_tpu_torch.ops.kernels import build
-    from boda_tpu_torch.ops.kernels.common import PATH_CODES, check_rows
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES, check_rows, ptr
     (M, K), N = a.shape, b.shape[1]
+    lda = check_rows("a", a, a.device, a.dtype, a.shape)
     ldb = check_rows("b", b, a.device, a.dtype, b.shape)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    rc = build.load().lib.boda_gemm(a.data_ptr(), b.data_ptr(), bias.data_ptr(), None,
+    rc = build.load().lib.boda_gemm(a.data_ptr(), b.data_ptr(), ptr(bias), None,
                                     out.data_ptr(), None, M, N, K, 0, 1, PATH_CODES["mma"],
-                                    128, 128, 1, ldb, build.stream_ptr(a))
+                                    128, 128, 1, lda, ldb, build.stream_ptr(a))
     build.check(rc, "boda_gemm on the mma.sync loop")
+    return out
+
+
+def mma_atb(a, b):
+    """The same for K5: a^T @ b in f32 on its WMMA (mma.sync) loop with the
+    plan a dense b of that shape gets (the route before wgmma_edge); b may
+    have padded rows."""
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.bconv import atb_workspace, plan_atb
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES, check_rows, ptr, sm_count
+    (K, M), N = a.shape, b.shape[1]
+    ldb = check_rows("b", b, a.device, a.dtype, b.shape)
+    plan = plan_atb(M, N, K, 1, sm_count(a.device), a.dtype)
+    check(plan.path == "mma", f"mma_atb: a dense b of {tuple(b.shape)} plans {plan}")
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    ws = atb_workspace(plan, 1, M, N, a.device)
+    rc = build.load().lib.boda_atb(a.data_ptr(), b.data_ptr(), out.data_ptr(), ptr(ws), M, N,
+                                   K, plan.split, plan.chunk, 0, 0, 0, 0, 0, 1, 1, 0, 0, 1,
+                                   PATH_CODES["mma"], plan.bm, plan.bn, ldb,
+                                   build.stream_ptr(a))
+    build.check(rc, "boda_atb on the mma.sync loop")
     return out
 
 
@@ -4396,86 +4451,111 @@ def narrow_phase(card: str) -> dict:
 
 def edge_phase(card: str) -> dict:
     """[edge]: the GEMM core's edge route at each of EDGE_SHAPES (K2, without
-    ReLU, as the engine runs ssd300's mbox_conf heads) and EDGE_GEMMS (K1, the
-    (tp=2) step's fc1000 slice), on seeded bf16 operands, B in the padded
-    rows the engine's HWIO prep stores (``pad_rows``): the path the launch
-    counted (wgmma_edge) and no weight copy, the output within TOL of the
-    plain version; the device time in a CUDA graph (``graph_time``, L2 warm)
-    of the kernel, of the mma.sync loop on the same operands (an explicit
-    plan past the planner, held to plain as well) and of the library's call
-    (cuDNN's ``F.conv2d`` on the channels_last views, cuBLAS's
-    ``torch.addmm``); for K1 also the call on a dense b, whose padded copy
-    the wrapper makes; the plain version's back-to-back time; the bound.
-    Returns the rows by shape."""
+    ReLU, as the engine runs ssd300's mbox_conf heads) and the products on
+    16-byte rows of EDGE_GEMMS (the (tp=2) step's fc1000 slice: K1's forward
+    on wgmma_edge, its dgrad on wgmma with A = dY's padded rows, K5's wgrad
+    on wgmma_edge with B = dY's padded rows), on seeded bf16 operands in the
+    padded rows the engine's HWIO prep (``pad_rows``) and GenFc
+    (``copy_rows``) store: the path the launch counted and no copy, the
+    output within TOL of the plain version; the device time in a CUDA graph
+    (``graph_time``, L2 warm) of the kernel, of the mma.sync loop on the same
+    operands (an explicit plan past the planner, held to plain as well) and
+    of the library's call on the same layout (cuDNN's ``F.conv2d`` on the
+    channels_last views, cuBLAS's ``torch.addmm`` or ``torch.mm``); for K1's
+    forward also the call on a dense b, whose padded copy the wrapper makes;
+    the plain version's back-to-back time; the bound. Returns the rows by
+    key (EDGE_SHAPES' sig, EDGE_GEMMS' (kernel, sig))."""
     import torch.nn.functional as F
 
-    from boda_tpu_torch.ops.kernels.common import pad_rows
+    from boda_tpu_torch.ops.kernels.bconv import matmul_atb, matmul_atb_plain
+    from boda_tpu_torch.ops.kernels.common import copy_rows, pad_rows
     from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
     from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
     from boda_tpu_torch.rtc.backends import graph_time
     dev, bf = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(25)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
     rows = {}
-    for sig, where in {**EDGE_SHAPES, **EDGE_GEMMS}.items():
-        is_conv = len(sig) == 7
-        if is_conv:
+    for key, where in {**EDGE_SHAPES, **EDGE_GEMMS}.items():
+        kname, sig = ("conv", key) if key in EDGE_SHAPES else key
+        want, dense_b, lib_name = "wgmma_edge", None, "cuBLAS"
+        if kname == "conv":
             n, h, c, oc, k, st, p = sig
-            x = torch.randn((n, h, h, c), generator=gen, device=dev).to(bf)
-            dense = (torch.randn((k, k, c, oc), generator=gen, device=dev)
-                     * (k * k * c) ** -0.5).to(bf)
+            x = rnd((n, h, h, c))
+            dense = rnd((k, k, c, oc), (k * k * c) ** -0.5)
+            bias = rnd((oc,), 0.1)
             kw = dict(stride=(st, st), pad=(p, p))
-            fk, counter = (lambda w: conv2d(x, w, bias, **kw)), conv2d
-            plain = (lambda: conv2d_plain(x, dense, bias, **kw))
-            mma = (lambda w: mma_conv(x, w, bias, st, p, relu=False))
+            ops = (x, pad_rows(dense), bias)
+            fk, counter = (lambda x, w, bias: conv2d(x, w, bias, **kw)), conv2d
+            plain = (lambda x, w, bias: conv2d_plain(x, w, bias, **kw))
+            mma = (lambda x, w, bias: mma_conv(x, w, bias, st, p, relu=False))
             w_lib = dense.permute(3, 0, 1, 2).contiguous()  # OHWI: channels_last OIHW view
             xn, wn = x.permute(0, 3, 1, 2), w_lib.permute(0, 3, 1, 2)
             lib = (lambda: F.conv2d(xn, wn, bias, stride=st, padding=p))
+            lib_name = "cuDNN"
             b_ms, o_ms = work("conv", sig + (False,))
-        else:
-            M, K, oc = sig
-            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
-            dense = (torch.randn((K, oc), generator=gen, device=dev) * K ** -0.5).to(bf)
-            fk, counter = (lambda w: matmul(x, w, bias)), matmul
-            plain = (lambda: matmul_plain(x, dense, bias))
-            mma = (lambda w: mma_gemm(x, w, bias))
-            lib = (lambda: torch.addmm(bias, x, dense))
-            b_ms, o_ms = work("sgemm", (M, K, oc, False, False))
-        bias = (torch.randn((oc,), generator=gen, device=dev) * 0.1).to(bf)
-        w = pad_rows(dense)
-        before, copies = dict(counter.paths), counter.pad_copies
-        out = fk(w)
+        elif kname == "sgemm":
+            M, K, N = sig
+            fk, plain, mma, counter = matmul, matmul_plain, mma_gemm, matmul
+            b_ms, o_ms = work("sgemm", (M, K, N, False, False))
+            if K % 8 == 0:  # the forward: x @ W + b, W's rows padded
+                dense_b = rnd((K, N), K ** -0.5)
+                ops = (rnd((M, K)), pad_rows(dense_b), rnd((N,), 0.1))
+                lib = (lambda a=ops[0], b=dense_b, bias=ops[2]: torch.addmm(bias, a, b))
+            else:  # the dgrad: dY @ W^T, dY's rows padded (K = the slice's width)
+                ops = (copy_rows(rnd((M, K)), bf), rnd((K, N), K ** -0.5))
+                want = "wgmma"
+                lib = (lambda a=ops[0], b=ops[1]: torch.mm(a, b))
+        else:  # atb, (K, M, N): the wgrad x^T @ dY, dY's rows padded
+            K, M, N = sig
+            ops = (rnd((K, M)), copy_rows(rnd((K, N)), bf))
+            fk, plain, mma, counter = matmul_atb, matmul_atb_plain, mma_atb, matmul_atb
+            lib = (lambda a=ops[0], b=ops[1]: a.t() @ b)
+            b_ms, o_ms = work("atb_dense", sig)
+        before = dict(counter.paths)
+        copies = getattr(counter, "pad_copies", 0)
+        out = fk(*ops)
         torch.cuda.synchronize()
         ran = [q for q in before if counter.paths[q] != before[q]]
-        copies = counter.pad_copies - copies
+        copies = getattr(counter, "pad_copies", 0) - copies
         plan = counter.last_plan
-        ref = plain()
+        ref = plain(*ops)
         ae, re = rel_err(out, ref)
-        _, re_mma = rel_err(mma(w), ref)
-        _, re_dense = rel_err(fk(dense), ref)
-        row = {"where": where, "path": ran, "plan": plan_str(plan), "max_abs_err": ae,
-               "max_rel_err": re, "mma_rel_err": re_mma, "dense_rel_err": re_dense,
-               "us": graph_time(lambda: fk(w)) * 1e6,
-               "mma_us": graph_time(lambda: mma(w)) * 1e6,
+        _, re_mma = rel_err(mma(*ops), ref)
+        row = {"where": where, "kernel": kname, "path": ran, "plan": plan_str(plan),
+               "max_abs_err": ae, "max_rel_err": re, "mma_rel_err": re_mma,
+               "us": graph_time(lambda: fk(*ops)) * 1e6,
+               "mma_us": graph_time(lambda: mma(*ops)) * 1e6,
                "library_us": graph_time(lib) * 1e6,
-               "plain_ms": cuda_ms(plain, reps=5),
+               "plain_ms": cuda_ms(lambda: plain(*ops), reps=5),
                "bound_us": max(b_ms, o_ms) * 1e3,
                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
-        if not is_conv:
-            row["dense_us"] = graph_time(lambda: fk(dense)) * 1e6
-        rows[sig] = row
-        print(f"[edge] {where} {sig}: {re:.3e} on {ran} (mma.sync loop {re_mma:.3e}, dense "
-              f"B {re_dense:.3e}), plan {row['plan']}; kernel {row['us']:.2f} us"
+        re_dense = 0.0
+        if dense_b is not None:
+            _, re_dense = rel_err(fk(ops[0], dense_b, ops[2]), ref)
+            row["dense_rel_err"] = re_dense
+            row["dense_us"] = graph_time(lambda: fk(ops[0], dense_b, ops[2])) * 1e6
+        if kname == "atb":  # split-K reduced in one order: a second launch, the same bits
+            row["again_equal"] = bool(torch.equal(fk(*ops), out))
+        rows[key] = row
+        print(f"[edge] {where} {sig}: {re:.3e} on {ran} (mma.sync loop {re_mma:.3e}"
+              + (f", dense B {re_dense:.3e}" if dense_b is not None else "")
+              + f"), plan {row['plan']}; kernel {row['us']:.2f} us"
               + (f" ({row['dense_us']:.2f} us on a dense b, its copy included)"
-                 if not is_conv else "")
-              + f", mma.sync loop {row['mma_us']:.2f} us, {'cuDNN' if is_conv else 'cuBLAS'} "
+                 if dense_b is not None else "")
+              + f", mma.sync loop {row['mma_us']:.2f} us, {lib_name} "
               f"{row['library_us']:.2f} us, bound {row['bound_us']:.2f} us "
               f"({row['bound_by']}) ({card})")
-        check(ran == ["wgmma_edge"] and plan.path == "wgmma_edge" and copies == 0,
-              f"edge {sig}: path {ran}, plan {plan}, {copies} weight copies")
+        check(ran == [want] and plan.path == want and copies == 0
+              and row.get("again_equal", True),
+              f"edge {key}: path {ran} (want {want}), plan {plan}, {copies} copies, "
+              f"again equal {row.get('again_equal')}")
         check(bool(torch.isfinite(out.float()).all()) and max(re, re_mma, re_dense) <= TOL[bf],
-              f"edge {sig}: rel err {re:.3g}, mma.sync loop {re_mma:.3g}, dense B "
+              f"edge {key}: rel err {re:.3g}, mma.sync loop {re_mma:.3g}, dense B "
               f"{re_dense:.3g} > {TOL[bf]}")
-        del x, w, dense, out, ref
+        del ops, out, ref
     return rows
 
 
@@ -4498,6 +4578,7 @@ def main() -> int:
     from boda_tpu_torch.ops.kernels.block import bottleneck, bottleneck_plain
     from boda_tpu_torch.ops.kernels.block import plan as block_plan
     from boda_tpu_torch.ops.kernels.block import route as block_route
+    from boda_tpu_torch.ops.kernels.common import copy_rows
     from boda_tpu_torch.ops.kernels.conv import (conv2d, conv2d_nhwc, conv2d_plain,
                                                  space_to_depth_conv)
     from boda_tpu_torch.ops.kernels.elementwise import eltwise, eltwise_plain
@@ -4595,8 +4676,9 @@ def main() -> int:
         return out, ref, (lambda: conv2d_bck_filts(x, dy, pad=pad),
                           lambda: conv2d_bck_filts_plain(x, dy, pad=pad), lib)
 
-    def atb_case(K, M, N, dt):
+    def atb_case(K, M, N, dt, padded=False):
         a, b = rnd((K, M), dt), rnd((K, N), dt)
+        b = copy_rows(b, dt) if padded else b
         return matmul_atb(a, b), matmul_atb_plain(a, b), (
             lambda: matmul_atb(a, b), lambda: matmul_atb_plain(a, b), lambda: a.t() @ b)
 
@@ -5644,21 +5726,37 @@ def main() -> int:
             entry["launches_tp_train"] = tp_train["tp2"]["launches"][k]
         if entry["name"] in ("sgemm", "conv", "atb"):  # one replay of it captured
             entry["launches_tp_train_replay"] = tp_train["graph"]["hand_replay"][k]
-    # K1's edge route: fc1000's forward per (tp=2) slice, its launches from
-    # that step (its dgrad, K = 500, stays on the mma.sync loop)
-    (gsig, fc), = ((s, edge[s]) for s in EDGE_GEMMS)
-    kernels.append({"name": "sgemm_edge", "route": "cuda", "source": "boda_tpu_torch/csrc/sgemm.cu",
-                    "replaces": "boda_tpu/ops/kernels/sgemm.py:80", "path": "wgmma_edge",
-                    "launches": tp_train["tp2"]["paths"]["sgemm"].get("wgmma_edge", 0),
-                    "max_abs_err": fc["max_abs_err"], "ms": fc["us"] * 1e-3,
-                    "plain_ms": fc["plain_ms"], "bound_ms": fc["bound_us"] * 1e-3,
-                    "bound_by": fc["bound_by"], "library_ms": fc["library_us"] * 1e-3,
-                    "mma_ms": fc["mma_us"] * 1e-3, "dense_ms": fc["dense_us"] * 1e-3,
-                    "main_path": "the gen b32 bf16 (tp=2) training step, its second step",
-                    "shapes": {str(gsig): fc}})
-    check(all(e["launches"] > 0 for e in kernels if e["name"].endswith("_edge")),
-          "the edge route ran on no main path: "
-          f"{[(e['name'], e['launches']) for e in kernels if e['name'].endswith('_edge')]}")
+    # the (tp=2) step's fc1000 per slice, its launches from that step's
+    # second step: K1's forward on wgmma_edge, K1's dgrad on wgmma at K =
+    # 500 (dY's padded rows: matmul.padded_a's launches), K5's wgrad on
+    # wgmma_edge; none on the mma.sync loop (the dgrad's and the wgrad's
+    # route before dY's rows were padded: mma_ms)
+    tp_paths = tp_train["tp2"]["paths"]
+    for (kname, gsig), name, path, launches in (
+            (("sgemm", (BATCH, 2048, 500)), "sgemm_edge", "wgmma_edge",
+             tp_paths["sgemm"].get("wgmma_edge", 0)),
+            (("sgemm", (BATCH, 500, 2048)), "sgemm_padded_a", "wgmma",
+             tp_train["tp2"]["k1_padded_a"]),
+            (("atb", (BATCH, 2048, 500)), "atb_edge", "wgmma_edge",
+             tp_paths["atb"].get("wgmma_edge", 0))):
+        fc = edge[(kname, gsig)]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "boda_tpu_torch/csrc/" + ("sgemm.cu" if kname == "sgemm"
+                                                            else "atb.cu"),
+                        "replaces": "boda_tpu/ops/kernels/" + ("sgemm.py:80" if kname == "sgemm"
+                                                               else "bconv.py:53"),
+                        "path": path, "launches": launches,
+                        "max_abs_err": fc["max_abs_err"], "ms": fc["us"] * 1e-3,
+                        "plain_ms": fc["plain_ms"], "bound_ms": fc["bound_us"] * 1e-3,
+                        "bound_by": fc["bound_by"], "library_ms": fc["library_us"] * 1e-3,
+                        "mma_ms": fc["mma_us"] * 1e-3,
+                        "main_path": "the gen b32 bf16 (tp=2) training step, its second step",
+                        "shapes": {str(gsig): fc}})
+        if "dense_us" in fc:
+            kernels[-1]["dense_ms"] = fc["dense_us"] * 1e-3
+    check(all(e["launches"] > 0 for e in kernels if e["name"].endswith(("_edge", "_padded_a"))),
+          "a route on 16-byte rows ran on no main path: "
+          f"{[(e['name'], e['launches']) for e in kernels if '_' in e['name']]}")
     lap("tp-train")
     # -- phase 18: [xla] boda_tpu's engines: the logical-layout oracle, the NCHW route --
     xla = xla_phase(card, pipe, ins, fc_scale, counted)

@@ -81,7 +81,7 @@ def main() -> int:
                                      None if r is None else r.data_ptr(), out.data_ptr(),
                                      None if ws is None else ws.data_ptr(), M, N, K, int(relu),
                                      1, PATH_CODES[plan.path], plan.bm, plan.bn, plan.split,
-                                     N, torch.cuda.current_stream().cuda_stream)
+                                     K, N, torch.cuda.current_stream().cuda_stream)
         else:
             n, h, c, oc, k, s, p, res, relu = sig
             oh = (h + 2 * p - k) // s + 1
@@ -168,7 +168,7 @@ def main() -> int:
                 build.check(lib.boda_atb(x.data_ptr(), dy.data_ptr(), out.data_ptr(),
                                          None if ws is None else ws.data_ptr(), M, N, K,
                                          split, per * WGMMA_CHUNK, int(gather), *geom, 1,
-                                         PATH_CODES["wgmma"], bm, bn,
+                                         PATH_CODES["wgmma"], bm, bn, N,
                                          torch.cuda.current_stream().cuda_stream),
                             f"atb {sig} {plan}")
                 return out

@@ -85,6 +85,40 @@ _PATHS = [
 ]
 
 
+# (M, N, K, ldb, aligned, the path): K5's edge route, the dense form with an
+# even N % 8 != 0 on B rows padded to 16 bytes (fc1000's (tp=2) wgrad, N =
+# 500 at ldb 504); a dense B, odd N or M % 8 != 0 stay on the WMMA loop
+_EDGE_PATHS = [
+    (2048, 500, 32, 504, True, "wgmma_edge"),
+    (2048, 84, 32, 88, True, "wgmma_edge"),
+    (128, 126, 8192, 128, True, "wgmma_edge"),
+    (2048, 500, 32, 500, True, "mma"),          # dense B, N % 8 != 0
+    (2048, 499, 32, 504, True, "mma"),          # odd N
+    (77, 500, 32, 504, True, "mma"),            # M % 8 != 0
+    (2048, 500, 32, 504, False, "mma"),         # a misaligned operand
+    (2048, 512, 32, 520, True, "wgmma"),        # N % 8 == 0 at a padded stride
+]
+
+
+@pytest.mark.parametrize("M,N,K,ldb,aligned,path", _EDGE_PATHS)
+def test_edge_path_by_shape(M, N, K, ldb, aligned, path):
+    plan = plan_atb(M, N, K, 1, SMS, BF16, aligned, False, ldb)
+    assert plan.path == path, plan
+    assert (plan.split - 1) * plan.chunk < K <= plan.split * plan.chunk, plan
+    if path == "wgmma_edge":
+        # tiles of 64 or 128 rows and columns, a work item for 2/3 of the
+        # SMs where K allows, the grid persistent
+        assert plan.bm in (64, 128) and plan.bn in (64, 128) and plan.chunk % WGMMA_CHUNK == 0
+        items = cdiv(M, plan.bm) * cdiv(N, plan.bn) * plan.split
+        assert plan.ctas == min(items, SMS) and (items >= 2 * SMS // 3
+                                                 or plan.chunk == WGMMA_CHUNK), plan
+        # the same product on a dense B, the gather, and N % 8 == 0 do not
+        assert plan_atb(M, N, K, 1, SMS, BF16, aligned, False).path == "mma"
+        assert plan_atb(M, N, K, 9, SMS, BF16, aligned, True, ldb).path == "mma"
+    else:
+        assert (plan.bm, plan.bn) == ((128, 128) if path == "mma" else plan[1:3])
+
+
 def test_path_by_shape():
     for M, N, K, taps, dtype, aligned, path in _PATHS:
         plan = plan_atb(M, N, K, taps, SMS, dtype, aligned, taps > 1)

@@ -2,7 +2,12 @@
 through wgmma's transpose-A bit, against its plain versions on the card:
 the dense Aᵀ.B (matmul_atb, A by TMA) and the weight gradient
 (conv2d_bck_filts, A gathered by cp.async), each case asserting which path
-ran.
+ran; the edge route (``wgmma_edge``: the dense form with an even N % 8 != 0
+on B's rows padded to 16 bytes, as the training step's fc writes dY;
+fc1000's (tp=2) wgrad, N = 500) at (M, N, K) = (2048, N, 32) for N = 84,
+126, 500 and 1002 with NaN in the padding, split-K bit-equal, the output
+written up to its last element and not past it (the C entry on a
+NaN-filled buffer), and the C entry's refusals.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. Run them on
 the machine with the card from the repo root with
@@ -19,6 +24,7 @@ import torch
 
 from boda_tpu_torch.ops.kernels.bconv import (conv2d_bck_filts, conv2d_bck_filts_plain,
                                               matmul_atb, matmul_atb_plain)
+from boda_tpu_torch.ops.kernels.common import cdiv, copy_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +132,91 @@ def test_wmma_and_fma_paths(dev):
     x, dy = _t(rng, (2, 9, 9, 64), dev, torch.float32), _t(rng, (2, 9, 9, 64), dev, torch.float32)
     out, ran, plan = _run(conv2d_bck_filts, x, dy, pad=(1, 1))
     assert ran == ["fma"] and _err(out, conv2d_bck_filts_plain(x, dy, pad=(1, 1))) <= 1e-5
+
+
+def _nan_rows(rng, shape, dev, ints=False):
+    """A seeded bf16 (K, N) as copy_rows' view of rows of a multiple of 8
+    elements, the padding past N filled with NaN."""
+    b = copy_rows(_t(rng, shape, dev, ints=ints), BF16)
+    b.as_strided((shape[0], b.stride(0)), b.stride())[:, shape[1]:] = float("nan")
+    return b
+
+
+@pytest.mark.parametrize("N", [84, 126, 500, 1002])
+def test_edge_route(dev, N):
+    # fc1000's (tp=2) wgrad x^T @ dY (K = 32 images) at N = 500 and the
+    # other even N % 8 != 0: B by TMA at ldb, the columns past N as zeros,
+    # the f32 pairs masked at the edge; integers exact, random data at 1e-2;
+    # a dense B of the same shape stays on the WMMA loop
+    M, K = 2048, 32
+    for ints in (True, False):
+        rng = np.random.default_rng(N + ints)
+        a, b = _t(rng, (K, M), dev, ints=ints), _nan_rows(rng, (K, N), dev, ints)
+        assert b.stride(0) == cdiv(N, 8) * 8
+        out, ran, plan = _run(matmul_atb, a, b)
+        ref = matmul_atb_plain(a, b)
+        assert ran == ["wgmma_edge"] and plan.path == "wgmma_edge", plan
+        assert bool(torch.isfinite(out).all()), plan
+        assert torch.equal(out, ref) if ints else _err(out, ref) <= 1e-2, (N, plan)
+    out, ran, plan = _run(matmul_atb, a, b.contiguous())
+    assert ran == ["mma"] and _err(out, ref) <= 1e-2, plan
+
+
+def test_edge_split_k_bit_equal(dev):
+    # deep K over few output tiles: the plan splits K, the reduction sums
+    # the splits in one order, so two launches agree bit for bit
+    for M, N, K in ((128, 126, 8192), (72, 20, 2000), (2048, 500, 4096)):
+        rng = np.random.default_rng(M + N)
+        a, b = _t(rng, (K, M), dev), _nan_rows(rng, (K, N), dev)
+        out, ran, plan = _run(matmul_atb, a, b)
+        assert ran == ["wgmma_edge"] and plan.split > 1, plan
+        assert _err(out, matmul_atb_plain(a, b)) <= 1e-2, (M, N, K, plan)
+        assert torch.equal(out, matmul_atb(a, b))
+
+
+def _atb_entry(a, b, out, ws, M, N, K, plan, ldb, gather=0, path=None):
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    g = (7, 7, 7, 7, 1, 1, 0, 0) if gather else (0, 0, 0, 0, 1, 1, 0, 0)
+    return build.load().lib.boda_atb(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     None if ws is None else ws.data_ptr(), M, N, K,
+                                     plan.split, plan.chunk, gather, *g, 1,
+                                     PATH_CODES[path or plan.path], plan.bm, plan.bn, ldb,
+                                     build.stream_ptr(a))
+
+
+@pytest.mark.parametrize("N", [126, 500])
+def test_edge_writes_the_output_and_nothing_past_it(dev, N):
+    # the C entry on an output buffer one 64-element run longer than M x N,
+    # filled with NaN: every element of M x N written, the run past it left
+    # as it was; once on one split and once split-K (the reduction's store)
+    from boda_tpu_torch.ops.kernels.bconv import atb_workspace, plan_atb
+    M = 2048
+    for K in (32, 4096):
+        rng = np.random.default_rng(N + K)
+        a, b = _t(rng, (K, M), dev), _nan_rows(rng, (K, N), dev)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = plan_atb(M, N, K, 1, sms, BF16, True, False, b.stride(0))
+        assert plan.path == "wgmma_edge" and (plan.split > 1) == (K > 32), plan
+        buf = torch.full((M * N + 64,), float("nan"), dtype=torch.float32, device=dev)
+        ws = atb_workspace(plan, 1, M, N, dev)
+        assert _atb_entry(a, b, buf, ws, M, N, K, plan, b.stride(0)) == 0
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(buf[:M * N]).all()) and bool(buf[M * N:].isnan().all())
+        assert _err(buf[:M * N].view(M, N), matmul_atb_plain(a, b)) <= 1e-2, (K, plan)
+
+
+def test_edge_refusals(dev):
+    # the C entry runs wgmma_edge on the dense form with N % 8 != 0 and
+    # even and B's rows a multiple of 8 elements; a gather, an N % 8 == 0,
+    # an odd N, an ldb off 8 or below N are refused, never rerouted
+    from boda_tpu_torch.ops.kernels.bconv import AtbPlan
+    rng = np.random.default_rng(3)
+    a, b = _t(rng, (49, 64), dev), _t(rng, (49, 136), dev)
+    out = torch.empty((64 * 136,), dtype=torch.float32, device=dev)
+    plan = AtbPlan("wgmma_edge", 64, 64, 1, 64, 1)
+    assert _atb_entry(a, b, out, None, 64, 126, 49, plan, 128) == 0
+    torch.cuda.synchronize()
+    for N, ldb, gather in ((126, 126, 1), (128, 128, 0), (125, 128, 0), (126, 126, 0),
+                           (126, 120, 0)):
+        assert _atb_entry(a, b, out, None, 64, N, 49, plan, ldb, gather) != 0, (N, ldb, gather)

@@ -7,7 +7,12 @@ alignment, and replayed in a CUDA graph; the edge route (``wgmma_edge``, N %
 8 != 0 and even) at N = 20, 84, 126 and 500 on K1 and K2, with and without a
 residual and ReLU, split-K bit-equal across launches, a dense B (the
 wrapper's padded copy, counted) against the padded view the engine holds,
-replayed in a CUDA graph, and the C entry's refusals.
+replayed in a CUDA graph, and the C entry's refusals; K1's GEMM with K % 8
+!= 0 on A's rows padded to 16 bytes (``copy_rows``, as the training step's
+fc writes dY: fc1000's (tp=2) dgrad, K = 500) on the wgmma route at
+(32, K, 2048) for K = 4, 20, 500 and 1004, the padding filled with NaN,
+split-K bit-equal, a dense A on the mma.sync loop, and the refusals of an
+lda below K or off 8.
 
 These tests need an NVIDIA GPU with nvcc; elsewhere they skip. Run them on
 the machine with the card from the repo root with
@@ -21,7 +26,7 @@ import pytest
 import torch
 
 from boda_tpu_torch.ops.kernels.bconv import conv2d_bck_in, conv2d_bck_in_plain
-from boda_tpu_torch.ops.kernels.common import pad_rows, plan_gemm
+from boda_tpu_torch.ops.kernels.common import cdiv, copy_rows, pad_rows, plan_gemm
 from boda_tpu_torch.ops.kernels.conv import conv2d, conv2d_plain
 from boda_tpu_torch.ops.kernels.sgemm import matmul, matmul_plain
 
@@ -318,7 +323,7 @@ def test_edge_refusals(dev):
 
     def launch(N, ldb, bm=64, bn=64):
         return lib.boda_gemm(a.data_ptr(), b.data_ptr(), None, None, out.data_ptr(), None,
-                             64, N, 64, 0, 1, edge, bm, bn, 1, ldb, build.stream_ptr(a))
+                             64, N, 64, 0, 1, edge, bm, bn, 1, 64, ldb, build.stream_ptr(a))
     assert launch(84, 88) == 0 and launch(84, 128, 128, 128) == 0
     torch.cuda.synchronize()
     for N, ldb, bm, bn in ((64, 64, 64, 64), (83, 88, 64, 64), (84, 84, 64, 64),
@@ -338,3 +343,61 @@ def test_dgrad_shapes(dev):
         torch.cuda.synchronize()
         assert conv2d.paths["wgmma"] == before + 1
         assert _err(out, conv2d_bck_in_plain(dy, w, pad=(p, p))) <= 1e-2, (n, h, c, oc, k)
+
+
+def _nan_rows(rng, shape, dev):
+    """A seeded bf16 (M, K) as copy_rows' view of rows of a multiple of 8
+    elements, the padding past K filled with NaN: a kernel that read it
+    would say so."""
+    a = copy_rows(_t(rng, shape, dev), BF16)
+    a.as_strided((shape[0], a.stride(0)), a.stride())[:, shape[1]:] = float("nan")
+    return a
+
+
+@pytest.mark.parametrize("K", [4, 20, 500, 1004])
+def test_padded_a_rows(dev, K):
+    # fc1000's (tp=2) dgrad dY @ W^T at K = 500 and K off 8 below one
+    # 64-deep chunk, in it and past several: A read by TMA at lda, the
+    # columns past K as zeros; split-K launches agree bit for bit; the same
+    # product on a dense A takes the mma.sync loop and agrees with plain too;
+    # matmul.padded_a counts the launches on padded rows and no other
+    M, N = 32, 2048
+    rng = np.random.default_rng(K)
+    a, b = _nan_rows(rng, (M, K), dev), _t(rng, (K, N), dev, K ** -0.5)
+    assert a.stride(0) == cdiv(K, 8) * 8
+    paths, padded = dict(matmul.paths), matmul.padded_a
+    out = matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.padded_a == padded + 1
+    ran = [p for p in paths if matmul.paths[p] == paths[p] + 1]
+    plan = matmul.last_plan
+    ref = matmul_plain(a, b)
+    assert ran == ["wgmma"] and plan.path == "wgmma", plan
+    assert bool(torch.isfinite(out.float()).all()) and _err(out, ref) <= 1e-2, (K, plan)
+    assert torch.equal(out, matmul(a, b))
+    if K >= 500:
+        assert plan.split > 1, plan
+    dense = a.contiguous()
+    out_d = matmul(dense, b)
+    assert matmul.last_plan.path == "mma" and _err(out_d, ref) <= 1e-2
+    assert matmul.padded_a == padded + 2
+
+
+def test_padded_a_refusals(dev):
+    # the C entry reads A at lda on every path: it refuses an lda below K,
+    # and the wgmma route an lda off 8 elements, never rerouted
+    from boda_tpu_torch.ops.kernels import build
+    from boda_tpu_torch.ops.kernels.common import PATH_CODES
+    lib = build.load().lib
+    rng = np.random.default_rng(6)
+    a, b = _t(rng, (64, 512), dev), _t(rng, (500, 128), dev)
+    out = torch.empty((64, 128), dtype=BF16, device=dev)
+
+    def launch(path, lda):
+        return lib.boda_gemm(a.data_ptr(), b.data_ptr(), None, None, out.data_ptr(), None,
+                             64, 128, 500, 0, 1, PATH_CODES[path], 64, 64, 1, lda, 128,
+                             build.stream_ptr(a))
+    assert launch("wgmma", 504) == 0 and launch("mma", 500) == 0 and launch("mma", 512) == 0
+    torch.cuda.synchronize()
+    for path, lda in (("wgmma", 500), ("wgmma", 499), ("mma", 499), ("wgmma_edge", 504)):
+        assert launch(path, lda) != 0, (path, lda)

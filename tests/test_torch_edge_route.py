@@ -4,8 +4,16 @@
   heads at b4 and at fc1000's (tp=2) slice (M = 32, K = 2,048, N = 500), with
   tiles of 64 or 128 rows and columns that cover the problem, an even K split
   (the small-M, deep-K heads split), a persistent grid no larger than the
-  SMs; the mma.sync loop keeps odd N, the GEMM's K % 8 != 0 (fc1000's (tp=2)
-  dgrad), a narrow conv with N % 8 != 0 and a misaligned operand.
+  SMs; the mma.sync loop keeps odd N, the GEMM's K % 8 != 0 on a dense A
+  (fc1000's (tp=2) dgrad on a dense dY), a narrow conv with N % 8 != 0 and a
+  misaligned operand.
+* fc1000's (tp=2) backward on dY's rows padded to 16 bytes (GenFc writes dY
+  so, ``copy_rows``): its dgrad (A with K = 500 at lda 504) plans the wgmma
+  ring, its wgrad (B with N = 500 at ldb 504) K5's wgmma_edge, as
+  chip_smoke.py's ``call_path`` states the rule for the step's calls; on the
+  CPU GenFc's backward through the plain versions is bit-equal to the
+  products on the unpadded dY, and hands both kernels dY at a row stride of
+  504.
 * The HWIO prep (graph/lowering_nhwc.py) holds the logical (KH, KW, C, OC)
   view of filters whose rows are padded to a multiple of 8 with zeros
   (``pad_rows``), which ``check_rows`` reads back; its inverse gives the
@@ -33,10 +41,13 @@ from boda_tpu_torch.config import make as tmake
 from boda_tpu_torch.graph.lowering_nhwc import HWIO
 from boda_tpu_torch.graph.pipe import ConvOp as TConvOp
 from boda_tpu_torch.models.zoo import NetBuilder as TNetBuilder
+from boda_tpu_torch.ops.kernels import train_conv
+from boda_tpu_torch.ops.kernels.bconv import matmul_atb_plain, plan_atb
 from boda_tpu_torch.ops.kernels.common import (SMEM_LIMIT, WGMMA_CHUNK, cdiv, check_rows,
-                                               pad_rows, plan_gemm, wgmma_smem)
+                                               copy_rows, pad_rows, plan_gemm, wgmma_smem)
 from boda_tpu_torch.ops.kernels.conv import conv2d_plain
-from boda_tpu_torch.ops.kernels.train_conv import gen_conv
+from boda_tpu_torch.ops.kernels.sgemm import matmul_plain
+from boda_tpu_torch.ops.kernels.train_conv import gen_conv, gen_fc
 from boda_tpu_torch.utils.carry import weights_from_numpy
 from boda_tpu_torch.utils.dims import NDA as TNDA
 from boda_tpu_torch.utils.dims import Dims as TDims
@@ -54,7 +65,8 @@ def _gemm_dims(sig):
 
 # the six heads, fc1000's (tp=2) slice, and other even N % 8 != 0
 _EDGE = [_gemm_dims(sig) for sig in chip_smoke.EDGE_SHAPES] + \
-    [(M, N, K, None) for M, K, N in chip_smoke.EDGE_GEMMS] + \
+    [(M, N, K, None) for (kname, (M, K, N)) in chip_smoke.EDGE_GEMMS
+     if kname == "sgemm" and K % 8 == 0] + \
     [(1000, 84, 64, None), (77, 20, 64, None), (6272, 126, 576, 64), (98, 500, 32, 32)]
 
 
@@ -97,7 +109,7 @@ def test_the_heads_and_the_fc_slice():
 @pytest.mark.parametrize("M,N,K,c,aligned,why", [
     (5776, 83, 4608, 512, True, "odd N"),
     (1000, 21, 64, None, True, "odd N"),
-    (32, 2048, 500, None, True, "fc1000's (tp=2) dgrad: the GEMM's K % 8"),
+    (32, 2048, 500, None, True, "fc1000's (tp=2) dgrad on a dense dY: the GEMM's K % 8"),
     (100, 84, 147, None, True, "the GEMM's K % 8 with N % 8"),
     (1000, 84, 27, 3, True, "a narrow conv with N % 8"),
     (5776, 84, 4608, 512, False, "a misaligned operand"),
@@ -108,6 +120,64 @@ def test_the_mma_loop_keeps_the_rest(M, N, K, c, aligned, why):
     assert plan.ctas == cdiv(M, 128) * cdiv(N, 128) <= SMS, why
     assert chip_smoke.core_path(K if c is None else c, N, conv=c is not None) == "mma" \
         or not aligned, why
+
+
+@pytest.mark.parametrize("key", list(chip_smoke.EDGE_GEMMS))
+def test_fc_slice_products_on_padded_rows(key):
+    # each of the (tp=2) step's fc1000 products as the step lays them out:
+    # the forward's B (the HWIO prep's rows) and dY (GenFc's rows) padded to
+    # 504; the plans the wrappers make, as chip_smoke.py's rule states them
+    kname, sig = key
+    what = {"sgemm": "fc dgrad W^T" if sig[1] % 8 else "fc fwd", "atb": "fc wgrad"}[kname]
+    if kname == "sgemm":
+        M, K, N = sig
+        plan = plan_gemm(M, N, K, SMS, BF16, lda=cdiv(K, 8) * 8)
+        want = "wgmma_edge" if N % 8 else "wgmma"
+        dense = plan_gemm(M, N, K, SMS, BF16)
+    else:
+        K, M, N = sig
+        plan = plan_atb(M, N, K, 1, SMS, BF16, True, False, cdiv(N, 8) * 8)
+        want = "wgmma_edge"
+        dense = plan_atb(M, N, K, 1, SMS, BF16)
+    assert plan.path == want == chip_smoke.call_path(kname, sig, what), plan
+    assert 2 * SMS / 3 <= plan.ctas <= SMS and plan.bm in (64, 128) and plan.bn <= 128, plan
+    # the dgrad and the wgrad on a dense dY: the loop, as before
+    assert (dense.path == "mma") == (what != "fc fwd"), dense
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_fc_backward_reads_dy_from_padded_rows(dt, monkeypatch):
+    # GenFc's backward on the CPU (the plain versions): dY written once into
+    # rows of 504, handed to the dgrad as A and to the wgrad as B; the
+    # gradients bit-equal to the products on the unpadded dY
+    rng = np.random.default_rng(28)
+    x0, w0, b0, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt)
+                     for s in ((32, 64), (64, 500), (500,), (32, 500)))
+    seen = []
+
+    def spy(fn):
+        def call(a, b, *args, **kw):
+            seen.append((fn.__name__, a.stride(), b.stride(), a.clone(), b.clone()))
+            return fn(a, b, *args, **kw)
+        call.__name__ = fn.__name__
+        return call
+    monkeypatch.setattr(train_conv, "matmul", spy(train_conv.matmul))
+    monkeypatch.setattr(train_conv, "matmul_atb", spy(train_conv.matmul_atb))
+    x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+    out = gen_fc(x, w, b)
+    assert torch.equal(out, matmul_plain(x0, w0, b0))
+    seen.clear()
+    out.backward(g)
+    (dn, da, _, dya, _), (wn, wa, wb, _, dyb) = seen
+    assert (dn, wn) == ("matmul", "matmul_atb")
+    assert da == (504, 1) and wb == (504, 1) and wa == (64, 1)
+    assert torch.equal(dya, g) and torch.equal(dyb, g)
+    assert torch.equal(x.grad, matmul_plain(g, w0.t().contiguous()))
+    assert torch.equal(w.grad, matmul_atb_plain(x0, g).to(dt))
+    assert torch.equal(b.grad, g.float().sum(0).to(dt))
+    pad = copy_rows(g, dt)
+    assert pad.stride() == (504, 1) and torch.equal(pad, g)
+    assert copy_rows(g[:, :496], dt).is_contiguous()
 
 
 @pytest.mark.parametrize("oc", [84, 126, 20, 500, 64])

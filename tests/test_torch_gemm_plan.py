@@ -98,7 +98,15 @@ def test_stem_odd_shapes_and_f32_take_the_other_paths():
     assert plan_gemm(77, 100, 147, SMS, BF16).path == "mma"     # K, N % 8
     assert plan_gemm(1000, 100, 64, SMS, BF16).path == "wgmma_edge"    # N % 8
     assert plan_gemm(1000, 101, 64, SMS, BF16).path == "mma"    # odd N
-    assert plan_gemm(1000, 64, 147, SMS, BF16).path == "mma"    # the GEMM's K % 8
+    assert plan_gemm(1000, 64, 147, SMS, BF16).path == "mma"    # the GEMM's K % 8, dense A
+    # ... on A's rows padded to 16 bytes: the wgmma ring (fc1000's (tp=2)
+    # dgrad, K = 500 at lda 504, and with N % 8 the edge store); an lda off
+    # 8 stays on the loop
+    assert plan_gemm(1000, 64, 147, SMS, BF16, lda=152).path == "wgmma"
+    assert plan_gemm(32, 2048, 500, SMS, BF16, lda=504).path == "wgmma"
+    assert plan_gemm(77, 100, 147, SMS, BF16, lda=152).path == "wgmma_edge"
+    assert plan_gemm(1000, 64, 147, SMS, BF16, lda=150).path == "mma"
+    assert plan_gemm(1000, 64, 147, SMS, BF16, aligned=False, lda=152).path == "mma"
     assert plan_gemm(1000, 20, 147, SMS, BF16, conv_c=3).path == "mma"  # a narrow conv's N % 8
     assert plan_gemm(1000, 64, 147, SMS, BF16, conv_c=3, aligned=False).path == "mma"
     assert plan_gemm(1000, 64, 64, SMS, BF16, aligned=False).path == "mma"

@@ -1,4 +1,4 @@
-"""Two repaired faults of the port, on the CPU.
+"""Three repaired faults of the port, on the CPU.
 
 1. The rtc ``conv`` op (ops/kernels/conv.py:gen_conv) must time the kernels
    the engine runs (graph/lowering_nhwc.py:_nhwc_conv). At every conv
@@ -13,6 +13,11 @@
    softmax is saturated (prob one-hot, so gen and lib agree trivially);
    chip_smoke.py scales fc1000's weights as its gradient phase does. Held
    here on ResNet-50 at batch 2, 64x64, f32, on the library path.
+3. Each kernel entry's plan (``ops/kernels/common.py:kernel_entry``'s
+   ``plan_of``, read when a recorded call ran on the card) names a wrapper
+   its module has: ``conv2d_bck_in``'s named ``conv2d``, which bconv.py did
+   not import, so recording the (tp=2) training step's calls on the card
+   raised NameError in its backward.
 """
 
 import numpy as np
@@ -135,3 +140,25 @@ def test_fc1000_scale_unsaturates_prob():
     prob = out["prob"].data
     assert np.allclose(prob.sum(axis=1), 1.0, atol=1e-5)
     assert prob.max() < 0.01 and prob.min() > 1e-4  # logits in [-1, 1]
+
+
+def _kernel_entries():
+    """(module, name, entry) of every kernel entry of ops/kernels: the
+    functions that kernel_entry wrapped (a ``plan_of`` in their closure)."""
+    from boda_tpu_torch.ops.kernels import bconv, block, conv, elementwise, pool, sgemm, stem
+    out = []
+    for mod in (bconv, block, conv, elementwise, pool, sgemm, stem):
+        for name, fn in sorted(vars(mod).items()):
+            code = getattr(fn, "__code__", None)
+            if getattr(fn, "__module__", "") == mod.__name__ and code is not None \
+                    and "plan_of" in code.co_freevars:
+                out.append((mod.__name__.rsplit(".", 1)[1], name, fn))
+    return out
+
+
+@pytest.mark.parametrize("mod,name,entry", _kernel_entries(),
+                         ids=[f"{m}.{n}" for m, n, _ in _kernel_entries()])
+def test_every_kernel_entry_names_its_plan(mod, name, entry):
+    cells = dict(zip(entry.__code__.co_freevars, (c.cell_contents for c in entry.__closure__)))
+    plan = cells["plan_of"]()  # the wrapper's last_plan: None before any launch
+    assert plan is None or hasattr(plan, "path") or hasattr(plan, "route"), (mod, name, plan)
