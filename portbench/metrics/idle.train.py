@@ -1,0 +1,7 @@
+"""Share of the profiled window in which no kernel ran on the device, in the train cell."""
+
+from portbench import readers as R
+
+
+def read(reading):
+    return R.idle(reading, "train")

@@ -1,0 +1,7 @@
+"""Model FLOPs utilisation of the serve cell's window against the bf16 peak."""
+
+from portbench import readers as R
+
+
+def read(reading):
+    return R.mfu(reading, "serve")
